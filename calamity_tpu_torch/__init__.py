@@ -1,0 +1,30 @@
+"""calamity_tpu_torch: the PyTorch/CUDA port of calamity_tpu.
+
+The serial DPSS calibration path of ``calamity_tpu`` (file read, per-baseline
+DPSS components, ``FitSpec`` packing, Cholesky warm start, Adamax descent,
+uvh5/calfits write-back) in PyTorch, with the fused dense-chunk loss as a
+hand-written CUDA kernel for Hopper (``csrc/fused_chunk_loss.cu``).
+
+The JAX package stays the reference; this package imports only its
+JAX-free host layer (``io``, ``models``, ``cal_utils``, ``utils``,
+``version``, ``simulate``) and never imports ``jax``. Where ``h5py`` is
+not installed, ``_h5lite`` (a minimal pure-Python HDF5 reader/writer) is
+registered under its name before the host layer is imported.
+"""
+
+import sys
+
+from ._device import LAUNCHES, resolve_device, set_float_policy
+
+set_float_policy()
+
+try:
+    import h5py  # noqa: F401
+except ImportError:
+    # the host layer's file I/O imports h5py at module level; where it is
+    # not installed, the package's minimal HDF5 reader/writer stands in
+    from . import _h5lite
+
+    sys.modules["h5py"] = _h5lite
+
+__all__ = ["LAUNCHES", "resolve_device", "set_float_policy"]

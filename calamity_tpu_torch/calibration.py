@@ -1,0 +1,851 @@
+"""Calibration drivers and CLI argument parsers (serial path).
+
+Port of the serial path of calamity_tpu/calibration.py: the per-(pol, time)
+loop of ``calibrate_and_model_tensor``, ``calibrate_and_model_dpss``, the
+file driver ``read_calibrate_and_model_dpss`` and the layered argparsers,
+on the torch solver. Every driver takes a ``device`` (default "cuda");
+the CPU is used only when asked for. The numpy helpers (``renormalize``,
+``_finalize_model_resid``, ``flag_poltime``, ``get_auto_weights``,
+``resolve_comps_precision``) are the reference's, copied unchanged.
+
+Not ported yet (raise ``NotImplementedError``): the batched time-parallel
+path and the warm-started time scan (``time_parallel=True``), device meshes
+(``mesh``), ``steps_per_execution``, checkpointed fits and profiler traces.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import time as _time
+
+import numpy as np
+import torch
+
+from calamity_tpu import cal_utils, models
+from calamity_tpu.io.caldata import CalData
+from calamity_tpu.io.flags import FlagWeights
+from calamity_tpu.io.polarizations import polstr2num
+from calamity_tpu.io.visdata import VisData
+from calamity_tpu.utils import echo, select_baselines
+
+from ._device import resolve_device
+from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host
+from .solver.fit import fit_gains_and_foregrounds
+from .solver.tensorize import FitSpec, to_numpy
+
+__all__ = [
+    "renormalize",
+    "flag_poltime",
+    "get_auto_weights",
+    "resolve_comps_precision",
+    "calibrate_and_model_tensor",
+    "calibrate_and_model_dpss",
+    "read_calibrate_and_model_dpss",
+    "input_output_parser",
+    "fitting_argparser",
+    "dpss_fit_argparser",
+]
+
+
+def renormalize(uvdata_reference_model, uvdata_deconv, gains, polarization, time,
+                additional_flags=None):
+    """Fix the overall amplitude degeneracy of a fitted (model, gains) pair.
+
+    Reference parity (calibration.py:313-366): the model is scaled by the
+    rms ratio to the reference model over jointly-unflagged samples and the
+    gains absorb scale^-1/2. Guards against empty/non-finite selections so
+    heavily-flagged poltimes never inject NaNs."""
+    polnum = int(
+        np.nonzero(
+            uvdata_deconv.polarization_array
+            == polstr2num(polarization, x_orientation=uvdata_deconv.x_orientation)
+        )[0][0]
+    )
+    bltsel = np.isclose(uvdata_deconv.time_array, time, rtol=0.0, atol=1e-7)
+    selection = (
+        ~uvdata_deconv.flag_array[bltsel, :, :, polnum]
+        & ~uvdata_reference_model.flag_array[bltsel, :, :, polnum]
+    )
+    if additional_flags is not None:
+        selection = selection & ~additional_flags[bltsel, :, :, polnum]
+    if not np.any(selection):
+        return
+    with np.errstate(divide="ignore", invalid="ignore"):
+        data_ratio = (
+            uvdata_reference_model.data_array[bltsel, :, :, polnum][selection]
+            / uvdata_deconv.data_array[bltsel, :, :, polnum][selection]
+        )
+    data_ratio = np.where(np.isfinite(data_ratio), data_ratio, np.nan)
+    if np.all(np.isnan(np.abs(data_ratio))):
+        return
+    scale_factor = np.sqrt(np.nanmean(np.abs(data_ratio) ** 2.0))
+    if not np.isfinite(scale_factor) or scale_factor == 0.0:
+        return
+    uvdata_deconv.data_array[bltsel, :, :, polnum] *= scale_factor
+    polnum_gains = int(
+        np.nonzero(
+            gains.jones_array
+            == polstr2num(polarization, x_orientation=uvdata_deconv.x_orientation)
+        )[0][0]
+    )
+    gindt = int(np.nonzero(np.isclose(gains.time_array, time, rtol=0.0, atol=1e-7))[0][0])
+    gains.gain_array[:, :, :, gindt, polnum_gains] *= scale_factor ** -0.5
+
+
+def _finalize_model_resid(uvdata, model, resid, gains, correct_model, correct_resid):
+    """Form resid = data − g·model; optionally calibrate model/resid outputs.
+
+    Reference parity: calibration.py:1322-1331. The gain-corrupted model is
+    never materialized as a separate full VisData: the subtraction streams
+    per (time, pol) block and the in-place apply_gains variants mutate the
+    driver-owned copies."""
+    if correct_model:
+        cal_utils.subtract_model_with_gains(resid, model, gains)
+    else:
+        model = cal_utils.apply_gains(model, gains, inverse=True, inplace=True)
+        resid.data_array -= model.data_array
+        resid.data_array[model.flag_array] = 0.0
+    resid.data_array[uvdata.flag_array] = 0.0
+    if correct_resid:
+        resid = cal_utils.apply_gains(resid, gains, inplace=True)
+    return model, resid
+
+
+def flag_poltime(data_object, time, polarization):
+    """Flag one (time, polarization) of a VisData or CalData
+    (reference calibration.py:1334-1350)."""
+    if isinstance(data_object, VisData):
+        bltsel = np.isclose(data_object.time_array, time, rtol=0.0, atol=1e-7)
+        polnum = int(
+            np.nonzero(
+                data_object.polarization_array
+                == polstr2num(polarization, x_orientation=data_object.x_orientation)
+            )[0][0]
+        )
+        data_object.flag_array[bltsel, :, :, polnum] = True
+        data_object.data_array[bltsel, :, :, polnum] = 0.0
+    elif isinstance(data_object, CalData):
+        polnum = int(
+            np.nonzero(
+                data_object.jones_array
+                == polstr2num(polarization, x_orientation=data_object.x_orientation)
+            )[0][0]
+        )
+        gindt = int(
+            np.nonzero(np.isclose(data_object.time_array, time, rtol=0.0, atol=1e-7))[0][0]
+        )
+        data_object.gain_array[:, 0, :, gindt, polnum] = 1.0
+        data_object.flag_array[:, 0, :, gindt, polnum] = True
+    else:
+        raise ValueError("only supports data_object that is CalData or VisData.")
+
+
+def get_auto_weights(uvdata, delay_extent=25.0):
+    """Inverse-variance weights from DPSS-smoothed autocorrelations
+    (reference calibration.py:916-960).
+
+    Each autocorrelation waterfall is fit to wide DPSS modes (half-width
+    ``delay_extent`` ns); cross-baseline weights are 1 / (auto_i * auto_j),
+    zeroed at flags. All masked fits are solved as one batched
+    normal-equations solve."""
+    freqs = np.asarray(uvdata.freq_array[0], dtype=np.float64)
+    comps = models.yield_dpss_model_comps_bl_grp(0.0, freqs, offset=delay_extent)
+    data_weights = FlagWeights(uvdata, mode="flag")
+    pols = uvdata.get_pols()
+    auto_ants = [ap[0] for ap in uvdata.get_antpairs() if ap[0] == ap[1]]
+    if not auto_ants:
+        raise ValueError("no autocorrelations present; cannot build auto weights")
+
+    # (nauto, npol, ntimes, nfreqs) stacked waterfalls + unflagged masks
+    D = np.stack(
+        [[uvdata.get_data((a, a, pol)).real for pol in pols] for a in auto_ants]
+    ).astype(np.float64)
+    M = np.stack(
+        [[~uvdata.get_flags((a, a, pol)) for pol in pols] for a in auto_ants]
+    ).astype(np.float64)
+
+    G = np.einsum("aptf,fv,fw->aptvw", M, comps, comps)
+    b = np.einsum("aptf,fv->aptv", M * D, comps)
+    nvec = comps.shape[1]
+    any_unflagged = M.any(axis=-1)
+    ridge = 1e-10 * np.maximum(
+        np.einsum("aptvv->apt", G)[..., None, None] / nvec, 1.0
+    )
+    G = G + (ridge + (~any_unflagged)[..., None, None]) * np.eye(nvec)
+    coeffs = np.linalg.solve(G, b[..., None])[..., 0]
+    smooth = np.einsum("fv,aptv->aptf", comps, coeffs)
+    smooth = np.where(any_unflagged[..., None], smooth, 1.0)
+
+    ant_slot = {int(a): i for i, a in enumerate(auto_ants)}
+    pair_rows: dict = {}
+    for row, (a1, a2) in enumerate(
+        zip(uvdata.ant_1_array.tolist(), uvdata.ant_2_array.tolist())
+    ):
+        pair_rows.setdefault((a1, a2), []).append(row)
+    missing = sorted(
+        {a for ap in pair_rows for a in ap if a not in ant_slot}
+    )
+    if missing:
+        raise ValueError(
+            f"antennas {missing} appear in cross baselines but have no "
+            "autocorrelation; exclude them (ex_ants) or disable "
+            "use_autocorrs_in_weights"
+        )
+    for (a1, a2), rows in pair_rows.items():
+        rows = np.asarray(rows)
+        rows = rows[np.argsort(uvdata.time_array[rows], kind="stable")]
+        w = 1.0 / (smooth[ant_slot[a1]] * smooth[ant_slot[a2]])  # (npol, nt, nf)
+        w = np.transpose(w, (1, 2, 0))  # (ntimes, nfreqs, npols)
+        data_weights.weights_array[rows, 0] = w * (~uvdata.flag_array[rows, 0])
+    return data_weights
+
+
+def resolve_comps_precision(dtype, warm_started):
+    """Default ``comps_precision`` for a fit configuration: "mixed" for
+    float32 fits; "float32" for float64 fits and warm-started fits."""
+    if np.dtype(dtype) == np.float64 or warm_started:
+        return "float32"
+    return "mixed"
+
+
+def calibrate_and_model_tensor(
+    uvdata,
+    fg_model_comps_dict,
+    gains=None,
+    freeze_model=False,
+    optimizer="Adamax",
+    tol=1e-14,
+    maxsteps=10000,
+    include_autos=False,
+    verbose=False,
+    sky_model=None,
+    dtype=np.float32,
+    use_min=False,
+    use_redundancy=False,
+    notebook_progressbar=False,
+    correct_resid=False,
+    correct_model=True,
+    weights=None,
+    nsamples_in_weights=True,
+    graph_mode=False,
+    grp_size_threshold=5,
+    n_profile_steps=0,
+    profile_log_dir="./logdir",
+    model_regularization="sum",
+    init_guesses_from_previous_time_step=False,
+    skip_threshold=0.5,
+    use_model_snr_weights=False,
+    time_parallel=False,
+    mesh=None,
+    checkpoint_dir=None,
+    checkpoint_every=1000,
+    resume=True,
+    steps_per_execution=None,
+    use_pallas=False,
+    remat=False,
+    comps_precision=None,
+    wgts_precision="float32",
+    patience=0,
+    nvec_bucketing=False,
+    shared_basis=True,
+    loss_block_ngrps=None,
+    timings=None,
+    device="cuda",
+    **opt_kwargs,
+):
+    """Simultaneous gain calibration and foreground fitting.
+
+    Reference parity: calamity_tpu.calibration.calibrate_and_model_tensor
+    (its serial per-(pol, time) loop): skip/flag thresholds, per-time rms
+    scaling, Cholesky warm starts, optional warm-starting from the previous
+    time, post-hoc or "sum" regularization. ``graph_mode`` and
+    ``use_pallas`` are accepted for signature parity and ignored: on CUDA
+    the fused chunk-loss kernel runs wherever its gate accepts a chunk.
+
+    ``device``: where the fit runs ("cuda", "cuda:N" or "cpu"). Asking for
+    CUDA where there is none raises.
+
+    ``timings``: optional dict that receives host wall-clock seconds per
+    stage (``packing_s``, ``pack_data_s``, ``warm_start_s``, ``fit_s``,
+    ``writeback_s``, ``finalize_s``; repeated stages accumulate).
+
+    Returns (model, resid, gains, fit_history).
+    """
+    del graph_mode, use_pallas, notebook_progressbar
+    device = resolve_device(device)
+    if time_parallel:
+        raise NotImplementedError(
+            "time_parallel (the batched time-parallel path and the warm-started "
+            "time scan) is not ported yet (ROADMAP queue A items 11-12)"
+        )
+    if mesh is not None and mesh is not False:
+        raise NotImplementedError(
+            "device meshes are not ported yet (ROADMAP queue A item 13)"
+        )
+    if steps_per_execution is not None:
+        raise NotImplementedError(
+            "steps_per_execution belongs to the time-parallel paths, which are "
+            "not ported yet (ROADMAP queue A item 11)"
+        )
+    if loss_block_ngrps is not None:
+        raise ValueError(
+            "loss_block_ngrps blocks the loss over groups on the "
+            "time_parallel paths only; the serial path does not support it"
+        )
+    if comps_precision is None:
+        comps_precision = resolve_comps_precision(
+            dtype, init_guesses_from_previous_time_step
+        )
+    if wgts_precision not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"wgts_precision must be 'float32' or 'bfloat16', got {wgts_precision!r}"
+        )
+    if wgts_precision == "bfloat16":
+        raise ValueError(
+            "wgts_precision='bfloat16' is not supported: the fused chunk-loss "
+            "kernel reads float32 weights (ROADMAP queue B item 3)"
+        )
+
+    def _mark(key, t0):
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
+        return _time.time()
+
+    antpairs_data = uvdata.get_antpairs()
+    if not include_autos:
+        antpairs_data = [ap for ap in antpairs_data if ap[0] != ap[1]]
+    uvdata = uvdata.select(inplace=False, bls=list(antpairs_data))
+
+    resid = uvdata.copy()
+    model = uvdata.copy()
+    model.data_array[:] = 0.0
+    model.flag_array[:] = False
+
+    if gains is None:
+        echo(
+            f"{datetime.datetime.now()} Gains are None. Initializing gains starting with unity...\n",
+            verbose=verbose,
+        )
+        gains = cal_utils.blank_uvcal_from_uvdata(uvdata)
+    else:
+        gains = gains.copy()
+
+    if sky_model is None and model_regularization is not None:
+        echo(
+            f"{datetime.datetime.now()} Sky model is None. Initializing from data...\n",
+            verbose=verbose,
+        )
+        if not np.any(gains.flag_array) and np.all(gains.gain_array == 1.0):
+            # identity gains: the initialized sky model IS the data
+            sky_model = uvdata
+        else:
+            sky_model = cal_utils.apply_gains(uvdata, gains)
+    elif sky_model is not None:
+        sky_model = sky_model.select(inplace=False, bls=list(antpairs_data))
+
+    ants_map = {int(ant): i for i, ant in enumerate(gains.ant_array)}
+    echo(f"{datetime.datetime.now()} Packing foreground modeling tensors...\n", verbose=verbose)
+    t_st = _time.time()
+    spec = FitSpec(
+        uvdata,
+        fg_model_comps_dict,
+        ants_map,
+        device=device,
+        dtype=dtype,
+        use_redundancy=use_redundancy,
+        grp_size_threshold=grp_size_threshold,
+        nvec_bucketing=nvec_bucketing,
+        shared_basis=shared_basis,
+    )
+    chunks = spec.device_chunks()
+    t_st = _mark("packing_s", t_st)
+    echo(f"{datetime.datetime.now()} Packed {len(chunks)} chunks\n", verbose=verbose)
+    del fg_model_comps_dict
+
+    fit_history = {}
+    g_r = g_i = fg_r = fg_i = None
+    for polnum, pol in enumerate(uvdata.get_pols()):
+        echo(
+            f"{datetime.datetime.now()} Working on pol {pol}, {polnum + 1} of {uvdata.Npols}...\n",
+            verbose=verbose,
+        )
+        fit_history_p = {}
+        first_time = True
+        for time_index, time in enumerate(spec.times):
+            echo(
+                f"{datetime.datetime.now()} Working on time {time_index + 1} of {spec.ntimes}...\n",
+                verbose=verbose,
+            )
+            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+            frac_unflagged = np.count_nonzero(
+                ~uvdata.flag_array[bltsel, 0, :, polnum]
+            ) / (uvdata.Nbls * uvdata.Nfreqs)
+            if frac_unflagged < skip_threshold:
+                echo(
+                    f"{datetime.datetime.now()}: Only {frac_unflagged * 100}-percent of "
+                    "data unflagged. Skipping...\n",
+                    verbose=verbose,
+                )
+                flag_poltime(resid, time=time, polarization=pol)
+                flag_poltime(gains, time=time, polarization=pol)
+                flag_poltime(model, time=time, polarization=pol)
+                continue
+
+            t_st = _time.time()
+            rmsdata = np.sqrt(
+                np.mean(
+                    np.abs(
+                        uvdata.data_array[bltsel, 0, :, polnum][
+                            ~uvdata.flag_array[bltsel, 0, :, polnum]
+                        ]
+                    )
+                    ** 2.0
+                )
+            )
+            data_r, data_i, wgts = spec.pack_data(
+                uvdata,
+                pol,
+                time,
+                data_scale_factor=rmsdata,
+                weights=weights,
+                nsamples_in_weights=nsamples_in_weights,
+            )
+            if sky_model is uvdata:
+                # identity-gains alias: the sky tensors ARE the data tensors
+                sky_r, sky_i = data_r, data_i
+            elif sky_model is not None:
+                sky_r, sky_i, _ = spec.pack_data(
+                    sky_model, pol, time, data_scale_factor=rmsdata, weights=weights
+                )
+            else:
+                sky_r, sky_i = None, None
+            t_st = _mark("pack_data_s", t_st)
+
+            if first_time or not init_guesses_from_previous_time_step:
+                first_time = False
+                g_r, g_i = spec.pack_gains(gains, pol, time)
+                init_r = sky_r if sky_r is not None else data_r
+                init_i = sky_i if sky_i is not None else data_i
+                fg_r = tuple(spec.init_coeffs(init_r, wgts))
+                fg_i = tuple(spec.init_coeffs(init_i, wgts))
+                if use_model_snr_weights:
+                    wmodel = fg_model_all_chunks(fg_r, fg_i, chunks)
+                    wgts = [
+                        (torch.square(vr) + torch.square(vi)) * w
+                        for (vr, vi), w in zip(wmodel, wgts)
+                    ]
+                    wsum = sum(float(torch.sum(w)) for w in wgts)
+                    wgts = [w / wsum for w in wgts]
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_st = _mark("warm_start_s", t_st)
+
+            (g_r, g_i, fg_r, fg_i, fit_history_p[time_index]) = fit_gains_and_foregrounds(
+                g_r=g_r,
+                g_i=g_i,
+                fg_r=fg_r,
+                fg_i=fg_i,
+                data_r=data_r,
+                data_i=data_i,
+                wgts=wgts,
+                chunks=chunks,
+                optimizer=optimizer,
+                use_min=use_min,
+                freeze_model=freeze_model,
+                verbose=verbose,
+                tol=tol,
+                maxsteps=maxsteps,
+                sky_model_r=sky_r,
+                sky_model_i=sky_i,
+                model_regularization=model_regularization,
+                n_profile_steps=n_profile_steps,
+                profile_log_dir=profile_log_dir,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every,
+                resume=resume,
+                remat=remat,
+                comps_precision=comps_precision,
+                patience=patience,
+                **opt_kwargs,
+            )
+            t_st = _mark("fit_s", t_st)
+            # write-back on the host from the host copy of each chunk's basis
+            spec.insert_model(
+                model,
+                fg_model_all_chunks_host(
+                    [to_numpy(x) for x in fg_r],
+                    [to_numpy(x) for x in fg_i],
+                    spec.host_comps,
+                ),
+                pol, time, rmsdata,
+            )
+            spec.insert_gains(gains, g_r, g_i, pol, time)
+            if (
+                not freeze_model
+                and model_regularization == "post_hoc"
+                and np.any(~model.flag_array[bltsel])
+            ):
+                renormalize(
+                    uvdata_reference_model=sky_model,
+                    uvdata_deconv=model,
+                    gains=gains,
+                    polarization=pol,
+                    time=time,
+                    additional_flags=uvdata.flag_array,
+                )
+            t_st = _mark("writeback_s", t_st)
+        fit_history[polnum] = fit_history_p
+
+    t_st = _time.time()
+    model, resid = _finalize_model_resid(
+        uvdata, model, resid, gains, correct_model, correct_resid
+    )
+    _mark("finalize_s", t_st)
+    return model, resid, gains, fit_history
+
+
+def calibrate_and_model_dpss(
+    uvdata,
+    horizon=1.0,
+    min_dly=0.0,
+    offset=0.0,
+    include_autos=False,
+    verbose=False,
+    red_tol=1.0,
+    notebook_progressbar=False,
+    fg_model_comps_dict=None,
+    **fitting_kwargs,
+):
+    """Gain + foreground fit with per-baseline DPSS components
+    (reference calibration.py:1503-1584)."""
+    if fg_model_comps_dict is None:
+        t0 = _time.time()
+        fg_model_comps_dict = models.yield_pbl_dpss_model_comps(
+            uvdata,
+            horizon=horizon,
+            min_dly=min_dly,
+            offset=offset,
+            include_autos=include_autos,
+            red_tol=red_tol,
+            use_redundancy=fitting_kwargs.get("use_redundancy", False),
+            notebook_progressbar=notebook_progressbar,
+            verbose=verbose,
+        )
+        if fitting_kwargs.get("timings") is not None:
+            fitting_kwargs["timings"]["basis_s"] = _time.time() - t0
+    return calibrate_and_model_tensor(
+        uvdata=uvdata,
+        fg_model_comps_dict=fg_model_comps_dict,
+        include_autos=include_autos,
+        verbose=verbose,
+        notebook_progressbar=notebook_progressbar,
+        **fitting_kwargs,
+    )
+
+
+def read_calibrate_and_model_dpss(
+    input_data_files,
+    input_model_files=None,
+    input_gain_files=None,
+    resid_outfilename=None,
+    gain_outfilename=None,
+    model_outfilename=None,
+    fitted_info_outfilename=None,
+    x_orientation="east",
+    clobber=False,
+    bllen_min=0.0,
+    bllen_max=np.inf,
+    bl_ew_min=0.0,
+    ex_ants=None,
+    select_ants=None,
+    gpu_index=None,
+    gpu_memory_limit=None,
+    precision=32,
+    use_autocorrs_in_weights=False,
+    weights_file=None,
+    host_data_dtype=None,
+    device="cuda",
+    **calibration_kwargs,
+):
+    """File-level driver (reference calibration.py:2277-2469).
+
+    Reads uvh5 inputs, runs the DPSS fit on ``device``, writes resid/model
+    uvh5 and gains (calfits or calh5 by extension). ``gpu_index`` and
+    ``gpu_memory_limit`` are accepted for CLI parity and ignored: pick the
+    card with ``device="cuda:N"``.
+
+    ``weights_file``: path to a UVFlag HDF5 weights object; mutually
+    exclusive with ``use_autocorrs_in_weights``. ``host_data_dtype``: host
+    storage dtype for the visibility cubes ("complex64"/"complex128";
+    default keeps the file dtype)."""
+    del gpu_index, gpu_memory_limit
+    device = resolve_device(device)
+    if host_data_dtype is not None:
+        try:
+            _hdt = np.dtype(host_data_dtype)
+        except TypeError as exc:
+            raise ValueError(
+                "host_data_dtype must be complex64 or complex128, "
+                f"got {host_data_dtype!r}"
+            ) from exc
+        if _hdt not in (np.dtype(np.complex64), np.dtype(np.complex128)):
+            raise ValueError(
+                "host_data_dtype must be complex64 or complex128, "
+                f"got {host_data_dtype!r}"
+            )
+
+    def _cast_host_dtype(obj):
+        """Cast an in-memory VisData's data cube to host_data_dtype without
+        deep-copying the full-precision cube first."""
+        if host_data_dtype is None or obj.data_array.dtype == _hdt:
+            return obj
+        import copy as _copy
+
+        out = _copy.copy(obj)
+        out.data_array = obj.data_array.astype(_hdt)
+        out.flag_array = obj.flag_array.copy()
+        out.nsample_array = obj.nsample_array.copy()
+        return out
+
+    # fail fast on taken output paths before any compute happens
+    if not clobber:
+        for out in (resid_outfilename, gain_outfilename, model_outfilename,
+                    fitted_info_outfilename):
+            if out is not None and os.path.exists(out):
+                raise IOError(f"{out} exists and clobber=False")
+
+    if isinstance(input_data_files, str):
+        input_data_files = [input_data_files]
+    if isinstance(input_data_files, list):
+        uvd = VisData.from_uvh5(input_data_files[0], data_dtype=host_data_dtype)
+        for extra in input_data_files[1:]:
+            uvd = uvd + VisData.from_uvh5(extra, data_dtype=host_data_dtype)
+    else:
+        uvd = _cast_host_dtype(input_data_files)
+
+    if use_autocorrs_in_weights and weights_file is not None:
+        raise ValueError(
+            "use_autocorrs_in_weights and weights_file are mutually exclusive"
+        )
+    if use_autocorrs_in_weights:
+        weights = get_auto_weights(uvd)
+    elif weights_file is not None:
+        weights = FlagWeights.from_uvflag_h5(weights_file)
+    else:
+        weights = None
+    select_baselines(
+        uvd,
+        bllen_min=bllen_min,
+        bllen_max=bllen_max,
+        bl_ew_min=bl_ew_min,
+        ex_ants=ex_ants,
+        select_ants=select_ants,
+    )
+
+    if isinstance(input_model_files, str):
+        input_model_files = [input_model_files]
+    if input_model_files is not None:
+        if isinstance(input_model_files, list):
+            uvd_model = VisData.from_uvh5(
+                input_model_files[0], data_dtype=host_data_dtype
+            )
+            for extra in input_model_files[1:]:
+                uvd_model = uvd_model + VisData.from_uvh5(
+                    extra, data_dtype=host_data_dtype
+                )
+        else:
+            uvd_model = _cast_host_dtype(input_model_files)
+        select_baselines(
+            uvd_model, bllen_min=bllen_min, bllen_max=bllen_max, bl_ew_min=bl_ew_min
+        )
+    else:
+        uvd_model = None
+
+    if isinstance(input_gain_files, str):
+        input_gain_files = [input_gain_files]
+    if input_gain_files is not None:
+        if isinstance(input_gain_files, list):
+            def _read_gain(path):
+                if path.endswith(".calh5"):
+                    return CalData.from_calh5(path)
+                return CalData.from_calfits(path)
+
+            uvc = _read_gain(input_gain_files[0])
+            for extra in input_gain_files[1:]:
+                uvc = uvc + _read_gain(extra)
+        else:
+            uvc = input_gain_files
+    else:
+        uvc = None
+
+    dtype = {32: np.float32, 64: np.float64}[precision]
+
+    model_fit, resid_fit, gains_fit, fit_info = calibrate_and_model_dpss(
+        uvdata=uvd, sky_model=uvd_model, gains=uvc, dtype=dtype, weights=weights,
+        device=device, **calibration_kwargs,
+    )
+
+    from calamity_tpu.version import history_string
+
+    provenance = history_string()
+    if resid_outfilename is not None:
+        resid_fit.history = (resid_fit.history or "") + provenance
+        resid_fit.write_uvh5(resid_outfilename, clobber=clobber)
+    if gain_outfilename is not None:
+        gains_fit.x_orientation = x_orientation
+        gains_fit.history = (gains_fit.history or "") + provenance
+        if gain_outfilename.endswith(".calh5"):
+            gains_fit.write_calh5(gain_outfilename, clobber=clobber)
+        else:
+            gains_fit.write_calfits(gain_outfilename, clobber=clobber)
+    if model_outfilename is not None:
+        model_fit.history = (model_fit.history or "") + provenance
+        model_fit.write_uvh5(model_outfilename, clobber=clobber)
+
+    fit_info = {"fit_history": fit_info} if not isinstance(fit_info, dict) else fit_info
+    fit_info["calibration_kwargs"] = dict(calibration_kwargs)
+    fit_info["calibration_kwargs"]["dtype"] = dtype
+    fit_info["calibration_kwargs"]["device"] = str(device)
+    if fitted_info_outfilename is not None:
+        np.save(fitted_info_outfilename, fit_info, allow_pickle=True)
+    return model_fit, resid_fit, gains_fit, fit_info
+
+
+# --------------------------------------------------------------------- #
+# CLI argument parsers (reference calibration.py:2475-2632)
+# --------------------------------------------------------------------- #
+def input_output_parser():
+    ap = argparse.ArgumentParser()
+    sp = ap.add_argument_group("Input and Output Arguments.")
+    sp.add_argument("--input_data_files", type=str, nargs="+", required=True,
+                    help="paths to data files to calibrate.")
+    sp.add_argument("--input_model_files", type=str, nargs="+",
+                    help="paths to model files to set overall amplitude and phase.")
+    sp.add_argument("--input_gain_files", type=str, nargs="+",
+                    help="paths to gains to use as a starting point.")
+    sp.add_argument("--resid_outfilename", type=str, default=None,
+                    help="path for residual output file.")
+    sp.add_argument("--model_outfilename", type=str, default=None,
+                    help="path for foreground model output file.")
+    sp.add_argument("--gain_outfilename", type=str, default=None,
+                    help="path for writing fitted gains (.calfits or .calh5).")
+    sp.add_argument("--fitted_info_outfilename", type=str, default=None,
+                    help="path for writing fit diagnostics (loss histories "
+                         "and calibration kwargs) as an .npy pickle.")
+    sp.add_argument("--clobber", action="store_true", default=False,
+                    help="Overwrite existing outputs.")
+    sp.add_argument("--x_orientation", default="east", type=str,
+                    help="x_orientation of feeds to set in output gains.")
+    sp.add_argument("--bllen_min", default=0.0, type=float,
+                    help="minimum baseline length to include.")
+    sp.add_argument("--bllen_max", default=np.inf, type=float,
+                    help="maximum baseline length to include.")
+    sp.add_argument("--bl_ew_min", default=0.0, type=float,
+                    help="minimum EW baseline component to include.")
+    sp.add_argument("--ex_ants", default=None, type=int, nargs="+",
+                    help="Antennas to exclude.")
+    sp.add_argument("--select_ants", default=None, type=int, nargs="+",
+                    help="Antennas to select exclusively.")
+    sp.add_argument("--gpu_index", default=None, type=int,
+                    help="Accepted for parity; pick the card with --device cuda:N.")
+    sp.add_argument("--gpu_memory_limit", default=None, type=int,
+                    help="Accepted for parity; ignored.")
+    sp.add_argument("--device", default="cuda", type=str,
+                    help="Device of the fit: cuda (default), cuda:N or cpu. "
+                         "CUDA that is not present is an error.")
+    sp.add_argument("--precision", default=32, type=int,
+                    help="Bits of floating-point precision (32 or 64).")
+    sp.add_argument("--weights_file", default=None, type=str,
+                    help="Path to a UVFlag HDF5 weights object (baseline "
+                         "type, flag mode) to use as fitting weights; "
+                         "mutually exclusive with --use_autocorrs_in_weights.")
+    sp.add_argument("--host_data_dtype", default=None, type=str,
+                    choices=["complex64", "complex128"],
+                    help="Host storage dtype for visibility arrays (default "
+                         "keeps the file dtype). complex64 halves every "
+                         "host-side data copy; a precision-32 fit computes "
+                         "in float32 either way.")
+    return ap
+
+
+def fitting_argparser():
+    ap = input_output_parser()
+    sp = ap.add_argument_group("General Fitting Arguments.")
+    sp.add_argument("--tol", type=float, default=1e-14,
+                    help="Stop once the loss changes by less than this value.")
+    sp.add_argument("--optimizer", type=str, default="Adamax",
+                    help="First-order optimizer (ported so far: Adamax).")
+    sp.add_argument("--maxsteps", type=int, default=10000,
+                    help="Max optimization steps.")
+    sp.add_argument("--verbose", default=False, action="store_true")
+    sp.add_argument("--use_min", default=False, action="store_true",
+                    help="Return the argmin-loss parameters (guards momentum overshoot).")
+    sp.add_argument("--patience", type=int, default=0,
+                    help="Stop when the loss has not reached a new minimum "
+                         "for this many steps; 0 disables. Combine with "
+                         "--use_min so the returned state is the tracked argmin.")
+    sp.add_argument("--use_redundancy", default=False, action="store_true",
+                    help="Share foreground coefficients within redundant groups.")
+    sp.add_argument("--correct_model", default=True, action=argparse.BooleanOptionalAction,
+                    help="Remove gain effects from the foreground model.")
+    sp.add_argument("--correct_resid", default=False, action=argparse.BooleanOptionalAction,
+                    help="Apply fitted gains to the residuals.")
+    sp.add_argument("--graph_mode", default=False, action="store_true",
+                    help="Accepted for parity; ignored.")
+    sp.add_argument("--init_guesses_from_previous_time_step", default=False,
+                    action="store_true",
+                    help="Warm-start each time from the previous time's solution.")
+    sp.add_argument("--learning_rate", type=float, default=1e-2,
+                    help="gradient descent learning rate.")
+    sp.add_argument("--red_tol", type=float, default=1.0,
+                    help="Redundancy tolerance between baselines [meters].")
+    sp.add_argument("--skip_threshold", type=float, default=0.5,
+                    help="Skip and flag a (time, pol) if more than this fraction is flagged.")
+    sp.add_argument("--model_regularization", type=str, default="post_hoc")
+    sp.add_argument("--nsamples_in_weights", default=False, action=argparse.BooleanOptionalAction,
+                    help="Weight the loss by nsamples.")
+    sp.add_argument("--use_model_snr_weights", default=False, action="store_true",
+                    help="Weight the loss proportional to model SNR.")
+    sp.add_argument("--use_autocorrs_in_weights", default=False, action="store_true",
+                    help="Use smooth autocorrelation fits as inverse-variance weights.")
+    tp = ap.add_argument_group("Scaling arguments.")
+    tp.add_argument("--time_parallel", default=False, action="store_true",
+                    help="Not ported yet: raises NotImplementedError.")
+    tp.add_argument("--use_pallas", default=False, action="store_true",
+                    help="Accepted for parity; ignored (on CUDA the fused "
+                         "chunk-loss kernel runs wherever its gate accepts "
+                         "a chunk).")
+    tp.add_argument("--comps_precision", default=None, type=str,
+                    choices=["float32", "bfloat16", "mixed"],
+                    help="Basis-tensor storage precision during the descent: "
+                         "bfloat16 halves the bytes of comps read per step "
+                         "(bf16 convergence floor); mixed descends in bf16 "
+                         "then polishes in float32. Default: mixed for "
+                         "32-bit fits, float32 under --precision 64.")
+    tp.add_argument("--wgts_precision", default="float32", type=str,
+                    choices=["float32", "bfloat16"],
+                    help="Weight-cube storage precision; only float32 is "
+                         "supported (the fused kernel reads float32 weights).")
+    tp.add_argument("--checkpoint_dir", default=None, type=str,
+                    help="Not ported yet: raises NotImplementedError.")
+    tp.add_argument("--checkpoint_every", default=1000, type=int,
+                    help="Steps between mid-fit checkpoints.")
+    tp.add_argument("--steps_per_execution", default=None, type=int,
+                    help="Not ported yet: raises NotImplementedError.")
+    tp.add_argument("--loss_block_ngrps", default=None, type=int,
+                    help="time_parallel only; not ported yet.")
+    return ap
+
+
+def dpss_fit_argparser():
+    ap = fitting_argparser()
+    sp = ap.add_argument_group("DPSS Specific Fitting Arguments.")
+    sp.add_argument("--horizon", default=1.0, type=float,
+                    help="Fraction of horizon delay to model with DPSS modes.")
+    sp.add_argument("--min_dly", default=0.0, type=float,
+                    help="Minimum delay [ns] to model with DPSS modes.")
+    sp.add_argument("--offset", default=0.0, type=float,
+                    help="Offset from horizon delay [ns] to model with DPSS modes.")
+    return ap

@@ -1,0 +1,129 @@
+"""Build and load the package's CUDA kernels.
+
+The ``.cu`` sources under ``calamity_tpu_torch/csrc/`` expose plain C
+launchers. They are compiled with ``nvcc`` into one shared library under
+``calamity_tpu_torch/_build/`` on first use, keyed by a hash of the sources
+and flags, and loaded with ``ctypes``. Nothing is built when the package is
+imported. A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+class KernelLibrary:
+    """The loaded kernel library and how it was obtained."""
+
+    def __init__(self, path, build_seconds, build_log):
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when an existing build was loaded
+        self.build_log = build_log
+        lib = ctypes.CDLL(path)
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.fcl_num_partials.argtypes = [ll, ll]
+        lib.fcl_num_partials.restype = ll
+        lib.fcl_error_string.argtypes = [ctypes.c_int]
+        lib.fcl_error_string.restype = ctypes.c_char_p
+        lib.fused_chunk_loss_fwd.argtypes = (
+            [vp, ctypes.c_int] + [vp] * 8 + [ll, ll, ll, vp]
+        )
+        lib.fused_chunk_loss_fwd.restype = ctypes.c_int
+        self.fcl_num_partials = lib.fcl_num_partials
+        self.fcl_error_string = lib.fcl_error_string
+        self.fused_chunk_loss_fwd = lib.fused_chunk_loss_fwd
+        self._lib = lib
+
+
+_LOADED = []  # the library loaded in this process, once loaded
+
+
+def find_nvcc():
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then the default toolkit
+    location. Raises if none is found."""
+    candidates = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        candidates.append(which)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA kernels "
+        "of calamity_tpu_torch are built from source on first use"
+    )
+
+
+def sources():
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _digest(srcs):
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def load_kernels():
+    """The kernel library, built from the sources if this version of them
+    has not been built yet. Loaded once per process: later calls return the
+    same library without looking at the sources again."""
+    if _LOADED:
+        return _LOADED[0]
+    srcs = sources()
+    key = _digest(srcs)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"libcalamity_kernels_{key}.so")
+    log_path = so_path + ".log"
+    build_seconds = 0.0
+    if os.path.exists(so_path):
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as fh:
+                log = fh.read()
+    else:
+        nvcc = find_nvcc()
+        # build into a temporary name, then rename: a concurrent or cut-off
+        # build never leaves a half-written library under the final name
+        fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp_path, *[s for s in srcs if s.endswith(".cu")]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp_path)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+        with open(log_path, "w") as fh:
+            fh.write(log)
+        os.replace(tmp_path, so_path)
+    lib = KernelLibrary(so_path, build_seconds, log)
+    _LOADED.append(lib)
+    return lib

@@ -1,0 +1,190 @@
+"""Forward visibility model and weighted chi-square loss (torch ops).
+
+Port of calamity_tpu/ops/loss.py. The foreground model per chunk is a
+batched matvec of the padded basis tensor against the stacked (real, imag)
+coefficients; complex arithmetic is expanded into real products; antenna
+gains are gathered by index. Chunks that the fused-kernel gate accepts go
+through ``ops.fused.fused_chunk_loss`` instead (the CUDA kernel on a CUDA
+tensor, its plain version on a CPU tensor).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .fused import explain_fused_loss_inapplicable, fused_chunk_loss
+
+
+def fg_model(coeffs_r, coeffs_i, comps):
+    """Foreground visibilities from basis coefficients.
+
+    comps: (ngrps, nbls, nfreqs, nvecs); coeffs: (ngrps, nvecs)
+    returns (vr, vi) each (ngrps, nbls, nfreqs).
+
+    The real and imaginary coefficient vectors are stacked into one
+    contraction, so comps is read once per evaluation. bfloat16 comps are
+    upcast to the coefficient dtype first (a materialized copy here).
+
+    Shared-basis chunks (comps group dim 1, ngrps > 1 coefficient rows)
+    contract the one basis matrix against all groups; shared-batched chunks
+    (1 < nu < ngrps) hold blocks of ngrps // nu consecutive groups per
+    operator."""
+    if comps.dtype != coeffs_r.dtype:
+        comps = comps.to(coeffs_r.dtype)
+    coeffs = torch.stack([coeffs_r, coeffs_i], dim=0)  # (2, ngrps, nvecs)
+    ngrps = coeffs.shape[1]
+    nu = comps.shape[0]
+    if nu == 1 and ngrps > 1:
+        v = torch.einsum("bfv,kgv->kgbf", comps[0], coeffs)
+        return v[0], v[1]
+    if 1 < nu < ngrps:
+        gmax = ngrps // nu
+        c = coeffs.reshape(2, nu, gmax, coeffs.shape[-1])
+        v = torch.einsum("ubfv,kugv->kugbf", comps, c)
+        v = v.reshape(2, ngrps, comps.shape[1], comps.shape[2])
+        return v[0], v[1]
+    v = torch.einsum("gbfv,kgv->kgbf", comps, coeffs)
+    return v[0], v[1]
+
+
+def fg_model_host(coeffs_r, coeffs_i, comps):
+    """numpy mirror of :func:`fg_model` for write-back (same three
+    packings; float32 BLAS contractions for float32 comps)."""
+    comps = np.asarray(comps)
+    cr = np.asarray(coeffs_r, dtype=comps.dtype)
+    ci = np.asarray(coeffs_i, dtype=comps.dtype)
+    ngrps = cr.shape[0]
+    nu = comps.shape[0]
+    if nu == 1 and ngrps > 1:
+        vr = np.einsum("bfv,gv->gbf", comps[0], cr, optimize=True)
+        vi = np.einsum("bfv,gv->gbf", comps[0], ci, optimize=True)
+    elif 1 < nu < ngrps:
+        gmax = ngrps // nu
+        crr = cr.reshape(nu, gmax, cr.shape[-1])
+        cii = ci.reshape(nu, gmax, ci.shape[-1])
+        nb, nf = comps.shape[1], comps.shape[2]
+        vr = np.einsum("ubfv,ugv->ugbf", comps, crr, optimize=True)
+        vi = np.einsum("ubfv,ugv->ugbf", comps, cii, optimize=True)
+        vr = vr.reshape(ngrps, nb, nf)
+        vi = vi.reshape(ngrps, nb, nf)
+    else:
+        vr = np.einsum("gbfv,gv->gbf", comps, cr, optimize=True)
+        vi = np.einsum("gbfv,gv->gbf", comps, ci, optimize=True)
+    return vr, vi
+
+
+def fg_model_all_chunks_host(fg_r, fg_i, host_comps):
+    """Per-chunk host foreground models (``host_comps``: the numpy basis
+    tensors a FitSpec keeps on the host)."""
+    return [
+        fg_model_host(fg_r[cnum], fg_i[cnum], comps)
+        for cnum, comps in enumerate(host_comps)
+    ]
+
+
+def gain_products(g_r, g_i, a0, a1):
+    """Real-arithmetic expansion of g_i conj(g_j) per baseline.
+
+    g_r/g_i: (nants, nfreqs); a0/a1: (ngrps, nbls) int32.
+    Returns (grgr+gigi, grgi-gigr) = (Re, -Im) of g_i conj(g_j),
+    each (ngrps, nbls, nfreqs)."""
+    shape = tuple(a0.shape) + (g_r.shape[-1],)
+    i0 = a0.reshape(-1)
+    i1 = a1.reshape(-1)
+    gr0 = g_r.index_select(0, i0).reshape(shape)
+    gr1 = g_r.index_select(0, i1).reshape(shape)
+    gi0 = g_i.index_select(0, i0).reshape(shape)
+    gi1 = g_i.index_select(0, i1).reshape(shape)
+    pr = gr0 * gr1 + gi0 * gi1  # Re(g0 conj(g1)) with conj on ant1
+    pi = gr0 * gi1 - gi0 * gr1  # such that model_r = pr*vr + pi*vi
+    return pr, pi
+
+
+def data_model(g_r, g_i, coeffs_r, coeffs_i, comps, a0, a1):
+    """Gain-corrupted foreground model (reference data_model, calibration.py:1593-1605)."""
+    pr, pi = gain_products(g_r, g_i, a0, a1)
+    vr, vi = fg_model(coeffs_r, coeffs_i, comps)
+    model_r = pr * vr + pi * vi
+    model_i = -pi * vr + pr * vi
+    return model_r, model_i
+
+
+def mse(model_r, model_i, data_r, data_i, wgts):
+    """Flag-weighted squared error (reference mse, calibration.py:1608-1609).
+
+    Weights stored at a lower precision are upcast to the model dtype."""
+    if wgts.dtype != model_r.dtype:
+        wgts = wgts.to(model_r.dtype)
+    return torch.sum((torch.square(data_r - model_r) + torch.square(data_i - model_i)) * wgts)
+
+
+def _chunk_term(g_r, g_i, fr, fi, comps, a0, a1, dr, di, w):
+    model_r, model_i = data_model(g_r, g_i, fr, fi, comps, a0, a1)
+    return mse(model_r, model_i, dr, di, w)
+
+
+def _chunk_term_remat(*args):
+    return checkpoint(_chunk_term, *args, use_reentrant=False)
+
+
+def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False):
+    """Sum of per-chunk weighted chi-square (reference mse_chunked, calibration.py:1612-1620).
+
+    chunks: tuple of (comps, a0, a1) triples; fg_r/fg_i/data_*/wgts: matching
+    sequences. A chunk the fused-kernel gate accepts (dense B=1, float32 or
+    bfloat16 comps, float32 operands) goes through ``fused_chunk_loss``;
+    every other chunk takes the plain torch ops below.
+
+    ``remat`` wraps each plain chunk term in ``torch.utils.checkpoint``,
+    so the backward pass recomputes the foreground model instead of saving
+    (ngrps, nbls, nfreqs) activations per chunk."""
+    total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+    term = _chunk_term_remat if remat else _chunk_term
+    for cnum, (comps, a0, a1) in enumerate(chunks):
+        gate = explain_fused_loss_inapplicable(comps, fg_r[cnum], data_r[cnum], wgts[cnum])
+        if gate is None:
+            pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
+            coeffs2 = torch.stack([fg_r[cnum], fg_i[cnum]], dim=0)
+            total = total + fused_chunk_loss(
+                coeffs2,
+                pr[:, 0],
+                pi[:, 0],
+                comps[:, 0],
+                data_r[cnum][:, 0],
+                data_i[cnum][:, 0],
+                wgts[cnum][:, 0],
+            )
+            continue
+        total = total + term(
+            g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1,
+            data_r[cnum], data_i[cnum], wgts[cnum],
+        )
+    return total
+
+
+def chunked_loss_sum_regularized(
+    g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r_sum, prior_i_sum
+):
+    """Chi-square plus the "sum" flux-scale prior
+    (reference mse_chunked_sum_regularized, calibration.py:1623-1656):
+    penalizes deviation of the weighted model flux sums from the sky-model
+    prior sums, pinning the overall amplitude/phase degeneracy."""
+    total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+    mr_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+    mi_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+    for cnum, (comps, a0, a1) in enumerate(chunks):
+        model_r, model_i = data_model(g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1)
+        w = wgts[cnum]
+        if w.dtype != model_r.dtype:
+            w = w.to(model_r.dtype)
+        mr_sum = mr_sum + torch.sum(model_r * w)
+        mi_sum = mi_sum + torch.sum(model_i * w)
+        total = total + mse(model_r, model_i, data_r[cnum], data_i[cnum], w)
+    return total + torch.square(mr_sum - prior_r_sum) + torch.square(mi_sum - prior_i_sum)
+
+
+def fg_model_all_chunks(fg_r, fg_i, chunks):
+    """Per-chunk foreground model arrays (for SNR weights)."""
+    return [fg_model(fg_r[cnum], fg_i[cnum], comps) for cnum, (comps, _, _) in enumerate(chunks)]

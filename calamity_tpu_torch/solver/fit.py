@@ -1,0 +1,293 @@
+"""The descent loop: Adamax on the chunked chi-square, one (time, pol) slice.
+
+Port of calamity_tpu/solver/fit.py:37-207 and :330-572, with the same
+semantics: an unrecorded warm-up step, a per-step loss history, the
+|delta loss| < tol stop (with the ``big`` sentinel so the first recorded
+step cannot trigger it), optional patience gated on a finite loss, a stop
+on a non-finite loss, ``use_min`` argmin tracking, ``freeze_model`` and the
+"sum" prior, and the float32 / bfloat16 / mixed basis-precision schedules.
+
+PyTorch runs eagerly, so the loop is a Python loop. The stop conditions
+are checked on the host after every step, which costs one device-to-host
+sync per step. The stop arithmetic is done in numpy scalars of the fit
+dtype, as the reference does it on the device.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import time
+from typing import Any, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from calamity_tpu.utils import echo
+
+from ..ops.fused import warn_fused_fallbacks
+from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
+from .optimizers import get_optimizer, tree_leaves, tree_map
+
+
+class FitConfig(NamedTuple):
+    """Static configuration of one fit."""
+
+    optimizer: str = "Adamax"
+    opt_kwargs: Tuple[Tuple[str, Any], ...] = ()
+    maxsteps: int = 10000
+    tol: float = 1e-14
+    use_min: bool = False
+    freeze_model: bool = False
+    regularization: Optional[str] = None
+    remat: bool = False
+    # stop when the loss has not reached a new minimum for this many
+    # recorded steps; 0 disables
+    patience: int = 0
+
+
+def _big(np_dtype):
+    return np_dtype.type(9e99 if np_dtype == np.float64 else 3e38)
+
+
+def convert_chunks_dtype(chunks, dtype):
+    """Chunk triples with comps cast to ``dtype`` (antenna indices untouched)."""
+    return tuple((comps.to(dtype), a0, a1) for comps, a0, a1 in chunks)
+
+
+def make_loss_fn(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_const,
+                 prior_r_sum, prior_i_sum):
+    """The fit's loss as a function of its parameter tree (``init_params``):
+    the chunked chi-square, or with ``cfg.regularization == "sum"`` the
+    chi-square plus the flux-scale prior."""
+
+    def loss_fn(p):
+        fr = fg_r_const if cfg.freeze_model else p["fg_r"]
+        fi = fg_i_const if cfg.freeze_model else p["fg_i"]
+        if cfg.regularization == "sum":
+            return chunked_loss_sum_regularized(
+                p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts,
+                prior_r_sum, prior_i_sum,
+            )
+        return chunked_loss(p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts,
+                            remat=cfg.remat)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params):
+    """(loss, grads) of ``loss_fn`` at a parameter tree; both detached."""
+    with torch.enable_grad():
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss = loss_fn(p)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    return loss.detach(), tree_map(lambda _: next(grads), p)
+
+
+def _nan_min(a, b):
+    # jnp.minimum semantics: NaN in either operand gives NaN
+    return a if (a < b or math.isnan(a)) else b
+
+
+def _fit_segment(cfg, seg_len, loss_fn, opt, params, opt_state, prev_loss, best_loss,
+                 best_params, since_best=0):
+    """Run up to ``seg_len`` descent steps from explicit optimizer state.
+
+    Returns (params, opt_state, prev, best_loss, best_params, history,
+    nsteps, converged, since_best) as the reference's ``_fit_segment``."""
+    dt = np.dtype(type(prev_loss))
+    big = _big(dt)
+    tol = dt.type(cfg.tol)
+    history = []
+    step = 0
+    prev = prev_loss
+    delta = big
+    since = since_best
+    while (step < seg_len and delta >= tol
+           and (cfg.patience <= 0 or since < cfg.patience) and np.isfinite(prev)):
+        loss_t, grads = value_and_grad(loss_fn, params)
+        new_params, opt_state = opt.update(grads, opt_state, params)
+        loss = dt.type(loss_t.item())  # the per-step host sync
+        history.append(float(loss))
+        delta = abs(loss - prev) if prev < big else big
+        is_best = bool(loss < best_loss)
+        best_loss = _nan_min(loss, best_loss)
+        if is_best:
+            best_params = new_params
+        since = 0 if is_best else since + 1
+        prev = loss
+        params = new_params
+        step += 1
+    converged = bool(delta < tol)
+    if cfg.patience > 0:
+        # since_best also grows on a NaN/inf step, so a divergence that lands
+        # on the patience boundary surfaces as a divergence, not convergence
+        converged = converged or (since >= cfg.patience and bool(np.isfinite(prev)))
+    return (params, opt_state, prev, best_loss, best_params, history, step, converged,
+            since)
+
+
+def init_params(cfg, g_r, g_i, fg_r, fg_i):
+    """The parameter tree the optimizer updates: gains, plus the per-chunk
+    coefficients unless ``cfg.freeze_model``."""
+    if cfg.freeze_model:
+        return {"g_r": g_r, "g_i": g_i}
+    return {"g_r": g_r, "g_i": g_i, "fg_r": list(fg_r), "fg_i": list(fg_i)}
+
+
+def _outputs(cfg, params, fg_r, fg_i):
+    if cfg.freeze_model:
+        return params["g_r"], params["g_i"], tuple(fg_r), tuple(fg_i)
+    return params["g_r"], params["g_i"], tuple(params["fg_r"]), tuple(params["fg_i"])
+
+
+def _fit_core(cfg, loss_fn, params, opt, opt_state):
+    """A warm-up step followed by one maxsteps segment. Returns
+    (params, opt_state, prev, best_loss, best_params, history, nsteps)."""
+    big = _big(np.dtype(_np_dtype(params["g_r"])))
+    # the warm-up step is not recorded (reference calibration.py:693)
+    params, opt_state, *_ = _fit_segment(cfg, 1, loss_fn, opt, params, opt_state, big, big,
+                                         params)
+    params, opt_state, prev, best_loss, best_params, history, nsteps, _, _ = _fit_segment(
+        cfg, cfg.maxsteps, loss_fn, opt, params, opt_state, big, big, params
+    )
+    return params, opt_state, prev, best_loss, best_params, history, nsteps
+
+
+def _np_dtype(t):
+    return {torch.float32: np.float32, torch.float64: np.float64}[t.dtype]
+
+
+def fit_gains_and_foregrounds(
+    g_r,
+    g_i,
+    fg_r,
+    fg_i,
+    data_r,
+    data_i,
+    wgts,
+    chunks,
+    use_min=False,
+    tol=1e-14,
+    maxsteps=10000,
+    optimizer="Adamax",
+    freeze_model=False,
+    verbose=False,
+    sky_model_r=None,
+    sky_model_i=None,
+    model_regularization=None,
+    n_profile_steps=0,
+    profile_log_dir="./logdir",
+    checkpoint_dir=None,
+    checkpoint_every=1000,
+    resume=True,
+    use_pallas=False,
+    remat=False,
+    comps_precision="float32",
+    patience=0,
+    **opt_kwargs,
+):
+    """Run the gradient-descent fit for one (time, pol) slice.
+
+    Reference-compatible entry point (calamity_tpu/solver/fit.py:330).
+    Inputs are tensors on one device as produced by FitSpec; returns
+    (g_r, g_i, fg_r, fg_i, fit_history) with fit_history = {"loss": list,
+    "phase_seconds": list} (+ "phase_steps" for the mixed schedule).
+    ``phase_seconds`` is the host wall-clock of each recorded descent phase.
+
+    comps_precision: storage precision of the basis tensors during the
+    descent ("float32", "bfloat16", or "mixed": bf16 until the tol stop,
+    then float32 with the Adamax state carried across). ``use_pallas`` is
+    accepted for signature parity and ignored: on CUDA the fused kernel
+    runs wherever its gate accepts a chunk."""
+    del use_pallas, profile_log_dir, checkpoint_every, resume
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpointed fits (checkpoint_dir) are not ported yet "
+            "(ROADMAP queue A item 6)"
+        )
+    if n_profile_steps > 0:
+        raise NotImplementedError(
+            "n_profile_steps (profiler traces of the fit) is not ported yet "
+            "(ROADMAP queue A item 6)"
+        )
+    if comps_precision not in ("float32", "bfloat16", "mixed"):
+        raise ValueError(
+            f"comps_precision must be 'float32', 'bfloat16' or 'mixed', "
+            f"got {comps_precision!r}"
+        )
+    if model_regularization == "sum":
+        # the prior is an accumulated scalar: sum in the sky model's dtype
+        wgts_f = [w.to(sky_model_r[0].dtype) for w in wgts]
+        prior_r_sum = sum(torch.sum(smr * w) for smr, w in zip(sky_model_r, wgts_f))
+        prior_i_sum = sum(torch.sum(smi * w) for smi, w in zip(sky_model_i, wgts_f))
+        regularization = "sum"
+    else:
+        prior_r_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+        prior_i_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+        regularization = None
+        warn_fused_fallbacks(chunks, fg_r, data_r, wgts)
+
+    cfg = FitConfig(
+        optimizer=optimizer,
+        opt_kwargs=tuple(sorted(opt_kwargs.items())),
+        maxsteps=int(maxsteps),
+        tol=float(tol),
+        use_min=bool(use_min),
+        freeze_model=bool(freeze_model),
+        regularization=regularization,
+        remat=bool(remat),
+        patience=int(patience),
+    )
+    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+    phases = [chunks]
+    if comps_precision != "float32":
+        # one bf16 copy of the chunks per fit, made outside the loop
+        chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+        phases = [chunks_lo] if comps_precision == "bfloat16" else [chunks_lo, chunks]
+    echo(
+        f"{datetime.datetime.now()} Starting fit ({cfg.optimizer}, "
+        f"maxsteps={cfg.maxsteps}, comps_precision={comps_precision})...",
+        verbose=verbose,
+    )
+    params = init_params(cfg, g_r, g_i, fg_r, fg_i)
+    opt_state = opt.init(params)
+    histories, seconds = [], []
+    for pnum, chs in enumerate(phases):
+        loss_fn = make_loss_fn(cfg, chs, data_r, data_i, wgts, fg_r, fg_i, prior_r_sum,
+                               prior_i_sum)
+        t0 = time.perf_counter()
+        if pnum == 0:
+            params, opt_state, prev, best_loss, best_params, hist, n = _fit_core(
+                cfg, loss_fn, params, opt, opt_state
+            )
+        else:
+            # float32 polish of the mixed schedule: Adamax state carried over
+            # from the bf16 phase, no second warm-up step
+            big = _big(np.dtype(_np_dtype(g_r)))
+            params, opt_state, prev, best_loss, best_params, hist, n, _, _ = _fit_segment(
+                cfg, cfg.maxsteps, loss_fn, opt, params, opt_state, big, big, params
+            )
+        if params["g_r"].is_cuda:
+            torch.cuda.synchronize(params["g_r"].device)
+        seconds.append(time.perf_counter() - t0)
+        histories.append(hist)
+        if pnum == 0 and len(phases) > 1:
+            echo(
+                f"{datetime.datetime.now()} bf16 phase converged after {n} "
+                f"steps; polishing in float32...",
+                verbose=verbose,
+            )
+    out_params = best_params if cfg.use_min else params
+    final_loss = best_loss if cfg.use_min else prev
+    g_r_o, g_i_o, fg_r_o, fg_i_o = _outputs(cfg, out_params, fg_r, fg_i)
+    history = [x for h in histories for x in h]
+    fit_history = {"loss": history, "phase_seconds": seconds}
+    if comps_precision == "mixed":
+        fit_history["phase_steps"] = [len(h) for h in histories]
+    echo(
+        f"{datetime.datetime.now()} Finished gradient descent: "
+        f"{len(history)} steps, final loss {float(final_loss):.2e}",
+        verbose=verbose,
+    )
+    return g_r_o, g_i_o, fg_r_o, fg_i_o, fit_history
