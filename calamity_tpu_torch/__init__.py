@@ -1,9 +1,11 @@
 """calamity_tpu_torch: the PyTorch/CUDA port of calamity_tpu.
 
-The serial DPSS calibration path of ``calamity_tpu`` (file read, per-baseline
+The DPSS calibration paths of ``calamity_tpu`` (file read, per-baseline
 DPSS components, ``FitSpec`` packing, Cholesky warm start, Adamax descent,
-uvh5/calfits write-back) in PyTorch, with the fused dense-chunk loss as a
-hand-written CUDA kernel for Hopper (``csrc/fused_chunk_loss.cu``).
+uvh5/calfits write-back), serial and batched over (time, pol) slices
+(``parallel``), with checkpointed fits, in PyTorch, with the fused
+dense-chunk loss as a hand-written CUDA kernel for Hopper
+(``csrc/fused_chunk_loss.cu``) that reads the basis once for every slice.
 
 The JAX package stays the reference; this package imports only its
 JAX-free host layer (``io``, ``models``, ``cal_utils``, ``utils``,

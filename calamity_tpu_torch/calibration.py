@@ -1,16 +1,19 @@
-"""Calibration drivers and CLI argument parsers (serial path).
+"""Calibration drivers and CLI argument parsers.
 
-Port of the serial path of calamity_tpu/calibration.py: the per-(pol, time)
-loop of ``calibrate_and_model_tensor``, ``calibrate_and_model_dpss``, the
-file driver ``read_calibrate_and_model_dpss`` and the layered argparsers,
-on the torch solver. Every driver takes a ``device`` (default "cuda");
-the CPU is used only when asked for. The numpy helpers (``renormalize``,
-``_finalize_model_resid``, ``flag_poltime``, ``get_auto_weights``,
-``resolve_comps_precision``) are the reference's, copied unchanged.
+Port of calamity_tpu/calibration.py: the serial per-(pol, time) loop of
+``calibrate_and_model_tensor`` and its batched time-parallel path
+(``time_parallel=True``: every slice in one descent on one device),
+``calibrate_and_model_dpss``, the file driver
+``read_calibrate_and_model_dpss`` and the layered argparsers, on the torch
+solver, with checkpointed fits on both paths. Every driver takes a
+``device`` (default "cuda"); the CPU is used only when asked for. The
+numpy helpers (``renormalize``, ``_finalize_model_resid``,
+``flag_poltime``, ``get_auto_weights``, ``resolve_comps_precision``) are
+the reference's, copied unchanged.
 
-Not ported yet (raise ``NotImplementedError``): the batched time-parallel
-path and the warm-started time scan (``time_parallel=True``), device meshes
-(``mesh``), ``steps_per_execution``, checkpointed fits and profiler traces.
+Not ported yet (raise ``NotImplementedError``): the warm-started time scan
+(``time_parallel`` with ``init_guesses_from_previous_time_step``), device
+meshes (``mesh``) and profiler traces (``n_profile_steps``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from calamity_tpu.io.visdata import VisData
 from calamity_tpu.utils import echo, select_baselines
 
 from ._device import resolve_device
-from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host
+from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
 from .solver.fit import fit_gains_and_foregrounds
 from .solver.tensorize import FitSpec, to_numpy
 
@@ -257,10 +260,12 @@ def calibrate_and_model_tensor(
 ):
     """Simultaneous gain calibration and foreground fitting.
 
-    Reference parity: calamity_tpu.calibration.calibrate_and_model_tensor
-    (its serial per-(pol, time) loop): skip/flag thresholds, per-time rms
-    scaling, Cholesky warm starts, optional warm-starting from the previous
-    time, post-hoc or "sum" regularization. ``graph_mode`` and
+    Reference parity: calamity_tpu.calibration.calibrate_and_model_tensor:
+    skip/flag thresholds, per-time rms scaling, Cholesky warm starts,
+    optional warm-starting from the previous time (serial path), post-hoc
+    or "sum" regularization, checkpointed fits (``checkpoint_dir``).
+    ``time_parallel=True`` fits every unskipped (time, pol) slice in one
+    batched descent (``_calibrate_time_parallel``). ``graph_mode`` and
     ``use_pallas`` are accepted for signature parity and ignored: on CUDA
     the fused chunk-loss kernel runs wherever its gate accepts a chunk.
 
@@ -275,21 +280,28 @@ def calibrate_and_model_tensor(
     """
     del graph_mode, use_pallas, notebook_progressbar
     device = resolve_device(device)
-    if time_parallel:
-        raise NotImplementedError(
-            "time_parallel (the batched time-parallel path and the warm-started "
-            "time scan) is not ported yet (ROADMAP queue A items 11-12)"
-        )
     if mesh is not None and mesh is not False:
         raise NotImplementedError(
             "device meshes are not ported yet (ROADMAP queue A item 13)"
         )
-    if steps_per_execution is not None:
+    if time_parallel and init_guesses_from_previous_time_step:
         raise NotImplementedError(
-            "steps_per_execution belongs to the time-parallel paths, which are "
-            "not ported yet (ROADMAP queue A item 11)"
+            "the warm-started time scan (time_parallel with "
+            "init_guesses_from_previous_time_step) is not ported yet (ROADMAP "
+            "queue A item 12; of the time-parallel items 11-12 only the "
+            "batched path is ported)"
         )
-    if loss_block_ngrps is not None:
+    if time_parallel and n_profile_steps > 0:
+        raise NotImplementedError(
+            "n_profile_steps (profiler traces of the fit) is not ported yet "
+            "(ROADMAP queue A item 6)"
+        )
+    if steps_per_execution is not None and not time_parallel:
+        raise ValueError(
+            "steps_per_execution bounds the steps of one descent call on the "
+            "time_parallel paths only; the serial path does not support it"
+        )
+    if loss_block_ngrps is not None and not time_parallel:
         raise ValueError(
             "loss_block_ngrps blocks the loss over groups on the "
             "time_parallel paths only; the serial path does not support it"
@@ -301,11 +313,6 @@ def calibrate_and_model_tensor(
     if wgts_precision not in ("float32", "bfloat16"):
         raise ValueError(
             f"wgts_precision must be 'float32' or 'bfloat16', got {wgts_precision!r}"
-        )
-    if wgts_precision == "bfloat16":
-        raise ValueError(
-            "wgts_precision='bfloat16' is not supported: the fused chunk-loss "
-            "kernel reads float32 weights (ROADMAP queue B item 3)"
         )
 
     def _mark(key, t0):
@@ -363,6 +370,22 @@ def calibrate_and_model_tensor(
     t_st = _mark("packing_s", t_st)
     echo(f"{datetime.datetime.now()} Packed {len(chunks)} chunks\n", verbose=verbose)
     del fg_model_comps_dict
+
+    if time_parallel:
+        return _calibrate_time_parallel(
+            uvdata=uvdata, spec=spec, chunks=chunks, gains=gains, sky_model=sky_model,
+            model=model, resid=resid, weights=weights,
+            nsamples_in_weights=nsamples_in_weights, skip_threshold=skip_threshold,
+            use_model_snr_weights=use_model_snr_weights, freeze_model=freeze_model,
+            optimizer=optimizer, tol=tol, maxsteps=maxsteps, use_min=use_min,
+            model_regularization=model_regularization, correct_model=correct_model,
+            correct_resid=correct_resid, remat=remat, comps_precision=comps_precision,
+            wgts_precision=wgts_precision, patience=patience, verbose=verbose,
+            opt_kwargs=opt_kwargs, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            steps_per_execution=steps_per_execution, loss_block_ngrps=loss_block_ngrps,
+            timings=timings,
+        )
 
     fit_history = {}
     g_r = g_i = fg_r = fg_i = None
@@ -441,6 +464,10 @@ def calibrate_and_model_tensor(
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t_st = _mark("warm_start_s", t_st)
+            if wgts_precision == "bfloat16":
+                # half the weights' device memory and read traffic; the loss
+                # widens them at the point of use
+                wgts = [w.to(torch.bfloat16) for w in wgts]
 
             (g_r, g_i, fg_r, fg_i, fit_history_p[time_index]) = fit_gains_and_foregrounds(
                 g_r=g_r,
@@ -462,7 +489,11 @@ def calibrate_and_model_tensor(
                 model_regularization=model_regularization,
                 n_profile_steps=n_profile_steps,
                 profile_log_dir=profile_log_dir,
-                checkpoint_dir=checkpoint_dir,
+                checkpoint_dir=(
+                    None
+                    if checkpoint_dir is None
+                    else f"{checkpoint_dir}/pol{polnum}_t{time_index}"
+                ),
                 checkpoint_every=checkpoint_every,
                 resume=resume,
                 remat=remat,
@@ -503,6 +534,342 @@ def calibrate_and_model_tensor(
         uvdata, model, resid, gains, correct_model, correct_resid
     )
     _mark("finalize_s", t_st)
+    return model, resid, gains, fit_history
+
+
+def _compress_freq_invariant_wgts(w):
+    """A weights stack whose every channel plane is equal, as one
+    broadcastable (..., 1) plane (reference calibration.py:1410-1427).
+    Frequency-dependent weights (flags, autocorrelation weights) are
+    returned unchanged."""
+    if w.shape[-1] == 1:
+        return w
+    first = w[..., :1]
+    if np.array_equal(w, np.broadcast_to(first, w.shape)):
+        return np.ascontiguousarray(first)
+    return w
+
+
+# host polls of the batched descent's freeze mask: one device-to-host read
+# per this many steps (the trajectory does not depend on it)
+POLL_EVERY = 16
+
+
+def _calibrate_time_parallel(
+    uvdata, spec, chunks, gains, sky_model, model, resid, weights, nsamples_in_weights,
+    skip_threshold, use_model_snr_weights, freeze_model, optimizer, tol, maxsteps, use_min,
+    model_regularization, correct_model, correct_resid, remat, comps_precision,
+    wgts_precision, patience, verbose, opt_kwargs, checkpoint_dir, checkpoint_every, resume,
+    steps_per_execution, loss_block_ngrps, timings,
+):
+    """Every unskipped (time, pol) slice in one batched descent on one
+    device (reference calibration.py:1430-2136, without the mesh and the
+    segment plans).
+
+    Slices are packed on the host straight into preallocated stacks,
+    uploaded once, warm-started and given their priors batched on the
+    device, and written back per slice on the host. ``checkpoint_dir``
+    persists the batched descent under ``{dir}/batched`` (phase
+    subdirectories for the mixed schedule). ``timings`` receives
+    ``extract_s``, ``upload_s``, ``warmstart_s``, ``descent_s`` (the step-0
+    guard's host evaluation included, ``loss_guard_s`` on its own) and
+    ``writeback_s``, with ``phase_seconds`` (the guard apart) and
+    ``phase_steps`` (recorded batch steps) per descent phase."""
+    from .ops.lstsq import (
+        blocked_init_from_data,
+        gram_cholesky_chunk,
+        init_coeffs_from_cholesky_batched,
+    )
+    from .ops.fused import warn_fused_fallbacks
+    from .ops.loss import fg_model_batched
+    from .parallel.batched import (
+        _loss_block_size,
+        batched_fit_checkpointed,
+        host_batched_losses,
+    )
+    from .solver.checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
+    from .solver.fit import FitConfig, convert_chunks_dtype
+
+    device = spec.device
+    nchunks = len(chunks)
+    slices = []  # (polnum, pol, time_index, time, rms)
+    for polnum, pol in enumerate(uvdata.get_pols()):
+        for time_index, time in enumerate(spec.times):
+            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+            unflagged = ~uvdata.flag_array[bltsel, 0, :, polnum]
+            if np.count_nonzero(unflagged) / (uvdata.Nbls * uvdata.Nfreqs) < skip_threshold:
+                flag_poltime(resid, time=time, polarization=pol)
+                flag_poltime(gains, time=time, polarization=pol)
+                flag_poltime(model, time=time, polarization=pol)
+                continue
+            rms = np.sqrt(np.mean(np.abs(uvdata.data_array[bltsel, 0, :, polnum][unflagged])
+                                  ** 2.0))
+            slices.append((polnum, pol, time_index, time, rms))
+
+    fit_history = {polnum: {} for polnum in range(uvdata.Npols)}
+    if not slices:
+        model, resid = _finalize_model_resid(
+            uvdata, model, resid, gains, correct_model, correct_resid
+        )
+        return model, resid, gains, fit_history
+    echo(f"{datetime.datetime.now()} Batched fit over {len(slices)} (time, pol) slices...\n",
+         verbose=verbose)
+
+    def _tmark(key, t0):
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
+        return _time.time()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    nbatch = len(slices)
+    # the identity-gains alias (sky_model is uvdata) packs nothing twice:
+    # warm starts and priors read the data cubes
+    have_sky = sky_model is not None and sky_model is not uvdata
+
+    def alloc_stacks():
+        return [np.zeros((nbatch, a0.shape[0], a0.shape[1], spec.nfreqs), dtype=spec.dtype)
+                for _, a0, _ in chunks]
+
+    t_tp = _time.time()
+    data_r_h, data_i_h, wgts_h = alloc_stacks(), alloc_stacks(), alloc_stacks()
+    sky_r_h = alloc_stacks() if have_sky else []
+    sky_i_h = alloc_stacks() if have_sky else []
+    g_r_l, g_i_l = [], []
+    for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
+        spec.pack_data_into(uvdata, pol, time, data_r_h, data_i_h, wgts_h, b,
+                            data_scale_factor=rms, weights=weights,
+                            nsamples_in_weights=nsamples_in_weights)
+        if have_sky:
+            spec.pack_data_into(sky_model, pol, time, sky_r_h, sky_i_h, None, b,
+                                data_scale_factor=rms)
+        g_r, g_i = spec.pack_gains(gains, pol, time)
+        g_r_l.append(g_r)
+        g_i_l.append(g_i)
+    g_r_b = torch.stack(g_r_l)
+    g_i_b = torch.stack(g_i_l)
+    del g_r_l, g_i_l
+    wgts_h = [_compress_freq_invariant_wgts(w) for w in wgts_h]
+    t_tp = _tmark("extract_s", t_tp)
+
+    def upload_wgts(w):
+        w = torch.as_tensor(w, device=device)
+        if wgts_precision == "bfloat16" and w.shape[-1] > 1:
+            # frequency-dependent weights at half width (frequency-invariant
+            # ones are already one plane and stay full precision)
+            w = w.to(torch.bfloat16)
+        return w
+
+    data_r_b = [torch.as_tensor(x, device=device) for x in data_r_h]
+    data_i_b = [torch.as_tensor(x, device=device) for x in data_i_h]
+    wgts_b = [upload_wgts(w) for w in wgts_h]
+    sync()
+    t_tp = _tmark("upload_s", t_tp)
+
+    # a checkpointed resume restores the coefficients: skip the warm starts
+    # when nothing else reads their by-products
+    ck_base = None if checkpoint_dir is None else os.path.join(checkpoint_dir, "batched")
+    skip_init = False
+    if (ck_base is not None and resume and not freeze_model
+            and model_regularization != "sum" and not use_model_snr_weights):
+        if comps_precision == "mixed":
+            skip_init = (latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None
+                         or latest_checkpoint(os.path.join(ck_base, "phase_bf16")) is not None)
+        else:
+            skip_init = latest_checkpoint(ck_base) is not None
+    tdt = data_r_b[0].dtype
+    fg_r_b, fg_i_b = [], []
+    prior_r_b = torch.zeros((nbatch,), dtype=tdt, device=device)
+    prior_i_b = torch.zeros((nbatch,), dtype=tdt, device=device)
+    wsum_b = torch.zeros((nbatch,), dtype=tdt, device=device)
+    for cnum, (comps, a0, _) in enumerate(chunks):
+        ngrps = a0.shape[0]
+        if skip_init:
+            zero = torch.zeros((nbatch, ngrps, comps.shape[-1]), dtype=tdt, device=device)
+            fg_r_b.append(zero)
+            fg_i_b.append(zero.clone())
+            continue
+        chol, active = gram_cholesky_chunk(comps)
+        nu = comps.shape[0]
+        gmax = ngrps // nu if 1 < nu < ngrps else 1
+        blk = _loss_block_size(ngrps, gmax, loss_block_ngrps) or ngrps
+        if not have_sky and not use_model_snr_weights:
+            cr, ci, wsum_c, pr_c, pi_c = blocked_init_from_data(
+                chol, active, comps, data_r_b[cnum], data_i_b[cnum], wgts_b[cnum], blk)
+            wsum_b, prior_r_b, prior_i_b = wsum_b + wsum_c, prior_r_b + pr_c, prior_i_b + pi_c
+            fg_r_b.append(cr)
+            fg_i_b.append(ci)
+            continue
+        new_w, crs, cis = [], [], []
+        for g0 in range(0, ngrps, blk):
+            if have_sky:
+                src_r = torch.as_tensor(sky_r_h[cnum][:, g0:g0 + blk], device=device)
+                src_i = torch.as_tensor(sky_i_h[cnum][:, g0:g0 + blk], device=device)
+            else:
+                src_r = data_r_b[cnum][:, g0:g0 + blk]
+                src_i = data_i_b[cnum][:, g0:g0 + blk]
+            w_blk = wgts_b[cnum][:, g0:g0 + blk].to(tdt)
+            if nu == 1:
+                comps_blk, chol_blk, active_blk = comps, chol, active
+            elif nu < ngrps:
+                u0, u1 = g0 // gmax, (g0 + blk) // gmax
+                comps_blk, chol_blk, active_blk = comps[u0:u1], chol[u0:u1], active[u0:u1]
+            else:
+                sl = slice(g0, g0 + blk)
+                comps_blk, chol_blk, active_blk = comps[sl], chol[sl], active[sl]
+            cr, ci = init_coeffs_from_cholesky_batched(chol_blk, active_blk, comps_blk,
+                                                       src_r, src_i, w_blk)
+            if use_model_snr_weights:
+                vr, vi = fg_model_batched(cr, ci, comps_blk)
+                w_blk = (torch.square(vr) + torch.square(vi)) * w_blk
+                new_w.append(w_blk)
+            wsum_b = wsum_b + torch.sum(w_blk, dim=(1, 2, 3))
+            prior_r_b = prior_r_b + torch.sum(src_r * w_blk, dim=(1, 2, 3))
+            prior_i_b = prior_i_b + torch.sum(src_i * w_blk, dim=(1, 2, 3))
+            crs.append(cr)
+            cis.append(ci)
+        if use_model_snr_weights:
+            wgts_b[cnum] = torch.cat(new_w, dim=1)
+        fg_r_b.append(torch.cat(crs, dim=1))
+        fg_i_b.append(torch.cat(cis, dim=1))
+    if use_model_snr_weights:
+        # renormalize the reweighted batch to unit total per slice
+        denom = torch.where(wsum_b > 0, wsum_b, torch.ones_like(wsum_b))
+        wgts_b = [w / denom[:, None, None, None] for w in wgts_b]
+        wgts_h = [to_numpy(w) for w in wgts_b]  # the guard's host weights
+        wgts_b = [w.to(torch.bfloat16) if wgts_precision == "bfloat16" else w for w in wgts_b]
+        prior_r_b = prior_r_b / denom
+        prior_i_b = prior_i_b / denom
+    del sky_r_h, sky_i_h
+    sync()
+    t_tp = _tmark("warmstart_s", t_tp)
+
+    cfg = FitConfig(
+        optimizer=optimizer,
+        opt_kwargs=tuple(sorted(opt_kwargs.items())),
+        maxsteps=int(maxsteps),
+        tol=float(tol),
+        use_min=bool(use_min),
+        freeze_model=bool(freeze_model),
+        regularization="sum" if model_regularization == "sum" else None,
+        remat=bool(remat),
+        patience=int(patience),
+        loss_block=None if loss_block_ngrps is None else int(loss_block_ngrps),
+    )
+    if cfg.regularization != "sum":
+        warn_fused_fallbacks(chunks, fg_r_b, data_r_b, wgts_b)
+
+    # the step-0 guard's independent value: numpy float64 from the host
+    # stacks, never the device cubes or the kernel
+    host_chunks = [(hc, to_numpy(a0), to_numpy(a1))
+                   for hc, (_, a0, a1) in zip(spec.host_comps, chunks)]
+    prior_h = (to_numpy(prior_r_b), to_numpy(prior_i_b))
+
+    guard_seconds = []
+
+    def guard_fn(fr_const, fi_const):
+        def expected(params):
+            t0 = _time.time()
+            fr = fr_const if freeze_model else params["fg_r"]
+            fi = fi_const if freeze_model else params["fg_i"]
+            out = host_batched_losses(
+                to_numpy(params["g_r"]), to_numpy(params["g_i"]),
+                [to_numpy(x) for x in fr], [to_numpy(x) for x in fi], host_chunks,
+                data_r_h, data_i_h, wgts_h, *prior_h, regularization=cfg.regularization)
+            guard_seconds.append(_time.time() - t0)
+            return out
+        return expected
+
+    phase_seconds, phase_steps = [], []
+
+    def run_batched(chs, gr, gi, fr, fi, opt_state0=None, ckdir=None):
+        t0 = _time.time()
+        guard_seconds.clear()
+        res = batched_fit_checkpointed(
+            cfg, chs, data_r_b, data_i_b, wgts_b, gr, gi, fr, fi, prior_r_b, prior_i_b,
+            ckdir, int(checkpoint_every) if ckdir is not None else cfg.maxsteps, resume,
+            verbose, opt_state0, steps_per_execution=steps_per_execution,
+            expected_loss_fn=guard_fn(fr, fi), poll_every=POLL_EVERY)
+        sync()
+        # the descent's own seconds: the guard's host evaluation apart
+        phase_seconds.append(_time.time() - t0 - sum(guard_seconds))
+        if timings is not None:
+            timings["loss_guard_s"] = timings.get("loss_guard_s", 0.0) + sum(guard_seconds)
+        phase_steps.append(int(res.nsteps))
+        hist = np.asarray(res.loss_history[: res.nsteps], dtype=np.float64)
+        return res, hist, np.asarray(res.nsteps_slice)
+
+    t_desc = _time.time()
+    skip1 = (comps_precision == "mixed" and ck_base is not None and resume
+             and latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None)
+    chunks_lo = None
+    if comps_precision == "bfloat16" or (comps_precision == "mixed" and not skip1):
+        chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+    hist1 = ns1 = None
+    if comps_precision == "bfloat16":
+        result, hist2, ns2 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
+    elif comps_precision == "mixed":
+        ck1 = ck2 = None
+        if ck_base is not None:
+            ck1 = os.path.join(ck_base, "phase_bf16")
+            ck2 = os.path.join(ck_base, "phase_f32")
+        if skip1:
+            # the resume lands in the float32 polish: restore the bf16
+            # phase's diagnostics
+            meta = load_phase_meta(ck_base)
+            if meta is not None:
+                hist1 = np.asarray(meta["history"], dtype=np.float64)
+                ns1 = np.asarray(meta["nsteps_slice"])
+            else:
+                hist1 = np.zeros((0, nbatch), dtype=np.float64)
+                ns1 = np.zeros((nbatch,), dtype=np.int64)
+            result, hist2, ns2 = run_batched(chunks, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck2)
+        else:
+            res1, hist1, ns1 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                           ckdir=ck1)
+            if ck_base is not None:
+                save_phase_meta(ck_base, history=hist1, nsteps_slice=ns1)
+            echo(f"{datetime.datetime.now()} bf16 phase done ({int(res1.nsteps)} steps); "
+                 "polishing in float32...\n", verbose=verbose)
+            # the optimizer state carries across the precision switch
+            chunks_lo = None
+            result, hist2, ns2 = run_batched(chunks, res1.g_r, res1.g_i, res1.fg_r, res1.fg_i,
+                                             opt_state0=res1.opt_state, ckdir=ck2)
+            res1 = None
+    else:
+        result, hist2, ns2 = run_batched(chunks, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
+    t_tp = _tmark("descent_s", t_desc)
+    if timings is not None:
+        timings["phase_seconds"] = phase_seconds
+        timings["phase_steps"] = phase_steps
+
+    g_r_out = to_numpy(result.g_r)
+    g_i_out = to_numpy(result.g_i)
+    # every slice's host model, one basis read per chunk
+    models_out = [fg_model_host_batched(to_numpy(fr), to_numpy(fi), hc)
+                  for fr, fi, hc in zip(result.fg_r, result.fg_i, spec.host_comps)]
+    # release the descent's device memory before the host write-back
+    result = data_r_b = data_i_b = wgts_b = chunks_lo = None  # noqa: F841
+    for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
+        loss = hist2[: int(ns2[b]), b].tolist()
+        entry = {"loss": loss}
+        if hist1 is not None:
+            entry = {"loss": hist1[: int(ns1[b]), b].tolist() + loss,
+                     "phase_steps": [int(ns1[b]), int(ns2[b])]}
+        fit_history[polnum][time_index] = entry
+        spec.insert_model(model, [(vr[b], vi[b]) for vr, vi in models_out], pol, time, rms)
+        spec.insert_gains(gains, g_r_out[b], g_i_out[b], pol, time)
+        bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+        if (not freeze_model and model_regularization == "post_hoc"
+                and np.any(~model.flag_array[bltsel])):
+            renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model, gains=gains,
+                        polarization=pol, time=time, additional_flags=uvdata.flag_array)
+    model, resid = _finalize_model_resid(
+        uvdata, model, resid, gains, correct_model, correct_resid
+    )
+    _tmark("writeback_s", t_tp)
     return model, resid, gains, fit_history
 
 
@@ -812,7 +1179,10 @@ def fitting_argparser():
                     help="Use smooth autocorrelation fits as inverse-variance weights.")
     tp = ap.add_argument_group("Scaling arguments.")
     tp.add_argument("--time_parallel", default=False, action="store_true",
-                    help="Not ported yet: raises NotImplementedError.")
+                    help="Fit every (time, pol) slice in one batched descent on "
+                         "the device (the warm-started time scan, with "
+                         "--init_guesses_from_previous_time_step, is not "
+                         "ported yet).")
     tp.add_argument("--use_pallas", default=False, action="store_true",
                     help="Accepted for parity; ignored (on CUDA the fused "
                          "chunk-loss kernel runs wherever its gate accepts "
@@ -826,16 +1196,23 @@ def fitting_argparser():
                          "32-bit fits, float32 under --precision 64.")
     tp.add_argument("--wgts_precision", default="float32", type=str,
                     choices=["float32", "bfloat16"],
-                    help="Weight-cube storage precision; only float32 is "
-                         "supported (the fused kernel reads float32 weights).")
+                    help="Weight-cube storage precision: bfloat16 halves the "
+                         "weights' device memory and reads (the fused kernel "
+                         "widens them on load).")
     tp.add_argument("--checkpoint_dir", default=None, type=str,
-                    help="Not ported yet: raises NotImplementedError.")
+                    help="Persist the descent state here every "
+                         "--checkpoint_every steps and resume from the "
+                         "latest checkpoint found.")
     tp.add_argument("--checkpoint_every", default=1000, type=int,
                     help="Steps between mid-fit checkpoints.")
     tp.add_argument("--steps_per_execution", default=None, type=int,
-                    help="Not ported yet: raises NotImplementedError.")
+                    help="time_parallel only: recorded steps per descent call, "
+                         "independent of the checkpoint cadence (the "
+                         "trajectory does not depend on it).")
     tp.add_argument("--loss_block_ngrps", default=None, type=int,
-                    help="time_parallel only; not ported yet.")
+                    help="time_parallel only: evaluate each chunk's loss over "
+                         "blocks of this many groups, recomputed on the "
+                         "backward pass (bounds the activation memory).")
     return ap
 
 

@@ -39,8 +39,9 @@ class KernelLibrary:
         lib.fcl_num_partials.restype = ll
         lib.fcl_error_string.argtypes = [ctypes.c_int]
         lib.fcl_error_string.restype = ctypes.c_char_p
+        ci = ctypes.c_int
         lib.fused_chunk_loss_fwd.argtypes = (
-            [vp, ctypes.c_int] + [vp] * 8 + [ll, ll, ll, vp]
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp, vp] + [ll] * 4 + [vp]
         )
         lib.fused_chunk_loss_fwd.restype = ctypes.c_int
         self.fcl_num_partials = lib.fcl_num_partials

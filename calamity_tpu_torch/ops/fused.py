@@ -1,18 +1,23 @@
-"""Fused forward model + chi-square loss of one dense B=1 chunk.
+"""Fused forward model + chi-square loss of one dense B=1 chunk, for a
+batch of slices that share the chunk's basis.
 
-Port of calamity_tpu/ops/fused.py. Per chunk with one baseline per group:
+Port of calamity_tpu/ops/fused.py. Per chunk with one baseline per group
+and per (time, pol) slice n:
 
-    v      = comps @ coeffs            (basis matvec, two right-hand columns)
-    model  = (g_i conj g_j) * v        (complex product in real arithmetic)
-    loss   = sum(w * |data - model|^2) (weighted reduction)
+    v[n]    = comps @ coeffs[n]              (basis matvec, two columns per slice)
+    model   = (g_i conj g_j)[n] * v[n]       (complex product in real arithmetic)
+    loss[n] = sum(w[n] * |data[n] - model|^2) (weighted reduction)
 
 On a CUDA tensor the forward is the hand-written kernel in
-``csrc/fused_chunk_loss.cu`` (built on first use by ``ops._build``); on a
-CPU tensor it is :func:`fused_chunk_loss_plain`'s torch ops. There is no
-other route: a CUDA launch that fails raises. The backward mirrors the
-reference's ``_bwd_xla`` in torch ops; a backward kernel is later work.
+``csrc/fused_chunk_loss.cu`` (built on first use by ``ops._build``), which
+reads each comps row once for every slice of the batch; on a CPU tensor it
+is :func:`fused_chunk_loss_batched_plain`'s torch ops. There is no other
+route: a CUDA launch that fails raises. The backward mirrors the
+reference's ``_bwd_xla`` in torch ops, with a slice axis: one contraction
+reads comps once for all slices (and bfloat16 comps are upcast once per
+step, not per slice). The serial path is the same kernel with one slice.
 
-The gate below is written for this kernel, which takes any G, F and V.
+The gate below is written for this kernel, which takes any N, G, F and V.
 The reference's TPU gate (F and V multiples of 128, a group tile in
 {32, 16, 8}) does not apply.
 """
@@ -27,17 +32,20 @@ from .._device import LAUNCHES
 
 KERNEL_NAME = "fused_chunk_loss"
 _COMPS_DTYPES = (torch.float32, torch.bfloat16)
+_WGTS_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def explain_fused_loss_inapplicable(comps, coeffs, data, wgts):
     """Why the fused kernel cannot take a chunk, or None if it can.
 
     comps: the chunk's (u, nbls, nfreqs, nvecs) basis; coeffs, data, wgts:
-    one of its coefficient, data and weight tensors. The chunk must be
-    dense (u equal to the data's group count) with one baseline per group,
-    comps float32 or bfloat16, the rest float32, all on one device."""
+    one of its coefficient, data and weight tensors, of one slice
+    ((ngrps, nvecs), (ngrps, nbls, nfreqs)) or of a batch (a leading slice
+    axis). The chunk must be dense (u equal to the coefficients' group
+    count) with one baseline per group, comps and weights float32 or
+    bfloat16, coefficients and data float32, all on one device."""
     u, nbls = comps.shape[0], comps.shape[1]
-    ngrps = data.shape[0]
+    ngrps = coeffs.shape[-2]
     if u != ngrps:
         return (
             "shared-basis operator layout (one basis matrix serves "
@@ -47,9 +55,11 @@ def explain_fused_loss_inapplicable(comps, coeffs, data, wgts):
         return f"nbls={nbls} (kernel covers the per-baseline B=1 layout)"
     if comps.dtype not in _COMPS_DTYPES:
         return f"comps dtype {comps.dtype} (float32/bfloat16 only)"
-    for name, t in (("coefficient", coeffs), ("data", data), ("weights", wgts)):
-        if t.dtype != torch.float32:
-            return f"{name} dtype {t.dtype} (float32 only)"
+    for name, t, ok in (("coefficient", coeffs, (torch.float32,)),
+                        ("data", data, (torch.float32,)),
+                        ("weights", wgts, _WGTS_DTYPES)):
+        if t.dtype not in ok:
+            return f"{name} dtype {t.dtype} ({'/'.join(str(d)[6:] for d in ok)} only)"
         if t.device != comps.device:
             return f"{name} on {t.device}, comps on {comps.device}"
     return None
@@ -72,63 +82,83 @@ def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
     return reasons
 
 
-def _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w):
-    """(loss, v) in torch ops; v is (2, G, F) float32."""
-    cf = comps3 if comps3.dtype == torch.float32 else comps3.to(torch.float32)
-    v = torch.einsum("gfv,kgv->kgf", cf, coeffs2)
+def _f32(t):
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def _model(v, pr, pi):
     vr, vi = v[0], v[1]
-    mr = pr * vr + pi * vi
-    mi = -pi * vr + pr * vi
+    return pr * vr + pi * vi, -pi * vr + pr * vi
+
+
+def _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
+    """(losses (N,), v (2, N, G, F)) in torch ops."""
+    v = torch.einsum("gfv,kngv->kngf", _f32(comps3), coeffs2)
+    mr, mi = _model(v, pr, pi)
     er = dr - mr
     ei = di - mi
-    return torch.sum(w * (er * er + ei * ei)), v
+    return torch.sum(_f32(w) * (er * er + ei * ei), dim=(1, 2)), v
 
 
-def fused_chunk_loss_plain(coeffs2, pr, pi, comps3, dr, di, w):
-    """Plain torch version of the kernel's forward (differentiable by
-    autograd): the reference the kernel is held against."""
-    return _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w)[0]
+def fused_chunk_loss_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
+    """Plain torch version of the batched kernel's forward (differentiable
+    by autograd): the reference the kernel is held against. (N,) losses."""
+    return _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3)[0]
 
 
-def _check_kernel_operands(coeffs2, pr, pi, comps3, dr, di, w):
+def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3):
     ngrps, nfreqs, nvecs = comps3.shape
     if comps3.dtype not in _COMPS_DTYPES:
         raise TypeError(f"comps dtype {comps3.dtype} (float32/bfloat16 only)")
-    if tuple(coeffs2.shape) != (2, ngrps, nvecs):
-        raise ValueError(f"coeffs2 shape {tuple(coeffs2.shape)}, expected {(2, ngrps, nvecs)}")
-    named = (("coeffs2", coeffs2), ("pr", pr), ("pi", pi), ("dr", dr), ("di", di), ("w", w))
-    for name, t in named[1:]:
-        if tuple(t.shape) != (ngrps, nfreqs):
-            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {(ngrps, nfreqs)}")
-    for name, t in named + (("comps", comps3),):
+    nbatch = coeffs2.shape[1] if coeffs2.dim() == 4 else -1
+    if tuple(coeffs2.shape) != (2, nbatch, ngrps, nvecs):
+        raise ValueError(
+            f"coeffs2 shape {tuple(coeffs2.shape)}, expected {(2, 'N', ngrps, nvecs)}"
+        )
+    planes = (("pr", pr), ("pi", pi), ("dr", dr), ("di", di), ("w", w))
+    for name, t in planes:
+        if tuple(t.shape) != (nbatch, ngrps, nfreqs):
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {(nbatch, ngrps, nfreqs)}")
+    for name, t in (("coeffs2", coeffs2),) + planes + (("comps", comps3),):
         if t.device != comps3.device:
             raise ValueError(f"{name} on {t.device}, comps on {comps3.device}")
-        if name != "comps" and t.dtype != torch.float32:
+        if name == "w":
+            if t.dtype not in _WGTS_DTYPES:
+                raise TypeError(f"w dtype {t.dtype} (float32/bfloat16 only)")
+        elif name != "comps" and t.dtype != torch.float32:
             raise TypeError(f"{name} dtype {t.dtype} (float32 only)")
+    # comps, coefficients and gain products are read densely; the data and
+    # weight planes through their strides (group-block views, a broadcast
+    # channel axis)
+    for name, t in (("coeffs2", coeffs2), ("pr", pr), ("pi", pi), ("comps", comps3)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    if dr.stride() != di.stride():
+        raise ValueError(f"dr strides {dr.stride()} differ from di strides {di.stride()}")
     if comps3.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 
 
-def _fwd_kernel(coeffs2, pr, pi, comps3, dr, di, w):
-    """(loss, v) from the CUDA kernel. Raises on any operand the kernel
-    does not take and on a failed launch."""
+def _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3):
+    """(losses (N,), v (2, N, G, F)) from the CUDA kernel. Raises on any
+    operand the kernel does not take and on a failed launch."""
     from ._build import load_kernels
 
-    _check_kernel_operands(coeffs2, pr, pi, comps3, dr, di, w)
+    _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3)
     lib = load_kernels()
     ngrps, nfreqs, nvecs = comps3.shape
+    nbatch = coeffs2.shape[1]
     dev = comps3.device
-    partials = torch.empty((lib.fcl_num_partials(ngrps, nfreqs),), dtype=torch.float32,
-                           device=dev)
-    v = torch.empty((2, ngrps, nfreqs), dtype=torch.float32, device=dev)
+    partials = torch.empty((nbatch, lib.fcl_num_partials(ngrps, nfreqs)),
+                           dtype=torch.float32, device=dev)
+    v = torch.empty((2, nbatch, ngrps, nfreqs), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.fused_chunk_loss_fwd(
             comps3.data_ptr(), 0 if comps3.dtype == torch.float32 else 1,
-            coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(), dr.data_ptr(),
-            di.data_ptr(), w.data_ptr(), partials.data_ptr(), v.data_ptr(),
-            ngrps, nfreqs, nvecs, torch.cuda.current_stream(dev).cuda_stream,
+            coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(), dr.data_ptr(), di.data_ptr(),
+            *dr.stride(), w.data_ptr(), 0 if w.dtype == torch.float32 else 1, *w.stride(),
+            partials.data_ptr(), v.data_ptr(), nbatch, ngrps, nfreqs, nvecs,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -137,51 +167,89 @@ def _fwd_kernel(coeffs2, pr, pi, comps3, dr, di, w):
         )
     LAUNCHES.add(KERNEL_NAME)
     # the partials are summed outside the kernel, in a fixed order: no
-    # atomics, so the loss is the same from run to run
-    return torch.sum(partials), v
+    # atomics, so each slice's loss is the same from run to run
+    return torch.sum(partials, dim=1), v
 
 
-def _bwd(v, pr, pi, comps3, dr, di, w, gbar, need_coeffs=True):
-    """Backward pass in torch ops (mirror of the reference ``_bwd_xla``).
+def _bwd_batched(v, pr, pi, dr, di, w, comps3, gbar, need_coeffs=True):
+    """Backward pass in torch ops (mirror of the reference ``_bwd_xla``
+    with a slice axis); ``gbar`` is the (N,) cotangent of the losses.
 
-    bfloat16 comps are upcast to float32 for the coefficient contraction:
-    a transient float32 copy of comps per step."""
-    vr, vi = v[0], v[1]
-    mr = pr * vr + pi * vi
-    mi = -pi * vr + pr * vi
-    dmr = (-2.0 * gbar) * w * (dr - mr)
-    dmi = (-2.0 * gbar) * w * (di - mi)
+    The coefficient contraction reads comps once for all slices; bfloat16
+    comps are upcast to float32 for it once (a transient float32 copy of
+    comps per step, whatever N)."""
+    g = gbar.reshape(-1, 1, 1)
+    mr, mi = _model(v, pr, pi)
+    wf = _f32(w)
+    dmr = (-2.0 * g) * wf * (dr - mr)
+    dmi = (-2.0 * g) * wf * (di - mi)
     dcoeffs = None
     if need_coeffs:
-        dvr = pr * dmr - pi * dmi
-        dvi = pi * dmr + pr * dmi
-        cf = comps3 if comps3.dtype == torch.float32 else comps3.to(torch.float32)
-        dv = torch.stack([dvr, dvi], dim=0)  # (2, G, F)
-        dcoeffs = torch.einsum("gfv,kgf->kgv", cf, dv)
+        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
+        dcoeffs = torch.einsum("gfv,kngf->kngv", _f32(comps3), dv)
+    vr, vi = v[0], v[1]
     dpr = vr * dmr + vi * dmi
     dpi = vi * dmr - vr * dmi
     return dcoeffs, dpr, dpi
 
 
-class _FusedChunkLoss(torch.autograd.Function):
+class _FusedChunkLossBatched(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs2, pr, pi, comps3, dr, di, w):
+    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
         if comps3.device.type == "cuda":
-            loss, v = _fwd_kernel(coeffs2, pr, pi, comps3, dr, di, w)
+            losses, v = _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3)
         elif comps3.device.type == "cpu":
-            loss, v = _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w)
+            losses, v = _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3)
         else:
             raise ValueError(f"unsupported device {comps3.device}")
-        ctx.save_for_backward(v, pr, pi, comps3, dr, di, w)
-        return loss
+        ctx.save_for_backward(v, pr, pi, dr, di, w, comps3)
+        return losses
 
     @staticmethod
     def backward(ctx, gbar):
-        v, pr, pi, comps3, dr, di, w = ctx.saved_tensors
-        dcoeffs, dpr, dpi = _bwd(v, pr, pi, comps3, dr, di, w, gbar,
-                                 need_coeffs=ctx.needs_input_grad[0])
+        v, pr, pi, dr, di, w, comps3 = ctx.saved_tensors
+        dcoeffs, dpr, dpi = _bwd_batched(v, pr, pi, dr, di, w, comps3, gbar,
+                                         need_coeffs=ctx.needs_input_grad[0])
         # comps, data and weights are never differentiated parameters
         return dcoeffs, dpr, dpi, None, None, None, None
+
+
+def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
+    """Fused weighted chi-square of one B=1 chunk for N slices sharing its
+    basis: (N,) losses, differentiable in coeffs2, pr and pi.
+
+    coeffs2: (2, N, ngrps, nvecs) stacked (real, imag) coefficients
+    pr, pi:  (N, ngrps, nfreqs) Re / -Im of g_i conj(g_j) per baseline
+    dr, di:  (N, ngrps, nfreqs) float32, any strides (e.g. a group-block view)
+    w:       (N, ngrps, nfreqs) float32 or bfloat16, any strides
+    comps3:  (ngrps, nfreqs, nvecs) float32 or bfloat16
+    """
+    return _FusedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
+
+
+# ---------------------------------------------------------------------- #
+# one slice: the same kernel with N = 1 (signature of the reference)
+# ---------------------------------------------------------------------- #
+def _one(coeffs2, pr, pi, dr, di, w):
+    return (coeffs2.unsqueeze(1),) + tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
+
+
+def _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w):
+    """(loss, v) of one slice in torch ops; v is (2, G, F) float32."""
+    losses, v = _fwd_batched_plain(*_one(coeffs2, pr, pi, dr, di, w), comps3)
+    return losses[0], v[:, 0]
+
+
+def fused_chunk_loss_plain(coeffs2, pr, pi, comps3, dr, di, w):
+    """Plain torch version of the single-slice forward (differentiable by
+    autograd)."""
+    return _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w)[0]
+
+
+def _fwd_kernel(coeffs2, pr, pi, comps3, dr, di, w):
+    """(loss, v) of one slice from the CUDA kernel (N = 1)."""
+    losses, v = _fwd_batched_kernel(*_one(coeffs2, pr, pi, dr, di, w), comps3)
+    return losses[0], v[:, 0]
 
 
 def fused_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w):
@@ -191,6 +259,6 @@ def fused_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w):
     coeffs2: (2, ngrps, nvecs) stacked (real, imag) coefficients
     pr, pi:  (ngrps, nfreqs) Re / -Im of g_i conj(g_j) per baseline
     comps3:  (ngrps, nfreqs, nvecs) float32 or bfloat16
-    dr, di, w: (ngrps, nfreqs)
+    dr, di, w: (ngrps, nfreqs); w float32 or bfloat16
     """
-    return _FusedChunkLoss.apply(coeffs2, pr, pi, comps3, dr, di, w)
+    return fused_chunk_loss_batched(*_one(coeffs2, pr, pi, dr, di, w), comps3)[0]

@@ -49,6 +49,44 @@ def fg_model(coeffs_r, coeffs_i, comps):
     return v[0], v[1]
 
 
+def fg_model_batched(coeffs_r, coeffs_i, comps):
+    """Foreground model for a batch of (time, pol) slices sharing one basis
+    (reference ops/loss.py:90-126).
+
+    coeffs: (nbatch, ngrps, nvecs); comps as in :func:`fg_model`. Returns
+    (vr, vi) each (nbatch, ngrps, nbls, nfreqs). One contraction reads
+    comps once for all slices: batching widens the matvec's right-hand side
+    instead of re-reading the basis per slice."""
+    if comps.dtype != coeffs_r.dtype:
+        comps = comps.to(coeffs_r.dtype)
+    cb = torch.stack([coeffs_r, coeffs_i], dim=1)  # (nbatch, 2, ngrps, nvecs)
+    nbatch, _, ngrps, nvecs = cb.shape
+    nu = comps.shape[0]
+    if nu == 1 and ngrps > 1:
+        v = torch.einsum("bfv,nkgv->nkgbf", comps[0], cb)
+    elif 1 < nu < ngrps:
+        gmax = ngrps // nu
+        c = cb.reshape(nbatch, 2, nu, gmax, nvecs)
+        v = torch.einsum("ubfv,nkugv->nkugbf", comps, c)
+        v = v.reshape(nbatch, 2, ngrps, comps.shape[1], comps.shape[2])
+    else:
+        v = torch.einsum("gbfv,nkgv->nkgbf", comps, cb)
+    return v[:, 0], v[:, 1]
+
+
+def gain_products_batched(g_r, g_i, a0, a1):
+    """:func:`gain_products` with a leading slice axis: g_r/g_i
+    (nbatch, nants, nfreqs) -> (pr, pi) each (nbatch, ngrps, nbls, nfreqs)."""
+    shape = (g_r.shape[0],) + tuple(a0.shape) + (g_r.shape[-1],)
+    i0 = a0.reshape(-1)
+    i1 = a1.reshape(-1)
+    gr0 = g_r.index_select(1, i0).reshape(shape)
+    gr1 = g_r.index_select(1, i1).reshape(shape)
+    gi0 = g_i.index_select(1, i0).reshape(shape)
+    gi1 = g_i.index_select(1, i1).reshape(shape)
+    return gr0 * gr1 + gi0 * gi1, gr0 * gi1 - gi0 * gr1
+
+
 def fg_model_host(coeffs_r, coeffs_i, comps):
     """numpy mirror of :func:`fg_model` for write-back (same three
     packings; float32 BLAS contractions for float32 comps)."""
@@ -73,6 +111,26 @@ def fg_model_host(coeffs_r, coeffs_i, comps):
         vr = np.einsum("gbfv,gv->gbf", comps, cr, optimize=True)
         vi = np.einsum("gbfv,gv->gbf", comps, ci, optimize=True)
     return vr, vi
+
+
+def fg_model_host_batched(coeffs_r, coeffs_i, comps):
+    """:func:`fg_model_host` for a batch of slices: coeffs (nbatch, ngrps,
+    nvecs) -> (vr, vi) each (nbatch, ngrps, nbls, nfreqs). A dense chunk's
+    basis is read once, by one float32 BLAS contraction against every
+    slice's real and imaginary coefficients; shared layouts go slice by
+    slice."""
+    comps = np.asarray(comps)
+    cr = np.asarray(coeffs_r, dtype=comps.dtype)
+    ci = np.asarray(coeffs_i, dtype=comps.dtype)
+    nbatch, ngrps = cr.shape[:2]
+    if comps.shape[0] != ngrps:
+        outs = [fg_model_host(cr[b], ci[b], comps) for b in range(nbatch)]
+        return np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs])
+    _, nbls, nfreqs, nvecs = comps.shape
+    rhs = np.concatenate([cr, ci]).transpose(1, 2, 0)  # (ngrps, nvecs, 2 nbatch)
+    v = np.matmul(comps.reshape(ngrps, nbls * nfreqs, nvecs), rhs)
+    v = v.transpose(2, 0, 1).reshape(2 * nbatch, ngrps, nbls, nfreqs)
+    return v[:nbatch], v[nbatch:]
 
 
 def fg_model_all_chunks_host(fg_r, fg_i, host_comps):

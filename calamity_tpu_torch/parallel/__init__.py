@@ -1,0 +1,28 @@
+"""The batched time-parallel fit of calamity_tpu_torch (port of
+calamity_tpu.parallel, one device; the device mesh is not ported yet)."""
+
+from .batched import (
+    BatchedFitResult,
+    batched_chunk_losses,
+    batched_chunk_losses_sum_regularized,
+    batched_fit_checkpointed,
+    batched_fit_core,
+    batched_fit_segment,
+    check_initial_loss,
+    host_batched_losses,
+    loss_guard_factor,
+    loss_guard_floor,
+)
+
+__all__ = [
+    "BatchedFitResult",
+    "batched_chunk_losses",
+    "batched_chunk_losses_sum_regularized",
+    "batched_fit_checkpointed",
+    "batched_fit_core",
+    "batched_fit_segment",
+    "check_initial_loss",
+    "host_batched_losses",
+    "loss_guard_factor",
+    "loss_guard_floor",
+]

@@ -1,0 +1,669 @@
+"""Batched multi-(time, pol) fitting on one device.
+
+Port of calamity_tpu/parallel/batched.py. Fits of different (time, pol)
+slices are independent, so the time-parallel path stacks them on a leading
+slice axis and runs one descent for the whole batch:
+
+    g_r/g_i             : (nbatch, nants, nfreqs)
+    fg_r/fg_i per chunk : (nbatch, ngrps, nvecs)
+    data/wgts per chunk : (nbatch, ngrps, nbls, nfreqs)  (wgts may be
+                          (..., 1): a frequency-invariant weights plane)
+
+The loss is the sum over the batch of independent per-slice chi-squares,
+so the summed gradient updates every slice as its own descent would
+(Adam-family updates are elementwise). Convergence is tracked per slice: a
+slice whose |delta loss| drops below tol, whose loss goes non-finite or
+that runs out of patience is frozen (its parameters and optimizer moments
+stop moving) while the others keep stepping; the optimizer's scalar step
+count advances while any slice runs. A dense one-baseline-per-group chunk
+goes through the fused kernel with a slice axis
+(``ops.fused.fused_chunk_loss_batched``: one comps read for every slice);
+every other chunk takes torch ops whose contraction also reads comps once
+for the batch.
+
+PyTorch runs eagerly, so the reference's jit-compiled ``while_loop`` is a
+host loop here; the host polls the freeze mask every ``poll_every`` steps,
+and steps taken after the last slice froze are undone exactly (masked on
+the device, the step count rewound), so the trajectory does not depend on
+the polling interval.
+
+Left out on purpose: the reference's AOT auto-layout segment executables
+(``BatchedSegmentPlan``, ``make_segment_plan``, ``_put_format``,
+``_apply_required_layouts``, the plan cache, ``auto_layouts_enabled``) and
+the layout self-heal (``:769-1085``). They exist to control XLA's entry
+layouts on TPUs reached through a relay; PyTorch on one card has no such
+layouts to plan. The step-0 loss guard does not depend on them and is
+ported, armed on every fresh descent and on every resume.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from calamity_tpu.utils import echo
+
+from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
+from ..ops.loss import fg_model_batched, fg_model_host_batched, gain_products_batched
+from ..solver.fit import _big, init_params
+from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
+
+
+def _loss_block_size(ngrps, gmax, requested, multiple_of=1):
+    """Largest group block <= ``requested`` that divides ngrps and is a
+    multiple of gmax (shared-batched chunks split on operator-class
+    boundaries) and of ``multiple_of``. None when blocking is off or would
+    not split the chunk (reference parallel/batched.py:43-63)."""
+    if requested is None or requested >= ngrps:
+        return None
+    if int(requested) < 1:
+        raise ValueError(
+            f"loss_block_ngrps must be >= 1, got {requested} (use None to "
+            "disable group blocking)"
+        )
+    unit = int(np.lcm(int(gmax), int(multiple_of)))
+    b = max(unit, (int(requested) // unit) * unit)
+    while b >= unit and ngrps % b:
+        b -= unit
+    if b < unit:
+        return None
+    return b if b < ngrps else None
+
+
+# ---------------------------------------------------------------------- #
+# per-chunk terms: each returns a tuple of (nbatch,) tensors
+# ---------------------------------------------------------------------- #
+def _chunk_model(gr, gi, fr, fi, comps, a0, a1):
+    pr, pi = gain_products_batched(gr, gi, a0, a1)
+    vr, vi = fg_model_batched(fr, fi, comps)
+    return pr * vr + pi * vi, -pi * vr + pr * vi
+
+
+def _weights_as(w, dr):
+    # bfloat16 weights are stored at half width and upcast at the use
+    return w if w.dtype == dr.dtype else w.to(dr.dtype)
+
+
+def _plain_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
+    mr, mi = _chunk_model(gr, gi, fr, fi, comps, a0, a1)
+    w = _weights_as(w, dr)
+    return (torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),)
+
+
+def _fused_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
+    pr, pi = gain_products_batched(gr, gi, a0, a1)  # (nbatch, ngrps, 1, nfreqs)
+    coeffs2 = torch.stack([fr, fi], dim=0)  # (2, nbatch, ngrps, nvecs)
+    wp = w[:, :, 0].expand(dr.shape[0], dr.shape[1], dr.shape[3])
+    return (fused_chunk_loss_batched(coeffs2, pr[:, :, 0], pi[:, :, 0], dr[:, :, 0],
+                                     di[:, :, 0], wp, comps[:, 0]),)
+
+
+def _sum_terms(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
+    mr, mi = _chunk_model(gr, gi, fr, fi, comps, a0, a1)
+    w = _weights_as(w, dr)
+    return (
+        torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),
+        torch.sum(mr * w, dim=(1, 2, 3)),
+        torch.sum(mi * w, dim=(1, 2, 3)),
+    )
+
+
+def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
+    """A chunk's terms summed over group blocks of ``blk``, each block
+    recomputed on the backward pass (``torch.utils.checkpoint``), so the
+    live activations are one block's. Blocks are views of the resident
+    cubes (reference ``_blocked_chunk_scan``, a lax.scan there)."""
+    ngrps = a0.shape[0]
+    nu = comps.shape[0]
+    total = None
+    for g0 in range(0, ngrps, blk):
+        g1 = g0 + blk
+        if nu == 1:
+            comps_b = comps  # one shared operator serves every block
+        elif nu < ngrps:
+            gmax = ngrps // nu  # blk covers whole operator classes
+            comps_b = comps[g0 // gmax:g1 // gmax]
+        else:
+            comps_b = comps[g0:g1]
+        out = checkpoint(term, gr, gi, fr[:, g0:g1], fi[:, g0:g1], dr[:, g0:g1],
+                         di[:, g0:g1], w[:, g0:g1], comps_b, a0[g0:g1], a1[g0:g1],
+                         use_reentrant=False)
+        total = out if total is None else tuple(t + o for t, o in zip(total, out))
+    return total
+
+
+def _chunk_term_fn(comps, fr, dr, w, remat):
+    """The term of one chunk: the fused kernel where its gate accepts the
+    chunk, torch ops otherwise (checkpointed under ``remat``)."""
+    if explain_fused_loss_inapplicable(comps, fr, dr, w) is None:
+        return _fused_losses
+    if remat:
+        return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False)
+    return _plain_losses
+
+
+def _gmax(comps, ngrps):
+    nu = comps.shape[0]
+    return ngrps // nu if 1 < nu < ngrps else 1
+
+
+def batched_chunk_losses(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
+                         use_pallas=False, remat=False, loss_block=None):
+    """Per-slice chi-square, shape (nbatch,) (reference
+    parallel/batched.py:139-213).
+
+    A dense B=1 chunk goes through the fused kernel wherever its gate
+    accepts it; ``use_pallas`` is accepted for parity and ignored.
+    ``remat`` recomputes each plain chunk's model on the backward pass;
+    ``loss_block`` evaluates each chunk over group blocks of that size."""
+    del use_pallas
+    total = 0.0
+    for cnum, (comps, a0, a1) in enumerate(chunks):
+        args = (g_r, g_i, fg_r[cnum], fg_i[cnum], data_r[cnum], data_i[cnum], wgts[cnum],
+                comps, a0, a1)
+        ngrps = a0.shape[0]
+        blk = _loss_block_size(ngrps, _gmax(comps, ngrps), loss_block)
+        term = _chunk_term_fn(comps, fg_r[cnum], data_r[cnum], wgts[cnum],
+                              remat and blk is None)
+        (loss,) = term(*args) if blk is None else _chunk_blocks(term, *args, blk)
+        total = total + loss
+    return total
+
+
+def batched_chunk_losses_sum_regularized(
+    g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r, prior_i, loss_block=None,
+):
+    """Per-slice chi-square plus the "sum" flux prior, one prior pair per
+    slice, shape (nbatch,) (reference parallel/batched.py:216-272). Torch
+    ops: the fused kernel does not form the model flux sums."""
+    total = mr_sum = mi_sum = 0.0
+    for cnum, (comps, a0, a1) in enumerate(chunks):
+        args = (g_r, g_i, fg_r[cnum], fg_i[cnum], data_r[cnum], data_i[cnum], wgts[cnum],
+                comps, a0, a1)
+        ngrps = a0.shape[0]
+        blk = _loss_block_size(ngrps, _gmax(comps, ngrps), loss_block)
+        loss, mrs, mis = (_sum_terms(*args) if blk is None
+                          else _chunk_blocks(_sum_terms, *args, blk))
+        total = total + loss
+        mr_sum = mr_sum + mrs
+        mi_sum = mi_sum + mis
+    return total + torch.square(mr_sum - prior_r) + torch.square(mi_sum - prior_i)
+
+
+# ---------------------------------------------------------------------- #
+# the batched descent
+# ---------------------------------------------------------------------- #
+class BatchedFitResult(NamedTuple):
+    g_r: Any
+    g_i: Any
+    fg_r: Any
+    fg_i: Any
+    loss_history: Any  # (max(maxsteps, recorded), nbatch) float32 numpy, NaN-padded
+    nsteps: Any  # recorded steps of the whole batch
+    final_loss: Any  # (nbatch,)
+    nsteps_slice: Any = None  # (nbatch,) numpy: per-slice steps until its freeze
+    opt_state: Any = None  # final optimizer state (carried by the mixed schedule)
+
+
+def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, prior_i):
+    """(opt, one_step): ``one_step(params, opt_state) -> (losses, params,
+    opt_state)`` over the batch, with the summed loss's gradient."""
+    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+
+    def losses_fn(p):
+        fr = fg_r if cfg.freeze_model else p["fg_r"]
+        fi = fg_i if cfg.freeze_model else p["fg_i"]
+        if cfg.regularization == "sum":
+            return batched_chunk_losses_sum_regularized(
+                p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts, prior_r, prior_i,
+                loss_block=cfg.loss_block)
+        return batched_chunk_losses(p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts,
+                                    remat=cfg.remat, loss_block=cfg.loss_block)
+
+    def one_step(params, opt_state):
+        with torch.enable_grad():
+            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            losses = losses_fn(p)
+            grads = iter(torch.autograd.grad(torch.sum(losses), tree_leaves(p)))
+        grads = tree_map(lambda _: next(grads), p)
+        new_params, opt_state = opt.update(grads, opt_state, params)
+        return losses.detach(), new_params, opt_state
+
+    return opt, one_step
+
+
+def _select(mask, new, old):
+    """Leafwise ``where(mask, new, old)`` along the leading slice axis;
+    leaves without one (the optimizer's step count) take ``new``."""
+    nbatch = mask.shape[0]
+
+    def sel(n, o):
+        if not isinstance(n, torch.Tensor) or n.dim() == 0 or n.shape[0] != nbatch:
+            return n
+        return torch.where(mask.reshape((nbatch,) + (1,) * (n.dim() - 1)), n, o)
+
+    return tree_map(sel, new, old)
+
+
+def _rewind_count(opt_state, n):
+    """The optimizer state with its step count taken back by ``n``."""
+    if n and hasattr(opt_state, "count"):
+        return opt_state._replace(count=opt_state.count - n)
+    return opt_state
+
+
+class _Carry(NamedTuple):
+    """Per-slice bookkeeping carried between steps and segments."""
+
+    prev: Any  # (nbatch,) last recorded loss
+    frozen: Any  # (nbatch,) bool
+    nsteps_slice: Any  # (nbatch,) int64: global step of the freeze, maxsteps if none
+    best_loss: Any  # (nbatch,) or None (tracked for use_min or patience)
+    best_params: Any  # params tree or None (use_min)
+    since_best: Any  # (nbatch,) int64 or None (patience)
+
+
+def _fresh_carry(cfg, nbatch, dtype, device, best_params):
+    big = float(_big(np.dtype(dtype)))
+    tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+    full = torch.full((nbatch,), big, dtype=tdt, device=device)
+    return _Carry(
+        prev=full.clone(),
+        frozen=torch.zeros((nbatch,), dtype=torch.bool, device=device),
+        nsteps_slice=torch.full((nbatch,), cfg.maxsteps, dtype=torch.int64, device=device),
+        best_loss=full.clone() if (cfg.use_min or cfg.patience > 0) else None,
+        best_params=best_params if cfg.use_min else None,
+        since_best=(torch.zeros((nbatch,), dtype=torch.int64, device=device)
+                    if cfg.patience > 0 else None),
+    )
+
+
+def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, warmup=0,
+                     poll_every=1):
+    """Up to ``seg_len`` recorded steps (after ``warmup`` unrecorded ones)
+    of the batched descent from explicit state (reference
+    ``_batched_segment_impl``, parallel/batched.py:443-559).
+
+    ``step0`` is the number of global recorded steps already taken, so a
+    resumed segment records global step numbers. The loop ends when every
+    slice is frozen; the host reads the freeze mask every ``poll_every``
+    steps, and the steps a block ran after the last freeze change nothing.
+    Returns (params, opt_state, carry, history (recorded, nbatch) float32
+    numpy, recorded)."""
+    nbatch = carry.prev.shape[0]
+    total = seg_len + warmup
+    if total <= 0 or bool(carry.frozen.all()):
+        return params, opt_state, carry, np.zeros((0, nbatch), np.float32), 0
+    prev, frozen, nsteps_slice, best_loss, best_params, since = carry
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=prev.device)
+    rows = []
+    it = 0
+    while it < total:
+        lives, row_of = [], []
+        for _ in range(min(poll_every, total - it)):
+            idx = it - warmup
+            rec = idx >= 0
+            gstep = step0 + idx
+            live = ~frozen.all()  # False only on a step past the last freeze
+            losses, new_params, new_opt = one_step(params, opt_state)
+            active = ~frozen
+            params = _select(active, new_params, params)
+            opt_state = _select(active, new_opt, opt_state)
+            if rec:
+                row_of.append(len(rows))
+                rows.append(torch.where(active, losses.to(torch.float32), nan))
+                recorded_live = live.expand(nbatch)
+                stop = ~torch.isfinite(losses)
+                if gstep >= 1:
+                    # the first recorded global step cannot trigger the tol stop
+                    stop = stop | (torch.abs(losses - prev) < cfg.tol)
+                newly = active & stop
+                if best_loss is not None:
+                    is_best = recorded_live & (losses < best_loss)
+                    best_loss = torch.where(is_best, losses, best_loss)
+                if since is not None:
+                    since = torch.where(active, torch.where(is_best, 0, since + 1), since)
+                    newly = newly | (active & (since >= cfg.patience))
+                nsteps_slice = torch.where(newly, gstep + 1, nsteps_slice)
+                frozen = frozen | newly
+                prev = torch.where(recorded_live, losses, prev)
+                if best_params is not None:
+                    best_params = _select(is_best, params, best_params)
+            else:
+                row_of.append(None)
+            lives.append(live)
+            it += 1
+        # the host poll: one device-to-host read per block
+        wasted = int((~torch.stack(lives)).sum())
+        if wasted:
+            # all-frozen is absorbing, so the wasted steps end the block
+            # and changed nothing but the optimizer's step count
+            opt_state = _rewind_count(opt_state, wasted)
+            first = next((r for r in row_of[len(row_of) - wasted:] if r is not None), None)
+            if first is not None:
+                del rows[first:]
+            it -= wasted
+            break
+        if bool(frozen.all()):
+            break
+    recorded = max(it - warmup, 0)
+    history = (torch.stack(rows).cpu().numpy() if rows
+               else np.zeros((0, nbatch), np.float32))
+    carry = _Carry(prev, frozen, nsteps_slice, best_loss, best_params, since)
+    return params, opt_state, carry, history, recorded
+
+
+def batched_fit_segment(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_const,
+                        prior_r, prior_i, params, opt_state, carry, step0, seg_len,
+                        warmup=0, poll_every=1):
+    """A checkpointable batched descent segment: carried state in and out,
+    so the host can persist it between segments (the batched counterpart
+    of ``solver.fit._fit_segment``; reference parallel/batched.py:578-606).
+    ``fg_r_const``/``fg_i_const`` are read only under ``cfg.freeze_model``."""
+    _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r_const,
+                                   fg_i_const, prior_r, prior_i)
+    return _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len,
+                            warmup=warmup, poll_every=poll_every)
+
+
+def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i):
+    nsteps_slice = np.minimum(carry.nsteps_slice.cpu().numpy(), recorded)
+    out = carry.best_params if cfg.use_min else params
+    final = carry.best_loss if cfg.use_min else carry.prev
+    if cfg.freeze_model:
+        fr, fi = tuple(fg_r), tuple(fg_i)
+    else:
+        fr, fi = tuple(out["fg_r"]), tuple(out["fg_i"])
+    nbatch = history.shape[1]
+    full = np.full((max(cfg.maxsteps, len(history)), nbatch), np.nan, dtype=np.float32)
+    full[: len(history)] = history
+    return BatchedFitResult(out["g_r"], out["g_i"], fr, fi, full, len(history), final,
+                            nsteps_slice, opt_state)
+
+
+def batched_fit_core(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
+                     prior_r=None, prior_i=None, opt_state0=None, poll_every=1):
+    """Whole-batch descent: an unrecorded warm-up step, then up to
+    ``cfg.maxsteps`` recorded steps with per-slice freeze (reference
+    parallel/batched.py:1453-1501). ``opt_state0`` carries an optimizer
+    state in (the float32 polish of the mixed schedule)."""
+    opt, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i,
+                                     prior_r, prior_i)
+    params = init_params(cfg, g_r, g_i, fg_r, fg_i)
+    opt_state = opt.init(params) if opt_state0 is None else opt_state0
+    _, params, opt_state = one_step(params, opt_state)  # the warm-up step
+    carry = _fresh_carry(cfg, g_r.shape[0], _np_dtype(g_r), g_r.device, params)
+    params, opt_state, carry, history, recorded = _batched_segment(
+        cfg, one_step, params, opt_state, carry, 0, cfg.maxsteps, poll_every=poll_every)
+    return _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i)
+
+
+def _np_dtype(t):
+    return {torch.float32: np.float32, torch.float64: np.float64}[t.dtype]
+
+
+# ---------------------------------------------------------------------- #
+# the step-0 loss guard
+# ---------------------------------------------------------------------- #
+def loss_guard_factor():
+    """Tolerance factor of the step-0 loss cross-check, or None when the
+    guard is off (``CALAMITY_LOSS_GUARD=off``); default 4
+    (``CALAMITY_LOSS_GUARD_FACTOR``). The two evaluations are at the same
+    parameters; the factor absorbs the bfloat16 basis quantization of the
+    device loss. Corrupted data moves the loss by orders of magnitude."""
+    if os.environ.get("CALAMITY_LOSS_GUARD", "on").lower() in ("off", "0", "false", "no"):
+        return None
+    return float(os.environ.get("CALAMITY_LOSS_GUARD_FACTOR", "4.0"))
+
+
+def loss_guard_floor():
+    """Absolute floor (rms-normalized chi-square units) below which the
+    guard never aborts (``CALAMITY_LOSS_GUARD_FLOOR``, default 1e-4): a
+    near-perfect warm start sits at rounding noise, where one warm-up step
+    legitimately raises the loss by orders of magnitude."""
+    return float(os.environ.get("CALAMITY_LOSS_GUARD_FLOOR", "1e-4"))
+
+
+def host_batched_losses(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts,
+                        prior_r=None, prior_i=None, regularization=None):
+    """numpy float64 mirror of :func:`batched_chunk_losses` (reference
+    parallel/batched.py:665-706): the guard's independent value, computed
+    from the host stacks without the device, the kernel or the plain torch
+    loss. ``host_chunks``: (comps, a0, a1) numpy triples. All arrays carry
+    the slice axis; returns (nbatch,) float64."""
+    g_r = np.asarray(g_r, dtype=np.float64)
+    g_i = np.asarray(g_i, dtype=np.float64)
+    nbatch = g_r.shape[0]
+    total = np.zeros((nbatch,), dtype=np.float64)
+    mr_sum = np.zeros((nbatch,), dtype=np.float64)
+    mi_sum = np.zeros((nbatch,), dtype=np.float64)
+    for cnum, (comps, a0, a1) in enumerate(host_chunks):
+        a0 = np.asarray(a0)
+        a1 = np.asarray(a1)
+        vr_all, vi_all = fg_model_host_batched(fg_r[cnum], fg_i[cnum], comps)
+        for b in range(nbatch):
+            vr, vi = vr_all[b], vi_all[b]
+            pr = g_r[b][a0] * g_r[b][a1] + g_i[b][a0] * g_i[b][a1]
+            pi = g_r[b][a0] * g_i[b][a1] - g_i[b][a0] * g_r[b][a1]
+            mr = pr * vr + pi * vi
+            mi = -pi * vr + pr * vi
+            dr = np.asarray(data_r[cnum][b], dtype=np.float64)
+            di = np.asarray(data_i[cnum][b], dtype=np.float64)
+            w = np.asarray(wgts[cnum][b], dtype=np.float64)
+            total[b] += np.sum(w * (np.square(dr - mr) + np.square(di - mi)))
+            if regularization == "sum":
+                mr_sum[b] += np.sum(mr * w)
+                mi_sum[b] += np.sum(mi * w)
+    if regularization == "sum":
+        total = total + (np.square(mr_sum - np.asarray(prior_r, dtype=np.float64))
+                         + np.square(mi_sum - np.asarray(prior_i, dtype=np.float64)))
+    return total
+
+
+def check_initial_loss(recorded0, expected0, factor, context=""):
+    """Raise when the first recorded per-slice loss exceeds ``factor`` x
+    the independently computed loss (and the absolute floor); warn when it
+    is below it by the same factor (reference parallel/batched.py:723-766).
+    Slices with a zero or non-finite expected loss, or a non-finite
+    recorded one (frozen slices record nothing), are skipped."""
+    recorded0 = np.asarray(recorded0, dtype=np.float64)
+    expected0 = np.asarray(expected0, dtype=np.float64)
+    valid = np.isfinite(expected0) & (expected0 > 0) & np.isfinite(recorded0)
+    if not valid.any():
+        return
+    ratio = np.where(valid, recorded0 / np.where(valid, expected0, 1.0), 1.0)
+    ratio = np.where(recorded0 > loss_guard_floor(), ratio, 1.0)
+    if (ratio > factor).any():
+        bad = int(np.argmax(ratio))
+        raise RuntimeError(
+            f"step-0 loss cross-check failed{context}: slice {bad} first recorded loss "
+            f"{recorded0[bad]:.6e} is {ratio[bad]:.1f}x the independently computed loss "
+            f"{expected0[bad]:.6e} (tolerance factor {factor:g}). A data or weight cube "
+            "on the device does not hold what the host packed; the descent would fit "
+            "corrupted data. Set CALAMITY_LOSS_GUARD=off to bypass, "
+            "CALAMITY_LOSS_GUARD_FACTOR to widen."
+        )
+    if (valid & (ratio < 1.0 / factor)).any():
+        bad = int(np.argmin(np.where(valid, ratio, 1.0)))
+        print(
+            f"calamity_tpu_torch: step-0 loss cross-check{context}: slice {bad} first "
+            f"recorded loss {recorded0[bad]:.6e} is {1.0 / max(ratio[bad], 1e-300):.1f}x "
+            f"below the expected {expected0[bad]:.6e}; plausible for a fast-converging "
+            "warm-up step, but verify the run's convergence.",
+            file=sys.stderr, flush=True,
+        )
+
+
+# ---------------------------------------------------------------------- #
+# segmented, checkpointed descent
+# ---------------------------------------------------------------------- #
+def _saved_tree(cfg, params, opt_state, carry):
+    """The checkpoint's tree: its structure depends on use_min only (the
+    patience state is rebuilt from the stored history on resume)."""
+    return {
+        "params": params,
+        "opt_state": opt_state,
+        "best_params": carry.best_params if cfg.use_min else (),
+        "prev": carry.prev,
+        "frozen": carry.frozen,
+        "nsteps_slice": carry.nsteps_slice,
+        "best_loss": carry.best_loss if cfg.use_min else (),
+    }
+
+
+def _clone_tree(tree):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
+                             prior_r, prior_i, checkpoint_dir, checkpoint_every, resume,
+                             verbose, opt_state0=None, steps_per_execution=None,
+                             expected_loss_fn=None, tail_save=True, poll_every=1):
+    """Segmented batched descent with the carried state persisted under
+    ``checkpoint_dir`` every ``checkpoint_every`` steps (reference
+    parallel/batched.py:1087-1450, without the segment plans).
+
+    Same trajectory as :func:`batched_fit_core` however it is cut: the
+    warm-up step runs inside the first segment, and
+    ``steps_per_execution`` bounds the steps of one segment call without
+    changing the save cadence. A resumed run restores params, optimizer
+    state and the per-slice bookkeeping from the latest checkpoint and
+    reproduces the uninterrupted trajectory bit for bit. A checkpoint saved
+    with the other ``use_min`` setting is adapted; patience state is
+    rebuilt from the stored history; ``tail_save`` persists a partial final
+    segment. ``checkpoint_dir=None`` runs the same segmented descent
+    without persistence.
+
+    ``expected_loss_fn(params) -> (nbatch,)``: the step-0 guard's
+    independent loss (e.g. :func:`host_batched_losses` on the host
+    stacks), taken at the parameters the first recorded step of this run
+    evaluates: after the warm-up step of a fresh run, at the restored
+    parameters of a resumed one. The first recorded loss is checked
+    against it (:func:`check_initial_loss`).
+
+    Unlike the reference, ``use_min`` tracking starts from the entry
+    parameters: a slice that never records a finite loss, or a fit with
+    maxsteps=0, returns its entry parameters, not zeros."""
+    from ..solver.checkpoint import latest_checkpoint, load_state, save_state
+
+    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+    dtype = _np_dtype(g_r)
+    nbatch = g_r.shape[0]
+    big = float(_big(np.dtype(dtype)))
+    params = init_params(cfg, g_r, g_i, fg_r, fg_i)
+    opt_state = opt.init(params) if opt_state0 is None else opt_state0
+    carry = _fresh_carry(cfg, nbatch, dtype, g_r.device, _clone_tree(params))
+    _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r,
+                                   prior_i)
+    ckpt_path = latest_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
+    resuming = bool(resume) and ckpt_path is not None
+    history_all = np.zeros((0, nbatch), dtype=np.float32)
+    step_total = 0
+    warmup_pending = not resuming
+    if resuming:
+        echo(f"{datetime.datetime.now()} Resuming batched fit from {ckpt_path}",
+             verbose=verbose)
+        like = _saved_tree(cfg, params, opt_state, carry)
+        stored_use_min = cfg.use_min
+        try:
+            tree, scal = load_state(ckpt_path, like, ("step", "history"))
+        except ValueError as direct_err:
+            # saved with the other use_min setting: retry with its structure
+            # and adapt below; a checkpoint matching neither raises the
+            # direct attempt's error
+            stored_use_min = not cfg.use_min
+            full = torch.full((nbatch,), big, dtype=carry.prev.dtype, device=g_r.device)
+            like = dict(like, best_params=params if stored_use_min else (),
+                        best_loss=full if stored_use_min else ())
+            try:
+                tree, scal = load_state(ckpt_path, like, ("step", "history"))
+            except ValueError as flip_err:
+                raise direct_err from flip_err
+        params, opt_state = tree["params"], tree["opt_state"]
+        frozen = tree["frozen"]
+        # the not-frozen sentinel is the saving run's maxsteps: re-sentinel
+        # unfrozen slices for this run's budget
+        nsteps_slice = torch.where(frozen, tree["nsteps_slice"], cfg.maxsteps)
+        best_params = carry.best_params
+        best_loss = carry.best_loss
+        if cfg.use_min:
+            # saved without argmin tracking: restart it at the resume point
+            best_params = tree["best_params"] if stored_use_min else _clone_tree(params)
+            if stored_use_min:
+                best_loss = tree["best_loss"]
+        history_all = np.asarray(scal["history"], dtype=np.float32).reshape(-1, nbatch)
+        step_total = int(scal["step"])
+        since = carry.since_best
+        if cfg.patience > 0 and history_all.shape[0]:
+            # a slice's last strict improvement is the first occurrence of
+            # its column minimum; unfrozen slices record every step
+            h = np.where(np.isfinite(history_all), history_all, np.inf)
+            first_min = np.argmin(h, axis=0)
+            col_min = h[first_min, np.arange(nbatch)]
+            improved = np.isfinite(col_min)
+            since = torch.as_tensor(np.where(improved, h.shape[0] - 1 - first_min, 0),
+                                    dtype=torch.int64, device=g_r.device)
+            if not cfg.use_min:
+                best_loss = torch.as_tensor(np.where(improved, col_min, big),
+                                            dtype=carry.prev.dtype, device=g_r.device)
+        carry = _Carry(tree["prev"], frozen, nsteps_slice, best_loss, best_params, since)
+
+    guard = None
+    factor = loss_guard_factor()
+    if expected_loss_fn is not None and factor is not None and cfg.maxsteps > 0:
+        if warmup_pending:
+            # the warm-up step alone first (the trajectory does not depend
+            # on how the steps are cut), so the independent value is taken
+            # at the parameters the first recorded step evaluates
+            params, opt_state, carry, _, _ = _batched_segment(
+                cfg, one_step, params, opt_state, carry, 0, 0, warmup=1)
+            warmup_pending = False
+        guard = np.asarray(expected_loss_fn(params), dtype=np.float64)
+
+    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
+    cap = seg if steps_per_execution is None else max(1, min(int(steps_per_execution), seg))
+    since_save = 0
+
+    def save(step_total):
+        save_state(os.path.join(checkpoint_dir, f"step_{step_total}"),
+                   _saved_tree(cfg, params, opt_state, carry),
+                   {"step": step_total, "history": history_all})
+        echo(f"{datetime.datetime.now()} checkpointed batched fit at step {step_total} "
+             f"({int(carry.frozen.sum())}/{nbatch} slices frozen)", verbose=verbose)
+
+    while step_total < cfg.maxsteps and not bool(carry.frozen.all()):
+        seg_len = min(cap, seg - since_save, cfg.maxsteps - step_total)
+        if warmup_pending and steps_per_execution is not None:
+            # the warm-up is a real step: keep the per-call bound honest
+            seg_len = max(0, seg_len - 1)
+        params, opt_state, carry, hist, nseg = _batched_segment(
+            cfg, one_step, params, opt_state, carry, step_total, seg_len,
+            warmup=1 if warmup_pending else 0, poll_every=poll_every)
+        was_warmup, warmup_pending = warmup_pending, False
+        if nseg == 0:
+            if was_warmup:
+                continue  # a warm-up-only first call (steps_per_execution == 1)
+            break
+        history_all = np.concatenate([history_all, hist])
+        if guard is not None:
+            # the first recorded loss of this run (fresh or resumed) against
+            # the independently computed one
+            check_initial_loss(history_all[step_total], guard, factor,
+                               context=" (resumed)" if resuming else "")
+            guard = None
+        step_total += nseg
+        since_save += nseg
+        if since_save >= seg:
+            will_continue = step_total < cfg.maxsteps and not bool(carry.frozen.all())
+            if checkpoint_dir is not None and (tail_save or will_continue):
+                save(step_total)
+            since_save = 0
+    if checkpoint_dir is not None and since_save > 0 and tail_save:
+        save(step_total)  # a partial tail: resume re-enters at the true end state
+    return _result(cfg, params, carry, history_all, step_total, opt_state, fg_r, fg_i)

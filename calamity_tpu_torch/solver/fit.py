@@ -1,11 +1,12 @@
 """The descent loop: Adamax on the chunked chi-square, one (time, pol) slice.
 
-Port of calamity_tpu/solver/fit.py:37-207 and :330-572, with the same
-semantics: an unrecorded warm-up step, a per-step loss history, the
-|delta loss| < tol stop (with the ``big`` sentinel so the first recorded
-step cannot trigger it), optional patience gated on a finite loss, a stop
-on a non-finite loss, ``use_min`` argmin tracking, ``freeze_model`` and the
-"sum" prior, and the float32 / bfloat16 / mixed basis-precision schedules.
+Port of calamity_tpu/solver/fit.py:37-572, with the same semantics: an
+unrecorded warm-up step, a per-step loss history, the |delta loss| < tol
+stop (with the ``big`` sentinel so the first recorded step cannot trigger
+it), optional patience gated on a finite loss, a stop on a non-finite
+loss, ``use_min`` argmin tracking, ``freeze_model`` and the "sum" prior,
+the float32 / bfloat16 / mixed basis-precision schedules, and the
+segmented descent checkpointed under ``checkpoint_dir`` (``solver.checkpoint``).
 
 PyTorch runs eagerly, so the loop is a Python loop. The stop conditions
 are checked on the host after every step, which costs one device-to-host
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import datetime
 import math
+import os
 import time
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -44,6 +46,9 @@ class FitConfig(NamedTuple):
     # stop when the loss has not reached a new minimum for this many
     # recorded steps; 0 disables
     patience: int = 0
+    # time-parallel paths: evaluate each chunk's loss over blocks of this
+    # many groups (None: whole chunks)
+    loss_block: Optional[int] = None
 
 
 def _big(np_dtype):
@@ -158,6 +163,66 @@ def _np_dtype(t):
     return {torch.float32: np.float32, torch.float64: np.float64}[t.dtype]
 
 
+def _fit_checkpointed(cfg, loss_fn, params, opt, checkpoint_dir, checkpoint_every, resume,
+                      verbose):
+    """Segmented descent with a checkpoint after every segment of
+    ``checkpoint_every`` steps (reference solver/fit.py:210-327). Same
+    trajectory as :func:`_fit_core`; a resumed run continues from the
+    latest checkpoint under ``checkpoint_dir``. Returns (params, opt_state,
+    prev, best_loss, best_params, history, nsteps)."""
+    from .checkpoint import FitCheckpoint, latest_checkpoint, load_checkpoint, save_checkpoint
+
+    dt = np.dtype(_np_dtype(params["g_r"]))
+    big = _big(dt)
+    opt_state = opt.init(params)
+    prev, best_loss, best_params = big, big, params
+    history_all = np.zeros((0,), dtype=np.float64)
+    step_total = 0
+    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
+    ckpt_path = latest_checkpoint(checkpoint_dir)
+    if resume and ckpt_path is not None:
+        echo(f"{datetime.datetime.now()} Resuming from {ckpt_path}", verbose=verbose)
+        like = FitCheckpoint(params, opt_state, 0, float(big), float(big), best_params,
+                             history_all)
+        ck = load_checkpoint(ckpt_path, like)
+        params, opt_state, best_params = ck.params, ck.opt_state, ck.best_params
+        prev, best_loss = dt.type(ck.prev_loss), dt.type(ck.best_loss)
+        history_all = ck.history
+        step_total = ck.step
+        # steps since the best loss, from the stored history (the first
+        # occurrence of its minimum), so patience resumes exactly
+        since = (len(history_all) - 1 - int(np.argmin(history_all))
+                 if len(history_all) else 0)
+    else:
+        # the unrecorded warm-up step (reference calibration.py:693)
+        params, opt_state, *_ = _fit_segment(cfg, 1, loss_fn, opt, params, opt_state, big, big,
+                                             params)
+        best_params = params
+        since = 0
+
+    converged = False
+    while step_total < cfg.maxsteps and not converged:
+        seg_len = min(seg, cfg.maxsteps - step_total)
+        (params, opt_state, prev, best_loss, best_params, hist, nseg, converged,
+         since) = _fit_segment(cfg, seg_len, loss_fn, opt, params, opt_state, prev, best_loss,
+                               best_params, since)
+        if nseg == 0:
+            # the stop condition held on entry (a resume past patience), or
+            # the loss is non-finite: nothing to record or to save again
+            break
+        history_all = np.concatenate([history_all, np.asarray(hist, dtype=np.float64)])
+        step_total += nseg
+        save_checkpoint(
+            os.path.join(checkpoint_dir, f"step_{step_total}"),
+            FitCheckpoint(params, opt_state, step_total, float(prev), float(best_loss),
+                          best_params, history_all),
+        )
+        echo(f"{datetime.datetime.now()} checkpointed at step {step_total} "
+             f"(loss {float(prev):.3e})", verbose=verbose)
+    return (params, opt_state, prev, best_loss, best_params, history_all.tolist(),
+            step_total)
+
+
 def fit_gains_and_foregrounds(
     g_r,
     g_i,
@@ -200,12 +265,7 @@ def fit_gains_and_foregrounds(
     then float32 with the Adamax state carried across). ``use_pallas`` is
     accepted for signature parity and ignored: on CUDA the fused kernel
     runs wherever its gate accepts a chunk."""
-    del use_pallas, profile_log_dir, checkpoint_every, resume
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed fits (checkpoint_dir) are not ported yet "
-            "(ROADMAP queue A item 6)"
-        )
+    del use_pallas, profile_log_dir
     if n_profile_steps > 0:
         raise NotImplementedError(
             "n_profile_steps (profiler traces of the fit) is not ported yet "
@@ -251,35 +311,72 @@ def fit_gains_and_foregrounds(
         verbose=verbose,
     )
     params = init_params(cfg, g_r, g_i, fg_r, fg_i)
-    opt_state = opt.init(params)
     histories, seconds = [], []
-    for pnum, chs in enumerate(phases):
-        loss_fn = make_loss_fn(cfg, chs, data_r, data_i, wgts, fg_r, fg_i, prior_r_sum,
-                               prior_i_sum)
+
+    def loss_of(chs):
+        return make_loss_fn(cfg, chs, data_r, data_i, wgts, fg_r, fg_i, prior_r_sum,
+                            prior_i_sum)
+
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        if pnum == 0:
-            params, opt_state, prev, best_loss, best_params, hist, n = _fit_core(
-                cfg, loss_fn, params, opt, opt_state
-            )
-        else:
-            # float32 polish of the mixed schedule: Adamax state carried over
-            # from the bf16 phase, no second warm-up step
-            big = _big(np.dtype(_np_dtype(g_r)))
-            params, opt_state, prev, best_loss, best_params, hist, n, _, _ = _fit_segment(
-                cfg, cfg.maxsteps, loss_fn, opt, params, opt_state, big, big, params
-            )
+        out = fn(*args)
         if params["g_r"].is_cuda:
             torch.cuda.synchronize(params["g_r"].device)
         seconds.append(time.perf_counter() - t0)
-        histories.append(hist)
-        if pnum == 0 and len(phases) > 1:
-            echo(
-                f"{datetime.datetime.now()} bf16 phase converged after {n} "
-                f"steps; polishing in float32...",
-                verbose=verbose,
-            )
-    out_params = best_params if cfg.use_min else params
-    final_loss = best_loss if cfg.use_min else prev
+        return out
+
+    if checkpoint_dir is not None:
+        from .checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
+
+        def run_checkpointed(chs, p, ckdir):
+            p, _, prev, best_loss, best_params, hist, _ = _fit_checkpointed(
+                cfg, loss_of(chs), p, opt, ckdir, checkpoint_every, resume, verbose)
+            return (best_params, best_loss, hist) if cfg.use_min else (p, prev, hist)
+
+        if comps_precision == "mixed":
+            # each phase is its own checkpointed descent (fresh optimizer
+            # state and warm-up step, as the reference's checkpointed mixed
+            # schedule), in phase subdirectories
+            ck1 = os.path.join(checkpoint_dir, "phase_bf16")
+            ck2 = os.path.join(checkpoint_dir, "phase_f32")
+            if resume and latest_checkpoint(ck2) is not None:
+                # phase 2 under way: restore phase 1's recorded diagnostics
+                meta = load_phase_meta(checkpoint_dir)
+                hist1 = [] if meta is None else meta["history"].tolist()
+                p1 = params
+                seconds.append(0.0)
+            else:
+                p1, _, hist1 = timed(run_checkpointed, phases[0], params, ck1)
+                save_phase_meta(checkpoint_dir, nsteps=len(hist1),
+                                history=np.asarray(hist1, dtype=np.float64))
+            out_params, final_loss, hist2 = timed(run_checkpointed, phases[1], p1, ck2)
+            histories = [hist1, hist2]
+        else:
+            out_params, final_loss, hist = timed(run_checkpointed, phases[0], params,
+                                                 checkpoint_dir)
+            histories = [hist]
+    else:
+        opt_state = opt.init(params)
+        for pnum, chs in enumerate(phases):
+            if pnum == 0:
+                params, opt_state, prev, best_loss, best_params, hist, n = timed(
+                    _fit_core, cfg, loss_of(chs), params, opt, opt_state)
+            else:
+                # float32 polish of the mixed schedule: Adamax state carried
+                # over from the bf16 phase, no second warm-up step
+                big = _big(np.dtype(_np_dtype(g_r)))
+                params, opt_state, prev, best_loss, best_params, hist, n, _, _ = timed(
+                    _fit_segment, cfg, cfg.maxsteps, loss_of(chs), opt, params, opt_state,
+                    big, big, params)
+            histories.append(hist)
+            if pnum == 0 and len(phases) > 1:
+                echo(
+                    f"{datetime.datetime.now()} bf16 phase converged after {n} "
+                    f"steps; polishing in float32...",
+                    verbose=verbose,
+                )
+        out_params = best_params if cfg.use_min else params
+        final_loss = best_loss if cfg.use_min else prev
     g_r_o, g_i_o, fg_r_o, fg_i_o = _outputs(cfg, out_params, fg_r, fg_i)
     history = [x for h in histories for x in h]
     fit_history = {"loss": history, "phase_seconds": seconds}

@@ -26,6 +26,8 @@ def tree_map(fn, *trees):
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_map(fn, *xs) for xs in zip(*trees)))
     if isinstance(first, (list, tuple)):
         return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)

@@ -1,7 +1,7 @@
 """Packing between VisData/CalData containers and dense padded tensors.
 
-Port of calamity_tpu/solver/tensorize.py:34-811. The numpy packing is the
-reference's, line for line; only the uploads differ: where the reference
+Port of calamity_tpu/solver/tensorize.py:34-811. The numpy packing gives
+the reference's arrays bit for bit; only the uploads differ: where the reference
 calls ``jnp.asarray`` this module calls ``torch.as_tensor(..., device=...)``
 on the device the ``FitSpec`` was built for. Layout:
 
@@ -420,17 +420,54 @@ class FitSpec:
         data_scale_factor=1.0,
         weights=None,
         nsamples_in_weights=False,
+        as_numpy=False,
     ):
         """Extract chunked (data_r, data_i, wgts) for one (time, pol), as
         tensors on the spec's device.
 
         Semantics parity with reference tensorize_data (calibration.py:
         193-310): conjugation via row orientation, weights =
-        UVFlag.weights x ~flags (x nsamples), normalized to unit total."""
+        UVFlag.weights x ~flags (x nsamples), normalized to unit total; the
+        extraction is :meth:`pack_data_into`'s, into a one-slice stack.
+        ``as_numpy=True`` returns the host numpy arrays without uploading."""
+        stacks = [[np.zeros((1,) + m.conj.shape + (self.nfreqs,), dtype=self.dtype)
+                   for m in self.meta] for _ in range(3)]
+        self.pack_data_into(visdata, polarization, time, *stacks, 0,
+                            data_scale_factor=data_scale_factor, weights=weights,
+                            nsamples_in_weights=nsamples_in_weights)
+        data_r, data_i, wgts = ([x[0] for x in stack] for stack in stacks)
+        if as_numpy:
+            return data_r, data_i, wgts
+        return tuple([self._upload(x) for x in xs] for xs in (data_r, data_i, wgts))
+
+    def pack_data_into(
+        self,
+        visdata,
+        polarization,
+        time,
+        out_r,
+        out_i,
+        out_w,
+        slot,
+        data_scale_factor=1.0,
+        weights=None,
+        nsamples_in_weights=False,
+    ):
+        """Write one (time, pol) slice directly into caller-preallocated
+        per-chunk host stacks ``out_r/out_i/out_w[cnum]`` of shape
+        ``(nbatch, ngrps_pad, nbls, nfreqs)``, at ``[slot]``
+        (reference solver/tensorize.py:570-711), bit-equal to the
+        reference's ``pack_data``, with no per-slice copies beyond the row
+        gathers. Rows past a chunk's real group count
+        and other slots are left untouched (callers preallocate zeros).
+        ``out_w=None`` skips the weights (sky-model packs)."""
         tind = self.time_index(time)
         polnum = polstr2num(polarization, x_orientation=visdata.x_orientation)
         pind = int(np.nonzero(visdata.polarization_array == polnum)[0][0])
         pind_c = conj_pol_ind(visdata.polarization_array, polnum)
+        # a Python-float scale and a complex division keep the rounding
+        # identical to pack_data
+        scale = float(data_scale_factor)
 
         wpind = wpind_c = None
         wrows_chunks = None
@@ -451,70 +488,69 @@ class FitSpec:
             wpind_c = conj_pol_ind(weights.polarization_array, wpolnum)
             wrows_chunks = self._weights_rows(weights)
 
-        data_r, data_i, wgts = [], [], []
         wgtsum = 0.0
+        w_views = []
         for cnum, meta in enumerate(self.meta):
             rows = meta.rows[tind]  # (ngrps, nbls)
+            ngrps = rows.shape[0]
             cj = meta.conj[..., None]
-            if pind_c == pind or not meta.conj.any():
-                vals = visdata.data_array[rows, 0, :, pind]
-                flg = visdata.flag_array[rows, 0, :, pind]
-                nsmp = visdata.nsample_array[rows, 0, :, pind]
-            else:
+            mixed = not (pind_c == pind or not meta.conj.any())
+            if mixed and pind_c < 0:
+                raise KeyError(
+                    f"conjugate polarization of {polarization} not present "
+                    "(needed to read conjugated cross-hand baselines)"
+                )
+
+            def take(arr):
                 # conjugated rows of a cross-hand pol live in the conjugate
                 # pol column (xy stored as yx)
-                if pind_c < 0:
-                    raise KeyError(
-                        f"conjugate polarization of {polarization} not present "
-                        "(needed to read conjugated cross-hand baselines)"
-                    )
-                vals = np.where(
-                    cj,
-                    visdata.data_array[rows, 0, :, pind_c],
-                    visdata.data_array[rows, 0, :, pind],
-                )
-                flg = np.where(
-                    cj,
-                    visdata.flag_array[rows, 0, :, pind_c],
-                    visdata.flag_array[rows, 0, :, pind],
-                )
-                nsmp = np.where(
-                    cj,
-                    visdata.nsample_array[rows, 0, :, pind_c],
-                    visdata.nsample_array[rows, 0, :, pind],
-                )
-            vals = vals / data_scale_factor
-            dr = vals.real.astype(self.dtype)
-            di = np.where(cj, -vals.imag, vals.imag).astype(self.dtype)
+                if not mixed:
+                    return arr[rows, 0, :, pind]
+                return np.where(cj, arr[rows, 0, :, pind_c], arr[rows, 0, :, pind])
+
+            vals = take(visdata.data_array)
+            flg = take(visdata.flag_array)
+            nsmp = take(visdata.nsample_array) if nsamples_in_weights else None
+            vr = out_r[cnum][slot, :ngrps]
+            vi = out_i[cnum][slot, :ngrps]
+            vals = vals / scale  # complex divide, as pack_data does
+            np.copyto(vr, vals.real, casting="unsafe")
+            np.copyto(vi, vals.imag, casting="unsafe")
+            # conjugated rows negate the imaginary part, in place
+            np.negative(vi, out=vi, where=np.broadcast_to(cj, vi.shape))
+            if out_w is None:
+                continue
+            w = out_w[cnum][slot, :ngrps]
             if weights is None:
-                w = (~flg).astype(self.dtype)
+                np.copyto(w, ~flg, casting="unsafe")
             else:
-                wrows = wrows_chunks[cnum][tind]  # (ngrps, nbls)
+                wrows = wrows_chunks[cnum][tind]
                 if wpind_c == wpind or not meta.conj.any():
-                    w = weights.weights_array[wrows, 0, :, wpind]
+                    np.copyto(w, weights.weights_array[wrows, 0, :, wpind], casting="unsafe")
                 else:
                     if wpind_c < 0:
                         raise KeyError(
                             f"conjugate polarization of {polarization} not "
                             "present in weights"
                         )
-                    w = np.where(
-                        cj,
-                        weights.weights_array[wrows, 0, :, wpind_c],
-                        weights.weights_array[wrows, 0, :, wpind],
+                    np.copyto(
+                        w,
+                        np.where(
+                            cj,
+                            weights.weights_array[wrows, 0, :, wpind_c],
+                            weights.weights_array[wrows, 0, :, wpind],
+                        ),
+                        casting="unsafe",
                     )
-                w = w.astype(self.dtype) * (~flg)
+                w *= ~flg
             if nsamples_in_weights:
-                w = w * nsmp
-            w = w * meta.valid[..., None]  # zero-weight padding entries
+                w *= nsmp
+            w *= meta.valid[..., None]  # zero-weight padding entries
+            # float32 pairwise sum, matching pack_data's normalization
             wgtsum += float(np.sum(w))
-            data_r.append(dr)
-            data_i.append(di)
-            wgts.append(w.astype(self.dtype))
-        wgts = [self._upload(w / wgtsum) for w in wgts]
-        data_r = [self._upload(d) for d in data_r]
-        data_i = [self._upload(d) for d in data_i]
-        return data_r, data_i, wgts
+            w_views.append(w)
+        for w in w_views:
+            np.divide(w, wgtsum, out=w)
 
     def pack_gains(self, caldata, polarization, time):
         """(Nants, Nfreqs) real/imag gain tensors for one (time, pol)

@@ -1,17 +1,22 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py
+    python3 scripts/profile_step_torch.py [--nbatch N]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
-groups, 1536 channels), packs the first time slice on the card, and for the
-bf16-comps and float32 phases of the mixed schedule times 50 descent steps
-(after 20 warm-up steps) under ``torch.profiler``: device time per step by
-kernel, kernels per step, and the device's idle share against the host
-clock. It then times the same 50 steps without the profiler.
+groups, 1536 channels) and packs it on the card: with ``--nbatch 1`` (the
+default) the first time slice for the serial descent, with ``--nbatch N``
+N (time, pol) slices (N / 2 times x 2 polarizations for even N) for the
+batched time-parallel descent, stepped as the driver steps it (blocks of
+``calibration.POLL_EVERY`` steps between host polls). For the bf16-comps
+and float32 phases of the mixed schedule it times 48 descent steps (after
+16 warm-up steps) under ``torch.profiler``: device time per step by kernel,
+kernels per step, and the device's idle share against the host clock. It
+then times the same steps without the profiler.
 """
 
+import argparse
 import os
 import sys
 import tempfile
@@ -26,68 +31,125 @@ sys.path.insert(0, REPO)
 import calamity_tpu_torch  # noqa: E402,F401  (first: registers the HDF5 fallback)
 import chip_smoke  # noqa: E402
 from calamity_tpu import cal_utils  # noqa: E402
+from calamity_tpu_torch.calibration import POLL_EVERY  # noqa: E402
+from calamity_tpu_torch.ops.lstsq import blocked_init_from_data, gram_cholesky_chunk  # noqa: E402
+from calamity_tpu_torch.parallel import batched  # noqa: E402
 from calamity_tpu_torch.solver import fit as fitmod  # noqa: E402
 from calamity_tpu_torch.solver.optimizers import get_optimizer  # noqa: E402
 from calamity_tpu_torch.solver.tensorize import FitSpec  # noqa: E402
 
-NSTEPS = 50
-NWARMUP = 20
+NSTEPS = 48
+NWARMUP = 16
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
-    with tempfile.TemporaryDirectory() as tmp:
-        uvd, comps = chip_smoke.make_corrupted_file(os.path.join(tmp, "main.uvh5"))
-    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
-    spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
-                   device="cuda")
+def serial_stepper(chs, spec, uvd, gains):
+    """One serial descent step (the first time slice) per call."""
     t0 = spec.times[0]
     rows = np.isclose(uvd.time_array, t0, rtol=0.0, atol=1e-7)
     rms = np.sqrt(np.mean(np.abs(uvd.data_array[rows, 0, :, 0]) ** 2))
     dr, di, w = spec.pack_data(uvd, "xx", t0, data_scale_factor=rms)
     g_r, g_i = spec.pack_gains(gains, "xx", t0)
     fr, fi = tuple(spec.init_coeffs(dr, w)), tuple(spec.init_coeffs(di, w))
+    cfg = fitmod.FitConfig(tol=0.0)
+    loss_fn = fitmod.make_loss_fn(cfg, chs, dr, di, w, fr, fi, None, None)
+    opt = get_optimizer("Adamax", learning_rate=1e-2)
+    state = {"params": fitmod.init_params(cfg, g_r, g_i, fr, fi)}
+    state["opt"] = opt.init(state["params"])
+
+    def step():
+        loss, grads = fitmod.value_and_grad(loss_fn, state["params"])
+        state["params"], state["opt"] = opt.update(grads, state["opt"], state["params"])
+        loss.item()  # the descent's per-step host read
+
+    return step, 1
+
+
+def batched_stepper(chs, spec, uvd, gains):
+    """POLL_EVERY batched descent steps over every slice of ``uvd`` per
+    call, through the driver's segment loop (one host poll per call)."""
+    slices = [(pol, t) for pol in uvd.get_pols() for t in spec.times]
+    nb = len(slices)
+    stacks = [[np.zeros((nb,) + m.conj.shape + (spec.nfreqs,), dtype=np.float32)
+               for m in spec.meta] for _ in range(3)]
+    g_r, g_i = [], []
+    for b, (pol, t) in enumerate(slices):
+        spec.pack_data_into(uvd, pol, t, *stacks, b,
+                            data_scale_factor=np.sqrt(np.mean(np.abs(uvd.data_array) ** 2)))
+        gr, gi = spec.pack_gains(gains, pol, t)
+        g_r.append(gr)
+        g_i.append(gi)
+    dev = torch.device("cuda")
+    dr, di, w = ([torch.as_tensor(x, device=dev) for x in s] for s in stacks)
+    w = [x[..., :1].contiguous() for x in w]  # unflagged: one weights plane per slice
+    fr, fi = [], []
+    for (comps, _, _), c_full, d_r, d_i, ww in zip(chs, spec.device_chunks(), dr, di, w):
+        chol, active = gram_cholesky_chunk(c_full[0])
+        cr, ci, *_ = blocked_init_from_data(chol, active, c_full[0], d_r, d_i, ww, d_r.shape[1])
+        fr.append(cr)
+        fi.append(ci)
+    cfg = fitmod.FitConfig(tol=0.0, maxsteps=10 ** 9, opt_kwargs=(("learning_rate", 1e-2),))
+    opt, one_step = batched._batched_step_fn(cfg, chs, dr, di, w, fr, fi, None, None)
+    params = fitmod.init_params(cfg, torch.stack(g_r), torch.stack(g_i), fr, fi)
+    state = {"params": params, "opt": opt.init(params), "step": 0,
+             "carry": batched._fresh_carry(cfg, nb, np.float32, dev, None)}
+
+    def step():
+        (state["params"], state["opt"], state["carry"], _, n) = batched._batched_segment(
+            cfg, one_step, state["params"], state["opt"], state["carry"], state["step"],
+            POLL_EVERY, poll_every=POLL_EVERY)
+        state["step"] += n
+
+    return step, POLL_EVERY
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nbatch", type=int, default=1,
+                    help="slices per step: 1 profiles the serial step, N > 1 the batched one")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    npols = 2 if args.nbatch % 2 == 0 else 1
+    ntimes = max(1, args.nbatch // npols)
+    with tempfile.TemporaryDirectory() as tmp:
+        uvd, comps = chip_smoke.make_corrupted_file(os.path.join(tmp, "main.uvh5"), ntimes,
+                                                    npols)
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda")
     chunks = spec.device_chunks()
-    print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}")
+    print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
+    make = serial_stepper if args.nbatch == 1 else batched_stepper
     for name, chs in phases:
-        cfg = fitmod.FitConfig(tol=0.0)
-        loss_fn = fitmod.make_loss_fn(cfg, chs, dr, di, w, fr, fi, None, None)
-        opt = get_optimizer("Adamax", learning_rate=1e-2)
-        state = {"params": fitmod.init_params(cfg, g_r, g_i, fr, fi)}
-        state["opt"] = opt.init(state["params"])
-
-        def step():
-            loss, grads = fitmod.value_and_grad(loss_fn, state["params"])
-            state["params"], state["opt"] = opt.update(grads, state["opt"], state["params"])
-            loss.item()  # the descent's per-step host read
-
-        for _ in range(NWARMUP):
+        step, per_call = make(chs, spec, uvd, gains)
+        for _ in range(max(1, NWARMUP // per_call)):
             step()
+        calls = max(1, NSTEPS // per_call)
+        nsteps = calls * per_call
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             start = time.perf_counter()
-            for _ in range(NSTEPS):
+            for _ in range(calls):
                 step()
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - start) / NSTEPS
+            wall_ms = 1e3 * (time.perf_counter() - start) / nsteps
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / NSTEPS
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / nsteps
         print(f"== {name} step: host clock {wall_ms:.3f} ms/step under the profiler; "
-              f"device {dev_ms:.3f} ms/step in {sum(e.count for e in kernels) / NSTEPS:.0f} "
+              f"device {dev_ms:.3f} ms/step in {sum(e.count for e in kernels) / nsteps:.0f} "
               f"kernels; idle share {1 - dev_ms / wall_ms:.3f}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"  {e.self_device_time_total / 1e3 / NSTEPS:8.4f} ms/step "
-                  f"x{e.count / NSTEPS:<5.1f} {e.key[:90]}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+            print(f"  {e.self_device_time_total / 1e3 / nsteps:8.4f} ms/step "
+                  f"x{e.count / nsteps:<5.1f} {e.key[:90]}")
         torch.cuda.synchronize()
         start = time.perf_counter()
-        for _ in range(NSTEPS):
+        for _ in range(calls):
             step()
         torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - start) / NSTEPS
+        plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
         print(f"  host clock without the profiler {plain_ms:.3f} ms/step; idle share "
               f"{1 - dev_ms / plain_ms:.3f}")
     print(chip_smoke.nvidia_smi_line())

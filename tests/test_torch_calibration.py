@@ -122,7 +122,8 @@ def test_slice_configuration_on_golden_golomb():
 def test_import_never_loads_jax():
     code = (
         "import sys; import calamity_tpu_torch, calamity_tpu_torch.calibration, "
-        "calamity_tpu_torch.cli, calamity_tpu_torch.convert, calamity_tpu_torch.ops._build; "
+        "calamity_tpu_torch.cli, calamity_tpu_torch.convert, calamity_tpu_torch.ops._build, "
+        "calamity_tpu_torch.parallel, calamity_tpu_torch.solver.checkpoint; "
         "bad = sorted(m for m in ('jax', 'jaxlib', 'optax') if m in sys.modules); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -133,12 +134,13 @@ def test_import_never_loads_jax():
 
 
 @pytest.mark.parametrize("kwargs, exc, match", [
-    (dict(time_parallel=True), NotImplementedError, "items 11-12"),
+    (dict(time_parallel=True, init_guesses_from_previous_time_step=True),
+     NotImplementedError, "items 11-12"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
-    (dict(steps_per_execution=10), NotImplementedError, "item 11"),
-    (dict(checkpoint_dir="ckpt"), NotImplementedError, "item 6"),
+    (dict(steps_per_execution=10), ValueError, "time_parallel paths only"),
+    (dict(time_parallel=True, mesh=object()), NotImplementedError, "item 13"),
     (dict(n_profile_steps=2), NotImplementedError, "item 6"),
-    (dict(wgts_precision="bfloat16"), ValueError, "float32 weights"),
+    (dict(wgts_precision="float16"), ValueError, "wgts_precision"),
     (dict(loss_block_ngrps=8), ValueError, "time_parallel"),
 ])
 def test_not_ported_options_raise(golomb_visdata, kwargs, exc, match):

@@ -139,6 +139,17 @@ def test_patience_on_zero_plateau(patience):
     _compare(jres, tres, 1e-12)
 
 
+def test_bfloat16_weights(golden_problem):
+    """bfloat16 weight cubes, which the port's kernel widens on load (the
+    JAX package accepts them on this path)."""
+    p = dict(golden_problem["float32"])
+    p["wgts"] = [jnp.asarray(w).astype(jnp.bfloat16) for w in p["wgts"]]
+    jres, tres = _run_both(p, maxsteps=25, tol=0.0, learning_rate=1e-2,
+                           comps_precision="float32", model_regularization="post_hoc")
+    assert len(tres[4]["loss"]) == 25
+    _compare(jres, tres, 1e-4)
+
+
 def test_non_finite_loss_stops(golden_problem):
     p = dict(golden_problem["float32"])
     w = np.array(p["wgts"][0])
@@ -155,8 +166,6 @@ def test_not_ported_options_raise(golden_problem):
             [to_tensor(x, "cpu") for x in p["fg_r"]], [to_tensor(x, "cpu") for x in p["fg_i"]],
             [to_tensor(x, "cpu") for x in p["data_r"]], [to_tensor(x, "cpu") for x in p["data_i"]],
             [to_tensor(x, "cpu") for x in p["wgts"]], chunks_from_jax(p["chunks"], "cpu")]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        torch_fit(*args, checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
         torch_fit(*args, n_profile_steps=3)
     with pytest.raises(ValueError, match="comps_precision"):

@@ -125,7 +125,8 @@ def test_hopper_gate():
     assert "comps dtype" in _gate(c.double())
     assert "coefficient dtype" in _gate(c, coeffs_dtype=torch.float64)
     assert "data dtype" in _gate(c, data_dtype=torch.float64)
-    assert "weights dtype" in _gate(c, wgts_dtype=torch.bfloat16)
+    assert _gate(c, wgts_dtype=torch.bfloat16) is None  # widened on load
+    assert "weights dtype" in _gate(c, wgts_dtype=torch.float64)
 
 
 def test_fallback_warning_names_each_chunk():

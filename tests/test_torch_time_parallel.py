@@ -1,0 +1,176 @@
+"""The port's time-parallel driver end to end against calamity_tpu's, on
+the CPU: ``calibrate_and_model_tensor(time_parallel=True)`` on the
+multi-time Golomb fixture (model, resid, gains and per-slice histories,
+with a slice skipped by ``skip_threshold``, the float32 and mixed
+schedules and bfloat16 weights), the port's batched driver against its
+serial driver, the CLI's ``--time_parallel`` against the JAX CLI, and the
+serial path with bfloat16 weights against the JAX package.
+
+Tolerances: float32 descents of up to a few hundred steps in two
+frameworks; outputs agree to 1e-3 of the data rms and gains to 1e-3 of
+their amplitude (summation-order differences compound over the steps);
+loss histories of a 25-step fit to rel 1e-4.
+"""
+
+import numpy as np
+import pytest
+from torch_parity import DPSS_DLY, multitime_visdata, rel_err
+
+from calamity_tpu import calibration as jcal
+from calamity_tpu import cli as jcli
+from calamity_tpu.io import CalData, VisData
+from calamity_tpu_torch import calibration as tcal
+from calamity_tpu_torch import cli as tcli
+
+RMS = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+
+
+@pytest.fixture(scope="module")
+def corrupted_multitime(golomb_visdata):
+    """The multi-time fixture with 5% gain errors applied: fits with real
+    gradients (from the projected sky alone, a fit starts at its optimum
+    and follows rounding noise)."""
+    from calamity_tpu import cal_utils
+
+    uvd = multitime_visdata(golomb_visdata)
+    truth = cal_utils.blank_uvcal_from_uvdata(uvd)
+    rng = np.random.default_rng(5)
+    truth.gain_array = truth.gain_array * (1 + 0.05 * rng.standard_normal(truth.gain_array.shape)
+                                           + 0.05j * rng.standard_normal(truth.gain_array.shape))
+    return cal_utils.apply_gains(uvd, truth, inverse=True)
+
+
+@pytest.fixture(scope="module")
+def flagged_multitime(corrupted_multitime):
+    """Three times; time 1 mostly flagged (skipped at skip_threshold 0.5);
+    a band of channels flagged on two baselines at time 0, so the weights
+    depend on frequency."""
+    uvd = corrupted_multitime.copy()
+    times = np.unique(uvd.time_array)
+    rows = np.nonzero(np.isclose(uvd.time_array, times[1], rtol=0.0, atol=1e-7))[0]
+    uvd.flag_array[rows, :, : int(0.7 * uvd.Nfreqs)] = True
+    rows0 = np.nonzero(np.isclose(uvd.time_array, times[0], rtol=0.0, atol=1e-7))[0][:2]
+    uvd.flag_array[rows0, :, 40:60] = True
+    return uvd
+
+
+def _both(uvd, **kw):
+    kw = dict(dict(min_dly=DPSS_DLY, offset=DPSS_DLY, tol=1e-10, learning_rate=1e-2,
+                   model_regularization="post_hoc", shared_basis=False, time_parallel=True,
+                   correct_resid=True), **kw)
+    jout = jcal.calibrate_and_model_dpss(uvdata=uvd, **kw)
+    timings = {}
+    tout = tcal.calibrate_and_model_dpss(uvdata=uvd, device="cpu", timings=timings, **kw)
+    return jout, tout, timings
+
+
+def _assert_agree(jout, tout, uvd):
+    (mj, rj, gj, hj), (mt, rt, gt, ht) = jout, tout
+    data_rms = RMS(uvd.data_array[~uvd.flag_array])
+    for pol, by_time in hj.items():
+        assert sorted(ht[pol]) == sorted(by_time)
+        for t, h in by_time.items():
+            assert len(ht[pol][t]["loss"]) == len(h["loss"])
+    np.testing.assert_array_equal(gt.flag_array, gj.flag_array)
+    np.testing.assert_array_equal(rt.flag_array, rj.flag_array)
+    assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3
+    assert np.max(np.abs(rt.data_array - rj.data_array)) <= 1e-3 * data_rms
+    assert np.max(np.abs(mt.data_array - mj.data_array)) <= 1e-3 * data_rms
+
+
+@pytest.mark.parametrize("comps_precision", ["float32", "mixed"])
+def test_driver_matches_jax_with_a_skipped_slice(flagged_multitime, comps_precision):
+    jout, tout, timings = _both(flagged_multitime, maxsteps=300, comps_precision=comps_precision)
+    _assert_agree(jout, tout, flagged_multitime)
+    hist = tout[3][0]
+    assert sorted(hist) == [0, 2]  # time 1 skipped and flagged
+    assert np.all(tout[2].flag_array[:, 0, :, 1, 0])
+    assert {"extract_s", "upload_s", "warmstart_s", "descent_s", "writeback_s"} <= set(timings)
+    nphases = 2 if comps_precision == "mixed" else 1
+    assert len(timings["phase_steps"]) == nphases
+    if comps_precision == "mixed":
+        assert all(len(h["phase_steps"]) == 2 for h in hist.values())
+    data = flagged_multitime.data_array[~flagged_multitime.flag_array]
+    assert RMS(tout[1].data_array[~flagged_multitime.flag_array]) <= 1e-2 * RMS(data)
+
+
+def test_driver_bfloat16_weights_match_jax(flagged_multitime):
+    jout, tout, _ = _both(flagged_multitime, maxsteps=200, comps_precision="float32",
+                          wgts_precision="bfloat16")
+    _assert_agree(jout, tout, flagged_multitime)
+
+
+@pytest.mark.parametrize("case", ["sky_model", "snr_weights", "loss_block", "sum_prior"])
+def test_driver_options_match_jax(corrupted_multitime, case):
+    """The warm-start and prior variants of the driver: a sky model other
+    than the data (packed and uploaded block by block), model-SNR weights,
+    a blocked loss, and the "sum" prior."""
+    kw = dict(maxsteps=150, comps_precision="float32")
+    if case == "sky_model":
+        kw["sky_model"] = corrupted_multitime.copy()
+    elif case == "snr_weights":
+        kw["use_model_snr_weights"] = True
+    elif case == "loss_block":
+        kw["loss_block_ngrps"] = 4
+    elif case == "sum_prior":
+        kw["model_regularization"] = "sum"
+    jout, tout, _ = _both(corrupted_multitime, **kw)
+    _assert_agree(jout, tout, corrupted_multitime)
+
+
+def test_batched_driver_matches_serial_driver(corrupted_multitime):
+    uvd = corrupted_multitime
+    kw = dict(min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=150, tol=1e-10, learning_rate=1e-2,
+              model_regularization="post_hoc", shared_basis=False, comps_precision="float32",
+              device="cpu")
+    _, rs, gs, hs = tcal.calibrate_and_model_dpss(uvdata=uvd, **kw)
+    _, rp, gp, hp = tcal.calibrate_and_model_dpss(uvdata=uvd, time_parallel=True, **kw)
+    for t in range(3):
+        assert len(hp[0][t]["loss"]) == len(hs[0][t]["loss"])
+        assert rel_err(np.asarray(hp[0][t]["loss"]), np.asarray(hs[0][t]["loss"])) <= 1e-4
+    assert np.max(np.abs(gp.gain_array - gs.gain_array)) <= 1e-4
+    assert np.max(np.abs(rp.data_array - rs.data_array)) <= 1e-4 * RMS(uvd.data_array)
+
+
+def test_cli_time_parallel_matches_jax_cli(corrupted_multitime, tmp_path):
+    uvd = corrupted_multitime
+    path = str(tmp_path / "in.uvh5")
+    uvd.write_uvh5(path)
+
+    def run(main, tag, extra):
+        outs = {k: str(tmp_path / f"{tag}_{k}") for k in ("resid.uvh5", "model.uvh5",
+                                                          "gains.calfits")}
+        main(["--input_data_files", path, "--resid_outfilename", outs["resid.uvh5"],
+              "--model_outfilename", outs["model.uvh5"], "--gain_outfilename",
+              outs["gains.calfits"], "--min_dly", str(DPSS_DLY), "--offset", str(DPSS_DLY),
+              "--maxsteps", "100", "--tol", "1e-10", "--time_parallel", "--clobber"] + extra)
+        return outs
+
+    oj = run(jcli.main, "j", [])
+    ot = run(tcli.main, "t", ["--device", "cpu"])
+    for key in ("resid.uvh5", "model.uvh5"):
+        a, b = VisData.from_uvh5(ot[key]), VisData.from_uvh5(oj[key])
+        np.testing.assert_array_equal(a.flag_array, b.flag_array)
+        assert np.max(np.abs(a.data_array - b.data_array)) <= 1e-3 * RMS(uvd.data_array)
+    ga, gb = CalData.from_calfits(ot["gains.calfits"]), CalData.from_calfits(oj["gains.calfits"])
+    assert np.max(np.abs(ga.gain_array - gb.gain_array)) <= 1e-3
+
+
+def test_serial_driver_bfloat16_weights_match_jax(flagged_multitime):
+    kw = dict(min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=200, tol=1e-10, learning_rate=1e-2,
+              model_regularization="post_hoc", shared_basis=False, comps_precision="float32",
+              wgts_precision="bfloat16")
+    jout = jcal.calibrate_and_model_dpss(uvdata=flagged_multitime, **kw)
+    tout = tcal.calibrate_and_model_dpss(uvdata=flagged_multitime, device="cpu", **kw)
+    _assert_agree(jout, tout, flagged_multitime)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(init_guesses_from_previous_time_step=True), "item 12"),
+    (dict(mesh=object()), "item 13"),
+    (dict(n_profile_steps=2), "item 6"),
+])
+def test_time_parallel_options_not_ported_raise(golomb_visdata, kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tcal.calibrate_and_model_dpss(uvdata=golomb_visdata, min_dly=DPSS_DLY, offset=DPSS_DLY,
+                                      maxsteps=2, time_parallel=True, device="cpu", **kwargs)

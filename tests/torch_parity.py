@@ -42,3 +42,82 @@ def project_onto_dpss(uvd, comps):
         rows, conj = uvd._bl_time_rows(ap[0], ap[1])
         uvd.data_array[rows, 0, :, 0] = np.conj(proj) if conj else proj
     return uvd
+
+
+def multitime_visdata(uvd, ntimes=3):
+    """``uvd`` projected onto its DPSS basis, repeated at ``ntimes`` times
+    two days apart (the multi-time fixture of tests/test_parallel.py)."""
+    from calamity_tpu import models
+
+    base = uvd.copy()
+    project_onto_dpss(base, models.yield_pbl_dpss_model_comps(base, offset=DPSS_DLY,
+                                                              min_dly=DPSS_DLY))
+    out = base
+    for t in range(1, ntimes):
+        later = base.copy()
+        later.time_array = later.time_array + 2.0 * t
+        out = out + later
+    return out
+
+
+def batched_problem(uvd, dtype=np.float32, gain_err=0.02, seed=11, shared_basis=False,
+                    weights=None):
+    """Host stacks of every (time, pol) slice of ``uvd`` packed by the JAX
+    FitSpec, perturbed gains and the JAX batched warm start: the inputs
+    both packages' batched descents start from. Returns (jspec, dict)."""
+    from calamity_tpu import models
+    from calamity_tpu.io import CalData
+    from calamity_tpu.ops.lstsq import gram_cholesky_chunk, init_coeffs_from_cholesky_batched
+    from calamity_tpu.solver.tensorize import FitSpec
+
+    comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=DPSS_DLY, offset=DPSS_DLY)
+    gains = CalData.blank_from_visdata(uvd)
+    rng = np.random.default_rng(seed)
+    gains.gain_array = gains.gain_array * (
+        1 + gain_err * rng.standard_normal(gains.gain_array.shape)
+        + 1j * gain_err * rng.standard_normal(gains.gain_array.shape))
+    spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                   dtype=dtype, shared_basis=shared_basis)
+    slices = [(pol, t) for pol in uvd.get_pols() for t in spec.times]
+    nb = len(slices)
+    stacks = [[np.zeros((nb,) + tuple(m.conj.shape) + (uvd.Nfreqs,), dtype=dtype)
+               for m in spec.meta] for _ in range(3)]
+    g_r, g_i = [], []
+    for b, (pol, t) in enumerate(slices):
+        rms = np.sqrt(np.mean(np.abs(uvd.data_array) ** 2))
+        spec.pack_data_into(uvd, pol, t, *stacks, b, data_scale_factor=rms, weights=weights)
+        gr, gi = spec.pack_gains(gains, pol, t)
+        g_r.append(np.asarray(gr))
+        g_i.append(np.asarray(gi))
+    chunks = spec.device_chunks()
+    fg_r, fg_i = [], []
+    for (c, _, _), dr, di, w in zip(chunks, *stacks):
+        chol, active = gram_cholesky_chunk(c)
+        cr, ci = init_coeffs_from_cholesky_batched(chol, active, c, dr, di, w)
+        fg_r.append(np.asarray(cr))
+        fg_i.append(np.asarray(ci))
+    return spec, dict(chunks=chunks, data_r=stacks[0], data_i=stacks[1], wgts=stacks[2],
+                      g_r=np.stack(g_r), g_i=np.stack(g_i), fg_r=fg_r, fg_i=fg_i)
+
+
+def torch_batched_problem(p, comps_dtype=None, wgts_dtype=None):
+    """The tensors of a :func:`batched_problem` on the CPU, comps and
+    weights optionally cast (e.g. to torch.bfloat16)."""
+    from calamity_tpu_torch.convert import chunks_from_jax, to_tensor
+
+    def t(xs):
+        return [to_tensor(x, "cpu") for x in xs]
+
+    chunks = chunks_from_jax(p["chunks"], "cpu")
+    if comps_dtype is not None:
+        chunks = tuple((c.to(comps_dtype), a0, a1) for c, a0, a1 in chunks)
+    wgts = t(p["wgts"])
+    if wgts_dtype is not None:
+        wgts = [w.to(wgts_dtype) for w in wgts]
+    return dict(chunks=chunks, data_r=t(p["data_r"]), data_i=t(p["data_i"]), wgts=wgts,
+                g_r=to_tensor(p["g_r"], "cpu"), g_i=to_tensor(p["g_i"], "cpu"),
+                fg_r=t(p["fg_r"]), fg_i=t(p["fg_i"]))
+
+
+# the batched descents' common settings: a few dozen steps at lr 1e-2
+BATCHED_DESCENT = dict(maxsteps=60, tol=0.0, opt_kwargs=(("learning_rate", 1e-2),))
