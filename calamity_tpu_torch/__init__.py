@@ -7,11 +7,13 @@ uvh5/calfits write-back), serial and batched over (time, pol) slices
 dense-chunk loss as a hand-written CUDA kernel for Hopper
 (``csrc/fused_chunk_loss.cu``) that reads the basis once for every slice.
 
-The JAX package stays the reference; this package imports only its
-JAX-free host layer (``io``, ``models``, ``cal_utils``, ``utils``,
-``version``, ``simulate``) and never imports ``jax``. Where ``h5py`` is
-not installed, ``_h5lite`` (a minimal pure-Python HDF5 reader/writer) is
-registered under its name before the host layer is imported.
+The JAX package stays the reference, and this package imports nothing of
+it and never imports ``jax``: it carries its own copies of the JAX-free
+host layer (``io``, ``models``, ``cal_utils``, ``utils``, ``version``,
+``simulate``), numpy and scipy as in the JAX package. Where ``h5py`` is not
+installed, ``_h5lite`` (a minimal pure-Python HDF5 reader/writer) is
+registered under its name before the host layer is imported; the tests of
+both packages rely on that on a machine without h5py.
 """
 
 import sys

@@ -1,8 +1,9 @@
 """A minimal pure-Python HDF5 reader/writer with the subset of h5py's API
-that ``calamity_tpu.io`` uses.
+that the host layer (``calamity_tpu_torch.io``, a copy of
+``calamity_tpu.io``) uses.
 
-``calamity_tpu.io`` (uvh5, calh5 and UVFlag files) imports ``h5py`` at
-module level. Where h5py is not installed, ``calamity_tpu_torch`` registers
+The host layer (uvh5, calh5 and UVFlag files) imports ``h5py`` at module
+level. Where h5py is not installed, ``calamity_tpu_torch`` registers
 this module under that name, so the host layer imports and its file I/O
 works. Where h5py is installed, this module is not used.
 

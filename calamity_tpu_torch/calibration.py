@@ -26,17 +26,16 @@ import time as _time
 import numpy as np
 import torch
 
-from calamity_tpu import cal_utils, models
-from calamity_tpu.io.caldata import CalData
-from calamity_tpu.io.flags import FlagWeights
-from calamity_tpu.io.polarizations import polstr2num
-from calamity_tpu.io.visdata import VisData
-from calamity_tpu.utils import echo, select_baselines
-
+from . import cal_utils, models
 from ._device import resolve_device
+from .io.caldata import CalData
+from .io.flags import FlagWeights
+from .io.polarizations import polstr2num
+from .io.visdata import VisData
 from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
 from .solver.fit import fit_gains_and_foregrounds
 from .solver.tensorize import FitSpec, to_numpy
+from .utils import echo, select_baselines
 
 __all__ = [
     "renormalize",
@@ -1054,7 +1053,7 @@ def read_calibrate_and_model_dpss(
         device=device, **calibration_kwargs,
     )
 
-    from calamity_tpu.version import history_string
+    from .version import history_string
 
     provenance = history_string()
     if resid_outfilename is not None:

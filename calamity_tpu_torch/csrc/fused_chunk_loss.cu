@@ -1,272 +1,710 @@
-// Fused forward model + weighted chi-square of one dense B=1 chunk for a
-// batch of N (time, pol) slices that share the chunk's basis, for Hopper
-// (sm_90a).
+// Fused forward model, weighted chi-square AND its gradients of one dense
+// B=1 chunk for a batch of N (time, pol) slices that share the chunk's
+// basis, in one read of the basis, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_fwd_kernel` of
-// calamity_tpu/ops/fused.py (launched by `_fwd_call`, pallas_call at
-// fused.py:196), which the JAX package runs per slice and vmaps over the
-// batch (parallel/batched.py:180-198). Per row (g, f) of a chunk with G
-// groups, F channels and V basis modes, and per slice n:
+// Replaces the Pallas TPU kernel `_fwd_kernel` of calamity_tpu/ops/fused.py
+// (launched by `_fwd_call`, pallas_call at fused.py:196) together with its
+// XLA backward `_bwd_xla` (fused.py:223-250), which the JAX package runs per
+// slice and vmaps over the batch. Per row (g, f) of a chunk with G groups,
+// F channels and V basis modes, and per slice n:
 //
-//   v_r[n] = sum_k comps[g, f, k] * coeffs2[0, n, g, k]
-//   v_i[n] = sum_k comps[g, f, k] * coeffs2[1, n, g, k]
-//   m_r    =  pr[n] * v_r[n] + pi[n] * v_i[n]
-//   m_i    = -pi[n] * v_r[n] + pr[n] * v_i[n]
-//   loss[n] += w[n] * ((dr[n] - m_r)^2 + (di[n] - m_i)^2)
+//   v_r     = sum_k comps[g, f, k] * coeffs2[0, n, g, k]     (v_i: coeffs2[1])
+//   m_r     =  pr * v_r + pi * v_i,   m_i = -pi * v_r + pr * v_i
+//   loss[n] += w * ((dr - m_r)^2 + (di - m_i)^2)
+// and, at a loss cotangent of 1 (the chi-square is local per group and its
+// cotangent a scalar per slice, fused.py:290-310, so the autograd Function
+// scales these by the cotangent afterwards):
+//   dm      = -2 w (d - m)
+//   dpr     = v_r dm_r + v_i dm_i,   dpi = v_i dm_r - v_r dm_i
+//   dv_r    = pr dm_r - pi dm_i,     dv_i = pi dm_r + pr dm_i
+//   dcoeffs[k, n, g, :] = sum_f comps[g, f, :] * dv_k[n, g, f]
+// Three instances of one template: the loss only; the loss with dpr/dpi
+// (coefficients frozen); the loss with every gradient. All accumulation is
+// float32 (no TF32); bfloat16 comps and weights are widened on load.
 //
-// and v is written out as (2, N, G, F) for the backward pass. All
-// accumulation is float32; bfloat16 comps and bfloat16 weights are widened
-// on load. The serial path calls the same kernel with N = 1.
+// What bounds it: bytes, then registers. Each comps value is read from
+// device memory once for up to 8 slices and feeds 4 N fused multiply-adds
+// (2 N in the matvec, 2 N in the coefficient gradient); the per-slice planes
+// pr, pi, dr, di, w (read) and dpr, dpi (written) are 28 bytes per row and
+// slice. At the main chunk (2016 x 1536 x 118, N = 8) the least time is
+// 0.652 ms (float32 comps) or 0.434 ms (bfloat16) by bytes, and the FMAs of
+// both phases take 0.349 ms at the float32 rate. What holds the kernel
+// from those lines is latency: a block's warps take turns between waiting
+// for a tile and the two phases' FMAs, so an SM needs several independent
+// blocks, each within 128 registers a thread. Four blocks of 128 threads
+// share an SM; the register tiles below are sized to that cap. At N = 8,
+// float32 comps: 4-row and 4-mode tiles in two blocks of 256 threads
+// spilled 568 bytes and took 2.44 ms; 2-row and 2-mode tiles with 32-bit
+// counters 1.42 ms; the same in four blocks of 128 threads, each thread
+// owning its phase-B modes over every row, 1.27 ms; one block per SM
+// without spills was slower (PERF.md, scripts/kernel_variants.py).
 //
-// What bounds it: reading comps. Each comps value feeds 2N fused
-// multiply-adds, so at N = 8 the kernel does about 8 flops per 4 bytes of
-// float32 comps, still far below the tensor-core line; the matvec has only
-// 2N right-hand columns. The per-slice planes (pr, pi, dr, di, w read, v
-// written) are 28 bytes per row and slice, so comps dominates up to N of
-// about 16 in float32.
-//
-// Design: one thread per (g, f) row; a block of kThreads threads covers
-// kThreads consecutive channels of ONE group, so the whole block shares
-// that group's coefficients.
-// - Each comps value is read from device memory once for every slice of a
-//   tile of up to NT (8) slices: the block stages its rows' comps in
-//   shared memory kChunkK modes at a time, loaded coalesced along the
-//   contiguous rows, all loads of a chunk in flight at once, and widened to
-//   float32 on the way (a row is read by one thread from shared memory,
-//   with an odd row stride so the reads hit distinct banks). With more slices the kernel walks the tiles, reading
-//   the block's comps again (from L2 if it is still there).
-// - The group's 2 * NT * V coefficients of the slice tile are staged in
-//   shared memory once per block, interleaved per mode, and read as
-//   broadcasts (every thread of the block reads the same address).
-// - Each thread keeps its row's 2 * NT dot products in registers: no
-//   reduction across lanes for the matvec. The per-slice planes are then
-//   read, and v written, coalesced along the channel axis.
-// - No atomics: each block writes one partial per slice, (N, nblocks),
-//   summed by the caller in a fixed order, so each slice's loss is the same
-//   from run to run.
+// Design: one block of 128 threads per group walks all F channels of that
+// group, `rows` channels per tile, so each comps tile serves both phases
+// while it is in shared memory and the group's coefficient gradient is
+// written once, with no atomics and no partial sets.
+// - A ring of two comps tiles in shared memory, each completed on an
+//   mbarrier: one thread issues one `cp.async.bulk` (TMA, non-tensor) for
+//   the tile, whose rows x V values are one contiguous span of the group;
+//   where a span is not 16-byte aligned (ragged F, odd V, an odd bfloat16
+//   offset), every thread issues 4-byte `cp.async` copies of the enclosing
+//   aligned words, completed on the same mbarrier (`.noinc` arrivals). The
+//   next tile loads while this one computes. bfloat16 comps stay bfloat16 in
+//   shared memory and are widened on the read.
+// - Phase A, thread-per-row: a tile's rows are split over rows / 2 lanes x
+//   the column groups x parts of the modes; each thread keeps a 2-row x (up
+//   to) 8-column tile of partial dot products in registers, summed over the
+//   parts in a fixed order through shared memory. The coefficients are
+//   staged once per group and slice tile, interleaved per mode, and read as
+//   float4 broadcasts. The tile keeps the unpadded row stride of the bulk
+//   copy; rows are read as pairs of modes (float2, bfloat162) where V is
+//   even, and at the main V = 118 a row is an odd number of 8-byte (f32) or
+//   4-byte (bf16) units, so a warp's 32 consecutive rows fall in distinct
+//   banks. At V divisible by 4 the pair reads are conflicted (up to 16-way
+//   at V = 128); no such chunk is on the main path.
+// - Epilogue, per row and slice: the plane loads are issued before phase A,
+//   so their latency hides behind the matvec; the loss goes to per-thread
+//   registers, dpr/dpi are written coalesced along the channel axis, dv to a
+//   shared tile (row stride 2 NT + 4 floats: float4 reads, 4-way stores).
+// - Phase B, thread-per-mode: each thread keeps a 2-mode x (up to)
+//   8-column tile of the coefficient gradient in registers across the whole
+//   F loop (128 modes at N >= 5, 256 below), reading a pair of modes along
+//   each row and dv as float4 broadcasts. Modes past that are owned one per
+//   thread and accumulated in the output itself (the block owns its group's
+//   gradient), tile by tile.
+// - Loop counters and shared-memory offsets are 32-bit: registers, not
+//   instructions, are what this kernel is short of.
+// - The per-slice loss partials are one per block, summed by the caller in
+//   a fixed order: every loss and gradient is the same from run to run.
 // - The data and weight planes are addressed through (slice, group,
-//   channel) strides, so a group block of a resident (N, G, F) cube reaches
-//   the kernel as a view; a frequency-invariant weights plane may have a
-//   channel stride of 0. pr and pi are contiguous (N, G, F).
-// Any N, G, F and V are taken (V up to the shared memory a block can hold:
-// about 3000 modes at NT = 8, more with smaller tiles). TMA or cp.async
-// double buffering of the staging is left for later work.
+//   channel) strides (group-block views, a channel stride of 0); pr and pi
+//   are contiguous (N, G, F), and so are dpr and dpi.
+// Any N, G, F and V are taken: N in tiles of up to 8 slices (each slice
+// tile reads comps again); the row tile shrinks from 64 (32 for float32 at
+// NT = 8, so four blocks fit on an SM) to 1 as V grows, and the interleaved
+// coefficients move to a device scratch buffer when they no longer fit. A
+// row too wide for a ring of two one-row tiles (more than about 27,000
+// float32 or 54,000 bfloat16 modes) goes to a plain wide-row kernel that
+// reads each row again for the gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
-constexpr int kThreads = 128;             // rows (channels) per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunkK = 64;               // basis modes staged per pass
-constexpr int kTileStride = kChunkK + 1;  // odd: a row's reads hit distinct banks
-constexpr int kTileFloats = kThreads * kTileStride;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;             // blocks an SM holds (128 registers a thread)
+constexpr int kTileA = 2;                 // phase A: rows a thread
+constexpr int kTileB = 2;                 // phase B: modes a thread
+constexpr int kStages = 2;                // comps tiles in the ring
+constexpr size_t kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
+// the most a block may take so that kMinBlocks fit on an SM (228 KB, 1 KB
+// of each block's reserved)
+constexpr size_t kPerBlock = 233472 / kMinBlocks - 1024;
+
+enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2 };
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+__host__ __device__ constexpr int dv_stride(int m) { return m % 4 == 0 ? m + 4 : m; }
+
+// columns of a thread's register tile (the rest of the 2 NT go to others)
+__host__ __device__ constexpr int tile_cols(int m) { return m < 8 ? m : 8; }
+
+// byte offsets of the shared-memory sections of one block
+struct Layout {
+  size_t tile_bytes, tiles, coef, red, dv, total;
+};
+
+__host__ __device__ inline Layout make_layout(int m, int rows, long long V,
+                                              int csize, bool coef_smem, bool grads) {
+  Layout L;
+  size_t off = 8 * kStages;  // the mbarriers
+  off = round16(off);
+  L.tile_bytes = round16(static_cast<size_t>(rows) * V * csize + 16);
+  L.tiles = off;
+  off += kStages * L.tile_bytes;
+  L.coef = off;
+  if (coef_smem) off += round16(static_cast<size_t>(V) * m * 4);
+  L.red = off;  // phase A exchange; loss reduction
+  off += round16(static_cast<size_t>(kThreads) * kTileA * tile_cols(m) * 4);
+  L.dv = off;
+  if (grads) off += round16(static_cast<size_t>(rows) * dv_stride(m) * 4);
+  L.total = off;
+  return L;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-size_t smem_bytes(int tile, long long V) {
-  return (static_cast<size_t>(kTileFloats) + static_cast<size_t>(2 * tile) * V) * sizeof(float);
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  a = x.x;
+  b = x.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(x);
+  b = __high2float(x);
 }
 
-template <int NT, typename TC, typename TW>
-__global__ void __launch_bounds__(kThreads)
-fused_chunk_loss_kernel(const TC* __restrict__ comps,
-                        const float* __restrict__ coeffs2,
-                        const float* __restrict__ pr,
-                        const float* __restrict__ pi,
-                        const float* __restrict__ dr,
-                        const float* __restrict__ di,
-                        int64_t d_sn, int64_t d_sg, int64_t d_sf,
-                        const TW* __restrict__ w,
-                        int64_t w_sn, int64_t w_sg, int64_t w_sf,
-                        float* __restrict__ partials,
-                        float* __restrict__ v,
-                        int64_t N, int64_t G, int64_t F, int64_t V) {
-  constexpr int M = 2 * NT;  // dot products per row and slice tile
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);  // [kThreads][kTileStride]
-  float* coef = tile + kTileFloats;               // [V][M]: (re, im) of each slice
-  __shared__ float red[kWarps][NT];
+// a register tile: s[i][j] += c[i] * cf[j] for R values c (rows or modes)
+// and C values cf (columns: (re, im) of slices; 16-byte aligned for
+// C % 4 == 0, 8-byte aligned for C == 2). Each shared-memory value feeds
+// R or C fused multiply-adds.
+template <int R, int C>
+__device__ __forceinline__ void fma_tile(float (&s)[R][C], const float* cf, const float (&c)[R]) {
+  if constexpr (C % 4 == 0) {
+    const float4* c4 = reinterpret_cast<const float4*>(cf);
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 x = c4[q];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i][4 * q] = fmaf(c[i], x.x, s[i][4 * q]);
+        s[i][4 * q + 1] = fmaf(c[i], x.y, s[i][4 * q + 1]);
+        s[i][4 * q + 2] = fmaf(c[i], x.z, s[i][4 * q + 2]);
+        s[i][4 * q + 3] = fmaf(c[i], x.w, s[i][4 * q + 3]);
+      }
+    }
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(cf);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      s[i][0] = fmaf(c[i], x.x, s[i][0]);
+      s[i][1] = fmaf(c[i], x.y, s[i][1]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+template <int NT, typename TC, int MODE>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
+                        const float* __restrict__ pr, const float* __restrict__ pi,
+                        const float* __restrict__ dr, const float* __restrict__ di,
+                        int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* __restrict__ w,
+                        int w_bf16, int64_t w_sn, int64_t w_sg, int64_t w_sf,
+                        float* __restrict__ partials, float* __restrict__ dcoeffs,
+                        float* __restrict__ dpr, float* __restrict__ dpi,
+                        float* __restrict__ coef_scratch, int64_t N, int64_t G, int64_t F,
+                        int64_t V, int rows, int bulk, int pairs, int coef_smem) {
+  constexpr int M = 2 * NT;           // dot products per row: (re, im) per slice
+  constexpr int C = tile_cols(M);     // columns of a thread's register tile
+  constexpr int CG = M / C;           // column groups
+  constexpr int NH = (NT + 1) / 2;    // most slices of one thread's epilogue (rows <= kThreads / 2)
+  constexpr int DVS = dv_stride(M);
+  constexpr bool kDp = MODE >= kLossDp;
+  constexpr bool kAll = MODE == kLossAll;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = make_layout(M, rows, V, sizeof(TC), coef_smem != 0, kAll);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* dvs = reinterpret_cast<float*>(smem + L.dv);
 
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int64_t ftiles = (F + kThreads - 1) / kThreads;
-  const int64_t g = blockIdx.x / ftiles;
-  const int64_t f0 = (blockIdx.x - g * ftiles) * kThreads;
-  const int64_t f = f0 + t;
-  const bool valid = f < F;
-  const int rows_here = static_cast<int>(F - f0 < kThreads ? F - f0 : kThreads);
+  const int64_t g = blockIdx.x;
+  float* coef = coef_smem ? reinterpret_cast<float*>(smem + L.coef) : coef_scratch + g * V * M;
   const int64_t GF = G * F;
-  const int64_t row = g * F + f;
-  const TC* cblock = comps + (g * F + f0) * V;  // the block's rows are contiguous
+  // shared-memory offsets and tile counters in 32 bits (the plan keeps N, F
+  // and a tile row within int range): registers are what this kernel is
+  // short of
+  const int Vs = static_cast<int>(V);
+  const int ntiles = static_cast<int>((F + rows - 1) / rows);
+  const int nslice_tiles = static_cast<int>((N + NT - 1) / NT);
+  const int total = ntiles * nslice_tiles;
 
-  for (int64_t n0 = 0; n0 < N; n0 += NT) {
+  // phase A: rows la + rlanes * i (i < kTileA) and columns [ca * C, ca * C + C)
+  // of the tile, over modes [ka0, ka1)
+  const int rlanes = rows >= kTileA ? rows / kTileA : 1;
+  const int la = t % rlanes;
+  const int ca = (t / rlanes) % CG;
+  const int pa = t / (rlanes * CG);
+  const int parts = kThreads / (rlanes * CG);
+  int chunk = (Vs + parts - 1) / parts;
+  chunk += chunk & 1;  // even: pairs of modes stay aligned
+  const int ka0 = pa * chunk < Vs ? pa * chunk : Vs;
+  const int ka1 = ka0 + chunk < Vs ? ka0 + chunk : Vs;
+  // epilogue: row re of the tile, slices [ne0, ne1) of the slice tile
+  const int re = t % rows;
+  const int per = (NT + kThreads / rows - 1) / (kThreads / rows);
+  const int ne0 = (t / rows) * per < NT ? (t / rows) * per : NT;
+  const int ne1 = ne0 + per < NT ? ne0 + per : NT;
+  // phase B: modes [kb, kb + kTileB) and columns [cb * C, cb * C + C), rows
+  // of the tile; modes past `capacity` are owned one per thread
+  const int kb = t / CG * kTileB;
+  const int cb = t % CG;
+  constexpr int capacity = kThreads / CG * kTileB;
+
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&mbar[s]), bulk ? 1 : kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the comps tile of sequence index i into its stage: rows of tile i % ntiles
+  auto issue = [&](int i) {
+    const int64_t f0 = static_cast<int64_t>(i % ntiles) * rows;
+    const int64_t nrows = F - f0 < rows ? F - f0 : rows;
+    const TC* src = comps + (g * F + f0) * V;
+    const uint32_t bytes = static_cast<uint32_t>(nrows * V * sizeof(TC));
+    unsigned char* dst = smem + L.tiles + (i % kStages) * L.tile_bytes;
+    const uint32_t bar = smem_u32(&mbar[i % kStages]);
+    if (bulk) {
+      if (t == 0) {
+        // the block's generic-proxy reads of this stage precede the copy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(bar, bytes);
+        bulk_g2s(smem_u32(dst), src, bytes, bar);
+      }
+    } else {
+      const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+      const uintptr_t a4 = a & ~static_cast<uintptr_t>(3);
+      const int64_t words = static_cast<int64_t>((a + bytes + 3 - a4) / 4);
+      for (int64_t q = t; q < words; q += kThreads) {
+        cp_async4(smem_u32(dst) + 4 * static_cast<uint32_t>(q),
+                  reinterpret_cast<const void*>(a4 + 4 * q));
+      }
+      cp_async_arrive(bar);
+    }
+  };
+  // the tile of sequence index i as read: its stage plus the element offset
+  // of an unaligned span
+  auto tile_at = [&](int i) {
+    const TC* base = reinterpret_cast<const TC*>(smem + L.tiles + (i % kStages) * L.tile_bytes);
+    if (bulk) return base;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(comps + (g * F + (i % ntiles) * rows) * V);
+    return base + (a & 3) / sizeof(TC);
+  };
+
+  for (int i = 0; i < total && i < kStages; ++i) issue(i);
+
+  int i = 0;
+  for (int st = 0; st < nslice_tiles; ++st) {
+    const int64_t n0 = st * NT;
     const int nt = static_cast<int>(N - n0 < NT ? N - n0 : NT);
-    __syncthreads();  // the previous tile's readers of coef are done
-    // consecutive threads read consecutive modes of one slice's row
+    // the group's coefficients of the slice tile, interleaved per mode
     for (int64_t idx = t; idx < V * M; idx += kThreads) {
       const int j = static_cast<int>(idx / V);
       const int64_t k = idx - j * V;
       const int n = j >> 1;
       coef[k * M + j] = n < nt ? coeffs2[(((j & 1) * N + n0 + n) * G + g) * V + k] : 0.f;
     }
-    float s[M];
+    if constexpr (kAll) {
+      // modes past the register tiles accumulate in the output itself
+      for (int64_t k = capacity + t; k < V; k += kThreads) {
+        for (int j = 0; j < 2 * nt; ++j)
+          dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] = 0.f;
+      }
+    }
+    float lacc[NH];
 #pragma unroll
-    for (int j = 0; j < M; ++j) s[j] = 0.f;
-    for (int64_t k0 = 0; k0 < V; k0 += kChunkK) {
-      const int kc = static_cast<int>(V - k0 < kChunkK ? V - k0 : kChunkK);
-      __syncthreads();  // coef staged; the previous chunk's readers are done
-      // stage rows_here x kc values: every load of the chunk is issued
-      // before the first store, so a block keeps its whole chunk in flight;
-      // a warp reads 32 consecutive modes of one row (contiguous addresses)
-      if (sizeof(TC) == 2 && V % 2 == 0) {
-        // bfloat16 rows of even length start on 4-byte boundaries (and kc
-        // is even): each thread loads pairs of modes
-        constexpr int kPairs = kChunkK / 2;
-        constexpr int kPerThread = kThreads * kPairs / kThreads;
-        constexpr int kRowStep = kThreads / kPairs;
-        const int kk = 2 * (t % kPairs);
-        __nv_bfloat162 vals[kPerThread];
+    for (int q = 0; q < NH; ++q) lacc[q] = 0.f;
+    float acc[kTileB][C];
 #pragma unroll
-        for (int i = 0; i < kPerThread; ++i) {
-          const int r = t / kPairs + i * kRowStep;
-          vals[i] = (r < rows_here && kk < kc)
-                        ? *reinterpret_cast<const __nv_bfloat162*>(
-                              cblock + static_cast<int64_t>(r) * V + k0 + kk)
-                        : __floats2bfloat162_rn(0.f, 0.f);
-        }
+    for (int m = 0; m < kTileB; ++m) {
 #pragma unroll
-        for (int i = 0; i < kPerThread; ++i) {
-          float* dst = tile + (t / kPairs + i * kRowStep) * kTileStride + kk;
-          dst[0] = __low2float(vals[i]);
-          dst[1] = __high2float(vals[i]);
-        }
-      } else {
-        constexpr int kPerThread = kThreads * kChunkK / kThreads;
-        constexpr int kRowStep = kThreads / kChunkK;
-        const int kk = t % kChunkK;
-        float vals[kPerThread];
+      for (int j = 0; j < C; ++j) acc[m][j] = 0.f;
+    }
+    __syncthreads();  // coef staged
+
+    for (int jt = 0; jt < ntiles; ++jt, ++i) {
+      const int64_t f0 = static_cast<int64_t>(jt) * rows;
+      const int rows_here = static_cast<int>(F - f0 < rows ? F - f0 : rows);
+      const bool erow = re < rows_here;
+      const int64_t f = f0 + re;
+      // this thread's epilogue planes, loaded before the matvec hides their
+      // latency
+      float p_r[NH], p_i[NH], d_r[NH], d_i[NH], wv[NH];
 #pragma unroll
-        for (int i = 0; i < kPerThread; ++i) {
-          const int r = t / kChunkK + i * kRowStep;
-          vals[i] = (r < rows_here && kk < kc)
-                        ? to_f32(cblock[static_cast<int64_t>(r) * V + k0 + kk]) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kPerThread; ++i) {
-          tile[(t / kChunkK + i * kRowStep) * kTileStride + kk] = vals[i];
+      for (int q = 0; q < NH; ++q) {
+        const int n = ne0 + q;
+        p_r[q] = p_i[q] = d_r[q] = d_i[q] = wv[q] = 0.f;
+        if (erow && n < ne1 && n < nt) {
+          const int64_t nn = n0 + n;
+          const int64_t prow = nn * GF + g * F + f;
+          const int64_t drow = nn * d_sn + g * d_sg + f * d_sf;
+          const int64_t wrow = nn * w_sn + g * w_sg + f * w_sf;
+          p_r[q] = pr[prow];
+          p_i[q] = pi[prow];
+          d_r[q] = dr[drow];
+          d_i[q] = di[drow];
+          wv[q] = w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[wrow])
+                         : static_cast<const float*>(w)[wrow];
         }
       }
-      __syncthreads();
-      if (valid) {
-        const float* trow = tile + t * kTileStride;
-        const float* cf = coef + k0 * M;
-        for (int kk = 0; kk < kc; ++kk) {
-          const float c = trow[kk];
-          if constexpr (M % 4 == 0) {
-            const float4* c4 = reinterpret_cast<const float4*>(cf + kk * M);
+      mbar_wait(smem_u32(&mbar[i % kStages]), static_cast<uint32_t>((i / kStages) & 1));
+      const TC* tile = tile_at(i);
+
+      // phase A: a kTileA x C register tile of partial dot products over this
+      // part's modes; rows past the tile read row 0 and are dropped
+      {
+        float s[kTileA][C];
+        const TC* rp[kTileA];
 #pragma unroll
-            for (int q = 0; q < M / 4; ++q) {
-              const float4 x = c4[q];
-              s[4 * q] = fmaf(c, x.x, s[4 * q]);
-              s[4 * q + 1] = fmaf(c, x.y, s[4 * q + 1]);
-              s[4 * q + 2] = fmaf(c, x.z, s[4 * q + 2]);
-              s[4 * q + 3] = fmaf(c, x.w, s[4 * q + 3]);
-            }
-          } else {
-            const float2 x = reinterpret_cast<const float2*>(cf + kk * M)[0];
-            s[0] = fmaf(c, x.x, s[0]);
-            s[1] = fmaf(c, x.y, s[1]);
+        for (int m = 0; m < kTileA; ++m) {
+          const int r = la + rlanes * m;
+          rp[m] = tile + (r < rows_here ? r : 0) * Vs;
+#pragma unroll
+          for (int j = 0; j < C; ++j) s[m][j] = 0.f;
+        }
+        const float* cf = coef + ca * C;
+        if (pairs) {
+          for (int k = ka0; k < ka1; k += 2) {
+            float c0[kTileA], c1[kTileA];
+#pragma unroll
+            for (int m = 0; m < kTileA; ++m) load_pair(rp[m] + k, c0[m], c1[m]);
+            fma_tile<kTileA, C>(s, cf + k * M, c0);
+            fma_tile<kTileA, C>(s, cf + (k + 1) * M, c1);
+          }
+        } else {
+          for (int k = ka0; k < ka1; ++k) {
+            float c0[kTileA];
+#pragma unroll
+            for (int m = 0; m < kTileA; ++m) c0[m] = to_f32(rp[m][k]);
+            fma_tile<kTileA, C>(s, cf + k * M, c0);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kTileA; ++m) {
+          const int r = la + rlanes * m;
+          if (r < rows) {
+#pragma unroll
+            for (int j = 0; j < C; ++j) red[(pa * M + ca * C + j) * rows + r] = s[m][j];
           }
         }
       }
-    }
-    float acc[NT];
+      __syncthreads();  // every part's partial sums are in
+
+      // epilogue: this thread's slices of row re
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n] = 0.f;
-      if (valid && n < nt) {
-        const int64_t nn = n0 + n;
-        const int64_t prow = nn * GF + row;
-        const float sr = s[2 * n];
-        const float si = s[2 * n + 1];
-        const float p_r = pr[prow];
-        const float p_i = pi[prow];
-        const float mr = p_r * sr + p_i * si;
-        const float mi = -p_i * sr + p_r * si;
-        const int64_t drow = nn * d_sn + g * d_sg + f * d_sf;
-        const float er = dr[drow] - mr;
-        const float ei = di[drow] - mi;
-        acc[n] = to_f32(w[nn * w_sn + g * w_sg + f * w_sf]) * (er * er + ei * ei);
-        v[prow] = sr;
-        v[N * GF + prow] = si;
+      for (int q = 0; q < NH; ++q) {
+        const int n = ne0 + q;
+        if (!(erow && n < ne1 && n < nt)) continue;
+        float sr = 0.f, si = 0.f;
+        for (int p = 0; p < parts; ++p) {  // a fixed order
+          sr += red[(p * M + 2 * n) * rows + re];
+          si += red[(p * M + 2 * n + 1) * rows + re];
+        }
+        const float mr = p_r[q] * sr + p_i[q] * si;
+        const float mi = -p_i[q] * sr + p_r[q] * si;
+        const float er = d_r[q] - mr;
+        const float ei = d_i[q] - mi;
+        lacc[q] += wv[q] * (er * er + ei * ei);
+        if constexpr (kDp) {
+          const float dmr = -2.f * wv[q] * er;
+          const float dmi = -2.f * wv[q] * ei;
+          const int64_t prow = (n0 + n) * GF + g * F + f;
+          dpr[prow] = sr * dmr + si * dmi;
+          dpi[prow] = si * dmr - sr * dmi;
+          if constexpr (kAll) {
+            dvs[re * DVS + 2 * n] = p_r[q] * dmr - p_i[q] * dmi;
+            dvs[re * DVS + 2 * n + 1] = p_i[q] * dmr + p_r[q] * dmi;
+          }
+        }
       }
+
+      if constexpr (kAll) {
+        __syncthreads();  // the dv tile is complete
+        // phase B: a kTileB (modes) x C register tile of the coefficient
+        // gradient, summed over the tile's rows
+        const float* dcol = dvs + cb * C;
+        if (kb + kTileB <= V && kb + kTileB <= capacity) {
+          for (int r = 0; r < rows_here; ++r) {
+            const TC* row = tile + r * Vs + kb;
+            float c[kTileB];
+            if (pairs) {
+#pragma unroll
+              for (int m = 0; m < kTileB; m += 2) load_pair(row + m, c[m], c[m + 1]);
+            } else {
+#pragma unroll
+              for (int m = 0; m < kTileB; ++m) c[m] = to_f32(row[m]);
+            }
+            fma_tile<kTileB, C>(acc, dcol + r * DVS, c);
+          }
+        } else if (kb < V && kb < capacity) {
+          for (int r = 0; r < rows_here; ++r) {
+            const TC* row = tile + r * Vs;
+            float c[kTileB];
+#pragma unroll
+            for (int m = 0; m < kTileB; ++m) c[m] = kb + m < V ? to_f32(row[kb + m]) : 0.f;
+            fma_tile<kTileB, C>(acc, dcol + r * DVS, c);
+          }
+        }
+        for (int64_t k = capacity + t; k < V; k += kThreads) {
+          float x[1][M];
+#pragma unroll
+          for (int j = 0; j < M; ++j) x[0][j] = 0.f;
+          for (int r = 0; r < rows_here; ++r) {
+            const float c[1] = {to_f32(tile[r * V + k])};
+            fma_tile<1, M>(x, dvs + r * DVS, c);
+          }
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+            if ((j >> 1) < nt)
+              dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] += x[0][j];
+          }
+        }
+      }
+      __syncthreads();  // every read of this stage and of red is done
+      if (i + kStages < total) issue(i + kStages);
     }
-    // per-slice block sums: a butterfly per warp, then across warps
+
+    // the slice tile's loss partials: one per (slice, block), summed over
+    // the rows in a fixed order
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc[n] += __shfl_xor_sync(kFull, acc[n], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) red[warp][n] = acc[n];
+    for (int q = 0; q < NH; ++q) {
+      const int n = ne0 + q;
+      if (n < ne1) red[n * rows + re] = lacc[q];
     }
     __syncthreads();
     if (t < nt) {
       float sum = 0.f;
-      for (int i = 0; i < kWarps; ++i) sum += red[i][t];
-      partials[(n0 + t) * gridDim.x + blockIdx.x] = sum;
+      for (int r = 0; r < rows; ++r) sum += red[t * rows + r];
+      partials[(n0 + t) * G + g] = sum;
     }
+    if constexpr (kAll) {
+#pragma unroll
+      for (int m = 0; m < kTileB; ++m) {
+        const int k = kb + m;
+        if (k >= V || k >= capacity) continue;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int col = cb * C + j;
+          if ((col >> 1) < nt)
+            dcoeffs[(((col & 1) * N + n0 + (col >> 1)) * G + g) * V + k] = acc[m][j];
+        }
+      }
+    }
+    __syncthreads();  // red and coef are free for the next slice tile
   }
 }
 
-template <int NT, typename TC, typename TW>
-int launch(dim3 grid, cudaStream_t s, const void* comps, const float* coeffs2,
+// Rows too wide for the smallest ring of the kernel above: one block per
+// group walks the group's rows one at a time, reading each row from device
+// memory for the matvec and again, from L2, for the coefficient gradient.
+// The coefficients are interleaved in the scratch buffer; the coefficient
+// gradient accumulates in the output (the block owns its group's); every
+// sum is taken in a fixed order.
+template <int NT, typename TC, int MODE>
+__global__ void __launch_bounds__(kThreads)
+fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
+                      const float* __restrict__ pr, const float* __restrict__ pi,
+                      const float* __restrict__ dr, const float* __restrict__ di, int64_t d_sn,
+                      int64_t d_sg, int64_t d_sf, const void* __restrict__ w, int w_bf16,
+                      int64_t w_sn, int64_t w_sg, int64_t w_sf, float* __restrict__ partials,
+                      float* __restrict__ dcoeffs, float* __restrict__ dpr,
+                      float* __restrict__ dpi, float* __restrict__ coef_scratch, int64_t N,
+                      int64_t G, int64_t F, int64_t V) {
+  constexpr int M = 2 * NT;
+  constexpr int kWarps = kThreads / 32;
+  constexpr bool kDp = MODE >= kLossDp;
+  constexpr bool kAll = MODE == kLossAll;
+  __shared__ float wsum[kWarps][M];
+  __shared__ float dvrow[M];
+  const int t = threadIdx.x;
+  const int64_t g = blockIdx.x;
+  float* coef = coef_scratch + g * V * M;
+  const int64_t GF = G * F;
+  for (int64_t n0 = 0; n0 < N; n0 += NT) {
+    const int nt = static_cast<int>(N - n0 < NT ? N - n0 : NT);
+    for (int64_t idx = t; idx < V * M; idx += kThreads) {
+      const int j = static_cast<int>(idx / V);
+      const int64_t k = idx - j * V;
+      const int64_t out = (((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k;
+      coef[k * M + j] = (j >> 1) < nt ? coeffs2[out] : 0.f;
+      if (kAll && (j >> 1) < nt) dcoeffs[out] = 0.f;
+    }
+    __syncthreads();  // coefficients staged, gradient zeroed
+    float lacc = 0.f;  // thread n < nt: slice n's loss
+    for (int64_t f = 0; f < F; ++f) {
+      const TC* row = comps + (g * F + f) * V;
+      float s[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j) s[j] = 0.f;
+      for (int64_t k = t; k < V; k += kThreads) {
+        const float c = to_f32(row[k]);
+#pragma unroll
+        for (int j = 0; j < M; ++j) s[j] = fmaf(c, coef[k * M + j], s[j]);
+      }
+      // each warp's sums, then the warps' in a fixed order
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+      }
+      if (t % 32 == 0) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) wsum[t / 32][j] = s[j];
+      }
+      __syncthreads();
+      if (t < nt) {
+        float sr = 0.f, si = 0.f;
+        for (int q = 0; q < kWarps; ++q) {
+          sr += wsum[q][2 * t];
+          si += wsum[q][2 * t + 1];
+        }
+        const int64_t nn = n0 + t;
+        const int64_t prow = nn * GF + g * F + f;
+        const int64_t drow = nn * d_sn + g * d_sg + f * d_sf;
+        const int64_t wrow = nn * w_sn + g * w_sg + f * w_sf;
+        const float p_r = pr[prow], p_i = pi[prow];
+        const float wv = w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[wrow])
+                                : static_cast<const float*>(w)[wrow];
+        const float er = dr[drow] - (p_r * sr + p_i * si);
+        const float ei = di[drow] - (-p_i * sr + p_r * si);
+        lacc += wv * (er * er + ei * ei);
+        if constexpr (kDp) {
+          const float dmr = -2.f * wv * er;
+          const float dmi = -2.f * wv * ei;
+          dpr[prow] = sr * dmr + si * dmi;
+          dpi[prow] = si * dmr - sr * dmi;
+          if constexpr (kAll) {
+            dvrow[2 * t] = p_r * dmr - p_i * dmi;
+            dvrow[2 * t + 1] = p_i * dmr + p_r * dmi;
+          }
+        }
+      }
+      if constexpr (kAll) {
+        __syncthreads();  // dv of the row is complete
+        for (int64_t k = t; k < V; k += kThreads) {
+          const float c = to_f32(row[k]);
+          for (int j = 0; j < 2 * nt; ++j)
+            dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] += c * dvrow[j];
+        }
+      }
+      __syncthreads();  // wsum and dvrow are free for the next row
+    }
+    if (t < nt) partials[(n0 + t) * G + g] = lacc;
+    __syncthreads();  // the coefficients are free for the next slice tile
+  }
+}
+
+// how a launch is laid out (rows == 0: the wide-row kernel)
+struct Plan {
+  int nt, rows, bulk, pairs, coef_smem;
+  size_t smem;
+};
+
+// slices per tile: the least power of two >= N, at most 8; then the largest
+// row tile (at most half a block: a thread's epilogue holds at most half
+// the slices) that lets kMinBlocks blocks share an SM, else one; the
+// coefficients in shared memory where they fit. Halves the slice tile when
+// nothing fits, and takes the wide-row kernel when not even one row fits.
+bool make_plan(long long N, long long F, long long V, int csize, int mode, uintptr_t comps_ptr,
+               Plan* plan) {
+  const bool grads = mode == kLossAll;
+  for (int nt = N > 4 ? 8 : N > 2 ? 4 : static_cast<int>(N); nt >= 1; nt /= 2) {
+    const int m = 2 * nt;
+    for (size_t budget : {kPerBlock, kMaxSmem}) {
+      for (int rows = kThreads / 2; rows >= 1; rows /= 2) {
+        for (int coef_smem = 1; coef_smem >= 0; --coef_smem) {
+          const Layout L = make_layout(m, rows, V, csize, coef_smem != 0, grads);
+          if (L.total > budget) continue;
+          plan->nt = nt;
+          plan->rows = rows;
+          plan->coef_smem = coef_smem;
+          plan->smem = L.total;
+          const long long rb = static_cast<long long>(rows) * V * csize;
+          plan->bulk = comps_ptr % 16 == 0 && rb % 16 == 0 && (F * V * csize) % 16 == 0 &&
+                       ((F % rows) * V * csize) % 16 == 0;
+          plan->pairs = V % 2 == 0 && (csize == 4 || comps_ptr % 4 == 0);
+          return true;
+        }
+      }
+    }
+    if (nt == 1) break;
+  }
+  *plan = Plan{N > 4 ? 8 : N > 2 ? 4 : static_cast<int>(N), 0, 0, 0, 0, 0};
+  return true;
+}
+
+template <int NT, typename TC, int MODE>
+int launch(const Plan& p, int grid, cudaStream_t s, const void* comps, const float* coeffs2,
            const float* pr, const float* pi, const float* dr, const float* di, int64_t d_sn,
-           int64_t d_sg, int64_t d_sf, const void* w, int64_t w_sn, int64_t w_sg,
-           int64_t w_sf, float* partials, float* v, int64_t N, int64_t G, int64_t F,
-           int64_t V) {
-  const size_t bytes = smem_bytes(NT, V);
-  auto kernel = fused_chunk_loss_kernel<NT, TC, TW>;
-  if (bytes > 48 * 1024) {
+           int64_t d_sg, int64_t d_sf, const void* w, int w_bf16, int64_t w_sn, int64_t w_sg,
+           int64_t w_sf, float* partials, float* dcoeffs, float* dpr, float* dpi,
+           float* scratch, int64_t N, int64_t G, int64_t F, int64_t V) {
+  if (p.rows == 0) {
+    fused_chunk_loss_wide<NT, TC, MODE><<<grid, kThreads, 0, s>>>(
+        static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16,
+        w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = fused_chunk_loss_kernel<NT, TC, MODE>;
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<grid, kThreads, bytes, s>>>(static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di,
-                                       d_sn, d_sg, d_sf, static_cast<const TW*>(w), w_sn,
-                                       w_sg, w_sf, partials, v, N, G, F, V);
+  kernel<<<grid, kThreads, p.smem, s>>>(
+      static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16, w_sn,
+      w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V, p.rows, p.bulk,
+      p.pairs, p.coef_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TC, typename TW>
-int launch_tile(int tile, dim3 grid, cudaStream_t s, const void* comps, const float* coeffs2,
-                const float* pr, const float* pi, const float* dr, const float* di,
-                int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* w, int64_t w_sn,
-                int64_t w_sg, int64_t w_sf, float* partials, float* v, int64_t N, int64_t G,
-                int64_t F, int64_t V) {
-  switch (tile) {
-    case 1:
-      return launch<1, TC, TW>(grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
-                               w_sn, w_sg, w_sf, partials, v, N, G, F, V);
-    case 2:
-      return launch<2, TC, TW>(grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
-                               w_sn, w_sg, w_sf, partials, v, N, G, F, V);
-    case 4:
-      return launch<4, TC, TW>(grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
-                               w_sn, w_sg, w_sf, partials, v, N, G, F, V);
-    default:
-      return launch<8, TC, TW>(grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
-                               w_sn, w_sg, w_sf, partials, v, N, G, F, V);
+template <typename TC, int MODE, typename... Args>
+int launch_nt(const Plan& p, Args... args) {
+  switch (p.nt) {
+    case 1: return launch<1, TC, MODE>(p, args...);
+    case 2: return launch<2, TC, MODE>(p, args...);
+    case 4: return launch<4, TC, MODE>(p, args...);
+    default: return launch<8, TC, MODE>(p, args...);
+  }
+}
+
+template <typename TC, typename... Args>
+int launch_mode(int mode, const Plan& p, Args... args) {
+  switch (mode) {
+    case kLossOnly: return launch_nt<TC, kLossOnly>(p, args...);
+    case kLossDp: return launch_nt<TC, kLossDp>(p, args...);
+    default: return launch_nt<TC, kLossAll>(p, args...);
   }
 }
 
@@ -274,60 +712,66 @@ int launch_tile(int tile, dim3 grid, cudaStream_t s, const void* comps, const fl
 
 extern "C" {
 
-// Number of partial sums per slice (one per block) the launcher writes for
-// a chunk of G groups and F channels: `partials` is (N, fcl_num_partials).
-long long fcl_num_partials(long long G, long long F) {
-  return G * ((F + kThreads - 1) / kThreads);
-}
-
 const char* fcl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The launch plan for comps at `comps_ptr`: out = {slices per tile, rows
+// per tile (0: the wide-row kernel), bulk copies (1) or cp.async (0), pair
+// reads, coefficients in shared memory (1) or in the scratch buffer (0),
+// shared-memory bytes}. Returns 0, or cudaErrorInvalidValue for an empty or
+// out-of-range shape. Where out[4] == 0 the caller passes a scratch buffer
+// of G * V * 2 * out[0] floats.
+int fcl_plan(long long N, long long G, long long F, long long V, int comps_dtype, int mode,
+             const void* comps_ptr, long long* out) {
+  Plan p;
+  if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || N > INT_MAX || G > INT_MAX || F > INT_MAX ||
+      mode < 0 || mode > 2 ||
+      !make_plan(N, F, V, comps_dtype == 0 ? 4 : 2, mode, reinterpret_cast<uintptr_t>(comps_ptr),
+                 &p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long vals[6] = {p.nt, p.rows, p.bulk, p.pairs, p.coef_smem,
+                             static_cast<long long>(p.smem)};
+  for (int q = 0; q < 6; ++q) out[q] = vals[q];
+  return 0;
+}
+
 // comps: (G, F, V) contiguous, float32 (comps_dtype 0) or bfloat16 (1);
 // coeffs2: (2, N, G, V) contiguous float32; pr, pi: (N, G, F) contiguous
-// float32; dr, di: float32 at dr[n * d_sn + g * d_sg + f * d_sf]; w:
-// float32 (w_dtype 0) or bfloat16 (1) at w[n * w_sn + g * w_sg + f * w_sf]
-// (strides in elements); partials: (N, fcl_num_partials(G, F)); v:
-// (2, N, G, F) contiguous. All on the current device. Launches on `stream`
-// and returns the launch's CUDA error (0 on success); it does not
+// float32; dr, di: float32 at dr[n * d_sn + g * d_sg + f * d_sf]; w: float32
+// (w_dtype 0) or bfloat16 (1) at w[n * w_sn + g * w_sg + f * w_sf] (strides
+// in elements). Outputs, float32 and contiguous: partials (N, G), summed
+// over G by the caller; for mode >= 1 dpr and dpi (N, G, F); for mode 2
+// dcoeffs (2, N, G, V); the gradients at a loss cotangent of 1. mode 0 is
+// the loss only, 1 the loss with dpr/dpi, 2 every gradient. scratch: see
+// fcl_plan (may be null otherwise). All on the current device. Launches on
+// `stream` and returns the launch's CUDA error (0 on success); it does not
 // synchronise.
-int fused_chunk_loss_fwd(const void* comps, int comps_dtype, const float* coeffs2,
-                         const float* pr, const float* pi, const float* dr,
-                         const float* di, long long d_sn, long long d_sg, long long d_sf,
-                         const void* w, int w_dtype, long long w_sn, long long w_sg,
-                         long long w_sf, float* partials, float* v, long long N, long long G,
-                         long long F, long long V, void* stream) {
-  if (N <= 0 || G <= 0 || F <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nblocks = fcl_num_partials(G, F);
-  if (nblocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  // slices per tile: the least power of two >= N, at most 8, and smaller
-  // when the tile's coefficients would not fit in shared memory
-  int tile = N > 4 ? 8 : N > 2 ? 4 : static_cast<int>(N);
-  while (tile > 1 && smem_bytes(tile, V) > kMaxSmem) tile /= 2;
-  if (smem_bytes(tile, V) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(nblocks));
+int fused_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, const float* pr,
+                     const float* pi, const float* dr, const float* di, long long d_sn,
+                     long long d_sg, long long d_sf, const void* w, int w_dtype, long long w_sn,
+                     long long w_sg, long long w_sf, float* partials, float* dcoeffs, float* dpr,
+                     float* dpi, float* scratch, long long N, long long G, long long F,
+                     long long V, int mode, void* stream) {
+  long long out[6];
+  const int err = fcl_plan(N, G, F, V, comps_dtype, mode, comps, out);
+  if (err != 0) return err;
+  if ((comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (out[4] == 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p{static_cast<int>(out[0]), static_cast<int>(out[1]), static_cast<int>(out[2]),
+               static_cast<int>(out[3]), static_cast<int>(out[4]), static_cast<size_t>(out[5])};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (comps_dtype == 0 && w_dtype == 0) {
-    return launch_tile<float, float>(tile, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg,
-                                     d_sf, w, w_sn, w_sg, w_sf, partials, v, N, G, F, V);
+  const int grid = static_cast<int>(G);
+  if (comps_dtype == 0) {
+    return launch_mode<float>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf,
+                              w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch,
+                              N, G, F, V);
   }
-  if (comps_dtype == 1 && w_dtype == 0) {
-    return launch_tile<__nv_bfloat16, float>(tile, grid, s, comps, coeffs2, pr, pi, dr, di,
-                                             d_sn, d_sg, d_sf, w, w_sn, w_sg, w_sf, partials,
-                                             v, N, G, F, V);
-  }
-  if (comps_dtype == 0 && w_dtype == 1) {
-    return launch_tile<float, __nv_bfloat16>(tile, grid, s, comps, coeffs2, pr, pi, dr, di,
-                                             d_sn, d_sg, d_sf, w, w_sn, w_sg, w_sf, partials,
-                                             v, N, G, F, V);
-  }
-  if (comps_dtype == 1 && w_dtype == 1) {
-    return launch_tile<__nv_bfloat16, __nv_bfloat16>(tile, grid, s, comps, coeffs2, pr, pi, dr,
-                                                     di, d_sn, d_sg, d_sf, w, w_sn, w_sg, w_sf,
-                                                     partials, v, N, G, F, V);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<__nv_bfloat16>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg,
+                                    d_sf, w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr,
+                                    dpi, scratch, N, G, F, V);
 }
 
 }  // extern "C"

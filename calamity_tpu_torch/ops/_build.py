@@ -34,20 +34,33 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when an existing build was loaded
         self.build_log = build_log
         lib = ctypes.CDLL(path)
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.fcl_num_partials.argtypes = [ll, ll]
-        lib.fcl_num_partials.restype = ll
-        lib.fcl_error_string.argtypes = [ctypes.c_int]
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.fcl_error_string.argtypes = [ci]
         lib.fcl_error_string.restype = ctypes.c_char_p
-        ci = ctypes.c_int
-        lib.fused_chunk_loss_fwd.argtypes = (
-            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp, vp] + [ll] * 4 + [vp]
+        lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]
+        lib.fcl_plan.restype = ci
+        # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
+        # partials, dcoeffs, dpr, dpi, scratch; N, G, F, V; mode; stream
+        lib.fused_chunk_loss.argtypes = (
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 4 + [ci, vp]
         )
-        lib.fused_chunk_loss_fwd.restype = ctypes.c_int
-        self.fcl_num_partials = lib.fcl_num_partials
+        lib.fused_chunk_loss.restype = ci
         self.fcl_error_string = lib.fcl_error_string
-        self.fused_chunk_loss_fwd = lib.fused_chunk_loss_fwd
+        self.fused_chunk_loss = lib.fused_chunk_loss
         self._lib = lib
+
+    def plan(self, nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps_ptr):
+        """The kernel's launch plan as a dict (see ``fcl_plan`` in the
+        source); raises on an empty or out-of-range shape."""
+        out = (ctypes.c_longlong * 6)()
+        err = self._lib.fcl_plan(nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps_ptr, out)
+        if err != 0:
+            raise ValueError(
+                f"the fused chunk-loss kernel has no launch plan for N={nbatch}, G={ngrps}, "
+                f"F={nfreqs}, V={nvecs} ({self.fcl_error_string(err).decode()})"
+            )
+        keys = ("slices_per_tile", "rows", "bulk", "pairs", "coef_smem", "smem_bytes")
+        return dict(zip(keys, out))
 
 
 _LOADED = []  # the library loaded in this process, once loaded

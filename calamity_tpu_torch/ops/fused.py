@@ -1,5 +1,5 @@
-"""Fused forward model + chi-square loss of one dense B=1 chunk, for a
-batch of slices that share the chunk's basis.
+"""Fused forward model + chi-square loss of one dense B=1 chunk, with its
+gradients, for a batch of slices that share the chunk's basis.
 
 Port of calamity_tpu/ops/fused.py. Per chunk with one baseline per group
 and per (time, pol) slice n:
@@ -8,14 +8,20 @@ and per (time, pol) slice n:
     model   = (g_i conj g_j)[n] * v[n]       (complex product in real arithmetic)
     loss[n] = sum(w[n] * |data[n] - model|^2) (weighted reduction)
 
-On a CUDA tensor the forward is the hand-written kernel in
+and the reference's backward ``_bwd_xla`` at a loss cotangent of 1: the
+chi-square is local per group and its cotangent a scalar per slice, so the
+gradients of the coefficients and of the gain products are computed in
+the same pass as the loss and the autograd Function's backward only
+scales them by each slice's cotangent (exact: they are linear in it).
+
+On a CUDA tensor the pass is the hand-written kernel in
 ``csrc/fused_chunk_loss.cu`` (built on first use by ``ops._build``), which
-reads each comps row once for every slice of the batch; on a CPU tensor it
-is :func:`fused_chunk_loss_batched_plain`'s torch ops. There is no other
-route: a CUDA launch that fails raises. The backward mirrors the
-reference's ``_bwd_xla`` in torch ops, with a slice axis: one contraction
-reads comps once for all slices (and bfloat16 comps are upcast once per
-step, not per slice). The serial path is the same kernel with one slice.
+reads each comps row once for the loss and every gradient of up to 8
+slices; on a CPU tensor it is :func:`loss_and_grads_plain`'s torch ops.
+There is no other route: a CUDA launch that fails raises. The forward
+picks one of three instances: the loss only (no gradient wanted), the
+loss with the gain-product gradients (frozen coefficients), or the loss
+with every gradient. The serial path is the same kernel with one slice.
 
 The gate below is written for this kernel, which takes any N, G, F and V.
 The reference's TPU gate (F and V multiples of 128, a group tile in
@@ -82,28 +88,47 @@ def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
     return reasons
 
 
+LOSS_ONLY, LOSS_DP, LOSS_ALL = 0, 1, 2  # the kernel's three instances
+
+
 def _f32(t):
     return t if t.dtype == torch.float32 else t.to(torch.float32)
 
 
-def _model(v, pr, pi):
-    vr, vi = v[0], v[1]
-    return pr * vr + pi * vi, -pi * vr + pr * vi
-
-
-def _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
-    """(losses (N,), v (2, N, G, F)) in torch ops."""
+def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
+    """Plain torch version of the kernel: ``(losses (N,), dcoeffs (2, N, G,
+    V), dpr (N, G, F), dpi (N, G, F))``, the gradients at a loss cotangent
+    of 1 (``None`` where ``mode`` does not ask for them): the reference's
+    forward and ``_bwd_xla`` with a slice axis. The reference the kernel is
+    held against, and the CPU path."""
     v = torch.einsum("gfv,kngv->kngf", _f32(comps3), coeffs2)
-    mr, mi = _model(v, pr, pi)
+    vr, vi = v[0], v[1]
+    mr = pr * vr + pi * vi
+    mi = -pi * vr + pr * vi
     er = dr - mr
     ei = di - mi
-    return torch.sum(_f32(w) * (er * er + ei * ei), dim=(1, 2)), v
+    wf = _f32(w)
+    losses = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
+    if mode == LOSS_ONLY:
+        return losses, None, None, None
+    dmr = -2.0 * wf * er
+    dmi = -2.0 * wf * ei
+    dpr = vr * dmr + vi * dmi
+    dpi = vi * dmr - vr * dmi
+    dcoeffs = None
+    if mode == LOSS_ALL:
+        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
+        dcoeffs = torch.einsum("gfv,kngf->kngv", _f32(comps3), dv)
+    return losses, dcoeffs, dpr, dpi
 
 
 def fused_chunk_loss_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
-    """Plain torch version of the batched kernel's forward (differentiable
-    by autograd): the reference the kernel is held against. (N,) losses."""
-    return _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3)[0]
+    """Plain torch forward of the batched loss, differentiable by autograd:
+    (N,) losses."""
+    v = torch.einsum("gfv,kngv->kngf", _f32(comps3), coeffs2)
+    mr = pr * v[0] + pi * v[1]
+    mi = -pi * v[0] + pr * v[1]
+    return torch.sum(_f32(w) * ((dr - mr) ** 2 + (di - mi) ** 2), dim=(1, 2))
 
 
 def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3):
@@ -139,9 +164,10 @@ def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3):
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 
 
-def _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3):
-    """(losses (N,), v (2, N, G, F)) from the CUDA kernel. Raises on any
-    operand the kernel does not take and on a failed launch."""
+def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
+    """:func:`loss_and_grads_plain` from the CUDA kernel, in one read of
+    comps. Raises on any operand the kernel does not take and on a failed
+    launch."""
     from ._build import load_kernels
 
     _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3)
@@ -149,15 +175,30 @@ def _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3):
     ngrps, nfreqs, nvecs = comps3.shape
     nbatch = coeffs2.shape[1]
     dev = comps3.device
-    partials = torch.empty((nbatch, lib.fcl_num_partials(ngrps, nfreqs)),
-                           dtype=torch.float32, device=dev)
-    v = torch.empty((2, nbatch, ngrps, nfreqs), dtype=torch.float32, device=dev)
+    comps_dtype = 0 if comps3.dtype == torch.float32 else 1
+    plan = lib.plan(nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps3.data_ptr())
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    partials = out(nbatch, ngrps)
+    dpr = dpi = dcoeffs = scratch = None
+    if mode != LOSS_ONLY:
+        dpr, dpi = out(nbatch, ngrps, nfreqs), out(nbatch, ngrps, nfreqs)
+    if mode == LOSS_ALL:
+        dcoeffs = out(2, nbatch, ngrps, nvecs)
+    if not plan["coef_smem"]:
+        scratch = out(ngrps * nvecs * 2 * plan["slices_per_tile"])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
-        err = lib.fused_chunk_loss_fwd(
-            comps3.data_ptr(), 0 if comps3.dtype == torch.float32 else 1,
-            coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(), dr.data_ptr(), di.data_ptr(),
-            *dr.stride(), w.data_ptr(), 0 if w.dtype == torch.float32 else 1, *w.stride(),
-            partials.data_ptr(), v.data_ptr(), nbatch, ngrps, nfreqs, nvecs,
+        err = lib.fused_chunk_loss(
+            comps3.data_ptr(), comps_dtype, coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+            dr.data_ptr(), di.data_ptr(), *dr.stride(), w.data_ptr(),
+            0 if w.dtype == torch.float32 else 1, *w.stride(), partials.data_ptr(),
+            ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(scratch), nbatch, ngrps, nfreqs, nvecs, mode,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -168,55 +209,45 @@ def _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3):
     LAUNCHES.add(KERNEL_NAME)
     # the partials are summed outside the kernel, in a fixed order: no
     # atomics, so each slice's loss is the same from run to run
-    return torch.sum(partials, dim=1), v
+    return torch.sum(partials, dim=1), dcoeffs, dpr, dpi
 
 
-def _bwd_batched(v, pr, pi, dr, di, w, comps3, gbar, need_coeffs=True):
-    """Backward pass in torch ops (mirror of the reference ``_bwd_xla``
-    with a slice axis); ``gbar`` is the (N,) cotangent of the losses.
-
-    The coefficient contraction reads comps once for all slices; bfloat16
-    comps are upcast to float32 for it once (a transient float32 copy of
-    comps per step, whatever N)."""
-    g = gbar.reshape(-1, 1, 1)
-    mr, mi = _model(v, pr, pi)
-    wf = _f32(w)
-    dmr = (-2.0 * g) * wf * (dr - mr)
-    dmi = (-2.0 * g) * wf * (di - mi)
-    dcoeffs = None
-    if need_coeffs:
-        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
-        dcoeffs = torch.einsum("gfv,kngf->kngv", _f32(comps3), dv)
-    vr, vi = v[0], v[1]
-    dpr = vr * dmr + vi * dmi
-    dpi = vi * dmr - vr * dmi
-    return dcoeffs, dpr, dpi
+def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode):
+    if comps3.device.type == "cuda":
+        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode)
+    if comps3.device.type == "cpu":
+        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode)
+    raise ValueError(f"unsupported device {comps3.device}")
 
 
 class _FusedChunkLossBatched(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
-        if comps3.device.type == "cuda":
-            losses, v = _fwd_batched_kernel(coeffs2, pr, pi, dr, di, w, comps3)
-        elif comps3.device.type == "cpu":
-            losses, v = _fwd_batched_plain(coeffs2, pr, pi, dr, di, w, comps3)
-        else:
-            raise ValueError(f"unsupported device {comps3.device}")
-        ctx.save_for_backward(v, pr, pi, dr, di, w, comps3)
+        # frozen coefficients need only the gain-product gradients
+        mode = LOSS_ALL if ctx.needs_input_grad[0] else LOSS_DP
+        losses, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode)
+        ctx.save_for_backward(dcoeffs, dpr, dpi)
         return losses
 
     @staticmethod
     def backward(ctx, gbar):
-        v, pr, pi, dr, di, w, comps3 = ctx.saved_tensors
-        dcoeffs, dpr, dpi = _bwd_batched(v, pr, pi, dr, di, w, comps3, gbar,
-                                         need_coeffs=ctx.needs_input_grad[0])
+        dcoeffs, dpr, dpi = ctx.saved_tensors
+        g = gbar.reshape(-1, 1, 1)  # the gradients are linear in each slice's cotangent
+        if dcoeffs is not None and ctx.needs_input_grad[0]:
+            dcoeffs = dcoeffs * g.unsqueeze(0)
+        else:
+            dcoeffs = None
+        dpr = dpr * g if ctx.needs_input_grad[1] else None
+        dpi = dpi * g if ctx.needs_input_grad[2] else None
         # comps, data and weights are never differentiated parameters
         return dcoeffs, dpr, dpi, None, None, None, None
 
 
 def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
     """Fused weighted chi-square of one B=1 chunk for N slices sharing its
-    basis: (N,) losses, differentiable in coeffs2, pr and pi.
+    basis: (N,) losses, differentiable in coeffs2, pr and pi. With no
+    gradient wanted (grad mode off, or none of the three requires one) the
+    loss-only instance runs and nothing is saved.
 
     coeffs2: (2, N, ngrps, nvecs) stacked (real, imag) coefficients
     pr, pi:  (N, ngrps, nfreqs) Re / -Im of g_i conj(g_j) per baseline
@@ -224,7 +255,10 @@ def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
     w:       (N, ngrps, nfreqs) float32 or bfloat16, any strides
     comps3:  (ngrps, nfreqs, nvecs) float32 or bfloat16
     """
-    return _FusedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
+    if torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
+                                    or pi.requires_grad):
+        return _FusedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
+    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, LOSS_ONLY)[0]
 
 
 # ---------------------------------------------------------------------- #
@@ -234,22 +268,10 @@ def _one(coeffs2, pr, pi, dr, di, w):
     return (coeffs2.unsqueeze(1),) + tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
 
 
-def _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w):
-    """(loss, v) of one slice in torch ops; v is (2, G, F) float32."""
-    losses, v = _fwd_batched_plain(*_one(coeffs2, pr, pi, dr, di, w), comps3)
-    return losses[0], v[:, 0]
-
-
 def fused_chunk_loss_plain(coeffs2, pr, pi, comps3, dr, di, w):
-    """Plain torch version of the single-slice forward (differentiable by
+    """Plain torch forward of the single-slice loss (differentiable by
     autograd)."""
-    return _fwd_plain(coeffs2, pr, pi, comps3, dr, di, w)[0]
-
-
-def _fwd_kernel(coeffs2, pr, pi, comps3, dr, di, w):
-    """(loss, v) of one slice from the CUDA kernel (N = 1)."""
-    losses, v = _fwd_batched_kernel(*_one(coeffs2, pr, pi, dr, di, w), comps3)
-    return losses[0], v[:, 0]
+    return fused_chunk_loss_batched_plain(*_one(coeffs2, pr, pi, dr, di, w), comps3)[0]
 
 
 def fused_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w):

@@ -47,12 +47,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from calamity_tpu.utils import echo
-
 from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
 from ..ops.loss import fg_model_batched, fg_model_host_batched, gain_products_batched
 from ..solver.fit import _big, init_params
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
+from ..utils import echo
 
 
 def _loss_block_size(ngrps, gmax, requested, multiple_of=1):

@@ -25,10 +25,9 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from calamity_tpu.utils import echo
-
 from ..ops.fused import warn_fused_fallbacks
 from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
+from ..utils import echo
 from .optimizers import get_optimizer, tree_leaves, tree_map
 
 

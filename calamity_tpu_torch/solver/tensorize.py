@@ -22,9 +22,8 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from calamity_tpu.io.polarizations import conj_pol_ind, polnum2str, polstr2num
-
 from .._device import resolve_device
+from ..io.polarizations import conj_pol_ind, polnum2str, polstr2num
 
 
 def chunk_fitting_groups(fg_model_comps_dict, use_redundancy=False, grp_size_threshold=5,

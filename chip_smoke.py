@@ -11,12 +11,15 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 
 1. environment: torch, CUDA, the card and its power limit, nvcc, triton;
 2. build of the kernel library;
-3. kernel against plain at the main path's chunk shape and at ragged small
-   shapes, float32 and bfloat16 comps, with times; then its batched form
-   (N slices sharing one comps read) against its plain version at N = 8 on
-   the main chunk, N = 1 and 3 at ragged shapes and on a group-block view,
-   float32 and bfloat16 comps and weights, timed against the plain version
-   and against N single-slice launches;
+3. every instance of the kernel (the loss only; with the gain-product
+   gradients; with every gradient, in one comps read) against its plain
+   version: at the main path's chunk shape with N = 8 and 1 slices, at
+   ragged shapes with N = 1, 3 and 9, on group-block views, at an unaligned
+   comps offset, at wide bases (a smaller row tile, modes past the register
+   slots, coefficients in scratch, rows too wide for any tile), float32 and
+   bfloat16 comps and weights;
+   at the main shape timed against the plain version, against its bound
+   and against cuBLAS' batched matvec of the same comps;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    2 times, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -32,8 +35,9 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    polarizations (8 slices in one batched descent), every step through the
    batched kernel; two of its slices against the serial path.
 
-Any failure raises and exits non-zero; there is no fallback to the CPU. The
-last line is one JSON object naming the device.
+Any failure raises and exits non-zero; there is no fallback to the CPU. It
+imports nothing of jax or of the JAX package ``calamity_tpu`` and fails if
+either was loaded. The last line is one JSON object naming the device.
 """
 
 import json
@@ -65,7 +69,7 @@ MAXSTEPS = 3000  # per phase of the mixed schedule
 TOL = 1e-11
 N_LOOP_STEPS = 50
 CUT_STEPS = 40  # where phase 6's checkpointed CLI run is cut
-KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"
+KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
 
 
@@ -152,89 +156,17 @@ def phase_build():
 # ---------------------------------------------------------------------- #
 # phase 3: kernel against plain
 # ---------------------------------------------------------------------- #
-def kernel_inputs(ngrps, nfreqs, nvecs, comps_dtype, seed):
-    import torch
-
-    rng = np.random.default_rng(seed)
-    comps = rng.standard_normal((ngrps, nfreqs, nvecs), dtype=np.float32)
-    comps /= np.linalg.norm(comps, axis=1, keepdims=True)
-    coeffs2 = rng.standard_normal((2, ngrps, nvecs), dtype=np.float32)
-    pr = (1 + 0.1 * rng.standard_normal((ngrps, nfreqs), dtype=np.float32))
-    pi = 0.1 * rng.standard_normal((ngrps, nfreqs), dtype=np.float32)
-    dr = rng.standard_normal((ngrps, nfreqs), dtype=np.float32)
-    di = rng.standard_normal((ngrps, nfreqs), dtype=np.float32)
-    w = np.abs(rng.standard_normal((ngrps, nfreqs), dtype=np.float32))
-    w /= w.sum()
-    dev = torch.device("cuda")
-    t = [torch.as_tensor(x, device=dev) for x in (coeffs2, pr, pi, comps, dr, di, w)]
-    t[3] = t[3].to(comps_dtype)
-    return t
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (the kernel takes no TF32)
 
 
-def compare_kernel(shape, comps_dtype, timed):
-    import torch
-
-    from calamity_tpu_torch.ops import fused
-
-    ngrps, nfreqs, nvecs = shape
-    args = kernel_inputs(ngrps, nfreqs, nvecs, comps_dtype, SEED + ngrps + nvecs)
-    loss_k, v_k = fused._fwd_kernel(*args)
-    loss_p, v_p = fused._fwd_plain(*args)
-    torch.cuda.synchronize()
-    lk, lp = float(loss_k), float(loss_p)
-    loss_rel = abs(lk - lp) / abs(lp)
-    loss_err = abs(lk - lp)
-    v_err = float((v_k - v_p).abs().max())
-    v_scale = float(v_p.abs().max())
-
-    def grads(fn):
-        leaves = [a.detach().clone().requires_grad_(i in (0, 1, 2)) for i, a in enumerate(args)]
-        fn(*leaves).backward()
-        return [leaves[i].grad for i in (0, 1, 2)]
-
-    g_k = grads(fused.fused_chunk_loss)
-    g_p = grads(fused.fused_chunk_loss_plain)
-    g_rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p)]
-    name = str(comps_dtype).replace("torch.", "")
-    log(f"  {shape} {name}: loss kernel {lk:.9e} plain {lp:.9e} rel {loss_rel:.2e}; "
-        f"max|dv| {v_err:.3e} (max|v| {v_scale:.3e}); grad rel (coeffs, pr, pi) "
-        f"{', '.join(f'{x:.2e}' for x in g_rel)}")
-    check(loss_rel <= 1e-5, f"loss disagrees at {shape} {name}: rel {loss_rel}")
-    check(v_err <= 1e-5 * v_scale, f"v disagrees at {shape} {name}: {v_err} vs {v_scale}")
-    check(max(g_rel) <= 1e-4, f"gradients disagree at {shape} {name}: {g_rel}")
-    out = {"max_abs_err": max(v_err, loss_err)}
-    if timed:
-        def fwdbwd(fn):
-            leaves = [a.detach().requires_grad_(i in (0, 1, 2)) for i, a in enumerate(args)]
-            return lambda: fn(*leaves).backward()
-
-        out["fwd_ms"] = cuda_median_ms(lambda: fused._fwd_kernel(*args))
-        out["plain_fwd_ms"] = cuda_median_ms(lambda: fused._fwd_plain(*args))
-        out["fwdbwd_ms"] = cuda_median_ms(fwdbwd(fused.fused_chunk_loss))
-        out["plain_fwdbwd_ms"] = cuda_median_ms(fwdbwd(fused.fused_chunk_loss_plain))
-        comps_gb = args[3].numel() * args[3].element_size() / 1e9
-        log(f"    forward: kernel {out['fwd_ms']:.4f} ms ({comps_gb / out['fwd_ms']:.2f} TB/s "
-            f"of comps read), plain {out['plain_fwd_ms']:.4f} ms; forward+backward: kernel "
-            f"{out['fwdbwd_ms']:.4f} ms, plain {out['plain_fwdbwd_ms']:.4f} ms "
-            "(median of 20 samples of 5 back-to-back calls)")
-        # device memory one kernel forward+backward allocates beyond its
-        # inputs (for bf16 comps: the float32 upcast of comps in the backward)
-        step = fwdbwd(fused.fused_chunk_loss)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        step()
-        torch.cuda.synchronize()
-        transient_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-        log(f"    forward+backward transient device memory {transient_gb:.3f} GB "
-            f"(comps {comps_gb:.3f} GB)")
-    return out
-
-
-def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, extra=0):
-    """Inputs of the batched kernel; with ``extra`` > 0 the per-slice planes
-    are views of (nbatch, ngrps + extra, nfreqs) cubes at groups
-    [extra // 2, extra // 2 + ngrps), as a loss block reads them."""
+def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, extra=0,
+                   odd_offset=False):
+    """Inputs of the kernel; with ``extra`` > 0 the per-slice planes are
+    views of (nbatch, ngrps + extra, nfreqs) cubes at groups
+    [extra // 2, extra // 2 + ngrps), as a loss block reads them; with
+    ``odd_offset`` comps starts one element into its storage (a span that
+    is not 16-byte aligned: the kernel's cp.async path)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -246,6 +178,11 @@ def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, 
 
     comps = t(ngrps, nfreqs, nvecs)
     comps /= torch.linalg.vector_norm(comps, dim=1, keepdim=True)
+    comps = comps.to(comps_dtype)
+    if odd_offset:
+        store = torch.empty(comps.numel() + 1, dtype=comps_dtype, device=dev)
+        store[1:] = comps.reshape(-1)
+        comps = store[1:].view(comps.shape)
     coeffs2 = t(2, nbatch, ngrps, nvecs)
     pr, pi = 1 + 0.1 * t(nbatch, ngrps, nfreqs), 0.1 * t(nbatch, ngrps, nfreqs)
     dr, di = t(nbatch, gt, nfreqs), t(nbatch, gt, nfreqs)
@@ -253,26 +190,78 @@ def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, 
     w /= w.sum(dim=(1, 2), keepdim=True)
     g0 = extra // 2
     sl = slice(g0, g0 + ngrps)
-    return [coeffs2, pr, pi, dr[:, sl], di[:, sl], w[:, sl].to(wgts_dtype),
-            comps.to(comps_dtype)]
+    return [coeffs2, pr, pi, dr[:, sl], di[:, sl], w[:, sl].to(wgts_dtype), comps]
 
 
-def compare_batched(nbatch, shape, comps_dtype, wgts_dtype, timed, extra=0):
+def nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def bound(args, grads):
+    """The least time the card could take for the kernel's work on these
+    inputs: the larger of the bytes it must move (each input read once,
+    each output written once) over the memory rate and its float32
+    operations over the float32 rate. Returns (ms, "bytes" | "operations",
+    bytes)."""
+    coeffs2, pr, pi, dr, di, w, comps = args
+    nbatch, ngrps, nfreqs = pr.shape
+    nvecs = comps.shape[-1]
+    rows = nbatch * ngrps * nfreqs
+    moved = sum(nbytes(x) for x in args) + 4 * nbatch  # inputs, losses
+    # 2 FMAs per comps value and slice (re, im) in the matvec; per row and
+    # slice 12 operations for the model, residual and weighted square
+    flops = 4 * rows * nvecs + 12 * rows
+    if grads:
+        moved += nbytes(coeffs2) + 2 * nbytes(pr)  # dcoeffs, dpr, dpi written
+        flops += 4 * rows * nvecs + 16 * rows  # the coefficient contraction; dm, dp, dv
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_offset=False):
+    """Every instance of the kernel against the plain version on the same
+    inputs (loss rel 1e-5, gradients rel 1e-4), and the autograd Function
+    against the plain forward under autograd at a different cotangent per
+    slice; with ``timed``, CUDA-event times."""
     import torch
 
     from calamity_tpu_torch.ops import fused
 
     ngrps, nfreqs, nvecs = shape
     args = batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype,
-                          SEED + 7 * nbatch + ngrps + nvecs, extra)
-    loss_k, v_k = fused._fwd_batched_kernel(*args)
-    loss_p, v_p = fused._fwd_batched_plain(*args)
-    torch.cuda.synchronize()
-    loss_rel = float(((loss_k - loss_p).abs() / loss_p.abs()).max())
-    loss_err = float((loss_k - loss_p).abs().max())
-    v_err = float((v_k - v_p).abs().max())
-    v_scale = float(v_p.abs().max())
-    # a different cotangent per slice, so a slice mixed into another shows
+                          SEED + 7 * nbatch + ngrps + nvecs, extra, odd_offset)
+    names = "/".join(str(d).replace("torch.", "") for d in (comps_dtype, wgts_dtype))
+    tag = f"N={nbatch} {shape} comps/weights {names}"
+    if extra:
+        tag += f", group-block view of {ngrps + extra} groups"
+    if odd_offset:
+        tag += ", comps at an odd element offset"
+    from calamity_tpu_torch.ops._build import load_kernels
+
+    plan = load_kernels().plan(nbatch, ngrps, nfreqs, nvecs, int(comps_dtype != torch.float32),
+                               fused.LOSS_ALL, args[6].data_ptr())
+    errs, worst = [], {}
+    for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL):
+        got = fused.loss_and_grads_kernel(*args, mode=mode)
+        want = fused.loss_and_grads_plain(*args, mode=mode)
+        torch.cuda.synchronize()
+        loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+        check(loss_rel <= 1e-5, f"{tag} mode {mode}: loss rel {loss_rel}")
+        worst["loss"] = max(worst.get("loss", 0.0), loss_rel)
+        errs.append(float((got[0] - want[0]).abs().max()))
+        for name, g, p in zip(("dcoeffs", "dpr", "dpi"), got[1:], want[1:]):
+            check((g is None) == (p is None), f"{tag} mode {mode}: {name} presence")
+            if p is None:
+                continue
+            r = rel(g, p)
+            check(r <= 1e-4, f"{tag} mode {mode}: {name} rel {r}")
+            worst[name] = max(worst.get(name, 0.0), r)
+            errs.append(float((g - p).abs().max()))
+    # the autograd Function at a different cotangent per slice
     cot = torch.arange(1, nbatch + 1, device=args[0].device, dtype=torch.float32)
 
     def grads(fn):
@@ -280,78 +269,90 @@ def compare_batched(nbatch, shape, comps_dtype, wgts_dtype, timed, extra=0):
         torch.sum(fn(*leaves) * cot).backward()
         return [leaves[i].grad for i in range(3)]
 
-    g_k = grads(fused.fused_chunk_loss_batched)
-    g_p = grads(fused.fused_chunk_loss_batched_plain)
-    g_rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p)]
-    names = "/".join(str(d).replace("torch.", "") for d in (comps_dtype, wgts_dtype))
-    view = f", group-block view of {ngrps + extra} groups" if extra else ""
-    log(f"  N={nbatch} {shape} comps/weights {names}{view}: per-slice loss max rel "
-        f"{loss_rel:.2e}; max|dv| {v_err:.3e} (max|v| {v_scale:.3e}); grad rel (coeffs, pr, pi) "
-        f"{', '.join(f'{x:.2e}' for x in g_rel)}")
-    check(loss_rel <= 1e-5, f"batched loss disagrees at N={nbatch} {shape} {names}: {loss_rel}")
-    check(v_err <= 1e-5 * v_scale, f"batched v disagrees at N={nbatch} {shape} {names}")
-    check(max(g_rel) <= 1e-4, f"batched gradients disagree at N={nbatch} {shape}: {g_rel}")
-    out = {"max_abs_err": max(v_err, loss_err)}
-    if timed:
-        # the same slices as N launches of the one-slice kernel, each with
-        # its own contiguous inputs (each launch reads comps again)
-        singles = [[args[0][:, n:n + 1].contiguous()]
-                   + [a[n:n + 1].contiguous() for a in args[1:6]] + [args[6]]
-                   for n in range(nbatch)]
+    g_rel = [rel(a, b) for a, b in zip(grads(fused.fused_chunk_loss_batched),
+                                       grads(fused.fused_chunk_loss_batched_plain))]
+    check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
+    layout = ("the wide-row kernel" if plan["rows"] == 0 else
+              f"rows {plan['rows']}, "
+              f"{'bulk' if plan['bulk'] else 'cp.async'} copies, "
+              f"{'pair' if plan['pairs'] else 'scalar'} reads, coefficients "
+              f"{'in shared memory' if plan['coef_smem'] else 'in scratch'}")
+    log(f"  {tag}: {layout}; max rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; autograd (coeffs, pr, pi) {', '.join(f'{x:.2e}' for x in g_rel)}")
+    out = {"max_abs_err": max(errs), "plan": plan}
+    if not timed:
+        return out
 
-        def n_launches():
-            for one in singles:
-                fused._fwd_batched_kernel(*one)
+    def fwdbwd(fn):
+        leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
+        return lambda: torch.sum(fn(*leaves)).backward()
 
-        def fwdbwd(fn):
-            leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
-            return lambda: torch.sum(fn(*leaves)).backward()
-
-        out["fwd_ms"] = cuda_median_ms(lambda: fused._fwd_batched_kernel(*args))
-        out["plain_fwd_ms"] = cuda_median_ms(lambda: fused._fwd_batched_plain(*args))
-        out["single_launches_ms"] = cuda_median_ms(n_launches)
-        out["fwdbwd_ms"] = cuda_median_ms(fwdbwd(fused.fused_chunk_loss_batched))
-        out["plain_fwdbwd_ms"] = cuda_median_ms(fwdbwd(fused.fused_chunk_loss_batched_plain))
-        comps_gb = args[6].numel() * args[6].element_size() / 1e9
-        plane_gb = sum(a.numel() * a.element_size() for a in args[1:6]) / 1e9
-        log(f"    forward: batched kernel {out['fwd_ms']:.4f} ms ({comps_gb:.3f} GB comps + "
-            f"{plane_gb:.3f} GB planes read, {(comps_gb + plane_gb) / out['fwd_ms']:.2f} TB/s "
-            f"with v written aside), plain {out['plain_fwd_ms']:.4f} ms, {nbatch} one-slice "
-            f"launches {out['single_launches_ms']:.4f} ms; forward+backward: kernel "
-            f"{out['fwdbwd_ms']:.4f} ms, plain {out['plain_fwdbwd_ms']:.4f} ms "
-            "(median of 20 samples of 5 back-to-back calls)")
+    coeffs2, comps = args[0], args[6]
+    # cuBLAS batched matvec over the same comps: (G, F, V) x (G, V, 2N)
+    rhs = coeffs2.permute(2, 3, 0, 1).reshape(ngrps, nvecs, 2 * nbatch).to(comps.dtype)
+    plain_loss = lambda: fused.loss_and_grads_plain(*args, mode=fused.LOSS_ONLY)  # noqa: E731
+    plain_all = lambda: fused.loss_and_grads_plain(*args, mode=fused.LOSS_ALL)  # noqa: E731
+    kern_loss = lambda: fused.loss_and_grads_kernel(*args, mode=fused.LOSS_ONLY)  # noqa: E731
+    kern_all = lambda: fused.loss_and_grads_kernel(*args, mode=fused.LOSS_ALL)  # noqa: E731
+    # in turns: plain, kernel, kernel, plain
+    t = {}
+    for key, fn in (("plain_grad_ms", plain_all), ("grad_ms", kern_all),
+                    ("loss_only_ms", kern_loss), ("plain_ms", plain_loss),
+                    ("matvec_library_ms", lambda: torch.bmm(comps, rhs)),
+                    ("fwdbwd_ms", fwdbwd(fused.fused_chunk_loss_batched)),
+                    ("plain_fwdbwd_ms", fwdbwd(fused.fused_chunk_loss_batched_plain))):
+        t[key] = cuda_median_ms(fn)
+    out.update(t)
+    out["bound_ms"], out["bound_by"], moved = bound(args, grads=True)
+    out["loss_only_bound_ms"] = bound(args, grads=False)[0]
+    out["roofline_share"] = out["bound_ms"] / t["grad_ms"]
+    # device memory a forward+backward through the Function allocates beyond
+    # its inputs
+    step = fwdbwd(fused.fused_chunk_loss_batched)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    out["transient_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"    loss+gradients: kernel {t['grad_ms']:.4f} ms against bound {out['bound_ms']:.4f} "
+        f"ms ({out['bound_by']}, {moved / 1e9:.3f} GB; share {out['roofline_share']:.3f}), "
+        f"plain {t['plain_grad_ms']:.4f} ms; loss only: kernel {t['loss_only_ms']:.4f} ms "
+        f"(bound {out['loss_only_bound_ms']:.4f}), plain {t['plain_ms']:.4f} ms; cuBLAS bmm "
+        f"of comps {t['matvec_library_ms']:.4f} ms; forward+backward through the Function "
+        f"{t['fwdbwd_ms']:.4f} ms, plain autograd {t['plain_fwdbwd_ms']:.4f} ms; transient "
+        f"memory {out['transient_gb']:.3f} GB (comps {nbytes(comps) / 1e9:.3f} GB); median of "
+        f"20 samples of 5 back-to-back calls; {nvidia_smi_line()}")
     return out
 
 
 def phase_kernel_vs_plain(main_shape):
     import torch
 
-    log("== phase 3: kernel against plain (loss rel 1e-5, v 1e-5 x max|v|, grads rel 1e-4)")
-    results = {}
-    for dt in (torch.float32, torch.bfloat16):
-        results[dt] = compare_kernel(main_shape, dt, timed=True)
-        for shape in ((5, 37, 3), (7, 129, 130), (1, 1, 1)):
-            compare_kernel(shape, dt, timed=False)
-    torch.cuda.empty_cache()
-    log("   batched form: N slices share one comps read (per-slice loss rel 1e-5, "
-        "v 1e-5 x max|v|, grads rel 1e-4)")
-    batched = {}
+    log("== phase 3: kernel against plain, every instance (loss rel 1e-5, gradients rel 1e-4)")
     f32, bf16 = torch.float32, torch.bfloat16
+    results = {}
+    ngrps, nfreqs, nvecs = main_shape
     for cdt in (f32, bf16):
-        for wdt in (f32, bf16):
-            batched[(cdt, wdt)] = compare_batched(8, main_shape, cdt, wdt,
-                                                  timed=wdt == f32)
+        for n in (8, 1):
+            results[(n, cdt)] = compare(n, main_shape, cdt, f32, timed=True)
             torch.cuda.empty_cache()
-            for n in (1, 3):
-                for shape in ((5, 37, 3), (7, 129, 130), (1, 1, 1)):
-                    batched[(n, shape, cdt, wdt)] = compare_batched(n, shape, cdt, wdt, False)
-            batched[("view", cdt, wdt)] = compare_batched(3, (7, 129, 130), cdt, wdt, False,
-                                                          extra=5)
-    ngrps = main_shape[0]
-    batched["main_view"] = compare_batched(8, (ngrps // 2,) + tuple(main_shape[1:]), f32, f32,
-                                           False, extra=ngrps - ngrps // 2)
+        results[(8, cdt, "w16")] = compare(8, main_shape, cdt, bf16)
+        torch.cuda.empty_cache()
+        for wdt in (f32, bf16):
+            for n in (1, 3, 9):
+                for shape in ((5, 37, 3), (7, 129, 130), (1, 1, 1), (3, 50, 300)):
+                    results[(n, shape, cdt, wdt)] = compare(n, shape, cdt, wdt)
+            results[("view", cdt, wdt)] = compare(3, (7, 129, 130), cdt, wdt, extra=5)
+        results[("odd", cdt)] = compare(3, (7, 129, 118), cdt, f32, odd_offset=True)
+        results[("scratch", cdt)] = compare(8, (2, 16, 4000), cdt, f32)
+        results[("rows8", cdt)] = compare(3, (3, 50, 700), cdt, f32)
+        results[("wide", cdt)] = compare(3, (2, 3, 60000), cdt, f32)
+    results["main_view"] = compare(8, (ngrps // 2, nfreqs, nvecs), f32, f32,
+                                   extra=ngrps - ngrps // 2)
     torch.cuda.empty_cache()
-    return results, batched
+    return results
 
 
 # ---------------------------------------------------------------------- #
@@ -388,7 +389,7 @@ def main_chunk_shapes(comps):
 
 
 def make_corrupted_file(path, ntimes=NTIMES, npols=1):
-    from calamity_tpu import cal_utils, models, simulate
+    from calamity_tpu_torch import cal_utils, models, simulate
 
     rng = np.random.default_rng(SEED)
     antpos = random_disc_array(rng)
@@ -409,7 +410,7 @@ def make_corrupted_file(path, ntimes=NTIMES, npols=1):
 def phase_main_path(tmp, path, uvd, comps):
     import torch
 
-    from calamity_tpu.io import CalData, VisData
+    from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
@@ -472,7 +473,7 @@ def phase_main_path(tmp, path, uvd, comps):
     check(np.allclose(back_r.data_array, resid.data_array), "resid file does not read back")
     check(np.allclose(back_m.data_array, model.data_array), "model file does not read back")
     check(np.allclose(back_g.gain_array, gains.gain_array), "gains file does not read back")
-    log("  output files read back through calamity_tpu.io and match")
+    log("  output files read back through calamity_tpu_torch.io and match")
     return {"launches": launches, "recorded": recorded, "uvd": uvd, "comps": comps,
             "path": path}
 
@@ -483,7 +484,7 @@ def phase_main_path(tmp, path, uvd, comps):
 def phase_in_loop(main):
     import torch
 
-    from calamity_tpu import cal_utils
+    from calamity_tpu_torch import cal_utils
     from calamity_tpu_torch.solver import fit as fitmod
     from calamity_tpu_torch.solver.optimizers import get_optimizer
     from calamity_tpu_torch.solver.tensorize import FitSpec
@@ -558,8 +559,8 @@ def phase_in_loop(main):
 # phase 6: the CLI with its defaults
 # ---------------------------------------------------------------------- #
 def phase_cli(tmp, repo):
-    from calamity_tpu import models, simulate
-    from calamity_tpu.io import CalData, VisData
+    from calamity_tpu_torch import models, simulate
+    from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.ops.fused import KERNEL_NAME, explain_fused_loss_inapplicable
     from calamity_tpu_torch.solver.tensorize import FitSpec
@@ -622,7 +623,7 @@ def cli_checkpoint_resume(tmp, repo, path):
     then resumed with the full maxsteps into the same directory, against an
     uninterrupted run. The float32 schedule, so that the cut run stops in
     the phase the resumed run continues."""
-    from calamity_tpu.io import CalData, VisData
+    from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch.solver.checkpoint import latest_checkpoint
 
     log(f"  --time_parallel --checkpoint_dir: cut at {CUT_STEPS} steps, resumed, against an "
@@ -667,7 +668,7 @@ def cli_checkpoint_resume(tmp, repo, path):
 def phase_time_parallel(tmp):
     import torch
 
-    from calamity_tpu.io import CalData, VisData
+    from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.calibration import (
         POLL_EVERY,
@@ -743,7 +744,7 @@ def phase_time_parallel(tmp):
           "model file does not read back")
     check(np.allclose(CalData.from_calfits(outs["gains.calfits"]).gain_array, gains.gain_array),
           "gains file does not read back")
-    log("  output files read back through calamity_tpu.io and match")
+    log("  output files read back through calamity_tpu_torch.io and match")
 
     # two of the slices (the first time, both polarizations) on the serial path
     t_first = np.unique(uvd.time_array)[0]
@@ -780,10 +781,10 @@ def main():
         sys.exit(2)
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
+    os.environ.setdefault("TQDM_DISABLE", "1")  # no progress bars in the log
     import calamity_tpu_torch  # noqa: F401  (raises outside a checkout)
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
 
-    os.environ.setdefault("TQDM_DISABLE", "1")  # no progress bars in the log
     t_start = time.time()
     phase_environment()
     phase_build()
@@ -798,17 +799,25 @@ def main():
         shapes = main_chunk_shapes(comps)
         check(len(shapes) == 1 and shapes[0][1] == 1, f"expected one dense B=1 chunk: {shapes}")
         ngrps, _, nfreqs, nvecs = shapes[0]
-        results, batched = phase_kernel_vs_plain((ngrps, nfreqs, nvecs))
+        results = phase_kernel_vs_plain((ngrps, nfreqs, nvecs))
         main_out = phase_main_path(tmp, path, uvd, comps)
         phase_in_loop(main_out)
         phase_cli(tmp, repo)
         tp_out = phase_time_parallel(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check("jax" not in sys.modules, "jax was imported")
-    n8 = batched[(torch.float32, torch.float32)]
-    # the largest abs error of v or a loss, kernel against plain, over phase 3
-    errs = [r["max_abs_err"] for r in list(results.values()) + list(batched.values())]
+    jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
+                        or m.startswith(("jax.", "calamity_tpu.")))
+    check(not jax_loaded, f"the JAX package or jax was imported: {jax_loaded}")
+    # the largest abs error of a loss or a gradient, kernel against plain, over phase 3
+    errs = [r["max_abs_err"] for r in results.values()]
+    n8 = results[(8, torch.float32)]
+    timed = {f"N={n} {str(cdt).replace('torch.', '')} comps": {
+        k: results[(n, cdt)][k] for k in ("grad_ms", "loss_only_ms", "plain_grad_ms",
+                                          "plain_ms", "matvec_library_ms", "fwdbwd_ms",
+                                          "plain_fwdbwd_ms", "bound_ms", "loss_only_bound_ms",
+                                          "roofline_share", "transient_gb")}
+        for n in (8, 1) for cdt in (torch.float32, torch.bfloat16)}
     kernels = [{
         "name": KERNEL_NAME,
         "route": "cuda",
@@ -818,11 +827,21 @@ def main():
         "launches_by_path": {"serial": main_out["launches"],
                              "time_parallel": tp_out["launches"]},
         "max_abs_err": max(errs),
-        "ms": n8["fwd_ms"],
-        "plain_ms": n8["plain_fwd_ms"],
-        "n_single_slice_launches_ms": n8["single_launches_ms"],
-        "one_slice_ms": results[torch.float32]["fwd_ms"],
-        "one_slice_plain_ms": results[torch.float32]["plain_fwd_ms"],
+        # the instance the descent launches (loss and every gradient), at the
+        # time-parallel path's chunk: N=8, float32 comps
+        "ms": n8["grad_ms"],
+        "plain_ms": n8["plain_grad_ms"],
+        "bound_ms": n8["bound_ms"],
+        "bound_by": n8["bound_by"],
+        # no single PyTorch call computes the loss with its gradients
+        "library_ms": None,
+        "matvec_library_ms": n8["matvec_library_ms"],
+        "roofline_share": n8["roofline_share"],
+        "grad_ms": n8["grad_ms"],
+        "plain_grad_ms": n8["plain_grad_ms"],
+        "loss_only_ms": n8["loss_only_ms"],
+        "timed": timed,
+        "card": nvidia_smi_line(),
     }]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

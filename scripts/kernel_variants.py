@@ -1,0 +1,151 @@
+#!/usr/bin/env python
+"""Build variants of the fused chunk-loss kernel side by side and time them
+in turns, on one GPU.
+
+    python3 scripts/kernel_variants.py NAME=SOURCE[:NVCC_FLAGS] [NAME=SOURCE ...]
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+Each SOURCE is a variant of ``calamity_tpu_torch/csrc/fused_chunk_loss.cu``
+with the same C interface (an empty SOURCE means that file itself);
+NVCC_FLAGS, space-separated, are added to the package's own (``-D...``
+switches, for one). The variants are built in parallel into
+``calamity_tpu_torch/_build/variants/``, each build's ``-Xptxas -v``
+report beside its library as ``NAME.log``, and one line
+per variant gives each template instance's registers and spill bytes
+(``kernel|wide:<slices per tile><comps type><mode>``: mode 0 the loss only, 1 with the
+gain-product gradients, 2 with every gradient). Each variant is held
+against the plain version at ragged shapes, a group-block view, an
+unaligned comps offset, wide bases and the wide-row kernel (loss rel 1e-5,
+gradients rel 1e-4, as in ``chip_smoke.py``'s phase 3; a shape a variant
+has no launch plan for is named and passed over); those that agree
+are timed at the main chunk (2016 x 1536 x 118; N = 8 and 1 slices;
+float32 and bfloat16 comps) with CUDA events, the loss with every gradient
+and the loss only, in turns over the variants, twice. Every time stands
+beside the card's name and power limit.
+"""
+
+import os
+import re
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+from calamity_tpu_torch.ops import _build, fused  # noqa: E402
+
+MAIN_SHAPE = (2016, 1536, 118)
+CHECKS = (  # (nbatch, shape, weights dtype, keyword arguments of chip_smoke.compare)
+    (3, (5, 37, 3), torch.float32, {}),
+    (1, (1, 1, 1), torch.bfloat16, {}),
+    (3, (7, 129, 130), torch.bfloat16, {"extra": 5}),
+    (9, (3, 50, 300), torch.float32, {}),
+    (3, (7, 129, 118), torch.bfloat16, {"odd_offset": True}),
+    (8, (2, 16, 4000), torch.float32, {}),
+    (8, (64, 1536, 118), torch.float32, {}),
+    (1, (64, 1536, 118), torch.bfloat16, {}),
+    (3, (2, 3, 60000), torch.float32, {}),
+)
+
+
+def registers(log):
+    """'<instance>:<registers>r/<spill bytes>s' for each kernel in a
+    ``-Xptxas -v`` report."""
+    out, inst, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            m = re.search(r"_(kernel|wide)I(.*?)EEv", fn)
+            inst = f"{m.group(1)}:{m.group(2)}" if m else fn
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip().split()[0]
+        elif "Used" in line and "registers" in line and inst:
+            out.append(f"{inst}:{line.split('Used')[1].split()[0]}r/{spill}s")
+    return out
+
+
+def build(variants):
+    nvcc = _build.find_nvcc()
+    sodir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(sodir, exist_ok=True)
+    procs = {}
+    for name, (src, flags) in variants.items():
+        so = os.path.join(sodir, f"{name}.so")
+        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-o", so, src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so, time.time())
+    libs = {}
+    for name, (proc, so, t0) in procs.items():
+        log = proc.communicate()[0]
+        with open(os.path.join(sodir, f"{name}.log"), "w") as fh:
+            fh.write(log)
+        if proc.returncode != 0:
+            print(f"{name}: BUILD FAILED\n{log[-4000:]}", flush=True)
+            continue
+        print(f"{name}: built in {time.time() - t0:.1f} s; " + " ".join(registers(log)),
+              flush=True)
+        libs[name] = _build.KernelLibrary(so, time.time() - t0, log)
+    return libs
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    variants = {}
+    for arg in sys.argv[1:]:
+        name, _, spec = arg.partition("=")
+        src, _, flags = spec.partition(":")
+        variants[name] = (src or os.path.join(_build.CSRC_DIR, "fused_chunk_loss.cu"),
+                          flags.split())
+    if not variants:
+        sys.exit(__doc__)
+    card = cs.nvidia_smi_line()
+    print(card, flush=True)
+    libs = build(variants)
+    f32, bf16 = torch.float32, torch.bfloat16
+    agree = []
+    quiet, cs.log = cs.log, (lambda msg="": None)
+    for name, lib in libs.items():
+        _build._LOADED[:] = [lib]
+        try:
+            for cdt in (f32, bf16):
+                for nbatch, shape, wdt, kw in CHECKS:
+                    try:
+                        cs.compare(nbatch, shape, cdt, wdt, **kw)
+                    except ValueError as exc:  # a variant without a plan for this shape
+                        if "no launch plan" not in str(exc):
+                            raise
+                        print(f"{name}: no launch plan for N={nbatch} {shape}", flush=True)
+            agree.append(name)
+            print(f"{name}: agrees with the plain version", flush=True)
+        except Exception:  # report and go on with the other variants
+            print(f"{name}: DISAGREES\n{traceback.format_exc()[-3000:]}", flush=True)
+    cs.log = quiet
+    for nbatch in (8, 1):
+        for cdt in (f32, bf16):
+            args = cs.batched_inputs(nbatch, *MAIN_SHAPE, cdt, f32, 1)
+            bound_ms = cs.bound(args, True)[0]
+            for rnd in range(2):
+                for name in agree:
+                    lib = libs[name]
+                    _build._LOADED[:] = [lib]
+                    plan = lib.plan(nbatch, *MAIN_SHAPE, int(cdt != f32), fused.LOSS_ALL,
+                                    args[6].data_ptr())
+                    ms = [cs.cuda_median_ms(lambda m=m: fused.loss_and_grads_kernel(*args, mode=m))
+                          for m in (fused.LOSS_ALL, fused.LOSS_ONLY)]
+                    print(f"N={nbatch} {str(cdt)[6:]} comps, round {rnd}, {name}: loss+gradients "
+                          f"{ms[0]:.4f} ms (share of the {bound_ms:.4f} ms bound "
+                          f"{bound_ms / ms[0]:.3f}), loss only {ms[1]:.4f} ms; rows "
+                          f"{plan['rows']}, {plan['smem_bytes']} B "
+                          f"shared; {card}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -28,9 +28,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import calamity_tpu_torch  # noqa: E402,F401  (first: registers the HDF5 fallback)
 import chip_smoke  # noqa: E402
-from calamity_tpu import cal_utils  # noqa: E402
+from calamity_tpu_torch import cal_utils  # noqa: E402
 from calamity_tpu_torch.calibration import POLL_EVERY  # noqa: E402
 from calamity_tpu_torch.ops.lstsq import blocked_init_from_data, gram_cholesky_chunk  # noqa: E402
 from calamity_tpu_torch.parallel import batched  # noqa: E402

@@ -29,6 +29,7 @@ import torch
 from torch_parity import (
     BATCHED_DESCENT,
     DPSS_DLY,
+    as_port,
     batched_problem,
     multitime_visdata,
     rel_err,
@@ -44,6 +45,7 @@ from calamity_tpu.parallel import batched as jb
 from calamity_tpu.solver.fit import FitConfig as JaxFitConfig
 from calamity_tpu.solver.tensorize import FitSpec as JaxFitSpec
 from calamity_tpu_torch import LAUNCHES
+from calamity_tpu_torch import models as tmodels
 from calamity_tpu_torch.convert import to_tensor
 from calamity_tpu_torch.ops import fused
 from calamity_tpu_torch.ops import loss as tloss
@@ -281,17 +283,20 @@ def test_fg_model_batched_and_warm_starts_match_jax(layout, golomb_visdata, redu
 
 @pytest.mark.parametrize("with_weights", [False, True])
 def test_pack_data_into_bit_equal(multitime, with_weights):
-    uvd = multitime
+    # each package packs its own containers, built from the same arrays
+    uvd, tuvd = multitime, as_port(multitime)
     comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=DPSS_DLY, offset=DPSS_DLY)
+    tcomps = tmodels.yield_pbl_dpss_model_comps(tuvd, min_dly=DPSS_DLY, offset=DPSS_DLY)
     ants = sorted(set(uvd.ant_1_array.tolist()) | set(uvd.ant_2_array.tolist()))
     amap = {a: i for i, a in enumerate(ants)}
     jspec = JaxFitSpec(uvd, comps, amap, dtype=np.float32)
-    tspec = FitSpec(uvd, comps, amap, device="cpu")
-    weights = None
+    tspec = FitSpec(tuvd, tcomps, amap, device="cpu")
+    weights = tweights = None
     if with_weights:
         weights = FlagWeights(uvd, mode="flag")
         weights.weights_array[:] = np.abs(
             np.random.default_rng(3).standard_normal(weights.weights_array.shape))
+        tweights = as_port(weights)
     nb = len(jspec.times)
 
     def stacks():
@@ -300,16 +305,16 @@ def test_pack_data_into_bit_equal(multitime, with_weights):
                          dtype=np.float32) for m in jspec.meta]
 
     outs = {}
-    for name, spec in (("jax", jspec), ("torch", tspec)):
+    for name, spec, vis, wts in (("jax", jspec, uvd, weights), ("torch", tspec, tuvd, tweights)):
         r, i, w = stacks(), stacks(), stacks()
         sr, si = stacks(), stacks()
         for b, t in enumerate(spec.times):
-            kw = dict(data_scale_factor=1.3 + b, weights=weights, nsamples_in_weights=True)
-            spec.pack_data_into(uvd, "xx", t, r, i, w, b, **kw)
-            spec.pack_data_into(uvd, "xx", t, sr, si, None, b, data_scale_factor=0.7)
+            kw = dict(data_scale_factor=1.3 + b, weights=wts, nsamples_in_weights=True)
+            spec.pack_data_into(vis, "xx", t, r, i, w, b, **kw)
+            spec.pack_data_into(vis, "xx", t, sr, si, None, b, data_scale_factor=0.7)
         outs[name] = (r, i, w, sr, si)
-        outs[name + "_np"] = spec.pack_data(uvd, "xx", spec.times[1], data_scale_factor=2.3,
-                                            weights=weights, as_numpy=True)
+        outs[name + "_np"] = spec.pack_data(vis, "xx", spec.times[1], data_scale_factor=2.3,
+                                            weights=wts, as_numpy=True)
     for got, want in zip(outs["torch"], outs["jax"]):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
@@ -319,7 +324,7 @@ def test_pack_data_into_bit_equal(multitime, with_weights):
             np.testing.assert_array_equal(g, np.asarray(w))
     # a slot packed alone equals that slice's pack_data
     r = outs["torch"][0]
-    single = tspec.pack_data(uvd, "xx", tspec.times[0], data_scale_factor=1.3, weights=weights,
+    single = tspec.pack_data(tuvd, "xx", tspec.times[0], data_scale_factor=1.3, weights=tweights,
                              nsamples_in_weights=True)
     for cnum, d in enumerate(single[0]):
         np.testing.assert_array_equal(r[cnum][0, : d.shape[0]], to_np(d))
@@ -463,12 +468,13 @@ def test_cuda_batched_kernel_matches_plain(shape, comps_dtype, wgts_dtype):
     args = (coeffs2[:, :, sl].contiguous(), pr[:, sl].contiguous(), pi[:, sl].contiguous(),
             dr[:, sl], di[:, sl], w[:, sl], comps[sl])
     before = LAUNCHES.get(fused.KERNEL_NAME)
-    lk, vk = fused._fwd_batched_kernel(*args)
+    got = fused.loss_and_grads_kernel(*args)
     assert LAUNCHES.get(fused.KERNEL_NAME) == before + 1
-    lp, vp = fused._fwd_batched_plain(*args)
+    want = fused.loss_and_grads_plain(*args)
     torch.cuda.synchronize()
-    assert rel_err(lk, lp) <= 1e-5
-    assert float((vk - vp).abs().max()) <= 1e-5 * float(vp.abs().max())
+    assert rel_err(got[0], want[0]) <= 1e-5
+    for g, p in zip(got[1:], want[1:]):  # dcoeffs, dpr, dpi at a unit cotangent
+        assert rel_err(g, p) <= 1e-4
 
     def grads(fn):
         leaves = [a.detach().clone().requires_grad_(i < 3) for i, a in enumerate(args)]

@@ -7,7 +7,8 @@
 - The slice's configuration (post_hoc, ``shared_basis=False``: every chunk
   dense, through the fused loss) on the golden Golomb file: gains agree and
   resid rms <= 1e-2 x data rms.
-- Importing the port never loads jax; options not ported yet raise.
+- Importing the port never loads jax nor the JAX package; options not ported
+  yet raise.
 
 Tolerance: float32 descents of a few hundred steps in two frameworks;
 gains agree to 1e-3 of their amplitude and outputs to 1e-3 of the data
@@ -21,13 +22,14 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch_parity import DPSS_DLY, GOLDEN_GOLOMB
+from torch_parity import DPSS_DLY, GOLDEN_GOLOMB, as_port
 
 from calamity_tpu import calibration as jcal
 from calamity_tpu import cli as jcli
 from calamity_tpu.io import CalData, VisData
 from calamity_tpu_torch import calibration as tcal
 from calamity_tpu_torch import cli as tcli
+from calamity_tpu_torch import io as tio
 
 RMS = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,11 +52,13 @@ def _outputs(tmp_path, tag):
 
 
 def _assert_files_agree(a, b, data_rms):
+    """``a``: the port's files, read by the port; ``b``: the JAX package's."""
     for key in ("resid.uvh5", "model.uvh5"):
-        va, vb = VisData.from_uvh5(a[key]), VisData.from_uvh5(b[key])
+        va, vb = tio.VisData.from_uvh5(a[key]), VisData.from_uvh5(b[key])
         np.testing.assert_array_equal(va.flag_array, vb.flag_array)
         assert np.max(np.abs(va.data_array - vb.data_array)) <= 1e-3 * data_rms
-    ga, gb = CalData.from_calfits(a["gains.calfits"]), CalData.from_calfits(b["gains.calfits"])
+    ga = tio.CalData.from_calfits(a["gains.calfits"])
+    gb = CalData.from_calfits(b["gains.calfits"])
     assert np.max(np.abs(ga.gain_array - gb.gain_array)) <= 1e-3 * np.max(np.abs(gb.gain_array))
     assert ga.x_orientation == gb.x_orientation == "east"
 
@@ -78,7 +82,7 @@ def test_read_calibrate_and_model_dpss_matches_jax(cli_scenario, redundant_visda
         assert info_t[0][t]["phase_steps"] == h["phase_steps"]
     assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3
     _assert_files_agree(out_t, out_j, RMS(redundant_visdata.data_array))
-    back = VisData.from_uvh5(out_t["model.uvh5"])
+    back = tio.VisData.from_uvh5(out_t["model.uvh5"])
     assert "[calamity_tpu provenance]" in back.history
     np.testing.assert_array_equal(back.data_array, model.data_array)
 
@@ -109,8 +113,8 @@ def test_slice_configuration_on_golden_golomb():
               model_regularization="post_hoc", shared_basis=False)
     _, rj, gj, _ = jcal.calibrate_and_model_dpss(uvdata=uvd, **kw)
     timings = {}
-    _, rt, gt, ht = tcal.calibrate_and_model_dpss(uvdata=uvd, device="cpu", timings=timings,
-                                                  **kw)
+    _, rt, gt, ht = tcal.calibrate_and_model_dpss(uvdata=tio.VisData.from_uvh5(GOLDEN_GOLOMB),
+                                                  device="cpu", timings=timings, **kw)
     assert {"basis_s", "packing_s", "fit_s", "writeback_s"} <= set(timings)
     assert ht[0][0]["phase_steps"][0] > 0
     assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3
@@ -123,8 +127,10 @@ def test_import_never_loads_jax():
     code = (
         "import sys; import calamity_tpu_torch, calamity_tpu_torch.calibration, "
         "calamity_tpu_torch.cli, calamity_tpu_torch.convert, calamity_tpu_torch.ops._build, "
-        "calamity_tpu_torch.parallel, calamity_tpu_torch.solver.checkpoint; "
-        "bad = sorted(m for m in ('jax', 'jaxlib', 'optax') if m in sys.modules); "
+        "calamity_tpu_torch.parallel, calamity_tpu_torch.solver.checkpoint, "
+        "calamity_tpu_torch.simulate, calamity_tpu_torch.models, calamity_tpu_torch.version; "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'calamity_tpu') "
+        "or m.startswith(('jax.', 'calamity_tpu.'))); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -145,7 +151,7 @@ def test_import_never_loads_jax():
 ])
 def test_not_ported_options_raise(golomb_visdata, kwargs, exc, match):
     with pytest.raises(exc, match=match):
-        tcal.calibrate_and_model_dpss(uvdata=golomb_visdata, min_dly=DPSS_DLY,
+        tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), min_dly=DPSS_DLY,
                                       offset=DPSS_DLY, maxsteps=2, device="cpu", **kwargs)
 
 
@@ -153,4 +159,4 @@ def test_cuda_device_without_cuda_raises(golomb_visdata):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tcal.calibrate_and_model_dpss(uvdata=golomb_visdata, maxsteps=2)
+        tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), maxsteps=2)

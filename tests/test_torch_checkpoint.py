@@ -21,6 +21,7 @@ from torch_parity import (
     BATCHED_DESCENT,
     DPSS_DLY,
     GOLDEN_GOLOMB,
+    as_port,
     batched_problem,
     multitime_visdata,
     rel_err,
@@ -173,7 +174,7 @@ def test_use_min_keeps_the_entry_parameters(problem):
 
 def test_maxsteps_zero_use_min_returns_entry_gains_through_the_driver(multitime):
     _, _, gains, hist = tcal.calibrate_and_model_dpss(
-        uvdata=multitime, min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=0, use_min=True,
+        uvdata=as_port(multitime), min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=0, use_min=True,
         model_regularization=None, shared_basis=False, time_parallel=True, device="cpu")
     assert np.all(gains.gain_array == 1.0)
     assert all(h["loss"] == [] for h in hist[0].values())
@@ -216,7 +217,8 @@ def test_guard_fires_on_resume_against_a_corrupted_cube(problem, tmp_path):
 
 @pytest.mark.parametrize("land_in", ["phase_bf16", "phase_f32"])
 def test_driver_mixed_schedule_resume_is_bit_exact(multitime, tmp_path, land_in):
-    kw = dict(uvdata=multitime, min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=30, tol=1e-12,
+    kw = dict(uvdata=as_port(multitime), min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=30,
+              tol=1e-12,
               model_regularization="post_hoc", shared_basis=False, time_parallel=True,
               comps_precision="mixed", checkpoint_every=8, device="cpu")
     full_dir = str(tmp_path / "full")

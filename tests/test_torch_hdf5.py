@@ -1,19 +1,19 @@
 """The port's minimal HDF5 reader/writer (calamity_tpu_torch._h5lite),
 which stands in for h5py where h5py is not installed: h5py reads what it
 writes value for value and type for type, it reads its own files back, and
-the host layer's uvh5, calh5 and UVFlag writers and readers round-trip
-through it."""
+the port's host layer's uvh5, calh5 and UVFlag writers and readers
+round-trip through it (and the JAX package reads what they wrote)."""
 
 import h5py
 import numpy as np
 import pytest
 
-import calamity_tpu.io.caldata as caldata_mod
-import calamity_tpu.io.flags as flags_mod
-import calamity_tpu.io.visdata as visdata_mod
-from calamity_tpu import simulate
-from calamity_tpu.io import CalData, FlagWeights, VisData
-from calamity_tpu_torch import _h5lite
+import calamity_tpu.io as jio
+import calamity_tpu_torch.io.caldata as caldata_mod
+import calamity_tpu_torch.io.flags as flags_mod
+import calamity_tpu_torch.io.visdata as visdata_mod
+from calamity_tpu_torch import _h5lite, simulate
+from calamity_tpu_torch.io import CalData, FlagWeights, VisData
 
 VALUES = {
     "i64": np.arange(5),
@@ -80,7 +80,10 @@ def test_host_layer_files_round_trip(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "h5py", h5py)
     read_h5py = (VisData.from_uvh5(paths["v.uvh5"]), CalData.from_calh5(paths["g.calh5"]),
                  FlagWeights.from_uvflag_h5(paths["w.h5"]))
-    for back in (read_lite, read_h5py):
+    # the JAX package's readers (on h5py) read what the port wrote
+    read_jax = (jio.VisData.from_uvh5(paths["v.uvh5"]), jio.CalData.from_calh5(paths["g.calh5"]),
+                jio.FlagWeights.from_uvflag_h5(paths["w.h5"]))
+    for back in (read_lite, read_h5py, read_jax):
         v, g, w = back
         for name in ("data_array", "flag_array", "nsample_array", "time_array",
                      "ant_1_array", "freq_array", "antenna_positions"):

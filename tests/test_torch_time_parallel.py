@@ -14,13 +14,14 @@ loss histories of a 25-step fit to rel 1e-4.
 
 import numpy as np
 import pytest
-from torch_parity import DPSS_DLY, multitime_visdata, rel_err
+from torch_parity import DPSS_DLY, as_port, multitime_visdata, rel_err
 
 from calamity_tpu import calibration as jcal
 from calamity_tpu import cli as jcli
 from calamity_tpu.io import CalData, VisData
 from calamity_tpu_torch import calibration as tcal
 from calamity_tpu_torch import cli as tcli
+from calamity_tpu_torch import io as tio
 
 RMS = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
 
@@ -60,7 +61,9 @@ def _both(uvd, **kw):
                    correct_resid=True), **kw)
     jout = jcal.calibrate_and_model_dpss(uvdata=uvd, **kw)
     timings = {}
-    tout = tcal.calibrate_and_model_dpss(uvdata=uvd, device="cpu", timings=timings, **kw)
+    tkw = {k: as_port(v) if k == "sky_model" else v for k, v in kw.items()}
+    tout = tcal.calibrate_and_model_dpss(uvdata=as_port(uvd), device="cpu", timings=timings,
+                                         **tkw)
     return jout, tout, timings
 
 
@@ -119,7 +122,7 @@ def test_driver_options_match_jax(corrupted_multitime, case):
 
 
 def test_batched_driver_matches_serial_driver(corrupted_multitime):
-    uvd = corrupted_multitime
+    uvd = as_port(corrupted_multitime)
     kw = dict(min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=150, tol=1e-10, learning_rate=1e-2,
               model_regularization="post_hoc", shared_basis=False, comps_precision="float32",
               device="cpu")
@@ -149,10 +152,11 @@ def test_cli_time_parallel_matches_jax_cli(corrupted_multitime, tmp_path):
     oj = run(jcli.main, "j", [])
     ot = run(tcli.main, "t", ["--device", "cpu"])
     for key in ("resid.uvh5", "model.uvh5"):
-        a, b = VisData.from_uvh5(ot[key]), VisData.from_uvh5(oj[key])
+        a, b = tio.VisData.from_uvh5(ot[key]), VisData.from_uvh5(oj[key])
         np.testing.assert_array_equal(a.flag_array, b.flag_array)
         assert np.max(np.abs(a.data_array - b.data_array)) <= 1e-3 * RMS(uvd.data_array)
-    ga, gb = CalData.from_calfits(ot["gains.calfits"]), CalData.from_calfits(oj["gains.calfits"])
+    ga = tio.CalData.from_calfits(ot["gains.calfits"])
+    gb = CalData.from_calfits(oj["gains.calfits"])
     assert np.max(np.abs(ga.gain_array - gb.gain_array)) <= 1e-3
 
 
@@ -161,7 +165,7 @@ def test_serial_driver_bfloat16_weights_match_jax(flagged_multitime):
               model_regularization="post_hoc", shared_basis=False, comps_precision="float32",
               wgts_precision="bfloat16")
     jout = jcal.calibrate_and_model_dpss(uvdata=flagged_multitime, **kw)
-    tout = tcal.calibrate_and_model_dpss(uvdata=flagged_multitime, device="cpu", **kw)
+    tout = tcal.calibrate_and_model_dpss(uvdata=as_port(flagged_multitime), device="cpu", **kw)
     _assert_agree(jout, tout, flagged_multitime)
 
 
@@ -172,5 +176,6 @@ def test_serial_driver_bfloat16_weights_match_jax(flagged_multitime):
 ])
 def test_time_parallel_options_not_ported_raise(golomb_visdata, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
-        tcal.calibrate_and_model_dpss(uvdata=golomb_visdata, min_dly=DPSS_DLY, offset=DPSS_DLY,
-                                      maxsteps=2, time_parallel=True, device="cpu", **kwargs)
+        tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), min_dly=DPSS_DLY,
+                                      offset=DPSS_DLY, maxsteps=2, time_parallel=True,
+                                      device="cpu", **kwargs)

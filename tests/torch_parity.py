@@ -2,6 +2,7 @@
 PyTorch port, calamity_tpu_torch: inputs are made once with seeded numpy
 and handed to both packages as numpy arrays with explicit dtypes."""
 
+import copy
 import os
 
 import numpy as np
@@ -30,6 +31,21 @@ def rel_err(got, want):
     scale = np.max(np.abs(want)) if want.size else 0.0
     diff = np.max(np.abs(got - want)) if want.size else 0.0
     return diff / scale if scale > 0 else diff
+
+
+def as_port(obj):
+    """The port's own container (``calamity_tpu_torch.io`` VisData, CalData
+    or FlagWeights) holding a deep copy of the arrays of a ``calamity_tpu.io``
+    one: each package is handed its own objects, built from the same numpy
+    arrays. ``None`` stays ``None``."""
+    if obj is None:
+        return None
+    from calamity_tpu_torch import io as tio
+
+    cls = getattr(tio, type(obj).__name__)
+    out = cls.__new__(cls)
+    out.__dict__ = copy.deepcopy(obj.__dict__)
+    return out
 
 
 def project_onto_dpss(uvd, comps):
