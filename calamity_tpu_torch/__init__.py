@@ -1,8 +1,9 @@
 """calamity_tpu_torch: the PyTorch/CUDA port of calamity_tpu.
 
-The DPSS calibration paths of ``calamity_tpu`` (file read, per-baseline
-DPSS components, ``FitSpec`` packing, Cholesky warm start, Adamax descent,
-uvh5/calfits write-back), serial and batched over (time, pol) slices
+The calibration paths of ``calamity_tpu`` (file read, per-baseline DPSS,
+DFT or mixed components, ``FitSpec`` packing, Cholesky warm start, descent
+with any optimizer of the reference registry, uvh5/calfits write-back),
+serial, batched over (time, pol) slices and as the warm-started time scan
 (``parallel``), with checkpointed fits, in PyTorch, with the fused
 dense-chunk loss as a hand-written CUDA kernel for Hopper
 (``csrc/fused_chunk_loss.cu``) that reads the basis once for every slice.

@@ -1,19 +1,20 @@
 """Calibration drivers and CLI argument parsers.
 
 Port of calamity_tpu/calibration.py: the serial per-(pol, time) loop of
-``calibrate_and_model_tensor`` and its batched time-parallel path
-(``time_parallel=True``: every slice in one descent on one device),
-``calibrate_and_model_dpss``, the file driver
-``read_calibrate_and_model_dpss`` and the layered argparsers, on the torch
-solver, with checkpointed fits on both paths. Every driver takes a
-``device`` (default "cuda"); the CPU is used only when asked for. The
-numpy helpers (``renormalize``, ``_finalize_model_resid``,
-``flag_poltime``, ``get_auto_weights``, ``resolve_comps_precision``) are
-the reference's, copied unchanged.
+``calibrate_and_model_tensor``, its batched time-parallel path
+(``time_parallel=True``: every slice in one descent on one device) and its
+warm-started time scan (``time_parallel=True`` with
+``init_guesses_from_previous_time_step``: the times of each polarization in
+order, each fit seeded by the one before), the DPSS, DFT and mixed
+drivers, the file driver ``read_calibrate_and_model_dpss`` and the layered
+argparsers, on the torch solver, with checkpointed fits and profiler traces
+(``n_profile_steps``) on every path. Every driver takes a ``device``
+(default "cuda"); the CPU is used only when asked for. The numpy helpers
+(``renormalize``, ``_finalize_model_resid``, ``flag_poltime``,
+``get_auto_weights``, ``resolve_comps_precision``) are the reference's,
+copied unchanged.
 
-Not ported yet (raise ``NotImplementedError``): the warm-started time scan
-(``time_parallel`` with ``init_guesses_from_previous_time_step``), device
-meshes (``mesh``) and profiler traces (``n_profile_steps``).
+Not ported yet (raises ``NotImplementedError``): device meshes (``mesh``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import argparse
 import datetime
 import os
 import time as _time
+from functools import partial
 
 import numpy as np
 import torch
@@ -44,6 +46,8 @@ __all__ = [
     "resolve_comps_precision",
     "calibrate_and_model_tensor",
     "calibrate_and_model_dpss",
+    "calibrate_and_model_dft",
+    "calibrate_and_model_mixed",
     "read_calibrate_and_model_dpss",
     "input_output_parser",
     "fitting_argparser",
@@ -212,6 +216,29 @@ def resolve_comps_precision(dtype, warm_started):
     return "mixed"
 
 
+def _add_seconds(timings, key, t0):
+    """Add the host seconds since ``t0`` to ``timings[key]`` (where a dict
+    is given); returns the current time, the next stage's start."""
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
+    return _time.time()
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _slice_rms(uvdata, polnum, time, skip_threshold):
+    """The rms of a (time, pol) slice's unflagged data, or None where less
+    than ``skip_threshold`` of it is unflagged (the slice is skipped)."""
+    bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+    unflagged = ~uvdata.flag_array[bltsel, 0, :, polnum]
+    if np.count_nonzero(unflagged) / (uvdata.Nbls * uvdata.Nfreqs) < skip_threshold:
+        return None
+    return np.sqrt(np.mean(np.abs(uvdata.data_array[bltsel, 0, :, polnum][unflagged]) ** 2.0))
+
+
 def calibrate_and_model_tensor(
     uvdata,
     fg_model_comps_dict,
@@ -261,10 +288,13 @@ def calibrate_and_model_tensor(
 
     Reference parity: calamity_tpu.calibration.calibrate_and_model_tensor:
     skip/flag thresholds, per-time rms scaling, Cholesky warm starts,
-    optional warm-starting from the previous time (serial path), post-hoc
-    or "sum" regularization, checkpointed fits (``checkpoint_dir``).
+    optional warm-starting from the previous time, post-hoc or "sum"
+    regularization, checkpointed fits (``checkpoint_dir``), profiler traces
+    of a short descent (``n_profile_steps``, under ``profile_log_dir``).
     ``time_parallel=True`` fits every unskipped (time, pol) slice in one
-    batched descent (``_calibrate_time_parallel``). ``graph_mode`` and
+    batched descent (``_calibrate_time_parallel``); with
+    ``init_guesses_from_previous_time_step`` it runs the warm-started time
+    scan instead (``_calibrate_time_scan``). ``graph_mode`` and
     ``use_pallas`` are accepted for signature parity and ignored: on CUDA
     the fused chunk-loss kernel runs wherever its gate accepts a chunk.
 
@@ -282,18 +312,6 @@ def calibrate_and_model_tensor(
     if mesh is not None and mesh is not False:
         raise NotImplementedError(
             "device meshes are not ported yet (ROADMAP queue A item 13)"
-        )
-    if time_parallel and init_guesses_from_previous_time_step:
-        raise NotImplementedError(
-            "the warm-started time scan (time_parallel with "
-            "init_guesses_from_previous_time_step) is not ported yet (ROADMAP "
-            "queue A item 12; of the time-parallel items 11-12 only the "
-            "batched path is ported)"
-        )
-    if time_parallel and n_profile_steps > 0:
-        raise NotImplementedError(
-            "n_profile_steps (profiler traces of the fit) is not ported yet "
-            "(ROADMAP queue A item 6)"
         )
     if steps_per_execution is not None and not time_parallel:
         raise ValueError(
@@ -314,10 +332,7 @@ def calibrate_and_model_tensor(
             f"wgts_precision must be 'float32' or 'bfloat16', got {wgts_precision!r}"
         )
 
-    def _mark(key, t0):
-        if timings is not None:
-            timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
-        return _time.time()
+    _mark = partial(_add_seconds, timings)
 
     antpairs_data = uvdata.get_antpairs()
     if not include_autos:
@@ -370,6 +385,22 @@ def calibrate_and_model_tensor(
     echo(f"{datetime.datetime.now()} Packed {len(chunks)} chunks\n", verbose=verbose)
     del fg_model_comps_dict
 
+    if time_parallel and init_guesses_from_previous_time_step:
+        return _calibrate_time_scan(
+            uvdata=uvdata, spec=spec, chunks=chunks, gains=gains, sky_model=sky_model,
+            model=model, resid=resid, weights=weights,
+            nsamples_in_weights=nsamples_in_weights, skip_threshold=skip_threshold,
+            use_model_snr_weights=use_model_snr_weights, freeze_model=freeze_model,
+            optimizer=optimizer, tol=tol, maxsteps=maxsteps, use_min=use_min,
+            model_regularization=model_regularization, correct_model=correct_model,
+            correct_resid=correct_resid, remat=remat, comps_precision=comps_precision,
+            wgts_precision=wgts_precision, patience=patience, verbose=verbose,
+            opt_kwargs=opt_kwargs, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            steps_per_execution=steps_per_execution, loss_block_ngrps=loss_block_ngrps,
+            n_profile_steps=n_profile_steps, profile_log_dir=profile_log_dir,
+            timings=timings,
+        )
     if time_parallel:
         return _calibrate_time_parallel(
             uvdata=uvdata, spec=spec, chunks=chunks, gains=gains, sky_model=sky_model,
@@ -383,6 +414,7 @@ def calibrate_and_model_tensor(
             opt_kwargs=opt_kwargs, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, resume=resume,
             steps_per_execution=steps_per_execution, loss_block_ngrps=loss_block_ngrps,
+            n_profile_steps=n_profile_steps, profile_log_dir=profile_log_dir,
             timings=timings,
         )
 
@@ -559,7 +591,7 @@ def _calibrate_time_parallel(
     skip_threshold, use_model_snr_weights, freeze_model, optimizer, tol, maxsteps, use_min,
     model_regularization, correct_model, correct_resid, remat, comps_precision,
     wgts_precision, patience, verbose, opt_kwargs, checkpoint_dir, checkpoint_every, resume,
-    steps_per_execution, loss_block_ngrps, timings,
+    steps_per_execution, loss_block_ngrps, n_profile_steps, profile_log_dir, timings,
 ):
     """Every unskipped (time, pol) slice in one batched descent on one
     device (reference calibration.py:1430-2136, without the mesh and the
@@ -584,25 +616,23 @@ def _calibrate_time_parallel(
     from .parallel.batched import (
         _loss_block_size,
         batched_fit_checkpointed,
+        batched_fit_core,
         host_batched_losses,
     )
     from .solver.checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
-    from .solver.fit import FitConfig, convert_chunks_dtype
+    from .solver.fit import FitConfig, convert_chunks_dtype, profile_trace
 
     device = spec.device
     nchunks = len(chunks)
     slices = []  # (polnum, pol, time_index, time, rms)
     for polnum, pol in enumerate(uvdata.get_pols()):
         for time_index, time in enumerate(spec.times):
-            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
-            unflagged = ~uvdata.flag_array[bltsel, 0, :, polnum]
-            if np.count_nonzero(unflagged) / (uvdata.Nbls * uvdata.Nfreqs) < skip_threshold:
+            rms = _slice_rms(uvdata, polnum, time, skip_threshold)
+            if rms is None:
                 flag_poltime(resid, time=time, polarization=pol)
                 flag_poltime(gains, time=time, polarization=pol)
                 flag_poltime(model, time=time, polarization=pol)
                 continue
-            rms = np.sqrt(np.mean(np.abs(uvdata.data_array[bltsel, 0, :, polnum][unflagged])
-                                  ** 2.0))
             slices.append((polnum, pol, time_index, time, rms))
 
     fit_history = {polnum: {} for polnum in range(uvdata.Npols)}
@@ -614,14 +644,8 @@ def _calibrate_time_parallel(
     echo(f"{datetime.datetime.now()} Batched fit over {len(slices)} (time, pol) slices...\n",
          verbose=verbose)
 
-    def _tmark(key, t0):
-        if timings is not None:
-            timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
-        return _time.time()
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    _tmark = partial(_add_seconds, timings)
+    sync = partial(_sync, device)
 
     nbatch = len(slices)
     # the identity-gains alias (sky_model is uvdata) packs nothing twice:
@@ -759,6 +783,16 @@ def _calibrate_time_parallel(
     )
     if cfg.regularization != "sum":
         warn_fused_fallbacks(chunks, fg_r_b, data_r_b, wgts_b)
+    if n_profile_steps > 0:
+        # a short batched descent traced by the profiler before the fit
+        # (reference calibration.py:1986-2003)
+        prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
+        prof_chunks = (convert_chunks_dtype(chunks, torch.bfloat16)
+                       if comps_precision in ("bfloat16", "mixed") else chunks)
+        profile_trace(profile_log_dir, lambda: batched_fit_core(
+            prof_cfg, prof_chunks, data_r_b, data_i_b, wgts_b, g_r_b, g_i_b, fg_r_b, fg_i_b,
+            prior_r_b, prior_i_b, poll_every=POLL_EVERY))
+        prof_chunks = None
 
     # the step-0 guard's independent value: numpy float64 from the host
     # stacks, never the device cubes or the kernel
@@ -872,6 +906,299 @@ def _calibrate_time_parallel(
     return model, resid, gains, fit_history
 
 
+def _host_f32(x):
+    """A host stack as float32 numpy (bfloat16 CPU tensors widened)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return x
+
+
+def _calibrate_time_scan(
+    uvdata, spec, chunks, gains, sky_model, model, resid, weights, nsamples_in_weights,
+    skip_threshold, use_model_snr_weights, freeze_model, optimizer, tol, maxsteps, use_min,
+    model_regularization, correct_model, correct_resid, remat, comps_precision,
+    wgts_precision, patience, verbose, opt_kwargs, checkpoint_dir, checkpoint_every, resume,
+    steps_per_execution, loss_block_ngrps, n_profile_steps, profile_log_dir, timings,
+):
+    """Warm-started fits over the times of each polarization, in order, each
+    seeded by the previous time's solution (reference calibration.py:666-1345,
+    without the mesh).
+
+    Per polarization: times below ``skip_threshold`` are flagged; the
+    usable times are packed on the host into stacks
+    (``FitSpec.pack_data_into``); the first time gets the Cholesky warm
+    start (and, with ``use_model_snr_weights``, model-SNR weights, written
+    into its host planes); every time gets its own "sum" prior. The stacks
+    stay on the host and each time uploads when its fit starts, so the
+    device holds one time. Each time runs the segmented batched descent at
+    nbatch=1 (``parallel.batched.scan_time_fit``; the bfloat16 then float32
+    phases under "mixed"). The reference's two forms, one compiled
+    ``lax.scan`` and a host loop of segments, are this one host loop here:
+    with ``checkpoint_dir``, completed times persist as
+    ``{dir}/pol{N}_scan/step_{slot+1}`` markers and the time in progress
+    under ``{dir}/pol{N}_scan/time_{slot}`` (removed once its marker lands),
+    so a resume continues mid-time.
+
+    The step-0 guard is armed on the first phase of every time, against
+    ``host_batched_losses`` on the host stacks. ``timings`` receives
+    ``scan_upload_s``, ``scan_descent_s``, ``scan_guard_s``,
+    ``scan_fetch_s``, ``scan_save_s`` (marker saves) and ``writeback_s``;
+    each time's history entry holds its ``loss``, ``phase_steps`` and, for
+    a time fitted in this run, ``phase_seconds`` (descent only)."""
+    import shutil
+
+    from .ops.fused import warn_fused_fallbacks
+    from .parallel.batched import (
+        host_batched_losses,
+        scan_carry,
+        scan_time_fit,
+        scanned_warmstart_fit_core,
+        upload_time_slice,
+    )
+    from .solver.checkpoint import (
+        _checkpoint_loadable,
+        latest_checkpoint,
+        load_phase_meta,
+        load_state,
+        save_phase_meta,
+        save_state,
+    )
+    from .solver.fit import FitConfig, convert_chunks_dtype, profile_trace
+
+    device = spec.device
+    nchunks = len(chunks)
+    fit_history = {polnum: {} for polnum in range(uvdata.Npols)}
+    # bfloat16 chunks serve the descent only; warm starts, SNR weights and
+    # the write-back read the float32 basis
+    fit_chunks, fit_chunks_lo = chunks, None
+    if comps_precision == "bfloat16":
+        fit_chunks = convert_chunks_dtype(chunks, torch.bfloat16)
+    elif comps_precision == "mixed":
+        fit_chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+    cfg = FitConfig(
+        optimizer=optimizer,
+        opt_kwargs=tuple(sorted(opt_kwargs.items())),
+        maxsteps=int(maxsteps),
+        tol=float(tol),
+        use_min=bool(use_min),
+        freeze_model=bool(freeze_model),
+        regularization="sum" if model_regularization == "sum" else None,
+        remat=bool(remat),
+        patience=int(patience),
+        loss_block=None if loss_block_ngrps is None else int(loss_block_ngrps),
+    )
+    # the step-0 guard's host basis, shared by every time and phase
+    host_chunks = [(hc, to_numpy(a0), to_numpy(a1))
+                   for hc, (_, a0, a1) in zip(spec.host_comps, chunks)]
+
+    _smark = partial(_add_seconds, timings)
+    sync = partial(_sync, device)
+
+    warned = profiled = False
+    for polnum, pol in enumerate(uvdata.get_pols()):
+        usable = []  # (time_index, time, rms)
+        for time_index, time in enumerate(spec.times):
+            rms = _slice_rms(uvdata, polnum, time, skip_threshold)
+            if rms is None:
+                flag_poltime(resid, time=time, polarization=pol)
+                flag_poltime(gains, time=time, polarization=pol)
+                flag_poltime(model, time=time, polarization=pol)
+                continue
+            usable.append((time_index, time, rms))
+        if not usable:
+            continue
+        nt_u = len(usable)
+
+        def alloc():
+            return [np.zeros((nt_u, a0.shape[0], a0.shape[1], spec.nfreqs), dtype=spec.dtype)
+                    for _, a0, _ in chunks]
+
+        data_r_s, data_i_s, wgts_s = alloc(), alloc(), alloc()
+        priors_r, priors_i = [], []
+        fg_init = None
+        for slot, (time_index, time, rms) in enumerate(usable):
+            spec.pack_data_into(uvdata, pol, time, data_r_s, data_i_s, wgts_s, slot,
+                                data_scale_factor=rms, weights=weights,
+                                nsamples_in_weights=nsamples_in_weights)
+            w_v = [w[slot] for w in wgts_s]
+            if sky_model is not None and sky_model is not uvdata:
+                sky_r, sky_i, _ = spec.pack_data(sky_model, pol, time, data_scale_factor=rms,
+                                                 weights=weights, as_numpy=True)
+            else:
+                # no sky model, or the identity-gains alias (sky == data)
+                sky_r = [x[slot] for x in data_r_s]
+                sky_i = [x[slot] for x in data_i_s]
+            if slot == 0:
+                def up(xs):
+                    return [torch.as_tensor(x, device=device) for x in xs]
+
+                w_d = up(w_v)
+                fg_init = (tuple(spec.init_coeffs(up(sky_r), w_d)),
+                           tuple(spec.init_coeffs(up(sky_i), w_d)))
+                if use_model_snr_weights:
+                    # the first time only: later times keep their own
+                    # weights (reference calibration.py:872-891), rewritten
+                    # in place in the slot-0 planes
+                    wmodel = fg_model_all_chunks(fg_init[0], fg_init[1], chunks)
+                    for cnum, (vr, vi) in enumerate(wmodel):
+                        w_v[cnum] *= np.square(to_numpy(vr)) + np.square(to_numpy(vi))
+                    wsum = sum(float(np.sum(w)) for w in w_v)
+                    for w in w_v:
+                        np.divide(w, np.dtype(spec.dtype).type(wsum), out=w)
+            priors_r.append(sum(float(np.sum(sr * w)) for sr, w in zip(sky_r, w_v)))
+            priors_i.append(sum(float(np.sum(si * w)) for si, w in zip(sky_i, w_v)))
+        g_r0, g_i0 = spec.pack_gains(gains, pol, usable[0][1])
+        # frequency-invariant weights as one broadcast plane; frequency-
+        # dependent ones at half width under bfloat16 weights (a CPU
+        # bfloat16 stack, widened by the loss at the point of use)
+        wgts_s = [_compress_freq_invariant_wgts(w) for w in wgts_s]
+        if wgts_precision == "bfloat16":
+            wgts_s = [torch.from_numpy(w).to(torch.bfloat16) if w.shape[-1] > 1 else w
+                      for w in wgts_s]
+        wgts_h = [_host_f32(w) for w in wgts_s]  # the guard's weights
+        prior_r_s = np.asarray(priors_r, dtype=spec.dtype)
+        prior_i_s = np.asarray(priors_i, dtype=spec.dtype)
+
+        def expected(slot, g_r, g_i, fr, fi):
+            # numpy float64 from the host stacks: never the device cubes
+            sl = slice(slot, slot + 1)
+            return host_batched_losses(
+                to_numpy(g_r), to_numpy(g_i), [to_numpy(x) for x in fr],
+                [to_numpy(x) for x in fi], host_chunks, [x[sl] for x in data_r_s],
+                [x[sl] for x in data_i_s], [w[sl] for w in wgts_h], prior_r_s[sl],
+                prior_i_s[sl], regularization=cfg.regularization)
+
+        if not warned and cfg.regularization != "sum":
+            warned = True
+            probes = [torch.empty((0,), dtype=fg_init[0][0].dtype, device=device)] * nchunks
+            warn_fused_fallbacks(fit_chunks, fg_init[0], probes, probes)
+        if n_profile_steps > 0 and not profiled:
+            # a short one-time scan traced by the profiler before the fit
+            # (reference calibration.py:932-948)
+            profiled = True
+            prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
+            one = slice(0, 1)
+            profile_trace(profile_log_dir, lambda: scanned_warmstart_fit_core(
+                prof_cfg, fit_chunks, [x[one] for x in data_r_s], [x[one] for x in data_i_s],
+                [w[one] for w in wgts_s], g_r0, g_i0, fg_init[0], fg_init[1],
+                prior_r_s[one], prior_i_s[one], poll_every=POLL_EVERY))
+
+        # per time: (host params, recorded losses, steps, phase steps, phase seconds)
+        outputs = []
+        ck = None if checkpoint_dir is None else os.path.join(checkpoint_dir, f"pol{polnum}_scan")
+        ck_every = int(checkpoint_every) if ck is not None else None
+        carry = (g_r0[None], g_i0[None], [f[None] for f in fg_init[0]],
+                 [f[None] for f in fg_init[1]])
+        start_slot = 0
+        if ck is not None and resume:
+            while _checkpoint_loadable(os.path.join(ck, f"step_{start_slot + 1}")):
+                tree, scal = load_state(os.path.join(ck, f"step_{start_slot + 1}"),
+                                        {"out": carry}, ("history", "nsteps", "phase_steps"))
+                carry = tree["out"]
+                outputs.append((carry, np.asarray(scal["history"], dtype=np.float32),
+                                int(scal["nsteps"]), scal["phase_steps"].tolist(), None))
+                # a mid-time directory left by a stop after its marker landed
+                shutil.rmtree(os.path.join(ck, f"time_{start_slot}"), ignore_errors=True)
+                start_slot += 1
+            if start_slot:
+                echo(f"{datetime.datetime.now()} Resuming warm-started scan at time "
+                     f"{start_slot + 1}/{nt_u}", verbose=verbose)
+
+        def run_time(slot, carry, ck_t):
+            t0 = _time.time()
+            dev_in = [[upload_time_slice(x, slot, device) for x in stack]
+                      for stack in (data_r_s, data_i_s, wgts_s)]
+            pr = upload_time_slice(prior_r_s, slot, device)
+            pi = upload_time_slice(prior_i_s, slot, device)
+            sync()
+            _smark("scan_upload_s", t0)
+
+            def fit(chs, carry, ckdir, opt_state0=None, guard=True):
+                t1 = _time.time()
+                res, row, nst, guard_s = scan_time_fit(
+                    cfg, chs, *dev_in, carry, pr, pi, ckdir, ck_every, resume, verbose,
+                    opt_state0, steps_per_execution,
+                    partial(expected, slot) if guard else None, POLL_EVERY)
+                sync()
+                desc = _time.time() - t1 - guard_s
+                if timings is not None:
+                    timings["scan_descent_s"] = timings.get("scan_descent_s", 0.0) + desc
+                    timings["scan_guard_s"] = timings.get("scan_guard_s", 0.0) + guard_s
+                return res, row, nst, desc
+
+            if comps_precision != "mixed":
+                res, row, nst, sec = fit(fit_chunks, carry, ck_t)
+                return scan_carry(res), row, nst, [nst], [sec]
+            ck1 = None if ck_t is None else os.path.join(ck_t, "phase_bf16")
+            ck2 = None if ck_t is None else os.path.join(ck_t, "phase_f32")
+            if ck2 is not None and resume and latest_checkpoint(ck2) is not None:
+                # the resume lands in the float32 polish: the bf16
+                # phase's diagnostics come from its metadata, and the
+                # guard is armed on the phase that runs first
+                meta = load_phase_meta(ck_t)
+                hist1 = (np.zeros((0,), np.float32) if meta is None
+                         else np.asarray(meta["history"], dtype=np.float32))
+                ns1, sec1 = (0 if meta is None else int(meta["nsteps"])), 0.0
+                res, row2, ns2, sec2 = fit(fit_chunks, carry, ck2)
+            else:
+                res1, hist1, ns1, sec1 = fit(fit_chunks_lo, carry, ck1)
+                if ck_t is not None:
+                    save_phase_meta(ck_t, history=hist1, nsteps=ns1)
+                # the optimizer state carries across the precision switch
+                res, row2, ns2, sec2 = fit(fit_chunks, scan_carry(res1), ck2,
+                                           opt_state0=res1.opt_state, guard=False)
+            return (scan_carry(res), np.concatenate([hist1, row2]), ns1 + ns2, [ns1, ns2],
+                    [sec1, sec2])
+
+        for slot in range(start_slot, nt_u):
+            ck_t = None if ck is None else os.path.join(ck, f"time_{slot}")
+            carry, row, nst, psteps, psecs = run_time(slot, carry, ck_t)
+            outputs.append((carry, row, nst, psteps, psecs))
+            if ck is not None:
+                t0 = _time.time()
+                out_host = tuple(
+                    x.detach().cpu() if isinstance(x, torch.Tensor)
+                    else [f.detach().cpu() for f in x] for x in carry)
+                t0 = _smark("scan_fetch_s", t0)
+                save_state(os.path.join(ck, f"step_{slot + 1}"), {"out": out_host},
+                           {"history": row, "nsteps": nst, "phase_steps": psteps})
+                shutil.rmtree(ck_t, ignore_errors=True)
+                _smark("scan_save_s", t0)
+                echo(f"{datetime.datetime.now()} checkpointed scan time {slot + 1}/{nt_u}",
+                     verbose=verbose)
+        t0 = _time.time()
+        outputs = [(tuple(to_numpy(x) if isinstance(x, torch.Tensor)
+                          else [to_numpy(f) for f in x] for x in o[0]),) + o[1:]
+                   for o in outputs]
+        _smark("scan_fetch_s", t0)
+        t0 = _time.time()
+        for slot, (time_index, time, rms) in enumerate(usable):
+            (g_r, g_i, fr, fi), row, nst, psteps, psecs = outputs[slot]
+            entry = {"loss": np.asarray(row[:nst], dtype=np.float64).tolist(),
+                     "phase_steps": [int(n) for n in psteps]}
+            if psecs is not None:
+                entry["phase_seconds"] = psecs
+            fit_history[polnum][time_index] = entry
+            spec.insert_model(model, fg_model_all_chunks_host([f[0] for f in fr],
+                                                              [f[0] for f in fi],
+                                                              spec.host_comps),
+                              pol, time, rms)
+            spec.insert_gains(gains, g_r[0], g_i[0], pol, time)
+            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+            if (not freeze_model and model_regularization == "post_hoc"
+                    and np.any(~model.flag_array[bltsel])):
+                renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model, gains=gains,
+                            polarization=pol, time=time, additional_flags=uvdata.flag_array)
+        _smark("writeback_s", t0)
+
+    t0 = _time.time()
+    model, resid = _finalize_model_resid(
+        uvdata, model, resid, gains, correct_model, correct_resid
+    )
+    _smark("writeback_s", t0)
+    return model, resid, gains, fit_history
+
+
 def calibrate_and_model_dpss(
     uvdata,
     horizon=1.0,
@@ -907,6 +1234,117 @@ def calibrate_and_model_dpss(
         include_autos=include_autos,
         verbose=verbose,
         notebook_progressbar=notebook_progressbar,
+        **fitting_kwargs,
+    )
+
+
+def calibrate_and_model_dft(
+    uvdata,
+    horizon=1.0,
+    min_dly=0.0,
+    offset=0.0,
+    include_autos=False,
+    verbose=False,
+    red_tol=1.0,
+    notebook_progressbar=False,
+    **fitting_kwargs,
+):
+    """Gain + foreground fit with per-baseline DFT delay modes (reference
+    calibration.py:2175-2207). Every chunk is dense with one baseline per
+    group, so the fused kernel computes the loss."""
+    fg_model_comps_dict = models.yield_pbl_model_comps(
+        uvdata,
+        horizon=horizon,
+        min_dly=min_dly,
+        offset=offset,
+        include_autos=include_autos,
+        red_tol=red_tol,
+        use_redundancy=fitting_kwargs.get("use_redundancy", False),
+        notebook_progressbar=notebook_progressbar,
+        verbose=verbose,
+        basis="dft",
+    )
+    return calibrate_and_model_tensor(
+        uvdata=uvdata,
+        fg_model_comps_dict=fg_model_comps_dict,
+        include_autos=include_autos,
+        verbose=verbose,
+        notebook_progressbar=notebook_progressbar,
+        **fitting_kwargs,
+    )
+
+
+def calibrate_and_model_mixed(
+    uvdata,
+    horizon=1.0,
+    min_dly=0.0,
+    offset=0.0,
+    ant_dly=0.0,
+    include_autos=False,
+    verbose=False,
+    red_tol=1.0,
+    red_tol_freq=0.5,
+    n_angle_bins=200,
+    notebook_progressbar=False,
+    use_redundancy=False,
+    use_tensorflow_to_derive_modeling_comps=False,
+    eigenval_cutoff=1e-10,
+    dtype_matinv=np.float64,
+    require_exact_angle_match=True,
+    angle_match_tol=1e-3,
+    grp_size_threshold=5,
+    model_comps_dict=None,
+    save_dict_to=None,
+    **fitting_kwargs,
+):
+    """Mixed DPSS + multi-baseline-covariance foreground fit (reference
+    calibration.py:2210-2274). Single-baseline DPSS groups take the fused
+    kernel; fitting groups of several baselines take the plain torch loss.
+    The covariance and its eigendecomposition are host numpy:
+    ``use_tensorflow_to_derive_modeling_comps=True`` (the reference's
+    device eigh) raises, a torch ``eigh`` option being ROADMAP.md A.15.
+    ``save_dict_to`` saves the component dict, which
+    ``model_comps_dict=`` takes back."""
+    if model_comps_dict is None and use_tensorflow_to_derive_modeling_comps:
+        raise ValueError(
+            "use_tensorflow_to_derive_modeling_comps=True: this package derives the "
+            "mixed components on the host (numpy); a torch eigh option is ROADMAP.md A.15"
+        )
+    fitting_grps, blvecs, _, _ = models.get_uv_overlapping_grps_conjugated(
+        uvdata,
+        red_tol=red_tol,
+        include_autos=include_autos,
+        red_tol_freq=red_tol_freq,
+        n_angle_bins=n_angle_bins,
+        notebook_progressbar=notebook_progressbar,
+        require_exact_angle_match=require_exact_angle_match,
+        angle_match_tol=angle_match_tol,
+    )
+    if model_comps_dict is None:
+        model_comps_dict = models.yield_mixed_comps(
+            fitting_grps,
+            blvecs,
+            np.asarray(uvdata.freq_array[0]),
+            eigenval_cutoff=eigenval_cutoff,
+            ant_dly=ant_dly,
+            horizon=horizon,
+            offset=offset,
+            min_dly=min_dly,
+            verbose=verbose,
+            dtype=dtype_matinv,
+            notebook_progressbar=notebook_progressbar,
+            grp_size_threshold=grp_size_threshold,
+        )
+    if save_dict_to is not None:
+        np.save(save_dict_to, np.asarray(model_comps_dict, dtype=object), allow_pickle=True)
+    return calibrate_and_model_tensor(
+        uvdata=uvdata,
+        fg_model_comps_dict=model_comps_dict,
+        include_autos=include_autos,
+        verbose=verbose,
+        notebook_progressbar=notebook_progressbar,
+        use_redundancy=use_redundancy,
+        grp_size_threshold=grp_size_threshold,
         **fitting_kwargs,
     )
 
@@ -1142,7 +1580,8 @@ def fitting_argparser():
     sp.add_argument("--tol", type=float, default=1e-14,
                     help="Stop once the loss changes by less than this value.")
     sp.add_argument("--optimizer", type=str, default="Adamax",
-                    help="First-order optimizer (ported so far: Adamax).")
+                    help="First-order optimizer: Adadelta, Adam, Adamax, Ftrl, "
+                         "Nadam, SGD, RMSprop, Adagrad or LAMB.")
     sp.add_argument("--maxsteps", type=int, default=10000,
                     help="Max optimization steps.")
     sp.add_argument("--verbose", default=False, action="store_true")
@@ -1162,7 +1601,8 @@ def fitting_argparser():
                     help="Accepted for parity; ignored.")
     sp.add_argument("--init_guesses_from_previous_time_step", default=False,
                     action="store_true",
-                    help="Warm-start each time from the previous time's solution.")
+                    help="Warm-start each time from the previous time's solution "
+                         "(with --time_parallel: the warm-started time scan).")
     sp.add_argument("--learning_rate", type=float, default=1e-2,
                     help="gradient descent learning rate.")
     sp.add_argument("--red_tol", type=float, default=1.0,
@@ -1179,9 +1619,9 @@ def fitting_argparser():
     tp = ap.add_argument_group("Scaling arguments.")
     tp.add_argument("--time_parallel", default=False, action="store_true",
                     help="Fit every (time, pol) slice in one batched descent on "
-                         "the device (the warm-started time scan, with "
-                         "--init_guesses_from_previous_time_step, is not "
-                         "ported yet).")
+                         "the device; with --init_guesses_from_previous_time_step, "
+                         "fit each polarization's times in order instead, each "
+                         "seeded by the one before (the warm-started time scan).")
     tp.add_argument("--use_pallas", default=False, action="store_true",
                     help="Accepted for parity; ignored (on CUDA the fused "
                          "chunk-loss kernel runs wherever its gate accepts "
@@ -1205,7 +1645,8 @@ def fitting_argparser():
     tp.add_argument("--checkpoint_every", default=1000, type=int,
                     help="Steps between mid-fit checkpoints.")
     tp.add_argument("--steps_per_execution", default=None, type=int,
-                    help="time_parallel only: recorded steps per descent call, "
+                    help="time_parallel only: recorded steps per descent call "
+                         "(per time on the scan), "
                          "independent of the checkpoint cadence (the "
                          "trajectory does not depend on it).")
     tp.add_argument("--loss_block_ngrps", default=None, type=int,

@@ -191,7 +191,8 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
     """Sum of per-chunk weighted chi-square (reference mse_chunked, calibration.py:1612-1620).
 
     chunks: tuple of (comps, a0, a1) triples; fg_r/fg_i/data_*/wgts: matching
-    sequences. A chunk the fused-kernel gate accepts (dense B=1, float32 or
+    sequences; a chunk's weights may be one (..., 1) plane broadcast over
+    frequency. A chunk the fused-kernel gate accepts (dense B=1, float32 or
     bfloat16 comps, float32 operands) goes through ``fused_chunk_loss``;
     every other chunk takes the plain torch ops below.
 
@@ -205,14 +206,12 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
         if gate is None:
             pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
             coeffs2 = torch.stack([fg_r[cnum], fg_i[cnum]], dim=0)
+            dr = data_r[cnum][:, 0]
+            # a frequency-invariant weights plane (trailing axis 1) reaches
+            # the kernel as a stride-0 view of the data's shape
+            w = wgts[cnum][:, 0].expand(dr.shape)
             total = total + fused_chunk_loss(
-                coeffs2,
-                pr[:, 0],
-                pi[:, 0],
-                comps[:, 0],
-                data_r[cnum][:, 0],
-                data_i[cnum][:, 0],
-                wgts[cnum][:, 0],
+                coeffs2, pr[:, 0], pi[:, 0], comps[:, 0], dr, data_i[cnum][:, 0], w
             )
             continue
         total = total + term(

@@ -1,5 +1,6 @@
-"""The batched time-parallel fit of calamity_tpu_torch (port of
-calamity_tpu.parallel, one device; the device mesh is not ported yet)."""
+"""The batched time-parallel fit and the warm-started time scan of
+calamity_tpu_torch (port of calamity_tpu.parallel, one device; the device
+mesh is not ported yet)."""
 
 from .batched import (
     BatchedFitResult,
@@ -12,6 +13,7 @@ from .batched import (
     host_batched_losses,
     loss_guard_factor,
     loss_guard_floor,
+    scanned_warmstart_fit_core,
 )
 
 __all__ = [
@@ -25,4 +27,5 @@ __all__ = [
     "host_batched_losses",
     "loss_guard_factor",
     "loss_guard_floor",
+    "scanned_warmstart_fit_core",
 ]

@@ -41,6 +41,8 @@ from __future__ import annotations
 import datetime
 import os
 import sys
+import time
+from functools import partial
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -251,8 +253,9 @@ def _select(mask, new, old):
 
 
 def _rewind_count(opt_state, n):
-    """The optimizer state with its step count taken back by ``n``."""
-    if n and hasattr(opt_state, "count"):
+    """The optimizer state with its step count taken back by ``n`` (states
+    without a count field are returned as they are)."""
+    if n and "count" in getattr(opt_state, "_fields", ()):
         return opt_state._replace(count=opt_state.count - n)
     return opt_state
 
@@ -666,3 +669,104 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
     if checkpoint_dir is not None and since_save > 0 and tail_save:
         save(step_total)  # a partial tail: resume re-enters at the true end state
     return _result(cfg, params, carry, history_all, step_total, opt_state, fg_r, fg_i)
+
+
+# ---------------------------------------------------------------------- #
+# the warm-started time scan
+# ---------------------------------------------------------------------- #
+def upload_time_slice(stack, t, device):
+    """Time ``t`` of a per-chunk host stack (numpy array or CPU tensor of
+    shape (ntimes, ...)) as a (1, ...) tensor on ``device``: the scan keeps
+    its stacks on the host and moves one time to the device when that
+    time's fit starts."""
+    return torch.as_tensor(stack[t:t + 1]).to(device)
+
+
+def scan_time_fit(cfg, chunks, data_r, data_i, wgts, carry, prior_r, prior_i,
+                  checkpoint_dir=None, checkpoint_every=None, resume=False, verbose=False,
+                  opt_state0=None, steps_per_execution=None, expected_loss_fn=None,
+                  poll_every=1):
+    """One time of the warm-started scan: the segmented batched descent at
+    nbatch=1 (:func:`batched_fit_checkpointed`, no tail save: the scan's
+    per-time marker supersedes it) from ``carry = (g_r, g_i, fg_r, fg_i)``,
+    each with a leading axis of 1.
+
+    ``expected_loss_fn(g_r, g_i, fg_r, fg_i) -> (1,)`` is the step-0
+    guard's independent loss, taken at the parameters the first recorded
+    step evaluates (the entry carry after the warm-up step, or a resumed
+    descent's restored state); under ``cfg.freeze_model`` it receives the
+    carry's coefficients. Returns (result, recorded loss row (float32
+    numpy), recorded steps, seconds spent in the guard)."""
+    guard_s = []
+    fn = None
+    if expected_loss_fn is not None:
+        def fn(params, fr_const=carry[2], fi_const=carry[3]):
+            t0 = time.perf_counter()
+            fr = fr_const if cfg.freeze_model else params["fg_r"]
+            fi = fi_const if cfg.freeze_model else params["fg_i"]
+            out = expected_loss_fn(params["g_r"], params["g_i"], fr, fi)
+            guard_s.append(time.perf_counter() - t0)
+            return out
+    res = batched_fit_checkpointed(
+        cfg, chunks, data_r, data_i, wgts, *carry, prior_r, prior_i, checkpoint_dir,
+        cfg.maxsteps if checkpoint_every is None else checkpoint_every, resume, verbose,
+        opt_state0, steps_per_execution=steps_per_execution, expected_loss_fn=fn,
+        tail_save=False, poll_every=poll_every)
+    nst = min(int(res.nsteps), int(res.nsteps_slice[0]))
+    return res, np.asarray(res.loss_history[:nst, 0], dtype=np.float32), nst, sum(guard_s)
+
+
+def scan_carry(res):
+    """The carry a finished time hands the next: its fitted parameters."""
+    return (res.g_r, res.g_i, list(res.fg_r), list(res.fg_i))
+
+
+def scanned_warmstart_fit_core(cfg, chunks, data_r, data_i, wgts, g_r0, g_i0, fg_r0, fg_i0,
+                               prior_r, prior_i, expected_loss_fn=None, poll_every=1):
+    """Sequential warm-started fits over times (reference
+    parallel/batched.py:275-384): each time's fit starts from the previous
+    time's solution, with a fresh optimizer state, one unrecorded warm-up
+    step, and the serial descent's stops (|delta loss| < tol after the
+    first recorded step, patience, a non-finite loss), ``use_min``,
+    ``freeze_model`` and the "sum" prior of that time.
+
+    The reference compiles the sequence as one lax.scan; here the times
+    loop on the host, and each time runs :func:`scan_time_fit` (the
+    batched descent at nbatch=1, freeze mask polled every ``poll_every``
+    steps, so the trajectory is the per-step one). The parameters stay on
+    the device between times.
+
+    data_r/data_i/wgts: per chunk, (ntimes, ngrps, nbls, nfreqs) stacks
+    (weights may be (..., 1) planes), numpy arrays or tensors; time t moves
+    to ``g_r0``'s device when its fit starts (:func:`upload_time_slice`),
+    so the device holds one time. g/fg: the time-0 start, without a time
+    axis; prior_r/prior_i: (ntimes,). ``expected_loss_fn(t, g_r, g_i,
+    fg_r, fg_i) -> (1,)`` arms the step-0 guard on every time (see
+    :func:`scan_time_fit`).
+
+    Returns (params: (g_r, g_i, fg_r, fg_i) stacked on a leading time
+    axis, loss history (ntimes, maxsteps) float32 padded with NaN, recorded
+    steps per time (ntimes,), final losses (ntimes,))."""
+    dev = g_r0.device
+    ntimes = int(data_r[0].shape[0])
+    carry = (g_r0[None], g_i0[None], [f[None] for f in fg_r0], [f[None] for f in fg_i0])
+    outs, rows, nsteps, finals = [], [], [], []
+    for t in range(ntimes):
+        dr, di, w = ([upload_time_slice(x, t, dev) for x in stack]
+                     for stack in (data_r, data_i, wgts))
+        pr = upload_time_slice(prior_r, t, dev)
+        pi = upload_time_slice(prior_i, t, dev)
+        guard = None if expected_loss_fn is None else partial(expected_loss_fn, t)
+        res, row, nst, _ = scan_time_fit(cfg, chunks, dr, di, w, carry, pr, pi,
+                                         expected_loss_fn=guard, poll_every=poll_every)
+        carry = scan_carry(res)
+        outs.append(carry)
+        full = np.full((cfg.maxsteps,), np.nan, dtype=np.float32)
+        full[:nst] = row[:cfg.maxsteps]
+        rows.append(full)
+        nsteps.append(nst)
+        finals.append(res.final_loss)
+    params = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
+              tuple(torch.cat([o[2][c] for o in outs]) for c in range(len(chunks))),
+              tuple(torch.cat([o[3][c] for o in outs]) for c in range(len(chunks))))
+    return params, np.stack(rows), np.asarray(nsteps), torch.cat(finals)

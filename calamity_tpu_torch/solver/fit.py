@@ -1,4 +1,4 @@
-"""The descent loop: Adamax on the chunked chi-square, one (time, pol) slice.
+"""The descent loop: a first-order optimizer on the chunked chi-square, one slice.
 
 Port of calamity_tpu/solver/fit.py:37-572, with the same semantics: an
 unrecorded warm-up step, a per-step loss history, the |delta loss| < tol
@@ -6,7 +6,8 @@ stop (with the ``big`` sentinel so the first recorded step cannot trigger
 it), optional patience gated on a finite loss, a stop on a non-finite
 loss, ``use_min`` argmin tracking, ``freeze_model`` and the "sum" prior,
 the float32 / bfloat16 / mixed basis-precision schedules, and the
-segmented descent checkpointed under ``checkpoint_dir`` (``solver.checkpoint``).
+segmented descent checkpointed under ``checkpoint_dir`` (``solver.checkpoint``),
+and ``n_profile_steps``: a short descent traced by ``torch.profiler``.
 
 PyTorch runs eagerly, so the loop is a Python loop. The stop conditions
 are checked on the host after every step, which costs one device-to-host
@@ -158,6 +159,26 @@ def _fit_core(cfg, loss_fn, params, opt, opt_state):
     return params, opt_state, prev, best_loss, best_params, history, nsteps
 
 
+def profile_trace(log_dir, fn):
+    """Run ``fn()`` under ``torch.profiler`` (host activity, and the card's
+    where CUDA is present) and write the trace under ``log_dir`` as a
+    Chrome trace file (``trace_<time>_<pid>.json``, readable by TensorBoard
+    and Perfetto). Returns (fn's result, the trace's path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+    path = os.path.join(log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}_"
+                                 f"{time.perf_counter_ns()}.json")
+    prof.export_chrome_trace(path)
+    return out, path
+
+
 def _np_dtype(t):
     return {torch.float32: np.float32, torch.float64: np.float64}[t.dtype]
 
@@ -264,12 +285,7 @@ def fit_gains_and_foregrounds(
     then float32 with the Adamax state carried across). ``use_pallas`` is
     accepted for signature parity and ignored: on CUDA the fused kernel
     runs wherever its gate accepts a chunk."""
-    del use_pallas, profile_log_dir
-    if n_profile_steps > 0:
-        raise NotImplementedError(
-            "n_profile_steps (profiler traces of the fit) is not ported yet "
-            "(ROADMAP queue A item 6)"
-        )
+    del use_pallas
     if comps_precision not in ("float32", "bfloat16", "mixed"):
         raise ValueError(
             f"comps_precision must be 'float32', 'bfloat16' or 'mixed', "
@@ -323,6 +339,14 @@ def fit_gains_and_foregrounds(
             torch.cuda.synchronize(params["g_r"].device)
         seconds.append(time.perf_counter() - t0)
         return out
+
+    if n_profile_steps > 0:
+        # a short descent traced by the profiler before the fit (reference
+        # solver/fit.py:444-458): every step runs, no stop, nothing returned
+        prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
+        prof_loss = loss_of(phases[0] if comps_precision == "bfloat16" else chunks)
+        profile_trace(profile_log_dir,
+                      lambda: _fit_core(prof_cfg, prof_loss, params, opt, opt.init(params)))
 
     if checkpoint_dir is not None:
         from .checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta

@@ -9,8 +9,12 @@ semantics are optax's, with TensorFlow keyword names and defaults
 (learning_rate 1e-3, epsilon 1e-7). ``torch.optim`` is not used: its
 defaults and update rules differ from optax's.
 
-Only Adamax, the default of the fit, is ported so far; the other names of
-the reference registry raise.
+Every name of the reference registry is here: Adadelta, Adam, Adamax,
+Ftrl, Nadam, SGD, RMSprop, Adagrad and LAMB. Each update follows the
+arithmetic of optax's transform chain (the reference's in-repo one for
+Ftrl), so a float64 run agrees with the reference to rounding. A state
+field that an optimizer does not use is an empty tuple, so every state
+saves in a checkpoint; ``count`` is the step count where optax keeps one.
 """
 
 from __future__ import annotations
@@ -82,20 +86,277 @@ def adamax(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7):
     return Optimizer(init, update)
 
 
-OPTIMIZERS = {"Adamax": adamax}
-# names of the reference registry (calamity_tpu/solver/optimizers.py:149-159)
-# not ported yet
-_NOT_PORTED = ("Adadelta", "Adam", "Ftrl", "Nadam", "SGD", "RMSprop", "Adagrad", "LAMB")
+class AdamState(NamedTuple):
+    """optax ``ScaleByAdamState`` (adam, nadam and the first stage of lamb)."""
+
+    count: int
+    mu: Any
+    nu: Any
+
+
+def _moment(g, m, decay, order):
+    # optax tree_update_moment: (1 - decay) * g**order + decay * m
+    return (1 - decay) * (g * g if order == 2 else g) + decay * m
+
+
+def _scaled(bc, t):
+    # bias correction formed in double precision, rounded to the moment
+    # dtype, then divided in that dtype (optax tree_bias_correction)
+    return t / torch.tensor(bc, dtype=t.dtype, device=t.device)
+
+
+def _apply(params, updates):
+    return tree_map(lambda p, u: p + u, params, updates)
+
+
+def _adam_updates(grads, state, b1, b2, eps, eps_root, nesterov):
+    """optax ``scale_by_adam``: (updates, new state), before the learning
+    rate."""
+    count = state.count + 1
+    mu = tree_map(lambda g, m: _moment(g, m, b1, 1), grads, state.mu)
+    nu = tree_map(lambda g, n: _moment(g, n, b2, 2), grads, state.nu)
+    if nesterov:
+        bc_next, bc_now = 1 - b1 ** (count + 1), 1 - b1 ** count
+        mu_hat = tree_map(lambda m, g: b1 * _scaled(bc_next, m) + (1 - b1) * _scaled(bc_now, g),
+                          mu, grads)
+    else:
+        bc1 = 1 - b1 ** count
+        mu_hat = tree_map(lambda m: _scaled(bc1, m), mu)
+    bc2 = 1 - b2 ** count
+    updates = tree_map(lambda m, n: m / (torch.sqrt(_scaled(bc2, n) + eps_root) + eps),
+                       mu_hat, nu)
+    return updates, AdamState(count=count, mu=mu, nu=nu)
+
+
+def _adam_init(params):
+    return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
+                     nu=tree_map(torch.zeros_like, params))
+
+
+def adam(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7, eps_root=0.0,
+         nesterov=False):
+    """optax ``adam`` (``nadam`` with ``nesterov=True``): u = mu_hat /
+    (sqrt(nu_hat + eps_root) + eps), p += -lr * u."""
+    b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        updates, state = _adam_updates(grads, state, b1, b2, eps, float(eps_root), nesterov)
+        return _apply(params, tree_map(lambda u: -lr * u, updates)), state
+
+    return Optimizer(_adam_init, update)
+
+
+def nadam(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7, eps_root=0.0):
+    """optax ``nadam``: adam with the Nesterov first moment (no momentum
+    decay schedule, unlike ``torch.optim.NAdam``)."""
+    return adam(learning_rate, beta_1, beta_2, epsilon, eps_root, nesterov=True)
+
+
+def lamb(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-6, weight_decay=0.0):
+    """optax ``lamb``: adam's update plus decayed weights, scaled per leaf
+    by ||p|| / ||u|| (1 where either norm is zero), then by -lr."""
+    b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
+    wd = float(weight_decay)
+
+    def trust(u, p):
+        pn = torch.linalg.vector_norm(p)
+        un = torch.linalg.vector_norm(u)
+        ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+        return u * ratio
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        updates, state = _adam_updates(grads, state, b1, b2, eps, 0.0, False)
+        updates = tree_map(lambda u, p: u + wd * p, updates, params)
+        updates = tree_map(trust, updates, params)
+        return _apply(params, tree_map(lambda u: -lr * u, updates)), state
+
+    return Optimizer(_adam_init, update)
+
+
+class TraceState(NamedTuple):
+    """optax ``TraceState``: the momentum buffer (an empty tuple without
+    momentum)."""
+
+    trace: Any
+
+
+def _trace_update(updates, state, decay, nesterov):
+    trace = tree_map(lambda g, t: g + decay * t, updates, state.trace)
+    if nesterov:
+        updates = tree_map(lambda g, t: g + decay * t, updates, trace)
+    else:
+        updates = trace
+    return updates, TraceState(trace)
+
+
+def sgd(learning_rate=1e-2, momentum=0.0, nesterov=False):
+    """optax ``sgd``, momentum 0 meaning none (as the reference registry
+    maps it): t = g + m t; p += -lr * (t, or g + m t with Nesterov)."""
+    lr, mom = float(learning_rate), float(momentum or 0.0)
+
+    def init(params):
+        return TraceState(tree_map(torch.zeros_like, params) if mom else ())
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        updates = grads
+        if mom:
+            updates, state = _trace_update(grads, state, mom, nesterov)
+        return _apply(params, tree_map(lambda u: -lr * u, updates)), state
+
+    return Optimizer(init, update)
+
+
+class RmsState(NamedTuple):
+    """optax ``ScaleByRmsState`` / ``ScaleByRStdDevState`` with the
+    momentum buffer of the chain's trace (empty tuples where unused)."""
+
+    mu: Any
+    nu: Any
+    trace: Any
+
+
+def rmsprop(learning_rate=1e-3, rho=0.9, momentum=0.0, epsilon=1e-7, centered=False):
+    """optax ``rmsprop`` as the reference registry builds it: nu = (1-rho)
+    g^2 + rho nu; u = g / sqrt(nu [- mu^2] + eps) * -lr, then the momentum
+    trace on the scaled update."""
+    lr, rho, eps, mom = float(learning_rate), float(rho), float(epsilon), float(momentum or 0.0)
+
+    def init(params):
+        zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+        return RmsState(mu=zeros() if centered else (), nu=zeros(),
+                        trace=zeros() if mom else ())
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        nu = tree_map(lambda g, n: _moment(g, n, rho, 2), grads, state.nu)
+        mu = state.mu
+        if centered:
+            mu = tree_map(lambda g, m: _moment(g, m, rho, 1), grads, state.mu)
+            updates = tree_map(lambda m, n, g: torch.rsqrt(n - m * m + eps) * g, mu, nu, grads)
+        else:
+            updates = tree_map(lambda n, g: torch.rsqrt(n + eps) * g, nu, grads)
+        updates = tree_map(lambda u: -lr * u, updates)
+        trace = state.trace
+        if mom:
+            updates, trace = _trace_update(updates, TraceState(trace), mom, False)
+            trace = trace.trace
+        return _apply(params, updates), RmsState(mu=mu, nu=nu, trace=trace)
+
+    return Optimizer(init, update)
+
+
+class AdagradState(NamedTuple):
+    """optax ``ScaleByRssState``."""
+
+    sum_of_squares: Any
+
+
+def adagrad(learning_rate=1e-3, initial_accumulator_value=0.1, epsilon=1e-7):
+    """optax ``adagrad``: s += g^2; u = g / sqrt(s + eps) (0 where s is
+    not positive) * -lr."""
+    lr, iav, eps = float(learning_rate), float(initial_accumulator_value), float(epsilon)
+
+    def init(params):
+        return AdagradState(tree_map(lambda p: torch.full_like(p, iav), params))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        sos = tree_map(lambda g, t: g * g + t, grads, state.sum_of_squares)
+        updates = tree_map(
+            lambda t, g: torch.where(t > 0, torch.rsqrt(t + eps), torch.zeros_like(t)) * g,
+            sos, grads)
+        return _apply(params, tree_map(lambda u: -lr * u, updates)), AdagradState(sos)
+
+    return Optimizer(init, update)
+
+
+class AdadeltaState(NamedTuple):
+    """optax ``ScaleByAdaDeltaState``."""
+
+    e_g: Any
+    e_x: Any
+
+
+def adadelta(learning_rate=1e-3, rho=0.95, epsilon=1e-7):
+    """optax ``adadelta``: e_g = (1-rho) g^2 + rho e_g; u = sqrt(e_x + eps)
+    / sqrt(e_g + eps) g; e_x = (1-rho) u^2 + rho e_x; p += -lr * u."""
+    lr, rho, eps = float(learning_rate), float(rho), float(epsilon)
+
+    def init(params):
+        return AdadeltaState(tree_map(torch.zeros_like, params),
+                             tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        e_g = tree_map(lambda g, e: _moment(g, e, rho, 2), grads, state.e_g)
+        updates = tree_map(lambda g, eg, ex: (torch.sqrt(ex + eps) / torch.sqrt(eg + eps)) * g,
+                           grads, e_g, state.e_x)
+        e_x = tree_map(lambda u, e: _moment(u, e, rho, 2), updates, state.e_x)
+        return (_apply(params, tree_map(lambda u: -lr * u, updates)),
+                AdadeltaState(e_g, e_x))
+
+    return Optimizer(init, update)
+
+
+class FtrlState(NamedTuple):
+    """The reference's in-repo FTRL state: accumulated squared gradients
+    and the linear term."""
+
+    n: Any
+    z: Any
+
+
+def ftrl(learning_rate=1e-3, learning_rate_power=-0.5, initial_accumulator_value=0.1,
+         l1_regularization_strength=0.0, l2_regularization_strength=0.0):
+    """FTRL-proximal as the reference implements it
+    (calamity_tpu/solver/optimizers.py:84-141, tf.keras.optimizers.Ftrl
+    semantics): the new parameter in closed form, applied as an update."""
+    alpha, lrp = float(learning_rate), float(learning_rate_power)
+    l1, l2 = float(l1_regularization_strength), float(l2_regularization_strength)
+    iav = float(initial_accumulator_value)
+
+    def init(params):
+        return FtrlState(tree_map(lambda p: torch.full_like(p, iav), params),
+                         tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        n_new = tree_map(lambda g, n: n + g * g, grads, state.n)
+        z_new = tree_map(
+            lambda g, n, nn, z, p: z + g - ((torch.pow(nn, -lrp) - torch.pow(n, -lrp)) / alpha) * p,
+            grads, state.n, n_new, state.z, params)
+
+        def step(z, nn, p):
+            p_new = torch.where(torch.abs(z) <= l1, torch.zeros_like(p),
+                                (torch.sign(z) * l1 - z) / (torch.pow(nn, -lrp) / alpha + 2.0 * l2))
+            return p_new - p
+
+        updates = tree_map(step, z_new, n_new, params)
+        return _apply(params, updates), FtrlState(n_new, z_new)
+
+    return Optimizer(init, update)
+
+
+# the reference registry (calamity_tpu/solver/optimizers.py:149-159), with
+# its TensorFlow keyword names and defaults
+OPTIMIZERS = {
+    "Adadelta": adadelta,
+    "Adam": adam,
+    "Adamax": adamax,
+    "Ftrl": ftrl,
+    "Nadam": nadam,
+    "SGD": sgd,
+    "RMSprop": rmsprop,
+    "Adagrad": adagrad,
+    "LAMB": lamb,
+}
 
 
 def get_optimizer(name, **opt_kwargs):
     """Instantiate an optimizer by reference-registry name."""
     if name not in OPTIMIZERS:
-        extra = (
-            f" ({name} is in the reference registry and is not ported yet; "
-            "ROADMAP queue A item 5)"
-            if name in _NOT_PORTED
-            else ""
-        )
-        raise KeyError(f"unknown optimizer {name!r}{extra}; ported: {sorted(OPTIMIZERS)}")
+        raise KeyError(f"unknown optimizer {name!r}; options: {sorted(OPTIMIZERS)}")
     return OPTIMIZERS[name](**dict(opt_kwargs))

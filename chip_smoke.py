@@ -29,11 +29,19 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    the per-step host check of the stop conditions;
 6. the port's CLI script with its default flags on a small Golomb file, and
    with ``--time_parallel --checkpoint_dir``: cut mid-fit, resumed, and
-   held against an uninterrupted run;
+   held against an uninterrupted run; the warm-started time scan's CLI
+   (``--time_parallel --init_guesses_from_previous_time_step --comps_precision
+   mixed --checkpoint_dir``) on a 3-time Golomb file, stopped inside a time,
+   resumed and held against an uninterrupted run; the DFT and mixed drivers
+   once each on the small Golomb file;
 7. the time-parallel path at full width: one ``read_calibrate_and_model_dpss``
    with ``time_parallel=True`` on 64 antennas, 1536 channels, 4 times and 2
    polarizations (8 slices in one batched descent), every step through the
-   batched kernel; two of its slices against the serial path.
+   batched kernel; two of its slices against the serial path;
+8. the warm-started time scan at full width on phase 7's file: each
+   polarization's 4 times in order, each fit seeded by the one before, every
+   step through the kernel with N = 1; each polarization's first time
+   against the serial path.
 
 Any failure raises and exits non-zero; there is no fallback to the CPU. It
 imports nothing of jax or of the JAX package ``calamity_tpu`` and fails if
@@ -69,6 +77,8 @@ MAXSTEPS = 3000  # per phase of the mixed schedule
 TOL = 1e-11
 N_LOOP_STEPS = 50
 CUT_STEPS = 40  # where phase 6's checkpointed CLI run is cut
+SCAN_NTIMES = 3  # the small multi-time file of phase 6's scan CLI run
+SCAN_CK_EVERY = 10  # its checkpoint cadence; the cut is at time 1's first float32 save
 KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
 
@@ -606,6 +616,159 @@ def phase_cli(tmp, repo):
     check(np.isfinite(VisData.from_uvh5(outs[1]).data_array).all(), "CLI model not finite")
     check(LAUNCHES.get(KERNEL_NAME) > 0, "CLI run launched no kernel")
     cli_checkpoint_resume(tmp, repo, path)
+    cli_scan_resume(tmp, repo, uvd)
+    drivers_dft_and_mixed(uvd)
+
+
+def corrupted_copy(uvd, seed, err=0.05):
+    """``uvd`` with random per-antenna gain errors applied: a fit with real
+    gradients."""
+    from calamity_tpu_torch import cal_utils
+
+    truth = cal_utils.blank_uvcal_from_uvdata(uvd)
+    rng = np.random.default_rng(seed)
+    truth.gain_array = truth.gain_array * (1 + err * rng.standard_normal(truth.gain_array.shape)
+                                           + 1j * err * rng.standard_normal(truth.gain_array.shape))
+    return cal_utils.apply_gains(uvd, truth, inverse=True)
+
+
+def cli_scan_resume(tmp, repo, uvd):
+    """The scan's CLI with the mixed schedule and a checkpoint directory on a
+    3-time Golomb file: a run stopped by a failure injected into the first
+    checkpoint save of time 1's float32 polish (the time in progress
+    persists under ``pol0_scan/time_1``), resumed into the same directory,
+    against an uninterrupted run: histories, files and gains equal."""
+    from calamity_tpu_torch.io import CalData, VisData
+    from calamity_tpu_torch.solver import checkpoint as ckpt
+
+    log(f"  scan CLI (--time_parallel --init_guesses_from_previous_time_step --comps_precision "
+        f"mixed --checkpoint_dir) on {SCAN_NTIMES} times: stopped inside time 1, resumed, "
+        "against an uninterrupted run")
+    later = []
+    for t in range(SCAN_NTIMES):
+        u = uvd.copy()
+        u.time_array = u.time_array + 2.0 * t
+        later.append(u)
+    multi = later[0]
+    for u in later[1:]:
+        multi = multi + u
+    path = os.path.join(tmp, "golomb_scan.uvh5")
+    corrupted_copy(multi, SEED + 1).write_uvh5(path, clobber=True)
+
+    def argv(tag, ckdir):
+        return ["--input_data_files", path, "--resid_outfilename",
+                os.path.join(tmp, f"{tag}_resid.uvh5"), "--model_outfilename",
+                os.path.join(tmp, f"{tag}_model.uvh5"), "--gain_outfilename",
+                os.path.join(tmp, f"{tag}_gains.calfits"), "--fitted_info_outfilename",
+                os.path.join(tmp, f"{tag}_info.npy"), "--min_dly", str(MIN_DLY_NS),
+                "--offset", str(MIN_DLY_NS), "--maxsteps", "1500", "--tol", "1e-10",
+                "--time_parallel", "--init_guesses_from_previous_time_step",
+                "--comps_precision", "mixed", "--checkpoint_dir", ckdir,
+                "--checkpoint_every", str(SCAN_CK_EVERY), "--clobber"]
+
+    real_save = ckpt.save_state
+    cut = []
+
+    def failing_save(where, tree_state, scalar_state):
+        if os.path.join("time_1", "phase_f32") in where and not cut:
+            cut.append(where)
+            raise RuntimeError("injected stop")
+        return real_save(where, tree_state, scalar_state)
+
+    cut_dir = os.path.join(tmp, "scan_ck_cut")
+    ckpt.save_state = failing_save
+    try:
+        run_cli(repo, argv("scan_cut", cut_dir))
+    except RuntimeError as exc:
+        check("injected stop" in str(exc), f"scan CLI run failed: {exc}")
+    finally:
+        ckpt.save_state = real_save
+    check(cut, "the scan CLI run never reached time 1's float32 checkpoint")
+    scan_dir = os.path.join(cut_dir, "pol0_scan")
+    check(os.path.isdir(os.path.join(scan_dir, "step_1"))
+          and not os.path.isdir(os.path.join(scan_dir, "step_2")), "markers after the stop")
+    last = ckpt.latest_checkpoint(os.path.join(scan_dir, "time_1", "phase_bf16"))
+    log(f"    stopped at {os.path.relpath(cut[0], cut_dir)}; time 1's bf16 phase left "
+        f"{None if last is None else os.path.basename(last)}")
+    run_cli(repo, argv("scan_resumed", cut_dir))
+    run_cli(repo, argv("scan_straight", os.path.join(tmp, "scan_ck_straight")))
+    check(not os.path.isdir(os.path.join(scan_dir, "time_1")), "time_1 left after its marker")
+    info = {t: np.load(os.path.join(tmp, f"scan_{t}_info.npy"), allow_pickle=True).item()
+            for t in ("resumed", "straight")}
+    for t in range(SCAN_NTIMES):
+        h_res, h_str = info["resumed"][0][t], info["straight"][0][t]
+        log(f"    time {t}: phase steps resumed {h_res['phase_steps']}, uninterrupted "
+            f"{h_str['phase_steps']}")
+        check(h_res["loss"] == h_str["loss"], f"time {t}: resumed loss history differs")
+    for suffix in ("resid.uvh5", "model.uvh5"):
+        a = VisData.from_uvh5(os.path.join(tmp, f"scan_resumed_{suffix}")).data_array
+        b = VisData.from_uvh5(os.path.join(tmp, f"scan_straight_{suffix}")).data_array
+        check(np.array_equal(a, b), f"resumed scan {suffix} differs from the uninterrupted run")
+    a = CalData.from_calfits(os.path.join(tmp, "scan_resumed_gains.calfits")).gain_array
+    b = CalData.from_calfits(os.path.join(tmp, "scan_straight_gains.calfits")).gain_array
+    check(np.array_equal(a, b), "resumed scan gains differ from the uninterrupted run")
+    log("    resumed scan files equal the uninterrupted run's")
+
+
+def drivers_dft_and_mixed(uvd_dpss):
+    """``calibrate_and_model_dft`` on data projected onto the DFT delay
+    modes, and ``calibrate_and_model_mixed`` (multi-baseline covariance
+    groups through the plain loss, single-baseline groups through the
+    kernel) on the DPSS-projected file with 1% starting gain errors, both
+    on the card: each fit converges (model rms >= 100 x resid rms)."""
+    import torch
+
+    from calamity_tpu_torch import LAUNCHES, cal_utils, models, simulate
+    from calamity_tpu_torch.calibration import calibrate_and_model_dft, calibrate_and_model_mixed
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    uvd = simulate.make_golomb_array(nants=6, nfreqs=200, seed=0)
+    dft = models.yield_pbl_model_comps(uvd, offset=MIN_DLY_NS, min_dly=MIN_DLY_NS, basis="dft")
+    for key, mat in dft.items():
+        ap = key[0][0]
+        d = uvd.get_data(ap + ("xx",))
+        proj = (mat @ np.linalg.lstsq(mat, d.T, rcond=None)[0]).T
+        rows, conj = uvd._bl_time_rows(*ap)
+        uvd.data_array[rows, 0, :, 0] = np.conj(proj) if conj else proj
+    LAUNCHES.reset()
+    t0 = time.time()
+    model, resid, _, hist = calibrate_and_model_dft(
+        uvdata=uvd, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS, maxsteps=3000, tol=1e-10,
+        correct_resid=True, correct_model=True, model_regularization="post_hoc",
+        shared_basis=False, device="cuda")
+    torch.cuda.synchronize()
+    ratio = rms(resid.data_array) / rms(model.data_array)
+    log(f"  calibrate_and_model_dft: {time.time() - t0:.1f} s, {len(hist[0][0]['loss'])} "
+        f"recorded steps, {KERNEL_NAME} launches {LAUNCHES.get(KERNEL_NAME)}, resid rms / model "
+        f"rms {ratio:.3e} (limit 1e-2)")
+    check(ratio <= 1e-2 and LAUNCHES.get(KERNEL_NAME) > 0, "the DFT driver did not converge "
+          "through the kernel")
+
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd_dpss)
+    rng = np.random.default_rng(11)
+    gains.gain_array = gains.gain_array + 1e-2 * rng.standard_normal(gains.gain_array.shape) \
+        + 1e-2j * rng.standard_normal(gains.gain_array.shape)
+    LAUNCHES.reset()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, resid, fitted, hist = calibrate_and_model_mixed(
+            uvdata=uvd_dpss, gains=gains, min_dly=0.0, offset=0.0, ant_dly=2.0 / 3.0,
+            red_tol_freq=0.5, freeze_model=True, maxsteps=3000, tol=1e-10, correct_resid=False,
+            correct_model=False, grp_size_threshold=1, model_regularization="post_hoc",
+            shared_basis=False, device="cuda")
+    torch.cuda.synchronize()
+    plain = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    resid = cal_utils.apply_gains(resid, fitted)
+    model = cal_utils.apply_gains(model, fitted)
+    ratio = rms(resid.data_array) / rms(model.data_array)
+    log(f"  calibrate_and_model_mixed: {time.time() - t0:.1f} s, {len(hist[0][0]['loss'])} "
+        f"recorded steps, {KERNEL_NAME} launches {LAUNCHES.get(KERNEL_NAME)}, resid rms / model "
+        f"rms {ratio:.3e} (limit 1e-2); plain-loss chunks: {plain}")
+    check(ratio <= 1e-2 and np.isfinite(fitted.gain_array).all(), "the mixed driver did not "
+          "converge")
+    check(LAUNCHES.get(KERNEL_NAME) > 0 and plain, "the mixed driver did not take both routes")
 
 
 def run_cli(repo, argv):
@@ -769,6 +932,115 @@ def phase_time_parallel(tmp):
             f"resid/data batched {r_b:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
+    return {"launches": launches, "path": path, "uvd": uvd}
+
+
+# ---------------------------------------------------------------------- #
+# phase 8: the warm-started time scan at full width
+# ---------------------------------------------------------------------- #
+def phase_scan(tmp, tp):
+    import torch
+
+    from calamity_tpu_torch.io import CalData, VisData
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.calibration import (
+        POLL_EVERY,
+        calibrate_and_model_dpss,
+        read_calibrate_and_model_dpss,
+    )
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+
+    uvd, path = tp["uvd"], tp["path"]
+    log(f"== phase 8: warm-started time scan, {NANTS} antennas, {NFREQS} channels, "
+        f"{TP_NTIMES} times x {TP_NPOLS} polarizations, each polarization's times in order "
+        "(phase 7's file; default precision)")
+    outs = {k: os.path.join(tmp, f"scan_{k}") for k in ("resid.uvh5", "model.uvh5",
+                                                        "gains.calfits")}
+    timings = {}
+    kw = dict(shared_basis=False, model_regularization="post_hoc", learning_rate=1e-2,
+              maxsteps=MAXSTEPS, tol=TOL, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, resid, gains, info = read_calibrate_and_model_dpss(
+            input_data_files=path, resid_outfilename=outs["resid.uvh5"],
+            model_outfilename=outs["model.uvh5"], gain_outfilename=outs["gains.calfits"],
+            clobber=True, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS, time_parallel=True,
+            init_guesses_from_previous_time_step=True, timings=timings, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = LAUNCHES.get(KERNEL_NAME)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
+    recorded = fits = 0
+    for pol in range(uvd.Npols):
+        for t, h in sorted(info[pol].items()):
+            steps, secs = h["phase_steps"], h["phase_seconds"]
+            recorded += len(h["loss"])
+            fits += len(steps)
+            rates = [1e3 * s / max(n, 1) for s, n in zip(secs, steps)]
+            log(f"  pol {pol} time {t}: {steps} steps, {', '.join(f'{r:.3f}' for r in rates)} "
+                f"ms/step (host clock, descent only); loss {h['loss'][0]:.6e} -> "
+                f"{h['loss'][-1]:.6e}")
+    log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items())
+                                       if isinstance(v, float))
+        + f"; read_calibrate_and_model_dpss in all {wall:.1f}; step-0 guard "
+        f"{timings['scan_guard_s'] / fits:.3f} s per time")
+    log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches} for "
+        f"{recorded} recorded + {fits} warm-up steps ({launches / recorded:.4f} per recorded "
+        "step)")
+    # one launch per step; a block of host polls may run up to POLL_EVERY - 1
+    # steps past a time's stop, which are undone
+    check(recorded + fits <= launches <= recorded + fits * POLL_EVERY,
+          f"{launches} launches for {recorded} recorded + {fits} warm-up steps")
+    check(fits == TP_NTIMES * TP_NPOLS, f"{fits} times fitted")
+    check(np.isfinite(gains.gain_array).all(), "non-finite gains")
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    ratios = {}
+    for pol in range(uvd.Npols):
+        for t in np.unique(uvd.time_array):
+            rows = np.isclose(uvd.time_array, t, rtol=0.0, atol=1e-7)
+            good = ~uvd.flag_array[rows, 0, :, pol]
+            ratios[(pol, float(t))] = (rms(resid.data_array[rows, 0, :, pol][good])
+                                       / rms(uvd.data_array[rows, 0, :, pol][good]))
+    log(f"  resid rms / data rms per slice: {', '.join(f'{r:.3e}' for r in ratios.values())} "
+        "(limit 1e-2 each)")
+    check(max(ratios.values()) <= 1e-2, f"a slice's resid/data {max(ratios.values())} > 1e-2")
+    check(np.allclose(VisData.from_uvh5(outs["resid.uvh5"]).data_array, resid.data_array),
+          "resid file does not read back")
+    check(np.allclose(VisData.from_uvh5(outs["model.uvh5"]).data_array, model.data_array),
+          "model file does not read back")
+    check(np.allclose(CalData.from_calfits(outs["gains.calfits"]).gain_array, gains.gain_array),
+          "gains file does not read back")
+    log("  output files read back through calamity_tpu_torch.io and match")
+
+    # each polarization's first time, which the scan starts cold, on the
+    # serial path at the same precision
+    t_first = np.unique(uvd.time_array)[0]
+    sub = uvd.select(times=[t_first], inplace=False)
+    t0 = time.time()
+    _, resid_s, _, info_s = calibrate_and_model_dpss(uvdata=sub, min_dly=MIN_DLY_NS,
+                                                     offset=MIN_DLY_NS,
+                                                     comps_precision="float32", **kw)
+    torch.cuda.synchronize()
+    log(f"  serial path on each polarization's first time: {time.time() - t0:.1f} s")
+    for pol in range(uvd.Npols):
+        h_c = np.asarray(info[pol][0]["loss"])
+        h_s = np.asarray(info_s[pol][0]["loss"])
+        n = min(200, len(h_c), len(h_s))
+        rel = float(np.max(np.abs(h_c[:n] - h_s[:n]) / np.abs(h_s[:n])))
+        rows = np.isclose(sub.time_array, t_first, rtol=0.0, atol=1e-7)
+        good = ~sub.flag_array[rows, 0, :, pol]
+        r_s = rms(resid_s.data_array[rows, 0, :, pol][good]) / rms(
+            sub.data_array[rows, 0, :, pol][good])
+        r_c = ratios[(pol, float(t_first))]
+        log(f"  pol {pol}: steps scan {len(h_c)} serial {len(h_s)}; first {n} losses max rel "
+            f"diff {rel:.2e}; resid/data scan {r_c:.3e} serial {r_s:.3e}")
+        check(rel <= 1e-2, f"pol {pol}: scan and serial histories differ: rel {rel}")
+        check(max(r_c, r_s) <= 2 * min(r_c, r_s), f"pol {pol}: resid/data {r_c} vs {r_s}")
     return {"launches": launches}
 
 
@@ -804,6 +1076,7 @@ def main():
         phase_in_loop(main_out)
         phase_cli(tmp, repo)
         tp_out = phase_time_parallel(tmp)
+        scan_out = phase_scan(tmp, tp_out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
@@ -823,9 +1096,10 @@ def main():
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": main_out["launches"] + tp_out["launches"],
+        "launches": main_out["launches"] + tp_out["launches"] + scan_out["launches"],
         "launches_by_path": {"serial": main_out["launches"],
-                             "time_parallel": tp_out["launches"]},
+                             "time_parallel": tp_out["launches"],
+                             "time_scan": scan_out["launches"]},
         "max_abs_err": max(errs),
         # the instance the descent launches (loss and every gradient), at the
         # time-parallel path's chunk: N=8, float32 comps

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py [--nbatch N]
+    python3 scripts/profile_step_torch.py [--nbatch N | --scan]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
@@ -9,7 +9,9 @@ groups, 1536 channels) and packs it on the card: with ``--nbatch 1`` (the
 default) the first time slice for the serial descent, with ``--nbatch N``
 N (time, pol) slices (N / 2 times x 2 polarizations for even N) for the
 batched time-parallel descent, stepped as the driver steps it (blocks of
-``calibration.POLL_EVERY`` steps between host polls). For the bf16-comps
+``calibration.POLL_EVERY`` steps between host polls); with ``--scan`` the
+first time slice through that batched descent at N = 1, which is how the
+warm-started time scan steps each time. For the bf16-comps
 and float32 phases of the mixed schedule it times 48 descent steps (after
 16 warm-up steps) under ``torch.profiler``: device time per step by kernel,
 kernels per step, and the device's idle share against the host clock. It
@@ -105,7 +107,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nbatch", type=int, default=1,
                     help="slices per step: 1 profiles the serial step, N > 1 the batched one")
+    ap.add_argument("--scan", action="store_true",
+                    help="one slice through the batched descent, as the time scan steps it")
     args = ap.parse_args()
+    if args.scan and args.nbatch != 1:
+        ap.error("--scan steps one slice; leave --nbatch at 1")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     npols = 2 if args.nbatch % 2 == 0 else 1
@@ -119,7 +125,7 @@ def main():
     chunks = spec.device_chunks()
     print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
-    make = serial_stepper if args.nbatch == 1 else batched_stepper
+    make = serial_stepper if args.nbatch == 1 and not args.scan else batched_stepper
     for name, chs in phases:
         step, per_call = make(chs, spec, uvd, gains)
         for _ in range(max(1, NWARMUP // per_call)):

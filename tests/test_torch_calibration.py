@@ -7,8 +7,12 @@
 - The slice's configuration (post_hoc, ``shared_basis=False``: every chunk
   dense, through the fused loss) on the golden Golomb file: gains agree and
   resid rms <= 1e-2 x data rms.
-- Importing the port never loads jax nor the JAX package; options not ported
-  yet raise.
+- The DFT and mixed drivers (``calibrate_and_model_dft``,
+  ``calibrate_and_model_mixed``) on the scenarios of tests/test_calibration.py,
+  at fewer steps: gains and outputs agree with the JAX run; the mixed
+  driver's saved component dict round-trips.
+- Importing the port never loads jax nor the JAX package; device meshes
+  (not ported yet) and wrong option values raise.
 
 Tolerance: float32 descents of a few hundred steps in two frameworks;
 gains agree to 1e-3 of their amplitude and outputs to 1e-3 of the data
@@ -22,7 +26,7 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch_parity import DPSS_DLY, GOLDEN_GOLOMB, as_port
+from torch_parity import DPSS_DLY, GOLDEN_GOLOMB, as_port, project_onto_dpss, rel_err
 
 from calamity_tpu import calibration as jcal
 from calamity_tpu import cli as jcli
@@ -140,12 +144,12 @@ def test_import_never_loads_jax():
 
 
 @pytest.mark.parametrize("kwargs, exc, match", [
-    (dict(time_parallel=True, init_guesses_from_previous_time_step=True),
-     NotImplementedError, "items 11-12"),
+    (dict(time_parallel=True, init_guesses_from_previous_time_step=True, mesh=object()),
+     NotImplementedError, "item 13"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
     (dict(steps_per_execution=10), ValueError, "time_parallel paths only"),
     (dict(time_parallel=True, mesh=object()), NotImplementedError, "item 13"),
-    (dict(n_profile_steps=2), NotImplementedError, "item 6"),
+    (dict(optimizer="Adamw"), KeyError, "unknown optimizer"),
     (dict(wgts_precision="float16"), ValueError, "wgts_precision"),
     (dict(loss_block_ngrps=8), ValueError, "time_parallel"),
 ])
@@ -160,3 +164,118 @@ def test_cuda_device_without_cuda_raises(golomb_visdata):
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), maxsteps=2)
+
+
+def _assert_fits_agree(jout, tout, data):
+    (mj, rj, gj, hj), (mt, rt, gt, ht) = jout, tout
+    for pol, by_time in hj.items():
+        for t, h in by_time.items():
+            assert len(ht[pol][t]["loss"]) == len(h["loss"])
+    assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3
+    data_rms = RMS(data)
+    assert np.max(np.abs(rt.data_array - rj.data_array)) <= 1e-3 * data_rms
+    assert np.max(np.abs(mt.data_array - mj.data_array)) <= 1e-3 * data_rms
+
+
+@pytest.mark.parametrize("shared_basis", [True, False])
+def test_dft_driver_matches_jax(golomb_visdata, shared_basis):
+    """tests/test_calibration.py::test_calibrate_and_model_dft at 300 steps:
+    data projected onto the DFT delay modes; with ``shared_basis=False``
+    every chunk is dense with one baseline per group (the kernel's layout
+    on the card)."""
+    from calamity_tpu import models
+
+    uvd = golomb_visdata.copy()
+    comps = models.yield_pbl_model_comps(uvd, offset=DPSS_DLY, min_dly=DPSS_DLY, basis="dft")
+    for key, mat in comps.items():
+        ap = key[0][0]
+        d = uvd.get_data(ap + ("xx",))
+        proj = (mat @ np.linalg.lstsq(mat, d.T, rcond=None)[0]).T
+        rows, conj = uvd._bl_time_rows(*ap)
+        uvd.data_array[rows, 0, :, 0] = np.conj(proj) if conj else proj
+    kw = dict(min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=300, tol=1e-10, correct_resid=True,
+              correct_model=True, model_regularization="post_hoc", shared_basis=shared_basis)
+    jout = jcal.calibrate_and_model_dft(uvdata=uvd, **kw)
+    tout = tcal.calibrate_and_model_dft(uvdata=as_port(uvd), device="cpu", **kw)
+    _assert_fits_agree(jout, tout, uvd.data_array)
+    assert RMS(tout[0].data_array) >= 1e2 * RMS(tout[1].data_array)
+
+
+@pytest.fixture(scope="module")
+def mixed_scenario(golomb_visdata):
+    """The mixed-driver scenario of tests/test_calibration.py: the DPSS-
+    projected sky with noise 100 dB down in power, 1% random starting
+    gains, unit weights."""
+    from calamity_tpu import cal_utils, models
+    from calamity_tpu.io import FlagWeights
+
+    uvd = golomb_visdata.copy()
+    project_onto_dpss(uvd, models.yield_pbl_dpss_model_comps(uvd, offset=DPSS_DLY,
+                                                             min_dly=DPSS_DLY))
+    rng = np.random.default_rng(3)
+    amp = 1e-5 * RMS(uvd.data_array)
+    uvd.data_array = uvd.data_array + amp * (rng.standard_normal(uvd.data_array.shape)
+                                             + 1j * rng.standard_normal(uvd.data_array.shape))
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    rng = np.random.default_rng(11)
+    gains.gain_array = gains.gain_array + 1e-2 * rng.standard_normal(gains.gain_array.shape) \
+        + 1e-2j * rng.standard_normal(gains.gain_array.shape)
+    weights = FlagWeights(golomb_visdata, mode="flag")
+    weights.weights_array = np.ones_like(weights.flag_array, dtype=np.float64)
+    return uvd, gains, weights
+
+
+def _mixed_kw(scenario, **kw):
+    uvd, gains, weights = scenario
+    return dict(dict(min_dly=0.0, offset=0.0, ant_dly=2.0 / 3.0, red_tol_freq=0.5, uvdata=uvd,
+                     gains=gains, freeze_model=True, maxsteps=150, tol=0.0,
+                     correct_resid=False, correct_model=False, weights=weights,
+                     grp_size_threshold=1), **kw)
+
+
+@pytest.mark.parametrize("model_regularization, shared_basis", [("post_hoc", False),
+                                                                ("sum", True)])
+def test_mixed_driver_matches_jax(mixed_scenario, model_regularization, shared_basis):
+    """tests/test_calibration.py::test_calibrate_and_model_mixed at 150
+    steps a phase (tol 0: a float32 tol stop may land a step apart in two
+    frameworks), covariance components from host numpy in both packages: the
+    multi-baseline groups take the plain loss, the single-baseline DPSS
+    groups (with ``shared_basis=False``) the fused loss."""
+    kw = _mixed_kw(mixed_scenario, model_regularization=model_regularization,
+                   shared_basis=shared_basis)
+    jout = jcal.calibrate_and_model_mixed(**kw)
+    tkw = {k: as_port(v) if k in ("uvdata", "gains", "weights") else v for k, v in kw.items()}
+    with pytest.warns(UserWarning, match="nbls=") if model_regularization == "post_hoc" \
+            else _no_warning():
+        tout = tcal.calibrate_and_model_mixed(device="cpu", **tkw)
+    _assert_fits_agree(jout, tout, mixed_scenario[0].data_array)
+
+
+class _no_warning:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_mixed_save_dict_round_trips(mixed_scenario, tmp_path):
+    """save_dict_to persists the component dict (the JAX package's own
+    dict, to rounding); fed back through model_comps_dict it gives the same
+    fit; the device eigh option raises and names what is left."""
+    kw = _mixed_kw(mixed_scenario, maxsteps=40, model_regularization="post_hoc")
+    tkw = {k: as_port(v) if k in ("uvdata", "gains", "weights") else v for k, v in kw.items()}
+    path_t, path_j = str(tmp_path / "comps_t.npy"), str(tmp_path / "comps_j.npy")
+    first = tcal.calibrate_and_model_mixed(device="cpu", save_dict_to=path_t, **tkw)
+    jcal.calibrate_and_model_mixed(save_dict_to=path_j, **dict(kw, maxsteps=1))
+    saved = np.load(path_t, allow_pickle=True).item()
+    ref = np.load(path_j, allow_pickle=True).item()
+    assert list(saved) == list(ref)
+    for key in ref:
+        assert rel_err(np.abs(saved[key]), np.abs(ref[key])) <= 1e-8
+    again = tcal.calibrate_and_model_mixed(device="cpu", model_comps_dict=saved, **tkw)
+    assert again[3][0][0]["loss"] == first[3][0][0]["loss"]
+    np.testing.assert_array_equal(again[2].gain_array, first[2].gain_array)
+    with pytest.raises(ValueError, match="A.15"):
+        tcal.calibrate_and_model_mixed(device="cpu", use_tensorflow_to_derive_modeling_comps=True,
+                                       **tkw)

@@ -12,9 +12,12 @@ steps of a descent; a few dozen steps here). Gains and coefficients are
 compared as complex numbers, relative to their largest amplitude.
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from conftest import zero_plateau_fit_args
 from torch_parity import DPSS_DLY, GOLDEN_GOLOMB, rel_err, to_np
 
@@ -23,6 +26,7 @@ from calamity_tpu.io import CalData, VisData
 from calamity_tpu.solver.fit import fit_gains_and_foregrounds as jax_fit
 from calamity_tpu.solver.tensorize import FitSpec
 from calamity_tpu_torch.convert import chunks_from_jax, to_tensor
+from calamity_tpu_torch.ops.fused import explain_fused_loss_inapplicable
 from calamity_tpu_torch.solver.fit import fit_gains_and_foregrounds as torch_fit
 
 
@@ -160,13 +164,57 @@ def test_non_finite_loss_stops(golden_problem):
     assert np.isnan(tres[4]["loss"][0]) and np.isnan(jres[4]["loss"][0])
 
 
-def test_not_ported_options_raise(golden_problem):
-    p = golden_problem["float32"]
-    args = [to_tensor(p["g_r"], "cpu"), to_tensor(p["g_i"], "cpu"),
+def _torch_args(p):
+    return [to_tensor(p["g_r"], "cpu"), to_tensor(p["g_i"], "cpu"),
             [to_tensor(x, "cpu") for x in p["fg_r"]], [to_tensor(x, "cpu") for x in p["fg_i"]],
             [to_tensor(x, "cpu") for x in p["data_r"]], [to_tensor(x, "cpu") for x in p["data_i"]],
             [to_tensor(x, "cpu") for x in p["wgts"]], chunks_from_jax(p["chunks"], "cpu")]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        torch_fit(*args, n_profile_steps=3)
+
+
+def test_not_ported_options_raise(golden_problem):
+    # every option of the reference's fit is ported: what is left raises
+    # for a wrong value only
+    args = _torch_args(golden_problem["float32"])
     with pytest.raises(ValueError, match="comps_precision"):
         torch_fit(*args, comps_precision="float16")
+    with pytest.raises(KeyError, match="unknown optimizer 'Adamw'"):
+        torch_fit(*args, optimizer="Adamw")
+
+
+@pytest.mark.parametrize("comps_precision", ["float32", "bfloat16"])
+def test_profile_steps_write_a_trace_and_leave_the_fit_unchanged(golden_problem, tmp_path,
+                                                                  comps_precision):
+    args = _torch_args(golden_problem["float32"])
+    kw = dict(maxsteps=15, tol=0.0, learning_rate=1e-2, comps_precision=comps_precision)
+    plain = torch_fit(*args, **kw)
+    logdir = tmp_path / "prof"
+    traced = torch_fit(*args, n_profile_steps=3, profile_log_dir=str(logdir), **kw)
+    assert traced[4]["loss"] == plain[4]["loss"]
+    for got, want in zip([traced[0], *traced[2]], [plain[0], *plain[2]]):
+        assert torch.equal(got, want)
+    traces = sorted(logdir.glob("trace_*.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    # the traced descent: a warm-up and n_profile_steps recorded steps, each
+    # through the fused loss of every chunk its gate accepts
+    fused = sum(explain_fused_loss_inapplicable(c, f, d, w) is None
+                for (c, _, _), f, d, w in zip(args[7], args[2], args[4], args[6]))
+    assert fused > 0
+    assert sum(e.get("name") == "_FusedChunkLossBatched" for e in events) == 4 * fused
+
+
+@pytest.mark.parametrize("optimizer, opt_kwargs", [
+    ("Adam", {}), ("Nadam", {}), ("SGD", {"momentum": 0.9}),
+    ("RMSprop", {"momentum": 0.5, "centered": True}), ("Adagrad", {}), ("Adadelta", {}),
+    ("LAMB", {"weight_decay": 1e-3}), ("Ftrl", {"l1_regularization_strength": 1e-6}),
+])
+def test_optimizers_through_the_mixed_schedule(golden_problem, optimizer, opt_kwargs):
+    """Each optimizer of the registry on the serial path with the mixed
+    schedule: its state carried from the bf16 phase into the float32
+    polish, as in the JAX package."""
+    jres, tres = _run_both(golden_problem["float32"], maxsteps=12, tol=0.0,
+                           learning_rate=1e-2, comps_precision="mixed",
+                           model_regularization="post_hoc", optimizer=optimizer, **opt_kwargs)
+    assert len(tres[4]["loss"]) == 24
+    _compare(jres, tres, 1e-4)

@@ -216,3 +216,66 @@ def test_convert_carries_bfloat16_bits():
                                       "cpu")
     assert ct.dtype == torch.bfloat16 and a0t.dtype == torch.int32
     assert torch.equal(ct, torch.as_tensor(comps).to(torch.bfloat16))
+
+
+def _compressed_weights_case(dtype, device):
+    """A problem whose weights do not depend on frequency, as the full cubes
+    and as the (ngrps, nbls, 1) planes a scan stores."""
+    p = _problem(8, ["dense", "shared"])
+    p["w"] = [np.broadcast_to(x[..., :1], x.shape).copy() for x in p["w"]]
+    _, t = _cast(p, dtype)
+    t = {k: (v.to(device) if isinstance(v, torch.Tensor)
+             else tuple(tuple(c.to(device) for c in ch) for ch in v) if k == "chunks"
+             else [x.to(device) for x in v]) for k, v in t.items()}
+    planes = [w[..., :1].clone() for w in t["w"]]
+    return t, planes
+
+
+def _loss_and_grads_with(t, wgts):
+    def fn(g_r, g_i, fr, fi):
+        return tloss.chunked_loss(g_r, g_i, fr, fi, t["chunks"], t["dr"], t["di"], wgts)
+
+    leaves = [t["g_r"].clone(), t["g_i"].clone(), [x.clone() for x in t["fr"]],
+              [x.clone() for x in t["fi"]]]
+    return _torch_value_and_grad(fn, *leaves)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_loss_takes_a_compressed_weights_plane(dtype, monkeypatch):
+    """Frequency-invariant weights stored as one (..., 1) plane: the dense
+    chunk reaches the fused loss with weights of the data's shape (a
+    stride-0 view, the operand shape the kernel checks), and the loss and
+    its gradients equal those of the full weight cube."""
+    t, planes = _compressed_weights_case(dtype, "cpu")
+    seen = []
+    real = tloss.fused_chunk_loss
+
+    def spy(coeffs2, pr, pi, comps3, dr, di, w):
+        seen.append((tuple(w.shape), tuple(dr.shape), w.stride()[-1]))
+        return real(coeffs2, pr, pi, comps3, dr, di, w)
+
+    monkeypatch.setattr(tloss, "fused_chunk_loss", spy)
+    full_val, full_grad = _loss_and_grads_with(t, t["w"])
+    val, grad = _loss_and_grads_with(t, planes)
+    assert len(seen) == 2 and seen[1][0] == seen[1][1] and seen[1][2] == 0
+    assert float(val) == float(full_val)
+    for got, want in zip(grad, full_grad):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_chunked_loss_takes_a_compressed_weights_plane(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+
+    t, planes = _compressed_weights_case(dtype, "cuda")
+    full_val, full_grad = _loss_and_grads_with(t, t["w"])
+    before = LAUNCHES.get(KERNEL_NAME)
+    val, grad = _loss_and_grads_with(t, planes)
+    assert LAUNCHES.get(KERNEL_NAME) == before + 1
+    assert rel_err(val, full_val) <= 1e-6
+    for got, want in zip(grad, full_grad):
+        assert rel_err(got, want) <= 1e-6

@@ -3,8 +3,9 @@ the CPU: ``calibrate_and_model_tensor(time_parallel=True)`` on the
 multi-time Golomb fixture (model, resid, gains and per-slice histories,
 with a slice skipped by ``skip_threshold``, the float32 and mixed
 schedules and bfloat16 weights), the port's batched driver against its
-serial driver, the CLI's ``--time_parallel`` against the JAX CLI, and the
-serial path with bfloat16 weights against the JAX package.
+serial driver, the CLI's ``--time_parallel`` against the JAX CLI, the
+serial path with bfloat16 weights against the JAX package, and profiler
+traces of the batched descent (``n_profile_steps``).
 
 Tolerances: float32 descents of up to a few hundred steps in two
 frameworks; outputs agree to 1e-3 of the data rms and gains to 1e-3 of
@@ -14,7 +15,14 @@ loss histories of a 25-step fit to rel 1e-4.
 
 import numpy as np
 import pytest
-from torch_parity import DPSS_DLY, as_port, multitime_visdata, rel_err
+from torch_parity import (
+    DPSS_DLY,
+    as_port,
+    flagged_for_skip,
+    gain_corrupted,
+    multitime_visdata,
+    rel_err,
+)
 
 from calamity_tpu import calibration as jcal
 from calamity_tpu import cli as jcli
@@ -28,31 +36,15 @@ RMS = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
 
 @pytest.fixture(scope="module")
 def corrupted_multitime(golomb_visdata):
-    """The multi-time fixture with 5% gain errors applied: fits with real
-    gradients (from the projected sky alone, a fit starts at its optimum
-    and follows rounding noise)."""
-    from calamity_tpu import cal_utils
-
-    uvd = multitime_visdata(golomb_visdata)
-    truth = cal_utils.blank_uvcal_from_uvdata(uvd)
-    rng = np.random.default_rng(5)
-    truth.gain_array = truth.gain_array * (1 + 0.05 * rng.standard_normal(truth.gain_array.shape)
-                                           + 0.05j * rng.standard_normal(truth.gain_array.shape))
-    return cal_utils.apply_gains(uvd, truth, inverse=True)
+    """The multi-time fixture with 5% gain errors applied."""
+    return gain_corrupted(multitime_visdata(golomb_visdata))
 
 
 @pytest.fixture(scope="module")
 def flagged_multitime(corrupted_multitime):
-    """Three times; time 1 mostly flagged (skipped at skip_threshold 0.5);
-    a band of channels flagged on two baselines at time 0, so the weights
-    depend on frequency."""
-    uvd = corrupted_multitime.copy()
-    times = np.unique(uvd.time_array)
-    rows = np.nonzero(np.isclose(uvd.time_array, times[1], rtol=0.0, atol=1e-7))[0]
-    uvd.flag_array[rows, :, : int(0.7 * uvd.Nfreqs)] = True
-    rows0 = np.nonzero(np.isclose(uvd.time_array, times[0], rtol=0.0, atol=1e-7))[0][:2]
-    uvd.flag_array[rows0, :, 40:60] = True
-    return uvd
+    """Three times; time 1 skipped at skip_threshold 0.5; frequency-dependent
+    weights at time 0."""
+    return flagged_for_skip(corrupted_multitime)
 
 
 def _both(uvd, **kw):
@@ -169,13 +161,28 @@ def test_serial_driver_bfloat16_weights_match_jax(flagged_multitime):
     _assert_agree(jout, tout, flagged_multitime)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(init_guesses_from_previous_time_step=True), "item 12"),
-    (dict(mesh=object()), "item 13"),
-    (dict(n_profile_steps=2), "item 6"),
-])
-def test_time_parallel_options_not_ported_raise(golomb_visdata, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kwargs", [dict(), dict(init_guesses_from_previous_time_step=True)])
+def test_time_parallel_options_not_ported_raise(golomb_visdata, kwargs):
+    # device meshes are the one option of the time-parallel paths left
+    with pytest.raises(NotImplementedError, match="item 13"):
         tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), min_dly=DPSS_DLY,
                                       offset=DPSS_DLY, maxsteps=2, time_parallel=True,
-                                      device="cpu", **kwargs)
+                                      device="cpu", mesh=object(), **kwargs)
+
+
+@pytest.mark.parametrize("comps_precision", ["float32", "mixed"])
+def test_time_parallel_profile_steps_write_a_trace(corrupted_multitime, tmp_path,
+                                                   comps_precision):
+    """n_profile_steps: a short batched descent traced before the fit, its
+    Chrome trace under profile_log_dir; the fit itself unchanged."""
+    kw = dict(uvdata=as_port(corrupted_multitime), min_dly=DPSS_DLY, offset=DPSS_DLY,
+              maxsteps=20, tol=0.0, model_regularization="post_hoc", shared_basis=False,
+              time_parallel=True, comps_precision=comps_precision, device="cpu")
+    _, r_plain, g_plain, h_plain = tcal.calibrate_and_model_dpss(**kw)
+    logdir = tmp_path / "prof"
+    _, r_prof, g_prof, h_prof = tcal.calibrate_and_model_dpss(
+        n_profile_steps=4, profile_log_dir=str(logdir), **kw)
+    assert len(list(logdir.glob("trace_*.json"))) == 1
+    assert h_prof == h_plain
+    np.testing.assert_array_equal(g_prof.gain_array, g_plain.gain_array)
+    np.testing.assert_array_equal(r_prof.data_array, r_plain.data_array)

@@ -76,6 +76,32 @@ def multitime_visdata(uvd, ntimes=3):
     return out
 
 
+def gain_corrupted(uvd, err=0.05, seed=5):
+    """``uvd`` with random complex per-antenna gain errors of relative size
+    ``err`` applied: fits with real gradients (from a projected sky alone a
+    fit starts at its optimum and follows rounding noise)."""
+    from calamity_tpu import cal_utils
+
+    truth = cal_utils.blank_uvcal_from_uvdata(uvd)
+    rng = np.random.default_rng(seed)
+    truth.gain_array = truth.gain_array * (1 + err * rng.standard_normal(truth.gain_array.shape)
+                                           + 1j * err * rng.standard_normal(truth.gain_array.shape))
+    return cal_utils.apply_gains(uvd, truth, inverse=True)
+
+
+def flagged_for_skip(uvd):
+    """A copy of a 3-time ``uvd`` with time 1 mostly flagged (skipped at
+    skip_threshold 0.5) and a band of channels flagged on two baselines at
+    time 0, so the weights depend on frequency."""
+    uvd = uvd.copy()
+    times = np.unique(uvd.time_array)
+    rows = np.nonzero(np.isclose(uvd.time_array, times[1], rtol=0.0, atol=1e-7))[0]
+    uvd.flag_array[rows, :, : int(0.7 * uvd.Nfreqs)] = True
+    rows0 = np.nonzero(np.isclose(uvd.time_array, times[0], rtol=0.0, atol=1e-7))[0][:2]
+    uvd.flag_array[rows0, :, 40:60] = True
+    return uvd
+
+
 def batched_problem(uvd, dtype=np.float32, gain_err=0.02, seed=11, shared_basis=False,
                     weights=None):
     """Host stacks of every (time, pol) slice of ``uvd`` packed by the JAX
