@@ -14,7 +14,13 @@ argparsers, on the torch solver, with checkpointed fits and profiler traces
 ``get_auto_weights``, ``resolve_comps_precision``) are the reference's,
 copied unchanged.
 
-Not ported yet (raises ``NotImplementedError``): device meshes (``mesh``).
+The time-parallel paths run sharded over a ('data', 'bl') device mesh
+(``mesh=``, ``parallel.mesh``): one process per device, each packing the
+whole file and fitting its block, every rank returning the whole result;
+with ``mesh=None`` a default process group of more than one rank gets the
+auto mesh, as the reference does for more than one device. The serial path
+ignores ``mesh``. Under ``torchrun`` the file driver joins the group itself
+and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from .io.flags import FlagWeights
 from .io.polarizations import polstr2num
 from .io.visdata import VisData
 from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
+from .parallel.mesh import is_writer
 from .solver.fit import fit_gains_and_foregrounds
 from .solver.tensorize import FitSpec, to_numpy
 from .utils import echo, select_baselines
@@ -301,6 +308,15 @@ def calibrate_and_model_tensor(
     ``device``: where the fit runs ("cuda", "cuda:N" or "cpu"). Asking for
     CUDA where there is none raises.
 
+    ``mesh``: read on the time-parallel paths only, as the reference does.
+    A ('data', 'bl') mesh from ``parallel.mesh.make_mesh`` shards the fit:
+    this process fits its block on ``device`` and returns the whole
+    result. ``None``: the auto mesh (every rank on 'bl') where a default
+    process group of more than one rank is initialized, else one device.
+    ``False``: one device. In a process group an unsharded fit (the serial
+    path, ``mesh=False``) runs whole on every rank, and rank 0 alone
+    writes and resumes its ``checkpoint_dir``.
+
     ``timings``: optional dict that receives host wall-clock seconds per
     stage (``packing_s``, ``pack_data_s``, ``warm_start_s``, ``fit_s``,
     ``writeback_s``, ``finalize_s``; repeated stages accumulate).
@@ -309,10 +325,13 @@ def calibrate_and_model_tensor(
     """
     del graph_mode, use_pallas, notebook_progressbar
     device = resolve_device(device)
-    if mesh is not None and mesh is not False:
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP queue A item 13)"
-        )
+    mesh = _resolve_mesh(mesh, device) if time_parallel else None
+    if mesh is None and not is_writer():
+        # an unsharded fit in a process group runs whole and on its own on
+        # every rank: rank 0 alone checkpoints and resumes it, so no two
+        # processes write one directory, and nothing waits on a peer whose
+        # step count the card's atomics may have moved
+        checkpoint_dir = None
     if steps_per_execution is not None and not time_parallel:
         raise ValueError(
             "steps_per_execution bounds the steps of one descent call on the "
@@ -369,11 +388,12 @@ def calibrate_and_model_tensor(
     ants_map = {int(ant): i for i, ant in enumerate(gains.ant_array)}
     echo(f"{datetime.datetime.now()} Packing foreground modeling tensors...\n", verbose=verbose)
     t_st = _time.time()
+    # under a mesh the spec stays on the host: each rank uploads its block
     spec = FitSpec(
         uvdata,
         fg_model_comps_dict,
         ants_map,
-        device=device,
+        device=device if mesh is None else "cpu",
         dtype=dtype,
         use_redundancy=use_redundancy,
         grp_size_threshold=grp_size_threshold,
@@ -399,7 +419,7 @@ def calibrate_and_model_tensor(
             checkpoint_every=checkpoint_every, resume=resume,
             steps_per_execution=steps_per_execution, loss_block_ngrps=loss_block_ngrps,
             n_profile_steps=n_profile_steps, profile_log_dir=profile_log_dir,
-            timings=timings,
+            timings=timings, device=device, mesh=mesh,
         )
     if time_parallel:
         return _calibrate_time_parallel(
@@ -415,7 +435,7 @@ def calibrate_and_model_tensor(
             checkpoint_every=checkpoint_every, resume=resume,
             steps_per_execution=steps_per_execution, loss_block_ngrps=loss_block_ngrps,
             n_profile_steps=n_profile_steps, profile_log_dir=profile_log_dir,
-            timings=timings,
+            timings=timings, device=device, mesh=mesh,
         )
 
     fit_history = {}
@@ -568,6 +588,78 @@ def calibrate_and_model_tensor(
     return model, resid, gains, fit_history
 
 
+def _resolve_mesh(mesh, device):
+    """The mesh a time-parallel fit runs on, or None for one device
+    (reference calibration.py:415-430): ``False`` opts out; ``None`` builds
+    the auto mesh where a default process group of more than one rank is
+    initialized (the counterpart of more than one JAX device)."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh, mesh_shape
+
+    if mesh is False:
+        return None
+    if mesh is None:
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
+            return None
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        # every rank on 'bl': also the right axis for the scan, whose times
+        # run in order
+        return make_mesh()
+    mesh_shape(mesh)  # a ('data', 'bl') DeviceMesh, or TypeError
+    return mesh
+
+
+def _pad_axis(arr, axis, target):
+    """Zero-pad one axis of a tensor up to ``target`` length (reference
+    calibration.py:1348-1357)."""
+    if arr.shape[axis] == target:
+        return arr
+    shape = list(arr.shape)
+    shape[axis] = target - arr.shape[axis]
+    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def _pad_axis_np(arr, axis, target):
+    """Zero-pad one axis of a host numpy array up to ``target`` length
+    (reference calibration.py:1360-1369)."""
+    if arr.shape[axis] == target:
+        return arr
+    pad = [(0, 0)] * arr.ndim
+    pad[axis] = (0, target - arr.shape[axis])
+    return np.pad(arr, pad)
+
+
+def _pad_chunks_for_bl(chunks, n_bl):
+    """Pad every chunk's group and operator-class axes to ``n_bl`` multiples
+    so shard boundaries land on whole groups (and, for shared-batched
+    chunks, on whole operator classes) (reference calibration.py:1372-1407).
+
+    Shared-batched chunks (1 < U < ngrps) have the class-major layout
+    ngrps = U * gmax; their class axis U is padded with zero operators,
+    which appends gmax * (U_pad - U) zero-weight dummy groups at the end of
+    the flat group axis, so each rank's classes stay whole. Plain shared
+    chunks keep their one operator (group dim 1, replicated). Chunks are
+    tensors or numpy arrays. Returns (padded_chunks, padded group counts)."""
+    out, pads = [], []
+    for comps, a0, a1 in chunks:
+        pad = _pad_axis if isinstance(comps, torch.Tensor) else _pad_axis_np
+        ngrps = a0.shape[0]
+        if 1 < comps.shape[0] < ngrps:
+            nu = comps.shape[0]
+            gmax = ngrps // nu
+            nu_pad = -(-nu // n_bl) * n_bl
+            ngrps_pad = nu_pad * gmax
+            comps_pad = pad(comps, 0, nu_pad)
+        else:
+            ngrps_pad = -(-ngrps // n_bl) * n_bl
+            comps_pad = comps if comps.shape[0] != ngrps else pad(comps, 0, ngrps_pad)
+        out.append((comps_pad, pad(a0, 0, ngrps_pad), pad(a1, 0, ngrps_pad)))
+        pads.append(ngrps_pad)
+    return out, pads
+
+
 def _compress_freq_invariant_wgts(w):
     """A weights stack whose every channel plane is equal, as one
     broadcastable (..., 1) plane (reference calibration.py:1410-1427).
@@ -592,10 +684,10 @@ def _calibrate_time_parallel(
     model_regularization, correct_model, correct_resid, remat, comps_precision,
     wgts_precision, patience, verbose, opt_kwargs, checkpoint_dir, checkpoint_every, resume,
     steps_per_execution, loss_block_ngrps, n_profile_steps, profile_log_dir, timings,
+    device, mesh=None,
 ):
-    """Every unskipped (time, pol) slice in one batched descent on one
-    device (reference calibration.py:1430-2136, without the mesh and the
-    segment plans).
+    """Every unskipped (time, pol) slice in one batched descent
+    (reference calibration.py:1430-2136, without the segment plans).
 
     Slices are packed on the host straight into preallocated stacks,
     uploaded once, warm-started and given their priors batched on the
@@ -605,7 +697,16 @@ def _calibrate_time_parallel(
     ``extract_s``, ``upload_s``, ``warmstart_s``, ``descent_s`` (the step-0
     guard's host evaluation included, ``loss_guard_s`` on its own) and
     ``writeback_s``, with ``phase_seconds`` (the guard apart) and
-    ``phase_steps`` (recorded batch steps) per descent phase."""
+    ``phase_steps`` (recorded batch steps) per descent phase.
+
+    Under a ``mesh`` the batch axis is padded to an n_data multiple (dummy
+    rows repeat the last slice's gains, with zero weights) and every
+    chunk's groups to an n_bl multiple (``_pad_chunks_for_bl``); each rank
+    uploads its block, warm-starts it, and sums the weight and prior sums
+    over 'bl'; the descent's results are gathered whole and the padding
+    trimmed before the write-back. ``timings`` then also receives
+    ``collective_s`` and ``collective_calls`` (this rank's host seconds in
+    collective calls, and their count)."""
     from .ops.lstsq import (
         blocked_init_from_data,
         gram_cholesky_chunk,
@@ -619,10 +720,10 @@ def _calibrate_time_parallel(
         batched_fit_core,
         host_batched_losses,
     )
+    from .parallel.mesh import MeshShard, shard_chunk
     from .solver.checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
     from .solver.fit import FitConfig, convert_chunks_dtype, profile_trace
 
-    device = spec.device
     nchunks = len(chunks)
     slices = []  # (polnum, pol, time_index, time, rms)
     for polnum, pol in enumerate(uvdata.get_pols()):
@@ -647,14 +748,21 @@ def _calibrate_time_parallel(
     _tmark = partial(_add_seconds, timings)
     sync = partial(_sync, device)
 
-    nbatch = len(slices)
+    shard = None if mesh is None else MeshShard(mesh, device, nbatch=len(slices))
+    nbatch = len(slices) if shard is None else shard.nbatch
+    n_bl = 1 if shard is None else shard.n_bl
+    fit_chunks, ngrps_pads = _pad_chunks_for_bl(chunks, n_bl)
     # the identity-gains alias (sky_model is uvdata) packs nothing twice:
     # warm starts and priors read the data cubes
     have_sky = sky_model is not None and sky_model is not uvdata
 
     def alloc_stacks():
-        return [np.zeros((nbatch, a0.shape[0], a0.shape[1], spec.nfreqs), dtype=spec.dtype)
-                for _, a0, _ in chunks]
+        return [np.zeros((nbatch, ngrps_pads[c], chunks[c][1].shape[1], spec.nfreqs),
+                         dtype=spec.dtype) for c in range(nchunks)]
+
+    def local(x):
+        # this rank's (rows, groups) block of a host stack
+        return x if shard is None else shard.block(x)
 
     t_tp = _time.time()
     data_r_h, data_i_h, wgts_h = alloc_stacks(), alloc_stacks(), alloc_stacks()
@@ -671,6 +779,10 @@ def _calibrate_time_parallel(
         g_r, g_i = spec.pack_gains(gains, pol, time)
         g_r_l.append(g_r)
         g_i_l.append(g_i)
+    # dummy rows repeat the last slice's gains (their zero weights keep
+    # them inert)
+    g_r_l += g_r_l[-1:] * (nbatch - len(slices))
+    g_i_l += g_i_l[-1:] * (nbatch - len(slices))
     g_r_b = torch.stack(g_r_l)
     g_i_b = torch.stack(g_i_l)
     del g_r_l, g_i_l
@@ -685,9 +797,22 @@ def _calibrate_time_parallel(
             w = w.to(torch.bfloat16)
         return w
 
-    data_r_b = [torch.as_tensor(x, device=device) for x in data_r_h]
-    data_i_b = [torch.as_tensor(x, device=device) for x in data_i_h]
-    wgts_b = [upload_wgts(w) for w in wgts_h]
+    if shard is None:
+        run_chunks = chunks
+        data_r_b = [torch.as_tensor(x, device=device) for x in data_r_h]
+        data_i_b = [torch.as_tensor(x, device=device) for x in data_i_h]
+        wgts_b = [upload_wgts(w) for w in wgts_h]
+    else:
+        # each rank uploads its block alone
+        blocks = [shard_chunk(mesh, fit_chunks[c], data_r_h[c], data_i_h[c], wgts_h[c],
+                              device) for c in range(nchunks)]
+        run_chunks = tuple(b[0] for b in blocks)
+        data_r_b = [b[1] for b in blocks]
+        data_i_b = [b[2] for b in blocks]
+        wgts_b = [upload_wgts(b[3]) for b in blocks]
+        g_r_b = shard.local_rows(g_r_b).to(device)
+        g_i_b = shard.local_rows(g_i_b).to(device)
+        del blocks
     sync()
     t_tp = _tmark("upload_s", t_tp)
 
@@ -702,22 +827,27 @@ def _calibrate_time_parallel(
                          or latest_checkpoint(os.path.join(ck_base, "phase_bf16")) is not None)
         else:
             skip_init = latest_checkpoint(ck_base) is not None
+    # a block of loss_block_ngrps groups spans the 'bl' ranks: each rank
+    # evaluates its share of it, inside its own shard
+    loss_block = (None if loss_block_ngrps is None
+                  else max(1, int(loss_block_ngrps) // n_bl))
     tdt = data_r_b[0].dtype
+    nrows = data_r_b[0].shape[0]
     fg_r_b, fg_i_b = [], []
-    prior_r_b = torch.zeros((nbatch,), dtype=tdt, device=device)
-    prior_i_b = torch.zeros((nbatch,), dtype=tdt, device=device)
-    wsum_b = torch.zeros((nbatch,), dtype=tdt, device=device)
-    for cnum, (comps, a0, _) in enumerate(chunks):
+    prior_r_b = torch.zeros((nrows,), dtype=tdt, device=device)
+    prior_i_b = torch.zeros((nrows,), dtype=tdt, device=device)
+    wsum_b = torch.zeros((nrows,), dtype=tdt, device=device)
+    for cnum, (comps, a0, _) in enumerate(run_chunks):
         ngrps = a0.shape[0]
         if skip_init:
-            zero = torch.zeros((nbatch, ngrps, comps.shape[-1]), dtype=tdt, device=device)
+            zero = torch.zeros((nrows, ngrps, comps.shape[-1]), dtype=tdt, device=device)
             fg_r_b.append(zero)
             fg_i_b.append(zero.clone())
             continue
         chol, active = gram_cholesky_chunk(comps)
         nu = comps.shape[0]
         gmax = ngrps // nu if 1 < nu < ngrps else 1
-        blk = _loss_block_size(ngrps, gmax, loss_block_ngrps) or ngrps
+        blk = _loss_block_size(ngrps, gmax, loss_block) or ngrps
         if not have_sky and not use_model_snr_weights:
             cr, ci, wsum_c, pr_c, pi_c = blocked_init_from_data(
                 chol, active, comps, data_r_b[cnum], data_i_b[cnum], wgts_b[cnum], blk)
@@ -726,10 +856,12 @@ def _calibrate_time_parallel(
             fg_i_b.append(ci)
             continue
         new_w, crs, cis = [], [], []
+        sky_r_c = local(sky_r_h[cnum]) if have_sky else None
+        sky_i_c = local(sky_i_h[cnum]) if have_sky else None
         for g0 in range(0, ngrps, blk):
             if have_sky:
-                src_r = torch.as_tensor(sky_r_h[cnum][:, g0:g0 + blk], device=device)
-                src_i = torch.as_tensor(sky_i_h[cnum][:, g0:g0 + blk], device=device)
+                src_r = torch.as_tensor(sky_r_c[:, g0:g0 + blk], device=device)
+                src_i = torch.as_tensor(sky_i_c[:, g0:g0 + blk], device=device)
             else:
                 src_r = data_r_b[cnum][:, g0:g0 + blk]
                 src_i = data_i_b[cnum][:, g0:g0 + blk]
@@ -757,6 +889,10 @@ def _calibrate_time_parallel(
             wgts_b[cnum] = torch.cat(new_w, dim=1)
         fg_r_b.append(torch.cat(crs, dim=1))
         fg_i_b.append(torch.cat(cis, dim=1))
+    if shard is not None:
+        # each rank summed its groups: the slices' sums are the 'bl' sums
+        wsum_b, prior_r_b, prior_i_b = shard.sum_bl(torch.stack([wsum_b, prior_r_b,
+                                                                 prior_i_b]))
     if use_model_snr_weights:
         # renormalize the reweighted batch to unit total per slice
         denom = torch.where(wsum_b > 0, wsum_b, torch.ones_like(wsum_b))
@@ -765,6 +901,8 @@ def _calibrate_time_parallel(
         wgts_b = [w.to(torch.bfloat16) if wgts_precision == "bfloat16" else w for w in wgts_b]
         prior_r_b = prior_r_b / denom
         prior_i_b = prior_i_b / denom
+    else:
+        wgts_h = [local(w) for w in wgts_h]
     del sky_r_h, sky_i_h
     sync()
     t_tp = _tmark("warmstart_s", t_tp)
@@ -779,25 +917,28 @@ def _calibrate_time_parallel(
         regularization="sum" if model_regularization == "sum" else None,
         remat=bool(remat),
         patience=int(patience),
-        loss_block=None if loss_block_ngrps is None else int(loss_block_ngrps),
+        loss_block=loss_block,
     )
     if cfg.regularization != "sum":
-        warn_fused_fallbacks(chunks, fg_r_b, data_r_b, wgts_b)
+        warn_fused_fallbacks(run_chunks, fg_r_b, data_r_b, wgts_b)
     if n_profile_steps > 0:
         # a short batched descent traced by the profiler before the fit
         # (reference calibration.py:1986-2003)
         prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
-        prof_chunks = (convert_chunks_dtype(chunks, torch.bfloat16)
-                       if comps_precision in ("bfloat16", "mixed") else chunks)
+        prof_chunks = (convert_chunks_dtype(run_chunks, torch.bfloat16)
+                       if comps_precision in ("bfloat16", "mixed") else run_chunks)
         profile_trace(profile_log_dir, lambda: batched_fit_core(
             prof_cfg, prof_chunks, data_r_b, data_i_b, wgts_b, g_r_b, g_i_b, fg_r_b, fg_i_b,
-            prior_r_b, prior_i_b, poll_every=POLL_EVERY))
+            prior_r_b, prior_i_b, poll_every=POLL_EVERY, shard=shard))
         prof_chunks = None
 
     # the step-0 guard's independent value: numpy float64 from the host
-    # stacks, never the device cubes or the kernel
+    # stacks (this rank's blocks), never the device cubes or the kernel
     host_chunks = [(hc, to_numpy(a0), to_numpy(a1))
                    for hc, (_, a0, a1) in zip(spec.host_comps, chunks)]
+    if shard is not None:
+        host_chunks = [shard.chunk(c) for c in _pad_chunks_for_bl(host_chunks, n_bl)[0]]
+    data_r_g, data_i_g = [local(x) for x in data_r_h], [local(x) for x in data_i_h]
     prior_h = (to_numpy(prior_r_b), to_numpy(prior_i_b))
 
     guard_seconds = []
@@ -810,7 +951,10 @@ def _calibrate_time_parallel(
             out = host_batched_losses(
                 to_numpy(params["g_r"]), to_numpy(params["g_i"]),
                 [to_numpy(x) for x in fr], [to_numpy(x) for x in fi], host_chunks,
-                data_r_h, data_i_h, wgts_h, *prior_h, regularization=cfg.regularization)
+                data_r_g, data_i_g, wgts_h, *prior_h, regularization=cfg.regularization,
+                reduce=None if shard is None else shard.sum_bl_host)
+            if shard is not None:
+                out = shard.gather_rows_host(out)
             guard_seconds.append(_time.time() - t0)
             return out
         return expected
@@ -824,7 +968,7 @@ def _calibrate_time_parallel(
             cfg, chs, data_r_b, data_i_b, wgts_b, gr, gi, fr, fi, prior_r_b, prior_i_b,
             ckdir, int(checkpoint_every) if ckdir is not None else cfg.maxsteps, resume,
             verbose, opt_state0, steps_per_execution=steps_per_execution,
-            expected_loss_fn=guard_fn(fr, fi), poll_every=POLL_EVERY)
+            expected_loss_fn=guard_fn(fr, fi), poll_every=POLL_EVERY, shard=shard)
         sync()
         # the descent's own seconds: the guard's host evaluation apart
         phase_seconds.append(_time.time() - t0 - sum(guard_seconds))
@@ -839,7 +983,7 @@ def _calibrate_time_parallel(
              and latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None)
     chunks_lo = None
     if comps_precision == "bfloat16" or (comps_precision == "mixed" and not skip1):
-        chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+        chunks_lo = convert_chunks_dtype(run_chunks, torch.bfloat16)
     hist1 = ns1 = None
     if comps_precision == "bfloat16":
         result, hist2, ns2 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
@@ -858,33 +1002,45 @@ def _calibrate_time_parallel(
             else:
                 hist1 = np.zeros((0, nbatch), dtype=np.float64)
                 ns1 = np.zeros((nbatch,), dtype=np.int64)
-            result, hist2, ns2 = run_batched(chunks, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck2)
+            result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                             ckdir=ck2)
         else:
             res1, hist1, ns1 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b,
                                            ckdir=ck1)
             if ck_base is not None:
-                save_phase_meta(ck_base, history=hist1, nsteps_slice=ns1)
+                _save_shared(shard, save_phase_meta, ck_base, history=hist1, nsteps_slice=ns1)
             echo(f"{datetime.datetime.now()} bf16 phase done ({int(res1.nsteps)} steps); "
                  "polishing in float32...\n", verbose=verbose)
             # the optimizer state carries across the precision switch
             chunks_lo = None
-            result, hist2, ns2 = run_batched(chunks, res1.g_r, res1.g_i, res1.fg_r, res1.fg_i,
-                                             opt_state0=res1.opt_state, ckdir=ck2)
+            result, hist2, ns2 = run_batched(run_chunks, res1.g_r, res1.g_i, res1.fg_r,
+                                             res1.fg_i, opt_state0=res1.opt_state, ckdir=ck2)
             res1 = None
     else:
-        result, hist2, ns2 = run_batched(chunks, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
+        result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                         ckdir=ck_base)
     t_tp = _tmark("descent_s", t_desc)
     if timings is not None:
         timings["phase_seconds"] = phase_seconds
         timings["phase_steps"] = phase_steps
 
-    g_r_out = to_numpy(result.g_r)
-    g_i_out = to_numpy(result.g_i)
+    g_r_out, g_i_out = result.g_r, result.g_i
+    fr_out, fi_out = result.fg_r, result.fg_i
+    if shard is not None:
+        # the whole batch on every rank, the padding trimmed
+        g_r_out, g_i_out = shard.gather_rows(g_r_out), shard.gather_rows(g_i_out)
+        fr_out = [shard.gather_coeffs(x)[:, :a0.shape[0]] for x, (_, a0, _) in zip(fr_out, chunks)]
+        fi_out = [shard.gather_coeffs(x)[:, :a0.shape[0]] for x, (_, a0, _) in zip(fi_out, chunks)]
+        if timings is not None:
+            timings["collective_s"] = shard.collective_s
+            timings["collective_calls"] = shard.collective_calls
+    g_r_out = to_numpy(g_r_out)
+    g_i_out = to_numpy(g_i_out)
     # every slice's host model, one basis read per chunk
     models_out = [fg_model_host_batched(to_numpy(fr), to_numpy(fi), hc)
-                  for fr, fi, hc in zip(result.fg_r, result.fg_i, spec.host_comps)]
+                  for fr, fi, hc in zip(fr_out, fi_out, spec.host_comps)]
     # release the descent's device memory before the host write-back
-    result = data_r_b = data_i_b = wgts_b = chunks_lo = None  # noqa: F841
+    result = data_r_b = data_i_b = wgts_b = chunks_lo = fr_out = fi_out = None  # noqa: F841
     for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
         loss = hist2[: int(ns2[b]), b].tolist()
         entry = {"loss": loss}
@@ -906,6 +1062,15 @@ def _calibrate_time_parallel(
     return model, resid, gains, fit_history
 
 
+def _save_shared(shard, save_fn, *args, **kwargs):
+    """``save_fn(*args, **kwargs)`` by the one writing rank, then (under a
+    mesh) a barrier, so that no rank reads a half-written file."""
+    if is_writer():
+        save_fn(*args, **kwargs)
+    if shard is not None:
+        shard.barrier()
+
+
 def _host_f32(x):
     """A host stack as float32 numpy (bfloat16 CPU tensors widened)."""
     if isinstance(x, torch.Tensor):
@@ -919,10 +1084,10 @@ def _calibrate_time_scan(
     model_regularization, correct_model, correct_resid, remat, comps_precision,
     wgts_precision, patience, verbose, opt_kwargs, checkpoint_dir, checkpoint_every, resume,
     steps_per_execution, loss_block_ngrps, n_profile_steps, profile_log_dir, timings,
+    device, mesh=None,
 ):
     """Warm-started fits over the times of each polarization, in order, each
-    seeded by the previous time's solution (reference calibration.py:666-1345,
-    without the mesh).
+    seeded by the previous time's solution (reference calibration.py:666-1345).
 
     Per polarization: times below ``skip_threshold`` are flagged; the
     usable times are packed on the host into stacks
@@ -939,6 +1104,13 @@ def _calibrate_time_scan(
     under ``{dir}/pol{N}_scan/time_{slot}`` (removed once its marker lands),
     so a resume continues mid-time.
 
+    Under a ``mesh`` the groups are sharded over 'bl' (padded to an n_bl
+    multiple) and each time's cubes follow; 'data' is unused, since the
+    times run in order. Each rank warm-starts its groups and uploads its
+    block of each time; the weight and prior sums are summed over 'bl'.
+    Rank 0 writes the markers (the carry gathered whole), every rank waits
+    for them, and a resume restores each rank's block.
+
     The step-0 guard is armed on the first phase of every time, against
     ``host_batched_losses`` on the host stacks. ``timings`` receives
     ``scan_upload_s``, ``scan_descent_s``, ``scan_guard_s``,
@@ -948,6 +1120,7 @@ def _calibrate_time_scan(
     import shutil
 
     from .ops.fused import warn_fused_fallbacks
+    from .ops.lstsq import gram_cholesky_chunk, init_coeffs_from_cholesky
     from .parallel.batched import (
         host_batched_losses,
         scan_carry,
@@ -955,6 +1128,7 @@ def _calibrate_time_scan(
         scanned_warmstart_fit_core,
         upload_time_slice,
     )
+    from .parallel.mesh import MeshShard, contiguous
     from .solver.checkpoint import (
         _checkpoint_loadable,
         latest_checkpoint,
@@ -965,16 +1139,30 @@ def _calibrate_time_scan(
     )
     from .solver.fit import FitConfig, convert_chunks_dtype, profile_trace
 
-    device = spec.device
     nchunks = len(chunks)
     fit_history = {polnum: {} for polnum in range(uvdata.Npols)}
+    shard = None if mesh is None else MeshShard(mesh, device)
+    n_bl = 1 if shard is None else shard.n_bl
+    ngrps_real = [a0.shape[0] for _, a0, _ in chunks]
+    host_chunks = [(hc, to_numpy(a0), to_numpy(a1))
+                   for hc, (_, a0, a1) in zip(spec.host_comps, chunks)]
+    run_chunks, ngrps_pads = _pad_chunks_for_bl(chunks, n_bl)
+    if shard is not None:
+        run_chunks = [shard.chunk(c, device) for c in run_chunks]
+        host_chunks = [shard.chunk(c) for c in _pad_chunks_for_bl(host_chunks, n_bl)[0]]
+    grams = [gram_cholesky_chunk(c) for c, _, _ in run_chunks]
+
+    def lg(x, axis=0):
+        # this rank's groups of a host array (every group when unsharded)
+        return x if shard is None else shard.block(x, axis)
+
     # bfloat16 chunks serve the descent only; warm starts, SNR weights and
     # the write-back read the float32 basis
-    fit_chunks, fit_chunks_lo = chunks, None
+    fit_chunks, fit_chunks_lo = run_chunks, None
     if comps_precision == "bfloat16":
-        fit_chunks = convert_chunks_dtype(chunks, torch.bfloat16)
+        fit_chunks = convert_chunks_dtype(run_chunks, torch.bfloat16)
     elif comps_precision == "mixed":
-        fit_chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+        fit_chunks_lo = convert_chunks_dtype(run_chunks, torch.bfloat16)
     cfg = FitConfig(
         optimizer=optimizer,
         opt_kwargs=tuple(sorted(opt_kwargs.items())),
@@ -985,14 +1173,26 @@ def _calibrate_time_scan(
         regularization="sum" if model_regularization == "sum" else None,
         remat=bool(remat),
         patience=int(patience),
-        loss_block=None if loss_block_ngrps is None else int(loss_block_ngrps),
+        # each rank evaluates its share of a block, inside its own shard
+        loss_block=(None if loss_block_ngrps is None
+                    else max(1, int(loss_block_ngrps) // n_bl)),
     )
-    # the step-0 guard's host basis, shared by every time and phase
-    host_chunks = [(hc, to_numpy(a0), to_numpy(a1))
-                   for hc, (_, a0, a1) in zip(spec.host_comps, chunks)]
 
     _smark = partial(_add_seconds, timings)
     sync = partial(_sync, device)
+
+    def whole(carry):
+        # a carry gathered whole over 'bl' (the padded groups)
+        if shard is None:
+            return carry
+        return (carry[0], carry[1], [shard.gather_coeffs(f) for f in carry[2]],
+                [shard.gather_coeffs(f) for f in carry[3]])
+
+    def own(carry):
+        if shard is None:
+            return carry
+        return (carry[0], carry[1], [shard.local_coeffs(f) for f in carry[2]],
+                [shard.local_coeffs(f) for f in carry[3]])
 
     warned = profiled = False
     for polnum, pol in enumerate(uvdata.get_pols()):
@@ -1010,8 +1210,11 @@ def _calibrate_time_scan(
         nt_u = len(usable)
 
         def alloc():
-            return [np.zeros((nt_u, a0.shape[0], a0.shape[1], spec.nfreqs), dtype=spec.dtype)
-                    for _, a0, _ in chunks]
+            return [np.zeros((nt_u, ngrps_pads[c], chunks[c][1].shape[1], spec.nfreqs),
+                             dtype=spec.dtype) for c in range(nchunks)]
+
+        def up(xs):
+            return [torch.as_tensor(x, device=device) for x in xs]
 
         data_r_s, data_i_s, wgts_s = alloc(), alloc(), alloc()
         priors_r, priors_i = [], []
@@ -1020,34 +1223,41 @@ def _calibrate_time_scan(
             spec.pack_data_into(uvdata, pol, time, data_r_s, data_i_s, wgts_s, slot,
                                 data_scale_factor=rms, weights=weights,
                                 nsamples_in_weights=nsamples_in_weights)
-            w_v = [w[slot] for w in wgts_s]
+            w_v = [lg(w[slot]) for w in wgts_s]
             if sky_model is not None and sky_model is not uvdata:
                 sky_r, sky_i, _ = spec.pack_data(sky_model, pol, time, data_scale_factor=rms,
                                                  weights=weights, as_numpy=True)
+                sky_r = [lg(_pad_axis_np(x, 0, n)) for x, n in zip(sky_r, ngrps_pads)]
+                sky_i = [lg(_pad_axis_np(x, 0, n)) for x, n in zip(sky_i, ngrps_pads)]
             else:
                 # no sky model, or the identity-gains alias (sky == data)
-                sky_r = [x[slot] for x in data_r_s]
-                sky_i = [x[slot] for x in data_i_s]
+                sky_r = [lg(x[slot]) for x in data_r_s]
+                sky_i = [lg(x[slot]) for x in data_i_s]
             if slot == 0:
-                def up(xs):
-                    return [torch.as_tensor(x, device=device) for x in xs]
-
                 w_d = up(w_v)
-                fg_init = (tuple(spec.init_coeffs(up(sky_r), w_d)),
-                           tuple(spec.init_coeffs(up(sky_i), w_d)))
+                fg_init = tuple(
+                    tuple(init_coeffs_from_cholesky(chol, active, c, d, w)
+                          for (chol, active), (c, _, _), d, w
+                          in zip(grams, run_chunks, up(src), w_d))
+                    for src in (sky_r, sky_i))
                 if use_model_snr_weights:
                     # the first time only: later times keep their own
                     # weights (reference calibration.py:872-891), rewritten
                     # in place in the slot-0 planes
-                    wmodel = fg_model_all_chunks(fg_init[0], fg_init[1], chunks)
+                    wmodel = fg_model_all_chunks(fg_init[0], fg_init[1], run_chunks)
                     for cnum, (vr, vi) in enumerate(wmodel):
                         w_v[cnum] *= np.square(to_numpy(vr)) + np.square(to_numpy(vi))
                     wsum = sum(float(np.sum(w)) for w in w_v)
+                    if shard is not None:
+                        wsum = float(shard.sum_bl_host(wsum))
                     for w in w_v:
                         np.divide(w, np.dtype(spec.dtype).type(wsum), out=w)
             priors_r.append(sum(float(np.sum(sr * w)) for sr, w in zip(sky_r, w_v)))
             priors_i.append(sum(float(np.sum(si * w)) for si, w in zip(sky_i, w_v)))
-        g_r0, g_i0 = spec.pack_gains(gains, pol, usable[0][1])
+        if shard is not None:
+            # each rank summed its groups
+            priors_r, priors_i = shard.sum_bl_host([priors_r, priors_i])
+        g_r0, g_i0 = (x.to(device) for x in spec.pack_gains(gains, pol, usable[0][1]))
         # frequency-invariant weights as one broadcast plane; frequency-
         # dependent ones at half width under bfloat16 weights (a CPU
         # bfloat16 stack, widened by the loss at the point of use)
@@ -1055,6 +1265,10 @@ def _calibrate_time_scan(
         if wgts_precision == "bfloat16":
             wgts_s = [torch.from_numpy(w).to(torch.bfloat16) if w.shape[-1] > 1 else w
                       for w in wgts_s]
+        if shard is not None:
+            # this rank's groups of every stack
+            data_r_s, data_i_s, wgts_s = ([contiguous(lg(x, axis=1)) for x in xs]
+                                          for xs in (data_r_s, data_i_s, wgts_s))
         wgts_h = [_host_f32(w) for w in wgts_s]  # the guard's weights
         prior_r_s = np.asarray(priors_r, dtype=spec.dtype)
         prior_i_s = np.asarray(priors_i, dtype=spec.dtype)
@@ -1066,7 +1280,8 @@ def _calibrate_time_scan(
                 to_numpy(g_r), to_numpy(g_i), [to_numpy(x) for x in fr],
                 [to_numpy(x) for x in fi], host_chunks, [x[sl] for x in data_r_s],
                 [x[sl] for x in data_i_s], [w[sl] for w in wgts_h], prior_r_s[sl],
-                prior_i_s[sl], regularization=cfg.regularization)
+                prior_i_s[sl], regularization=cfg.regularization,
+                reduce=None if shard is None else shard.sum_bl_host)
 
         if not warned and cfg.regularization != "sum":
             warned = True
@@ -1081,9 +1296,9 @@ def _calibrate_time_scan(
             profile_trace(profile_log_dir, lambda: scanned_warmstart_fit_core(
                 prof_cfg, fit_chunks, [x[one] for x in data_r_s], [x[one] for x in data_i_s],
                 [w[one] for w in wgts_s], g_r0, g_i0, fg_init[0], fg_init[1],
-                prior_r_s[one], prior_i_s[one], poll_every=POLL_EVERY))
+                prior_r_s[one], prior_i_s[one], poll_every=POLL_EVERY, shard=shard))
 
-        # per time: (host params, recorded losses, steps, phase steps, phase seconds)
+        # per time: (params, recorded losses, steps, phase steps, phase seconds)
         outputs = []
         ck = None if checkpoint_dir is None else os.path.join(checkpoint_dir, f"pol{polnum}_scan")
         ck_every = int(checkpoint_every) if ck is not None else None
@@ -1091,15 +1306,20 @@ def _calibrate_time_scan(
                  [f[None] for f in fg_init[1]])
         start_slot = 0
         if ck is not None and resume:
+            like = whole(carry)
             while _checkpoint_loadable(os.path.join(ck, f"step_{start_slot + 1}")):
                 tree, scal = load_state(os.path.join(ck, f"step_{start_slot + 1}"),
-                                        {"out": carry}, ("history", "nsteps", "phase_steps"))
-                carry = tree["out"]
+                                        {"out": like}, ("history", "nsteps", "phase_steps"))
+                carry = own(tree["out"])
                 outputs.append((carry, np.asarray(scal["history"], dtype=np.float32),
                                 int(scal["nsteps"]), scal["phase_steps"].tolist(), None))
-                # a mid-time directory left by a stop after its marker landed
-                shutil.rmtree(os.path.join(ck, f"time_{start_slot}"), ignore_errors=True)
                 start_slot += 1
+            if shard is not None:
+                shard.barrier()  # every rank has read the markers
+            for slot in range(start_slot):
+                # a mid-time directory left by a stop after its marker landed
+                if is_writer():
+                    shutil.rmtree(os.path.join(ck, f"time_{slot}"), ignore_errors=True)
             if start_slot:
                 echo(f"{datetime.datetime.now()} Resuming warm-started scan at time "
                      f"{start_slot + 1}/{nt_u}", verbose=verbose)
@@ -1118,7 +1338,7 @@ def _calibrate_time_scan(
                 res, row, nst, guard_s = scan_time_fit(
                     cfg, chs, *dev_in, carry, pr, pi, ckdir, ck_every, resume, verbose,
                     opt_state0, steps_per_execution,
-                    partial(expected, slot) if guard else None, POLL_EVERY)
+                    partial(expected, slot) if guard else None, POLL_EVERY, shard)
                 sync()
                 desc = _time.time() - t1 - guard_s
                 if timings is not None:
@@ -1143,7 +1363,7 @@ def _calibrate_time_scan(
             else:
                 res1, hist1, ns1, sec1 = fit(fit_chunks_lo, carry, ck1)
                 if ck_t is not None:
-                    save_phase_meta(ck_t, history=hist1, nsteps=ns1)
+                    _save_shared(shard, save_phase_meta, ck_t, history=hist1, nsteps=ns1)
                 # the optimizer state carries across the precision switch
                 res, row2, ns2, sec2 = fit(fit_chunks, scan_carry(res1), ck2,
                                            opt_state0=res1.opt_state, guard=False)
@@ -1158,17 +1378,22 @@ def _calibrate_time_scan(
                 t0 = _time.time()
                 out_host = tuple(
                     x.detach().cpu() if isinstance(x, torch.Tensor)
-                    else [f.detach().cpu() for f in x] for x in carry)
+                    else [f.detach().cpu() for f in x] for x in whole(carry))
                 t0 = _smark("scan_fetch_s", t0)
-                save_state(os.path.join(ck, f"step_{slot + 1}"), {"out": out_host},
-                           {"history": row, "nsteps": nst, "phase_steps": psteps})
-                shutil.rmtree(ck_t, ignore_errors=True)
+
+                def save_marker():
+                    save_state(os.path.join(ck, f"step_{slot + 1}"), {"out": out_host},
+                               {"history": row, "nsteps": nst, "phase_steps": psteps})
+                    shutil.rmtree(ck_t, ignore_errors=True)
+
+                _save_shared(shard, save_marker)
                 _smark("scan_save_s", t0)
                 echo(f"{datetime.datetime.now()} checkpointed scan time {slot + 1}/{nt_u}",
                      verbose=verbose)
         t0 = _time.time()
         outputs = [(tuple(to_numpy(x) if isinstance(x, torch.Tensor)
-                          else [to_numpy(f) for f in x] for x in o[0]),) + o[1:]
+                          else [to_numpy(f)[:, :n] for f, n in zip(x, ngrps_real)]
+                          for x in whole(o[0])),) + o[1:]
                    for o in outputs]
         _smark("scan_fetch_s", t0)
         t0 = _time.time()
@@ -1191,6 +1416,9 @@ def _calibrate_time_scan(
                             polarization=pol, time=time, additional_flags=uvdata.flag_array)
         _smark("writeback_s", t0)
 
+    if shard is not None and timings is not None:
+        timings["collective_s"] = shard.collective_s
+        timings["collective_calls"] = shard.collective_calls
     t0 = _time.time()
     model, resid = _finalize_model_resid(
         uvdata, model, resid, gains, correct_model, correct_resid
@@ -1300,16 +1528,10 @@ def calibrate_and_model_mixed(
     """Mixed DPSS + multi-baseline-covariance foreground fit (reference
     calibration.py:2210-2274). Single-baseline DPSS groups take the fused
     kernel; fitting groups of several baselines take the plain torch loss.
-    The covariance and its eigendecomposition are host numpy:
-    ``use_tensorflow_to_derive_modeling_comps=True`` (the reference's
-    device eigh) raises, a torch ``eigh`` option being ROADMAP.md A.15.
-    ``save_dict_to`` saves the component dict, which
-    ``model_comps_dict=`` takes back."""
-    if model_comps_dict is None and use_tensorflow_to_derive_modeling_comps:
-        raise ValueError(
-            "use_tensorflow_to_derive_modeling_comps=True: this package derives the "
-            "mixed components on the host (numpy); a torch eigh option is ROADMAP.md A.15"
-        )
+    The covariance and its eigendecomposition are host numpy, or with
+    ``use_tensorflow_to_derive_modeling_comps=True`` (the reference's device
+    eigh) torch float64 on the fit's ``device``. ``save_dict_to`` saves the
+    component dict, which ``model_comps_dict=`` takes back."""
     fitting_grps, blvecs, _, _ = models.get_uv_overlapping_grps_conjugated(
         uvdata,
         red_tol=red_tol,
@@ -1334,6 +1556,8 @@ def calibrate_and_model_mixed(
             dtype=dtype_matinv,
             notebook_progressbar=notebook_progressbar,
             grp_size_threshold=grp_size_threshold,
+            use_torch=use_tensorflow_to_derive_modeling_comps,
+            device=fitting_kwargs.get("device", "cuda"),
         )
     if save_dict_to is not None:
         np.save(save_dict_to, np.asarray(model_comps_dict, dtype=object), allow_pickle=True)
@@ -1383,9 +1607,38 @@ def read_calibrate_and_model_dpss(
     ``weights_file``: path to a UVFlag HDF5 weights object; mutually
     exclusive with ``use_autocorrs_in_weights``. ``host_data_dtype``: host
     storage dtype for the visibility cubes ("complex64"/"complex128";
-    default keeps the file dtype)."""
+    default keeps the file dtype).
+
+    Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank reads and packs the
+    whole file, joins the default process group (NCCL on
+    ``cuda:LOCAL_RANK``, gloo for ``device="cpu"``) unless one is
+    initialized already, and fits through the auto mesh (with
+    ``time_parallel``); rank 0 alone writes the outputs, and a group this
+    call created is destroyed when it returns."""
     del gpu_index, gpu_memory_limit
-    device = resolve_device(device)
+    from .parallel.mesh import init_distributed_from_env
+
+    device, own_group = init_distributed_from_env(resolve_device(device))
+    try:
+        return _read_calibrate_and_model_dpss(
+            input_data_files, input_model_files, input_gain_files, resid_outfilename,
+            gain_outfilename, model_outfilename, fitted_info_outfilename, x_orientation,
+            clobber, bllen_min, bllen_max, bl_ew_min, ex_ants, select_ants, precision,
+            use_autocorrs_in_weights, weights_file, host_data_dtype, device,
+            calibration_kwargs)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _read_calibrate_and_model_dpss(
+    input_data_files, input_model_files, input_gain_files, resid_outfilename,
+    gain_outfilename, model_outfilename, fitted_info_outfilename, x_orientation, clobber,
+    bllen_min, bllen_max, bl_ew_min, ex_ants, select_ants, precision,
+    use_autocorrs_in_weights, weights_file, host_data_dtype, device, calibration_kwargs,
+):
     if host_data_dtype is not None:
         try:
             _hdt = np.dtype(host_data_dtype)
@@ -1493,26 +1746,30 @@ def read_calibrate_and_model_dpss(
 
     from .version import history_string
 
+    # every rank returns the same objects; rank 0 alone writes them
+    writer = is_writer()
     provenance = history_string()
     if resid_outfilename is not None:
         resid_fit.history = (resid_fit.history or "") + provenance
-        resid_fit.write_uvh5(resid_outfilename, clobber=clobber)
+        if writer:
+            resid_fit.write_uvh5(resid_outfilename, clobber=clobber)
     if gain_outfilename is not None:
         gains_fit.x_orientation = x_orientation
         gains_fit.history = (gains_fit.history or "") + provenance
-        if gain_outfilename.endswith(".calh5"):
+        if writer and gain_outfilename.endswith(".calh5"):
             gains_fit.write_calh5(gain_outfilename, clobber=clobber)
-        else:
+        elif writer:
             gains_fit.write_calfits(gain_outfilename, clobber=clobber)
     if model_outfilename is not None:
         model_fit.history = (model_fit.history or "") + provenance
-        model_fit.write_uvh5(model_outfilename, clobber=clobber)
+        if writer:
+            model_fit.write_uvh5(model_outfilename, clobber=clobber)
 
     fit_info = {"fit_history": fit_info} if not isinstance(fit_info, dict) else fit_info
     fit_info["calibration_kwargs"] = dict(calibration_kwargs)
     fit_info["calibration_kwargs"]["dtype"] = dtype
     fit_info["calibration_kwargs"]["device"] = str(device)
-    if fitted_info_outfilename is not None:
+    if writer and fitted_info_outfilename is not None:
         np.save(fitted_info_outfilename, fit_info, allow_pickle=True)
     return model_fit, resid_fit, gains_fit, fit_info
 

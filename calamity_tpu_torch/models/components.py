@@ -141,6 +141,8 @@ def yield_mixed_comps(
     notebook_progressbar=False,
     use_jax=False,
     grp_size_threshold=5,
+    use_torch=False,
+    device="cuda",
 ):
     """Mixed DPSS / low-rank-covariance components per fitting group.
 
@@ -148,7 +150,8 @@ def yield_mixed_comps(
     Small groups (<= grp_size_threshold redundant groups) get per-baseline
     DPSS vectors with the antenna chromaticity folded into the offset
     (modeling.py:454); larger groups get eigenvectors of the analytic
-    multi-baseline covariance.
+    multi-baseline covariance (with ``use_torch``, built and decomposed
+    in torch on ``device``).
     """
     operator_cache = {}
     modeling_vectors = {}
@@ -185,6 +188,8 @@ def yield_mixed_comps(
                     eigenval_cutoff=eigenval_cutoff,
                     use_jax=use_jax,
                     verbose=verbose,
+                    use_torch=use_torch,
+                    device=device,
                 )
             )
     return modeling_vectors

@@ -10,10 +10,12 @@ flat-spectrum, horizon-limited sky plus intrinsic antenna chromaticity:
 with u in wavelengths-like units (uvw * f / c) and dnu in GHz-scaled units
 (reference divides by 1e9).
 
-Copy of calamity_tpu/models/simple_cov.py without its JAX branch: the
-matrix and its eigendecomposition are numpy float64 on the host (built
-once, not in the hot loop). ``use_jax=True`` raises ``ValueError``; a
-torch ``eigh`` option is queued as ROADMAP.md A.15.
+Copy of calamity_tpu/models/simple_cov.py with a torch branch in place of
+its JAX one: by default the matrix and its eigendecomposition are numpy
+float64 on the host (built once, not in the hot loop); ``use_torch=True``
+builds the matrix and runs a float64 ``torch.linalg.eigh`` on ``device``,
+as the reference's ``use_jax=True`` does on its device. ``use_jax=True``
+raises ``ValueError`` and points at ``use_torch``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import datetime
 
 import numpy as np
+import torch
 
 from ..utils import echo
 
@@ -43,11 +46,30 @@ def _cov_numpy(uvws, freqs, ant_dly, horizon, offset, min_dly, dtype):
     return cmat
 
 
+def _cov_torch(uvws, freqs, ant_dly, horizon, offset, min_dly, dtype, device):
+    """:func:`_cov_numpy` in torch on ``device``, in ``dtype``."""
+    tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+    uvws = torch.as_tensor(uvws, dtype=tdt, device=device)
+    freqs = torch.as_tensor(freqs, dtype=tdt, device=device)
+    nbls = uvws.shape[0]
+    n = nbls * freqs.shape[0]
+    absdiff = torch.zeros((n, n), dtype=tdt, device=device)
+    for k in range(3):
+        coord = torch.outer(uvws[:, k], freqs / C_MS).reshape(n)
+        absdiff = absdiff + torch.abs(coord[:, None] - coord[None, :]) ** 2.0
+    absdiff = torch.sqrt(absdiff) * horizon
+    fvals = freqs.repeat(nbls)
+    dfg = torch.abs(fvals[:, None] - fvals[None, :]) / 1e9
+    absdiff = absdiff + dfg * offset
+    cmat = torch.sinc(2.0 * torch.maximum(min_dly * dfg, absdiff))
+    return cmat * torch.sinc(2.0 * dfg * ant_dly)
+
+
 def _refuse_use_jax(use_jax):
     if use_jax:
         raise ValueError(
-            "use_jax=True: this package has no JAX branch; the covariance and its "
-            "eigendecomposition are host numpy (a torch eigh option is ROADMAP.md A.15)"
+            "use_jax=True: this package has no JAX branch; pass use_torch=True (with "
+            "a device) for the covariance and its eigendecomposition in torch"
         )
 
 
@@ -61,11 +83,19 @@ def simple_cov_matrix(
     dtype=np.float64,
     use_jax=False,
     verbose=False,
+    use_torch=False,
+    device="cuda",
 ):
-    """(Nbls*Nfreqs)^2 analytic covariance (reference simple_cov.py:7-97)."""
+    """(Nbls*Nfreqs)^2 analytic covariance (reference simple_cov.py:7-97):
+    a numpy array, or with ``use_torch`` a tensor on ``device``."""
     uvws = np.asarray(blvecs, dtype=dtype).reshape(-1, 3)
     freqs = np.asarray(freqs, dtype=dtype)
     _refuse_use_jax(use_jax)
+    if use_torch:
+        from .._device import resolve_device
+
+        return _cov_torch(uvws, freqs, ant_dly, horizon, offset, min_dly, dtype,
+                          resolve_device(device))
     return _cov_numpy(uvws, freqs, ant_dly, horizon, offset, min_dly, dtype)
 
 
@@ -80,9 +110,13 @@ def yield_simple_multi_baseline_model_comps(
     verbose=False,
     use_jax=False,
     eigenval_cutoff=1e-10,
+    use_torch=False,
+    device="cuda",
 ):
     """Eigenvectors of the analytic covariance with relative eigenvalue
     >= cutoff, in descending eigenvalue order (reference simple_cov.py:100-182).
+    ``use_torch``: the covariance and a float64 ``torch.linalg.eigh`` on
+    ``device``.
 
     Returns (Nbls*Nfreqs, Ncomponents) float64 numpy array.
     """
@@ -97,12 +131,18 @@ def yield_simple_multi_baseline_model_comps(
         dtype=dtype,
         use_jax=use_jax,
         verbose=verbose,
+        use_torch=use_torch,
+        device=device,
     )
     echo(
         f"{datetime.datetime.now()} Deriving modeling components with eigenvalue decomposition...\n",
         verbose=verbose,
     )
-    evals, evecs = np.linalg.eigh(np.asarray(cmat))
+    if use_torch:
+        evals, evecs = torch.linalg.eigh(cmat.to(torch.float64))
+        evals, evecs = evals.cpu().numpy(), evecs.cpu().numpy()
+    else:
+        evals, evecs = np.linalg.eigh(np.asarray(cmat))
     selection = evals / evals[-1] >= eigenval_cutoff
     echo(
         f"{datetime.datetime.now()} Using {np.count_nonzero(selection)} of "

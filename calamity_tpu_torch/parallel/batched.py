@@ -1,4 +1,4 @@
-"""Batched multi-(time, pol) fitting on one device.
+"""Batched multi-(time, pol) fitting, on one device or on a device mesh.
 
 Port of calamity_tpu/parallel/batched.py. Fits of different (time, pol)
 slices are independent, so the time-parallel path stacks them on a leading
@@ -26,6 +26,13 @@ host loop here; the host polls the freeze mask every ``poll_every`` steps,
 and steps taken after the last slice froze are undone exactly (masked on
 the device, the step count rewound), so the trajectory does not depend on
 the polling interval.
+
+Under a ('data', 'bl') mesh (``parallel.mesh``; one process per device)
+each rank runs these functions on its blocks, with a ``MeshShard``
+(``shard=``) that sums the per-slice losses and the gain gradients over
+'bl', forms the "sum" prior from the whole flux sums, and makes the stop
+global: a step is live while any slice of the batch runs, so every rank
+takes the same steps. The step-0 guard sums its host partials the same way.
 
 Left out on purpose: the reference's AOT auto-layout segment executables
 (``BatchedSegmentPlan``, ``make_segment_plan``, ``_put_format``,
@@ -177,12 +184,9 @@ def batched_chunk_losses(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
     return total
 
 
-def batched_chunk_losses_sum_regularized(
-    g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r, prior_i, loss_block=None,
-):
-    """Per-slice chi-square plus the "sum" flux prior, one prior pair per
-    slice, shape (nbatch,) (reference parallel/batched.py:216-272). Torch
-    ops: the fused kernel does not form the model flux sums."""
+def _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
+                           loss_block=None):
+    """Per-slice (chi-square, model flux sum re, im) over the chunks."""
     total = mr_sum = mi_sum = 0.0
     for cnum, (comps, a0, a1) in enumerate(chunks):
         args = (g_r, g_i, fg_r[cnum], fg_i[cnum], data_r[cnum], data_i[cnum], wgts[cnum],
@@ -194,6 +198,17 @@ def batched_chunk_losses_sum_regularized(
         total = total + loss
         mr_sum = mr_sum + mrs
         mi_sum = mi_sum + mis
+    return total, mr_sum, mi_sum
+
+
+def batched_chunk_losses_sum_regularized(
+    g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r, prior_i, loss_block=None,
+):
+    """Per-slice chi-square plus the "sum" flux prior, one prior pair per
+    slice, shape (nbatch,) (reference parallel/batched.py:216-272). Torch
+    ops: the fused kernel does not form the model flux sums."""
+    total, mr_sum, mi_sum = _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r,
+                                                   data_i, wgts, loss_block)
     return total + torch.square(mr_sum - prior_r) + torch.square(mi_sum - prior_i)
 
 
@@ -212,29 +227,68 @@ class BatchedFitResult(NamedTuple):
     opt_state: Any = None  # final optimizer state (carried by the mixed schedule)
 
 
-def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, prior_i):
+def _optimizer(cfg, shard):
+    return get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs),
+                         **({} if shard is None else {"norm_psum": shard.lamb_norm_psum}))
+
+
+def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, prior_i,
+                     shard=None):
     """(opt, one_step): ``one_step(params, opt_state) -> (losses, params,
-    opt_state)`` over the batch, with the summed loss's gradient."""
-    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+    opt_state)`` over the batch, with the summed loss's gradient.
+
+    Under a mesh (``shard``, a ``parallel.mesh.MeshShard``) the tensors are
+    this rank's blocks: the per-slice losses are summed over 'bl' before
+    anything reads them, and so are the gain gradients, so every 'bl' rank
+    applies the same update to its replicated gains; coefficient gradients
+    stay local. The "sum" prior is a function of the whole flux sums: it is
+    formed from their 'bl' sum, and each rank differentiates its own sums
+    against the prior's (constant) derivative there, which gives every
+    coefficient its gradient once and the gains theirs once after the sum."""
+    opt = _optimizer(cfg, shard)
 
     def losses_fn(p):
         fr = fg_r if cfg.freeze_model else p["fg_r"]
         fi = fg_i if cfg.freeze_model else p["fg_i"]
         if cfg.regularization == "sum":
+            if shard is not None:
+                return _sum_terms_sharded(p, fr, fi)
             return batched_chunk_losses_sum_regularized(
                 p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts, prior_r, prior_i,
                 loss_block=cfg.loss_block)
-        return batched_chunk_losses(p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i, wgts,
-                                    remat=cfg.remat, loss_block=cfg.loss_block)
+        return batched_chunk_losses(p["g_r"], p["g_i"], fr, fi, chunks, data_r, data_i,
+                                    wgts, remat=cfg.remat, loss_block=cfg.loss_block)
+
+    def _sum_terms_sharded(p, fr, fi):
+        total, mr_sum, mi_sum = _sum_regularized_terms(p["g_r"], p["g_i"], fr, fi, chunks,
+                                                       data_r, data_i, wgts, cfg.loss_block)
+        whole = shard.sum_bl(torch.stack([total, mr_sum, mi_sum]))
+        dr, di = whole[1] - prior_r, whole[2] - prior_i
+        losses = whole[0] + torch.square(dr) + torch.square(di)
+        objective = torch.sum(total + 2 * dr * mr_sum + 2 * di * mi_sum)
+        return losses, objective
 
     def one_step(params, opt_state):
         with torch.enable_grad():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-            losses = losses_fn(p)
-            grads = iter(torch.autograd.grad(torch.sum(losses), tree_leaves(p)))
+            out = losses_fn(p)
+            # the "sum" prior's losses are whole already; the chi-square's
+            # travel with the gain gradients, in one all-reduce
+            losses, objective = out if isinstance(out, tuple) else (out, torch.sum(out))
+            grads = iter(torch.autograd.grad(objective, tree_leaves(p)))
         grads = tree_map(lambda _: next(grads), p)
+        losses = losses.detach()
+        if shard is not None:
+            g_r, g_i = grads["g_r"], grads["g_i"]
+            parts = [g_r, g_i] if isinstance(out, tuple) else [g_r, g_i, losses]
+            whole = shard.sum_bl(torch.cat([x.reshape(-1).to(g_r.dtype) for x in parts]))
+            g_r, g_i, rest = whole.split([g_r.numel(), g_i.numel(), whole.numel()
+                                          - g_r.numel() - g_i.numel()])
+            grads = dict(grads, g_r=g_r.view_as(grads["g_r"]), g_i=g_i.view_as(grads["g_i"]))
+            if not isinstance(out, tuple):
+                losses = rest.to(losses.dtype)
         new_params, opt_state = opt.update(grads, opt_state, params)
-        return losses.detach(), new_params, opt_state
+        return losses, new_params, opt_state
 
     return opt, one_step
 
@@ -271,14 +325,22 @@ class _Carry(NamedTuple):
     since_best: Any  # (nbatch,) int64 or None (patience)
 
 
-def _fresh_carry(cfg, nbatch, dtype, device, best_params):
+def _fresh_carry(cfg, nbatch, dtype, device, best_params, shard=None):
+    """The bookkeeping of a fresh descent. Under a mesh the dummy rows that
+    pad the batch to the 'data' axis are frozen from the start."""
     big = float(_big(np.dtype(dtype)))
     tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
     full = torch.full((nbatch,), big, dtype=tdt, device=device)
+    frozen = torch.zeros((nbatch,), dtype=torch.bool, device=device)
+    nsteps_slice = torch.full((nbatch,), cfg.maxsteps, dtype=torch.int64, device=device)
+    valid = None if shard is None else shard.valid_rows()
+    if valid is not None:
+        frozen = ~valid
+        nsteps_slice = torch.where(valid, nsteps_slice, 0)
     return _Carry(
         prev=full.clone(),
-        frozen=torch.zeros((nbatch,), dtype=torch.bool, device=device),
-        nsteps_slice=torch.full((nbatch,), cfg.maxsteps, dtype=torch.int64, device=device),
+        frozen=frozen,
+        nsteps_slice=nsteps_slice,
         best_loss=full.clone() if (cfg.use_min or cfg.patience > 0) else None,
         best_params=best_params if cfg.use_min else None,
         since_best=(torch.zeros((nbatch,), dtype=torch.int64, device=device)
@@ -286,8 +348,12 @@ def _fresh_carry(cfg, nbatch, dtype, device, best_params):
     )
 
 
+def _all_frozen(frozen, shard):
+    return bool(frozen.all()) if shard is None else shard.all_frozen(frozen)
+
+
 def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, warmup=0,
-                     poll_every=1):
+                     poll_every=1, shard=None):
     """Up to ``seg_len`` recorded steps (after ``warmup`` unrecorded ones)
     of the batched descent from explicit state (reference
     ``_batched_segment_impl``, parallel/batched.py:443-559).
@@ -296,11 +362,13 @@ def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, wa
     resumed segment records global step numbers. The loop ends when every
     slice is frozen; the host reads the freeze mask every ``poll_every``
     steps, and the steps a block ran after the last freeze change nothing.
+    Under a mesh (``shard``) a step is live while any slice of the whole
+    batch runs, so every rank takes the same steps and stops together.
     Returns (params, opt_state, carry, history (recorded, nbatch) float32
-    numpy, recorded)."""
+    numpy of this rank's rows, recorded)."""
     nbatch = carry.prev.shape[0]
     total = seg_len + warmup
-    if total <= 0 or bool(carry.frozen.all()):
+    if total <= 0 or _all_frozen(carry.frozen, shard):
         return params, opt_state, carry, np.zeros((0, nbatch), np.float32), 0
     prev, frozen, nsteps_slice, best_loss, best_params, since = carry
     nan = torch.tensor(float("nan"), dtype=torch.float32, device=prev.device)
@@ -313,6 +381,8 @@ def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, wa
             rec = idx >= 0
             gstep = step0 + idx
             live = ~frozen.all()  # False only on a step past the last freeze
+            if shard is not None:
+                live = shard.any_rows(live)
             losses, new_params, new_opt = one_step(params, opt_state)
             active = ~frozen
             params = _select(active, new_params, params)
@@ -352,7 +422,7 @@ def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, wa
                 del rows[first:]
             it -= wasted
             break
-        if bool(frozen.all()):
+        if _all_frozen(frozen, shard):
             break
     recorded = max(it - warmup, 0)
     history = (torch.stack(rows).cpu().numpy() if rows
@@ -363,21 +433,26 @@ def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, wa
 
 def batched_fit_segment(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_const,
                         prior_r, prior_i, params, opt_state, carry, step0, seg_len,
-                        warmup=0, poll_every=1):
+                        warmup=0, poll_every=1, shard=None):
     """A checkpointable batched descent segment: carried state in and out,
     so the host can persist it between segments (the batched counterpart
     of ``solver.fit._fit_segment``; reference parallel/batched.py:578-606).
     ``fg_r_const``/``fg_i_const`` are read only under ``cfg.freeze_model``."""
     _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r_const,
-                                   fg_i_const, prior_r, prior_i)
+                                   fg_i_const, prior_r, prior_i, shard)
     return _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len,
-                            warmup=warmup, poll_every=poll_every)
+                            warmup=warmup, poll_every=poll_every, shard=shard)
 
 
-def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i):
-    nsteps_slice = np.minimum(carry.nsteps_slice.cpu().numpy(), recorded)
+def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i, shard=None):
+    """The result; under a mesh ``history`` is the whole batch's, and so are
+    the per-slice steps and final losses, while the parameters and the
+    optimizer state are this rank's blocks."""
+    nsteps_slice, final = carry.nsteps_slice, carry.best_loss if cfg.use_min else carry.prev
+    if shard is not None:
+        nsteps_slice, final = shard.gather_rows(nsteps_slice), shard.gather_rows(final)
+    nsteps_slice = np.minimum(nsteps_slice.cpu().numpy(), recorded)
     out = carry.best_params if cfg.use_min else params
-    final = carry.best_loss if cfg.use_min else carry.prev
     if cfg.freeze_model:
         fr, fi = tuple(fg_r), tuple(fg_i)
     else:
@@ -390,20 +465,24 @@ def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i):
 
 
 def batched_fit_core(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
-                     prior_r=None, prior_i=None, opt_state0=None, poll_every=1):
+                     prior_r=None, prior_i=None, opt_state0=None, poll_every=1, shard=None):
     """Whole-batch descent: an unrecorded warm-up step, then up to
     ``cfg.maxsteps`` recorded steps with per-slice freeze (reference
     parallel/batched.py:1453-1501). ``opt_state0`` carries an optimizer
-    state in (the float32 polish of the mixed schedule)."""
+    state in (the float32 polish of the mixed schedule). Under a mesh
+    (``shard``) the inputs are this rank's blocks (``parallel.mesh``)."""
     opt, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i,
-                                     prior_r, prior_i)
+                                     prior_r, prior_i, shard)
     params = init_params(cfg, g_r, g_i, fg_r, fg_i)
     opt_state = opt.init(params) if opt_state0 is None else opt_state0
     _, params, opt_state = one_step(params, opt_state)  # the warm-up step
-    carry = _fresh_carry(cfg, g_r.shape[0], _np_dtype(g_r), g_r.device, params)
+    carry = _fresh_carry(cfg, g_r.shape[0], _np_dtype(g_r), g_r.device, params, shard)
     params, opt_state, carry, history, recorded = _batched_segment(
-        cfg, one_step, params, opt_state, carry, 0, cfg.maxsteps, poll_every=poll_every)
-    return _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i)
+        cfg, one_step, params, opt_state, carry, 0, cfg.maxsteps, poll_every=poll_every,
+        shard=shard)
+    if shard is not None:
+        history = shard.gather_rows_host(history, axis=1)
+    return _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i, shard)
 
 
 def _np_dtype(t):
@@ -433,12 +512,27 @@ def loss_guard_floor():
 
 
 def host_batched_losses(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts,
-                        prior_r=None, prior_i=None, regularization=None):
+                        prior_r=None, prior_i=None, regularization=None, reduce=None):
     """numpy float64 mirror of :func:`batched_chunk_losses` (reference
     parallel/batched.py:665-706): the guard's independent value, computed
     from the host stacks without the device, the kernel or the plain torch
     loss. ``host_chunks``: (comps, a0, a1) numpy triples. All arrays carry
-    the slice axis; returns (nbatch,) float64."""
+    the slice axis; returns (nbatch,) float64.
+
+    ``reduce``: under a mesh, where the arrays are a rank's blocks of the
+    groups, a function that sums the (3, nbatch) partial terms (the
+    chi-square and the model flux sums, additive over groups) over the 'bl'
+    ranks before the prior is formed."""
+    terms = _host_terms(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts,
+                        regularization)
+    total, mr_sum, mi_sum = terms if reduce is None else reduce(terms)
+    if regularization == "sum":
+        total = total + (np.square(mr_sum - np.asarray(prior_r, dtype=np.float64))
+                         + np.square(mi_sum - np.asarray(prior_i, dtype=np.float64)))
+    return total
+
+
+def _host_terms(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts, regularization):
     g_r = np.asarray(g_r, dtype=np.float64)
     g_i = np.asarray(g_i, dtype=np.float64)
     nbatch = g_r.shape[0]
@@ -462,10 +556,7 @@ def host_batched_losses(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts,
             if regularization == "sum":
                 mr_sum[b] += np.sum(mr * w)
                 mi_sum[b] += np.sum(mi * w)
-    if regularization == "sum":
-        total = total + (np.square(mr_sum - np.asarray(prior_r, dtype=np.float64))
-                         + np.square(mi_sum - np.asarray(prior_i, dtype=np.float64)))
-    return total
+    return np.stack([total, mr_sum, mi_sum])
 
 
 def check_initial_loss(recorded0, expected0, factor, context=""):
@@ -523,10 +614,25 @@ def _clone_tree(tree):
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
 
 
+def _whole_saved(tree, shard, local=False):
+    """A :func:`_saved_tree` gathered whole from this rank's blocks (the
+    format an unsharded run of the padded batch writes), or with
+    ``local``, this rank's blocks of a whole one."""
+    if shard is None:
+        return tree
+    params_fn = shard.local_params if local else shard.gather_params
+    rows_fn = shard.local_rows if local else shard.gather_rows
+    out = {k: params_fn(tree[k]) for k in ("params", "opt_state", "best_params")}
+    for k in ("prev", "frozen", "nsteps_slice", "best_loss"):
+        out[k] = rows_fn(tree[k]) if isinstance(tree[k], torch.Tensor) else tree[k]
+    return out
+
+
 def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
                              prior_r, prior_i, checkpoint_dir, checkpoint_every, resume,
                              verbose, opt_state0=None, steps_per_execution=None,
-                             expected_loss_fn=None, tail_save=True, poll_every=1):
+                             expected_loss_fn=None, tail_save=True, poll_every=1,
+                             shard=None):
     """Segmented batched descent with the carried state persisted under
     ``checkpoint_dir`` every ``checkpoint_every`` steps (reference
     parallel/batched.py:1087-1450, without the segment plans).
@@ -549,29 +655,37 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
     parameters of a resumed one. The first recorded loss is checked
     against it (:func:`check_initial_loss`).
 
+    Under a mesh (``shard``) the inputs are this rank's blocks and
+    ``expected_loss_fn`` returns the whole batch's losses. Rank 0 writes
+    each checkpoint, gathered whole (the padded batch, in the unsharded
+    format), and every rank waits for it; a resume restores each rank's
+    blocks from it.
+
     Unlike the reference, ``use_min`` tracking starts from the entry
     parameters: a slice that never records a finite loss, or a fit with
     maxsteps=0, returns its entry parameters, not zeros."""
     from ..solver.checkpoint import latest_checkpoint, load_state, save_state
+    from .mesh import is_writer
 
-    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+    opt = _optimizer(cfg, shard)
     dtype = _np_dtype(g_r)
     nbatch = g_r.shape[0]
+    nbatch_all = shard.nbatch if shard is not None and shard.shards_rows else nbatch
     big = float(_big(np.dtype(dtype)))
     params = init_params(cfg, g_r, g_i, fg_r, fg_i)
     opt_state = opt.init(params) if opt_state0 is None else opt_state0
-    carry = _fresh_carry(cfg, nbatch, dtype, g_r.device, _clone_tree(params))
+    carry = _fresh_carry(cfg, nbatch, dtype, g_r.device, _clone_tree(params), shard)
     _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r,
-                                   prior_i)
+                                   prior_i, shard)
     ckpt_path = latest_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
     resuming = bool(resume) and ckpt_path is not None
-    history_all = np.zeros((0, nbatch), dtype=np.float32)
+    history_all = np.zeros((0, nbatch_all), dtype=np.float32)
     step_total = 0
     warmup_pending = not resuming
     if resuming:
         echo(f"{datetime.datetime.now()} Resuming batched fit from {ckpt_path}",
              verbose=verbose)
-        like = _saved_tree(cfg, params, opt_state, carry)
+        like = _whole_saved(_saved_tree(cfg, params, opt_state, carry), shard)
         stored_use_min = cfg.use_min
         try:
             tree, scal = load_state(ckpt_path, like, ("step", "history"))
@@ -580,13 +694,14 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
             # and adapt below; a checkpoint matching neither raises the
             # direct attempt's error
             stored_use_min = not cfg.use_min
-            full = torch.full((nbatch,), big, dtype=carry.prev.dtype, device=g_r.device)
-            like = dict(like, best_params=params if stored_use_min else (),
+            full = torch.full((nbatch_all,), big, dtype=carry.prev.dtype, device=g_r.device)
+            like = dict(like, best_params=like["params"] if stored_use_min else (),
                         best_loss=full if stored_use_min else ())
             try:
                 tree, scal = load_state(ckpt_path, like, ("step", "history"))
             except ValueError as flip_err:
                 raise direct_err from flip_err
+        tree = _whole_saved(tree, shard, local=True)
         params, opt_state = tree["params"], tree["opt_state"]
         frozen = tree["frozen"]
         # the not-frozen sentinel is the saving run's maxsteps: re-sentinel
@@ -599,13 +714,15 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
             best_params = tree["best_params"] if stored_use_min else _clone_tree(params)
             if stored_use_min:
                 best_loss = tree["best_loss"]
-        history_all = np.asarray(scal["history"], dtype=np.float32).reshape(-1, nbatch)
+        history_all = np.asarray(scal["history"], dtype=np.float32).reshape(-1, nbatch_all)
         step_total = int(scal["step"])
         since = carry.since_best
         if cfg.patience > 0 and history_all.shape[0]:
             # a slice's last strict improvement is the first occurrence of
             # its column minimum; unfrozen slices record every step
             h = np.where(np.isfinite(history_all), history_all, np.inf)
+            if shard is not None:
+                h = h[:, shard.rows(nbatch_all)]
             first_min = np.argmin(h, axis=0)
             col_min = h[first_min, np.arange(nbatch)]
             improved = np.isfinite(col_min)
@@ -616,6 +733,12 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
                                             dtype=carry.prev.dtype, device=g_r.device)
         carry = _Carry(tree["prev"], frozen, nsteps_slice, best_loss, best_params, since)
 
+    def segment(*args, **kwargs):
+        out = _batched_segment(cfg, one_step, *args, shard=shard, **kwargs)
+        if shard is None:
+            return out
+        return out[:3] + (shard.gather_rows_host(out[3], axis=1), out[4])
+
     guard = None
     factor = loss_guard_factor()
     if expected_loss_fn is not None and factor is not None and cfg.maxsteps > 0:
@@ -623,8 +746,7 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
             # the warm-up step alone first (the trajectory does not depend
             # on how the steps are cut), so the independent value is taken
             # at the parameters the first recorded step evaluates
-            params, opt_state, carry, _, _ = _batched_segment(
-                cfg, one_step, params, opt_state, carry, 0, 0, warmup=1)
+            params, opt_state, carry, _, _ = segment(params, opt_state, carry, 0, 0, warmup=1)
             warmup_pending = False
         guard = np.asarray(expected_loss_fn(params), dtype=np.float64)
 
@@ -633,19 +755,22 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
     since_save = 0
 
     def save(step_total):
-        save_state(os.path.join(checkpoint_dir, f"step_{step_total}"),
-                   _saved_tree(cfg, params, opt_state, carry),
-                   {"step": step_total, "history": history_all})
+        whole = _whole_saved(_saved_tree(cfg, params, opt_state, carry), shard)
+        if is_writer():
+            save_state(os.path.join(checkpoint_dir, f"step_{step_total}"), whole,
+                       {"step": step_total, "history": history_all})
+        if shard is not None:
+            shard.barrier()
         echo(f"{datetime.datetime.now()} checkpointed batched fit at step {step_total} "
              f"({int(carry.frozen.sum())}/{nbatch} slices frozen)", verbose=verbose)
 
-    while step_total < cfg.maxsteps and not bool(carry.frozen.all()):
+    while step_total < cfg.maxsteps and not _all_frozen(carry.frozen, shard):
         seg_len = min(cap, seg - since_save, cfg.maxsteps - step_total)
         if warmup_pending and steps_per_execution is not None:
             # the warm-up is a real step: keep the per-call bound honest
             seg_len = max(0, seg_len - 1)
-        params, opt_state, carry, hist, nseg = _batched_segment(
-            cfg, one_step, params, opt_state, carry, step_total, seg_len,
+        params, opt_state, carry, hist, nseg = segment(
+            params, opt_state, carry, step_total, seg_len,
             warmup=1 if warmup_pending else 0, poll_every=poll_every)
         was_warmup, warmup_pending = warmup_pending, False
         if nseg == 0:
@@ -662,13 +787,14 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
         step_total += nseg
         since_save += nseg
         if since_save >= seg:
-            will_continue = step_total < cfg.maxsteps and not bool(carry.frozen.all())
+            will_continue = (step_total < cfg.maxsteps
+                             and not _all_frozen(carry.frozen, shard))
             if checkpoint_dir is not None and (tail_save or will_continue):
                 save(step_total)
             since_save = 0
     if checkpoint_dir is not None and since_save > 0 and tail_save:
         save(step_total)  # a partial tail: resume re-enters at the true end state
-    return _result(cfg, params, carry, history_all, step_total, opt_state, fg_r, fg_i)
+    return _result(cfg, params, carry, history_all, step_total, opt_state, fg_r, fg_i, shard)
 
 
 # ---------------------------------------------------------------------- #
@@ -685,7 +811,7 @@ def upload_time_slice(stack, t, device):
 def scan_time_fit(cfg, chunks, data_r, data_i, wgts, carry, prior_r, prior_i,
                   checkpoint_dir=None, checkpoint_every=None, resume=False, verbose=False,
                   opt_state0=None, steps_per_execution=None, expected_loss_fn=None,
-                  poll_every=1):
+                  poll_every=1, shard=None):
     """One time of the warm-started scan: the segmented batched descent at
     nbatch=1 (:func:`batched_fit_checkpointed`, no tail save: the scan's
     per-time marker supersedes it) from ``carry = (g_r, g_i, fg_r, fg_i)``,
@@ -695,8 +821,10 @@ def scan_time_fit(cfg, chunks, data_r, data_i, wgts, carry, prior_r, prior_i,
     guard's independent loss, taken at the parameters the first recorded
     step evaluates (the entry carry after the warm-up step, or a resumed
     descent's restored state); under ``cfg.freeze_model`` it receives the
-    carry's coefficients. Returns (result, recorded loss row (float32
-    numpy), recorded steps, seconds spent in the guard)."""
+    carry's coefficients. Under a mesh (``shard``, 'data' unused) the
+    coefficients and cubes are this rank's blocks of the groups. Returns
+    (result, recorded loss row (float32 numpy), recorded steps, seconds
+    spent in the guard)."""
     guard_s = []
     fn = None
     if expected_loss_fn is not None:
@@ -711,7 +839,7 @@ def scan_time_fit(cfg, chunks, data_r, data_i, wgts, carry, prior_r, prior_i,
         cfg, chunks, data_r, data_i, wgts, *carry, prior_r, prior_i, checkpoint_dir,
         cfg.maxsteps if checkpoint_every is None else checkpoint_every, resume, verbose,
         opt_state0, steps_per_execution=steps_per_execution, expected_loss_fn=fn,
-        tail_save=False, poll_every=poll_every)
+        tail_save=False, poll_every=poll_every, shard=shard)
     nst = min(int(res.nsteps), int(res.nsteps_slice[0]))
     return res, np.asarray(res.loss_history[:nst, 0], dtype=np.float32), nst, sum(guard_s)
 
@@ -722,7 +850,8 @@ def scan_carry(res):
 
 
 def scanned_warmstart_fit_core(cfg, chunks, data_r, data_i, wgts, g_r0, g_i0, fg_r0, fg_i0,
-                               prior_r, prior_i, expected_loss_fn=None, poll_every=1):
+                               prior_r, prior_i, expected_loss_fn=None, poll_every=1,
+                               shard=None):
     """Sequential warm-started fits over times (reference
     parallel/batched.py:275-384): each time's fit starts from the previous
     time's solution, with a fresh optimizer state, one unrecorded warm-up
@@ -742,7 +871,9 @@ def scanned_warmstart_fit_core(cfg, chunks, data_r, data_i, wgts, g_r0, g_i0, fg
     so the device holds one time. g/fg: the time-0 start, without a time
     axis; prior_r/prior_i: (ntimes,). ``expected_loss_fn(t, g_r, g_i,
     fg_r, fg_i) -> (1,)`` arms the step-0 guard on every time (see
-    :func:`scan_time_fit`).
+    :func:`scan_time_fit`). Under a mesh (``shard``) every stack and
+    coefficient is this rank's block of the groups, and so are the
+    returned coefficients.
 
     Returns (params: (g_r, g_i, fg_r, fg_i) stacked on a leading time
     axis, loss history (ntimes, maxsteps) float32 padded with NaN, recorded
@@ -758,7 +889,8 @@ def scanned_warmstart_fit_core(cfg, chunks, data_r, data_i, wgts, g_r0, g_i0, fg
         pi = upload_time_slice(prior_i, t, dev)
         guard = None if expected_loss_fn is None else partial(expected_loss_fn, t)
         res, row, nst, _ = scan_time_fit(cfg, chunks, dr, di, w, carry, pr, pi,
-                                         expected_loss_fn=guard, poll_every=poll_every)
+                                         expected_loss_fn=guard, poll_every=poll_every,
+                                         shard=shard)
         carry = scan_carry(res)
         outs.append(carry)
         full = np.full((cfg.maxsteps,), np.nan, dtype=np.float32)

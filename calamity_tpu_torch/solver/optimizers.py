@@ -153,23 +153,32 @@ def nadam(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7, eps_root=0
     return adam(learning_rate, beta_1, beta_2, epsilon, eps_root, nesterov=True)
 
 
-def lamb(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-6, weight_decay=0.0):
+def lamb(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-6, weight_decay=0.0,
+         norm_psum=None):
     """optax ``lamb``: adam's update plus decayed weights, scaled per leaf
-    by ||p|| / ||u|| (1 where either norm is zero), then by -lr."""
+    by ||p|| / ||u|| (1 where either norm is zero), then by -lr.
+
+    ``norm_psum``: on a device mesh, where each rank holds blocks of the
+    leaves, a function that sums a tree of squared leaf norms over the
+    ranks each leaf is split across (``parallel.mesh.MeshShard``), so the
+    norms are the whole leaves'."""
     b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
     wd = float(weight_decay)
 
-    def trust(u, p):
-        pn = torch.linalg.vector_norm(p)
-        un = torch.linalg.vector_norm(u)
-        ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
-        return u * ratio
+    def ratio_of(pn, un):
+        return torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+
+    def norms(tree):
+        if norm_psum is None:
+            return tree_map(torch.linalg.vector_norm, tree)
+        return tree_map(torch.sqrt, norm_psum(tree_map(lambda x: torch.sum(x * x), tree)))
 
     @torch.no_grad()
     def update(grads, state, params):
         updates, state = _adam_updates(grads, state, b1, b2, eps, 0.0, False)
         updates = tree_map(lambda u, p: u + wd * p, updates, params)
-        updates = tree_map(trust, updates, params)
+        updates = tree_map(lambda u, pn, un: u * ratio_of(pn, un), updates, norms(params),
+                           norms(updates))
         return _apply(params, tree_map(lambda u: -lr * u, updates)), state
 
     return Optimizer(_adam_init, update)
@@ -355,8 +364,13 @@ OPTIMIZERS = {
 }
 
 
-def get_optimizer(name, **opt_kwargs):
-    """Instantiate an optimizer by reference-registry name."""
+def get_optimizer(name, norm_psum=None, **opt_kwargs):
+    """Instantiate an optimizer by reference-registry name. ``norm_psum``
+    reaches LAMB, the one optimizer that is not elementwise (see
+    :func:`lamb`); every other update is the same on a leaf's blocks as on
+    the whole leaf."""
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; options: {sorted(OPTIMIZERS)}")
+    if name == "LAMB" and norm_psum is not None:
+        opt_kwargs = dict(opt_kwargs, norm_psum=norm_psum)
     return OPTIMIZERS[name](**dict(opt_kwargs))

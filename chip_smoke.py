@@ -21,7 +21,7 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    at the main shape timed against the plain version, against its bound
    and against cuBLAS' batched matvec of the same comps;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
-   2 times, through ``read_calibrate_and_model_dpss`` with every chunk dense
+   1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
    default ``mixed`` schedule;
 5. 50 recorded descent steps on that data with the chunks on the card and
@@ -41,7 +41,18 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 8. the warm-started time scan at full width on phase 7's file: each
    polarization's 4 times in order, each fit seeded by the one before, every
    step through the kernel with N = 1; each polarization's first time
-   against the serial path.
+   against the serial path;
+9. the ('data', 'bl') device mesh, in child processes joined by
+   ``torch.distributed`` (each world under its own time limit): (a) a world
+   of 1 over NCCL, phase 7's file through ``mesh=make_mesh(1, 1)`` against
+   phase 7's steps and histories; (b) a world of 2 over gloo, both ranks on
+   the one card, mesh (1, 2), phase 7's file at full width, the mixed
+   schedule, against phase 7 (each rank fits 1008 of the 2016 groups);
+   (c) mesh (2, 1) on the time-parallel path and the scan on (1, 2), on a
+   smaller file (384 channels, 2 times, 1 polarization), in one world, each
+   against its unsharded run; (d) ``calamity_tpu_torch.supervisor``: the CUDA probe, and
+   a supervised run of the CLI; (e) the mixed driver with its covariance
+   eigh on the card against the host numpy eigh.
 
 Any failure raises and exits non-zero; there is no fallback to the CPU. It
 imports nothing of jax or of the JAX package ``calamity_tpu`` and fails if
@@ -49,13 +60,16 @@ either was loaded. The last line is one JSON object naming the device.
 """
 
 import json
+import multiprocessing as mp
 import os
+import queue
 import runpy
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -67,7 +81,7 @@ MIN_SEPARATION_M = 4.0
 NFREQS = 1536
 F0_HZ = 100e6
 DF_HZ = 100e3
-NTIMES = 2
+NTIMES = 1  # phase 4's times: one, so that phase 9 fits in the time limit
 TP_NTIMES = 4  # the time-parallel phase: 4 times x 2 polarizations = 8 slices
 TP_NPOLS = 2
 NSRC = 50
@@ -81,6 +95,11 @@ SCAN_NTIMES = 3  # the small multi-time file of phase 6's scan CLI run
 SCAN_CK_EVERY = 10  # its checkpoint cadence; the cut is at time 1's first float32 save
 KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
+MESH_NFREQS = 384  # phase 9 (c): the smaller file's channels, times and polarizations
+MESH_NTIMES = 2
+MESH_NPOLS = 1
+MESH_TOL = 1e-9  # phase 9 (c)'s stop: fewer steps than phase 7's, both runs alike
+WORLD_TIMEOUT_S = 300.0  # each phase 9 world's own time limit
 
 
 def log(msg=""):
@@ -398,12 +417,12 @@ def main_chunk_shapes(comps):
     return [(len(g), nbl, NFREQS, nv) for (nbl, nv), g in chunk_fitting_groups(comps).items()]
 
 
-def make_corrupted_file(path, ntimes=NTIMES, npols=1):
+def make_corrupted_file(path, ntimes=NTIMES, npols=1, nfreqs=NFREQS):
     from calamity_tpu_torch import cal_utils, models, simulate
 
     rng = np.random.default_rng(SEED)
     antpos = random_disc_array(rng)
-    freqs = F0_HZ + DF_HZ * np.arange(NFREQS)
+    freqs = F0_HZ + DF_HZ * np.arange(nfreqs)
     uvd = simulate.make_visdata(antpos, freqs, ntimes=ntimes, npols=npols, nsrc=NSRC, seed=SEED)
     comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS)
     project_onto_dpss(uvd, comps)
@@ -425,7 +444,7 @@ def phase_main_path(tmp, path, uvd, comps):
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
 
-    log(f"== phase 4: main path, {NANTS} antennas, {NFREQS} channels, {NTIMES} times")
+    log(f"== phase 4: main path, {NANTS} antennas, {NFREQS} channels, {uvd.Ntimes} times")
     log(f"  dense chunk shapes (ngrps, nbls, nfreqs, nvecs): {main_chunk_shapes(comps)}")
     outs = {k: os.path.join(tmp, f"main_{k}") for k in ("resid.uvh5", "model.uvh5",
                                                         "gains.calfits")}
@@ -932,7 +951,8 @@ def phase_time_parallel(tmp):
             f"resid/data batched {r_b:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
-    return {"launches": launches, "path": path, "uvd": uvd}
+    return {"launches": launches, "path": path, "uvd": uvd, "info": info, "ratios": ratios,
+            "timings": timings}
 
 
 # ---------------------------------------------------------------------- #
@@ -1044,6 +1064,366 @@ def phase_scan(tmp, tp):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------- #
+# phase 9: the device mesh, in child processes
+# ---------------------------------------------------------------------- #
+def _world_child(target, rank, nprocs, backend, init_file, args, results):
+    import torch
+    import torch.distributed as dist
+
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)  # NCCL: one card per rank
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                                world_size=nprocs)
+        results.put((rank, "ok", target(rank, nprocs, *args)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_world(target, nprocs, backend, tmp, *args, timeout=WORLD_TIMEOUT_S):
+    """``target(rank, nprocs, *args)`` in ``nprocs`` spawned processes joined
+    by a ``backend`` process group (under NCCL, rank r on card r); their
+    results in rank order. Past ``timeout``, or when a rank fails, every process still
+    alive is killed and the phase fails."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = os.path.join(tmp, f"rdzv_{target.__name__}_{time.time_ns()}")
+    procs = [ctx.Process(target=_world_child, args=(target, r, nprocs, backend, init_file,
+                                                    args, results)) for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        while len(out) < nprocs:
+            remaining = deadline - time.monotonic()
+            check(remaining > 0, f"{target.__name__}: world of {nprocs} still running after "
+                  f"{timeout:.0f} s")
+            try:
+                rank, status, value = results.get(timeout=min(remaining, 5.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                check(not dead, f"{target.__name__}: a rank exited with {dead}")
+                continue
+            check(status == "ok", f"{target.__name__} rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+    return [out[r] for r in range(nprocs)]
+
+
+def _slice_ratios(uvd, resid):
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    ratios = {}
+    for pol in range(uvd.Npols):
+        for t in np.unique(uvd.time_array):
+            rows = np.isclose(uvd.time_array, t, rtol=0.0, atol=1e-7)
+            good = ~uvd.flag_array[rows, 0, :, pol]
+            ratios[(pol, float(t))] = (rms(resid.data_array[rows, 0, :, pol][good])
+                                       / rms(uvd.data_array[rows, 0, :, pol][good]))
+    return ratios
+
+
+def _mesh_fit(rank, path, outdir, mesh_shape, fit_kw, **kw):
+    """``read_calibrate_and_model_dpss`` on this rank, through a mesh (or,
+    with ``mesh_shape=None``, unsharded), with ``fit_kw`` (the device, the
+    step budget and, where given, the tol); what phase 9 reads of it. Counts
+    each rank's file writes and its kernel launches."""
+    import torch
+
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
+    from calamity_tpu_torch.io import CalData, VisData
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.parallel.mesh import make_mesh
+
+    writes = []
+    real = {(cls, name): getattr(cls, name) for cls, name in
+            ((VisData, "write_uvh5"), (CalData, "write_calfits"))}
+
+    def counted(key):
+        def write(obj, filename, *a, **k):
+            writes.append(os.path.basename(filename))
+            return real[key](obj, filename, *a, **k)
+        return write
+
+    for (cls, name) in real:
+        setattr(cls, name, counted((cls, name)))
+    outs = {}
+    if outdir is not None:
+        outs = {f"{k}_outfilename": os.path.join(outdir, f"{k}.{ext}")
+                for k, ext in (("resid", "uvh5"), ("model", "uvh5"), ("gain", "calfits"))}
+    timings = {}
+    cuda = fit_kw["device"].startswith("cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    try:
+        model, resid, gains, info = read_calibrate_and_model_dpss(
+            input_data_files=path, clobber=True, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS,
+            shared_basis=False, model_regularization="post_hoc", learning_rate=1e-2,
+            time_parallel=True, mesh=False if mesh_shape is None else make_mesh(*mesh_shape),
+            timings=timings, **dict(dict(tol=TOL), **fit_kw), **outs, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        for (cls, name), fn in real.items():
+            setattr(cls, name, fn)
+    wall = time.time() - t0
+    launches = LAUNCHES.get(KERNEL_NAME)
+    uvd = VisData.from_uvh5(path)
+    return {"hist": {(p, t): h["loss"] for p, by_t in info.items() if isinstance(p, int)
+                     for t, h in by_t.items()},
+            "steps": {(p, t): h.get("phase_steps", [len(h["loss"])])
+                      for p, by_t in info.items() if isinstance(p, int) for t, h in by_t.items()},
+            "ratios": _slice_ratios(uvd, resid), "gains": gains.gain_array,
+            "model": model.data_array, "data_rms": float(np.sqrt(np.mean(
+                np.abs(uvd.data_array[~uvd.flag_array]) ** 2))),
+            "timings": {k: v for k, v in timings.items()
+                        if isinstance(v, (int, float, list))},
+            "launches": launches, "writes": writes, "wall": wall, "rank": rank,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+
+
+def world_1x1(rank, nprocs, path, fit_kw):
+    """(a): a world of 1 (NCCL on the card), mesh (1, 1)."""
+    return _mesh_fit(rank, path, None, (1, 1), fit_kw)
+
+
+def world_1x2(rank, nprocs, path, outdir, fit_kw):
+    """(b): gloo, both ranks on the one card; first, gloo's all-reduce of a
+    tensor on that device itself."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device=fit_kw["device"])
+    dist.all_reduce(x)
+    check(torch.equal(x.cpu(), torch.full((4,), 3.0)), f"gloo all_reduce gave {x}")
+    return _mesh_fit(rank, path, outdir, (1, 2), fit_kw)
+
+
+def world_small(rank, nprocs, path, fit_kw):
+    """(c), in one world: the time-parallel path on mesh (2, 1), the scan on
+    (1, 2), then each rank one of them unsharded, both at once (rank 0 the
+    time-parallel path, rank 1 the scan)."""
+    scan = dict(init_guesses_from_previous_time_step=True)
+    out = {"tp": _mesh_fit(rank, path, None, (2, 1), fit_kw),
+           "scan": _mesh_fit(rank, path, None, (1, 2), fit_kw, **scan)}
+    out["unsharded"] = _mesh_fit(rank, path, None, None, fit_kw, **(scan if rank else {}))
+    return out
+
+
+def compare_runs(tag, got, want, rel_limit=1e-2, steps_limit=0.1):
+    """A sharded run against an unsharded one (or phase 7): the first 200
+    losses of every slice within ``rel_limit``, resid/data <= 1e-2 on every
+    slice and within 2x, steps per slice within ``steps_limit``. Two runs of
+    one path on the card are not equal to the bit (the gain scatter's
+    ``index_add_`` adds with atomics), so the limits are tolerances."""
+    worst_rel, worst_steps = 0.0, 0.0
+    for key, h_want in want["hist"].items():
+        h_got = np.asarray(got["hist"][key])
+        h_want = np.asarray(h_want)
+        n = min(200, len(h_got), len(h_want))
+        rel = float(np.max(np.abs(h_got[:n] - h_want[:n]) / np.abs(h_want[:n])))
+        worst_rel = max(worst_rel, rel)
+        s_got, s_want = sum(got["steps"][key]), sum(want["steps"][key])
+        worst_steps = max(worst_steps, abs(s_got - s_want) / s_want)
+        check(rel <= rel_limit, f"{tag} {key}: first {n} losses rel {rel}")
+    for key, r_want in want["ratios"].items():
+        r_got = got["ratios"][key]
+        check(r_got <= 1e-2, f"{tag} {key}: resid/data {r_got}")
+        check(max(r_got, r_want) <= 2 * min(r_got, r_want), f"{tag} {key}: resid/data "
+              f"{r_got} against {r_want}")
+    check(worst_steps <= steps_limit, f"{tag}: steps differ by {worst_steps:.1%}")
+    return worst_rel, worst_steps
+
+
+def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
+    """Phase 9 (see the module docstring); ``fit_kw``: the device and the
+    step budget of every fit (default the card, phase 7's budget)."""
+    fit_kw = dict(device="cuda:0", maxsteps=MAXSTEPS) if fit_kw is None else fit_kw
+    cuda = fit_kw["device"].startswith("cuda")
+    from calamity_tpu_torch.calibration import POLL_EVERY
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+
+    log("== phase 9: the ('data', 'bl') device mesh, in child processes "
+        f"(each world limited to {WORLD_TIMEOUT_S:.0f} s)")
+    card = nvidia_smi_line()
+    phase7 = {"hist": {(p, t): h["loss"] for p, by_t in tp["info"].items() if isinstance(p, int)
+                       for t, h in by_t.items()},
+              "steps": {(p, t): h["phase_steps"] for p, by_t in tp["info"].items()
+                        if isinstance(p, int) for t, h in by_t.items()}}
+    phase7["ratios"] = tp["ratios"]
+    out = {}
+
+    # (a) a world of 1 over NCCL
+    t0 = time.time()
+    (a,) = run_world(world_1x1, 1, "nccl" if cuda else "gloo", tmp, tp["path"], fit_kw)
+    # the steps' limit is about 3x the card's own spread between runs of one
+    # path: 0.50, 0.74, 0.97 and 1.1% over four runs of this comparison
+    rel, dsteps = compare_runs("(a)", a, phase7, rel_limit=1e-5, steps_limit=0.03)
+    recorded, warmups = sum(a["timings"]["phase_steps"]), len(a["timings"]["phase_steps"])
+    # one launch per step (the polls may run up to POLL_EVERY - 1 steps past
+    # the last freeze, which are undone); none where there is no card
+    check(not cuda or recorded + warmups <= a["launches"] <= recorded + warmups * POLL_EVERY,
+          f"(a) {a['launches']} launches for {recorded} recorded + {warmups} warm-up steps")
+    log(f"  (a) NCCL world of 1, mesh (1, 1), against phase 7: steps per slice "
+        f"{list(a['steps'].values())} (within {dsteps:.2%}), first 200 losses max rel "
+        f"{rel:.2e} (limits 3%, 1e-5); {KERNEL_NAME} launches {a['launches']} for {recorded} "
+        f"recorded batch steps + {warmups} warm-up; {time.time() - t0:.1f} s with start-up")
+    out["a"] = a
+
+    # (b) a world of 2 over gloo, both ranks on the card
+    t0 = time.time()
+    outdir = os.path.join(tmp, "mesh_1x2")
+    os.makedirs(outdir)
+    b = run_world(world_1x2, 2, "gloo", tmp, tp["path"], outdir, fit_kw)
+    wall = time.time() - t0
+    rel, dsteps = compare_runs("(b)", b[0], phase7)
+    for other in b[1:]:
+        check(np.array_equal(other["gains"], b[0]["gains"]), "(b) ranks returned other gains")
+        check(other["hist"] == b[0]["hist"], "(b) ranks returned other histories")
+    check(not cuda or all(r["launches"] > 0 for r in b),
+          f"(b) launches {[r['launches'] for r in b]}")
+    files = sorted(os.listdir(outdir))
+    check(b[0]["writes"] == ["resid.uvh5", "gain.calfits", "model.uvh5"] and not b[1]["writes"]
+          and files == ["gain.calfits", "model.uvh5", "resid.uvh5"],
+          f"(b) writes rank 0 {b[0]['writes']}, rank 1 {b[1]['writes']}, files {files}")
+    for r in b:
+        tm = r["timings"]
+        steps, secs = tm["phase_steps"], tm["phase_seconds"]
+        log(f"  (b) rank {r['rank']}: ms per batch step (bf16, f32) "
+            f"{', '.join(f'{1e3 * s / max(n, 1):.3f}' for s, n in zip(secs, steps))} over "
+            f"{steps} steps; descent_s {tm['descent_s']:.2f}; collectives "
+            f"{tm['collective_s']:.2f} s in {tm['collective_calls']} calls "
+            f"({1e3 * tm['collective_s'] / max(sum(steps), 1):.3f} ms per recorded step); "
+            f"peak device memory {r['peak_gb']} GB; {KERNEL_NAME} launches "
+            f"{r['launches']}; writes {r['writes']}; {card}")
+    log(f"  (b) gloo world of 2, mesh (1, 2), phase 7's file: first 200 losses max rel "
+        f"{rel:.2e} against phase 7, steps within {dsteps:.2%}; resid/data per slice "
+        f"{', '.join(f'{x:.3e}' for x in b[0]['ratios'].values())}; rank 0 alone wrote "
+        f"{files}; {wall:.1f} s with start-up")
+    out["b"] = b
+
+    # (c) mesh (2, 1) and the scan on (1, 2), on a smaller file, in one world
+    small = os.path.join(tmp, "mesh_small.uvh5")
+    make_corrupted_file(small, MESH_NTIMES, MESH_NPOLS, nfreqs=nfreqs)
+    t0 = time.time()
+    res = run_world(world_small, 2, "gloo", tmp, small, dict(fit_kw, tol=MESH_TOL))
+    for tag, key, alone in (("(c) time-parallel, mesh (2, 1)", "tp", 0),
+                            ("(c) scan, mesh (1, 2)", "scan", 1)):
+        got, want = res[0][key], res[alone]["unsharded"]
+        rel, dsteps = compare_runs(tag, got, want)
+        dmodel = float(np.max(np.abs(got["model"] - want["model"]))) / want["data_rms"]
+        check(dmodel <= 1e-2, f"{tag}: model differs by {dmodel} of the data rms")
+        check(not cuda or res[1][key]["launches"] > 0, f"{tag}: rank 1 launched no kernel")
+        log(f"  {tag}: {nfreqs} channels x {MESH_NTIMES} times x {MESH_NPOLS} pol, tol "
+            f"{MESH_TOL:g}; steps "
+            f"per slice sharded {list(got['steps'].values())}, unsharded "
+            f"{list(want['steps'].values())} (within {dsteps:.2%}); first 200 losses max rel "
+            f"{rel:.2e}; max |model difference| {dmodel:.2e} of the data rms; launches rank 0 "
+            f"{got['launches']}, rank 1 {res[1][key]['launches']}")
+    log(f"  (c) both in one world of 2: {time.time() - t0:.1f} s with start-up")
+    out["c"] = res
+
+    # (d) the supervisor
+    from calamity_tpu_torch import supervisor
+
+    t0 = time.time()
+    check(supervisor.probe_device(timeout_s=120.0) == cuda, "(d) the CUDA probe's answer")
+    probe_s = time.time() - t0
+    golomb = os.path.join(tmp, "golomb.uvh5")
+    argv = [sys.executable, os.path.join(repo, "scripts", "calibrate_and_model_dpss_torch.py"),
+            "--input_data_files", golomb, "--resid_outfilename",
+            os.path.join(tmp, "sup_resid.uvh5"), "--min_dly", str(MIN_DLY_NS), "--offset",
+            str(MIN_DLY_NS), "--maxsteps", "500", "--tol", "1e-10", "--device",
+            fit_kw["device"], "--clobber"]
+    t0 = time.time()
+    saved = os.environ.get("PYTHONPATH")
+    # the child imports the port from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(x for x in (repo, saved) if x)
+    try:
+        code = supervisor.run_supervised(argv, max_restarts=0, hang_timeout_s=240.0,
+                                         echo=lambda *_: None)
+    finally:
+        if saved is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = saved
+    check(code == 0 and os.path.exists(os.path.join(tmp, "sup_resid.uvh5")),
+          f"(d) the supervised CLI run exited {code}")
+    log(f"  (d) supervisor: probe_device() True in {probe_s:.1f} s; supervised CLI run on the "
+        f"Golomb file exited 0 in {time.time() - t0:.1f} s")
+
+    # (e) the mixed driver's eigh on the card
+    out["e"] = mixed_eigh_on_card(tmp, fit_kw["device"])
+    return out
+
+
+def mixed_eigh_on_card(tmp, device):
+    """(e): ``calibrate_and_model_mixed`` with the covariance eigh on the
+    card against the host numpy eigh: as many eigenvectors in every
+    multi-baseline group, and the same subspace as far as the covariance
+    can tell, ||(P_card - P_host) C|| <= 1e-8 ||C||, and plain,
+    max |P_card - P_host| <= 1e-6: eigenvectors near the cutoff are defined
+    only to eps / (their relative eigenvalue gap), ~1e-7."""
+    from calamity_tpu_torch import cal_utils, models, simulate
+    from calamity_tpu_torch.calibration import calibrate_and_model_mixed
+    from calamity_tpu_torch.models.simple_cov import simple_cov_matrix
+
+    uvd = simulate.make_golomb_array(nants=6, nfreqs=200, seed=0)
+    project_onto_dpss(uvd, models.yield_pbl_dpss_model_comps(uvd, offset=MIN_DLY_NS,
+                                                             min_dly=MIN_DLY_NS))
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    kw = dict(uvdata=uvd, gains=gains, min_dly=0.0, offset=0.0, ant_dly=2.0 / 3.0,
+              red_tol_freq=0.5, freeze_model=True, maxsteps=20, tol=1e-10,
+              grp_size_threshold=1, model_regularization="post_hoc", shared_basis=False,
+              device=device)
+    dicts, secs = {}, {}
+    for on_card in (False, True):
+        path = os.path.join(tmp, f"mixed_comps_{on_card}.npy")
+        t0 = time.time()
+        calibrate_and_model_mixed(use_tensorflow_to_derive_modeling_comps=on_card,
+                                  save_dict_to=path, **kw)
+        secs[on_card] = time.time() - t0
+        dicts[on_card] = np.load(path, allow_pickle=True).item()
+    check(list(dicts[True]) == list(dicts[False]), "(e) the component groups differ")
+    grps, blvecs, _, _ = models.get_uv_overlapping_grps_conjugated(uvd, red_tol_freq=0.5)
+    freqs = np.asarray(uvd.freq_array[0])
+    worst_w = worst_p = 0.0
+    ncov = 0
+    for grp, vecs in zip(grps, blvecs):
+        if len(grp) <= 1:
+            continue
+        key = tuple(tuple(rg) for rg in grp)
+        host, card = dicts[False][key], dicts[True][key]
+        check(host.shape == card.shape, f"(e) group {key}: {card.shape} against {host.shape}")
+        cmat = simple_cov_matrix(np.atleast_2d(np.asarray(vecs)), freqs, ant_dly=2.0 / 3.0)
+        dproj = card @ card.T - host @ host.T
+        worst_w = max(worst_w, np.linalg.norm(dproj @ cmat, 2) / np.linalg.norm(cmat, 2))
+        worst_p = max(worst_p, float(np.max(np.abs(dproj))))
+        ncov += 1
+    check(ncov > 0, "(e) no multi-baseline covariance group")
+    check(worst_w <= 1e-8, f"(e) ||(P_card - P_host) C|| / ||C|| = {worst_w}")
+    check(worst_p <= 1e-6, f"(e) max |P_card - P_host| = {worst_p}")
+    log(f"  (e) mixed driver, covariance eigh on the card: {ncov} multi-baseline groups, as many "
+        f"eigenvectors as the host eigh in each; ||(P_card - P_host) C|| / ||C|| at most "
+        f"{worst_w:.2e} (limit 1e-8), max |P_card - P_host| {worst_p:.2e} (limit 1e-6); driver seconds "
+        f"host {secs[False]:.1f}, card {secs[True]:.1f}")
+    return {"groups": ncov, "weighted": worst_w, "projector": worst_p}
+
+
 def main():
     import torch
 
@@ -1077,6 +1457,7 @@ def main():
         phase_cli(tmp, repo)
         tp_out = phase_time_parallel(tmp)
         scan_out = phase_scan(tmp, tp_out)
+        mesh_out = phase_mesh(tmp, repo, tp_out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
@@ -1096,10 +1477,14 @@ def main():
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": main_out["launches"] + tp_out["launches"] + scan_out["launches"],
+        "launches": (main_out["launches"] + tp_out["launches"] + scan_out["launches"]
+                     + sum(r["launches"] for r in mesh_out["b"])),
         "launches_by_path": {"serial": main_out["launches"],
                              "time_parallel": tp_out["launches"],
-                             "time_scan": scan_out["launches"]},
+                             "time_scan": scan_out["launches"],
+                             # phase 9 (b): per rank of the mesh (1, 2)
+                             "mesh_1x2": [r["launches"] for r in mesh_out["b"]],
+                             "mesh_1x1": mesh_out["a"]["launches"]},
         "max_abs_err": max(errs),
         # the instance the descent launches (loss and every gradient), at the
         # time-parallel path's chunk: N=8, float32 comps

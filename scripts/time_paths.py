@@ -45,7 +45,8 @@ def child(root, scan):
         if scan:
             uvd, _ = cs.make_corrupted_file(path, ntimes=cs.TP_NTIMES, npols=cs.TP_NPOLS)
         else:
-            uvd, comps = cs.make_corrupted_file(path)
+            # two times: a process's first fit also builds the kernel library
+            uvd, comps = cs.make_corrupted_file(path, ntimes=2)
         print(f"  set-up {time.time() - t0:.1f} s (host)", flush=True)
         if scan:
             cs.phase_scan(tmp, {"uvd": uvd, "path": path})

@@ -143,12 +143,27 @@ def test_import_never_loads_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh=object()),
+    dict(mesh=False),
+    dict(time_parallel=True, mesh=False),
+])
+def test_mesh_is_read_on_the_time_parallel_paths_only(golomb_visdata, kwargs):
+    """As in the JAX package: the serial path ignores ``mesh`` (anything at
+    all), and ``mesh=False`` opts the time-parallel path out of the auto
+    mesh; either way the fit is the one without the keyword."""
+    kw = dict(min_dly=DPSS_DLY, offset=DPSS_DLY, maxsteps=20, device="cpu",
+              time_parallel=kwargs.get("time_parallel", False))
+    want = tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), **kw)
+    got = tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), **dict(kw, **kwargs))
+    for t, h in want[3][0].items():
+        assert got[3][0][t]["loss"] == h["loss"]
+    np.testing.assert_array_equal(got[2].gain_array, want[2].gain_array)
+    np.testing.assert_array_equal(got[1].data_array, want[1].data_array)
+
+
 @pytest.mark.parametrize("kwargs, exc, match", [
-    (dict(time_parallel=True, init_guesses_from_previous_time_step=True, mesh=object()),
-     NotImplementedError, "item 13"),
-    (dict(mesh=object()), NotImplementedError, "item 13"),
     (dict(steps_per_execution=10), ValueError, "time_parallel paths only"),
-    (dict(time_parallel=True, mesh=object()), NotImplementedError, "item 13"),
     (dict(optimizer="Adamw"), KeyError, "unknown optimizer"),
     (dict(wgts_precision="float16"), ValueError, "wgts_precision"),
     (dict(loss_block_ngrps=8), ValueError, "time_parallel"),
@@ -262,7 +277,8 @@ class _no_warning:
 def test_mixed_save_dict_round_trips(mixed_scenario, tmp_path):
     """save_dict_to persists the component dict (the JAX package's own
     dict, to rounding); fed back through model_comps_dict it gives the same
-    fit; the device eigh option raises and names what is left."""
+    fit; the device eigh option (a torch eigh on the fit's device) gives
+    components spanning the same subspaces as the host numpy eigh."""
     kw = _mixed_kw(mixed_scenario, maxsteps=40, model_regularization="post_hoc")
     tkw = {k: as_port(v) if k in ("uvdata", "gains", "weights") else v for k, v in kw.items()}
     path_t, path_j = str(tmp_path / "comps_t.npy"), str(tmp_path / "comps_j.npy")
@@ -276,6 +292,25 @@ def test_mixed_save_dict_round_trips(mixed_scenario, tmp_path):
     again = tcal.calibrate_and_model_mixed(device="cpu", model_comps_dict=saved, **tkw)
     assert again[3][0][0]["loss"] == first[3][0][0]["loss"]
     np.testing.assert_array_equal(again[2].gain_array, first[2].gain_array)
-    with pytest.raises(ValueError, match="A.15"):
-        tcal.calibrate_and_model_mixed(device="cpu", use_tensorflow_to_derive_modeling_comps=True,
-                                       **tkw)
+    path_d = str(tmp_path / "comps_d.npy")
+    tcal.calibrate_and_model_mixed(device="cpu", use_tensorflow_to_derive_modeling_comps=True,
+                                   save_dict_to=path_d, **dict(tkw, maxsteps=1))
+    on_device = np.load(path_d, allow_pickle=True).item()
+    assert list(on_device) == list(saved)
+    # the branch it ports: the JAX package's device eigh (use_jax)
+    path_jd = str(tmp_path / "comps_jd.npy")
+    jcal.calibrate_and_model_mixed(use_tensorflow_to_derive_modeling_comps=True,
+                                   save_dict_to=path_jd, **dict(kw, maxsteps=1))
+    ref_device = np.load(path_jd, allow_pickle=True).item()
+    assert list(ref_device) == list(on_device)
+    for key, want in ref_device.items():
+        assert on_device[key].shape == want.shape
+        assert np.max(np.abs(on_device[key] @ on_device[key].T - want @ want.T)) <= 1e-6
+    for key, host in saved.items():
+        # the same number of eigenvectors; signs are arbitrary, so the
+        # projectors are compared. Eigenvectors whose eigenvalues sit near
+        # the 1e-10 cutoff, a relative gap g ~ 1e-9 apart, are defined only
+        # to eps / g ~ 1e-7 by any float64 eigh (tests/test_torch_host.py
+        # holds the covariance-weighted difference to 1e-8)
+        assert on_device[key].shape == host.shape
+        assert np.max(np.abs(on_device[key] @ on_device[key].T - host @ host.T)) <= 1e-6

@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import calamity_tpu.io as jio
 from calamity_tpu import cal_utils as jcal
@@ -107,8 +108,58 @@ def test_simple_cov_host_path_equal_and_jax_branch_refused():
     assert _equal(jmodels.yield_simple_multi_baseline_model_comps(blvecs, FREQS[:24], **kw),
                   tmodels.yield_simple_multi_baseline_model_comps(blvecs, FREQS[:24], **kw))
     for fn in (tsimple_cov.simple_cov_matrix, tsimple_cov.yield_simple_multi_baseline_model_comps):
-        with pytest.raises(ValueError, match="A.15"):
+        with pytest.raises(ValueError, match="use_torch"):
             fn(blvecs, FREQS[:24], use_jax=True)
+
+
+@pytest.mark.parametrize("blvecs", [
+    [[10.0, 0, 0], [12.0, 3.0, 0]],
+    [[10.0, 0, 0], [12.0, 3.0, 0], [14.5, -2.0, 0.0]],
+])
+def test_simple_cov_torch_eigh_spans_the_host_subspace(blvecs):
+    """use_torch=True on the CPU: the covariance equals the numpy one to
+    rounding, and the components select as many eigenvectors as the host
+    numpy eigh and model the covariance the same way:
+    ||(P_torch - P_host) C|| <= 1e-8 ||C|| (projectors, because eigenvector
+    signs are arbitrary; weighted by C, because eigenvectors near the
+    cutoff are defined only to eps / (their eigenvalue gap) by any eigh)."""
+    blvecs = np.asarray(blvecs)
+    freqs = 100e6 + 100e3 * np.arange(80)
+    kw = dict(horizon=1.0, offset=DPSS_DLY, min_dly=DPSS_DLY, ant_dly=2.0 / 3.0)
+    cmat = tsimple_cov.simple_cov_matrix(blvecs, freqs, **kw)
+    on_torch = tsimple_cov.simple_cov_matrix(blvecs, freqs, use_torch=True, device="cpu", **kw)
+    assert isinstance(on_torch, torch.Tensor) and on_torch.dtype == torch.float64
+    assert np.max(np.abs(on_torch.numpy() - cmat)) <= 1e-14 * np.max(np.abs(cmat))
+    host = tsimple_cov.yield_simple_multi_baseline_model_comps(blvecs, freqs, **kw)
+    dev = tsimple_cov.yield_simple_multi_baseline_model_comps(blvecs, freqs, use_torch=True,
+                                                              device="cpu", **kw)
+    assert dev.shape == host.shape and 0 < host.shape[1] < cmat.shape[0]
+    gap = (dev @ dev.T - host @ host.T) @ cmat
+    assert np.linalg.norm(gap, 2) <= 1e-8 * np.linalg.norm(cmat, 2)
+
+
+@pytest.mark.parametrize("blvecs", [
+    [[10.0, 0, 0], [12.0, 3.0, 0]],
+    [[10.0, 0, 0], [12.0, 3.0, 0], [14.5, -2.0, 0.0]],
+])
+def test_simple_cov_torch_eigh_against_the_jax_device_eigh(blvecs):
+    """The branch use_torch=True ports, the JAX package's use_jax=True (its
+    covariance and eigh on the JAX device, float64): the same covariance to
+    rounding, as many eigenvectors, and the same subspace, weighted by C to
+    1e-8 and plain to 1e-6 (eigenvectors near the cutoff are defined only
+    to eps / their eigenvalue gap, ~1e-7)."""
+    freqs = 100e6 + 100e3 * np.arange(80)
+    kw = dict(horizon=1.0, offset=DPSS_DLY, min_dly=DPSS_DLY, ant_dly=2.0 / 3.0)
+    want_c = np.asarray(jmodels.simple_cov_matrix(blvecs, freqs, use_jax=True, **kw))
+    got_c = tsimple_cov.simple_cov_matrix(blvecs, freqs, use_torch=True, device="cpu", **kw)
+    assert np.max(np.abs(got_c.numpy() - want_c)) <= 1e-14 * np.max(np.abs(want_c))
+    want = jmodels.yield_simple_multi_baseline_model_comps(blvecs, freqs, use_jax=True, **kw)
+    got = tsimple_cov.yield_simple_multi_baseline_model_comps(blvecs, freqs, use_torch=True,
+                                                              device="cpu", **kw)
+    assert got.shape == want.shape and 0 < want.shape[1] < want_c.shape[0]
+    dproj = got @ got.T - want @ want.T
+    assert np.linalg.norm(dproj @ want_c, 2) <= 1e-8 * np.linalg.norm(want_c, 2)
+    assert np.max(np.abs(dproj)) <= 1e-6
 
 
 def test_cal_utils_equal():
@@ -212,3 +263,26 @@ def test_cli_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert all(os.path.exists(p) for p in outs)
     resid = tio.VisData.from_uvh5(outs[0])
     assert np.isfinite(resid.data_array).all()
+
+
+def test_supervisor_compat_and_mesh_import_neither_jax_nor_the_jax_package():
+    """``python -m calamity_tpu_torch.supervisor --help``, and imports of the
+    port's compat shims and device mesh, in a fresh interpreter: none loads
+    jax or calamity_tpu."""
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['calamity_tpu_torch.supervisor', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('calamity_tpu_torch.supervisor', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n"
+        "import calamity_tpu_torch.compat, calamity_tpu_torch.parallel.mesh\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'calamity_tpu')\n"
+        "             or m.startswith(('jax.', 'calamity_tpu.')))\n"
+        "print(json.dumps({'loaded': bad}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "--hang_timeout" in proc.stdout
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"loaded": []}

@@ -163,8 +163,9 @@ def test_serial_driver_bfloat16_weights_match_jax(flagged_multitime):
 
 @pytest.mark.parametrize("kwargs", [dict(), dict(init_guesses_from_previous_time_step=True)])
 def test_time_parallel_options_not_ported_raise(golomb_visdata, kwargs):
-    # device meshes are the one option of the time-parallel paths left
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh on the time-parallel paths is a ('data', 'bl') DeviceMesh from
+    # parallel.mesh.make_mesh (tests/test_torch_mesh.py); anything else raises
+    with pytest.raises(TypeError, match="DeviceMesh from make_mesh"):
         tcal.calibrate_and_model_dpss(uvdata=as_port(golomb_visdata), min_dly=DPSS_DLY,
                                       offset=DPSS_DLY, maxsteps=2, time_parallel=True,
                                       device="cpu", mesh=object(), **kwargs)
