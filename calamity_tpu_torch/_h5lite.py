@@ -11,20 +11,44 @@ What it writes: HDF5 with a version-2 superblock and version-2 object
 headers (the "latest" file format), groups with compact link storage,
 contiguous datasets of little-endian integers, floats, booleans (h5py's
 enum of int8 FALSE/TRUE), complex numbers (h5py's compound of r and i) and
-fixed-length byte strings. h5py reads these files. What it reads: files it
-wrote itself (no chunked or compressed datasets, no attributes, no
-symbol-table groups).
+fixed-length byte strings. h5py reads these files.
+
+What it reads: the files h5py and pyuvdata write with those types, in
+numpy and the standard library only:
+- superblocks 0 to 3; version-1 and version-2 object headers with their
+  continuation blocks;
+- old-style groups (symbol table: v1 B-tree, local heap, symbol nodes) and
+  new-style groups with compact links or dense links (fractal heap and a
+  v2 B-tree name index);
+- dataspaces 1 and 2; integer, float, fixed-length string, complex
+  (compound of r and i) and boolean (enum) datatypes of versions 1 to 3,
+  either byte order;
+- compact, contiguous and chunked layouts: a v1 B-tree chunk index
+  (layout 3) and the single-chunk, implicit and fixed-array indices
+  (layout 4), with edge chunks and unallocated chunks (read as the fill
+  value);
+- the deflate (``zlib``), shuffle, fletcher32 and LZF (h5py's filter 32000)
+  filters.
+
+Anything else raises ``ValueError`` naming what and where, when the dataset
+is read: other filters (szip, scale-offset, blosc, bitshuffle, ...), the
+extensible-array and v2-B-tree chunk indices of datasets with an unlimited
+dimension, variable-length types, other compound types. Opening a file
+walks the links only; attributes are never read.
 
 API: ``File(path, "r" | "w")`` as a context manager; groups support
 ``create_group``, ``create_dataset(name, data=...)``, ``group[name] =
 value``, ``name in group``, ``group[name]`` and ``keys()``; datasets
 support ``ds[()]`` (and other indexing, after a full read), ``shape``,
-``dtype``, ``read_direct(out)`` and ``np.asarray(ds)``.
+``dtype``, ``read_direct(out)`` (cast into ``out``'s dtype, chunk by
+chunk) and ``np.asarray(ds)``.
 """
 
 from __future__ import annotations
 
+import mmap
 import struct
+import zlib
 
 import numpy as np
 
@@ -36,6 +60,7 @@ _SUPERBLOCK_SIZE = 48
 _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_VALUE, _LINK, _LAYOUT, _GROUP_INFO = (
     0x01, 0x02, 0x03, 0x05, 0x06, 0x08, 0x0A
 )
+_FILL_VALUE_OLD, _FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x04, 0x0B, 0x10, 0x11
 
 
 def _rot(x, k):
@@ -113,6 +138,10 @@ def _encode_dtype(dt):
     raise TypeError(f"dtype {dt} is not supported by this HDF5 writer")
 
 
+def _padded8(n):
+    return (n + 7) // 8 * 8
+
+
 def _decode_dtype(buf, pos):
     """(numpy dtype, position after the message) of a datatype message."""
     cls = buf[pos] & 0x0F
@@ -120,45 +149,59 @@ def _decode_dtype(buf, pos):
     bits = buf[pos + 1:pos + 4]
     size = struct.unpack_from("<I", buf, pos + 4)[0]
     p = pos + 8
-    if cls in (0, 1) and bits[0] & 0x01:
-        raise ValueError("big-endian data is not supported")
-    if cls == 0:
-        signed = bool(bits[0] & 0x08)
-        return np.dtype(f"<{'i' if signed else 'u'}{size}"), p + 4
-    if cls == 1:
-        return np.dtype(f"<f{size}"), p + 12
+    if cls in (0, 1):
+        if cls == 1 and bits[0] & 0x40:
+            raise ValueError("VAX-order floats are not supported")
+        order = ">" if bits[0] & 0x01 else "<"
+        if cls == 0:
+            signed = bool(bits[0] & 0x08)
+            return np.dtype(f"{order}{'i' if signed else 'u'}{size}"), p + 4
+        return np.dtype(f"{order}f{size}"), p + 12
     if cls == 3:
         return np.dtype(f"S{size}"), p
-    if cls == 6 and version == 3:
+    if cls == 6:
         nmembers = bits[0] | (bits[1] << 8)
         offsize = max(1, (size.bit_length() + 7) // 8)
-        names, types = [], []
+        names, offsets, types = [], [], []
         for _ in range(nmembers):
             end = buf.index(b"\x00", p)
             names.append(bytes(buf[p:end]).decode())
-            p = end + 1 + offsize
+            if version < 3:
+                p += _padded8(end + 1 - p)
+                offsets.append(struct.unpack_from("<I", buf, p)[0])
+                p += 4
+                if version == 1:
+                    p += 28  # array rank, permutation and dimension sizes
+            else:
+                p = end + 1
+                offsets.append(int.from_bytes(buf[p:p + offsize], "little"))
+                p += offsize
             mdt, p = _decode_dtype(buf, p)
             types.append(mdt)
-        if names == ["r", "i"] and types[0] == types[1] and types[0].kind == "f":
-            return np.dtype(f"<c{size}"), p
+        if (names == ["r", "i"] and types[0] == types[1] and types[0].kind == "f"
+                and offsets == [0, types[0].itemsize] and size == 2 * types[0].itemsize):
+            return np.dtype(f"{types[0].byteorder.replace('=', '<')}c{size}"), p
         raise ValueError(f"compound type {names} is not supported")
-    if cls == 8 and version == 3:
+    if cls == 8:
         nmembers = bits[0] | (bits[1] << 8)
         base, p = _decode_dtype(buf, p)
         names = []
         for _ in range(nmembers):
             end = buf.index(b"\x00", p)
             names.append(bytes(buf[p:end]))
-            p = end + 1
+            p = p + _padded8(end + 1 - p) if version < 3 else end + 1
         p += nmembers * base.itemsize
         if sorted(names) == [b"FALSE", b"TRUE"] and base.itemsize == 1:
             return np.dtype(bool), p
         return base, p
-    raise ValueError(f"datatype class {cls} version {version} is not supported")
+    kinds = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference", 9: "variable-length",
+             10: "array"}
+    raise ValueError(f"{kinds.get(cls, f'class {cls}')} datatype (version {version}) "
+                     "is not supported")
 
 
 # ---------------------------------------------------------------------- #
-# object headers
+# object headers and links
 # ---------------------------------------------------------------------- #
 def _object_header(messages):
     """Version-2 object header ("OHDR") holding ``messages``
@@ -168,49 +211,296 @@ def _object_header(messages):
     return head + struct.pack("<I", lookup3(head))
 
 
-def _parse_object_header(buf, addr):
-    """[(type, body), ...] of a version-2 object header at ``addr``."""
-    if bytes(buf[addr:addr + 4]) != b"OHDR" or buf[addr + 4] != 2:
-        raise ValueError(f"no version-2 object header at {addr}")
-    flags = buf[addr + 5]
-    p = addr + 6
-    if flags & 0x20:
-        p += 16  # access, modification, change and birth times
-    if flags & 0x10:
-        p += 4  # attribute phase-change values
-    nsize = 1 << (flags & 0x03)
-    chunk = int.from_bytes(buf[p:p + nsize], "little")
-    p += nsize
-    end = p + chunk
+def _header_messages(buf, addr):
+    """[(type, flags, body), ...] of the object header at ``addr``, version 1
+    or 2, with the messages of its continuation blocks."""
+    if bytes(buf[addr:addr + 4]) == b"OHDR":
+        if buf[addr + 4] != 2:
+            raise ValueError(f"object header version {buf[addr + 4]} at {addr} is not supported")
+        flags = buf[addr + 5]
+        p = addr + 6
+        if flags & 0x20:
+            p += 16  # access, modification, change and birth times
+        if flags & 0x10:
+            p += 4  # attribute phase-change values
+        nsize = 1 << (flags & 0x03)
+        size = int.from_bytes(buf[p:p + nsize], "little")
+        p += nsize
+        version, mhead = 2, 6 if flags & 0x04 else 4
+    elif buf[addr] == 1:
+        # version 1: a 16-byte prefix, then 8-byte-aligned messages
+        size = struct.unpack_from("<I", buf, addr + 8)[0]
+        p, version, mhead = addr + 16, 1, 8
+    else:
+        raise ValueError(f"no object header at {addr}")
+    blocks = [(p, p + size)]
     msgs = []
-    while p + 4 <= end:
-        mtype = buf[p]
-        size = struct.unpack_from("<H", buf, p + 1)[0]
-        p += 4 + (2 if flags & 0x04 else 0)
-        if mtype == 0x10:
-            raise ValueError("object header continuation is not supported")
-        msgs.append((mtype, bytes(buf[p:p + size])))
-        p += size
+    while blocks:
+        p, end = blocks.pop(0)
+        while p + mhead <= end:
+            if version == 1:
+                mtype, size, mflags = struct.unpack_from("<HHB", buf, p)
+            else:
+                mtype, size, mflags = buf[p], struct.unpack_from("<H", buf, p + 1)[0], buf[p + 3]
+            p += mhead
+            body = bytes(buf[p:p + size])
+            p += size
+            if mtype == _CONTINUATION:
+                off, length = struct.unpack_from("<QQ", body)
+                if version == 1:
+                    blocks.append((off, off + length))
+                elif bytes(buf[off:off + 4]) == b"OCHK":
+                    blocks.append((off + 4, off + length - 4))  # signature, checksum
+                else:
+                    raise ValueError(f"no continuation block at {off}")
+            elif mtype != 0:
+                msgs.append((mtype, mflags, body))
     return msgs
 
 
-class Dataset:
-    """A dataset: written when created, read on access."""
+def _decode_link(body):
+    """(name, target) of a link message: the object header address of a hard
+    link, or the reason another kind of link cannot be followed."""
+    flags = body[1]
+    p = 2
+    ltype = 0
+    if flags & 0x08:
+        ltype = body[p]
+        p += 1
+    if flags & 0x04:
+        p += 8  # creation order
+    if flags & 0x10:
+        p += 1  # character set
+    nlen_size = 1 << (flags & 0x03)
+    nlen = int.from_bytes(body[p:p + nlen_size], "little")
+    p += nlen_size
+    name = body[p:p + nlen].decode()
+    if ltype != 0:
+        kind = {1: "soft", 64: "external"}.get(ltype, f"type-{ltype}")
+        return name, f"{kind} link {name!r} is not supported (only hard links)"
+    return name, struct.unpack_from("<Q", body, p + nlen)[0]
 
-    def __init__(self, file, shape, dtype, address, nbytes):
+
+def _enc_size(n):
+    """Bytes HDF5 uses to store a count of at most ``n``."""
+    return (max(int(n), 1).bit_length() - 1) // 8 + 1
+
+
+def _cstr(buf, p):
+    end = p
+    while buf[end] != 0:
+        end += 1
+    return bytes(buf[p:end]).decode()
+
+
+# ---------------------------------------------------------------------- #
+# filters
+# ---------------------------------------------------------------------- #
+def _unshuffle(data, size):
+    n = len(data) // size
+    if size <= 1 or n <= 1:
+        return data
+    planes = np.frombuffer(data, np.uint8, count=n * size).reshape(size, n)
+    return planes.T.tobytes() + data[n * size:]
+
+
+def _fletcher32(data):
+    """HDF5's Fletcher-32 checksum (``H5_checksum_fletcher32``): big-endian
+    16-bit words, sums folded every 360 words."""
+    words = np.frombuffer(data, ">u2", count=len(data) // 2).astype(np.int64)
+    s1 = s2 = 0
+    for i0 in range(0, len(words), 360):
+        w = words[i0:i0 + 360]
+        s2 += len(w) * s1 + int(np.dot(np.arange(len(w), 0, -1), w))
+        s1 += int(w.sum())
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return (s2 << 16) | s1
+
+
+def _lzf_decompress(data):
+    """LZF (liblzf's format, h5py's filter 32000): runs of literals and
+    back-references into the output."""
+    out = bytearray()
+    ip, n = 0, len(data)
+    while ip < n:
+        ctrl = data[ip]
+        ip += 1
+        if ctrl < 32:
+            out += data[ip:ip + ctrl + 1]
+            ip += ctrl + 1
+            continue
+        length = ctrl >> 5
+        if length == 7:
+            length += data[ip]
+            ip += 1
+        length += 2
+        dist = ((ctrl & 0x1F) << 8) + data[ip] + 1
+        ip += 1
+        ref = len(out) - dist
+        if ref < 0:
+            raise ValueError("corrupt LZF data (back-reference before the start)")
+        if dist >= length:
+            out += out[ref:ref + length]
+        else:  # the copy overlaps what it writes: the last dist bytes repeat
+            out += (out[ref:] * (length // dist + 1))[:length]
+    return bytes(out)
+
+
+_FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
+                 6: "scaleoffset", 32000: "lzf", 32001: "blosc", 32004: "lz4",
+                 32008: "bitshuffle", 32015: "zstd"}
+
+
+def _decode_filters(body, where):
+    """[(filter id, client data), ...] of a filter pipeline message, in the
+    order they were applied; raises on a filter this reader cannot undo."""
+    version, nfilters = body[0], body[1]
+    p = 8 if version == 1 else 2
+    out = []
+    for _ in range(nfilters):
+        fid = struct.unpack_from("<H", body, p)[0]
+        p += 2
+        nlen = 0
+        if version == 1 or fid >= 256:
+            nlen = struct.unpack_from("<H", body, p)[0]
+            p += 2
+        ncd = struct.unpack_from("<H", body, p + 2)[0]
+        p += 4
+        name = body[p:p + nlen].split(b"\x00")[0].decode(errors="replace")
+        p += nlen
+        cd = struct.unpack_from(f"<{ncd}I", body, p)
+        p += 4 * ncd + (4 if version == 1 and ncd % 2 else 0)
+        if fid not in (1, 2, 3, 32000):
+            label = _FILTER_NAMES.get(fid) or name or "unknown"
+            raise ValueError(f"{where}: HDF5 filter {fid} ({label}) is not supported "
+                             "(deflate, shuffle, fletcher32 and lzf are)")
+        out.append((fid, cd))
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# datasets and groups
+# ---------------------------------------------------------------------- #
+class _DatasetInfo:
+    """What reading a dataset needs, decoded from its object header."""
+
+    def __init__(self, msgs, where):
+        bodies = {}
+        for mtype, mflags, body in msgs:
+            if mflags & 0x02 and mtype in (_DATASPACE, _DATATYPE, _LAYOUT, _FILTERS):
+                raise ValueError(f"{where}: shared (committed) message {mtype} is not supported")
+            bodies.setdefault(mtype, body)
+        space = bodies[_DATASPACE]
+        version, ndim, sflags = space[0], space[1], space[2]
+        if version == 2 and space[3] == 2:
+            raise ValueError(f"{where}: null dataspace is not supported")
+        p = 8 if version == 1 else 4
+        self.shape = tuple(struct.unpack_from(f"<{ndim}Q", space, p))
+        self.maxshape = (tuple(struct.unpack_from(f"<{ndim}Q", space, p + 8 * ndim))
+                         if sflags & 0x01 else self.shape)
+        try:
+            self.dtype, _ = _decode_dtype(bodies[_DATATYPE], 0)
+        except ValueError as exc:
+            raise ValueError(f"{where}: {exc}") from None
+        self.fill = self._fill_value(bodies)
+        self.filters = _decode_filters(bodies[_FILTERS], where) if _FILTERS in bodies else []
+        self.where = where
+        self._layout(bodies[_LAYOUT])
+
+    def _fill_value(self, bodies):
+        raw = None
+        if _FILL_VALUE in bodies:
+            b = bodies[_FILL_VALUE]
+            if b[0] in (1, 2) and (b[0] == 1 or b[3]) and len(b) >= 8:
+                size = struct.unpack_from("<I", b, 4)[0]
+                raw = b[8:8 + size]
+            elif b[0] == 3 and b[1] & 0x20:
+                size = struct.unpack_from("<I", b, 2)[0]
+                raw = b[6:6 + size]
+        elif _FILL_VALUE_OLD in bodies:
+            b = bodies[_FILL_VALUE_OLD]
+            raw = b[4:4 + struct.unpack_from("<I", b, 0)[0]]
+        if raw and len(raw) == self.dtype.itemsize:
+            return np.frombuffer(raw, self.dtype)[0]
+        return np.zeros((), self.dtype)[()]
+
+    def _layout(self, lay):
+        version, cls = lay[0], lay[1]
+        if version not in (3, 4):
+            raise ValueError(f"{self.where}: data layout version {version} is not supported")
+        self.kind = {0: "compact", 1: "contiguous", 2: "chunked"}.get(cls)
+        if cls == 0:
+            size = struct.unpack_from("<H", lay, 2)[0]
+            self.raw = lay[4:4 + size]
+        elif cls == 1:
+            self.address, self.size = struct.unpack_from("<QQ", lay, 2)
+        elif cls == 2 and version == 3:
+            ndims = lay[2]
+            self.address = struct.unpack_from("<Q", lay, 3)[0]
+            dims = struct.unpack_from(f"<{ndims}I", lay, 11)
+            self.chunk, self.index = tuple(dims[:-1]), "btree1"
+            self.edge_unfiltered = False
+        elif cls == 2:
+            flags, ndims, enc = lay[2], lay[3], lay[4]
+            p = 5
+            dims = [int.from_bytes(lay[p + i * enc:p + (i + 1) * enc], "little")
+                    for i in range(ndims)]
+            p += ndims * enc
+            self.chunk = tuple(dims[:-1])
+            self.edge_unfiltered = bool(flags & 0x01)
+            itype = lay[p]
+            p += 1
+            self.index = {1: "single", 2: "implicit", 3: "fixed_array"}.get(itype)
+            if self.index is None:
+                name = {4: "extensible-array", 5: "v2 B-tree"}.get(itype, f"type-{itype}")
+                raise ValueError(
+                    f"{self.where}: the {name} chunk index (a dataset with an unlimited "
+                    "dimension, written with the latest file format) is not supported")
+            self.single_filtered = None
+            if itype == 1 and flags & 0x02:
+                self.single_filtered = struct.unpack_from("<QI", lay, p)
+                p += 12
+            elif itype == 3:
+                p += 1
+            self.address = struct.unpack_from("<Q", lay, p)[0]
+        else:
+            raise ValueError(f"{self.where}: layout class {cls} is not supported")
+
+
+class Dataset:
+    """A dataset of a file opened for reading; decoded when first used."""
+
+    def __init__(self, file, name, msgs):
         self._file = file
-        self.shape = tuple(shape)
-        self.dtype = np.dtype(dtype)
-        self._address = address
-        self._nbytes = nbytes
+        self.name = name
+        self._msgs = msgs
+        self._meta = None
+
+    def _info(self):
+        if self._meta is None:
+            self._meta = _DatasetInfo(self._msgs, f"dataset {self.name!r}")
+        return self._meta
+
+    @property
+    def shape(self):
+        return self._info().shape
+
+    @property
+    def dtype(self):
+        return self._info().dtype
 
     def _read(self):
-        count = int(np.prod(self.shape, dtype=np.int64))
-        if count == 0:
-            return np.zeros(self.shape, dtype=self.dtype)
-        arr = np.frombuffer(self._file._buf, dtype=self.dtype, count=count,
-                            offset=self._address)
-        return arr.reshape(self.shape).copy()
+        out = np.empty(self.shape, dtype=self.dtype)
+        self.read_direct(out)
+        return out
 
     def __getitem__(self, key):
         return self._read()[key]
@@ -220,17 +510,33 @@ class Dataset:
         return arr if dtype is None else arr.astype(dtype)
 
     def read_direct(self, out):
-        out[...] = self._read()
+        """Read the whole dataset into ``out`` (its shape), cast to
+        ``out``'s dtype; a chunked dataset chunk by chunk."""
+        info = self._info()
+        if tuple(out.shape) != info.shape:
+            raise ValueError(f"{info.where}: out has shape {out.shape}, dataset {info.shape}")
+        self._file._read_into(info, out)
 
     def __len__(self):
         return self.shape[0]
 
 
-class Group:
-    """A group: named children, each a Group or a Dataset."""
+class _WrittenDataset:
+    """A dataset written to a file opened for writing."""
 
-    def __init__(self, file):
+    def __init__(self, shape, dtype, header):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self._header = header
+
+
+class Group:
+    """A group: named children, each a Group or a Dataset (resolved from
+    its object header when first used, in a file opened for reading)."""
+
+    def __init__(self, file, name="/"):
         self._file = file
+        self.name = name
         self._children = {}
 
     def __contains__(self, name):
@@ -239,8 +545,17 @@ class Group:
     def __getitem__(self, name):
         node = self
         for part in name.strip("/").split("/"):
-            node = node._children[part]
+            node = node._child(part)
         return node
+
+    def _child(self, part):
+        child = self._children[part]
+        if isinstance(child, str):
+            raise ValueError(f"{self.name.rstrip('/')}/{part}: {child}")
+        if isinstance(child, int):
+            child = self._file._node(child, f"{self.name.rstrip('/')}/{part}")
+            self._children[part] = child
+        return child
 
     def keys(self):
         return self._children.keys()
@@ -281,13 +596,20 @@ class File(Group):
         self._path = path
         self._mode = mode
         self._fh = None
+        self._views = []
         if mode == "w":
             self._fh = open(path, "wb")
             self._fh.write(bytes(_SUPERBLOCK_SIZE))
         elif mode == "r":
-            with open(path, "rb") as fh:
-                self._buf = memoryview(fh.read())
-            self._load()
+            self._fh = open(path, "rb")
+            self._map = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
+            self._buf = memoryview(self._map)
+            self._views.append(self._buf)
+            try:
+                self._load()
+            except BaseException:
+                self.close()
+                raise
         else:
             raise ValueError(f"mode {mode!r} is not supported (use 'r' or 'w')")
 
@@ -316,9 +638,7 @@ class File(Group):
             (_FILL_VALUE, bytes([3, 0x0A])),
             (_LAYOUT, layout),
         ])
-        ds = Dataset(self, arr.shape, arr.dtype, addr, nbytes)
-        ds._header = self._append(header)
-        return ds
+        return _WrittenDataset(arr.shape, arr.dtype, self._append(header))
 
     def _write_group(self, grp):
         links = []
@@ -342,6 +662,17 @@ class File(Group):
                   + struct.pack("<QQQQ", 0, _UNDEF, eof, root))
             self._fh.seek(0)
             self._fh.write(sb + struct.pack("<I", lookup3(sb)))
+        else:
+            try:
+                for view in reversed(self._views):
+                    view.release()
+            except BufferError:  # an array still views the map; it closes with the array
+                pass
+            self._views = []
+            try:
+                self._map.close()
+            except BufferError:  # an array still views the map; it closes with the array
+                pass
         self._fh.close()
         self._fh = None
 
@@ -355,47 +686,312 @@ class File(Group):
     # -- reading --------------------------------------------------------- #
     def _load(self):
         buf = self._buf
-        if bytes(buf[:8]) != _SIGNATURE or buf[8] not in (2, 3):
-            raise ValueError(f"{self._path}: not an HDF5 file with a version-2/3 superblock")
-        if buf[9] != 8 or buf[10] != 8:
+        sb = 0
+        while bytes(buf[sb:sb + 8]) != _SIGNATURE:
+            sb = 512 if sb == 0 else 2 * sb  # a user block pushes the superblock to 512 * 2^k
+            if sb + 8 > len(buf):
+                raise ValueError(f"{self._path}: not an HDF5 file")
+        version = buf[sb + 8]
+        if version in (0, 1):
+            sizes = (buf[sb + 13], buf[sb + 14])
+            p = sb + 24 + (4 if version == 1 else 0)
+            base = struct.unpack_from("<Q", buf, p)[0]
+            root = struct.unpack_from("<Q", buf, p + 32 + 8)[0]  # the root's symbol table entry
+        elif version in (2, 3):
+            sizes = (buf[sb + 9], buf[sb + 10])
+            base, root = struct.unpack_from("<Q", buf, sb + 12)[0], struct.unpack_from(
+                "<Q", buf, sb + 36)[0]
+        else:
+            raise ValueError(f"{self._path}: superblock version {version} is not supported")
+        if sizes != (8, 8):
             raise ValueError(f"{self._path}: only 8-byte offsets and lengths are supported")
-        root = struct.unpack_from("<Q", buf, 36)[0]
-        self._children = self._read_group(root)._children
+        if base:
+            self._buf = buf[base:]  # every address is relative to the base address
+            self._views.append(self._buf)
+        self._children = self._links(root)
 
-    def _read_group(self, addr):
-        grp = Group(self)
-        for mtype, data in _parse_object_header(self._buf, addr):
-            if mtype != _LINK:
-                continue
-            flags = data[1]
-            p = 2
-            if flags & 0x08:
-                if data[p] != 0:
-                    raise ValueError("only hard links are supported")
-                p += 1
-            if flags & 0x04:
-                p += 8
-            if flags & 0x10:
-                p += 1
-            nlen_size = 1 << (flags & 0x03)
-            nlen = int.from_bytes(data[p:p + nlen_size], "little")
-            p += nlen_size
-            name = data[p:p + nlen].decode()
-            target = struct.unpack_from("<Q", data, p + nlen)[0]
-            grp._children[name] = self._read_node(target)
+    def _node(self, addr, name):
+        msgs = _header_messages(self._buf, addr)
+        if any(m[0] == _LAYOUT for m in msgs):
+            return Dataset(self, name, msgs)
+        grp = Group(self, name)
+        grp._children = self._links(addr, msgs)
         return grp
 
-    def _read_node(self, addr):
-        msgs = dict(_parse_object_header(self._buf, addr))
-        if _LAYOUT not in msgs:
-            return self._read_group(addr)
-        space = msgs[_DATASPACE]
-        if space[0] != 2:
-            raise ValueError("only version-2 dataspaces are supported")
-        shape = struct.unpack_from(f"<{space[1]}Q", space, 4) if space[3] == 1 else ()
-        dtype, _ = _decode_dtype(msgs[_DATATYPE], 0)
-        layout = msgs[_LAYOUT]
-        if layout[0] != 3 or layout[1] != 1:
-            raise ValueError("only contiguous dataset layouts are supported")
-        address, nbytes = struct.unpack_from("<QQ", layout, 2)
-        return Dataset(self, shape, dtype, address, nbytes)
+    def _links(self, addr, msgs=None):
+        """{name: object header address} of the group at ``addr``."""
+        links = {}
+        for mtype, _, body in msgs or _header_messages(self._buf, addr):
+            if mtype == _LINK:
+                name, target = _decode_link(body)
+                links[name] = target
+            elif mtype == _SYMBOL_TABLE:
+                links.update(self._symbol_table(*struct.unpack_from("<QQ", body)))
+            elif mtype == _LINK_INFO:
+                links.update(self._dense_links(body))
+        return links
+
+    def _btree1(self, addr, key_size):
+        """[(key, child address), ...] of the leaves of the v1 B-tree at
+        ``addr``."""
+        buf = self._buf
+        out, todo = [], [addr]
+        while todo:
+            a = todo.pop()
+            if bytes(buf[a:a + 4]) != b"TREE":
+                raise ValueError(f"no v1 B-tree node at {a}")
+            level, n = buf[a + 5], struct.unpack_from("<H", buf, a + 6)[0]
+            p = a + 24
+            for _ in range(n):
+                key = bytes(buf[p:p + key_size])
+                child = struct.unpack_from("<Q", buf, p + key_size)[0]
+                p += key_size + 8
+                if level == 0:
+                    out.append((key, child))
+                else:
+                    todo.append(child)
+        return out
+
+    def _symbol_table(self, btree, heap):
+        """An old-style group: symbol nodes under a v1 B-tree, names in a
+        local heap."""
+        buf = self._buf
+        if bytes(buf[heap:heap + 4]) != b"HEAP":
+            raise ValueError(f"no local heap at {heap}")
+        names = struct.unpack_from("<Q", buf, heap + 24)[0]
+        links = {}
+        for _, snod in self._btree1(btree, 8):
+            if bytes(buf[snod:snod + 4]) != b"SNOD":
+                raise ValueError(f"no symbol table node at {snod}")
+            p = snod + 8
+            for _ in range(struct.unpack_from("<H", buf, snod + 6)[0]):
+                name_off, obj = struct.unpack_from("<QQ", buf, p)
+                links[_cstr(buf, names + name_off)] = obj
+                p += 40
+        return links
+
+    def _dense_links(self, body):
+        """A new-style group's links held in a fractal heap, indexed by
+        name hash in a v2 B-tree (records of type 5)."""
+        p = 2 + (8 if body[1] & 0x01 else 0)
+        heap, index = struct.unpack_from("<QQ", body, p)
+        if heap == _UNDEF:
+            return {}
+        hdr = self._fractal_heap(heap)
+        links = {}
+        for rec in self._btree2_records(index):
+            name, target = _decode_link(self._heap_object(hdr, rec[4:]))
+            links[name] = target
+        return links
+
+    def _fractal_heap(self, addr):
+        buf = self._buf
+        if bytes(buf[addr:addr + 4]) != b"FRHP":
+            raise ValueError(f"no fractal heap at {addr}")
+        if struct.unpack_from("<H", buf, addr + 7)[0]:
+            raise ValueError(f"fractal heap at {addr}: I/O filters are not supported")
+        width = struct.unpack_from("<H", buf, addr + 110)[0]
+        start, max_direct = struct.unpack_from("<QQ", buf, addr + 112)
+        max_bits = struct.unpack_from("<H", buf, addr + 128)[0]
+        root = struct.unpack_from("<Q", buf, addr + 132)[0]
+        rows = struct.unpack_from("<H", buf, addr + 140)[0]
+        max_managed = struct.unpack_from("<I", buf, addr + 10)[0]
+        return {
+            "width": width, "start": start, "max_direct": max_direct, "root": root,
+            "rows": rows, "off_size": (max_bits + 7) // 8,
+            "len_size": min((max_direct.bit_length() - 1 + 7) // 8, _enc_size(max_managed)),
+            # rows of direct blocks in an indirect block
+            "direct_rows": (max_direct.bit_length() - start.bit_length()) + 2,
+            "first_row_bits": (start.bit_length() - 1) + (width.bit_length() - 1),
+        }
+
+    def _heap_object(self, hdr, heap_id):
+        if (heap_id[0] >> 4) & 0x03:
+            raise ValueError("huge and tiny fractal heap objects are not supported")
+        osz, lsz = hdr["off_size"], hdr["len_size"]
+        off = int.from_bytes(heap_id[1:1 + osz], "little")
+        length = int.from_bytes(heap_id[1 + osz:1 + osz + lsz], "little")
+        if hdr["rows"] == 0:  # the root is one direct block
+            addr = hdr["root"] + off
+        else:
+            addr = self._heap_locate(hdr, hdr["root"], hdr["rows"], 0, off)
+        return bytes(self._buf[addr:addr + length])
+
+    def _heap_locate(self, hdr, iblock, nrows, block_off, off):
+        """File address of heap offset ``off`` under the indirect block at
+        ``iblock`` (``nrows`` rows, starting at heap offset ``block_off``)."""
+        if bytes(self._buf[iblock:iblock + 4]) != b"FHIB":
+            raise ValueError(f"no fractal heap indirect block at {iblock}")
+        p = iblock + 13 + hdr["off_size"]
+        pos = block_off
+        for row in range(nrows):
+            size = hdr["start"] << max(0, row - 1)
+            for _ in range(hdr["width"]):
+                child = struct.unpack_from("<Q", self._buf, p)[0]
+                p += 8
+                if pos <= off < pos + size and child != _UNDEF:
+                    if row < hdr["direct_rows"]:
+                        return child + (off - pos)
+                    child_rows = (size.bit_length() - 1) - hdr["first_row_bits"] + 1
+                    return self._heap_locate(hdr, child, child_rows, pos, off)
+                pos += size
+        raise ValueError(f"heap offset {off} is not in the fractal heap")
+
+    def _btree2_records(self, addr):
+        """Every record of the v2 B-tree at ``addr``."""
+        buf = self._buf
+        if bytes(buf[addr:addr + 4]) != b"BTHD":
+            raise ValueError(f"no v2 B-tree header at {addr}")
+        node_size = struct.unpack_from("<I", buf, addr + 6)[0]
+        rec_size, depth = struct.unpack_from("<HH", buf, addr + 10)
+        root, root_nrec = struct.unpack_from("<QH", buf, addr + 16)
+        # the sizes of the record counts in internal nodes (H5B2 node info)
+        max_nrec = [(node_size - 10) // rec_size]
+        cum = [max_nrec[0]]
+        cum_size = [0]
+        nrec_size = _enc_size(max_nrec[0])
+        for d in range(1, depth + 1):
+            ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            m = (node_size - (10 + ptr)) // (rec_size + ptr)
+            cum.append((m + 1) * cum[d - 1] + m)
+            cum_size.append(_enc_size(cum[d]))
+        records = []
+
+        def visit(a, nrec, d):
+            if bytes(buf[a:a + 4]) != (b"BTLF" if d == 0 else b"BTIN"):
+                raise ValueError(f"no v2 B-tree node at {a}")
+            p = a + 6
+            records.extend(bytes(buf[p + i * rec_size:p + (i + 1) * rec_size])
+                           for i in range(nrec))
+            p += nrec * rec_size
+            for _ in range(nrec + 1 if d else 0):
+                child = struct.unpack_from("<Q", buf, p)[0]
+                n = int.from_bytes(buf[p + 8:p + 8 + nrec_size], "little")
+                p += 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+                visit(child, n, d - 1)
+
+        if root != _UNDEF and root_nrec:
+            visit(root, root_nrec, depth)
+        return records
+
+    # -- dataset storage ------------------------------------------------- #
+    def _read_into(self, info, out):
+        count = int(np.prod(info.shape, dtype=np.int64))
+        if count == 0:
+            return
+        if info.kind == "compact":
+            out[...] = np.frombuffer(info.raw, info.dtype, count=count).reshape(info.shape)
+        elif info.kind == "contiguous":
+            if info.address == _UNDEF:
+                out[...] = info.fill
+                return
+            arr = np.frombuffer(self._buf, info.dtype, count=count, offset=info.address)
+            out[...] = arr.reshape(info.shape)
+            del arr
+        else:
+            self._read_chunked(info, out)
+
+    def _chunks(self, info):
+        """[(element offsets, address, stored size, filter mask), ...] of the
+        allocated chunks of a chunked dataset."""
+        rank = len(info.shape)
+        full = int(np.prod(info.chunk, dtype=np.int64)) * info.dtype.itemsize
+        grid = [-(-m // c) for m, c in zip(info.maxshape, info.chunk)]
+
+        def offsets(k):  # the k-th chunk of the grid, in row-major order
+            return tuple(int(i) * c for i, c in zip(np.unravel_index(k, grid), info.chunk))
+
+        if info.address == _UNDEF:
+            return []
+        if info.index == "btree1":
+            out = []
+            for key, addr in self._btree1(info.address, 8 + 8 * (rank + 1)):
+                size, mask = struct.unpack_from("<II", key)
+                out.append((struct.unpack_from(f"<{rank}Q", key, 8), addr, size, mask))
+            return out
+        if info.index == "single":
+            size, mask = info.single_filtered or (full, 0)
+            return [((0,) * rank, info.address, size, mask)]
+        if info.index == "implicit":
+            return [(offsets(k), info.address + k * full, full, 0)
+                    for k in range(int(np.prod(grid)))]
+        return self._fixed_array_chunks(info, full, offsets)
+
+    def _fixed_array_chunks(self, info, full, offsets):
+        buf = self._buf
+        a = info.address
+        if bytes(buf[a:a + 4]) != b"FAHD":
+            raise ValueError(f"{info.where}: no fixed-array header at {a}")
+        filtered, entry, page_bits = buf[a + 5], buf[a + 6], buf[a + 7]
+        nelem, dblock = struct.unpack_from("<QQ", buf, a + 8)
+        if bytes(buf[dblock:dblock + 4]) != b"FADB":
+            raise ValueError(f"{info.where}: no fixed-array data block at {dblock}")
+        p = dblock + 14
+        page = 1 << page_bits
+        if nelem > page:  # paged: an init bitmap, then pages of entries, each with a checksum
+            npages = -(-nelem // page)
+            bitmap = bytes(buf[p:p + (npages + 7) // 8])
+            first = p + len(bitmap) + 4
+            spans = []
+            for k in range(npages):
+                n = min(page, nelem - k * page)
+                if bitmap[k // 8] & (0x80 >> (k % 8)):
+                    spans.append((first, k * page, n))
+                first += page * entry + 4
+        else:
+            spans = [(p, 0, nelem)]
+        out = []
+        for start, k0, n in spans:
+            for i in range(n):
+                q = start + i * entry
+                addr = struct.unpack_from("<Q", buf, q)[0]
+                if addr == _UNDEF:
+                    continue
+                size, mask = full, 0
+                if filtered:
+                    size = int.from_bytes(buf[q + 8:q + entry - 4], "little")
+                    mask = struct.unpack_from("<I", buf, q + entry - 4)[0]
+                out.append((offsets(k0 + i), addr, size, mask))
+        return out
+
+    def _chunk_data(self, info, addr, size, mask, partial):
+        data = bytes(self._buf[addr:addr + size])
+        if partial and info.edge_unfiltered:
+            return data
+        for i in reversed(range(len(info.filters))):
+            if mask & (1 << i):
+                continue
+            fid, cd = info.filters[i]
+            if fid == 1:
+                data = zlib.decompress(data)
+            elif fid == 2:
+                data = _unshuffle(data, cd[0] if cd else info.dtype.itemsize)
+            elif fid == 3:
+                stored = data[-4:]
+                data = data[:-4]
+                want = _fletcher32(data).to_bytes(4, "little")
+                if stored not in (want, bytes([want[1], want[0], want[3], want[2]])):
+                    raise ValueError(f"{info.where}: fletcher32 checksum mismatch in the "
+                                     f"chunk at {addr}")
+            else:
+                data = _lzf_decompress(data)
+        return data
+
+    def _read_chunked(self, info, out):
+        chunk = info.chunk
+        ccount = int(np.prod(chunk, dtype=np.int64))
+        nchunks = int(np.prod([-(-s // c) for s, c in zip(info.shape, chunk)]))
+        chunks = [c for c in self._chunks(info)
+                  if all(o < s for o, s in zip(c[0], info.shape))]
+        if len(chunks) < nchunks:  # unallocated chunks read as the fill value
+            out[...] = info.fill
+        for offs, addr, size, mask in chunks:
+            ends = [min(o + c, s) for o, c, s in zip(offs, chunk, info.shape)]
+            partial = any(e - o < c for o, e, c in zip(offs, ends, chunk))
+            data = self._chunk_data(info, addr, size, mask, partial)
+            if len(data) < ccount * info.dtype.itemsize:
+                raise ValueError(f"{info.where}: chunk at {addr} decodes to {len(data)} bytes, "
+                                 f"expected {ccount * info.dtype.itemsize}")
+            arr = np.frombuffer(data, info.dtype, count=ccount).reshape(chunk)
+            out[tuple(slice(o, e) for o, e in zip(offs, ends))] = \
+                arr[tuple(slice(0, e - o) for o, e in zip(offs, ends))]

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
 The ``.cu`` sources under ``calamity_tpu_torch/csrc/`` expose plain C
-launchers. They are compiled with ``nvcc`` into one shared library under
-``calamity_tpu_torch/_build/`` on first use, keyed by a hash of the sources
-and flags, and loaded with ``ctypes``. Nothing is built when the package is
-imported. A failed build raises with nvcc's output.
+launchers. On first use each is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library under
+``calamity_tpu_torch/_build/``, keyed by a hash of the sources and flags,
+and loaded with ``ctypes``. Nothing is built when the package is imported.
+A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -45,8 +46,13 @@ class KernelLibrary:
             [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 4 + [ci, vp]
         )
         lib.fused_chunk_loss.restype = ci
+        # dpr, dpi, g_r, g_i, offsets, rowside, other, dg_r, dg_i; N, rows,
+        # nants, F; dtype; stream
+        lib.gain_grad.argtypes = [vp] * 9 + [ll] * 4 + [ci, vp]
+        lib.gain_grad.restype = ci
         self.fcl_error_string = lib.fcl_error_string
         self.fused_chunk_loss = lib.fused_chunk_loss
+        self.gain_grad = lib.gain_grad
         self._lib = lib
 
     def plan(self, nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps_ptr):
@@ -102,6 +108,24 @@ def _digest(srcs):
     return h.hexdigest()[:16]
 
 
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
+def _finish(started, every):
+    """The log of one started nvcc; raises with it if nvcc failed, after
+    stopping the others of ``every``."""
+    cmd, proc = started
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        for _, other in every:
+            other.kill()
+            other.wait()
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    return f"$ {' '.join(cmd)}\n{out}"
+
+
 def load_kernels():
     """The kernel library, built from the sources if this version of them
     has not been built yet. Loaded once per process: later calls return the
@@ -121,23 +145,25 @@ def load_kernels():
                 log = fh.read()
     else:
         nvcc = find_nvcc()
-        # build into a temporary name, then rename: a concurrent or cut-off
-        # build never leaves a half-written library under the final name
-        fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp_path, *[s for s in srcs if s.endswith(".cu")]]
+        # build into a temporary directory, then rename: a concurrent or
+        # cut-off build never leaves a half-written library under the final name
+        tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp_path)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        with open(log_path, "w") as fh:
-            fh.write(log)
-        os.replace(tmp_path, so_path)
+        try:
+            objs, procs = [], []
+            for src in (s for s in srcs if s.endswith(".cu")):
+                objs.append(os.path.join(tmp_dir, os.path.basename(src) + ".o"))
+                procs.append(_start([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], src]))
+            log = "".join(_finish(p, procs) for p in procs)
+            tmp_path = os.path.join(tmp_dir, "lib.so")
+            link = _start([nvcc, "-shared", "-o", tmp_path, *objs])
+            log += _finish(link, [link])
+            build_seconds = time.perf_counter() - t0
+            with open(log_path, "w") as fh:
+                fh.write(log)
+            os.replace(tmp_path, so_path)
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
     lib = KernelLibrary(so_path, build_seconds, log)
     _LOADED.append(lib)
     return lib

@@ -15,6 +15,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .fused import explain_fused_loss_inapplicable, fused_chunk_loss
+from .gains import gain_products
 
 
 def fg_model(coeffs_r, coeffs_i, comps):
@@ -74,19 +75,6 @@ def fg_model_batched(coeffs_r, coeffs_i, comps):
     return v[:, 0], v[:, 1]
 
 
-def gain_products_batched(g_r, g_i, a0, a1):
-    """:func:`gain_products` with a leading slice axis: g_r/g_i
-    (nbatch, nants, nfreqs) -> (pr, pi) each (nbatch, ngrps, nbls, nfreqs)."""
-    shape = (g_r.shape[0],) + tuple(a0.shape) + (g_r.shape[-1],)
-    i0 = a0.reshape(-1)
-    i1 = a1.reshape(-1)
-    gr0 = g_r.index_select(1, i0).reshape(shape)
-    gr1 = g_r.index_select(1, i1).reshape(shape)
-    gi0 = g_i.index_select(1, i0).reshape(shape)
-    gi1 = g_i.index_select(1, i1).reshape(shape)
-    return gr0 * gr1 + gi0 * gi1, gr0 * gi1 - gi0 * gr1
-
-
 def fg_model_host(coeffs_r, coeffs_i, comps):
     """numpy mirror of :func:`fg_model` for write-back (same three
     packings; float32 BLAS contractions for float32 comps)."""
@@ -140,24 +128,6 @@ def fg_model_all_chunks_host(fg_r, fg_i, host_comps):
         fg_model_host(fg_r[cnum], fg_i[cnum], comps)
         for cnum, comps in enumerate(host_comps)
     ]
-
-
-def gain_products(g_r, g_i, a0, a1):
-    """Real-arithmetic expansion of g_i conj(g_j) per baseline.
-
-    g_r/g_i: (nants, nfreqs); a0/a1: (ngrps, nbls) int32.
-    Returns (grgr+gigi, grgi-gigr) = (Re, -Im) of g_i conj(g_j),
-    each (ngrps, nbls, nfreqs)."""
-    shape = tuple(a0.shape) + (g_r.shape[-1],)
-    i0 = a0.reshape(-1)
-    i1 = a1.reshape(-1)
-    gr0 = g_r.index_select(0, i0).reshape(shape)
-    gr1 = g_r.index_select(0, i1).reshape(shape)
-    gi0 = g_i.index_select(0, i0).reshape(shape)
-    gi1 = g_i.index_select(0, i1).reshape(shape)
-    pr = gr0 * gr1 + gi0 * gi1  # Re(g0 conj(g1)) with conj on ant1
-    pi = gr0 * gi1 - gi0 * gr1  # such that model_r = pr*vr + pi*vi
-    return pr, pi
 
 
 def data_model(g_r, g_i, coeffs_r, coeffs_i, comps, a0, a1):

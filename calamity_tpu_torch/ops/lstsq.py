@@ -63,6 +63,16 @@ def init_coeffs_from_cholesky(chol, active, comps, data, wgts):
     return coeffs * active
 
 
+def init_coeffs_chunk(comps, data, wgts, ridge=1e-6):
+    """Least-squares coefficients of one dense chunk (reference
+    ops/lstsq.py:174-209): comps (ngrps, nbls, nfreqs, nvecs), data/wgts
+    (ngrps, nbls, nfreqs) -> (ngrps, nvecs). The gram's factor is computed
+    here rather than kept: :func:`gram_cholesky_chunk` then
+    :func:`init_coeffs_from_cholesky`."""
+    chol, active = gram_cholesky_chunk(comps, ridge)
+    return init_coeffs_from_cholesky(chol, active, comps, data, wgts)
+
+
 def init_coeffs_from_cholesky_batched(chol, active, comps, data_r, data_i, wgts):
     """Warm-start coefficients for a whole batch of (time, pol) slices at
     once (reference ops/lstsq.py:97-113).

@@ -19,7 +19,8 @@ count advances while any slice runs. A dense one-baseline-per-group chunk
 goes through the fused kernel with a slice axis
 (``ops.fused.fused_chunk_loss_batched``: one comps read for every slice);
 every other chunk takes torch ops whose contraction also reads comps once
-for the batch.
+for the batch. Every chunk's gain gradient is ``ops.gains.GainProducts``'
+backward (on the card a kernel that sums in a fixed order).
 
 PyTorch runs eagerly, so the reference's jit-compiled ``while_loop`` is a
 host loop here; the host polls the freeze mask every ``poll_every`` steps,
@@ -57,7 +58,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
-from ..ops.loss import fg_model_batched, fg_model_host_batched, gain_products_batched
+from ..ops.gains import gain_products_batched
+from ..ops.loss import fg_model_batched, fg_model_host_batched
 from ..solver.fit import _big, init_params
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
 from ..utils import echo
@@ -130,6 +132,9 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
     ngrps = a0.shape[0]
     nu = comps.shape[0]
     total = None
+    # the blocks' index views, made once and kept on the chunk's indices,
+    # so each keeps the gain-gradient kernel's row lists across steps
+    views = a0.__dict__.setdefault("_block_views", {})
     for g0 in range(0, ngrps, blk):
         g1 = g0 + blk
         if nu == 1:
@@ -139,8 +144,11 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
             comps_b = comps[g0 // gmax:g1 // gmax]
         else:
             comps_b = comps[g0:g1]
+        if (g0, g1) not in views or views[(g0, g1)][0] is not a1:
+            views[(g0, g1)] = (a1, a0[g0:g1], a1[g0:g1])
+        _, a0_b, a1_b = views[(g0, g1)]
         out = checkpoint(term, gr, gi, fr[:, g0:g1], fi[:, g0:g1], dr[:, g0:g1],
-                         di[:, g0:g1], w[:, g0:g1], comps_b, a0[g0:g1], a1[g0:g1],
+                         di[:, g0:g1], w[:, g0:g1], comps_b, a0_b, a1_b,
                          use_reentrant=False)
         total = out if total is None else tuple(t + o for t, o in zip(total, out))
     return total

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.gains import antenna_csr
 from ..io.polarizations import conj_pol_ind, polnum2str, polstr2num
 
 
@@ -204,7 +205,11 @@ class FitSpec:
 
         def upload(comps, a0, a1):
             self.host_comps.append(comps)
-            self.chunks.append(ChunkArrays(*(self._upload(x) for x in (comps, a0, a1))))
+            chunk = ChunkArrays(*(self._upload(x) for x in (comps, a0, a1)))
+            if self.device.type == "cuda":
+                # the gain-gradient kernel's per-antenna row lists, once
+                antenna_csr(chunk.a0, chunk.a1, self.nants)
+            self.chunks.append(chunk)
 
         def build_chunk(nbls, nvecs, grp_dict, shared_mat=None):
             """Pack one chunk. With shared_mat, every group uses the same

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3,3g,4,5,6,7,8,9,10]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's CUDA kernel from the sources in the checkout, holds it
-against its plain PyTorch version, drives the port's main path (file read,
+It builds the port's two CUDA kernels from the sources in the checkout,
+holds each against its plain PyTorch version, drives the port's main path (file read,
 DPSS components, FitSpec packing, Cholesky warm start, Adamax descent,
 uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 
@@ -19,11 +19,16 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    slots, coefficients in scratch, rows too wide for any tile), float32 and
    bfloat16 comps and weights;
    at the main shape timed against the plain version, against its bound
-   and against cuBLAS' batched matvec of the same comps;
+   and against cuBLAS' batched matvec of the same comps; and (3g) the
+   gain-gradient kernel against its plain version at phase 7's rows and
+   the HERA core's, N = 1 and 8, with a padded row and an antenna with no
+   rows, two launches bit-equal, timed against its bound and an
+   ``index_add_``;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
-   default ``mixed`` schedule;
+   default ``mixed`` schedule; then its packed slice fitted twice, equal to
+   the bit;
 5. 50 recorded descent steps on that data with the chunks on the card and
    with a CPU copy (the plain version), histories compared; and the cost of
    the per-step host check of the stop conditions;
@@ -33,28 +38,39 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    (``--time_parallel --init_guesses_from_previous_time_step --comps_precision
    mixed --checkpoint_dir``) on a 3-time Golomb file, stopped inside a time,
    resumed and held against an uninterrupted run; the DFT and mixed drivers
-   once each on the small Golomb file;
+   once each on the small Golomb file; the CLI on files the port did not
+   write (the h5py-written fixtures of ``tests/data``, the pyuvdata-layout
+   fixture of ``tests/data_torch``), on the card against the CPU, and the
+   read seconds of the port's HDF5 reader;
 7. the time-parallel path at full width: one ``read_calibrate_and_model_dpss``
    with ``time_parallel=True`` on 64 antennas, 1536 channels, 4 times and 2
    polarizations (8 slices in one batched descent), every step through the
    batched kernel; two of its slices against the serial path;
-8. the warm-started time scan at full width on phase 7's file: each
+8. the warm-started time scan at full width on phase 7's file and basis: each
    polarization's 4 times in order, each fit seeded by the one before, every
    step through the kernel with N = 1; each polarization's first time
    against the serial path;
 9. the ('data', 'bl') device mesh, in child processes joined by
    ``torch.distributed`` (each world under its own time limit): (a) a world
    of 1 over NCCL, phase 7's file through ``mesh=make_mesh(1, 1)`` against
-   phase 7's steps and histories; (b) a world of 2 over gloo, both ranks on
-   the one card, mesh (1, 2), phase 7's file at full width, the mixed
-   schedule, against phase 7 (each rank fits 1008 of the 2016 groups);
-   (c) mesh (2, 1) on the time-parallel path and the scan on (1, 2), on a
-   smaller file (384 channels, 2 times, 1 polarization), in one world, each
-   against its unsharded run; (d) ``calamity_tpu_torch.supervisor``: the CUDA probe, and
-   a supervised run of the CLI; (e) the mixed driver with its covariance
-   eigh on the card against the host numpy eigh.
+   phase 7's steps and histories, equal to the bit; (b) a world of 2 over
+   gloo, both ranks on the one card, mesh (1, 2), the mixed schedule, on a
+   smaller file (384 channels, 2 times, 1 polarization; each rank fits
+   1008 of the 2016 groups), against (c)'s unsharded run of it; (c) mesh
+   (2, 1) on the time-parallel path and the scan on (1, 2), on that file,
+   in one world, each against its unsharded run; (d)
+   ``calamity_tpu_torch.supervisor``: the CUDA probe, and a supervised run
+   of the CLI; (e) the mixed driver with its covariance
+   eigh on the card against the host numpy eigh;
+10. the HERA core (``scripts/hera_core_demo_torch.py``: 361 antennas, 4388
+   baselines, 1536 channels) with the default shared-basis packing at full
+   width, its idle share under the profiler, and at cut width against the
+   dense packing.
 
-Any failure raises and exits non-zero; there is no fallback to the CPU. It
+Every phase resets the kernels' launch counters before it drives its path
+and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
+then prints no kernels line and no result line. Any failure raises and
+exits non-zero; there is no fallback to the CPU. It
 imports nothing of jax or of the JAX package ``calamity_tpu`` and fails if
 either was loaded. The last line is one JSON object naming the device.
 """
@@ -95,6 +111,10 @@ SCAN_NTIMES = 3  # the small multi-time file of phase 6's scan CLI run
 SCAN_CK_EVERY = 10  # its checkpoint cadence; the cut is at time 1's first float32 save
 KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
+# the gain gather's gradient: XLA's scatter-add in the gradient of jnp.take
+# (no Pallas kernel; the port's kernel sums it in a fixed order)
+GAIN_KERNEL_REPLACES = "calamity_tpu/ops/loss.py:183"
+GAIN_KERNEL_SOURCE = "calamity_tpu_torch/csrc/gain_grad.cu"
 MESH_NFREQS = 384  # phase 9 (c): the smaller file's channels, times and polarizations
 MESH_NTIMES = 2
 MESH_NPOLS = 1
@@ -356,6 +376,97 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
     return out
 
 
+def hera_core_pairs(nside=19, spacing=14.6, bllen_max=45.0):
+    """The HERA core's antenna pairs (``scripts/hera_core_demo_torch.py``):
+    (a0, a1) of the 4388 baselines of a 19 x 19 grid up to 45 m."""
+    pos = np.stack(np.meshgrid(np.arange(nside), np.arange(nside)), -1).reshape(-1, 2) * spacing
+    i, j = np.triu_indices(len(pos), k=1)
+    keep = np.linalg.norm(pos[j] - pos[i], axis=1) <= bllen_max
+    return i[keep].astype(np.int32), j[keep].astype(np.int32), len(pos)
+
+
+def compare_gain_grad(tag, nbatch, a0, a1, nants, timed=False):
+    """The gain-gradient kernel against its plain version (rel 1e-5), two
+    launches on the same inputs bit-equal; with ``timed``, CUDA-event times
+    of the kernel, the plain version (the products' gathers and their
+    ``index_select`` backward under autograd) and one ``index_add_`` that
+    scatters the per-entry contributions, and the bound."""
+    import torch
+
+    from calamity_tpu_torch.ops import gains
+
+    rng = np.random.default_rng(SEED + nbatch + nants)
+    dev = torch.device("cuda")
+    rows = len(a0)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+
+    dpr, dpi = t(nbatch, rows, NFREQS), t(nbatch, rows, NFREQS)
+    g_r, g_i = 1 + 0.03 * t(nbatch, nants, NFREQS), 0.03 * t(nbatch, nants, NFREQS)
+    ia0 = torch.as_tensor(a0.reshape(-1, 1), device=dev)
+    ia1 = torch.as_tensor(a1.reshape(-1, 1), device=dev)
+    csr = gains.antenna_csr(ia0, ia1, nants)
+    got = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)
+    again = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)
+    want = gains.gain_grad_plain(dpr, dpi, g_r, g_i, ia0, ia1)
+    torch.cuda.synchronize()
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    check(max(errs) <= 1e-5, f"gain_grad {tag}: rel {errs}")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)), f"gain_grad {tag}: two launches "
+          "differ")
+    used = np.zeros(nants, bool)
+    used[a0] = used[a1] = True
+    check(all(bool(torch.all(g[:, ~torch.as_tensor(used, device=dev)] == 0)) for g in got),
+          f"gain_grad {tag}: an antenna with no rows has a gradient")
+    out = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want))}
+    log(f"  gain_grad {tag}: N={nbatch}, {rows} rows, {nants} antennas, {NFREQS} channels: max "
+        f"rel {max(errs):.2e} (limit 1e-5); two launches bit-equal")
+    if not timed:
+        return out
+    # one index_add_ over the (row, side) contributions, computed beforehand:
+    # the scatter that the plain version's backward runs (as four calls)
+    ant = torch.cat([ia0.reshape(-1), ia1.reshape(-1)]).long()
+    contrib = t(nbatch, 2 * rows, 2 * NFREQS)
+    acc = torch.zeros(nbatch, nants, 2 * NFREQS, device=dev)
+    out.update({
+        "ms": cuda_median_ms(lambda: gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)),
+        "plain_ms": cuda_median_ms(lambda: gains.gain_grad_plain(dpr, dpi, g_r, g_i, ia0, ia1)),
+        "library_ms": cuda_median_ms(lambda: acc.index_add_(1, ant, contrib)),
+    })
+    moved = nbytes(dpr) + nbytes(dpi) + 2 * nbytes(g_r) + 2 * nbytes(g_r)  # in, gains, dg
+    flops = 8 * 2 * rows * NFREQS * nbatch
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    log(f"    kernel {out['ms']:.4f} ms against bound {out['bound_ms']:.4f} ms ({out['bound_by']},"
+        f" {moved / 1e9:.3f} GB); plain (gathers, products and their autograd backward) "
+        f"{out['plain_ms']:.4f} ms; one index_add_ of the contributions {out['library_ms']:.4f} "
+        f"ms; median of 20 samples of 5 back-to-back calls; {nvidia_smi_line()}")
+    return out
+
+
+def phase_gain_grad():
+    """Phase 3's gain-gradient cases: phase 7's shapes (2016 rows, 64
+    antennas) and the HERA core's (4388 rows, 361 antennas), N = 1 and 8,
+    timed; and phase 7's rows with a padded row and an antenna with no rows."""
+    log("== phase 3 (gain_grad): the gain-gradient kernel against plain (rel 1e-5, two launches "
+        "bit-equal)")
+    i, j = np.triu_indices(NANTS, k=1)
+    h0, h1, hnants = hera_core_pairs()
+    check(len(h0) == 4388 and hnants == 361, f"HERA core: {len(h0)} rows, {hnants} antennas")
+    results = {}
+    for n in (8, 1):
+        results[("phase7", n)] = compare_gain_grad("phase 7's rows", n, i, j, NANTS, timed=True)
+        results[("hera", n)] = compare_gain_grad("the HERA core's rows", n, h0, h1, hnants,
+                                                 timed=True)
+    # a padded row (antenna 0 with itself, zero cotangent in the descent) and
+    # an antenna (the last) in no row
+    results["padded"] = compare_gain_grad("padded row, antenna with no rows", 8,
+                                          np.append(i, 0), np.append(j, 0), NANTS + 1)
+    return results
+
+
 def phase_kernel_vs_plain(main_shape):
     import torch
 
@@ -417,14 +528,18 @@ def main_chunk_shapes(comps):
     return [(len(g), nbl, NFREQS, nv) for (nbl, nv), g in chunk_fitting_groups(comps).items()]
 
 
-def make_corrupted_file(path, ntimes=NTIMES, npols=1, nfreqs=NFREQS):
+def make_corrupted_file(path, ntimes=NTIMES, npols=1, nfreqs=NFREQS, comps=None):
+    """The seeded disc array's sky, projected onto its DPSS basis (``comps``
+    where given: the basis depends on the baselines and channels only) and
+    corrupted by gain errors, written to ``path``: (VisData, basis)."""
     from calamity_tpu_torch import cal_utils, models, simulate
 
     rng = np.random.default_rng(SEED)
     antpos = random_disc_array(rng)
     freqs = F0_HZ + DF_HZ * np.arange(nfreqs)
     uvd = simulate.make_visdata(antpos, freqs, ntimes=ntimes, npols=npols, nsrc=NSRC, seed=SEED)
-    comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS)
+    if comps is None:
+        comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS)
     project_onto_dpss(uvd, comps)
     truth = cal_utils.blank_uvcal_from_uvdata(uvd)
     truth.gain_array = truth.gain_array * (
@@ -443,6 +558,7 @@ def phase_main_path(tmp, path, uvd, comps):
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
 
     log(f"== phase 4: main path, {NANTS} antennas, {NFREQS} channels, {uvd.Ntimes} times")
     log(f"  dense chunk shapes (ngrps, nbls, nfreqs, nvecs): {main_chunk_shapes(comps)}")
@@ -473,6 +589,7 @@ def phase_main_path(tmp, path, uvd, comps):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
+    gain_launches = LAUNCHES.get(GAIN_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -488,8 +605,9 @@ def phase_main_path(tmp, path, uvd, comps):
     log(f"  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
-        f"recorded steps {recorded}")
-    check(launches >= recorded, f"{launches} kernel launches < {recorded} recorded steps")
+        f"{GAIN_KERNEL} launches {gain_launches}, recorded steps {recorded}")
+    check(min(launches, gain_launches) >= recorded,
+          f"{launches}, {gain_launches} kernel launches < {recorded} recorded steps")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     good = ~uvd.flag_array
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -503,23 +621,20 @@ def phase_main_path(tmp, path, uvd, comps):
     check(np.allclose(back_m.data_array, model.data_array), "model file does not read back")
     check(np.allclose(back_g.gain_array, gains.gain_array), "gains file does not read back")
     log("  output files read back through calamity_tpu_torch.io and match")
-    return {"launches": launches, "recorded": recorded, "uvd": uvd, "comps": comps,
-            "path": path}
+    return {"launches": launches, "gain_launches": gain_launches, "recorded": recorded,
+            "uvd": uvd, "comps": comps, "path": path}
 
 
 # ---------------------------------------------------------------------- #
 # phase 5: kernel against plain inside the loop, and the per-step host check
 # ---------------------------------------------------------------------- #
-def phase_in_loop(main):
-    import torch
-
+def packed_slice(main):
+    """Phase 4's file packed once on the card as the serial loop packs it:
+    the FitSpec, the first time's data and weights, unit gains and the
+    warm-started coefficients."""
     from calamity_tpu_torch import cal_utils
-    from calamity_tpu_torch.solver import fit as fitmod
-    from calamity_tpu_torch.solver.optimizers import get_optimizer
     from calamity_tpu_torch.solver.tensorize import FitSpec
 
-    log(f"== phase 5: {N_LOOP_STEPS} recorded float32 steps, chunks on the card vs a CPU copy "
-        "(histories rel 1e-4)")
     uvd = main["uvd"]
     gains = cal_utils.blank_uvcal_from_uvdata(uvd)
     ants_map = {int(a): i for i, a in enumerate(gains.ant_array)}
@@ -530,9 +645,54 @@ def phase_in_loop(main):
     rmsdata = np.sqrt(np.mean(np.abs(blk[~uvd.flag_array[rows, 0, :, 0]]) ** 2))
     data_r, data_i, wgts = spec.pack_data(uvd, "xx", time0, data_scale_factor=rmsdata)
     g_r, g_i = spec.pack_gains(gains, "xx", time0)
-    fg_r = tuple(spec.init_coeffs(data_r, wgts))
-    fg_i = tuple(spec.init_coeffs(data_i, wgts))
-    chunks = spec.device_chunks()
+    return {"g_r": g_r, "g_i": g_i, "fg_r": tuple(spec.init_coeffs(data_r, wgts)),
+            "fg_i": tuple(spec.init_coeffs(data_i, wgts)), "data_r": data_r, "data_i": data_i,
+            "wgts": wgts, "chunks": spec.device_chunks()}
+
+
+def fit_twice(packed):
+    """Phase 4's packed slice fitted twice on the card with the main path's
+    settings (the mixed schedule, tol, maxsteps, post_hoc): the step counts
+    and loss histories must be equal to the bit (every sum of the step is
+    taken in a fixed order: the kernels have no atomics)."""
+    import torch
+
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.solver import fit as fitmod
+
+    runs = []
+    for _ in range(2):
+        args = [packed[k] for k in ("g_r", "g_i")] + [tuple(packed[k]) for k in ("fg_r", "fg_i")]
+        args = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone() for a in args]
+        LAUNCHES.reset()
+        t0 = time.time()
+        out = fitmod.fit_gains_and_foregrounds(
+            *args, packed["data_r"], packed["data_i"], packed["wgts"], packed["chunks"],
+            maxsteps=MAXSTEPS, tol=TOL, learning_rate=1e-2, model_regularization="post_hoc",
+            comps_precision="mixed")
+        torch.cuda.synchronize()
+        runs.append((out[4], LAUNCHES.get(GAIN_KERNEL), time.time() - t0))
+    (h1, n1, s1), (h2, n2, s2) = runs
+    log(f"  the packed slice fitted twice: phase steps {h1['phase_steps']} and "
+        f"{h2['phase_steps']}, {GAIN_KERNEL} launches {n1} and {n2}, {s1:.1f} and {s2:.1f} s; "
+        f"loss histories equal to the bit: {h1['loss'] == h2['loss']}")
+    check(h1["phase_steps"] == h2["phase_steps"] and h1["loss"] == h2["loss"],
+          "two fits of one packed slice differ")
+    check(n1 >= len(h1["loss"]), f"{n1} {GAIN_KERNEL} launches for {len(h1['loss'])} steps")
+    return {"steps": h1["phase_steps"], "launches": n1}
+
+
+def phase_in_loop(packed):
+    import torch
+
+    from calamity_tpu_torch.solver import fit as fitmod
+    from calamity_tpu_torch.solver.optimizers import get_optimizer
+
+    log(f"== phase 5: {N_LOOP_STEPS} recorded float32 steps, chunks on the card vs a CPU copy "
+        "(histories rel 1e-4)")
+    g_r, g_i, fg_r, fg_i = (packed[k] for k in ("g_r", "g_i", "fg_r", "fg_i"))
+    data_r, data_i, wgts, chunks = (packed[k] for k in ("data_r", "data_i", "wgts", "chunks"))
     kw = dict(maxsteps=N_LOOP_STEPS, tol=0.0, comps_precision="float32", learning_rate=1e-2,
               model_regularization="post_hoc")
 
@@ -637,6 +797,84 @@ def phase_cli(tmp, repo):
     cli_checkpoint_resume(tmp, repo, path)
     cli_scan_resume(tmp, repo, uvd)
     drivers_dft_and_mixed(uvd)
+    return cli_on_foreign_files(tmp, repo)
+
+
+def cli_on_foreign_files(tmp, repo):
+    """The CLI with its default flags on HDF5 files the port did not write:
+    the repo's h5py-written fixtures (a uvh5 file, starting gains in calh5
+    and UVFlag weights: superblock 0, symbol-table groups) and the
+    pyuvdata-layout fixture (chunked visdata, LZF flags and nsamples), each
+    on the card and on the CPU in this process, both taking the same steps
+    (tol 0: 400 steps in each phase of the mixed schedule, as phase 5 fixes
+    its steps, so neither stops where the other's rounding moved its tol
+    test): gains, model and resid of the two within phase 5's tolerance
+    (rel 1e-4 of the largest gain, of the largest model value). Also the read seconds of
+    the pyuvdata-layout fixture and of the HERA core's LZF cube through
+    ``calamity_tpu_torch._h5lite`` (h5py where it is installed)."""
+    import h5py
+
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.io import CalData, VisData
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+
+    log(f"  the CLI on files the port did not write (reader: {h5py.__name__}), on the card and "
+        "on the CPU (gains, model, resid rel 1e-4)")
+    data = os.path.join(repo, "tests", "data")
+    data_torch = os.path.join(repo, "tests", "data_torch")
+    cases = {
+        "h5py-written": ["--input_data_files", os.path.join(data, "golden_golomb_projected.uvh5"),
+                         "--input_gain_files", os.path.join(data, "golden_gains.calh5"),
+                         "--weights_file", os.path.join(data, "golden_weights.uvflag.h5")],
+        "pyuvdata-layout": ["--input_data_files",
+                            os.path.join(data_torch, "pyuvdata_layout.uvh5")],
+    }
+    out = {"launches": 0}
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    for tag, files in cases.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            names = [os.path.join(tmp, f"{tag}_{device}_{k}") for k in ("resid.uvh5",
+                                                                       "model.uvh5",
+                                                                       "gains.calfits")]
+            LAUNCHES.reset()
+            t0 = time.time()
+            run_cli(repo, files + ["--resid_outfilename", names[0], "--model_outfilename",
+                                   names[1], "--gain_outfilename", names[2], "--min_dly",
+                                   str(MIN_DLY_NS), "--offset", str(MIN_DLY_NS), "--maxsteps",
+                                   "400", "--tol", "0", "--clobber", "--device", device])
+            res[device] = (VisData.from_uvh5(names[0]).data_array,
+                           VisData.from_uvh5(names[1]).data_array,
+                           CalData.from_calfits(names[2]).gain_array, time.time() - t0,
+                           LAUNCHES.get(GAIN_KERNEL))
+        (r_c, m_c, g_c, s_c, n_c), (r_h, m_h, g_h, s_h, _) = res["cuda"], res["cpu"]
+        src = VisData.from_uvh5(files[1])
+        good = ~src.flag_array
+        ratio = rms(r_c[good]) / rms(src.data_array[good])
+        dg = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
+        dm = float(np.max(np.abs(m_c - m_h)) / np.max(np.abs(m_h)))
+        dr = float(np.max(np.abs(r_c - r_h)) / np.max(np.abs(m_h)))
+        log(f"    {tag}: card {s_c:.1f} s ({GAIN_KERNEL} launches {n_c}), CPU {s_h:.1f} s; card "
+            f"against CPU: gains rel {dg:.2e}, model rel {dm:.2e}, resid {dr:.2e} of the model's "
+            f"peak; card resid/data {ratio:.3e} (limit 1e-2)")
+        check(max(dg, dm, dr) <= 1e-4, f"{tag}: the card's CLI run differs from the CPU's")
+        check(ratio <= 1e-2 and n_c > 0, f"{tag}: resid/data {ratio}, {n_c} launches")
+        out["launches"] += n_c
+    # read seconds through the port's HDF5 reader
+    t0 = time.time()
+    VisData.from_uvh5(os.path.join(data_torch, "pyuvdata_layout.uvh5"))
+    out["fixture_read_s"] = time.time() - t0
+    t0 = time.time()
+    with h5py.File(os.path.join(data_torch, "lzf_cube_4388x1536.h5"), "r") as f:
+        flags = f["Data/flags"][()]
+        nsamples = f["Data/nsamples"][()]
+    out["lzf_cube_read_s"] = time.time() - t0
+    check(flags.shape == nsamples.shape == (4388, 1536, 1) and np.all(nsamples == 1.0),
+          "the LZF cube reads wrong")
+    log(f"    read seconds ({h5py.__name__}): the pyuvdata-layout fixture "
+        f"{out['fixture_read_s']:.3f} s; the 4388 x 1536 LZF flags and nsamples "
+        f"{out['lzf_cube_read_s']:.3f} s (host)")
+    return out
 
 
 def corrupted_copy(uvd, seed, err=0.05):
@@ -847,7 +1085,7 @@ def cli_checkpoint_resume(tmp, repo, path):
 # ---------------------------------------------------------------------- #
 # phase 7: the time-parallel path at full width
 # ---------------------------------------------------------------------- #
-def phase_time_parallel(tmp):
+def phase_time_parallel(tmp, comps=None):
     import torch
 
     from calamity_tpu_torch.io import CalData, VisData
@@ -858,13 +1096,14 @@ def phase_time_parallel(tmp):
         read_calibrate_and_model_dpss,
     )
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
 
     nslices = TP_NTIMES * TP_NPOLS
     log(f"== phase 7: time-parallel path, {NANTS} antennas, {NFREQS} channels, {TP_NTIMES} "
         f"times x {TP_NPOLS} polarizations = {nslices} slices in one batched descent")
     path = os.path.join(tmp, "tp.uvh5")
     t0 = time.time()
-    uvd, comps = make_corrupted_file(path, TP_NTIMES, TP_NPOLS)
+    uvd, comps = make_corrupted_file(path, TP_NTIMES, TP_NPOLS, comps=comps)
     log(f"  simulated and wrote {uvd.Nblts} baseline-times x {uvd.Nfreqs} channels x "
         f"{uvd.Npols} polarizations in {time.time() - t0:.1f} s (host)")
     outs = {k: os.path.join(tmp, f"tp_{k}") for k in ("resid.uvh5", "model.uvh5",
@@ -885,6 +1124,7 @@ def phase_time_parallel(tmp):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
+    gain_launches = LAUNCHES.get(GAIN_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -899,13 +1139,15 @@ def phase_time_parallel(tmp):
     log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items())
                                        if isinstance(v, float))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
-    log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, recorded "
-        f"batch steps {recorded} + {warmups} warm-up steps")
-    # every step of both phases launched the batched kernel once (a block
-    # of host polls may run up to POLL_EVERY - 1 steps past the last freeze,
-    # which are undone)
-    check(recorded + warmups <= launches <= recorded + warmups * POLL_EVERY,
-          f"{launches} launches for {recorded} recorded + {warmups} warm-up steps")
+    log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
+        f"{GAIN_KERNEL} launches {gain_launches}, recorded batch steps {recorded} + {warmups} "
+        "warm-up steps")
+    # every step of both phases launched each kernel once (a block of host
+    # polls may run up to POLL_EVERY - 1 steps past the last freeze, which
+    # are undone); the step-0 guard launches the loss-only instance
+    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches)):
+        check(recorded + warmups <= n <= recorded + warmups * POLL_EVERY,
+              f"{n} {name} launches for {recorded} recorded + {warmups} warm-up steps")
     check(len(per_slice) == nslices, f"{len(per_slice)} slices fitted, expected {nslices}")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -932,10 +1174,11 @@ def phase_time_parallel(tmp):
     t_first = np.unique(uvd.time_array)[0]
     sub = uvd.select(times=[t_first], inplace=False)
     t0 = time.time()
-    _, resid_s, _, info_s = calibrate_and_model_dpss(uvdata=sub, min_dly=MIN_DLY_NS,
-                                                     offset=MIN_DLY_NS, **kw)
+    _, resid_s, _, info_s = calibrate_and_model_dpss(uvdata=sub, fg_model_comps_dict=comps,
+                                                     **kw)
     torch.cuda.synchronize()
-    log(f"  serial path on 2 of the slices: {time.time() - t0:.1f} s")
+    log(f"  serial path on 2 of the slices (the basis of the file's simulation): "
+        f"{time.time() - t0:.1f} s")
     for pol in range(uvd.Npols):
         h_b = np.asarray(info[pol][0]["loss"])
         h_s = np.asarray(info_s[pol][0]["loss"])
@@ -951,8 +1194,8 @@ def phase_time_parallel(tmp):
             f"resid/data batched {r_b:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
-    return {"launches": launches, "path": path, "uvd": uvd, "info": info, "ratios": ratios,
-            "timings": timings}
+    return {"launches": launches, "gain_launches": gain_launches, "path": path, "uvd": uvd,
+            "comps": comps, "info": info, "ratios": ratios, "timings": timings}
 
 
 # ---------------------------------------------------------------------- #
@@ -969,11 +1212,12 @@ def phase_scan(tmp, tp):
         read_calibrate_and_model_dpss,
     )
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
 
-    uvd, path = tp["uvd"], tp["path"]
+    uvd, path, comps = tp["uvd"], tp["path"], tp["comps"]
     log(f"== phase 8: warm-started time scan, {NANTS} antennas, {NFREQS} channels, "
         f"{TP_NTIMES} times x {TP_NPOLS} polarizations, each polarization's times in order "
-        "(phase 7's file; default precision)")
+        "(phase 7's file and basis; default precision)")
     outs = {k: os.path.join(tmp, f"scan_{k}") for k in ("resid.uvh5", "model.uvh5",
                                                         "gains.calfits")}
     timings = {}
@@ -987,11 +1231,12 @@ def phase_scan(tmp, tp):
         model, resid, gains, info = read_calibrate_and_model_dpss(
             input_data_files=path, resid_outfilename=outs["resid.uvh5"],
             model_outfilename=outs["model.uvh5"], gain_outfilename=outs["gains.calfits"],
-            clobber=True, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS, time_parallel=True,
+            clobber=True, fg_model_comps_dict=comps, time_parallel=True,
             init_guesses_from_previous_time_step=True, timings=timings, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
+    gain_launches = LAUNCHES.get(GAIN_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -1009,13 +1254,14 @@ def phase_scan(tmp, tp):
                                        if isinstance(v, float))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}; step-0 guard "
         f"{timings['scan_guard_s'] / fits:.3f} s per time")
-    log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches} for "
-        f"{recorded} recorded + {fits} warm-up steps ({launches / recorded:.4f} per recorded "
-        "step)")
+    log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
+        f"{GAIN_KERNEL} launches {gain_launches}, for {recorded} recorded + {fits} warm-up "
+        f"steps ({launches / recorded:.4f} per recorded step)")
     # one launch per step; a block of host polls may run up to POLL_EVERY - 1
     # steps past a time's stop, which are undone
-    check(recorded + fits <= launches <= recorded + fits * POLL_EVERY,
-          f"{launches} launches for {recorded} recorded + {fits} warm-up steps")
+    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches)):
+        check(recorded + fits <= n <= recorded + fits * POLL_EVERY,
+              f"{n} {name} launches for {recorded} recorded + {fits} warm-up steps")
     check(fits == TP_NTIMES * TP_NPOLS, f"{fits} times fitted")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -1042,8 +1288,7 @@ def phase_scan(tmp, tp):
     t_first = np.unique(uvd.time_array)[0]
     sub = uvd.select(times=[t_first], inplace=False)
     t0 = time.time()
-    _, resid_s, _, info_s = calibrate_and_model_dpss(uvdata=sub, min_dly=MIN_DLY_NS,
-                                                     offset=MIN_DLY_NS,
+    _, resid_s, _, info_s = calibrate_and_model_dpss(uvdata=sub, fg_model_comps_dict=comps,
                                                      comps_precision="float32", **kw)
     torch.cuda.synchronize()
     log(f"  serial path on each polarization's first time: {time.time() - t0:.1f} s")
@@ -1061,7 +1306,7 @@ def phase_scan(tmp, tp):
             f"diff {rel:.2e}; resid/data scan {r_c:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: scan and serial histories differ: rel {rel}")
         check(max(r_c, r_s) <= 2 * min(r_c, r_s), f"pol {pol}: resid/data {r_c} vs {r_s}")
-    return {"launches": launches}
+    return {"launches": launches, "gain_launches": gain_launches}
 
 
 # ---------------------------------------------------------------------- #
@@ -1145,6 +1390,7 @@ def _mesh_fit(rank, path, outdir, mesh_shape, fit_kw, **kw):
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
     from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.parallel.mesh import make_mesh
 
     writes = []
@@ -1192,7 +1438,8 @@ def _mesh_fit(rank, path, outdir, mesh_shape, fit_kw, **kw):
                 np.abs(uvd.data_array[~uvd.flag_array]) ** 2))),
             "timings": {k: v for k, v in timings.items()
                         if isinstance(v, (int, float, list))},
-            "launches": launches, "writes": writes, "wall": wall, "rank": rank,
+            "launches": launches, "gain_launches": LAUNCHES.get(GAIN_KERNEL), "writes": writes,
+            "wall": wall, "rank": rank,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
 
 
@@ -1224,16 +1471,20 @@ def world_small(rank, nprocs, path, fit_kw):
     return out
 
 
-def compare_runs(tag, got, want, rel_limit=1e-2, steps_limit=0.1):
+def compare_runs(tag, got, want, rel_limit=1e-2, steps_limit=0.1, exact=False):
     """A sharded run against an unsharded one (or phase 7): the first 200
     losses of every slice within ``rel_limit``, resid/data <= 1e-2 on every
-    slice and within 2x, steps per slice within ``steps_limit``. Two runs of
-    one path on the card are not equal to the bit (the gain scatter's
-    ``index_add_`` adds with atomics), so the limits are tolerances."""
+    slice and within 2x, steps per slice within ``steps_limit``; with
+    ``exact``, every loss history and step count equal to the bit."""
     worst_rel, worst_steps = 0.0, 0.0
     for key, h_want in want["hist"].items():
         h_got = np.asarray(got["hist"][key])
         h_want = np.asarray(h_want)
+        if exact:
+            check(list(got["steps"][key]) == list(want["steps"][key])
+                  and np.array_equal(h_got, h_want),
+                  f"{tag} {key}: steps {got['steps'][key]} against {want['steps'][key]}, "
+                  "histories not equal to the bit")
         n = min(200, len(h_got), len(h_want))
         rel = float(np.max(np.abs(h_got[:n] - h_want[:n]) / np.abs(h_want[:n])))
         worst_rel = max(worst_rel, rel)
@@ -1256,6 +1507,7 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
     cuda = fit_kw["device"].startswith("cuda")
     from calamity_tpu_torch.calibration import POLL_EVERY
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
 
     log("== phase 9: the ('data', 'bl') device mesh, in child processes "
         f"(each world limited to {WORLD_TIMEOUT_S:.0f} s)")
@@ -1270,32 +1522,38 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
     # (a) a world of 1 over NCCL
     t0 = time.time()
     (a,) = run_world(world_1x1, 1, "nccl" if cuda else "gloo", tmp, tp["path"], fit_kw)
-    # the steps' limit is about 3x the card's own spread between runs of one
-    # path: 0.50, 0.74, 0.97 and 1.1% over four runs of this comparison
-    rel, dsteps = compare_runs("(a)", a, phase7, rel_limit=1e-5, steps_limit=0.03)
+    # every sum of the step is taken in a fixed order (no atomics in either
+    # kernel), and with no peer the mesh runs phase 7's arithmetic
+    rel, dsteps = compare_runs("(a)", a, phase7, exact=True)
     recorded, warmups = sum(a["timings"]["phase_steps"]), len(a["timings"]["phase_steps"])
     # one launch per step (the polls may run up to POLL_EVERY - 1 steps past
     # the last freeze, which are undone); none where there is no card
-    check(not cuda or recorded + warmups <= a["launches"] <= recorded + warmups * POLL_EVERY,
-          f"(a) {a['launches']} launches for {recorded} recorded + {warmups} warm-up steps")
+    for name, n in ((KERNEL_NAME, a["launches"]), (GAIN_KERNEL, a["gain_launches"])):
+        check(not cuda or recorded + warmups <= n <= recorded + warmups * POLL_EVERY,
+              f"(a) {n} {name} launches for {recorded} recorded + {warmups} warm-up steps")
     log(f"  (a) NCCL world of 1, mesh (1, 1), against phase 7: steps per slice "
-        f"{list(a['steps'].values())} (within {dsteps:.2%}), first 200 losses max rel "
-        f"{rel:.2e} (limits 3%, 1e-5); {KERNEL_NAME} launches {a['launches']} for {recorded} "
+        f"{list(a['steps'].values())}, equal to phase 7's, loss histories equal to the bit; "
+        f"{KERNEL_NAME} launches {a['launches']}, {GAIN_KERNEL} {a['gain_launches']}, for "
+        f"{recorded} "
         f"recorded batch steps + {warmups} warm-up; {time.time() - t0:.1f} s with start-up")
     out["a"] = a
 
-    # (b) a world of 2 over gloo, both ranks on the card
+    # (b) a world of 2 over gloo, both ranks on the card, on the smaller
+    # file of (c) (phase 7's file took 100 s of the time limit); compared
+    # with (c)'s unsharded time-parallel run of it below
+    small = os.path.join(tmp, "mesh_small.uvh5")
+    make_corrupted_file(small, MESH_NTIMES, MESH_NPOLS, nfreqs=nfreqs)
+    small_kw = dict(fit_kw, tol=MESH_TOL)
     t0 = time.time()
     outdir = os.path.join(tmp, "mesh_1x2")
     os.makedirs(outdir)
-    b = run_world(world_1x2, 2, "gloo", tmp, tp["path"], outdir, fit_kw)
+    b = run_world(world_1x2, 2, "gloo", tmp, small, outdir, small_kw)
     wall = time.time() - t0
-    rel, dsteps = compare_runs("(b)", b[0], phase7)
     for other in b[1:]:
         check(np.array_equal(other["gains"], b[0]["gains"]), "(b) ranks returned other gains")
         check(other["hist"] == b[0]["hist"], "(b) ranks returned other histories")
-    check(not cuda or all(r["launches"] > 0 for r in b),
-          f"(b) launches {[r['launches'] for r in b]}")
+    check(not cuda or all(r["launches"] > 0 and r["gain_launches"] > 0 for r in b),
+          f"(b) launches {[(r['launches'], r['gain_launches']) for r in b]}")
     files = sorted(os.listdir(outdir))
     check(b[0]["writes"] == ["resid.uvh5", "gain.calfits", "model.uvh5"] and not b[1]["writes"]
           and files == ["gain.calfits", "model.uvh5", "resid.uvh5"],
@@ -1309,25 +1567,20 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
             f"{tm['collective_s']:.2f} s in {tm['collective_calls']} calls "
             f"({1e3 * tm['collective_s'] / max(sum(steps), 1):.3f} ms per recorded step); "
             f"peak device memory {r['peak_gb']} GB; {KERNEL_NAME} launches "
-            f"{r['launches']}; writes {r['writes']}; {card}")
-    log(f"  (b) gloo world of 2, mesh (1, 2), phase 7's file: first 200 losses max rel "
-        f"{rel:.2e} against phase 7, steps within {dsteps:.2%}; resid/data per slice "
-        f"{', '.join(f'{x:.3e}' for x in b[0]['ratios'].values())}; rank 0 alone wrote "
-        f"{files}; {wall:.1f} s with start-up")
+            f"{r['launches']}, {GAIN_KERNEL} {r['gain_launches']}; writes {r['writes']}; {card}")
     out["b"] = b
 
-    # (c) mesh (2, 1) and the scan on (1, 2), on a smaller file, in one world
-    small = os.path.join(tmp, "mesh_small.uvh5")
-    make_corrupted_file(small, MESH_NTIMES, MESH_NPOLS, nfreqs=nfreqs)
+    # (c) mesh (2, 1) and the scan on (1, 2), on the smaller file, in one world
     t0 = time.time()
-    res = run_world(world_small, 2, "gloo", tmp, small, dict(fit_kw, tol=MESH_TOL))
+    res = run_world(world_small, 2, "gloo", tmp, small, small_kw)
     for tag, key, alone in (("(c) time-parallel, mesh (2, 1)", "tp", 0),
                             ("(c) scan, mesh (1, 2)", "scan", 1)):
         got, want = res[0][key], res[alone]["unsharded"]
         rel, dsteps = compare_runs(tag, got, want)
         dmodel = float(np.max(np.abs(got["model"] - want["model"]))) / want["data_rms"]
         check(dmodel <= 1e-2, f"{tag}: model differs by {dmodel} of the data rms")
-        check(not cuda or res[1][key]["launches"] > 0, f"{tag}: rank 1 launched no kernel")
+        check(not cuda or (res[1][key]["launches"] > 0 and res[1][key]["gain_launches"] > 0),
+              f"{tag}: rank 1 launched no kernel")
         log(f"  {tag}: {nfreqs} channels x {MESH_NTIMES} times x {MESH_NPOLS} pol, tol "
             f"{MESH_TOL:g}; steps "
             f"per slice sharded {list(got['steps'].values())}, unsharded "
@@ -1336,6 +1589,12 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
             f"{got['launches']}, rank 1 {res[1][key]['launches']}")
     log(f"  (c) both in one world of 2: {time.time() - t0:.1f} s with start-up")
     out["c"] = res
+    rel, dsteps = compare_runs("(b)", b[0], res[0]["unsharded"])
+    log(f"  (b) gloo world of 2, mesh (1, 2), {nfreqs} channels x {MESH_NTIMES} times x "
+        f"{MESH_NPOLS} pol, tol {MESH_TOL:g}: first 200 losses max rel {rel:.2e} against (c)'s "
+        f"unsharded run, steps within {dsteps:.2%}; resid/data per slice "
+        f"{', '.join(f'{x:.3e}' for x in b[0]['ratios'].values())}; rank 0 alone wrote "
+        f"{files}; {wall:.1f} s with start-up")
 
     # (d) the supervisor
     from calamity_tpu_torch import supervisor
@@ -1424,6 +1683,143 @@ def mixed_eigh_on_card(tmp, device):
     return {"groups": ncov, "weighted": worst_w, "projector": worst_p}
 
 
+# ---------------------------------------------------------------------- #
+# phase 10: the HERA core's default shared-basis packing
+# ---------------------------------------------------------------------- #
+HERA_CUT = dict(nside=7, nfreqs=256)  # the cut-width cross-check against the dense packing
+# its step budget: tol 0 and no patience, so both packings take these steps
+# in each phase of the mixed schedule (with the tol stop they stopped 5.7%
+# apart: the step where |delta loss| first falls below tol moves with the
+# packings' float32 summation order)
+HERA_CUT_STEPS = 600
+
+
+def _layout_line(c):
+    return (f"{c['kind']} U={c['U']} gmax={c['gmax']} B={c['B']} F={c['F']} V={c['V']} "
+            f"({c['groups']} groups)")
+
+
+def _core_resid_ratio(corrupted, resid):
+    good = ~corrupted.flag_array
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    return rms(resid.data_array[good]) / rms(corrupted.data_array[good])
+
+
+def hera_idle_share(corrupted, comps):
+    """The serial step of the HERA core's packing under ``torch.profiler``,
+    for both phases of the mixed schedule (``scripts/profile_step_torch.py``)."""
+    import torch
+
+    import profile_step_torch as prof
+    from calamity_tpu_torch import cal_utils
+    from calamity_tpu_torch.solver import fit as fitmod
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    gains = cal_utils.blank_uvcal_from_uvdata(corrupted)
+    spec = FitSpec(corrupted, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", nvec_bucketing=True, shared_basis=True)
+    chunks = spec.device_chunks()
+    out = {}
+    for name, chs in (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)),
+                      ("f32", chunks)):
+        step, per_call = prof.serial_stepper(chs, spec, corrupted, gains)
+        out[name] = prof.profile(step, per_call)
+        r = out[name]
+        log(f"  {name} step under the profiler: device {r['device_ms']:.3f} ms in "
+            f"{r['kernels']:.0f} kernels; host clock {r['plain_ms']:.3f} ms/step without the "
+            f"profiler; idle share {r['idle_share']:.3f}; costliest: "
+            + "; ".join(f"{ms:.4f} ms x{n:.0f} {key[:48]}" for ms, n, key in r["top"][:4]))
+    return out
+
+
+def phase_hera_core():
+    """Phase 10: ``scripts/hera_core_demo_torch.py``'s configuration at full
+    width (361 antennas, 4388 baselines, 1536 channels) with the default
+    shared-basis packing, on the card: chunk layouts, steps and ms/step per
+    precision phase, launches of both kernels, peak memory, the idle share,
+    resid/data <= 1e-2. Then at cut width, with the default packing and
+    with ``shared_basis=False``, on one step budget (``HERA_CUT_STEPS``):
+    first 200 losses within rel 1e-4 (the two packings sum float32 in
+    another order), resid/data within 2x."""
+    import torch
+
+    import hera_core_demo_torch as demo
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+
+    log("== phase 10: the HERA core (scripts/hera_core_demo_torch.py) with the default "
+        "shared-basis packing")
+    t0 = time.time()
+    corrupted, comps, facts = demo.build()
+    log(f"  {facts['nants']} antennas, {facts['nbls']} baselines <= 45 m, {facts['nuniq']} unique "
+        f"spacings, {corrupted.Nfreqs} channels; host seconds: simulate "
+        f"{facts['simulate_s']:.2f}, basis {facts['basis_s']:.2f}, project "
+        f"{facts['project_s']:.2f}, in all {time.time() - t0:.1f}")
+    check((facts["nants"], facts["nbls"], facts["nuniq"]) == (361, 4388, 14),
+          f"HERA core: {facts}")
+    layouts = demo.chunk_layouts(corrupted, comps)
+    for c in layouts:
+        log(f"  chunk: {_layout_line(c)}")
+    check(any(c["kind"] != "dense" for c in layouts), "the default packing packed no shared chunk")
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    model, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {KERNEL_NAME: LAUNCHES.get(KERNEL_NAME), GAIN_KERNEL: LAUNCHES.get(GAIN_KERNEL)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    h = info[0][0]
+    steps = h["phase_steps"]
+    rates = [1e3 * s / max(n, 1) for s, n in zip(h["phase_seconds"], steps)]
+    ratio = _core_resid_ratio(corrupted, resid)
+    log(f"  phase steps (bf16, f32) {steps}, ms/step {', '.join(f'{r:.3f}' for r in rates)} (host "
+        f"clock, incl. the per-step sync); loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e}")
+    log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
+        + f"; calibrate_and_model_dpss in all {wall:.1f}")
+    log(f"  launches: {KERNEL_NAME} {launches[KERNEL_NAME]}, {GAIN_KERNEL} "
+        f"{launches[GAIN_KERNEL]} for {len(h['loss'])} recorded steps; peak device memory "
+        f"{peak_gb:.3f} GB; resid rms / data rms {ratio:.4e} (limit 1e-2); {nvidia_smi_line()}")
+    check(ratio <= 1e-2, f"HERA core resid/data {ratio}")
+    check(np.isfinite(gains.gain_array).all(), "HERA core: non-finite gains")
+    check(launches[GAIN_KERNEL] >= len(h["loss"]),
+          f"{launches[GAIN_KERNEL]} {GAIN_KERNEL} launches for {len(h['loss'])} steps")
+    idle = hera_idle_share(corrupted, comps)
+    del model, resid, gains, corrupted, comps
+    torch.cuda.empty_cache()
+
+    # cut width: the default packing against the dense one, both on the card
+    small, small_comps, sfacts = demo.build(**HERA_CUT)
+    runs = {}
+    for shared in (True, False):
+        t0 = time.time()
+        _, r, _, inf = demo.fit(small, small_comps, device="cuda", shared_basis=shared,
+                                maxsteps=HERA_CUT_STEPS, tol=0.0, patience=0)
+        torch.cuda.synchronize()
+        runs[shared] = (np.asarray(inf[0][0]["loss"]), _core_resid_ratio(small, r),
+                        inf[0][0]["phase_steps"], time.time() - t0,
+                        [_layout_line(c) for c in demo.chunk_layouts(small, small_comps, shared)])
+    (h_s, r_s, st_s, t_s, lay_s), (h_d, r_d, st_d, t_d, lay_d) = runs[True], runs[False]
+    n = min(200, len(h_s), len(h_d))
+    rel200 = float(np.max(np.abs(h_s[:n] - h_d[:n]) / np.abs(h_d[:n])))
+    n_all = min(len(h_s), len(h_d))
+    rel_all = float(np.max(np.abs(h_s[:n_all] - h_d[:n_all]) / np.abs(h_d[:n_all])))
+    log(f"  cut width ({sfacts['nants']} antennas, {sfacts['nbls']} baselines, "
+        f"{HERA_CUT['nfreqs']} channels; tol 0, {HERA_CUT_STEPS} steps a phase): shared packing "
+        f"{lay_s}, steps {st_s}, resid/data {r_s:.3e}, {t_s:.1f} s; dense packing {lay_d}, "
+        f"steps {st_d}, resid/data {r_d:.3e}, {t_d:.1f} s; first {n} losses max rel "
+        f"{rel200:.2e} (limit 1e-4), all {n_all} max rel {rel_all:.2e}")
+    check(st_s == st_d == [HERA_CUT_STEPS] * 2, f"cut width: steps {st_s} and {st_d}")
+    check(rel200 <= 1e-4, f"cut width: shared and dense histories differ: rel {rel200}")
+    check(max(r_s, r_d) <= 2 * min(r_s, r_d), f"cut width: resid/data {r_s} against {r_d}")
+    return {"launches": launches, "steps": steps, "ms_per_step": rates, "peak_gb": peak_gb,
+            "resid_ratio": ratio, "idle": {k: v["idle_share"] for k, v in idle.items()},
+            "layouts": layouts}
+
+
 def main():
     import torch
 
@@ -1435,57 +1831,120 @@ def main():
     sys.path.insert(0, repo)
     os.environ.setdefault("TQDM_DISABLE", "1")  # no progress bars in the log
     import calamity_tpu_torch  # noqa: F401  (raises outside a checkout)
-    from calamity_tpu_torch.ops.fused import KERNEL_NAME
 
     t_start = time.time()
     phase_environment()
     phase_build()
+    run = (set(sys.argv[sys.argv.index("--phases") + 1].split(","))
+           if "--phases" in sys.argv else None)  # a subset, for a short run
+    if run is not None:
+        log(f"running phases {sorted(run)} only")
+    want = lambda name: run is None or name in run  # noqa: E731
+    sys.path.insert(0, os.path.join(repo, "scripts"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    out = {}
+
+    def mark(phase):
+        log(f"  [{phase} done: {time.time() - t_start:.1f} s since the start]")
+
     try:
-        t0 = time.time()
-        path = os.path.join(tmp, "main.uvh5")
-        uvd, comps = make_corrupted_file(path)
-        log(f"== set-up: simulated {uvd.Nbls} baselines x {uvd.Ntimes} times x {uvd.Nfreqs} "
-            f"channels and wrote the uvh5 file in {time.time() - t0:.1f} s (host)")
-        check(uvd.Nbls == NANTS * (NANTS - 1) // 2, f"expected 2016 baselines, got {uvd.Nbls}")
-        shapes = main_chunk_shapes(comps)
-        check(len(shapes) == 1 and shapes[0][1] == 1, f"expected one dense B=1 chunk: {shapes}")
-        ngrps, _, nfreqs, nvecs = shapes[0]
-        results = phase_kernel_vs_plain((ngrps, nfreqs, nvecs))
-        main_out = phase_main_path(tmp, path, uvd, comps)
-        phase_in_loop(main_out)
-        phase_cli(tmp, repo)
-        tp_out = phase_time_parallel(tmp)
-        scan_out = phase_scan(tmp, tp_out)
-        mesh_out = phase_mesh(tmp, repo, tp_out)
+        if want("3g"):
+            out["gain"] = phase_gain_grad()
+            mark("phase 3g")
+        if any(want(p) for p in ("3", "4", "5")):
+            t0 = time.time()
+            path = os.path.join(tmp, "main.uvh5")
+            uvd, comps = make_corrupted_file(path)
+            log(f"== set-up: simulated {uvd.Nbls} baselines x {uvd.Ntimes} times x "
+                f"{uvd.Nfreqs} channels and wrote the uvh5 file in {time.time() - t0:.1f} s "
+                "(host)")
+            check(uvd.Nbls == NANTS * (NANTS - 1) // 2,
+                  f"expected 2016 baselines, got {uvd.Nbls}")
+            shapes = main_chunk_shapes(comps)
+            check(len(shapes) == 1 and shapes[0][1] == 1,
+                  f"expected one dense B=1 chunk: {shapes}")
+            ngrps, _, nfreqs, nvecs = shapes[0]
+        if want("3"):
+            out["fused"] = phase_kernel_vs_plain((ngrps, nfreqs, nvecs))
+            mark("phase 3")
+        if want("4") or want("5"):
+            out["main"] = phase_main_path(tmp, path, uvd, comps)
+            packed = packed_slice(out["main"])
+            out["twice"] = fit_twice(packed)
+            phase_in_loop(packed)
+            del packed
+            mark("phase 4 and 5")
+        if want("6"):
+            out["cli"] = phase_cli(tmp, repo)
+            mark("phase 6")
+        if any(want(p) for p in ("7", "8", "9")):
+            # phase 4's basis: the same baselines and channels
+            out["tp"] = phase_time_parallel(tmp, out["main"]["comps"] if "main" in out else None)
+            mark("phase 7")
+        if want("8"):
+            out["scan"] = phase_scan(tmp, out["tp"])
+            mark("phase 8")
+        if want("9"):
+            out["mesh"] = phase_mesh(tmp, repo, out["tp"])
+            mark("phase 9")
+        if want("10"):
+            out["hera"] = phase_hera_core()
+            mark("phase 10")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
                         or m.startswith(("jax.", "calamity_tpu.")))
     check(not jax_loaded, f"the JAX package or jax was imported: {jax_loaded}")
+    log(f"total {time.time() - t_start:.1f} s")
+    if run is not None:
+        log("a partial run: no kernels line and no result line")
+        return
+    print(json.dumps({"kernels": kernels_line(out)}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def kernels_line(out):
+    """The kernels of the main paths, with what this run measured of them."""
+    import torch
+
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+
+    fused, gain = out["fused"], out["gain"]
+    main, tp, scan, mesh, cli, hera = (out[k] for k in ("main", "tp", "scan", "mesh", "cli",
+                                                        "hera"))
     # the largest abs error of a loss or a gradient, kernel against plain, over phase 3
-    errs = [r["max_abs_err"] for r in results.values()]
-    n8 = results[(8, torch.float32)]
+    n8 = fused[(8, torch.float32)]
     timed = {f"N={n} {str(cdt).replace('torch.', '')} comps": {
-        k: results[(n, cdt)][k] for k in ("grad_ms", "loss_only_ms", "plain_grad_ms",
-                                          "plain_ms", "matvec_library_ms", "fwdbwd_ms",
-                                          "plain_fwdbwd_ms", "bound_ms", "loss_only_bound_ms",
-                                          "roofline_share", "transient_gb")}
+        k: fused[(n, cdt)][k] for k in ("grad_ms", "loss_only_ms", "plain_grad_ms",
+                                        "plain_ms", "matvec_library_ms", "fwdbwd_ms",
+                                        "plain_fwdbwd_ms", "bound_ms", "loss_only_bound_ms",
+                                        "roofline_share", "transient_gb")}
         for n in (8, 1) for cdt in (torch.float32, torch.bfloat16)}
-    kernels = [{
+    fused_by_path = {"serial": main["launches"], "time_parallel": tp["launches"],
+                     "time_scan": scan["launches"],
+                     # phase 9 (b): per rank of the mesh (1, 2)
+                     "mesh_1x2": [r["launches"] for r in mesh["b"]],
+                     "mesh_1x1": mesh["a"]["launches"],
+                     "hera_core": hera["launches"][KERNEL_NAME]}
+    gain_by_path = {"serial": main["gain_launches"], "serial_twice": out["twice"]["launches"],
+                    "time_parallel": tp["gain_launches"], "time_scan": scan["gain_launches"],
+                    "mesh_1x2": [r["gain_launches"] for r in mesh["b"]],
+                    "mesh_1x1": mesh["a"]["gain_launches"], "cli_foreign_files": cli["launches"],
+                    "hera_core": hera["launches"][GAIN_KERNEL]}
+    g8 = gain[("phase7", 8)]
+    return [{
         "name": KERNEL_NAME,
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": (main_out["launches"] + tp_out["launches"] + scan_out["launches"]
-                     + sum(r["launches"] for r in mesh_out["b"])),
-        "launches_by_path": {"serial": main_out["launches"],
-                             "time_parallel": tp_out["launches"],
-                             "time_scan": scan_out["launches"],
-                             # phase 9 (b): per rank of the mesh (1, 2)
-                             "mesh_1x2": [r["launches"] for r in mesh_out["b"]],
-                             "mesh_1x1": mesh_out["a"]["launches"]},
-        "max_abs_err": max(errs),
+        "launches": (main["launches"] + tp["launches"] + scan["launches"]
+                     + sum(fused_by_path["mesh_1x2"]) + fused_by_path["hera_core"]),
+        "launches_by_path": fused_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
         # the instance the descent launches (loss and every gradient), at the
         # time-parallel path's chunk: N=8, float32 comps
         "ms": n8["grad_ms"],
@@ -1501,13 +1960,26 @@ def main():
         "loss_only_ms": n8["loss_only_ms"],
         "timed": timed,
         "card": nvidia_smi_line(),
+    }, {
+        "name": GAIN_KERNEL,
+        "route": "cuda",
+        "source": GAIN_KERNEL_SOURCE,
+        "replaces": GAIN_KERNEL_REPLACES,
+        "launches": sum(sum(v) if isinstance(v, list) else v for k, v in gain_by_path.items()),
+        "launches_by_path": gain_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in gain.values()),
+        # phase 7's shapes: N=8 slices, 2016 rows, 64 antennas, 1536 channels
+        "ms": g8["ms"],
+        "plain_ms": g8["plain_ms"],
+        "bound_ms": g8["bound_ms"],
+        "bound_by": g8["bound_by"],
+        # one index_add_ scattering the (row, side) contributions
+        "library_ms": g8["library_ms"],
+        "timed": {f"{shape} N={n}": {k: gain[(shape, n)][k] for k in
+                                     ("ms", "plain_ms", "bound_ms", "library_ms")}
+                  for shape in ("phase7", "hera") for n in (8, 1)},
+        "card": nvidia_smi_line(),
     }]
-    log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

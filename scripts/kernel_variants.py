@@ -76,7 +76,10 @@ def build(variants):
     procs = {}
     for name, (src, flags) in variants.items():
         so = os.path.join(sodir, f"{name}.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-o", so, src]
+        # each variant library also holds the package's other kernels
+        others = [s for s in _build.sources()
+                  if s.endswith(".cu") and os.path.basename(s) != "fused_chunk_loss.cu"]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", *flags, "-o", so, src, *others]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so, time.time())
     libs = {}

@@ -103,6 +103,41 @@ def batched_stepper(chs, spec, uvd, gains):
     return step, POLL_EVERY
 
 
+def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
+    """``step`` (``per_call`` descent steps a call) after ``nwarmup`` warm-up
+    steps: ``nsteps`` steps under ``torch.profiler``, then the same without
+    it. Returns the host ms per step with and without the profiler
+    (``wall_ms``, ``plain_ms``), the device ms per step summed over the
+    kernels (``device_ms``), kernels per step, the idle share against the
+    host clock without the profiler, and the 16 costliest kernels as (ms per
+    step, launches per step, name)."""
+    for _ in range(max(1, nwarmup // per_call)):
+        step()
+    calls = max(1, nsteps // per_call)
+    nsteps = calls * per_call
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start) / nsteps
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / nsteps
+    top = [(e.self_device_time_total / 1e3 / nsteps, e.count / nsteps, e.key)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        step()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
+    return {"wall_ms": wall_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "kernels": sum(e.count for e in kernels) / nsteps,
+            "idle_share": 1 - dev_ms / plain_ms, "top": top}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nbatch", type=int, default=1,
@@ -128,35 +163,14 @@ def main():
     make = serial_stepper if args.nbatch == 1 and not args.scan else batched_stepper
     for name, chs in phases:
         step, per_call = make(chs, spec, uvd, gains)
-        for _ in range(max(1, NWARMUP // per_call)):
-            step()
-        calls = max(1, NSTEPS // per_call)
-        nsteps = calls * per_call
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            start = time.perf_counter()
-            for _ in range(calls):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - start) / nsteps
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / nsteps
-        print(f"== {name} step: host clock {wall_ms:.3f} ms/step under the profiler; "
-              f"device {dev_ms:.3f} ms/step in {sum(e.count for e in kernels) / nsteps:.0f} "
-              f"kernels; idle share {1 - dev_ms / wall_ms:.3f}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-            print(f"  {e.self_device_time_total / 1e3 / nsteps:8.4f} ms/step "
-                  f"x{e.count / nsteps:<5.1f} {e.key[:90]}")
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(calls):
-            step()
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
-        print(f"  host clock without the profiler {plain_ms:.3f} ms/step; idle share "
-              f"{1 - dev_ms / plain_ms:.3f}")
+        out = profile(step, per_call)
+        print(f"== {name} step: host clock {out['wall_ms']:.3f} ms/step under the profiler; "
+              f"device {out['device_ms']:.3f} ms/step in {out['kernels']:.0f} kernels; idle "
+              f"share {1 - out['device_ms'] / out['wall_ms']:.3f}")
+        for ms, count, key in out["top"]:
+            print(f"  {ms:8.4f} ms/step x{count:<5.1f} {key[:90]}")
+        print(f"  host clock without the profiler {out['plain_ms']:.3f} ms/step; idle share "
+              f"{out['idle_share']:.3f}")
     print(chip_smoke.nvidia_smi_line())
 
 

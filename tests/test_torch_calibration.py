@@ -314,3 +314,162 @@ def test_mixed_save_dict_round_trips(mixed_scenario, tmp_path):
         # holds the covariance-weighted difference to 1e-8)
         assert on_device[key].shape == host.shape
         assert np.max(np.abs(on_device[key] @ on_device[key].T - host @ host.T)) <= 1e-6
+
+
+# ---------------------------------------------------------------------- #
+# the file driver's options against the JAX package's
+# (tests/test_cli.py and tests/test_calibration.py scenarios)
+# ---------------------------------------------------------------------- #
+DRIVER_KW = dict(tol=1e-10, min_dly=DPSS_DLY, offset=DPSS_DLY)
+
+
+def _gains_agree(gt, gj):
+    assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3 * np.max(np.abs(gj.gain_array))
+
+
+def test_host_data_dtype_matches_jax(tmp_path, redundant_visdata):
+    path = str(tmp_path / "input.uvh5")
+    redundant_visdata.write_uvh5(path)
+    kw = dict(input_data_files=path, maxsteps=60, host_data_dtype="complex64", **DRIVER_KW)
+    mj, _, gj, _ = jcal.read_calibrate_and_model_dpss(**kw)
+    out = str(tmp_path / "model.uvh5")
+    mt, _, gt, _ = tcal.read_calibrate_and_model_dpss(device="cpu", model_outfilename=out, **kw)
+    assert mt.data_array.dtype == mj.data_array.dtype == np.complex64
+    assert tio.VisData.from_uvh5(out).data_array.dtype == np.complex128  # files stay spec
+    scale = np.max(np.abs(mj.data_array))
+    assert np.max(np.abs(mt.data_array - mj.data_array)) <= 1e-3 * scale
+    _gains_agree(gt, gj)
+    for cal, extra in ((jcal, {}), (tcal, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="host_data_dtype"):
+            cal.read_calibrate_and_model_dpss(input_data_files=path, host_data_dtype="float32",
+                                              **extra)
+
+
+@pytest.mark.parametrize("case", ["weights_file", "with_autocorr_weights"])
+def test_weights_file_matches_jax(tmp_path, redundant_visdata, case):
+    from calamity_tpu.io import FlagWeights
+
+    path = str(tmp_path / "input.uvh5")
+    redundant_visdata.write_uvh5(path)
+    rng = np.random.default_rng(3)
+    uvf = FlagWeights(redundant_visdata, mode="flag")
+    uvf.weights_array[:] = np.abs(rng.standard_normal(uvf.weights_array.shape))
+    wpath = str(tmp_path / "weights.h5")
+    uvf.to_uvflag_h5(wpath)
+    kw = dict(input_data_files=path, maxsteps=200, weights_file=wpath, **DRIVER_KW)
+    if case == "with_autocorr_weights":
+        for cal, extra in ((jcal, {}), (tcal, {"device": "cpu"})):
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                cal.read_calibrate_and_model_dpss(use_autocorrs_in_weights=True, **kw, **extra)
+        return
+    _, _, gj, _ = jcal.read_calibrate_and_model_dpss(**kw)
+    _, _, gt, _ = tcal.read_calibrate_and_model_dpss(device="cpu", **kw)
+    _gains_agree(gt, gj)
+    _, _, g_plain, _ = tcal.read_calibrate_and_model_dpss(
+        device="cpu", **dict(kw, weights_file=None))
+    assert not np.allclose(gt.gain_array, g_plain.gain_array)  # the weights moved the fit
+
+
+def test_clobber_fails_fast_like_jax(tmp_path, redundant_visdata, monkeypatch):
+    path = str(tmp_path / "input.uvh5")
+    redundant_visdata.write_uvh5(path)
+    out = str(tmp_path / "resid.uvh5")
+    open(out, "w").close()
+
+    def no_fit(*a, **k):
+        raise AssertionError("the fit ran before the output paths were checked")
+
+    monkeypatch.setattr(tcal, "calibrate_and_model_dpss", no_fit)
+    for cal, extra in ((jcal, {}), (tcal, {"device": "cpu"})):
+        with pytest.raises(IOError, match="clobber"):
+            cal.read_calibrate_and_model_dpss(input_data_files=path, resid_outfilename=out,
+                                              maxsteps=5, **extra)
+
+
+def test_calh5_gain_output_matches_jax(tmp_path, redundant_visdata):
+    path = str(tmp_path / "input.uvh5")
+    redundant_visdata.write_uvh5(path)
+    outs = {k: str(tmp_path / f"{k}.calh5") for k in ("jax", "torch")}
+    kw = dict(input_data_files=path, maxsteps=50, **DRIVER_KW)
+    jcal.read_calibrate_and_model_dpss(gain_outfilename=outs["jax"], **kw)
+    tcal.read_calibrate_and_model_dpss(gain_outfilename=outs["torch"], device="cpu", **kw)
+    gj = CalData.from_calh5(outs["jax"])
+    for reader in (CalData.from_calh5, tio.CalData.from_calh5):  # each package reads both
+        gt = reader(outs["torch"])
+        assert np.isfinite(gt.gain_array).all()
+        _gains_agree(gt, gj)
+    np.testing.assert_array_equal(tio.CalData.from_calh5(outs["jax"]).gain_array, gj.gain_array)
+
+
+def test_multi_file_concatenation_matches_jax(tmp_path, golomb_visdata):
+    paths = []
+    for k in range(2):
+        u = golomb_visdata.copy()
+        u.time_array = u.time_array + 2.0 * k
+        paths.append(str(tmp_path / f"part{k}.uvh5"))
+        u.write_uvh5(paths[-1])
+    kw = dict(input_data_files=paths, maxsteps=50, **dict(DRIVER_KW, tol=1e-8))
+    mj, _, gj, ij = jcal.read_calibrate_and_model_dpss(**kw)
+    mt, _, gt, it = tcal.read_calibrate_and_model_dpss(device="cpu", **kw)
+    assert mt.Ntimes == mj.Ntimes == 2 and len(it[0]) == len(ij[0]) == 2
+    for t in range(2):
+        assert len(it[0][t]["loss"]) == len(ij[0][t]["loss"])
+    _gains_agree(gt, gj)
+
+
+def _with_autos(uvd):
+    """``noise_with_flags`` plus one positive, smooth autocorrelation per
+    antenna (tests/test_calibration.py:302-319)."""
+    from calamity_tpu import simulate as jsim
+
+    auto = jsim.make_visdata(np.zeros((1, 3)), uvd.freq_array[0], ntimes=uvd.Ntimes,
+                             include_autos=True)
+    nblt = len(auto.time_array)
+    for ant in np.unique(np.concatenate([uvd.ant_1_array, uvd.ant_2_array])):
+        a = auto.copy()
+        a.ant_1_array[:] = ant
+        a.ant_2_array[:] = ant
+        a.time_array = np.repeat(np.unique(uvd.time_array), 1)[:nblt]
+        a.data_array = np.abs(a.data_array).real.astype(complex) + 10.0 + ant
+        uvd = uvd + a
+    return uvd
+
+
+@pytest.mark.parametrize("case", ["redundant_with_autos", "flagged_noise_with_autos"])
+def test_get_auto_weights_matches_jax(case, redundant_visdata, noise_with_flags):
+    uvd = redundant_visdata if case == "redundant_with_autos" else _with_autos(noise_with_flags)
+    wj = jcal.get_auto_weights(uvd)
+    wt = tcal.get_auto_weights(as_port(uvd))
+    assert type(wt).__name__ == "FlagWeights"
+    assert wt.weights_array.shape == wj.weights_array.shape
+    np.testing.assert_array_equal(np.isfinite(wt.weights_array), np.isfinite(wj.weights_array))
+    good = np.isfinite(wj.weights_array)
+    assert rel_err(wt.weights_array[good], wj.weights_array[good]) <= 1e-10
+
+
+@pytest.mark.parametrize("scenario", ["gsm_perfect_data", "gsm_plus_eor_noisy_gains"])
+def test_reference_fixture_scenarios_through_the_port(scenario):
+    """tests/test_reference_fixtures.py's scenarios on the committed golden
+    Golomb file, through the port: resid 100x below the model and the data."""
+    from calamity_tpu import cal_utils, models
+
+    uvd = VisData.from_uvh5(GOLDEN_GOLOMB)
+    uvd.select(bls=[ap for ap in uvd.get_antpairs() if ap[0] != ap[1]], inplace=True)
+    project_onto_dpss(uvd, models.yield_pbl_dpss_model_comps(uvd, offset=DPSS_DLY,
+                                                             min_dly=DPSS_DLY))
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    if scenario == "gsm_plus_eor_noisy_gains":
+        rng_eor = np.random.default_rng(7)
+        amp = 10 ** (-50 / 20) * RMS(uvd.data_array)
+        uvd.data_array = uvd.data_array + amp * (rng_eor.standard_normal(uvd.data_array.shape)
+                                                 + 1j * rng_eor.standard_normal(
+                                                     uvd.data_array.shape))
+        rng = np.random.default_rng(0)
+        gains.gain_array = gains.gain_array + 1e-2 * rng.standard_normal(
+            gains.gain_array.shape) + 1e-2j * rng.standard_normal(gains.gain_array.shape)
+    model, resid, _, _ = tcal.calibrate_and_model_dpss(
+        uvdata=as_port(uvd), gains=as_port(gains), min_dly=DPSS_DLY, offset=DPSS_DLY,
+        maxsteps=3000, tol=1e-10, correct_resid=True, correct_model=True,
+        model_regularization="post_hoc", device="cpu")
+    assert RMS(model.data_array) >= 1e2 * RMS(resid.data_array)
+    assert RMS(uvd.data_array) >= 1e2 * RMS(resid.data_array)

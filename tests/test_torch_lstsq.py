@@ -20,6 +20,26 @@ SHAPES = {  # packing: (comps shape, ngrps)
 }
 
 
+@pytest.mark.parametrize("ridge", [1e-6, 1e-3])
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)])
+def test_init_coeffs_chunk_matches_reference(dtype, tol, ridge):
+    rng = np.random.default_rng(8)
+    comps = rng.standard_normal((5, 2, 40, 6))
+    comps /= np.linalg.norm(comps, axis=2, keepdims=True)
+    comps[..., -2:] = 0.0  # zero-padded columns
+    data = rng.standard_normal((5, 2, 40))
+    wgts = np.abs(rng.standard_normal(data.shape))
+    wgts[wgts < 0.3] = 0.0
+    comps, data, wgts = (x.astype(dtype) for x in (comps, data, wgts))
+    want = jlstsq.init_coeffs_chunk(jnp.asarray(comps), jnp.asarray(data), jnp.asarray(wgts),
+                                    ridge=ridge)
+    got = tlstsq.init_coeffs_chunk(torch.as_tensor(comps), torch.as_tensor(data),
+                                   torch.as_tensor(wgts), ridge=ridge)
+    assert tuple(got.shape) == want.shape == (5, 6) and got.dtype == torch.as_tensor(data).dtype
+    assert rel_err(got, want) <= tol
+    assert np.all(to_np(got)[:, -2:] == 0.0)
+
+
 @pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)])
 @pytest.mark.parametrize("packing", list(SHAPES))
 def test_warm_start_matches_reference(packing, dtype, tol):
