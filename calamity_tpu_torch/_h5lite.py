@@ -24,17 +24,20 @@ numpy and the standard library only:
   (compound of r and i) and boolean (enum) datatypes of versions 1 to 3,
   either byte order;
 - compact, contiguous and chunked layouts: a v1 B-tree chunk index
-  (layout 3) and the single-chunk, implicit and fixed-array indices
-  (layout 4), with edge chunks and unallocated chunks (read as the fill
-  value);
-- the deflate (``zlib``), shuffle, fletcher32 and LZF (h5py's filter 32000)
-  filters.
+  (layout 3) and the single-chunk, implicit, fixed-array, extensible-array
+  (one unlimited dimension) and v2 B-tree (more than one) indices (layout
+  4), with edge chunks and unallocated chunks (read as the fill value);
+- the deflate (``zlib``), shuffle, fletcher32, szip (CCSDS 121.0 adaptive
+  Rice coding, as libaec writes it), scale-offset (integers; floats by
+  D-scale) and LZF (h5py's filter 32000) filters.
 
 Anything else raises ``ValueError`` naming what and where, when the dataset
-is read: other filters (szip, scale-offset, blosc, bitshuffle, ...), the
-extensible-array and v2-B-tree chunk indices of datasets with an unlimited
-dimension, variable-length types, other compound types. Opening a file
-walks the links only; attributes are never read.
+is read: other filters (n-bit, and plugins such as blosc, bitshuffle, lz4
+and zstd, which h5py reads only through ``hdf5plugin``), paged
+extensible-array data blocks (more than 1024 chunks in one block: with
+HDF5's default parameters, past the first 131,060 chunks), variable-length
+types, other compound types. Opening a file walks the links only;
+attributes are never read.
 
 API: ``File(path, "r" | "w")`` as a context manager; groups support
 ``create_group``, ``create_dataset(name, data=...)``, ``group[name] =
@@ -354,6 +357,280 @@ def _lzf_decompress(data):
     return bytes(out)
 
 
+def _bits_values(bits, pos, count, nbits):
+    """``count`` consecutive ``nbits``-bit unsigned values (uint64) at bit
+    ``pos`` of an unpacked (MSB-first) bit array."""
+    if nbits == 0 or count == 0:
+        return np.zeros(count, np.uint64)
+    chunk = bits[pos:pos + count * nbits]
+    if chunk.size < count * nbits:
+        raise ValueError("corrupt compressed data (the stream ends early)")
+    return _gather_values(chunk, np.arange(count, dtype=np.int64) * nbits, nbits)
+
+
+def _gather_values(bits, starts, nbits):
+    """The ``nbits``-bit unsigned values (uint64, ``starts``' shape) at the
+    bit positions ``starts`` of an unpacked (MSB-first) bit array."""
+    starts = np.asarray(starts, np.int64)
+    if nbits == 0 or starts.size == 0:
+        return np.zeros(starts.shape, np.uint64)
+    where = starts[..., None] + np.arange(nbits, dtype=np.int64)
+    if where.max() >= bits.size:
+        raise ValueError("corrupt compressed data (the stream ends early)")
+    weights = np.left_shift(np.uint64(1), np.arange(nbits - 1, -1, -1, dtype=np.uint64))
+    return (bits[where].astype(np.uint64) * weights).sum(axis=-1, dtype=np.uint64)
+
+
+# the second extension's pairs: code m -> beta = a + b and beta (beta + 1) / 2
+_SE_BETA = np.array([i for i in range(13) for _ in range(i + 1)], np.int64)
+_SE_MS = _SE_BETA * (_SE_BETA + 1) // 2
+_ZERO, _SECOND, _RAW, _SPLIT = range(4)  # the kinds of a coded block
+_NN_TABLES = {}
+
+
+def _nn_step(x, d, xmax):
+    """One step of the unit-delay predictor's inverse mapping: the sample
+    after ``x`` whose mapped residual is ``d`` (integer arrays)."""
+    half = (d >> 1) + (d & 1)
+    low = x < xmax - x  # the predictor is nearer 0 than xmax
+    theta = np.where(low, x, xmax - x)
+    return np.where(half <= theta, x + np.where(d & 1, -half, d >> 1),
+                    np.where(low, d, xmax - d))
+
+
+def _nn_inverse(mapped, nbits):
+    """The samples of intervals (rows of ``mapped``, each starting with its
+    reference sample) whose other samples are the predictor's mapped
+    residuals. A zero residual repeats the sample before it, so the
+    recurrence steps only through the non-zero residuals: the t-th of every
+    interval at once (8-bit samples take each step from a table), and each
+    sample then takes the value at the last step at or before it."""
+    xmax = (1 << nbits) - 1
+    mapped = mapped.astype(np.int64)
+    rows, cols = np.nonzero(mapped[:, 1:])
+    cols += 1
+    if rows.size == 0:
+        return np.repeat(mapped[:, :1], mapped.shape[1], axis=1)
+    counts = np.bincount(rows, minlength=len(mapped))
+    step = np.arange(rows.size) - (np.cumsum(counts) - counts)[rows]  # t of each
+    order = np.argsort(step, kind="stable")  # by t, then by interval
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(step))])
+    table = _NN_TABLES.get(nbits)
+    if nbits == 8 and table is None:
+        grid = np.arange(256 * 256, dtype=np.int64)
+        table = _NN_TABLES[nbits] = _nn_step(grid >> 8, grid & 255, xmax)
+    x = mapped[:, 0].copy()
+    d = mapped[rows, cols]
+    value = np.empty(rows.size, np.int64)
+    for t in range(len(bounds) - 1):
+        idx = order[bounds[t]:bounds[t + 1]]
+        r = rows[idx]
+        x[r] = (table[(x[r] << 8) | d[idx]] if nbits == 8 else _nn_step(x[r], d[idx], xmax))
+        value[idx] = x[r]
+    known = np.zeros(mapped.shape, np.int64)  # the samples where a step lands
+    known[:, 0] = mapped[:, 0]
+    known[rows, cols] = value
+    last = np.zeros(mapped.shape, np.int64)  # the column of the last step at or before
+    last[rows, cols] = cols
+    np.maximum.accumulate(last, axis=1, out=last)
+    return np.take_along_axis(known, last, axis=1)
+
+
+def _aec_decode(stream, nsamples, nbits, block, rsi, preprocess, seen=None):
+    """CCSDS 121.0 adaptive Rice decoding as libaec implements it (the
+    coder behind HDF5's szip filter): ``nsamples`` unsigned ``nbits``-bit
+    samples (rounded up to whole reference sample intervals of ``rsi``
+    blocks of ``block`` samples), every option: zero blocks, second
+    extension, fundamental sequence and split samples, no compression; with
+    ``preprocess`` the unit-delay predictor's mapped residuals, each
+    interval starting with a reference sample, are mapped back. ``seen``, a
+    set, collects the names of the options the stream used.
+
+    Where each block starts in the stream depends on the blocks before it,
+    so one loop walks the blocks, reading only their option and length: a
+    block's fundamental-sequence codes end at the n-th one bit after it,
+    found through the ranks of the stream's one bits. The samples of every
+    block of a kind are then decoded together, in numpy."""
+    bits = np.unpackbits(np.frombuffer(stream, np.uint8))
+    nbits_total = bits.size
+    ones = np.flatnonzero(bits)
+    rank = np.zeros(nbits_total + 1, np.int64)  # one bits before each position
+    np.cumsum(bits, out=rank[1:])
+    id_len = 5 if nbits > 16 else 4 if nbits > 8 else 3
+    id_raw = (1 << id_len) - 1
+    ids = np.zeros(nbits_total, np.uint8)  # the id_len-bit value at each position
+    padded = np.concatenate([bits, np.zeros(id_len, np.uint8)])
+    for j in range(id_len):
+        ids |= padded[j:j + nbits_total] << (id_len - 1 - j)
+    per_rsi = rsi * block
+    nrsi = -(-nsamples // per_rsi)
+    m_ids, m_bits, m_rank, m_ones = (memoryview(x) for x in (ids, bits, rank, ones))
+    blocks = []  # (start, kind, data position, ref, k) of each block that holds data
+    pos = 0
+    try:
+        for r in range(nrsi):
+            b = 0
+            while b < rsi:
+                ref = 1 if preprocess and b == 0 else 0
+                opt = m_ids[pos]
+                pos += id_len
+                nblocks = 1
+                if opt == 0:  # low entropy: zero blocks or the second extension
+                    second = m_bits[pos]
+                    pos += 1
+                    data = pos
+                    pos += ref * nbits
+                    if second:  # block // 2 codes of a sample pair each
+                        kind, pos = _SECOND, m_ones[m_rank[pos] + block // 2 - 1] + 1
+                    else:
+                        kind = _ZERO
+                        end = m_ones[m_rank[pos]]
+                        nblocks = end - pos + 1
+                        pos = end + 1
+                        if nblocks == 5:  # to the end of the interval or of its 64-block run
+                            nblocks = min(rsi - b, 64 - b % 64)
+                        elif nblocks > 5:
+                            nblocks -= 1
+                elif opt == id_raw:  # no compression: block samples of nbits each
+                    kind, data = _RAW, pos
+                    pos += block * nbits
+                else:  # split samples: opt - 1 low bits under a fundamental sequence
+                    kind, data = _SPLIT, pos
+                    pos += ref * nbits
+                    pos = m_ones[m_rank[pos] + block - ref - 1] + 1 + (block - ref) * (opt - 1)
+                if kind != _ZERO or ref:
+                    blocks.append((r * per_rsi + b * block, kind, data, ref, opt - 1))
+                elif seen is not None:
+                    seen.add("zero_block")
+                b += nblocks
+    except IndexError:
+        raise ValueError("corrupt szip data (the stream ends early)") from None
+    if pos > nbits_total:
+        raise ValueError("corrupt szip data (the stream ends early)")
+    start, kind, at, ref, k = np.asarray(blocks, np.int64).reshape(-1, 5).T
+    if seen is not None:
+        names = {_ZERO: "zero_block", _SECOND: "second_extension", _RAW: "no_compression"}
+        for kd in np.unique(kind):
+            if kd != _SPLIT:
+                seen.add(names[int(kd)])
+        split_k = k[kind == _SPLIT]
+        if (split_k == 0).any():
+            seen.add("fundamental_sequence")
+        if (split_k > 0).any():
+            seen.add("split_sample")
+    out = np.zeros(nrsi * per_rsi, np.uint64)
+    coded = (kind != _RAW) & (ref == 1)  # reference samples ahead of a coded block
+    out[start[coded]] = _gather_values(bits, at[coded], nbits)
+    raw = kind == _RAW
+    if raw.any():
+        lanes = np.arange(block, dtype=np.int64)
+        out[start[raw, None] + lanes] = _gather_values(bits, at[raw, None] + lanes * nbits,
+                                                       nbits)
+    fs_at = at + ref * nbits  # where a coded block's fundamental sequences start
+
+    def fs_values(sel, count, live=None):
+        """The first ``count`` fundamental-sequence codes of the blocks
+        ``sel``, (blocks, count), and where each ends (its one bit); only
+        the codes where ``live`` (default all) are read."""
+        idx = rank[fs_at[sel]][:, None] + np.arange(count, dtype=np.int64)
+        if idx.size and (idx if live is None else idx[live]).max() >= ones.size:
+            raise ValueError("corrupt szip data (the stream ends early)")
+        ends = ones[np.minimum(idx, ones.size - 1)]
+        prev = np.concatenate([fs_at[sel, None] - 1, ends[:, :-1]], axis=1)
+        return ends - prev - 1, ends
+
+    second = kind == _SECOND
+    if second.any():
+        m, _ = fs_values(second, block // 2)
+        if m.max() >= len(_SE_BETA):
+            raise ValueError("corrupt szip data (a second-extension code out of range)")
+        d1 = m - _SE_MS[m]
+        d0 = _SE_BETA[m] - d1
+        o = start[second, None] + 2 * np.arange(block // 2, dtype=np.int64)
+        out[o + 1] = d1
+        keep = np.ones(d0.shape, bool)
+        keep[:, 0] = ref[second] == 0  # the first pair's first sample is the reference
+        out[o[keep]] = d0[keep]
+    for kk in np.unique(k[kind == _SPLIT]):
+        sel = (kind == _SPLIT) & (k == kk)
+        n = block - ref[sel]  # coded samples of each block
+        lanes = np.arange(block, dtype=np.int64)
+        live = lanes < n[:, None]
+        high, ends = fs_values(sel, block, live)
+        low_at = ends[np.arange(len(n)), n - 1] + 1
+        low = _gather_values(bits, low_at[:, None] + lanes * kk, int(kk))
+        val = (high.astype(np.uint64) << np.uint64(kk)) | low
+        o = start[sel, None] + ref[sel, None] + lanes
+        out[o[live]] = val[live]
+    if preprocess:  # the unit-delay predictor's mapping, undone interval by interval
+        out = _nn_inverse(out.reshape(nrsi, per_rsi), nbits).astype(np.uint64).reshape(-1)
+    return out[:nsamples]
+
+
+def _szip_decompress(data, cd, seen=None):
+    """HDF5's szip filter (libaec's szip interface): the uncompressed size
+    (4 bytes), then the coded stream. ``cd``: the option mask (NN
+    preprocessing 32, MSB byte order 16), pixels per block, bits per pixel,
+    pixels per scanline. 32- and 64-bit pixels were coded as the byte
+    planes of the chunk (its bytes interleaved by position in the word), 8
+    bits a sample; scanlines are padded to whole blocks."""
+    mask, ppb, bpp, pps = cd[:4]
+    size = struct.unpack_from("<I", data)[0]
+    interleave = bpp in (32, 64)
+    nbits = 8 if interleave else bpp
+    if nbits not in (8, 16):
+        raise ValueError(f"szip with {bpp} bits per pixel is not supported (8, 16, 32, 64 are)")
+    width = nbits // 8
+    rsi = -(-pps // ppb)
+    pad = rsi * ppb - pps
+    count = size // width
+    nscan = -(-count // pps)
+    samples = _aec_decode(data[4:], nscan * rsi * ppb if pad else count, nbits, ppb, rsi,
+                          bool(mask & 32), seen)
+    if pad:  # each scanline's padding to whole blocks
+        samples = samples.reshape(nscan, rsi * ppb)[:, :pps].reshape(-1)[:count]
+    order = ">" if mask & 16 else "<"
+    raw = samples.astype(f"{order}u{width}").tobytes()
+    if interleave:  # byte planes back into words
+        word = bpp // 8
+        raw = np.frombuffer(raw, np.uint8).reshape(word, size // word).T.tobytes()
+    return raw
+
+
+def _scaleoffset_decompress(data, cd, dtype):
+    """HDF5's scale-offset filter: minbits (4 bytes), the minimum's size (1
+    byte) and value, then from byte 21 each element's offset from the
+    minimum in minbits bits (MSB first). ``cd``: scale type (0 float
+    D-scale, 2 integer), scale factor, elements, class (0 integer, 1
+    float), size, sign, byte order, fill value defined, the fill value."""
+    scale_type, scale_factor, nelmts, cls, size, sign, _, fill_defined = cd[:8]
+    minbits = struct.unpack_from("<I", data)[0]
+    minval = int.from_bytes(data[5:5 + min(8, data[4])], "little")
+    kind = "f" if cls == 1 else ("i" if sign else "u")
+    if minbits == 8 * size:
+        raise ValueError("scale-offset data at full precision is not supported (HDF5 1.14 "
+                         "does not read it back either)")
+    if cls == 1 and scale_type != 0:
+        raise ValueError(f"scale-offset type {scale_type} is not supported (D-scale is)")
+    bits = np.unpackbits(np.frombuffer(data, np.uint8, offset=21))
+    v = _bits_values(bits, 0, nelmts, minbits)
+    words = np.frombuffer(struct.pack(f"<{len(cd) - 8}I", *cd[8:]), np.uint8)
+    fill = words[:size].tobytes() if len(words) >= size else bytes(size)
+    is_fill = (v == np.uint64((1 << minbits) - 1)) if fill_defined else np.zeros(nelmts, bool)
+    if cls == 0:
+        width = np.dtype(f"<u{size}")
+        out = (v + np.uint64(minval)).astype(width)  # wraps at the type's width
+        out[is_fill] = np.frombuffer(fill, width)[0]
+        return out.view(f"<{kind}{size}").astype(dtype).tobytes()
+    ftype = np.dtype(f"<f{size}")
+    itype = np.int32 if size == 4 else np.int64
+    scale = ftype.type(10.0 ** np.int32(np.uint32(scale_factor)))
+    out = v.astype(itype).astype(ftype) / scale + np.frombuffer(
+        minval.to_bytes(8, "little")[:size], ftype)[0]
+    out[is_fill] = np.frombuffer(fill, ftype)[0]
+    return out.astype(dtype).tobytes()
+
+
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
                  6: "scaleoffset", 32000: "lzf", 32001: "blosc", 32004: "lz4",
                  32008: "bitshuffle", 32015: "zstd"}
@@ -378,10 +655,10 @@ def _decode_filters(body, where):
         p += nlen
         cd = struct.unpack_from(f"<{ncd}I", body, p)
         p += 4 * ncd + (4 if version == 1 and ncd % 2 else 0)
-        if fid not in (1, 2, 3, 32000):
+        if fid not in (1, 2, 3, 4, 6, 32000):
             label = _FILTER_NAMES.get(fid) or name or "unknown"
             raise ValueError(f"{where}: HDF5 filter {fid} ({label}) is not supported "
-                             "(deflate, shuffle, fletcher32 and lzf are)")
+                             "(deflate, shuffle, fletcher32, szip, scaleoffset and lzf are)")
         out.append((fid, cd))
     return out
 
@@ -458,18 +735,18 @@ class _DatasetInfo:
             self.edge_unfiltered = bool(flags & 0x01)
             itype = lay[p]
             p += 1
-            self.index = {1: "single", 2: "implicit", 3: "fixed_array"}.get(itype)
+            self.index = {1: "single", 2: "implicit", 3: "fixed_array", 4: "extensible_array",
+                          5: "btree2"}.get(itype)
             if self.index is None:
-                name = {4: "extensible-array", 5: "v2 B-tree"}.get(itype, f"type-{itype}")
-                raise ValueError(
-                    f"{self.where}: the {name} chunk index (a dataset with an unlimited "
-                    "dimension, written with the latest file format) is not supported")
+                raise ValueError(f"{self.where}: chunk index type {itype} is not supported")
             self.single_filtered = None
             if itype == 1 and flags & 0x02:
                 self.single_filtered = struct.unpack_from("<QI", lay, p)
                 p += 12
-            elif itype == 3:
-                p += 1
+            # the index's creation parameters: fixed array page bits;
+            # extensible array max bits, index elements, min pointers, min
+            # elements, page bits; v2 B-tree node size, split and merge
+            p += {3: 1, 4: 5, 5: 6}.get(itype, 0)
             self.address = struct.unpack_from("<Q", lay, p)[0]
         else:
             raise ValueError(f"{self.where}: layout class {cls} is not supported")
@@ -915,7 +1192,129 @@ class File(Group):
         if info.index == "implicit":
             return [(offsets(k), info.address + k * full, full, 0)
                     for k in range(int(np.prod(grid)))]
+        if info.index == "extensible_array":
+            return self._extensible_array_chunks(info, full)
+        if info.index == "btree2":
+            return self._btree2_chunks(info, full)
         return self._fixed_array_chunks(info, full, offsets)
+
+    def _btree2_chunks(self, info, full):
+        """The chunks of a v2 B-tree chunk index (datasets with more than one
+        unlimited dimension): records of type 10 (address, scaled offsets)
+        or 11 (address, stored size, filter mask, scaled offsets)."""
+        buf = self._buf
+        a = info.address
+        if bytes(buf[a:a + 4]) != b"BTHD":
+            raise ValueError(f"{info.where}: no v2 B-tree header at {a}")
+        rtype, rec_size = buf[a + 5], struct.unpack_from("<H", buf, a + 10)[0]
+        if rtype not in (10, 11):
+            raise ValueError(f"{info.where}: v2 B-tree record type {rtype} is not a chunk record")
+        rank = len(info.shape)
+        size_len = rec_size - 8 - 8 * rank - 4  # the stored size of a filtered chunk
+        out = []
+        for rec in self._btree2_records(a):
+            addr = struct.unpack_from("<Q", rec, 0)[0]
+            size, mask, p = full, 0, 8
+            if rtype == 11:
+                size = int.from_bytes(rec[8:8 + size_len], "little")
+                mask = struct.unpack_from("<I", rec, 8 + size_len)[0]
+                p = 12 + size_len
+            scaled = struct.unpack_from(f"<{rank}Q", rec, p)
+            if addr != _UNDEF:
+                offset = tuple(int(k) * c for k, c in zip(scaled, info.chunk))
+                out.append((offset, addr, size, mask))
+        return out
+
+    def _extensible_array_chunks(self, info, full):
+        """The chunks of an extensible-array chunk index (datasets with one
+        unlimited dimension): its header, index block, data blocks and
+        secondary blocks; elements are addresses, or (address, stored
+        size, filter mask) for filtered chunks. Element k is the k-th chunk
+        of the grid in row-major order with the unlimited dimension moved
+        first (the others span the maximum shape)."""
+        buf = self._buf
+        a = info.address
+        if bytes(buf[a:a + 4]) != b"EAHD":
+            raise ValueError(f"{info.where}: no extensible-array header at {a}")
+        filtered, esize, max_bits, iblk_n, dblk_min, sblk_min_ptrs, page_bits = buf[a + 5:a + 12]
+        nset = struct.unpack_from("<Q", buf, a + 44)[0]  # one past the largest index set
+        iblock = struct.unpack_from("<Q", buf, a + 60)[0]
+        if nset == 0 or iblock == _UNDEF:
+            return []
+        off_size = (max_bits + 7) // 8  # a block's offset in the array's index space
+        size_len = esize - 12
+
+        def element(q):
+            addr = struct.unpack_from("<Q", buf, q)[0]
+            if not filtered:
+                return addr, full, 0
+            return (addr, int.from_bytes(buf[q + 8:q + 8 + size_len], "little"),
+                    struct.unpack_from("<I", buf, q + 8 + size_len)[0])
+
+        def block(addr, magic, what):
+            if bytes(buf[addr:addr + 4]) != magic:
+                raise ValueError(f"{info.where}: no extensible-array {what} at {addr}")
+            return addr + 14  # signature, version, client, header address
+
+        elements = []  # (index, element address)
+        p = block(iblock, b"EAIB", "index block")
+        elements += [(k, p + k * esize) for k in range(min(iblk_n, nset))]
+        p += iblk_n * esize
+        # super blocks: ndblks data blocks of dblk_n elements each
+        nsblks = 1 + max_bits - (dblk_min.bit_length() - 1)
+        sblk_info, start = [], iblk_n
+        for u in range(nsblks):
+            ndblks, dblk_n = 1 << (u // 2), (1 << ((u + 1) // 2)) * dblk_min
+            sblk_info.append((ndblks, dblk_n, start))
+            start += ndblks * dblk_n
+        iblk_sblks = 2 * (sblk_min_ptrs.bit_length() - 1)  # super blocks with direct pointers
+        ndblk_addrs = 2 * (sblk_min_ptrs - 1)
+        dblk_addrs = struct.unpack_from(f"<{ndblk_addrs}Q", buf, p)
+        sblk_addrs = struct.unpack_from(f"<{nsblks - iblk_sblks}Q", buf, p + 8 * ndblk_addrs)
+        page = 1 << page_bits
+
+        def data_block(addr, first, dblk_n):
+            if addr == _UNDEF or first >= nset:
+                return
+            if dblk_n > page:
+                raise ValueError(f"{info.where}: paged extensible-array data blocks (more than "
+                                 f"{page} chunks in one) are not supported")
+            q = block(addr, b"EADB", "data block") + off_size
+            elements.extend((first + k, q + k * esize) for k in range(min(dblk_n, nset - first)))
+
+        d = 0
+        for u in range(min(iblk_sblks, nsblks)):
+            ndblks, dblk_n, first = sblk_info[u]
+            for k in range(ndblks):
+                data_block(dblk_addrs[d], first + k * dblk_n, dblk_n)
+                d += 1
+        for u in range(iblk_sblks, nsblks):
+            ndblks, dblk_n, first = sblk_info[u]
+            sb = sblk_addrs[u - iblk_sblks]
+            if sb == _UNDEF or first >= nset:
+                continue
+            q = block(sb, b"EASB", "secondary block") + off_size
+            for k, addr in enumerate(struct.unpack_from(f"<{ndblks}Q", buf, q)):
+                data_block(addr, first + k * dblk_n, dblk_n)
+        # element index -> chunk offsets: the unlimited dimension first
+        unlim = [d for d, m in enumerate(info.maxshape) if m == _UNDEF]
+        if len(unlim) != 1:
+            raise ValueError(f"{info.where}: an extensible-array index with {len(unlim)} "
+                             "unlimited dimensions")
+        order = unlim + [d for d in range(len(info.shape)) if d != unlim[0]]
+        grid = [-(-info.maxshape[d] // info.chunk[d]) for d in order[1:]]
+        out = []
+        for k, q in elements:
+            addr, size, mask = element(q)
+            if addr == _UNDEF:
+                continue
+            scaled = (k // max(int(np.prod(grid)), 1),) + tuple(
+                int(i) for i in np.unravel_index(k % max(int(np.prod(grid)), 1), grid))
+            offs = [0] * len(order)
+            for d, i in zip(order, scaled):
+                offs[d] = i * info.chunk[d]
+            out.append((tuple(offs), addr, size, mask))
+        return out
 
     def _fixed_array_chunks(self, info, full, offsets):
         buf = self._buf
@@ -973,6 +1372,10 @@ class File(Group):
                 if stored not in (want, bytes([want[1], want[0], want[3], want[2]])):
                     raise ValueError(f"{info.where}: fletcher32 checksum mismatch in the "
                                      f"chunk at {addr}")
+            elif fid == 4:
+                data = _szip_decompress(data, cd)
+            elif fid == 6:
+                data = _scaleoffset_decompress(data, cd, info.dtype)
             else:
                 data = _lzf_decompress(data)
         return data

@@ -40,6 +40,7 @@ from .io.caldata import CalData
 from .io.flags import FlagWeights
 from .io.polarizations import polstr2num
 from .io.visdata import VisData
+from .ops.gains import carry_valid
 from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
 from .parallel.mesh import is_writer
 from .solver.fit import fit_gains_and_foregrounds
@@ -655,7 +656,9 @@ def _pad_chunks_for_bl(chunks, n_bl):
         else:
             ngrps_pad = -(-ngrps // n_bl) * n_bl
             comps_pad = comps if comps.shape[0] != ngrps else pad(comps, 0, ngrps_pad)
-        out.append((comps_pad, pad(a0, 0, ngrps_pad), pad(a1, 0, ngrps_pad)))
+        a0_pad = pad(a0, 0, ngrps_pad)
+        carry_valid(a0, a0_pad, slice(0, ngrps_pad))  # the padded groups hold no baseline
+        out.append((comps_pad, a0_pad, pad(a1, 0, ngrps_pad)))
         pads.append(ngrps_pad)
     return out, pads
 

@@ -46,13 +46,18 @@ class KernelLibrary:
             [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 4 + [ci, vp]
         )
         lib.fused_chunk_loss.restype = ci
-        # dpr, dpi, g_r, g_i, offsets, rowside, other, dg_r, dg_i; N, rows,
-        # nants, F; dtype; stream
-        lib.gain_grad.argtypes = [vp] * 9 + [ll] * 4 + [ci, vp]
+        # dpr, dpi, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
+        # multi_ants, multi_slot, dg_r, dg_i, part_r, part_i; N, rows, nants,
+        # F, nseg, nmulti, nslots, nentries; dtype; stream
+        lib.gain_grad.argtypes = [vp] * 15 + [ll] * 8 + [ci, vp]
         lib.gain_grad.restype = ci
+        # g_r, g_i, a0, a1, pr, pi; N, rows, nants, F; dtype; stream
+        lib.gain_products.argtypes = [vp] * 6 + [ll] * 4 + [ci, vp]
+        lib.gain_products.restype = ci
         self.fcl_error_string = lib.fcl_error_string
         self.fused_chunk_loss = lib.fused_chunk_loss
         self.gain_grad = lib.gain_grad
+        self.gain_products = lib.gain_products
         self._lib = lib
 
     def plan(self, nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps_ptr):

@@ -58,7 +58,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
-from ..ops.gains import gain_products_batched
+from ..ops.gains import carry_valid, gain_products_batched
 from ..ops.loss import fg_model_batched, fg_model_host_batched
 from ..solver.fit import _big, init_params
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
@@ -146,6 +146,7 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
             comps_b = comps[g0:g1]
         if (g0, g1) not in views or views[(g0, g1)][0] is not a1:
             views[(g0, g1)] = (a1, a0[g0:g1], a1[g0:g1])
+            carry_valid(a0, views[(g0, g1)][1], slice(g0, g1))
         _, a0_b, a1_b = views[(g0, g1)]
         out = checkpoint(term, gr, gi, fr[:, g0:g1], fi[:, g0:g1], dr[:, g0:g1],
                          di[:, g0:g1], w[:, g0:g1], comps_b, a0_b, a1_b,

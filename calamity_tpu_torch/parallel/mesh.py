@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.gains import carry_valid
+
 AXES = ("data", "bl")
 
 
@@ -127,10 +129,10 @@ def shard_chunk(mesh, chunk, data_r, data_i, wgts, device=None):
             f"multiple of n_bl={n_bl} (dense / shared-batched class axis)"
         )
     shard = MeshShard(mesh, "cpu" if device is None else device, nbatch=data_r.shape[0])
-    blocks = shard.chunk(chunk) + tuple(contiguous(shard.block(x))
-                                        for x in (data_r, data_i, wgts))
-    out = [torch.as_tensor(x, device=device) for x in blocks]
-    return tuple(out[:3]), out[3], out[4], out[5]
+    where = device if device is not None else getattr(a0, "device", "cpu")
+    data = (torch.as_tensor(contiguous(shard.block(x)), device=device)
+            for x in (data_r, data_i, wgts))
+    return (shard.chunk(chunk, where), *data)
 
 
 def contiguous(x):
@@ -235,7 +237,10 @@ class MeshShard:
             comps = self.block(comps, axis=0)
         out = tuple(contiguous(x) for x in (comps, self.block(a0, axis=0),
                                             self.block(a1, axis=0)))
-        return out if device is None else tuple(torch.as_tensor(x, device=device) for x in out)
+        if device is not None:
+            out = tuple(torch.as_tensor(x, device=device) for x in out)
+        carry_valid(a0, out[1], self.groups(a0.shape[0]))  # the block's rows that hold a baseline
+        return out
 
     def valid_rows(self):
         """(local rows,) bool: False on the dummy rows of the padded batch."""

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.gains import antenna_csr
+from ..ops.gains import antenna_csr, mark_valid
 from ..io.polarizations import conj_pol_ind, polnum2str, polstr2num
 
 
@@ -203,11 +203,14 @@ class FitSpec:
         self.host_comps: List[np.ndarray] = []
         nfreqs = self.nfreqs
 
-        def upload(comps, a0, a1):
+        def upload(comps, a0, a1, valid):
             self.host_comps.append(comps)
             chunk = ChunkArrays(*(self._upload(x) for x in (comps, a0, a1)))
+            # the rows that hold a baseline, on the index tensor: the
+            # gain-gradient kernel's lists leave the padding out
+            mark_valid(chunk.a0, valid)
             if self.device.type == "cuda":
-                # the gain-gradient kernel's per-antenna row lists, once
+                # the gain kernels' per-antenna row lists, once
                 antenna_csr(chunk.a0, chunk.a1, self.nants)
             self.chunks.append(chunk)
 
@@ -239,10 +242,9 @@ class FitSpec:
                     comps[g, :, :, : mat.shape[1]] = mat.reshape(
                         nred, nfreqs, mat.shape[1]
                     )[rep]
-            upload(comps, a0, a1)
-            self.meta.append(
-                ChunkMeta(fit_grps, antpairs, rows, conj, np.ones((ngrps, nbls), bool))
-            )
+            valid = np.ones((ngrps, nbls), bool)
+            upload(comps, a0, a1, valid)
+            self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
 
         def build_shared_batched(classes, nvec_bucket, gmax):
             """Pack a bucket of operator classes into ONE shared-batched chunk.
@@ -278,7 +280,7 @@ class FitSpec:
             conj[flat_g, 0] = cj
             antpairs[flat_g, 0] = flat_ap
             valid[flat_g, 0] = True
-            upload(comps, a0, a1)
+            upload(comps, a0, a1, valid)
             self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
 
         for (nbls, nvecs), grp_dict in chunked.items():

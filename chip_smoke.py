@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 3,3g,4,5,6,7,8,9,10]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's two CUDA kernels from the sources in the checkout,
+It builds the port's three CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version, drives the port's main path (file read,
 DPSS components, FitSpec packing, Cholesky warm start, Adamax descent,
 uvh5/calfits write-back) at full width, and checks what comes out. Phases:
@@ -20,10 +20,14 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    bfloat16 comps and weights;
    at the main shape timed against the plain version, against its bound
    and against cuBLAS' batched matvec of the same comps; and (3g) the
-   gain-gradient kernel against its plain version at phase 7's rows and
-   the HERA core's, N = 1 and 8, with a padded row and an antenna with no
-   rows, two launches bit-equal, timed against its bound and an
-   ``index_add_``;
+   gain kernels: the gradient against its plain version (two launches
+   bit-equal) and the products against the torch ops (equal to the bit) at
+   phase 7's rows and the HERA core's, N = 1 and 8, timed against their
+   bounds, the gradient against an ``index_add_``; the HERA core's packed
+   chunks with their padding (the lists that leave it out against those
+   that keep it, equal to the bit; one step's launches timed); a padded
+   row and an antenna with no rows; a skewed list (two passes); float64,
+   a ragged channel count and unaligned operands;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -40,8 +44,11 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    resumed and held against an uninterrupted run; the DFT and mixed drivers
    once each on the small Golomb file; the CLI on files the port did not
    write (the h5py-written fixtures of ``tests/data``, the pyuvdata-layout
-   fixture of ``tests/data_torch``), on the card against the CPU, and the
-   read seconds of the port's HDF5 reader;
+   fixture of ``tests/data_torch``), on the card against the CPU, the
+   read seconds of the port's HDF5 reader, and the fixtures in the storage
+   of the latest file format and HDF5's built-in filters (extensible-array
+   and v2 B-tree chunk indices, szip, scale-offset) read against digests
+   of h5py's reading;
 7. the time-parallel path at full width: one ``read_calibrate_and_model_dpss``
    with ``time_parallel=True`` on 64 antennas, 1536 channels, 4 times and 2
    polarizations (8 slices in one batched descent), every step through the
@@ -111,10 +118,12 @@ SCAN_NTIMES = 3  # the small multi-time file of phase 6's scan CLI run
 SCAN_CK_EVERY = 10  # its checkpoint cadence; the cut is at time 1's first float32 save
 KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
-# the gain gather's gradient: XLA's scatter-add in the gradient of jnp.take
-# (no Pallas kernel; the port's kernel sums it in a fixed order)
+# the gain gather and its gradient: jnp.take and XLA's scatter-add in its
+# gradient (no Pallas kernel; the port's kernels compute the products in one
+# launch and sum the gradient in a fixed order)
 GAIN_KERNEL_REPLACES = "calamity_tpu/ops/loss.py:183"
 GAIN_KERNEL_SOURCE = "calamity_tpu_torch/csrc/gain_grad.cu"
+PROD_KERNEL_SOURCE = "calamity_tpu_torch/csrc/gain_products.cu"
 MESH_NFREQS = 384  # phase 9 (c): the smaller file's channels, times and polarizations
 MESH_NTIMES = 2
 MESH_NPOLS = 1
@@ -159,6 +168,39 @@ def cuda_median_ms(fn, n=20, per_sample=5, warmup=3):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
+    return float(np.median(times))
+
+
+def cuda_graph_ms(fn, n=20, per_sample=5):
+    """The device's ms per call with no host cost: ``per_sample`` calls
+    captured in a CUDA graph, the median of ``n`` CUDA-event timings of its
+    replay divided by ``per_sample``. A short launch timed through its
+    wrapper (:func:`cuda_median_ms`) reads the host's cost of the call
+    instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_sample):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / per_sample)
+    del graph
     return float(np.median(times))
 
 
@@ -385,86 +427,368 @@ def hera_core_pairs(nside=19, spacing=14.6, bllen_max=45.0):
     return i[keep].astype(np.int32), j[keep].astype(np.int32), len(pos)
 
 
-def compare_gain_grad(tag, nbatch, a0, a1, nants, timed=False):
-    """The gain-gradient kernel against its plain version (rel 1e-5), two
-    launches on the same inputs bit-equal; with ``timed``, CUDA-event times
-    of the kernel, the plain version (the products' gathers and their
-    ``index_select`` backward under autograd) and one ``index_add_`` that
-    scatters the per-entry contributions, and the bound."""
+def _gain_operands(rng, nbatch, rows, nants, nfreqs, dtype, odd=False):
+    """Cotangents (nbatch, rows, nfreqs) and gains (nbatch, nants, nfreqs)
+    on the card; with ``odd`` each starts one element into its storage (not
+    16-byte aligned: the products kernel's one-channel path)."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def t(scale, offset, *shape):
+        x = torch.as_tensor(offset + scale * rng.standard_normal(shape), dtype=dtype, device=dev)
+        if not odd:
+            return x
+        store = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        store[1:] = x.reshape(-1)
+        return store[1:].view(x.shape)
+
+    return (t(1.0, 0.0, nbatch, rows, nfreqs), t(1.0, 0.0, nbatch, rows, nfreqs),
+            t(0.03, 1.0, nbatch, nants, nfreqs), t(0.03, 0.0, nbatch, nants, nfreqs))
+
+
+def _index_tensors(a0, a1, valid=None):
+    """(rows, 1) int32 index tensors on the card, with the rows that hold a
+    baseline recorded on ``a0`` (as at packing)."""
     import torch
 
     from calamity_tpu_torch.ops import gains
 
-    rng = np.random.default_rng(SEED + nbatch + nants)
-    dev = torch.device("cuda")
+    ia0 = torch.as_tensor(np.asarray(a0, np.int32).reshape(-1, 1), device="cuda")
+    ia1 = torch.as_tensor(np.asarray(a1, np.int32).reshape(-1, 1), device="cuda")
+    if valid is not None:
+        gains.mark_valid(ia0, np.asarray(valid, bool).reshape(-1, 1))
+    return ia0, ia1
+
+
+def _grad_bound(nbatch, nvalid, nants, nfreqs, itemsize):
+    """(ms, "bytes" | "operations", bytes) of the gain gradient: the valid
+    rows' cotangents and the gains read once, dg written once; 8 operations
+    per entry (two a row) and channel."""
+    moved = itemsize * nbatch * nfreqs * (2 * nvalid + 4 * nants)
+    flops = 8 * 2 * nvalid * nfreqs * nbatch
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def _products_bound(nbatch, rows, nants, nfreqs, itemsize):
+    """(ms, "bytes" | "operations", bytes) of the gain products: pr and pi
+    written once, the gains and both index lists read once; 6 operations
+    per value."""
+    moved = itemsize * nbatch * nfreqs * (2 * rows + 2 * nants) + 8 * rows
+    flops = 6 * nbatch * rows * nfreqs
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def _rel_limit(dtype):
+    import torch
+
+    return 1e-5 if dtype == torch.float32 else 1e-12
+
+
+def compare_gain_grad(tag, nbatch, a0, a1, nants, timed=False, valid=None, dtype=None,
+                      nfreqs=NFREQS, odd=False):
+    """The gain-gradient kernel against its plain version (rel 1e-5 in
+    float32, 1e-12 in float64), two launches on the same inputs bit-equal.
+    With ``valid`` (the rows that hold a baseline) the padded rows'
+    cotangents are zero, as in the descent, and the lists that leave them
+    out give the gradient of the lists that keep them (the earlier design's
+    lists, one segment an antenna), equal to the bit. With ``timed``, CUDA-event times of the
+    kernel, the plain version (the products' gathers and their
+    ``index_select`` backward under autograd) and one ``index_add_`` that
+    scatters the per-entry contributions of every row, and the bound."""
+    import torch
+
+    from calamity_tpu_torch.ops import gains
+
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(SEED + nbatch + nants + len(a0))
     rows = len(a0)
-
-    def t(*shape):
-        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
-
-    dpr, dpi = t(nbatch, rows, NFREQS), t(nbatch, rows, NFREQS)
-    g_r, g_i = 1 + 0.03 * t(nbatch, nants, NFREQS), 0.03 * t(nbatch, nants, NFREQS)
-    ia0 = torch.as_tensor(a0.reshape(-1, 1), device=dev)
-    ia1 = torch.as_tensor(a1.reshape(-1, 1), device=dev)
-    csr = gains.antenna_csr(ia0, ia1, nants)
-    got = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)
-    again = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)
+    dpr, dpi, g_r, g_i = _gain_operands(rng, nbatch, rows, nants, nfreqs, dtype, odd)
+    ia0, ia1 = _index_tensors(a0, a1, valid)
+    if valid is not None:
+        pad = torch.as_tensor(~np.asarray(valid, bool).reshape(-1), device="cuda")
+        dpr[:, pad] = 0.0
+        dpi[:, pad] = 0.0
+    index = gains.antenna_csr(ia0, ia1, nants)
+    got = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, index)
+    again = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, index)
     want = gains.gain_grad_plain(dpr, dpi, g_r, g_i, ia0, ia1)
     torch.cuda.synchronize()
     errs = [rel(g, w) for g, w in zip(got, want)]
-    check(max(errs) <= 1e-5, f"gain_grad {tag}: rel {errs}")
+    limit = _rel_limit(dtype)
+    check(max(errs) <= limit, f"gain_grad {tag}: rel {errs}")
     check(all(torch.equal(g, a) for g, a in zip(got, again)), f"gain_grad {tag}: two launches "
           "differ")
     used = np.zeros(nants, bool)
-    used[a0] = used[a1] = True
-    check(all(bool(torch.all(g[:, ~torch.as_tensor(used, device=dev)] == 0)) for g in got),
+    keep = np.ones(rows, bool) if valid is None else np.asarray(valid, bool).reshape(-1)
+    used[np.asarray(a0)[keep]] = used[np.asarray(a1)[keep]] = True
+    check(all(bool(torch.all(g[:, ~torch.as_tensor(used, device="cuda")] == 0)) for g in got),
           f"gain_grad {tag}: an antenna with no rows has a gradient")
-    out = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want))}
-    log(f"  gain_grad {tag}: N={nbatch}, {rows} rows, {nants} antennas, {NFREQS} channels: max "
-        f"rel {max(errs):.2e} (limit 1e-5); two launches bit-equal")
+    counts = np.diff(index.offsets.cpu().numpy())
+    out = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+           "nvalid": int(keep.sum()), "rows": rows}
+    line = (f"  gain_grad {tag}: N={nbatch}, {rows} rows ({int(keep.sum())} listed), {nants} "
+            f"antennas, {nfreqs} channels, {str(dtype).replace('torch.', '')}"
+            f"{', unaligned' if odd else ''}: lists of {counts.min()}-{counts.max()} entries, "
+            f"{index.nseg} segments, {'two passes' if index.nmulti else 'one pass'}; max rel "
+            f"{max(errs):.2e} (limit {limit:.0e}); two launches bit-equal")
+    if valid is not None:
+        listed = gains.GainIndex(ia0, ia1, nants, None, seg_len=2 * rows + 1)
+        old = gains.gain_grad_kernel(dpr, dpi, g_r, g_i, listed)
+        check(all(torch.equal(g, o) for g, o in zip(got, old)),
+              f"gain_grad {tag}: padding listed and padding dropped differ")
+        line += "; equal to the bit to the lists that keep the padding"
+    log(line)
     if not timed:
         return out
-    # one index_add_ over the (row, side) contributions, computed beforehand:
-    # the scatter that the plain version's backward runs (as four calls)
+    # one index_add_ over every row's (row, side) contributions, computed
+    # beforehand: the scatter that the plain version's backward runs (as
+    # four calls)
     ant = torch.cat([ia0.reshape(-1), ia1.reshape(-1)]).long()
-    contrib = t(nbatch, 2 * rows, 2 * NFREQS)
-    acc = torch.zeros(nbatch, nants, 2 * NFREQS, device=dev)
+    contrib = torch.as_tensor(rng.standard_normal((nbatch, 2 * rows, 2 * nfreqs)), dtype=dtype,
+                              device="cuda")
+    acc = torch.zeros(nbatch, nants, 2 * nfreqs, dtype=dtype, device="cuda")
     out.update({
-        "ms": cuda_median_ms(lambda: gains.gain_grad_kernel(dpr, dpi, g_r, g_i, csr)),
+        "ms": cuda_median_ms(lambda: gains.gain_grad_kernel(dpr, dpi, g_r, g_i, index)),
+        "device_ms": cuda_graph_ms(lambda: gains.gain_grad_kernel(dpr, dpi, g_r, g_i, index)),
         "plain_ms": cuda_median_ms(lambda: gains.gain_grad_plain(dpr, dpi, g_r, g_i, ia0, ia1)),
         "library_ms": cuda_median_ms(lambda: acc.index_add_(1, ant, contrib)),
     })
-    moved = nbytes(dpr) + nbytes(dpi) + 2 * nbytes(g_r) + 2 * nbytes(g_r)  # in, gains, dg
-    flops = 8 * 2 * rows * NFREQS * nbatch
-    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
-    out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                        else (t_ops, "operations"))
-    log(f"    kernel {out['ms']:.4f} ms against bound {out['bound_ms']:.4f} ms ({out['bound_by']},"
+    out["bound_ms"], out["bound_by"], moved = _grad_bound(nbatch, int(keep.sum()), nants, nfreqs,
+                                                          g_r.element_size())
+    log(f"    kernel {out['ms']:.4f} ms (the device alone {out['device_ms']:.4f}) against bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']},"
         f" {moved / 1e9:.3f} GB); plain (gathers, products and their autograd backward) "
-        f"{out['plain_ms']:.4f} ms; one index_add_ of the contributions {out['library_ms']:.4f} "
-        f"ms; median of 20 samples of 5 back-to-back calls; {nvidia_smi_line()}")
+        f"{out['plain_ms']:.4f} ms; one index_add_ of every row's contributions "
+        f"{out['library_ms']:.4f} ms; median of 20 samples of 5 back-to-back calls; "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def compare_products(tag, nbatch, a0, a1, nants, timed=False, dtype=None, nfreqs=NFREQS,
+                     odd=False):
+    """The gain-products kernel against the torch ops (``_products``), equal
+    to the bit; with ``timed``, CUDA-event times of the kernel, the torch
+    ops and their four ``index_select`` gathers alone, and the bound."""
+    import torch
+
+    from calamity_tpu_torch.ops import gains
+
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(SEED + 3 * nbatch + nants + len(a0))
+    rows = len(a0)
+    _, _, g_r, g_i = _gain_operands(rng, nbatch, 1, nants, nfreqs, dtype, odd)
+    ia0, ia1 = _index_tensors(a0, a1)
+    index = gains.antenna_csr(ia0, ia1, nants)
+    got = gains.gain_products_kernel(g_r, g_i, index)
+    want = [x.reshape(nbatch, rows, nfreqs) for x in gains._products(g_r, g_i, ia0, ia1)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"gain_products {tag}: not equal to the torch ops: max abs "
+          f"{[float((g - w).abs().max()) for g, w in zip(got, want)]}")
+    out = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want))}
+    log(f"  gain_products {tag}: N={nbatch}, {rows} rows, {nants} antennas, {nfreqs} channels, "
+        f"{str(dtype).replace('torch.', '')}{', unaligned' if odd else ''}: equal to the torch "
+        "ops to the bit")
+    if not timed:
+        return out
+    i0, i1 = ia0.reshape(-1), ia1.reshape(-1)
+    out.update({
+        "ms": cuda_median_ms(lambda: gains.gain_products_kernel(g_r, g_i, index)),
+        "device_ms": cuda_graph_ms(lambda: gains.gain_products_kernel(g_r, g_i, index)),
+        "plain_ms": cuda_median_ms(lambda: gains._products(g_r, g_i, ia0, ia1)),
+        "gathers_ms": cuda_median_ms(lambda: (g_r.index_select(1, i0), g_r.index_select(1, i1),
+                                              g_i.index_select(1, i0), g_i.index_select(1, i1))),
+        "library_ms": None,  # no single PyTorch call gathers and multiplies
+    })
+    out["bound_ms"], out["bound_by"], moved = _products_bound(nbatch, rows, nants, nfreqs,
+                                                              g_r.element_size())
+    log(f"    kernel {out['ms']:.4f} ms (the device alone {out['device_ms']:.4f}) against bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']},"
+        f" {moved / 1e9:.3f} GB); torch ops (4 index_select, 6 elementwise) "
+        f"{out['plain_ms']:.4f} ms, of which the four gathers {out['gathers_ms']:.4f} ms; median "
+        f"of 20 samples of 5 back-to-back calls; {nvidia_smi_line()}")
+    return out
+
+
+_HERA = {}  # the HERA core's simulation, built once for phases 3g and 10
+
+
+def hera_core_build():
+    """``scripts/hera_core_demo_torch.py``'s corrupted core and its
+    components at full width, built once."""
+    import hera_core_demo_torch as demo
+
+    if not _HERA:
+        t0 = time.time()
+        _HERA["build"] = demo.build()
+        _HERA["seconds"] = time.time() - t0
+    return _HERA["build"]
+
+
+def hera_packed_chunks():
+    """The HERA core's chunks as the default packing (``shared_basis=True``,
+    ``nvec_bucketing``) packs them on the card: [(a0, a1, valid), ...] as
+    numpy, and the antenna count."""
+    from calamity_tpu_torch import cal_utils
+    from calamity_tpu_torch.ops import gains
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    corrupted, comps, _ = hera_core_build()
+    cal = cal_utils.blank_uvcal_from_uvdata(corrupted)
+    spec = FitSpec(corrupted, comps, {int(a): i for i, a in enumerate(cal.ant_array)},
+                   device="cuda", nvec_bucketing=True, shared_basis=True)
+    out = [(c.a0.cpu().numpy().reshape(-1), c.a1.cpu().numpy().reshape(-1),
+            gains.valid_rows(c.a0).reshape(-1)) for c in spec.chunks]
+    check(all(np.array_equal(v, m.valid.reshape(-1)) for (_, _, v), m in zip(out, spec.meta)),
+          "the chunks' index tensors do not carry ChunkMeta.valid")
+    return out, spec.nants
+
+
+def hera_packed_step(chunks, nants, nbatch):
+    """The four gain-gradient launches and the four gain-products launches
+    of one step of the HERA core's packed chunks, timed together (CUDA
+    events), against the bound of their valid rows, their plain versions,
+    four ``index_add_`` over every row (the padding too, as the torch
+    backward scatters it) and the lists that keep the padding (the earlier
+    design's: one segment an antenna; and cut into segments)."""
+    import torch
+
+    from calamity_tpu_torch.ops import gains
+
+    rng = np.random.default_rng(SEED + 11 * nbatch)
+    ops, idx = [], []
+    for a0, a1, valid in chunks:
+        dpr, dpi, g_r, g_i = _gain_operands(rng, nbatch, len(a0), nants, NFREQS, torch.float32)
+        pad = torch.as_tensor(~valid, device="cuda")
+        dpr[:, pad] = 0.0
+        dpi[:, pad] = 0.0
+        ia0, ia1 = _index_tensors(a0, a1, valid)
+        ops.append((dpr, dpi, g_r, g_i))
+        idx.append((ia0, ia1, gains.antenna_csr(ia0, ia1, nants),
+                    gains.GainIndex(ia0, ia1, nants, None, seg_len=2 * len(a0) + 1),
+                    gains.GainIndex(ia0, ia1, nants, None)))
+    scatter = []
+    for (dpr, _, _, _), (ia0, ia1, *_) in zip(ops, idx):
+        ant = torch.cat([ia0.reshape(-1), ia1.reshape(-1)]).long()
+        scatter.append((torch.zeros(nbatch, nants, 2 * NFREQS, device="cuda"), ant,
+                        torch.as_tensor(rng.standard_normal((nbatch, len(ant), 2 * NFREQS)),
+                                        dtype=torch.float32, device="cuda")))
+
+    def grads(which):
+        return lambda: [gains.gain_grad_kernel(*o, ix[which]) for o, ix in zip(ops, idx)]
+
+    out = {
+        "ms": cuda_median_ms(grads(2)),
+        "device_ms": cuda_graph_ms(grads(2)),
+        "listed_one_segment_ms": cuda_median_ms(grads(3)),
+        "listed_segmented_ms": cuda_median_ms(grads(4)),
+        "plain_ms": cuda_median_ms(lambda: [gains.gain_grad_plain(*o, ix[0], ix[1])
+                                            for o, ix in zip(ops, idx)]),
+        "library_ms": cuda_median_ms(lambda: [a.index_add_(1, i, c) for a, i, c in scatter]),
+        "products_ms": cuda_median_ms(lambda: [gains.gain_products_kernel(o[2], o[3], ix[2])
+                                               for o, ix in zip(ops, idx)]),
+        "products_device_ms": cuda_graph_ms(lambda: [gains.gain_products_kernel(o[2], o[3], ix[2])
+                                                     for o, ix in zip(ops, idx)]),
+        "products_plain_ms": cuda_median_ms(lambda: [gains._products(o[2], o[3], ix[0], ix[1])
+                                                     for o, ix in zip(ops, idx)]),
+    }
+    nvalid = sum(int(v.sum()) for _, _, v in chunks)
+    rows = sum(len(a) for a, _, _ in chunks)
+    out["bound_ms"] = sum(_grad_bound(nbatch, int(v.sum()), nants, NFREQS, 4)[0]
+                          for _, _, v in chunks)
+    out["bound_by"] = "bytes"
+    out["products_bound_ms"] = sum(_products_bound(nbatch, len(a), nants, NFREQS, 4)[0]
+                                   for a, _, _ in chunks)
+    out["segments"] = [ix[2].nseg for ix in idx]
+    log(f"  HERA packed step, N={nbatch} ({len(chunks)} chunks, {rows} rows, {nvalid} valid): "
+        f"gain_grad x{len(chunks)} {out['ms']:.4f} ms (the device alone {out['device_ms']:.4f}) "
+        f"against bound {out['bound_ms']:.4f} ms "
+        f"(bytes of the valid rows); the lists that keep the padding: one segment an antenna "
+        f"{out['listed_one_segment_ms']:.4f} ms, segmented {out['listed_segmented_ms']:.4f} ms; "
+        f"plain {out['plain_ms']:.4f} ms; index_add_ of every row x{len(chunks)} "
+        f"{out['library_ms']:.4f} ms. gain_products x{len(chunks)} {out['products_ms']:.4f} ms "
+        f"(the device alone {out['products_device_ms']:.4f}) against bound "
+        f"{out['products_bound_ms']:.4f} ms, torch ops "
+        f"{out['products_plain_ms']:.4f} ms; {nvidia_smi_line()}")
     return out
 
 
 def phase_gain_grad():
-    """Phase 3's gain-gradient cases: phase 7's shapes (2016 rows, 64
-    antennas) and the HERA core's (4388 rows, 361 antennas), N = 1 and 8,
-    timed; and phase 7's rows with a padded row and an antenna with no rows."""
-    log("== phase 3 (gain_grad): the gain-gradient kernel against plain (rel 1e-5, two launches "
-        "bit-equal)")
+    """Phase 3's cases of the gain kernels (3g): the gradient at phase 7's
+    shapes (2016 rows, 64 antennas) and the HERA core's rows (4388 rows,
+    361 antennas), N = 1 and 8, timed; the HERA core's packed chunks with
+    their padding (N = 1 and 8: each chunk, then one step's four launches
+    timed); a padded row and an antenna with no rows; a skewed list (one
+    antenna in more than 10 segments: two passes); float64, a channel count
+    that is not a multiple of 4 and unaligned operands, for long lists and
+    for short ones. The products kernel
+    against the torch ops at the same shapes, equal to the bit."""
+    import torch
+
+    from calamity_tpu_torch.ops.gains import SEGMENT
+
+    log("== phase 3 (gain kernels): gain_grad against plain (rel 1e-5, two launches bit-equal), "
+        "gain_products against the torch ops (equal to the bit)")
     i, j = np.triu_indices(NANTS, k=1)
     h0, h1, hnants = hera_core_pairs()
     check(len(h0) == 4388 and hnants == 361, f"HERA core: {len(h0)} rows, {hnants} antennas")
-    results = {}
+    results, prods = {}, {}
     for n in (8, 1):
         results[("phase7", n)] = compare_gain_grad("phase 7's rows", n, i, j, NANTS, timed=True)
         results[("hera", n)] = compare_gain_grad("the HERA core's rows", n, h0, h1, hnants,
                                                  timed=True)
+        prods[("phase7", n)] = compare_products("phase 7's rows", n, i, j, NANTS, timed=True)
+        prods[("hera", n)] = compare_products("the HERA core's rows", n, h0, h1, hnants,
+                                              timed=True)
     # a padded row (antenna 0 with itself, zero cotangent in the descent) and
     # an antenna (the last) in no row
     results["padded"] = compare_gain_grad("padded row, antenna with no rows", 8,
-                                          np.append(i, 0), np.append(j, 0), NANTS + 1)
-    return results
+                                          np.append(i, 0), np.append(j, 0), NANTS + 1,
+                                          valid=np.append(np.ones(len(i), bool), False))
+    # one antenna in more than 10 segments, with non-zero cotangents
+    extra = 10 * SEGMENT + 37
+    s0 = np.concatenate([i, np.zeros(extra, np.int64)])
+    s1 = np.concatenate([j, 1 + np.arange(extra) % (NANTS - 1)])
+    for dt in (torch.float32, torch.float64):
+        results[("skewed", dt)] = compare_gain_grad("skewed list", 8, s0, s1, NANTS, dtype=dt)
+        results[("ragged", dt)] = compare_gain_grad("phase 7's rows", 3, i, j, NANTS, dtype=dt,
+                                                    nfreqs=NFREQS - 5)
+        results[("odd", dt)] = compare_gain_grad("skewed list", 3, s0, s1, NANTS, dtype=dt,
+                                                 odd=True)
+        prods[("f", dt)] = compare_products("phase 7's rows", 8, i, j, NANTS, dtype=dt)
+        prods[("ragged", dt)] = compare_products("phase 7's rows", 3, i, j, NANTS, dtype=dt,
+                                                 nfreqs=NFREQS - 5)
+        prods[("odd", dt)] = compare_products("phase 7's rows", 3, i, j, NANTS, dtype=dt,
+                                              odd=True)
+    torch.cuda.empty_cache()
+    chunks, nants = hera_packed_chunks()
+    ngrps = sum(len(a) for a, _, _ in chunks)
+    npad = sum(int((~v).sum()) for _, _, v in chunks)
+    log(f"  the HERA core's packed chunks ({_HERA['seconds']:.1f} s to simulate): {len(chunks)} "
+        f"chunks of {[len(a) for a, _, _ in chunks]} groups, {ngrps} in all, {npad} of them "
+        "padding")
+    check(len(chunks) == 4 and ngrps == 7168 and npad == 2780,
+          f"HERA packed chunks: {len(chunks)} chunks, {ngrps} groups, {npad} padding")
+    # short lists at a ragged channel count and on unaligned operands
+    a0, a1, valid = chunks[1]
+    for dt in (torch.float32, torch.float64):
+        results[("packed_ragged", dt)] = compare_gain_grad(
+            "HERA packed chunk 1", 3, a0, a1, nants, valid=valid, dtype=dt, nfreqs=NFREQS - 5)
+        results[("packed_odd", dt)] = compare_gain_grad(
+            "HERA packed chunk 1", 3, a0, a1, nants, valid=valid, dtype=dt, odd=True)
+    hera_packed = {}
+    for n in (1, 8):
+        for c, (a0, a1, valid) in enumerate(chunks):
+            results[("hera_packed", c, n)] = compare_gain_grad(
+                f"HERA packed chunk {c}", n, a0, a1, nants, valid=valid)
+            prods[("hera_packed", c, n)] = compare_products(f"HERA packed chunk {c}", n, a0, a1,
+                                                            nants)
+        hera_packed[n] = hera_packed_step(chunks, nants, n)
+        torch.cuda.empty_cache()
+    return {"grad": results, "products": prods, "hera_packed": hera_packed}
 
 
 def phase_kernel_vs_plain(main_shape):
@@ -559,6 +883,7 @@ def phase_main_path(tmp, path, uvd, comps):
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     log(f"== phase 4: main path, {NANTS} antennas, {NFREQS} channels, {uvd.Ntimes} times")
     log(f"  dense chunk shapes (ngrps, nbls, nfreqs, nvecs): {main_chunk_shapes(comps)}")
@@ -590,6 +915,7 @@ def phase_main_path(tmp, path, uvd, comps):
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
+    prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -605,9 +931,11 @@ def phase_main_path(tmp, path, uvd, comps):
     log(f"  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
-        f"{GAIN_KERNEL} launches {gain_launches}, recorded steps {recorded}")
-    check(min(launches, gain_launches) >= recorded,
-          f"{launches}, {gain_launches} kernel launches < {recorded} recorded steps")
+        f"{GAIN_KERNEL} launches {gain_launches}, {PROD_KERNEL} launches {prod_launches}, "
+        f"recorded steps {recorded}")
+    check(min(launches, gain_launches, prod_launches) >= recorded,
+          f"{launches}, {gain_launches}, {prod_launches} kernel launches < {recorded} recorded "
+          "steps")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     good = ~uvd.flag_array
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -621,7 +949,8 @@ def phase_main_path(tmp, path, uvd, comps):
     check(np.allclose(back_m.data_array, model.data_array), "model file does not read back")
     check(np.allclose(back_g.gain_array, gains.gain_array), "gains file does not read back")
     log("  output files read back through calamity_tpu_torch.io and match")
-    return {"launches": launches, "gain_launches": gain_launches, "recorded": recorded,
+    return {"launches": launches, "gain_launches": gain_launches,
+            "prod_launches": prod_launches, "recorded": recorded,
             "uvd": uvd, "comps": comps, "path": path}
 
 
@@ -659,6 +988,7 @@ def fit_twice(packed):
 
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
     from calamity_tpu_torch.solver import fit as fitmod
 
     runs = []
@@ -672,15 +1002,17 @@ def fit_twice(packed):
             maxsteps=MAXSTEPS, tol=TOL, learning_rate=1e-2, model_regularization="post_hoc",
             comps_precision="mixed")
         torch.cuda.synchronize()
-        runs.append((out[4], LAUNCHES.get(GAIN_KERNEL), time.time() - t0))
-    (h1, n1, s1), (h2, n2, s2) = runs
+        runs.append((out[4], LAUNCHES.get(GAIN_KERNEL), time.time() - t0,
+                     LAUNCHES.get(PROD_KERNEL)))
+    (h1, n1, s1, p1), (h2, n2, s2, _) = runs
     log(f"  the packed slice fitted twice: phase steps {h1['phase_steps']} and "
         f"{h2['phase_steps']}, {GAIN_KERNEL} launches {n1} and {n2}, {s1:.1f} and {s2:.1f} s; "
         f"loss histories equal to the bit: {h1['loss'] == h2['loss']}")
     check(h1["phase_steps"] == h2["phase_steps"] and h1["loss"] == h2["loss"],
           "two fits of one packed slice differ")
-    check(n1 >= len(h1["loss"]), f"{n1} {GAIN_KERNEL} launches for {len(h1['loss'])} steps")
-    return {"steps": h1["phase_steps"], "launches": n1}
+    check(min(n1, p1) >= len(h1["loss"]),
+          f"{n1} {GAIN_KERNEL}, {p1} {PROD_KERNEL} launches for {len(h1['loss'])} steps")
+    return {"steps": h1["phase_steps"], "launches": n1, "prod_launches": p1}
 
 
 def phase_in_loop(packed):
@@ -810,13 +1142,15 @@ def cli_on_foreign_files(tmp, repo):
     its steps, so neither stops where the other's rounding moved its tol
     test): gains, model and resid of the two within phase 5's tolerance
     (rel 1e-4 of the largest gain, of the largest model value). Also the read seconds of
-    the pyuvdata-layout fixture and of the HERA core's LZF cube through
-    ``calamity_tpu_torch._h5lite`` (h5py where it is installed)."""
+    the pyuvdata-layout fixture and of the HERA core's flags and nsamples
+    cubes, under LZF and under szip (which must read as their LZF twin),
+    through ``calamity_tpu_torch._h5lite`` (h5py where it is installed)."""
     import h5py
 
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     log(f"  the CLI on files the port did not write (reader: {h5py.__name__}), on the card and "
         "on the CPU (gains, model, resid rel 1e-4)")
@@ -829,7 +1163,7 @@ def cli_on_foreign_files(tmp, repo):
         "pyuvdata-layout": ["--input_data_files",
                             os.path.join(data_torch, "pyuvdata_layout.uvh5")],
     }
-    out = {"launches": 0}
+    out = {"launches": 0, "prod_launches": 0}
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
     for tag, files in cases.items():
         res = {}
@@ -846,20 +1180,23 @@ def cli_on_foreign_files(tmp, repo):
             res[device] = (VisData.from_uvh5(names[0]).data_array,
                            VisData.from_uvh5(names[1]).data_array,
                            CalData.from_calfits(names[2]).gain_array, time.time() - t0,
-                           LAUNCHES.get(GAIN_KERNEL))
-        (r_c, m_c, g_c, s_c, n_c), (r_h, m_h, g_h, s_h, _) = res["cuda"], res["cpu"]
+                           LAUNCHES.get(GAIN_KERNEL), LAUNCHES.get(PROD_KERNEL))
+        (r_c, m_c, g_c, s_c, n_c, p_c), (r_h, m_h, g_h, s_h, _, _) = res["cuda"], res["cpu"]
         src = VisData.from_uvh5(files[1])
         good = ~src.flag_array
         ratio = rms(r_c[good]) / rms(src.data_array[good])
         dg = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
         dm = float(np.max(np.abs(m_c - m_h)) / np.max(np.abs(m_h)))
         dr = float(np.max(np.abs(r_c - r_h)) / np.max(np.abs(m_h)))
-        log(f"    {tag}: card {s_c:.1f} s ({GAIN_KERNEL} launches {n_c}), CPU {s_h:.1f} s; card "
+        log(f"    {tag}: card {s_c:.1f} s ({GAIN_KERNEL} launches {n_c}, {PROD_KERNEL} {p_c}), "
+            f"CPU {s_h:.1f} s; card "
             f"against CPU: gains rel {dg:.2e}, model rel {dm:.2e}, resid {dr:.2e} of the model's "
             f"peak; card resid/data {ratio:.3e} (limit 1e-2)")
         check(max(dg, dm, dr) <= 1e-4, f"{tag}: the card's CLI run differs from the CPU's")
-        check(ratio <= 1e-2 and n_c > 0, f"{tag}: resid/data {ratio}, {n_c} launches")
+        check(ratio <= 1e-2 and min(n_c, p_c) > 0,
+              f"{tag}: resid/data {ratio}, {n_c} and {p_c} launches")
         out["launches"] += n_c
+        out["prod_launches"] += p_c
     # read seconds through the port's HDF5 reader
     t0 = time.time()
     VisData.from_uvh5(os.path.join(data_torch, "pyuvdata_layout.uvh5"))
@@ -871,10 +1208,62 @@ def cli_on_foreign_files(tmp, repo):
     out["lzf_cube_read_s"] = time.time() - t0
     check(flags.shape == nsamples.shape == (4388, 1536, 1) and np.all(nsamples == 1.0),
           "the LZF cube reads wrong")
+    t0 = time.time()
+    with h5py.File(os.path.join(data_torch, "szip_cube_4388x1536.h5"), "r") as f:
+        check(np.array_equal(f["Data/flags"][()], flags)
+              and np.array_equal(f["Data/nsamples"][()], nsamples),
+              "the szip cube does not read as its LZF twin")
+    out["szip_cube_read_s"] = time.time() - t0
     log(f"    read seconds ({h5py.__name__}): the pyuvdata-layout fixture "
-        f"{out['fixture_read_s']:.3f} s; the 4388 x 1536 LZF flags and nsamples "
-        f"{out['lzf_cube_read_s']:.3f} s (host)")
+        f"{out['fixture_read_s']:.3f} s; the 4388 x 1536 flags and nsamples: LZF "
+        f"{out['lzf_cube_read_s']:.3f} s, szip (NN) {out['szip_cube_read_s']:.3f} s (host)")
+    storage_fixtures(data_torch)
     return out
+
+
+def storage_fixtures(data_torch):
+    """The fixtures in the storage of the latest file format and of HDF5's
+    built-in filters (extensible-array and v2 B-tree chunk indices, szip,
+    scale-offset; ``tests/torch_make_h5_fixture.py``), read through
+    ``calamity_tpu_torch._h5lite`` (h5py where it is installed): every
+    dataset's shape, dtype and SHA-256 against the digests of h5py's
+    reading committed beside them; the two uvh5 files through the port's
+    ``VisData``."""
+    import hashlib
+
+    import h5py
+
+    from calamity_tpu_torch.io import VisData
+
+    with open(os.path.join(data_torch, "storage_digests.json")) as fh:
+        want = json.load(fh)
+    for name, digests in sorted(want.items()):
+        path = os.path.join(data_torch, name)
+        got = {}
+        t0 = time.time()
+        with h5py.File(path, "r") as f:
+            def walk(grp, prefix):
+                for key in grp.keys():
+                    node = grp[key]
+                    if hasattr(node, "keys"):
+                        walk(node, f"{prefix}/{key}")
+                        continue
+                    values = np.ascontiguousarray(node[()])
+                    got[f"{prefix}/{key}"] = {
+                        "shape": list(values.shape), "dtype": values.dtype.str,
+                        "sha256": hashlib.sha256(values.tobytes()).hexdigest()}
+            walk(f, "")
+        seconds = time.time() - t0
+        bad = sorted(k for k in digests if got.get(k) != digests[k])
+        check(not bad and got.keys() == digests.keys(),
+              f"{name}: datasets read other than h5py reads them: {bad}")
+        line = f"    {name}: {len(got)} datasets equal to h5py's digests, read in {seconds:.3f} s"
+        if name.endswith(".uvh5"):
+            uvd = VisData.from_uvh5(path)
+            check(uvd.flag_array[:, :, 10].all() and np.isfinite(uvd.data_array).all(),
+                  f"{name}: VisData reads wrong")
+            line += f"; VisData {uvd.data_array.shape}"
+        log(line + f" ({h5py.__name__}, host)")
 
 
 def corrupted_copy(uvd, seed, err=0.05):
@@ -1097,6 +1486,7 @@ def phase_time_parallel(tmp, comps=None):
     )
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     nslices = TP_NTIMES * TP_NPOLS
     log(f"== phase 7: time-parallel path, {NANTS} antennas, {NFREQS} channels, {TP_NTIMES} "
@@ -1125,6 +1515,7 @@ def phase_time_parallel(tmp, comps=None):
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
+    prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -1140,12 +1531,14 @@ def phase_time_parallel(tmp, comps=None):
                                        if isinstance(v, float))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
-        f"{GAIN_KERNEL} launches {gain_launches}, recorded batch steps {recorded} + {warmups} "
+        f"{GAIN_KERNEL} launches {gain_launches}, {PROD_KERNEL} launches {prod_launches}, "
+        f"recorded batch steps {recorded} + {warmups} "
         "warm-up steps")
     # every step of both phases launched each kernel once (a block of host
     # polls may run up to POLL_EVERY - 1 steps past the last freeze, which
     # are undone); the step-0 guard launches the loss-only instance
-    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches)):
+    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches),
+                    (PROD_KERNEL, prod_launches)):
         check(recorded + warmups <= n <= recorded + warmups * POLL_EVERY,
               f"{n} {name} launches for {recorded} recorded + {warmups} warm-up steps")
     check(len(per_slice) == nslices, f"{len(per_slice)} slices fitted, expected {nslices}")
@@ -1194,7 +1587,8 @@ def phase_time_parallel(tmp, comps=None):
             f"resid/data batched {r_b:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
-    return {"launches": launches, "gain_launches": gain_launches, "path": path, "uvd": uvd,
+    return {"launches": launches, "gain_launches": gain_launches, "prod_launches": prod_launches,
+            "path": path, "uvd": uvd,
             "comps": comps, "info": info, "ratios": ratios, "timings": timings}
 
 
@@ -1213,6 +1607,7 @@ def phase_scan(tmp, tp):
     )
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     uvd, path, comps = tp["uvd"], tp["path"], tp["comps"]
     log(f"== phase 8: warm-started time scan, {NANTS} antennas, {NFREQS} channels, "
@@ -1237,6 +1632,7 @@ def phase_scan(tmp, tp):
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
+    prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -1255,11 +1651,13 @@ def phase_scan(tmp, tp):
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}; step-0 guard "
         f"{timings['scan_guard_s'] / fits:.3f} s per time")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
-        f"{GAIN_KERNEL} launches {gain_launches}, for {recorded} recorded + {fits} warm-up "
+        f"{GAIN_KERNEL} launches {gain_launches}, {PROD_KERNEL} launches {prod_launches}, for "
+        f"{recorded} recorded + {fits} warm-up "
         f"steps ({launches / recorded:.4f} per recorded step)")
     # one launch per step; a block of host polls may run up to POLL_EVERY - 1
     # steps past a time's stop, which are undone
-    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches)):
+    for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches),
+                    (PROD_KERNEL, prod_launches)):
         check(recorded + fits <= n <= recorded + fits * POLL_EVERY,
               f"{n} {name} launches for {recorded} recorded + {fits} warm-up steps")
     check(fits == TP_NTIMES * TP_NPOLS, f"{fits} times fitted")
@@ -1306,7 +1704,7 @@ def phase_scan(tmp, tp):
             f"diff {rel:.2e}; resid/data scan {r_c:.3e} serial {r_s:.3e}")
         check(rel <= 1e-2, f"pol {pol}: scan and serial histories differ: rel {rel}")
         check(max(r_c, r_s) <= 2 * min(r_c, r_s), f"pol {pol}: resid/data {r_c} vs {r_s}")
-    return {"launches": launches, "gain_launches": gain_launches}
+    return {"launches": launches, "gain_launches": gain_launches, "prod_launches": prod_launches}
 
 
 # ---------------------------------------------------------------------- #
@@ -1391,6 +1789,7 @@ def _mesh_fit(rank, path, outdir, mesh_shape, fit_kw, **kw):
     from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
     from calamity_tpu_torch.parallel.mesh import make_mesh
 
     writes = []
@@ -1438,7 +1837,8 @@ def _mesh_fit(rank, path, outdir, mesh_shape, fit_kw, **kw):
                 np.abs(uvd.data_array[~uvd.flag_array]) ** 2))),
             "timings": {k: v for k, v in timings.items()
                         if isinstance(v, (int, float, list))},
-            "launches": launches, "gain_launches": LAUNCHES.get(GAIN_KERNEL), "writes": writes,
+            "launches": launches, "gain_launches": LAUNCHES.get(GAIN_KERNEL),
+            "prod_launches": LAUNCHES.get(PROD_KERNEL), "writes": writes,
             "wall": wall, "rank": rank,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
 
@@ -1508,6 +1908,7 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
     from calamity_tpu_torch.calibration import POLL_EVERY
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     log("== phase 9: the ('data', 'bl') device mesh, in child processes "
         f"(each world limited to {WORLD_TIMEOUT_S:.0f} s)")
@@ -1528,13 +1929,14 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
     recorded, warmups = sum(a["timings"]["phase_steps"]), len(a["timings"]["phase_steps"])
     # one launch per step (the polls may run up to POLL_EVERY - 1 steps past
     # the last freeze, which are undone); none where there is no card
-    for name, n in ((KERNEL_NAME, a["launches"]), (GAIN_KERNEL, a["gain_launches"])):
+    for name, n in ((KERNEL_NAME, a["launches"]), (GAIN_KERNEL, a["gain_launches"]),
+                    (PROD_KERNEL, a["prod_launches"])):
         check(not cuda or recorded + warmups <= n <= recorded + warmups * POLL_EVERY,
               f"(a) {n} {name} launches for {recorded} recorded + {warmups} warm-up steps")
     log(f"  (a) NCCL world of 1, mesh (1, 1), against phase 7: steps per slice "
         f"{list(a['steps'].values())}, equal to phase 7's, loss histories equal to the bit; "
-        f"{KERNEL_NAME} launches {a['launches']}, {GAIN_KERNEL} {a['gain_launches']}, for "
-        f"{recorded} "
+        f"{KERNEL_NAME} launches {a['launches']}, {GAIN_KERNEL} {a['gain_launches']}, "
+        f"{PROD_KERNEL} {a['prod_launches']}, for {recorded} "
         f"recorded batch steps + {warmups} warm-up; {time.time() - t0:.1f} s with start-up")
     out["a"] = a
 
@@ -1552,8 +1954,9 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
     for other in b[1:]:
         check(np.array_equal(other["gains"], b[0]["gains"]), "(b) ranks returned other gains")
         check(other["hist"] == b[0]["hist"], "(b) ranks returned other histories")
-    check(not cuda or all(r["launches"] > 0 and r["gain_launches"] > 0 for r in b),
-          f"(b) launches {[(r['launches'], r['gain_launches']) for r in b]}")
+    check(not cuda or all(min(r["launches"], r["gain_launches"], r["prod_launches"]) > 0
+                          for r in b),
+          f"(b) launches {[(r['launches'], r['gain_launches'], r['prod_launches']) for r in b]}")
     files = sorted(os.listdir(outdir))
     check(b[0]["writes"] == ["resid.uvh5", "gain.calfits", "model.uvh5"] and not b[1]["writes"]
           and files == ["gain.calfits", "model.uvh5", "resid.uvh5"],
@@ -1567,7 +1970,8 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
             f"{tm['collective_s']:.2f} s in {tm['collective_calls']} calls "
             f"({1e3 * tm['collective_s'] / max(sum(steps), 1):.3f} ms per recorded step); "
             f"peak device memory {r['peak_gb']} GB; {KERNEL_NAME} launches "
-            f"{r['launches']}, {GAIN_KERNEL} {r['gain_launches']}; writes {r['writes']}; {card}")
+            f"{r['launches']}, {GAIN_KERNEL} {r['gain_launches']}, {PROD_KERNEL} "
+            f"{r['prod_launches']}; writes {r['writes']}; {card}")
     out["b"] = b
 
     # (c) mesh (2, 1) and the scan on (1, 2), on the smaller file, in one world
@@ -1579,7 +1983,8 @@ def phase_mesh(tmp, repo, tp, fit_kw=None, nfreqs=MESH_NFREQS):
         rel, dsteps = compare_runs(tag, got, want)
         dmodel = float(np.max(np.abs(got["model"] - want["model"]))) / want["data_rms"]
         check(dmodel <= 1e-2, f"{tag}: model differs by {dmodel} of the data rms")
-        check(not cuda or (res[1][key]["launches"] > 0 and res[1][key]["gain_launches"] > 0),
+        check(not cuda or min(res[1][key][k] for k in ("launches", "gain_launches",
+                                                         "prod_launches")) > 0,
               f"{tag}: rank 1 launched no kernel")
         log(f"  {tag}: {nfreqs} channels x {MESH_NTIMES} times x {MESH_NPOLS} pol, tol "
             f"{MESH_TOL:g}; steps "
@@ -1727,7 +2132,8 @@ def hera_idle_share(corrupted, comps):
         r = out[name]
         log(f"  {name} step under the profiler: device {r['device_ms']:.3f} ms in "
             f"{r['kernels']:.0f} kernels; host clock {r['plain_ms']:.3f} ms/step without the "
-            f"profiler; idle share {r['idle_share']:.3f}; costliest: "
+            f"profiler; idle share {r['idle_share']:.3f}; per step {prof.gain_kernels_line(r)}; "
+            "costliest: "
             + "; ".join(f"{ms:.4f} ms x{n:.0f} {key[:48]}" for ms, n, key in r["top"][:4]))
     return out
 
@@ -1736,7 +2142,7 @@ def phase_hera_core():
     """Phase 10: ``scripts/hera_core_demo_torch.py``'s configuration at full
     width (361 antennas, 4388 baselines, 1536 channels) with the default
     shared-basis packing, on the card: chunk layouts, steps and ms/step per
-    precision phase, launches of both kernels, peak memory, the idle share,
+    precision phase, launches of the three kernels, peak memory, the idle share,
     resid/data <= 1e-2. Then at cut width, with the default packing and
     with ``shared_basis=False``, on one step budget (``HERA_CUT_STEPS``):
     first 200 losses within rel 1e-4 (the two packings sum float32 in
@@ -1747,15 +2153,16 @@ def phase_hera_core():
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
     log("== phase 10: the HERA core (scripts/hera_core_demo_torch.py) with the default "
         "shared-basis packing")
-    t0 = time.time()
-    corrupted, comps, facts = demo.build()
+    corrupted, comps, facts = hera_core_build()
+    _HERA.clear()  # phase 10 is its last user
     log(f"  {facts['nants']} antennas, {facts['nbls']} baselines <= 45 m, {facts['nuniq']} unique "
         f"spacings, {corrupted.Nfreqs} channels; host seconds: simulate "
         f"{facts['simulate_s']:.2f}, basis {facts['basis_s']:.2f}, project "
-        f"{facts['project_s']:.2f}, in all {time.time() - t0:.1f}")
+        f"{facts['project_s']:.2f}")
     check((facts["nants"], facts["nbls"], facts["nuniq"]) == (361, 4388, 14),
           f"HERA core: {facts}")
     layouts = demo.chunk_layouts(corrupted, comps)
@@ -1770,7 +2177,7 @@ def phase_hera_core():
     model, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {KERNEL_NAME: LAUNCHES.get(KERNEL_NAME), GAIN_KERNEL: LAUNCHES.get(GAIN_KERNEL)}
+    launches = {name: LAUNCHES.get(name) for name in (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     h = info[0][0]
     steps = h["phase_steps"]
@@ -1781,12 +2188,14 @@ def phase_hera_core():
     log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  launches: {KERNEL_NAME} {launches[KERNEL_NAME]}, {GAIN_KERNEL} "
-        f"{launches[GAIN_KERNEL]} for {len(h['loss'])} recorded steps; peak device memory "
+        f"{launches[GAIN_KERNEL]}, {PROD_KERNEL} {launches[PROD_KERNEL]} for {len(h['loss'])} "
+        "recorded steps; peak device memory "
         f"{peak_gb:.3f} GB; resid rms / data rms {ratio:.4e} (limit 1e-2); {nvidia_smi_line()}")
     check(ratio <= 1e-2, f"HERA core resid/data {ratio}")
     check(np.isfinite(gains.gain_array).all(), "HERA core: non-finite gains")
-    check(launches[GAIN_KERNEL] >= len(h["loss"]),
-          f"{launches[GAIN_KERNEL]} {GAIN_KERNEL} launches for {len(h['loss'])} steps")
+    check(min(launches[GAIN_KERNEL], launches[PROD_KERNEL]) >= len(h["loss"]),
+          f"{launches[GAIN_KERNEL]} {GAIN_KERNEL}, {launches[PROD_KERNEL]} {PROD_KERNEL} "
+          f"launches for {len(h['loss'])} steps")
     idle = hera_idle_share(corrupted, comps)
     del model, resid, gains, corrupted, comps
     torch.cuda.empty_cache()
@@ -1817,6 +2226,9 @@ def phase_hera_core():
     check(max(r_s, r_d) <= 2 * min(r_s, r_d), f"cut width: resid/data {r_s} against {r_d}")
     return {"launches": launches, "steps": steps, "ms_per_step": rates, "peak_gb": peak_gb,
             "resid_ratio": ratio, "idle": {k: v["idle_share"] for k, v in idle.items()},
+            "profile": {k: {"device_ms": v["device_ms"], "kernels": v["kernels"],
+                            "plain_ms": v["plain_ms"], "gain_kernels": v["gain_kernels"]}
+                        for k, v in idle.items()},
             "layouts": layouts}
 
 
@@ -1912,8 +2324,10 @@ def kernels_line(out):
 
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
-    fused, gain = out["fused"], out["gain"]
+    fused, gain, prods = out["fused"], out["gain"]["grad"], out["gain"]["products"]
+    packed = out["gain"]["hera_packed"]
     main, tp, scan, mesh, cli, hera = (out[k] for k in ("main", "tp", "scan", "mesh", "cli",
                                                         "hera"))
     # the largest abs error of a loss or a gradient, kernel against plain, over phase 3
@@ -1935,7 +2349,13 @@ def kernels_line(out):
                     "mesh_1x2": [r["gain_launches"] for r in mesh["b"]],
                     "mesh_1x1": mesh["a"]["gain_launches"], "cli_foreign_files": cli["launches"],
                     "hera_core": hera["launches"][GAIN_KERNEL]}
-    g8 = gain[("phase7", 8)]
+    prod_by_path = {"serial": main["prod_launches"], "serial_twice": out["twice"]["prod_launches"],
+                    "time_parallel": tp["prod_launches"], "time_scan": scan["prod_launches"],
+                    "mesh_1x2": [r["prod_launches"] for r in mesh["b"]],
+                    "mesh_1x1": mesh["a"]["prod_launches"],
+                    "cli_foreign_files": cli["prod_launches"],
+                    "hera_core": hera["launches"][PROD_KERNEL]}
+    g8, p8 = gain[("phase7", 8)], prods[("phase7", 8)]
     return [{
         "name": KERNEL_NAME,
         "route": "cuda",
@@ -1975,9 +2395,41 @@ def kernels_line(out):
         "bound_by": g8["bound_by"],
         # one index_add_ scattering the (row, side) contributions
         "library_ms": g8["library_ms"],
-        "timed": {f"{shape} N={n}": {k: gain[(shape, n)][k] for k in
-                                     ("ms", "plain_ms", "bound_ms", "library_ms")}
-                  for shape in ("phase7", "hera") for n in (8, 1)},
+        "timed": dict({f"{shape} N={n}": {k: gain[(shape, n)][k] for k in
+                                          ("ms", "device_ms", "plain_ms", "bound_ms",
+                                           "library_ms")}
+                       for shape in ("phase7", "hera") for n in (8, 1)},
+                      **{f"hera_packed_step N={n}": {
+                          k: packed[n][k] for k in ("ms", "device_ms", "listed_one_segment_ms",
+                                                    "listed_segmented_ms", "plain_ms",
+                                                    "bound_ms", "library_ms")}
+                         for n in (8, 1)}),
+        "card": nvidia_smi_line(),
+    }, {
+        "name": PROD_KERNEL,
+        "route": "cuda",
+        "source": PROD_KERNEL_SOURCE,
+        "replaces": GAIN_KERNEL_REPLACES,
+        "launches": sum(sum(v) if isinstance(v, list) else v for k, v in prod_by_path.items()),
+        "launches_by_path": prod_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in prods.values()),
+        # phase 7's shapes: N=8 slices, 2016 rows, 64 antennas, 1536 channels
+        "ms": p8["ms"],
+        "plain_ms": p8["plain_ms"],
+        "bound_ms": p8["bound_ms"],
+        "bound_by": p8["bound_by"],
+        # no single PyTorch call gathers and multiplies; the four gathers alone
+        "library_ms": None,
+        "gathers_ms": p8["gathers_ms"],
+        "timed": dict({f"{shape} N={n}": {k: prods[(shape, n)][k] for k in
+                                          ("ms", "device_ms", "plain_ms", "bound_ms",
+                                           "gathers_ms")}
+                       for shape in ("phase7", "hera") for n in (8, 1)},
+                      **{f"hera_packed_step N={n}": {
+                          "ms": packed[n]["products_ms"],
+                          "device_ms": packed[n]["products_device_ms"],
+                          "plain_ms": packed[n]["products_plain_ms"],
+                          "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
     }]
 

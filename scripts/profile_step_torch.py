@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py [--nbatch N | --scan]
+    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
@@ -11,11 +11,15 @@ N (time, pol) slices (N / 2 times x 2 polarizations for even N) for the
 batched time-parallel descent, stepped as the driver steps it (blocks of
 ``calibration.POLL_EVERY`` steps between host polls); with ``--scan`` the
 first time slice through that batched descent at N = 1, which is how the
-warm-started time scan steps each time. For the bf16-comps
-and float32 phases of the mixed schedule it times 48 descent steps (after
-16 warm-up steps) under ``torch.profiler``: device time per step by kernel,
-kernels per step, and the device's idle share against the host clock. It
-then times the same steps without the profiler.
+warm-started time scan steps each time. With ``--hera`` it profiles
+the serial step of the HERA core instead (``scripts/hera_core_demo_torch.py``
+at full width: 361 antennas, 4388 baselines, 1536 channels, the default
+shared-basis packing). For the bf16-comps and float32 phases of the mixed
+schedule it times 48 descent steps (after 16 warm-up steps) under
+``torch.profiler``: device time per step by kernel, kernels per step, the
+launches and device time per step of the gain kernels (``gain_grad``,
+``gain_products``), and the device's idle share against the host clock.
+It then times the same steps without the profiler.
 """
 
 import argparse
@@ -41,6 +45,7 @@ from calamity_tpu_torch.solver.tensorize import FitSpec  # noqa: E402
 
 NSTEPS = 48
 NWARMUP = 16
+GAIN_KERNELS = ("gain_grad", "gain_products")  # substrings of the kernels' names
 
 
 def serial_stepper(chs, spec, uvd, gains):
@@ -125,6 +130,10 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
         wall_ms = 1e3 * (time.perf_counter() - start) / nsteps
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / nsteps
+    # each gain kernel's (device ms, launches) per step, over its passes
+    named = {name: (sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / nsteps,
+                    sum(e.count for e in kernels if name in e.key) / nsteps)
+             for name in GAIN_KERNELS}
     top = [(e.self_device_time_total / 1e3 / nsteps, e.count / nsteps, e.key)
            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]]
     torch.cuda.synchronize()
@@ -135,7 +144,23 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
     plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
     return {"wall_ms": wall_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
             "kernels": sum(e.count for e in kernels) / nsteps,
-            "idle_share": 1 - dev_ms / plain_ms, "top": top}
+            "idle_share": 1 - dev_ms / plain_ms, "top": top, "gain_kernels": named}
+
+
+def hera_problem():
+    """The HERA core at full width, packed on the card with the default
+    shared-basis packing: (the corrupted data, its FitSpec, blank gains)."""
+    corrupted, comps, _ = chip_smoke.hera_core_build()
+    gains = cal_utils.blank_uvcal_from_uvdata(corrupted)
+    spec = FitSpec(corrupted, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", nvec_bucketing=True, shared_basis=True)
+    return corrupted, spec, gains
+
+
+def gain_kernels_line(out):
+    """The gain kernels' launches and device ms per step, as one line."""
+    return "; ".join(f"{name} x{n:.1f} {ms:.4f} ms" for name, (ms, n) in
+                     out["gain_kernels"].items())
 
 
 def main():
@@ -144,19 +169,24 @@ def main():
                     help="slices per step: 1 profiles the serial step, N > 1 the batched one")
     ap.add_argument("--scan", action="store_true",
                     help="one slice through the batched descent, as the time scan steps it")
+    ap.add_argument("--hera", action="store_true",
+                    help="the serial step of the HERA core with the default packing")
     args = ap.parse_args()
-    if args.scan and args.nbatch != 1:
-        ap.error("--scan steps one slice; leave --nbatch at 1")
+    if (args.scan or args.hera) and args.nbatch != 1 or args.scan and args.hera:
+        ap.error("--scan and --hera step one slice each; leave --nbatch at 1")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    npols = 2 if args.nbatch % 2 == 0 else 1
-    ntimes = max(1, args.nbatch // npols)
-    with tempfile.TemporaryDirectory() as tmp:
-        uvd, comps = chip_smoke.make_corrupted_file(os.path.join(tmp, "main.uvh5"), ntimes,
-                                                    npols)
-    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
-    spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
-                   device="cuda")
+    if args.hera:
+        uvd, spec, gains = hera_problem()
+    else:
+        npols = 2 if args.nbatch % 2 == 0 else 1
+        ntimes = max(1, args.nbatch // npols)
+        with tempfile.TemporaryDirectory() as tmp:
+            uvd, comps = chip_smoke.make_corrupted_file(os.path.join(tmp, "main.uvh5"), ntimes,
+                                                        npols)
+        gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+        spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                       device="cuda")
     chunks = spec.device_chunks()
     print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
@@ -169,6 +199,7 @@ def main():
               f"share {1 - out['device_ms'] / out['wall_ms']:.3f}")
         for ms, count, key in out["top"]:
             print(f"  {ms:8.4f} ms/step x{count:<5.1f} {key[:90]}")
+        print(f"  gain kernels per step: {gain_kernels_line(out)}")
         print(f"  host clock without the profiler {out['plain_ms']:.3f} ms/step; idle share "
               f"{out['idle_share']:.3f}")
     print(chip_smoke.nvidia_smi_line())

@@ -215,7 +215,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_kernels()
     assert [os.path.basename(s) for s in _build.sources()] == ["fused_chunk_loss.cu",
-                                                                "gain_grad.cu"]
+                                                                "gain_grad.cu",
+                                                                "gain_products.cu"]
 
 
 # ---------------------------------------------------------------------- #

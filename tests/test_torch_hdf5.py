@@ -2,8 +2,14 @@
 which stands in for h5py where h5py is not installed: h5py reads what it
 writes value for value and type for type, it reads its own files back, and
 the port's host layer's uvh5, calh5 and UVFlag writers and readers
-round-trip through it (and the JAX package reads what they wrote)."""
+round-trip through it (and the JAX package reads what they wrote). The
+storage of the latest file format and HDF5's built-in filters (the
+extensible-array and v2 B-tree chunk indices, szip, scale-offset) is read
+equal to h5py to the bit, from fixtures h5py wrote (``tests/data_torch``)
+and from files written here; the digests committed beside the fixtures
+for the card's machine, which has no h5py, equal h5py's reading."""
 
+import json
 import os
 import sys
 
@@ -187,6 +193,19 @@ def test_lzf_cube_reads_equal_to_the_generator():
         assert np.array_equal(out, nsamples)
 
 
+def test_szip_cube_reads_equal_to_the_generator_and_h5py():
+    import torch_make_h5_fixture as gen
+
+    flags, nsamples = gen.lzf_cube_arrays()
+    path = os.path.join(DATA_TORCH, gen.SZIP_CUBE)
+    with _h5lite.File(path, "r") as f, h5py.File(path, "r") as ref:
+        assert ref["Data/flags"].compression == "szip"
+        assert ref["Data/flags"].compression_opts == ("nn", 32)
+        for name, want in (("flags", flags), ("nsamples", nsamples)):
+            got = f["Data/" + name][()]
+            assert _same(got, want) and _same(got, ref["Data/" + name][()]), name
+
+
 def _write_case(path, case, libver):
     rng = np.random.default_rng(5)
     x = rng.standard_normal((37, 23)) + 1j * rng.standard_normal((37, 23))
@@ -237,12 +256,28 @@ def _write_case(path, case, libver):
             f.create_dataset("v", data=x, chunks=(8, 5), fletcher32=True)
             f.create_dataset("w", data=x.astype(np.complex64), chunks=(8, 5), fletcher32=True,
                              shuffle=True, compression="gzip")
+        elif case == "unlimited_1d":  # an extensible-array index under "latest"
+            f.create_dataset("v", data=np.arange(10.0), chunks=(4,), maxshape=(None,))
+            f.create_dataset("w", data=x, chunks=(3, 5), maxshape=(37, None))
+        elif case == "unlimited_2d":  # a v2 B-tree index under "latest"
+            f.create_dataset("v", data=x, chunks=(8, 5), maxshape=(None, None),
+                             compression="gzip")
+        elif case == "szip":
+            f.create_dataset("v", data=np.arange(64, dtype=np.int32).reshape(8, 8) % 5,
+                             chunks=(8, 8), compression="szip")
+            f.create_dataset("w", data=x.real, chunks=(8, 5), compression="szip",
+                             compression_opts=("ec", 8))
+        elif case == "scaleoffset":
+            f.create_dataset("v", data=np.arange(64, dtype=np.int32), chunks=(16,),
+                             scaleoffset=0)
+            f.create_dataset("w", data=x.real, chunks=(8, 5), scaleoffset=3)
 
 
 @pytest.mark.parametrize("libver", ["earliest", "latest"])
 @pytest.mark.parametrize("case", ["many_links", "compact", "contiguous", "chunked_edges",
                                   "unallocated", "single_chunk", "many_chunks", "gzip",
-                                  "shuffle_gzip", "lzf", "fletcher32"])
+                                  "shuffle_gzip", "lzf", "fletcher32", "unlimited_1d",
+                                  "unlimited_2d", "szip", "scaleoffset"])
 def test_h5py_written_files_read_equal(tmp_path, case, libver):
     path = str(tmp_path / f"{case}.h5")
     _write_case(path, case, libver)
@@ -287,29 +322,136 @@ def _with_filter(f, fid):
     ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(8, dtype=np.float32))
 
 
+_PLUGINS = {"blosc": 32001, "bitshuffle": 32008, "lz4": 32004, "zstd": 32015}
+
+
 @pytest.mark.parametrize("case,match", [
     ("blosc", "filter 32001 \\(blosc\\)"),
     ("bitshuffle", "filter 32008 \\(bitshuffle\\)"),
-    ("scaleoffset", "filter 6 \\(scaleoffset\\)"),
-    ("unlimited_1d", "extensible-array chunk index"),
-    ("unlimited_2d", "v2 B-tree chunk index"),
+    ("lz4", "filter 32004 \\(lz4\\)"),
+    ("zstd", "filter 32015 \\(zstd\\)"),
+    ("nbit", "filter 5 \\(nbit\\)"),
 ])
 def test_unsupported_storage_raises_naming_it(tmp_path, case, match):
     path = str(tmp_path / f"{case}.h5")
     with h5py.File(path, "w", libver="latest") as f:
-        if case in ("blosc", "bitshuffle"):
-            _with_filter(f, {"blosc": 32001, "bitshuffle": 32008}[case])
-        elif case == "scaleoffset":
-            f.create_dataset("v", data=np.arange(64, dtype=np.int32), chunks=(16,),
-                             scaleoffset=0)
-        elif case == "unlimited_1d":
-            f.create_dataset("v", data=np.arange(10.0), chunks=(4,), maxshape=(None,))
-        else:
-            f.create_dataset("v", data=np.ones((4, 4)), chunks=(2, 2), maxshape=(None, None))
+        if case in _PLUGINS:
+            _with_filter(f, _PLUGINS[case])
+        else:  # n-bit, which HDF5 applies itself (h5py has no set_nbit)
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((4,))
+            dcpl.set_filter(5, 0, ())
+            ds = h5py.h5d.create(f.id, b"v", h5py.h5t.py_create(np.dtype("<i4")),
+                                 h5py.h5s.create_simple((8,)), dcpl=dcpl)
+            ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(8, dtype=np.int32))
     with _h5lite.File(path, "r") as f:
         assert "v" in f  # opening walks the links only
         with pytest.raises(ValueError, match=f"dataset '/v'.*{match}"):
             f["v"][()]
+
+
+def _storage_fixtures():
+    import torch_make_h5_fixture as gen
+
+    return gen, os.path.join(DATA_TORCH, gen.STORAGE)
+
+
+@pytest.mark.parametrize("group", ["extensible_array", "btree2", "szip", "scaleoffset"])
+def test_storage_fixture_reads_equal_to_h5py(group):
+    gen, path = _storage_fixtures()
+    names = [n for n in gen.storage_datasets() if n.startswith(group + "/")]
+    with h5py.File(path, "r") as f:
+        want = {n: f[n][()] for n in names}
+        filters = {n: [f[n].id.get_create_plist().get_filter(i)[:3]
+                       for i in range(f[n].id.get_create_plist().get_nfilters())]
+                   for n in names}
+        masks = {n: [f[n].id.get_chunk_info(i).filter_mask
+                     for i in range(f[n].id.get_num_chunks())] for n in names}
+    with _h5lite.File(path, "r") as f:
+        got = {n: f[n][()] for n in names}
+        index = {n: f[n]._info().index for n in names}
+    for n in names:
+        assert _same(got[n], want[n]), n
+        values, kw = gen.storage_datasets()[n]
+        if "write" in kw:
+            continue
+        if values.dtype.kind == "f" and "scaleoffset" in kw:  # D-scale keeps D decimals
+            assert np.max(np.abs(want[n] - values)) <= 10.0 ** -kw["scaleoffset"], n
+        else:
+            assert _same(want[n], values), n  # h5py's reading is the generator's data
+    raw = open(path, "rb").read()
+    if group == "extensible_array":
+        assert set(index.values()) == {"extensible_array"}
+        assert raw.count(b"EASB") >= 1  # the index's secondary blocks
+    elif group == "btree2":
+        assert set(index.values()) == {"btree2"}
+        assert raw.count(b"BTIN") >= 1  # internal nodes: depth >= 1
+        assert any(filters[n] for n in names) and not all(filters[n] for n in names)
+    elif group == "szip":
+        options = {fl[0][2][0] & 36 for fl in filters.values()}
+        assert options == {4, 32}  # EC and NN
+        assert any(any(m) for m in masks.values())  # chunks stored raw (the filter skipped)
+        seen = set()
+        with h5py.File(path, "r") as f:
+            for n in names:
+                ds = f[n]
+                for i in range(ds.id.get_num_chunks()):
+                    mask, chunk = ds.id.read_direct_chunk(ds.id.get_chunk_info(i).chunk_offset)
+                    if not mask:
+                        _h5lite._szip_decompress(chunk, filters[n][0][2], seen)
+        assert seen == {"zero_block", "second_extension", "fundamental_sequence",
+                        "split_sample", "no_compression"}
+    else:
+        cls = {fl[0][2][3] for fl in filters.values()}
+        fill = {fl[0][2][7] for fl in filters.values()}
+        assert cls == {0, 1} and fill == {0, 1} or fill == {1}  # integer and float
+
+
+@pytest.mark.parametrize("name", ["storage_layouts.h5", "unlimited_szip.uvh5",
+                                  "unlimited2_szip.uvh5"])
+def test_storage_digests_equal_h5py_and_h5lite(name):
+    import torch_make_h5_fixture as gen
+
+    with open(os.path.join(DATA_TORCH, gen.DIGESTS)) as fh:
+        digests = json.load(fh)[name]
+    path = os.path.join(DATA_TORCH, name)
+    assert gen.file_digests(path) == digests
+    assert gen.file_digests(path, _h5lite.File) == digests
+
+
+def test_storage_fixtures_regenerate_equal(tmp_path):
+    import torch_make_h5_fixture as gen
+
+    fresh = [gen.write_storage(str(tmp_path / gen.STORAGE))]
+    fresh += [gen.write_unlimited_uvh5(str(tmp_path / n), k)
+              for k, n in enumerate(gen.UVH5_UNLIMITED)]
+    for path in fresh:
+        committed = _tree(os.path.join(DATA_TORCH, os.path.basename(path)), h5py.File)
+        regenerated = _tree(path, h5py.File)
+        assert committed.keys() == regenerated.keys()
+        for name, val in committed.items():
+            assert _same(regenerated[name], val), name
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_unlimited_szip_uvh5_read_by_the_port_as_the_jax_package_reads_it(monkeypatch, which):
+    """``visdata`` under an extensible array (0) or a v2 B-tree (1), flags and
+    nsamples szip- or scale-offset-filtered: the port's host layer reads the
+    file through _h5lite as the JAX package reads it through h5py."""
+    import torch_make_h5_fixture as gen
+
+    path = os.path.join(DATA_TORCH, gen.UVH5_UNLIMITED[which])
+    _same_tree(path)
+    with _h5lite.File(path, "r") as f:
+        assert f["Data/visdata"]._info().index == ("extensible_array", "btree2")[which]
+        assert [fid for fid, _ in f["Data/flags"]._info().filters] == [4]
+    monkeypatch.setattr(visdata_mod, "h5py", _h5lite)
+    port = VisData.from_uvh5(path)
+    ref = jio.VisData.from_uvh5(path)
+    for attr in ("data_array", "flag_array", "nsample_array", "time_array", "freq_array",
+                 "ant_1_array", "antenna_positions", "channel_width", "integration_time"):
+        assert _same(getattr(port, attr), getattr(ref, attr)), attr
+    assert port.flag_array[:, :, 10].all() and not port.flag_array[:, :, 11].any()
 
 
 def test_jax_writers_read_by_the_port_host_layer(tmp_path, monkeypatch):

@@ -2,7 +2,7 @@
 
     python tests/torch_make_h5_fixture.py [directory]
 
-(default ``tests/data_torch``). Two files:
+(default ``tests/data_torch``). Six files and a digest list:
 
 ``pyuvdata_layout.uvh5`` has the
 layout that pyuvdata's ``UVData.write_uvh5`` gives by default: uvh5 1.0 (no
@@ -25,9 +25,38 @@ the HERA core's 4388 baselines x 1536 channels (one polarization) under
 ``Data``, chunked and LZF-compressed by h5py's automatic chunking, as
 pyuvdata writes them: 5% of the channels flagged on every baseline (seeded),
 every nsample 1. It times the pure-Python LZF decoder at that size
-(``chip_smoke.py`` phase 6).
+(``chip_smoke.py`` phase 6). ``szip_cube_4388x1536.h5`` holds the same
+cubes under szip with NN preprocessing (32 pixels a block), to time the
+szip decoder at that size. (HDF5 applies szip to integers and floats
+only, so ``visdata``, a complex compound, is never szip-compressed.)
+
+``storage_layouts.h5`` holds small datasets (seeded data) in the storage
+h5py 3.14 / HDF5 1.14 writes for the latest file format and for its
+built-in filters, one group each: ``extensible_array`` (one unlimited
+dimension: enough chunks for the index's secondary blocks, unfiltered and
+gzip-filtered, the unlimited dimension first and last, edge chunks and
+unallocated chunks); ``btree2`` (two or more unlimited dimensions: a
+B-tree with internal nodes, unfiltered and filtered); ``szip`` (NN and EC
+coding of 8-, 16-, 32- and 64-bit data, a scanline that is not a whole
+number of blocks, an all-zero chunk, chunks szip could not shrink and
+stored raw); ``scaleoffset`` (integers with the minimum bits found or
+given, signed, big-endian, with and without a fill value; floats by
+D-scale, with a fill value and unallocated chunks).
+
+``unlimited_szip.uvh5`` and ``unlimited2_szip.uvh5`` are the
+pyuvdata-layout fixture's data with the ``Data`` datasets stored so:
+``visdata`` chunked under an extensible array (``Nblts`` unlimited) with
+gzip, ``flags`` szip (NN), ``nsamples`` scale-offset; and ``visdata``
+under a v2 B-tree (every axis unlimited), ``flags`` szip (EC),
+``nsamples`` szip (NN).
+
+``storage_digests.json`` lists each dataset of those three files with its
+shape, dtype and the SHA-256 of its values as h5py reads them (C order),
+for the card's machine, which has no h5py.
 """
 
+import hashlib
+import json
 import os
 import sys
 
@@ -41,6 +70,10 @@ from calamity_tpu_torch import cal_utils, models, simulate  # noqa: E402
 DEFAULT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch")
 FIXTURE = "pyuvdata_layout.uvh5"
 LZF_CUBE = "lzf_cube_4388x1536.h5"
+SZIP_CUBE = "szip_cube_4388x1536.h5"
+STORAGE = "storage_layouts.h5"
+UVH5_UNLIMITED = ("unlimited_szip.uvh5", "unlimited2_szip.uvh5")
+DIGESTS = "storage_digests.json"
 SEED = 61
 MIN_DLY_NS = 2.0 / 0.3
 
@@ -101,21 +134,185 @@ def lzf_cube_arrays(nbls=4388, nfreqs=1536):
     return flags, np.ones((nbls, nfreqs, 1), np.float32)
 
 
-def write_lzf_cube(path):
-    """Write the LZF cube to ``path``."""
+def write_lzf_cube(path, **filters):
+    """Write the LZF cube to ``path`` (or, with h5py's ``filters``, its
+    twin under them)."""
     flags, nsamples = lzf_cube_arrays()
+    filters = filters or dict(compression="lzf")
     with h5py.File(path, "w") as f:
         data = f.create_group("Data")
-        data.create_dataset("flags", data=flags, chunks=True, compression="lzf")
-        data.create_dataset("nsamples", data=nsamples, chunks=True, compression="lzf")
+        data.create_dataset("flags", data=flags, chunks=True, **filters)
+        data.create_dataset("nsamples", data=nsamples, chunks=True, **filters)
     return path
 
 
+def write_szip_cube(path):
+    """Write the szip twin of the LZF cube to ``path``."""
+    return write_lzf_cube(path, compression="szip", compression_opts=("nn", 32))
+
+
+def storage_datasets():
+    """{group/name: (values, h5py create_dataset keywords)} of
+    ``storage_layouts.h5``; ``write`` is a slice that alone is written
+    (the rest stays unallocated)."""
+    rng = np.random.default_rng(SEED)
+    walk = np.cumsum(rng.integers(-3, 4, (48, 64)), axis=1).astype(np.int16)
+    smooth = np.sin(np.linspace(0, 20, 40 * 50)).astype(np.float32).reshape(40, 50)
+    out = {
+        # 300 chunks: past the 244 the index block and its direct data blocks hold
+        "extensible_array/rows": (rng.integers(0, 1000, (300, 7)).astype(np.int16),
+                                  dict(chunks=(1, 7), maxshape=(None, 7))),
+        "extensible_array/rows_gzip": (rng.standard_normal((613, 3)),
+                                       dict(chunks=(1, 2), maxshape=(None, 3),
+                                            compression="gzip", shuffle=True)),
+        "extensible_array/last_axis": (rng.integers(0, 50, (5, 300)).astype(np.int32),
+                                       dict(chunks=(5, 1), maxshape=(5, None))),
+        "extensible_array/edges_lzf": (rng.standard_normal((37, 23)).astype(np.float32),
+                                       dict(chunks=(8, 5), maxshape=(37, None),
+                                            compression="lzf")),
+        "extensible_array/unallocated": (np.arange(700, dtype=np.int32),
+                                         dict(chunks=(1,), maxshape=(None,), fillvalue=-7,
+                                              write=slice(3, 650))),
+        # 510 records of 24 bytes: leaves under an internal node
+        "btree2/grid": (rng.standard_normal((100, 90)).astype(np.float32),
+                        dict(chunks=(3, 2), maxshape=(None, None), fillvalue=2.5,
+                             write=(slice(0, 50), slice(0, 60)))),
+        "btree2/grid_gzip": (rng.integers(0, 9, (40, 40)).astype(np.int16),
+                             dict(chunks=(2, 2), maxshape=(None, None), compression="gzip",
+                                  fletcher32=True)),
+        "btree2/cube": (rng.integers(0, 9, (12, 13, 14)).astype(np.int32),
+                        dict(chunks=(2, 3, 2), maxshape=(None, 13, None))),
+        "szip/nn_int32_scanline_23": (rng.integers(0, 100, (40, 23)).astype(np.int32),
+                                      dict(chunks=(40, 23), compression="szip",
+                                           compression_opts=("nn", 8))),
+        "szip/ec_int32": (rng.integers(0, 100, (40, 24)).astype(np.int32),
+                          dict(chunks=(40, 24), compression="szip",
+                               compression_opts=("ec", 8))),
+        "szip/nn_uint8": (rng.integers(0, 5, (64, 32)).astype(np.uint8),
+                          dict(chunks=(64, 32), compression="szip",
+                               compression_opts=("nn", 16))),
+        "szip/nn_int16": (walk, dict(chunks=(24, 64), compression="szip",
+                                     compression_opts=("nn", 32))),
+        "szip/nn_float32": (smooth, dict(chunks=(40, 50), compression="szip",
+                                         compression_opts=("nn", 8))),
+        "szip/ec_float64_smooth": (smooth.astype(np.float64)[:30, :20],
+                                   dict(chunks=(10, 20), compression="szip",
+                                        compression_opts=("ec", 8))),
+        "szip/ec_float64_stored_raw": (rng.standard_normal((30, 20)),
+                                       dict(chunks=(10, 20), compression="szip",
+                                            compression_opts=("ec", 8))),
+        "szip/nn_zeros": (np.zeros((64, 64), np.int32),
+                          dict(chunks=(64, 64), compression="szip",
+                               compression_opts=("nn", 8))),
+        "scaleoffset/int32_minbits_found": (rng.integers(-50, 100, (40, 23)).astype(np.int32),
+                                            dict(chunks=(16, 23), scaleoffset=0)),
+        "scaleoffset/uint16_minbits_4": (rng.integers(1000, 1015, (40, 23)).astype(np.uint16),
+                                         dict(chunks=(16, 23), scaleoffset=4)),
+        "scaleoffset/int64": (rng.integers(-2 ** 40, 2 ** 40, (30,)).astype(np.int64),
+                              dict(chunks=(10,), scaleoffset=0)),
+        "scaleoffset/int8_one_value": (np.full((20,), -3, np.int8),
+                                       dict(chunks=(10,), scaleoffset=0)),
+        "scaleoffset/uint16_big_endian": (rng.integers(0, 200, (50,)).astype(">u2"),
+                                          dict(chunks=(25,), scaleoffset=0)),
+        "scaleoffset/float32_d2": (rng.standard_normal((40, 23)).astype(np.float32),
+                                   dict(chunks=(16, 23), scaleoffset=2)),
+        "scaleoffset/float64_d3": (rng.standard_normal((40, 23)),
+                                   dict(chunks=(16, 23), scaleoffset=3)),
+    }
+    hit = rng.integers(-50, 100, (40, 23)).astype(np.int32)
+    hit[::3, ::2] = 7  # values equal to the fill value
+    out["scaleoffset/int32_fill"] = (hit, dict(chunks=(16, 23), scaleoffset=0, fillvalue=7))
+    fhit = rng.standard_normal((40, 23)).astype(np.float32)
+    fhit[::3, ::2] = -1.5
+    out["scaleoffset/float32_fill"] = (fhit, dict(chunks=(16, 23), scaleoffset=2,
+                                                  fillvalue=-1.5))
+    out["scaleoffset/float32_unallocated"] = (
+        rng.standard_normal((40, 23)).astype(np.float32),
+        dict(chunks=(16, 23), scaleoffset=2, fillvalue=9.25, write=slice(0, 10)))
+    return out
+
+
+def write_storage(path):
+    """Write ``storage_layouts.h5`` to ``path``."""
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, (values, kw) in storage_datasets().items():
+            kw = dict(kw)
+            part = kw.pop("write", None)
+            if part is None:
+                f.create_dataset(name, data=values, **kw)
+            else:
+                ds = f.create_dataset(name, shape=values.shape, dtype=values.dtype, **kw)
+                ds[part] = values[part]
+    return path
+
+
+def write_unlimited_uvh5(path, which):
+    """Write ``UVH5_UNLIMITED[which]``: the pyuvdata-layout fixture's data
+    with its ``Data`` datasets under an extensible-array index (0) or a v2
+    B-tree (1), szip and scale-offset filters."""
+    uvd = make_visdata()
+    tmp = path + ".port.uvh5"
+    uvd.write_uvh5(tmp, clobber=True, version="1.0")
+    storage = ({"visdata": dict(chunks=(1, 40, 1), maxshape=(None, 160, 1),
+                                compression="gzip"),
+                "flags": dict(chunks=(6, 160, 1), compression="szip",
+                              compression_opts=("nn", 8)),
+                "nsamples": dict(chunks=(6, 160, 1), scaleoffset=2)},
+               {"visdata": dict(chunks=(4, 40, 1), maxshape=(None, None, None)),
+                "flags": dict(chunks=(6, 160, 1), compression="szip",
+                              compression_opts=("ec", 8)),
+                "nsamples": dict(chunks=(6, 160, 1), compression="szip",
+                                 compression_opts=("nn", 8))})[which]
+    try:
+        with h5py.File(tmp, "r") as src, h5py.File(path, "w", libver="latest") as f:
+            hdr = f.create_group("Header")
+            for name in sorted(src["Header"]):
+                hdr[name] = src["Header"][name][()]
+            data = f.create_group("Data")
+            for name, kw in storage.items():
+                data.create_dataset(name, data=src["Data"][name][()], **kw)
+    finally:
+        os.remove(tmp)
+    return path
+
+
+def digest(values):
+    """The digest of one dataset's values: shape, dtype and SHA-256."""
+    values = np.ascontiguousarray(values)
+    return {"shape": list(values.shape), "dtype": values.dtype.str,
+            "sha256": hashlib.sha256(values.tobytes()).hexdigest()}
+
+
+def file_digests(path, opener=h5py.File):
+    """{dataset path: digest} of every dataset of an HDF5 file."""
+    out = {}
+    with opener(path, "r") as f:
+        def walk(grp, prefix):
+            for name in grp.keys():
+                node = grp[name]
+                if hasattr(node, "keys"):
+                    walk(node, f"{prefix}/{name}")
+                else:
+                    out[f"{prefix}/{name}"] = digest(node[()])
+        walk(f, "")
+    return out
+
+
 def write(directory=DEFAULT_DIR):
-    """Write both fixtures into ``directory`` (made if missing)."""
+    """Write every fixture and the digest list into ``directory`` (made if
+    missing)."""
     os.makedirs(directory, exist_ok=True)
-    return (write_fixture(os.path.join(directory, FIXTURE)),
-            write_lzf_cube(os.path.join(directory, LZF_CUBE)))
+    paths = [write_fixture(os.path.join(directory, FIXTURE)),
+             write_lzf_cube(os.path.join(directory, LZF_CUBE)),
+             write_szip_cube(os.path.join(directory, SZIP_CUBE)),
+             write_storage(os.path.join(directory, STORAGE))]
+    paths += [write_unlimited_uvh5(os.path.join(directory, name), k)
+              for k, name in enumerate(UVH5_UNLIMITED)]
+    digests = {os.path.basename(p): file_digests(p) for p in paths[3:]}
+    with open(os.path.join(directory, DIGESTS), "w") as fh:
+        json.dump(digests, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    return paths + [os.path.join(directory, DIGESTS)]
 
 
 if __name__ == "__main__":
