@@ -13,31 +13,43 @@ contiguous datasets of little-endian integers, floats, booleans (h5py's
 enum of int8 FALSE/TRUE), complex numbers (h5py's compound of r and i) and
 fixed-length byte strings. h5py reads these files.
 
-What it reads: the files h5py and pyuvdata write with those types, in
-numpy and the standard library only:
+What it reads: every file the host layer reads through h5py, in numpy and
+the standard library only, each value as h5py returns it (type, dtype,
+shape and bits):
 - superblocks 0 to 3; version-1 and version-2 object headers with their
   continuation blocks;
 - old-style groups (symbol table: v1 B-tree, local heap, symbol nodes) and
   new-style groups with compact links or dense links (fractal heap and a
   v2 B-tree name index);
-- dataspaces 1 and 2; integer, float, fixed-length string, complex
-  (compound of r and i) and boolean (enum) datatypes of versions 1 to 3,
-  either byte order;
+- dataspaces 1 and 2; datatypes of versions 1 to 3, either byte order:
+  integers and floats (of any precision and offset: HDF5's conversion to
+  the native type takes the value out, sign-extends it, and h5py's float
+  of enough range and mantissa holds a float that is not IEEE's),
+  fixed-length strings, booleans (h5py's enum), complex numbers (h5py's
+  compound of r and i), every other compound of such members and of
+  arrays of them (numpy's structured dtype, as h5py gives it: pyuvdata's
+  integer visibilities), and variable-length strings (bytes, an object
+  array of bytes for an array, from the global heap);
 - compact, contiguous and chunked layouts: a v1 B-tree chunk index
   (layout 3) and the single-chunk, implicit, fixed-array, extensible-array
-  (one unlimited dimension) and v2 B-tree (more than one) indices (layout
+  (one unlimited dimension; paged data blocks, their pages never written
+  read as the fill value) and v2 B-tree (more than one) indices (layout
   4), with edge chunks and unallocated chunks (read as the fill value);
 - the deflate (``zlib``), shuffle, fletcher32, szip (CCSDS 121.0 adaptive
-  Rice coding, as libaec writes it), scale-offset (integers; floats by
-  D-scale) and LZF (h5py's filter 32000) filters.
+  Rice coding, as libaec writes it), n-bit, scale-offset (integers; floats
+  by D-scale) and LZF (h5py's filter 32000) filters.
+``read_direct`` converts as HDF5 does: into ``out``'s dtype chunk by chunk,
+a compound member by member by name (into complex: r and i).
 
-Anything else raises ``ValueError`` naming what and where, when the dataset
-is read: other filters (n-bit, and plugins such as blosc, bitshuffle, lz4
-and zstd, which h5py reads only through ``hdf5plugin``), paged
-extensible-array data blocks (more than 1024 chunks in one block: with
-HDF5's default parameters, past the first 131,060 chunks), variable-length
-types, other compound types. Opening a file walks the links only;
-attributes are never read.
+What raises ``ValueError`` naming what and where, none of it a file the JAX
+package reads: the plugin filters (blosc, bitshuffle, lz4, zstd: h5py reads
+them only through ``hdf5plugin``); scale-offset data at full precision
+(HDF5 1.14 cannot read it back); variable-length sequences other than
+strings, array, time, bitfield, opaque and reference datatypes (no field
+the host layer reads holds one; an array only as a compound member);
+filtered fractal heaps and huge or tiny heap objects (h5py puts these in
+dense attribute storage or behind link names over 64 KiB). Opening a file
+walks the links only; attributes are never read.
 
 API: ``File(path, "r" | "w")`` as a context manager; groups support
 ``create_group``, ``create_dataset(name, data=...)``, ``group[name] =
@@ -145,8 +157,91 @@ def _padded8(n):
     return (n + 7) // 8 * 8
 
 
+# (sign location, exponent location, exponent size, mantissa location,
+# mantissa size, exponent bias) of the IEEE types numpy holds as they are
+_IEEE = {2: (15, 10, 5, 0, 10, 15), 4: (31, 23, 8, 0, 23, 127), 8: (63, 52, 11, 0, 52, 1023)}
+_NP_FLOATS = (np.float16, np.float32, np.float64, np.longdouble)
+# a variable-length element as stored: its length, then the global heap ID
+_VLEN_RECORD = np.dtype([("length", "<u4"), ("collection", "<u8"), ("index", "<u4")])
+
+
+class _Type:
+    """A decoded datatype message: ``dtype``, the numpy dtype h5py returns;
+    ``stored``, a numpy dtype that views the stored bytes; ``fix``, None
+    where the two are the same values, else a function from an array of
+    ``stored`` to one of ``dtype`` (HDF5's conversion to the native type:
+    integers and floats whose precision, offset or fields are not numpy's);
+    ``vlen``, True for a variable-length string (stored as
+    ``_VLEN_RECORD``, read through the global heap)."""
+
+    def __init__(self, dtype, stored=None, fix=None, vlen=False):
+        self.dtype = np.dtype(dtype)
+        self.stored = self.dtype if stored is None else np.dtype(stored)
+        self.fix = fix
+        self.vlen = vlen
+
+
+def _unsigned(a, order):
+    """The stored elements ``a`` (of 1, 2, 4 or 8 bytes) as unsigned
+    integers (uint64) in byte order ``order``."""
+    return a.view(f"{'>' if order == '>' else '<'}u{a.dtype.itemsize}").astype(np.uint64)
+
+
+def _int_fix(dtype, precision, offset):
+    """The values of an integer type whose ``precision`` bits start at bit
+    ``offset``: the bits taken out, sign-extended where it is signed."""
+    mask = np.uint64((1 << precision) - 1)
+
+    def fix(a):
+        v = (_unsigned(a, dtype.byteorder) >> np.uint64(offset)) & mask
+        if dtype.kind == "i":
+            v = v.astype(np.int64)
+            v[v >= 1 << (precision - 1)] -= np.int64(1) << np.int64(precision)
+        return v.astype(dtype)
+    return fix
+
+
+def _float_type(size, order, fields, bias, norm):
+    """A float type numpy does not hold as it is stored: h5py returns the
+    first of float16, 32, 64 and longdouble at least as wide that holds its
+    mantissa and exponent range, and HDF5 converts each value exactly (a
+    NaN to one with the same sign and every mantissa bit set)."""
+    spos, epos, esize, mpos, msize = fields
+    if norm != 2:
+        raise ValueError(f"float datatype with mantissa normalization {norm} is not supported "
+                         "(implied, as in IEEE, is)")
+    if size not in (1, 2, 4, 8):
+        raise ValueError(f"float datatype of {size} bytes is not supported")
+    for cand in _NP_FLOATS:
+        info = np.finfo(cand)
+        if (np.dtype(cand).itemsize >= size and msize <= info.nmant
+                and 2 ** esize - bias - 1 <= info.maxexp and 1 - bias >= info.minexp):
+            break
+    else:
+        raise ValueError(f"float datatype {fields} with bias {bias} fits no numpy type")
+    dtype = np.dtype(cand).newbyteorder(order)
+    emax = (1 << esize) - 1
+
+    def fix(a):
+        u = _unsigned(a, order)
+        sign = (u >> np.uint64(spos)) & np.uint64(1)
+        e = ((u >> np.uint64(epos)) & np.uint64(emax)).astype(np.int64)
+        m = (u >> np.uint64(mpos)) & np.uint64((1 << msize) - 1)
+        normal = (e > 0) & (e < emax)
+        whole = (m + np.where(normal, np.uint64(1 << msize), np.uint64(0))).astype(cand)
+        v = np.ldexp(whole, (np.maximum(e, 1) - bias - msize).astype(np.int32))
+        v[e == emax] = np.where(m[e == emax] == 0, np.inf, np.nan)
+        v = np.where(sign == 1, -v, v)
+        nan = (e == emax) & (m != 0)
+        if nan.any() and v.dtype.itemsize <= 8:  # HDF5's NaN: every mantissa bit set
+            ones = (1 << (8 * v.dtype.itemsize - 1)) - 1
+            v.view(f"u{v.dtype.itemsize}")[nan] = np.where(sign[nan] == 1, 2 * ones + 1, ones)
+        return v.astype(dtype)
+    return _Type(dtype, np.dtype((np.void, size)), fix)
+
+
 def _decode_dtype(buf, pos):
-    """(numpy dtype, position after the message) of a datatype message."""
+    """(``_Type``, position after the message) of a datatype message."""
     cls = buf[pos] & 0x0F
     version = buf[pos] >> 4
     bits = buf[pos + 1:pos + 4]
@@ -156,35 +251,24 @@ def _decode_dtype(buf, pos):
         if cls == 1 and bits[0] & 0x40:
             raise ValueError("VAX-order floats are not supported")
         order = ">" if bits[0] & 0x01 else "<"
+        offset, precision = struct.unpack_from("<HH", buf, p)
         if cls == 0:
-            signed = bool(bits[0] & 0x08)
-            return np.dtype(f"{order}{'i' if signed else 'u'}{size}"), p + 4
-        return np.dtype(f"{order}f{size}"), p + 12
+            dtype = np.dtype(f"{order}{'i' if bits[0] & 0x08 else 'u'}{size}")
+            if (offset, precision) == (0, 8 * size):
+                return _Type(dtype), p + 4
+            if size not in (1, 2, 4, 8):
+                raise ValueError(f"integer datatype of {size} bytes is not supported")
+            return _Type(dtype, fix=_int_fix(dtype, precision, offset)), p + 4
+        epos, esize, mpos, msize, bias = struct.unpack_from("<BBBBI", buf, p + 4)
+        fields = (bits[1], epos, esize, mpos, msize)
+        norm = (bits[0] >> 4) & 0x03
+        if (offset, precision, norm) == (0, 8 * size, 2) and _IEEE.get(size) == fields + (bias,):
+            return _Type(f"{order}f{size}"), p + 12
+        return _float_type(size, order, fields, bias, norm), p + 12
     if cls == 3:
-        return np.dtype(f"S{size}"), p
+        return _Type(f"S{size}"), p
     if cls == 6:
-        nmembers = bits[0] | (bits[1] << 8)
-        offsize = max(1, (size.bit_length() + 7) // 8)
-        names, offsets, types = [], [], []
-        for _ in range(nmembers):
-            end = buf.index(b"\x00", p)
-            names.append(bytes(buf[p:end]).decode())
-            if version < 3:
-                p += _padded8(end + 1 - p)
-                offsets.append(struct.unpack_from("<I", buf, p)[0])
-                p += 4
-                if version == 1:
-                    p += 28  # array rank, permutation and dimension sizes
-            else:
-                p = end + 1
-                offsets.append(int.from_bytes(buf[p:p + offsize], "little"))
-                p += offsize
-            mdt, p = _decode_dtype(buf, p)
-            types.append(mdt)
-        if (names == ["r", "i"] and types[0] == types[1] and types[0].kind == "f"
-                and offsets == [0, types[0].itemsize] and size == 2 * types[0].itemsize):
-            return np.dtype(f"{types[0].byteorder.replace('=', '<')}c{size}"), p
-        raise ValueError(f"compound type {names} is not supported")
+        return _compound_type(buf, p, version, bits, size)
     if cls == 8:
         nmembers = bits[0] | (bits[1] << 8)
         base, p = _decode_dtype(buf, p)
@@ -193,14 +277,88 @@ def _decode_dtype(buf, pos):
             end = buf.index(b"\x00", p)
             names.append(bytes(buf[p:end]))
             p = p + _padded8(end + 1 - p) if version < 3 else end + 1
-        p += nmembers * base.itemsize
-        if sorted(names) == [b"FALSE", b"TRUE"] and base.itemsize == 1:
-            return np.dtype(bool), p
+        p += nmembers * base.dtype.itemsize
+        if sorted(names) == [b"FALSE", b"TRUE"] and base.dtype.itemsize == 1:
+            return _Type(bool), p
         return base, p
-    kinds = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference", 9: "variable-length",
-             10: "array"}
-    raise ValueError(f"{kinds.get(cls, f'class {cls}')} datatype (version {version}) "
-                     "is not supported")
+    if cls == 9 and bits[0] & 0x0F == 1:
+        # a variable-length string: h5py gives bytes (objects), its metadata
+        # naming str (UTF-8) or bytes (ASCII)
+        _, p = _decode_dtype(buf, p)  # the base: one character
+        vlen = str if (bits[1] & 0x0F) == 1 else bytes
+        return _Type(np.dtype("O", metadata={"vlen": vlen}), _VLEN_RECORD, vlen=True), p
+    if cls == 10 and version >= 2:
+        rank = buf[p]
+        p += 1 if version >= 3 else 4
+        dims = struct.unpack_from(f"<{rank}I", buf, p)
+        p += 4 * rank * (1 if version >= 3 else 2)  # version 2 adds permutation indices
+        base, p = _decode_dtype(buf, p)
+        return _array_type(base, dims), p
+    kinds = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference", 10: "array"}
+    what = kinds.get(cls, f"class {cls}")
+    if cls == 9:
+        what = "variable-length sequence"
+    raise ValueError(f"{what} datatype (version {version}) is not supported")
+
+
+def _array_type(base, dims):
+    if base.vlen or base.dtype.shape:
+        raise ValueError("an array of variable-length or array elements is not supported")
+    fix = None
+    if base.fix is not None:
+        def fix(a):
+            return base.fix(a.reshape(-1)).reshape(a.shape)
+    return _Type((base.dtype, tuple(dims)), (base.stored, tuple(dims)), fix)
+
+
+def _compound_type(buf, p, version, bits, size):
+    """A compound datatype: numpy complex for h5py's pair of one float type
+    named r and i, else the structured dtype h5py returns (the file's
+    member offsets and size)."""
+    nmembers = bits[0] | (bits[1] << 8)
+    offsize = max(1, (size.bit_length() + 7) // 8)
+    names, offsets, types = [], [], []
+    for _ in range(nmembers):
+        end = buf.index(b"\x00", p)
+        names.append(bytes(buf[p:end]).decode())
+        dims = ()
+        if version < 3:
+            p += _padded8(end + 1 - p)
+            offsets.append(struct.unpack_from("<I", buf, p)[0])
+            if version == 1:  # dimensionality, reserved, permutation, reserved, 4 sizes
+                dims = struct.unpack_from(f"<{buf[p + 4]}I", buf, p + 16)
+                p += 28
+            p += 4
+        else:
+            p = end + 1
+            offsets.append(int.from_bytes(buf[p:p + offsize], "little"))
+            p += offsize
+        member, p = _decode_dtype(buf, p)
+        if dims:
+            member = _array_type(member, dims)
+        if member.vlen:
+            raise ValueError(f"compound member {names[-1]!r} of variable length is not supported")
+        if member.dtype.itemsize != member.stored.itemsize:
+            raise ValueError(f"compound member {names[-1]!r}: a {member.stored.itemsize}-byte "
+                             f"float read as {member.dtype} is not supported")
+        types.append(member)
+    first = types[0].dtype if types else None
+    if (names == ["r", "i"] and all(t.dtype == first and t.fix is None for t in types)
+            and first.kind == "f" and offsets == [0, first.itemsize]
+            and size == 2 * first.itemsize):
+        return _Type(f"{first.byteorder.replace('=', '<')}c{size}"), p
+
+    def struct_of(which):
+        return np.dtype({"names": names, "formats": [getattr(t, which) for t in types],
+                         "offsets": offsets, "itemsize": size})
+    fix = None
+    if any(t.fix is not None for t in types):
+        def fix(a):
+            out = np.empty(a.shape, struct_of("dtype"))
+            for name, t in zip(names, types):
+                out[name] = a[name] if t.fix is None else t.fix(a[name])
+            return out
+    return _Type(struct_of("dtype"), struct_of("stored"), fix), p
 
 
 # ---------------------------------------------------------------------- #
@@ -357,15 +515,21 @@ def _lzf_decompress(data):
     return bytes(out)
 
 
-def _bits_values(bits, pos, count, nbits):
-    """``count`` consecutive ``nbits``-bit unsigned values (uint64) at bit
-    ``pos`` of an unpacked (MSB-first) bit array."""
-    if nbits == 0 or count == 0:
-        return np.zeros(count, np.uint64)
-    chunk = bits[pos:pos + count * nbits]
-    if chunk.size < count * nbits:
+def _packed_values(stream, starts, nbits):
+    """The ``nbits``-bit unsigned values (uint64, ``starts``' shape; at
+    most 64 bits) that start at the bit positions ``starts`` of a byte
+    stream read MSB first: each value from the 9 bytes from its first."""
+    starts = np.asarray(starts, np.int64)
+    if nbits == 0 or starts.size == 0:
+        return np.zeros(starts.shape, np.uint64)
+    if starts.max() + nbits > 8 * len(stream):
         raise ValueError("corrupt compressed data (the stream ends early)")
-    return _gather_values(chunk, np.arange(count, dtype=np.int64) * nbits, nbits)
+    padded = np.frombuffer(bytes(stream) + bytes(9), np.uint8)
+    windows = np.lib.stride_tricks.sliding_window_view(padded, 9)[starts >> 3]
+    head = np.ascontiguousarray(windows[..., :8]).view(">u8")[..., 0].astype(np.uint64)
+    skip = (starts & 7).astype(np.uint64)
+    word = (head << skip) | (windows[..., 8].astype(np.uint64) >> (np.uint64(8) - skip))
+    return word >> np.uint64(64 - nbits)
 
 
 def _gather_values(bits, starts, nbits):
@@ -612,8 +776,7 @@ def _scaleoffset_decompress(data, cd, dtype):
                          "does not read it back either)")
     if cls == 1 and scale_type != 0:
         raise ValueError(f"scale-offset type {scale_type} is not supported (D-scale is)")
-    bits = np.unpackbits(np.frombuffer(data, np.uint8, offset=21))
-    v = _bits_values(bits, 0, nelmts, minbits)
+    v = _packed_values(data[21:], np.arange(nelmts, dtype=np.int64) * minbits, minbits)
     words = np.frombuffer(struct.pack(f"<{len(cd) - 8}I", *cd[8:]), np.uint8)
     fill = words[:size].tobytes() if len(words) >= size else bytes(size)
     is_fill = (v == np.uint64((1 << minbits) - 1)) if fill_defined else np.zeros(nelmts, bool)
@@ -629,6 +792,63 @@ def _scaleoffset_decompress(data, cd, dtype):
         minval.to_bytes(8, "little")[:size], ftype)[0]
     out[is_fill] = np.frombuffer(fill, ftype)[0]
     return out.astype(dtype).tobytes()
+
+
+def _nbit_leaves(cd, i, base, out):
+    """Walk the n-bit filter's class tree at ``cd[i]``: append to ``out``
+    (byte offset in the element, size, big-endian, precision, offset) of
+    each atomic value in the order the filter packs them, a no-op member's
+    bytes as 8-bit values; return the index after the tree."""
+    cls = cd[i]
+    if cls == 1:  # atomic: size, byte order, precision, offset
+        size, order, precision, offset = cd[i + 1:i + 5]
+        out.append((base, size, order == 1, precision, offset))
+        return i + 5
+    if cls == 2:  # array: size, then the base class, once for each base element
+        size, base_size, first = cd[i + 1], cd[i + 3], len(out)
+        j = _nbit_leaves(cd, i + 2, base, out)
+        one = out[first:]
+        for k in range(1, size // base_size):
+            out.extend((leaf[0] + k * base_size,) + leaf[1:] for leaf in one)
+        return j
+    if cls == 3:  # compound: size, members, then each member's offset and class
+        j = i + 3
+        for _ in range(cd[i + 2]):
+            j = _nbit_leaves(cd, j + 1, base + cd[j], out)
+        return j
+    if cls == 4:  # no-op: size bytes copied as they are
+        out.extend((base + k, 1, False, 8, 0) for k in range(cd[i + 1]))
+        return i + 2
+    raise ValueError(f"n-bit class {cls} is not known")
+
+
+def _nbit_decompress(data, cd):
+    """HDF5's n-bit filter: each element's significant bits (``precision``
+    bits from bit ``offset`` of each atomic value, in the order of the
+    class tree), packed MSB first with no gap between elements or values.
+    The other bits read as zeros (the datatype's conversion then takes the
+    value out of them). ``cd``: the number of client values, need-not-
+    compress (the chunk was stored as it is), elements in the chunk, the
+    class tree."""
+    if cd[1]:
+        return data
+    leaves = []
+    _nbit_leaves(cd, 3, 0, leaves)
+    size = cd[4]  # the top class's size
+    nelmts = cd[2]
+    stride = sum(leaf[3] for leaf in leaves)
+    out = np.zeros((nelmts, size), np.uint8)
+    first = np.arange(nelmts, dtype=np.int64) * stride
+    at = 0
+    for offset, nbytes, big, precision, shift in leaves:
+        if nbytes not in (1, 2, 4, 8) or precision + shift > 8 * nbytes:
+            raise ValueError(f"n-bit value of {nbytes} bytes, precision {precision} at offset "
+                             f"{shift} is not supported")
+        v = _packed_values(data, first + at, precision) << np.uint64(shift)
+        at += precision
+        word = v.astype(f"{'>' if big else '<'}u{nbytes}")
+        out[:, offset:offset + nbytes] = word.view(np.uint8).reshape(nelmts, nbytes)
+    return out.tobytes()
 
 
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
@@ -655,10 +875,11 @@ def _decode_filters(body, where):
         p += nlen
         cd = struct.unpack_from(f"<{ncd}I", body, p)
         p += 4 * ncd + (4 if version == 1 and ncd % 2 else 0)
-        if fid not in (1, 2, 3, 4, 6, 32000):
+        if fid not in (1, 2, 3, 4, 5, 6, 32000):
             label = _FILTER_NAMES.get(fid) or name or "unknown"
             raise ValueError(f"{where}: HDF5 filter {fid} ({label}) is not supported "
-                             "(deflate, shuffle, fletcher32, szip, scaleoffset and lzf are)")
+                             "(deflate, shuffle, fletcher32, szip, nbit, scaleoffset and lzf "
+                             "are)")
         out.append((fid, cd))
     return out
 
@@ -684,9 +905,13 @@ class _DatasetInfo:
         self.maxshape = (tuple(struct.unpack_from(f"<{ndim}Q", space, p + 8 * ndim))
                          if sflags & 0x01 else self.shape)
         try:
-            self.dtype, _ = _decode_dtype(bodies[_DATATYPE], 0)
+            self.type, _ = _decode_dtype(bodies[_DATATYPE], 0)
         except ValueError as exc:
             raise ValueError(f"{where}: {exc}") from None
+        self.dtype, self.stored = self.type.dtype, self.type.stored
+        if self.dtype.shape:
+            raise ValueError(f"{where}: array datatype {self.dtype} is not supported (only as a "
+                             "compound member)")
         self.fill = self._fill_value(bodies)
         self.filters = _decode_filters(bodies[_FILTERS], where) if _FILTERS in bodies else []
         self.where = where
@@ -705,9 +930,9 @@ class _DatasetInfo:
         elif _FILL_VALUE_OLD in bodies:
             b = bodies[_FILL_VALUE_OLD]
             raw = b[4:4 + struct.unpack_from("<I", b, 0)[0]]
-        if raw and len(raw) == self.dtype.itemsize:
-            return np.frombuffer(raw, self.dtype)[0]
-        return np.zeros((), self.dtype)[()]
+        if raw and len(raw) == self.stored.itemsize:  # as stored: read as the elements are
+            return np.frombuffer(raw, self.stored, count=1).reshape(())
+        return np.zeros((), self.stored)
 
     def _layout(self, lay):
         version, cls = lay[0], lay[1]
@@ -880,6 +1105,7 @@ class File(Group):
         elif mode == "r":
             self._fh = open(path, "rb")
             self._map = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
+            self._heaps = {}
             self._buf = memoryview(self._map)
             self._views.append(self._buf)
             try:
@@ -985,18 +1211,19 @@ class File(Group):
         if base:
             self._buf = buf[base:]  # every address is relative to the base address
             self._views.append(self._buf)
-        self._children = self._links(root)
+        self._children = self._links(root, where="group '/'")
 
     def _node(self, addr, name):
         msgs = _header_messages(self._buf, addr)
         if any(m[0] == _LAYOUT for m in msgs):
             return Dataset(self, name, msgs)
         grp = Group(self, name)
-        grp._children = self._links(addr, msgs)
+        grp._children = self._links(addr, msgs, f"group {name!r}")
         return grp
 
-    def _links(self, addr, msgs=None):
-        """{name: object header address} of the group at ``addr``."""
+    def _links(self, addr, msgs=None, where=""):
+        """{name: object header address} of the group at ``addr``
+        (``where`` names it in an error)."""
         links = {}
         for mtype, _, body in msgs or _header_messages(self._buf, addr):
             if mtype == _LINK:
@@ -1005,7 +1232,10 @@ class File(Group):
             elif mtype == _SYMBOL_TABLE:
                 links.update(self._symbol_table(*struct.unpack_from("<QQ", body)))
             elif mtype == _LINK_INFO:
-                links.update(self._dense_links(body))
+                try:
+                    links.update(self._dense_links(body))
+                except ValueError as exc:
+                    raise ValueError(f"{where}: {exc}") from None
         return links
 
     def _btree1(self, addr, key_size):
@@ -1084,7 +1314,8 @@ class File(Group):
 
     def _heap_object(self, hdr, heap_id):
         if (heap_id[0] >> 4) & 0x03:
-            raise ValueError("huge and tiny fractal heap objects are not supported")
+            raise ValueError("huge and tiny fractal heap objects (links over 64 KiB or of a "
+                             "few bytes) are not supported")
         osz, lsz = hdr["off_size"], hdr["len_size"]
         off = int.from_bytes(heap_id[1:1 + osz], "little")
         length = int.from_bytes(heap_id[1 + osz:1 + osz + lsz], "little")
@@ -1157,22 +1388,85 @@ class File(Group):
         if count == 0:
             return
         if info.kind == "compact":
-            out[...] = np.frombuffer(info.raw, info.dtype, count=count).reshape(info.shape)
+            self._store(info, out, np.frombuffer(info.raw, info.stored,
+                                                 count=count).reshape(info.shape))
         elif info.kind == "contiguous":
             if info.address == _UNDEF:
-                out[...] = info.fill
+                self._store(info, out, info.fill)
                 return
-            arr = np.frombuffer(self._buf, info.dtype, count=count, offset=info.address)
-            out[...] = arr.reshape(info.shape)
+            arr = np.frombuffer(self._buf, info.stored, count=count, offset=info.address)
+            self._store(info, out, arr.reshape(info.shape))
             del arr
         else:
             self._read_chunked(info, out)
+
+    def _store(self, info, dst, arr):
+        """Write the stored elements ``arr`` into ``dst`` as HDF5 converts
+        them: to the dataset's values (``_Type.fix``; a variable-length
+        string from the global heap), then to ``dst``'s type, compound
+        members by name (into complex: r and i)."""
+        if info.type.vlen:
+            arr = self._vlen_strings(arr, info.where)
+        elif info.type.fix is not None:
+            arr = info.type.fix(arr)
+        names = arr.dtype.names
+        if names and dst.dtype.kind == "c":
+            if not {"r", "i"} <= set(names):
+                raise ValueError(f"{info.where}: compound {list(names)} has no members r and i "
+                                 f"to read into {dst.dtype}")
+            dst.real[...] = arr["r"]
+            dst.imag[...] = arr["i"]
+        elif names and dst.dtype.names and dst.dtype != arr.dtype:
+            for name in dst.dtype.names:
+                dst[name] = arr[name]
+        else:
+            dst[...] = arr
+
+    def _vlen_strings(self, records, where):
+        """The bytes of variable-length strings (``_VLEN_RECORD`` each: the
+        length, and the global heap collection and object that hold them);
+        an element never written reads as b"". h5py reads them as C
+        strings, so they end at a zero byte."""
+        flat = records.reshape(-1)
+        out = np.empty(flat.shape, object)
+        for k, (length, collection, index) in enumerate(flat.tolist()):
+            if length == 0 or collection in (0, _UNDEF):
+                out[k] = b""
+                continue
+            heap = self._global_heap(collection)
+            if index not in heap:
+                raise ValueError(f"{where}: object {index} is not in the global heap at "
+                                 f"{collection}")
+            out[k] = heap[index][:length].split(b"\x00")[0]
+        return out.reshape(records.shape)
+
+    def _global_heap(self, addr):
+        """{object index: bytes} of the global heap collection at ``addr``:
+        after its 16-byte head, objects of an index (2 bytes), a reference
+        count (2), 4 reserved bytes, a size (8) and the data padded to 8
+        bytes, up to the free space (index 0)."""
+        heap = self._heaps.get(addr)
+        if heap is None:
+            buf = self._buf
+            if bytes(buf[addr:addr + 4]) != b"GCOL":
+                raise ValueError(f"no global heap collection at {addr}")
+            end = addr + struct.unpack_from("<Q", buf, addr + 8)[0]
+            heap, p = {}, addr + 16
+            while p + 16 <= end:
+                index, size = struct.unpack_from("<H", buf, p)[0], struct.unpack_from(
+                    "<Q", buf, p + 8)[0]
+                if index == 0:
+                    break
+                heap[index] = bytes(buf[p + 16:p + 16 + size])
+                p += 16 + _padded8(size)
+            self._heaps[addr] = heap
+        return heap
 
     def _chunks(self, info):
         """[(element offsets, address, stored size, filter mask), ...] of the
         allocated chunks of a chunked dataset."""
         rank = len(info.shape)
-        full = int(np.prod(info.chunk, dtype=np.int64)) * info.dtype.itemsize
+        full = int(np.prod(info.chunk, dtype=np.int64)) * info.stored.itemsize
         grid = [-(-m // c) for m, c in zip(info.maxshape, info.chunk)]
 
         def offsets(k):  # the k-th chunk of the grid, in row-major order
@@ -1273,14 +1567,28 @@ class File(Group):
         sblk_addrs = struct.unpack_from(f"<{nsblks - iblk_sblks}Q", buf, p + 8 * ndblk_addrs)
         page = 1 << page_bits
 
-        def data_block(addr, first, dblk_n):
+        def data_block(addr, first, dblk_n, pages=None):
+            """The elements of a data block; a paged one (more than
+            ``page`` elements) holds none itself: after its checksum come
+            its pages, each of ``page`` elements and a checksum, of which
+            only those ``pages`` marks initialised were written."""
             if addr == _UNDEF or first >= nset:
                 return
-            if dblk_n > page:
-                raise ValueError(f"{info.where}: paged extensible-array data blocks (more than "
-                                 f"{page} chunks in one) are not supported")
             q = block(addr, b"EADB", "data block") + off_size
-            elements.extend((first + k, q + k * esize) for k in range(min(dblk_n, nset - first)))
+            if dblk_n <= page:
+                elements.extend((first + k, q + k * esize)
+                                for k in range(min(dblk_n, nset - first)))
+                return
+            if pages is None:
+                raise ValueError(f"{info.where}: a paged extensible-array data block in the index "
+                                 "block is not supported")
+            q += 4
+            for pg, written in enumerate(pages):
+                k0 = pg * page
+                if written and first + k0 < nset:
+                    at = q + pg * (page * esize + 4)
+                    elements.extend((first + k0 + k, at + k * esize)
+                                    for k in range(min(page, nset - first - k0)))
 
         d = 0
         for u in range(min(iblk_sblks, nsblks)):
@@ -1294,8 +1602,15 @@ class File(Group):
             if sb == _UNDEF or first >= nset:
                 continue
             q = block(sb, b"EASB", "secondary block") + off_size
+            # which pages are initialised: one bit a page, MSB first, data block after
+            # data block, in whole bytes for each data block
+            npages = dblk_n // page if dblk_n > page else 0
+            bitmap = bytes(buf[q:q + ndblks * ((npages + 7) // 8)])
+            q += len(bitmap)
             for k, addr in enumerate(struct.unpack_from(f"<{ndblks}Q", buf, q)):
-                data_block(addr, first + k * dblk_n, dblk_n)
+                pages = [bitmap[b // 8] & (0x80 >> (b % 8))
+                         for b in range(k * npages, (k + 1) * npages)] if npages else None
+                data_block(addr, first + k * dblk_n, dblk_n, pages)
         # element index -> chunk offsets: the unlimited dimension first
         unlim = [d for d, m in enumerate(info.maxshape) if m == _UNDEF]
         if len(unlim) != 1:
@@ -1357,6 +1672,14 @@ class File(Group):
         data = bytes(self._buf[addr:addr + size])
         if partial and info.edge_unfiltered:
             return data
+        try:
+            return self._unfilter(info, data, mask, addr)
+        except ValueError as exc:
+            raise ValueError(f"{info.where}: {exc}") from None
+
+    def _unfilter(self, info, data, mask, addr):
+        """Undo the filters of a chunk's pipeline (those ``mask`` did not
+        skip), last first."""
         for i in reversed(range(len(info.filters))):
             if mask & (1 << i):
                 continue
@@ -1364,18 +1687,19 @@ class File(Group):
             if fid == 1:
                 data = zlib.decompress(data)
             elif fid == 2:
-                data = _unshuffle(data, cd[0] if cd else info.dtype.itemsize)
+                data = _unshuffle(data, cd[0] if cd else info.stored.itemsize)
             elif fid == 3:
                 stored = data[-4:]
                 data = data[:-4]
                 want = _fletcher32(data).to_bytes(4, "little")
                 if stored not in (want, bytes([want[1], want[0], want[3], want[2]])):
-                    raise ValueError(f"{info.where}: fletcher32 checksum mismatch in the "
-                                     f"chunk at {addr}")
+                    raise ValueError(f"fletcher32 checksum mismatch in the chunk at {addr}")
             elif fid == 4:
                 data = _szip_decompress(data, cd)
+            elif fid == 5:
+                data = _nbit_decompress(data, cd)
             elif fid == 6:
-                data = _scaleoffset_decompress(data, cd, info.dtype)
+                data = _scaleoffset_decompress(data, cd, info.stored)
             else:
                 data = _lzf_decompress(data)
         return data
@@ -1387,14 +1711,14 @@ class File(Group):
         chunks = [c for c in self._chunks(info)
                   if all(o < s for o, s in zip(c[0], info.shape))]
         if len(chunks) < nchunks:  # unallocated chunks read as the fill value
-            out[...] = info.fill
+            self._store(info, out, info.fill)
         for offs, addr, size, mask in chunks:
             ends = [min(o + c, s) for o, c, s in zip(offs, chunk, info.shape)]
             partial = any(e - o < c for o, e, c in zip(offs, ends, chunk))
             data = self._chunk_data(info, addr, size, mask, partial)
-            if len(data) < ccount * info.dtype.itemsize:
+            if len(data) < ccount * info.stored.itemsize:
                 raise ValueError(f"{info.where}: chunk at {addr} decodes to {len(data)} bytes, "
-                                 f"expected {ccount * info.dtype.itemsize}")
-            arr = np.frombuffer(data, info.dtype, count=ccount).reshape(chunk)
-            out[tuple(slice(o, e) for o, e in zip(offs, ends))] = \
-                arr[tuple(slice(0, e - o) for o, e in zip(offs, ends))]
+                                 f"expected {ccount * info.stored.itemsize}")
+            arr = np.frombuffer(data, info.stored, count=ccount).reshape(chunk)
+            self._store(info, out[tuple(slice(o, e) for o, e in zip(offs, ends))],
+                        arr[tuple(slice(0, e - o) for o, e in zip(offs, ends))])

@@ -43,12 +43,16 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    mixed --checkpoint_dir``) on a 3-time Golomb file, stopped inside a time,
    resumed and held against an uninterrupted run; the DFT and mixed drivers
    once each on the small Golomb file; the CLI on files the port did not
-   write (the h5py-written fixtures of ``tests/data``, the pyuvdata-layout
-   fixture of ``tests/data_torch``), on the card against the CPU, the
-   read seconds of the port's HDF5 reader, and the fixtures in the storage
-   of the latest file format and HDF5's built-in filters (extensible-array
-   and v2 B-tree chunk indices, szip, scale-offset) read against digests
-   of h5py's reading;
+   write (the h5py-written fixtures of ``tests/data`` and their copies with
+   variable-length Header strings, the pyuvdata-layout fixture of
+   ``tests/data_torch`` and its twin with HERA's integer visibilities), on
+   the card against the CPU, the read seconds of the port's HDF5 reader
+   (the HERA core's flags and nsamples under LZF, szip and n-bit), and the
+   fixtures in the storage of the latest file format, HDF5's built-in
+   filters (extensible-array chunk indices with paged data blocks, v2
+   B-tree chunk indices, szip, scale-offset, n-bit) and the types h5py
+   and pyuvdata write (variable-length strings, integer compounds) read
+   against digests of h5py's reading;
 7. the time-parallel path at full width: one ``read_calibrate_and_model_dpss``
    with ``time_parallel=True`` on 64 antennas, 1536 channels, 4 times and 2
    polarizations (8 slices in one batched descent), every step through the
@@ -1135,16 +1139,20 @@ def phase_cli(tmp, repo):
 def cli_on_foreign_files(tmp, repo):
     """The CLI with its default flags on HDF5 files the port did not write:
     the repo's h5py-written fixtures (a uvh5 file, starting gains in calh5
-    and UVFlag weights: superblock 0, symbol-table groups) and the
-    pyuvdata-layout fixture (chunked visdata, LZF flags and nsamples), each
+    and UVFlag weights: superblock 0, symbol-table groups), the same three
+    with their Header strings variable-length (as h5py stores a Python
+    ``str``), the pyuvdata-layout fixture (chunked visdata, LZF flags and
+    nsamples) and its twin with HERA's integer visibilities (a compound of
+    int32 ``r`` and ``i``, read with ``--host_data_dtype complex64``), each
     on the card and on the CPU in this process, both taking the same steps
     (tol 0: 400 steps in each phase of the mixed schedule, as phase 5 fixes
     its steps, so neither stops where the other's rounding moved its tol
     test): gains, model and resid of the two within phase 5's tolerance
-    (rel 1e-4 of the largest gain, of the largest model value). Also the read seconds of
-    the pyuvdata-layout fixture and of the HERA core's flags and nsamples
-    cubes, under LZF and under szip (which must read as their LZF twin),
-    through ``calamity_tpu_torch._h5lite`` (h5py where it is installed)."""
+    (rel 1e-4 of the largest gain, of the largest model value). Also the
+    read seconds of each input file and of the HERA core's flags and
+    nsamples cubes, under LZF, under szip and under n-bit then deflate
+    (which must read as their LZF twin), through
+    ``calamity_tpu_torch._h5lite`` (h5py where it is installed)."""
     import h5py
 
     from calamity_tpu_torch import LAUNCHES
@@ -1162,6 +1170,12 @@ def cli_on_foreign_files(tmp, repo):
                          "--weights_file", os.path.join(data, "golden_weights.uvflag.h5")],
         "pyuvdata-layout": ["--input_data_files",
                             os.path.join(data_torch, "pyuvdata_layout.uvh5")],
+        "vlen-strings": ["--input_data_files", os.path.join(data_torch, "vlen_strings.uvh5"),
+                         "--input_gain_files", os.path.join(data_torch, "vlen_strings.calh5"),
+                         "--weights_file", os.path.join(data_torch, "vlen_strings.uvflag.h5")],
+        "hera-int-visdata": ["--input_data_files",
+                             os.path.join(data_torch, "hera_int_visdata.uvh5"),
+                             "--host_data_dtype", "complex64"],
     }
     out = {"launches": 0, "prod_launches": 0}
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -1182,7 +1196,9 @@ def cli_on_foreign_files(tmp, repo):
                            CalData.from_calfits(names[2]).gain_array, time.time() - t0,
                            LAUNCHES.get(GAIN_KERNEL), LAUNCHES.get(PROD_KERNEL))
         (r_c, m_c, g_c, s_c, n_c, p_c), (r_h, m_h, g_h, s_h, _, _) = res["cuda"], res["cpu"]
-        src = VisData.from_uvh5(files[1])
+        host_dtype = files[files.index("--host_data_dtype") + 1] if "--host_data_dtype" in files \
+            else None
+        src = VisData.from_uvh5(files[1], data_dtype=host_dtype)
         good = ~src.flag_array
         ratio = rms(r_c[good]) / rms(src.data_array[good])
         dg = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
@@ -1198,9 +1214,25 @@ def cli_on_foreign_files(tmp, repo):
         out["launches"] += n_c
         out["prod_launches"] += p_c
     # read seconds through the port's HDF5 reader
-    t0 = time.time()
-    VisData.from_uvh5(os.path.join(data_torch, "pyuvdata_layout.uvh5"))
-    out["fixture_read_s"] = time.time() - t0
+    from calamity_tpu_torch.io import FlagWeights
+
+    reads = {
+        "pyuvdata_layout.uvh5": lambda p: VisData.from_uvh5(p),
+        "hera_int_visdata.uvh5": lambda p: VisData.from_uvh5(p, data_dtype=np.complex64),
+        "vlen_strings.uvh5": lambda p: VisData.from_uvh5(p),
+        "vlen_strings.calh5": lambda p: CalData.from_calh5(p),
+        "vlen_strings.uvflag.h5": lambda p: FlagWeights.from_uvflag_h5(p),
+    }
+    out["read_s"], objs = {}, {}
+    for name, read in reads.items():
+        t0 = time.time()
+        objs[name] = read(os.path.join(data_torch, name))
+        out["read_s"][name] = time.time() - t0
+    uvd_s, cal_s, flags_s = (objs[f"vlen_strings.{k}"] for k in ("uvh5", "calh5", "uvflag.h5"))
+    check(uvd_s.telescope_name == cal_s.telescope_name == "SYNTH"
+          and uvd_s.antenna_names[:2] == cal_s.antenna_names[:2] == ["ANT0", "ANT1"]
+          and cal_s.cal_type == "gain" and flags_s.mode == "flag",
+          "the variable-length strings read wrong")
     t0 = time.time()
     with h5py.File(os.path.join(data_torch, "lzf_cube_4388x1536.h5"), "r") as f:
         flags = f["Data/flags"][()]
@@ -1214,20 +1246,51 @@ def cli_on_foreign_files(tmp, repo):
               and np.array_equal(f["Data/nsamples"][()], nsamples),
               "the szip cube does not read as its LZF twin")
     out["szip_cube_read_s"] = time.time() - t0
-    log(f"    read seconds ({h5py.__name__}): the pyuvdata-layout fixture "
-        f"{out['fixture_read_s']:.3f} s; the 4388 x 1536 flags and nsamples: LZF "
-        f"{out['lzf_cube_read_s']:.3f} s, szip (NN) {out['szip_cube_read_s']:.3f} s (host)")
+    t0 = time.time()
+    with h5py.File(os.path.join(data_torch, "nbit_cube_4388x1536.h5"), "r") as f:
+        nbit_flags, nbit_nsamples = f["Data/flags"][()], f["Data/nsamples"][()]
+    out["nbit_cube_read_s"] = time.time() - t0
+    check(nbit_flags.dtype == np.uint8 and np.array_equal(nbit_flags.astype(bool), flags)
+          and nbit_nsamples.dtype == np.float32 and np.array_equal(nbit_nsamples, nsamples),
+          "the n-bit cube does not read as its LZF twin")
+    log(f"    read seconds ({h5py.__name__}, host): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in out["read_s"].items())
+        + f"; the 4388 x 1536 flags and nsamples: LZF {out['lzf_cube_read_s']:.3f} s, szip (NN) "
+        f"{out['szip_cube_read_s']:.3f} s, n-bit then deflate {out['nbit_cube_read_s']:.3f} s")
     storage_fixtures(data_torch)
     return out
 
 
+def _dtype_name(dt):
+    """A dtype's name in a digest, as ``tests/torch_make_h5_fixture.py``
+    writes it: its ``str``; a structured dtype's members spelled out."""
+    if dt.names is not None:
+        members = ", ".join(f"{n}: {_dtype_name(dt.fields[n][0])} @ {dt.fields[n][1]}"
+                            for n in dt.names)
+        return f"{{{members}}} x {dt.itemsize}"
+    return dt.str if dt.subdtype is None else f"{dt.base.str}{dt.shape}"
+
+
+def _value_bytes(values):
+    """What a digest hashes: the values in C order, a structured array
+    member after member, each string of an object array as its length (8
+    bytes) and its bytes (never a pointer)."""
+    if values.dtype.names is not None:
+        return b"".join(_value_bytes(values[n]) for n in values.dtype.names)
+    if values.dtype.kind == "O":
+        return b"".join(len(v).to_bytes(8, "little") + v for v in values.reshape(-1))
+    return np.ascontiguousarray(values).tobytes()
+
+
 def storage_fixtures(data_torch):
-    """The fixtures in the storage of the latest file format and of HDF5's
-    built-in filters (extensible-array and v2 B-tree chunk indices, szip,
-    scale-offset; ``tests/torch_make_h5_fixture.py``), read through
+    """The fixtures in the storage of the latest file format, of HDF5's
+    built-in filters (extensible-array chunk indices with paged data
+    blocks, v2 B-tree chunk indices, szip, scale-offset, n-bit) and in the
+    types h5py and pyuvdata write (variable-length strings, integer
+    compounds; ``tests/torch_make_h5_fixture.py``), read through
     ``calamity_tpu_torch._h5lite`` (h5py where it is installed): every
     dataset's shape, dtype and SHA-256 against the digests of h5py's
-    reading committed beside them; the two uvh5 files through the port's
+    reading committed beside them; the uvh5 files through the port's
     ``VisData``."""
     import hashlib
 
@@ -1248,10 +1311,11 @@ def storage_fixtures(data_torch):
                     if hasattr(node, "keys"):
                         walk(node, f"{prefix}/{key}")
                         continue
-                    values = np.ascontiguousarray(node[()])
+                    values = np.ascontiguousarray(  # at least 1-d
+                        node[()], dtype=object if node.dtype.kind == "O" else None)
                     got[f"{prefix}/{key}"] = {
-                        "shape": list(values.shape), "dtype": values.dtype.str,
-                        "sha256": hashlib.sha256(values.tobytes()).hexdigest()}
+                        "shape": list(values.shape), "dtype": _dtype_name(values.dtype),
+                        "sha256": hashlib.sha256(_value_bytes(values)).hexdigest()}
             walk(f, "")
         seconds = time.time() - t0
         bad = sorted(k for k in digests if got.get(k) != digests[k])
@@ -1259,9 +1323,10 @@ def storage_fixtures(data_torch):
               f"{name}: datasets read other than h5py reads them: {bad}")
         line = f"    {name}: {len(got)} datasets equal to h5py's digests, read in {seconds:.3f} s"
         if name.endswith(".uvh5"):
-            uvd = VisData.from_uvh5(path)
-            check(uvd.flag_array[:, :, 10].all() and np.isfinite(uvd.data_array).all(),
-                  f"{name}: VisData reads wrong")
+            uvd = VisData.from_uvh5(path, data_dtype=np.complex64)
+            # the files made from the pyuvdata-layout fixture's data flag channel 10
+            flagged = name == "vlen_strings.uvh5" or uvd.flag_array[:, :, 10].all()
+            check(flagged and np.isfinite(uvd.data_array).all(), f"{name}: VisData reads wrong")
             line += f"; VisData {uvd.data_array.shape}"
         log(line + f" ({h5py.__name__}, host)")
 

@@ -4,10 +4,14 @@ writes value for value and type for type, it reads its own files back, and
 the port's host layer's uvh5, calh5 and UVFlag writers and readers
 round-trip through it (and the JAX package reads what they wrote). The
 storage of the latest file format and HDF5's built-in filters (the
-extensible-array and v2 B-tree chunk indices, szip, scale-offset) is read
-equal to h5py to the bit, from fixtures h5py wrote (``tests/data_torch``)
-and from files written here; the digests committed beside the fixtures
-for the card's machine, which has no h5py, equal h5py's reading."""
+extensible-array chunk index with its paged data blocks, the v2 B-tree
+index, szip, scale-offset, n-bit) and the types h5py and pyuvdata write
+(variable-length strings, compounds of integers, integers and floats of
+reduced precision) are read equal to h5py to the bit, from fixtures h5py
+wrote (``tests/data_torch``) and from files written here; the digests
+committed beside the fixtures for the card's machine, which has no h5py,
+equal h5py's reading. What the reader still refuses raises, naming what
+and where."""
 
 import json
 import os
@@ -109,9 +113,8 @@ DATA_TORCH = os.path.join(os.path.dirname(__file__), "data_torch")
 
 
 def _tree(path, opener):
-    """{dataset path: value} of every dataset of an HDF5 file, read with
-    ``opener``; variable-length datasets (which the port never reads) are
-    left out by name."""
+    """{dataset path: value as read} of every dataset of an HDF5 file, read
+    with ``opener``."""
     out = {}
     with opener(path, "r") as f:
         def walk(grp, prefix):
@@ -119,17 +122,34 @@ def _tree(path, opener):
                 node = grp[name]
                 if hasattr(node, "keys"):
                     walk(node, f"{prefix}/{name}")
-                elif not (hasattr(node, "dtype") and node.dtype.kind == "O"):
-                    out[f"{prefix}/{name}"] = np.asarray(node[()])
+                else:
+                    out[f"{prefix}/{name}"] = node[()]
         walk(f, "")
     return out
 
 
+def _bit_same(got, want):
+    """The same Python type, shape, dtype (with h5py's string metadata)
+    and bytes (a float's sign and NaN bits; structured values member by
+    member; each string of an object array)."""
+    from torch_make_h5_fixture import value_bytes
+
+    if type(got) is not type(want):
+        return False
+    got, want = np.asarray(got), np.asarray(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and h5py.check_string_dtype(got.dtype) == h5py.check_string_dtype(want.dtype)
+            and value_bytes(got) == value_bytes(want))
+
+
 def _same_tree(path):
     want, got = _tree(path, h5py.File), {}
+    with h5py.File(path, "r") as f:
+        dtypes = {name: f[name].dtype for name in want}
     with _h5lite.File(path, "r") as f:
         for name in want:
-            got[name] = np.asarray(f[name][()])
+            got[name] = f[name][()]
+            assert f[name].dtype == dtypes[name], name
         names = set()
 
         def walk(grp, prefix):
@@ -140,7 +160,7 @@ def _same_tree(path):
         walk(f, "")
     assert want, path
     for name, val in want.items():
-        assert _same(got[name], val), name
+        assert _bit_same(got[name], val), name
     return names
 
 
@@ -162,9 +182,11 @@ def test_pyuvdata_layout_fixture_reads_equal_to_h5py_and_the_generator(tmp_path,
     with h5py.File(path, "r") as f:
         assert f["Data/flags"].compression == "lzf" and f["Data/visdata"].chunks
         assert f["Header/extra_keywords/comment"].dtype.kind == "O"
-    with _h5lite.File(path, "r") as f:
-        with pytest.raises(ValueError, match="variable-length"):
-            f["Header/extra_keywords/comment"][()]
+    with _h5lite.File(path, "r") as f:  # a variable-length string: bytes, as h5py gives
+        comment = f["Header/extra_keywords/comment"]
+        assert comment.dtype.kind == "O" and h5py.check_string_dtype(comment.dtype).encoding \
+            == "utf-8"
+        assert comment[()] == b"a variable-length string, as pyuvdata writes one"
     fresh = gen.write_fixture(str(tmp_path / "fresh.uvh5"))
     committed, regenerated = _tree(path, h5py.File), _tree(fresh, h5py.File)
     assert committed.keys() == regenerated.keys()
@@ -333,6 +355,9 @@ _PLUGINS = {"blosc": 32001, "bitshuffle": 32008, "lz4": 32004, "zstd": 32015}
     ("nbit", "filter 5 \\(nbit\\)"),
 ])
 def test_unsupported_storage_raises_naming_it(tmp_path, case, match):
+    """The plugin filters (h5py reads them only through hdf5plugin) raise,
+    naming the filter and the dataset. n-bit, which raised until the
+    reader took it, reads equal to h5py."""
     path = str(tmp_path / f"{case}.h5")
     with h5py.File(path, "w", libver="latest") as f:
         if case in _PLUGINS:
@@ -346,8 +371,59 @@ def test_unsupported_storage_raises_naming_it(tmp_path, case, match):
             ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(8, dtype=np.int32))
     with _h5lite.File(path, "r") as f:
         assert "v" in f  # opening walks the links only
+        if case == "nbit":
+            assert [fid for fid, _ in f["v"]._info().filters] == [5]
+            assert _bit_same(f["v"][()], np.arange(8, dtype=np.int32))
+            return
         with pytest.raises(ValueError, match=f"dataset '/v'.*{match}"):
             f["v"][()]
+
+
+def _refused(f, case):
+    """Write into ``f`` the storage ``case`` the reader refuses; return the
+    name of the node that raises."""
+    if case == "vlen_sequence":  # no field the host layer reads holds one
+        ds = f.create_dataset("v", shape=(2,), dtype=h5py.vlen_dtype(np.int32))
+        ds[0] = np.arange(3)
+    elif case == "scaleoffset_full_precision":  # HDF5 1.14.6 cannot read it back
+        values = np.random.default_rng(0).integers(-2 ** 31, 2 ** 31, 100).astype(np.int32)
+        f.create_dataset("v", data=values, chunks=(50,), scaleoffset=0)
+    elif case == "array_datatype":  # only as a compound member
+        f.create_dataset("v", shape=(3,), dtype=np.dtype(("<i4", (2,))))
+    elif case in ("huge_heap_object", "filtered_heap"):  # dense link storage
+        g = f.create_group("g")
+        for i in range(20):
+            g[f"x{i:02d}"] = i
+        if case == "huge_heap_object":
+            g["y" * 70000] = 1  # a link over the heap's largest managed object
+        return "g"
+    return "v"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("vlen_sequence", "variable-length sequence datatype"),
+    ("scaleoffset_full_precision", "scale-offset data at full precision"),
+    ("array_datatype", "array datatype"),
+    ("huge_heap_object", "huge and tiny fractal heap objects"),
+    ("filtered_heap", "I/O filters are not supported"),
+])
+def test_refused_storage_raises_naming_it(tmp_path, case, match):
+    """What the reader still refuses is no fault against the JAX package
+    (h5py cannot read it, or no dataset the host layer reads can hold it,
+    or h5py never writes it): reading it raises ``ValueError`` naming what
+    and the dataset or group."""
+    path = str(tmp_path / f"{case}.h5")
+    with h5py.File(path, "w", libver="latest") as f:
+        name = _refused(f, case)
+    if case == "filtered_heap":  # h5py cannot filter a group's heap: mark it filtered
+        with open(path, "r+b") as fh:
+            at = fh.read().index(b"FRHP")
+            fh.seek(at + 7)
+            fh.write((4).to_bytes(2, "little"))  # the I/O filters' encoded length
+    kind = "group" if name == "g" else "dataset"
+    with _h5lite.File(path, "r") as f, pytest.raises(
+            ValueError, match=f"{kind} '/{name}'.*{match}"):
+        f[name][()]
 
 
 def _storage_fixtures():
@@ -408,7 +484,9 @@ def test_storage_fixture_reads_equal_to_h5py(group):
 
 
 @pytest.mark.parametrize("name", ["storage_layouts.h5", "unlimited_szip.uvh5",
-                                  "unlimited2_szip.uvh5"])
+                                  "unlimited2_szip.uvh5", "storage_types.h5",
+                                  "hera_int_visdata.uvh5", "vlen_strings.uvh5",
+                                  "vlen_strings.calh5", "vlen_strings.uvflag.h5"])
 def test_storage_digests_equal_h5py_and_h5lite(name):
     import torch_make_h5_fixture as gen
 
@@ -425,12 +503,16 @@ def test_storage_fixtures_regenerate_equal(tmp_path):
     fresh = [gen.write_storage(str(tmp_path / gen.STORAGE))]
     fresh += [gen.write_unlimited_uvh5(str(tmp_path / n), k)
               for k, n in enumerate(gen.UVH5_UNLIMITED)]
+    fresh += [gen.write_types(str(tmp_path / gen.TYPES)),
+              gen.write_int_visdata(str(tmp_path / gen.INT_VISDATA)),
+              gen.write_nbit_cube(str(tmp_path / gen.NBIT_CUBE))]
+    fresh += [gen.write_vlen_strings(str(tmp_path / n), s) for s, n in gen.VLEN.items()]
     for path in fresh:
         committed = _tree(os.path.join(DATA_TORCH, os.path.basename(path)), h5py.File)
         regenerated = _tree(path, h5py.File)
         assert committed.keys() == regenerated.keys()
         for name, val in committed.items():
-            assert _same(regenerated[name], val), name
+            assert _bit_same(regenerated[name], val), name
 
 
 @pytest.mark.parametrize("which", [0, 1])
@@ -493,3 +575,208 @@ def test_unsupported_use_raises(tmp_path):
     with pytest.raises(TypeError, match="not supported"):
         with _h5lite.File(str(tmp_path / "y.h5"), "w") as f:
             f["u"] = np.array(["unicode"])
+
+
+# ---------------------------------------------------------------------- #
+# the types and storage of files the JAX package reads through h5py
+# (tests/data_torch/storage_types.h5 and the host-layer files beside it)
+# ---------------------------------------------------------------------- #
+def _types_fixture():
+    import torch_make_h5_fixture as gen
+
+    return gen, os.path.join(DATA_TORCH, gen.TYPES)
+
+
+@pytest.mark.parametrize("group", ["vlen_strings", "compound", "nbit", "ea_paged"])
+def test_types_fixture_reads_equal_to_h5py(group):
+    """Every dataset of a group reads equal to h5py to the bit (its type,
+    dtype with h5py's string metadata, shape and bytes), h5py's reading is
+    the generator's values where the stored type holds them exactly, and
+    the file holds the storage the group is named for."""
+    gen, path = _types_fixture()
+    values = {n: v for n, (v, _) in gen.types_datasets().items() if n.startswith(group + "/")}
+    with h5py.File(path, "r") as f:
+        want = {n: f[n][()] for n in values}
+        dtypes = {n: f[n].dtype for n in values}
+        plists = {n: f[n].id.get_create_plist() for n in values}
+        filters = {n: [p.get_filter(i)[0] for i in range(p.get_nfilters())]
+                   for n, p in plists.items()}
+        layouts = {n: p.get_layout() for n, p in plists.items()}
+    with _h5lite.File(path, "r") as f:
+        got = {n: f[n][()] for n in values}
+        infos = {n: f[n]._info() for n in values}
+    for n in values:
+        assert _bit_same(got[n], want[n]), n
+        assert infos[n].dtype == dtypes[n], n
+    if group == "vlen_strings":
+        assert all(infos[n].type.vlen for n in values)
+        assert {h5py.check_string_dtype(d).encoding for d in dtypes.values()} == {"utf-8",
+                                                                                   "ascii"}
+        assert {layouts[n] for n in values} == {h5py.h5d.COMPACT, h5py.h5d.CONTIGUOUS,
+                                                h5py.h5d.CHUNKED}
+        assert filters["vlen_strings/chunked_gzip"] == [1]
+        assert isinstance(got["vlen_strings/scalar_utf8"], bytes)  # a scalar: bytes
+        assert list(got["vlen_strings/never_written"]) == [b"", b"one", b"", b""]
+        for n, v in values.items():
+            assert list(np.asarray(got[n], object).reshape(-1)) == [
+                s if isinstance(s, bytes) else s.encode() for s in v.reshape(-1)], n
+    elif group == "compound":
+        for n, v in values.items():
+            assert got[n].dtype.names and _same(got[n], v), n  # integers: exact
+        assert np.abs(got["compound/int32_ri"]["r"]).max() > 2 ** 24
+        assert got["compound/int32_ri_big_endian"].dtype["r"] == np.dtype(">i4")
+        assert got["compound/padded"].dtype.itemsize == 24
+    elif group == "nbit":
+        assert all(filters[n][0] == 5 for n in values)
+        assert filters["nbit/u8_precision3_deflate"] == [5, 1]
+        cds = {n: info.filters[0][1] for n, info in infos.items()}
+        assert cds["nbit/i32_full_precision"][1] == 1  # need-not-compress
+        assert all(cd[1] == 0 for n, cd in cds.items() if n != "nbit/i32_full_precision")
+        assert cds["nbit/compound"][3] == 3  # a compound class tree, with an array member
+        assert 2 in cds["nbit/compound"][4:]
+        assert infos["nbit/i16_precision10_offset3_big_endian"].dtype == np.dtype(">i2")
+        assert dtypes["nbit/f64_as_float32_big_endian"] == np.dtype(">f8")
+        for n, v in values.items():
+            if v.dtype.kind in "iu":
+                assert _same(got[n], v), n  # the values fit their precision
+        cmp = values["nbit/compound"]
+        for m in ("a", "c"):
+            assert _same(got["nbit/compound"][m], cmp[m]), m
+        f24 = got["nbit/f32_mantissa15"]  # 15 mantissa bits, rounded on writing
+        v = values["nbit/f32_mantissa15"]
+        normal = np.isfinite(v) & (np.abs(v) > 1e-37)
+        assert f24.dtype == np.float32
+        assert np.max(np.abs(f24[normal] - v[normal]) / np.abs(v[normal])) <= 2.0 ** -15
+        assert _same(np.signbit(f24[~normal]), np.signbit(v[~normal]))
+        assert _same(np.isinf(f24), np.isinf(v)) and _same(np.isnan(f24), np.isnan(v))
+        # subnormals kept, but 2e-45, under the float24's least
+        assert f24[~normal & np.isfinite(v)].astype(bool).sum() == 2
+        assert _same(got["nbit/f64_as_float32_big_endian"],
+                     values["nbit/f64_as_float32_big_endian"].astype(np.float32).astype(">f8"))
+    else:
+        for n, v in values.items():
+            assert _same(got[n], v), n  # every element never written: the fill value
+            assert infos[n].index == "extensible_array" and infos[n].shape[0] > 131060, n
+        with open(path, "rb") as fh:
+            assert fh.read().count(b"EASB") >= 2  # the data blocks past 131,060 chunks are paged
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("name", ["int32_ri", "int32_ri_big_endian", "int16_ri_chunked",
+                                  "int32_ir"])
+def test_compound_read_direct_into_complex(name, dtype):
+    """``read_direct`` of pyuvdata's integer visibilities into complex
+    converts member by member by name as HDF5 does: int32 to float32
+    rounds as HDF5 rounds, above 2**24 too."""
+    _, path = _types_fixture()
+    with h5py.File(path, "r") as f:
+        want = np.empty(f["compound/" + name].shape, dtype)
+        f["compound/" + name].read_direct(want)
+    got = np.empty(want.shape, dtype)
+    with _h5lite.File(path, "r") as f:
+        f["compound/" + name].read_direct(got)
+    assert _bit_same(got, want)
+
+
+def _port_reads_with_h5lite(monkeypatch):
+    for mod in (visdata_mod, caldata_mod, flags_mod):
+        monkeypatch.setattr(mod, "h5py", _h5lite)
+
+
+def test_vlen_string_files_read_by_the_port_as_the_jax_package_reads_them(monkeypatch):
+    """The repo's uvh5, calh5 and UVFlag fixtures with their Header strings
+    as variable-length strings: the port's readers, through _h5lite, hold
+    what the JAX package's hold through h5py."""
+    import torch_make_h5_fixture as gen
+
+    paths = {src: os.path.join(DATA_TORCH, name) for src, name in gen.VLEN.items()}
+    for path in paths.values():
+        _same_tree(path)
+        with h5py.File(path, "r") as f:
+            assert f["Header/history"].dtype.kind == "O"
+    _port_reads_with_h5lite(monkeypatch)
+    v_path, g_path, w_path = paths.values()
+    got, want = VisData.from_uvh5(v_path), jio.VisData.from_uvh5(v_path)
+    for name in ("data_array", "flag_array", "nsample_array", "time_array", "freq_array",
+                 "ant_1_array", "antenna_positions"):
+        assert _same(getattr(got, name), getattr(want, name)), name
+    for name in visdata_mod._STR_FIELDS + ("antenna_names",):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.telescope_name == "SYNTH" and got.antenna_names[:2] == ["ANT0", "ANT1"]
+    got, want = CalData.from_calh5(g_path), jio.CalData.from_calh5(g_path)
+    assert _same(got.gain_array, want.gain_array) and _same(got.flag_array, want.flag_array)
+    for name in caldata_mod._STRINGS + ("antenna_names",):
+        assert getattr(got, name) == getattr(want, name), name
+    got, want = FlagWeights.from_uvflag_h5(w_path), jio.FlagWeights.from_uvflag_h5(w_path)
+    assert _same(got.weights_array, want.weights_array)
+    for name in ("mode", "x_orientation", "history", "label"):
+        assert getattr(got, name) == getattr(want, name), name
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_int_visdata_file_read_by_the_port_as_the_jax_package_reads_it(monkeypatch, dtype):
+    """pyuvdata's integer visibilities (HERA's correlator files): the port's
+    ``VisData.from_uvh5(..., data_dtype)`` through _h5lite holds what the
+    JAX package's holds through h5py."""
+    import torch_make_h5_fixture as gen
+
+    path = os.path.join(DATA_TORCH, gen.INT_VISDATA)
+    _same_tree(path)
+    with h5py.File(path, "r") as f:
+        assert f["Data/visdata"].dtype == np.dtype([("r", "<i4"), ("i", "<i4")])
+        assert f["Data/flags"].compression == "lzf" and f["Data/visdata"].chunks
+    _port_reads_with_h5lite(monkeypatch)
+    got = VisData.from_uvh5(path, data_dtype=dtype)
+    want = jio.VisData.from_uvh5(path, data_dtype=dtype)
+    for name in ("data_array", "flag_array", "nsample_array", "time_array", "freq_array",
+                 "ant_1_array", "antenna_positions"):
+        assert _same(getattr(got, name), getattr(want, name)), name
+    assert got.antenna_names == want.antenna_names and got.history == want.history
+    ref = gen.make_visdata().data_array * gen.INT_SCALE  # the rounding, and nothing else
+    assert np.max(np.abs(got.data_array - ref)) <= 0.71
+
+
+def test_int_visdata_file_driver_matches_jax(tmp_path, monkeypatch):
+    """The file driver with ``host_data_dtype="complex64"`` on the integer
+    visibilities, the port through _h5lite on the CPU against the JAX
+    driver through h5py, within the file driver's tolerance
+    (``tests/test_torch_calibration.py``: gains 1e-3 of their amplitude,
+    the model 1e-3 of its peak)."""
+    import torch_make_h5_fixture as gen
+
+    from calamity_tpu import calibration as jcal
+    from calamity_tpu_torch import calibration as tcal
+
+    path = os.path.join(DATA_TORCH, gen.INT_VISDATA)
+    kw = dict(input_data_files=path, maxsteps=100, tol=1e-10, min_dly=gen.MIN_DLY_NS,
+              offset=gen.MIN_DLY_NS, host_data_dtype="complex64")
+    mj, rj, gj, _ = jcal.read_calibrate_and_model_dpss(**kw)
+    _port_reads_with_h5lite(monkeypatch)
+    out = str(tmp_path / "model.uvh5")
+    mt, rt, gt, _ = tcal.read_calibrate_and_model_dpss(device="cpu", model_outfilename=out,
+                                                       **kw)
+    assert mt.data_array.dtype == mj.data_array.dtype == np.complex64
+    scale = np.max(np.abs(mj.data_array))
+    assert np.max(np.abs(mt.data_array - mj.data_array)) <= 1e-3 * scale
+    assert np.max(np.abs(gt.gain_array - gj.gain_array)) <= 1e-3 * np.max(np.abs(gj.gain_array))
+    good = ~rt.flag_array
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    assert rms(rt.data_array[good]) <= 1e-2 * rms(mt.data_array[good])
+    assert VisData.from_uvh5(out).data_array.dtype == np.complex128
+
+
+def test_nbit_cube_reads_equal_to_the_generator_and_h5py():
+    """The HERA core's flags and nsamples cubes under n-bit then deflate
+    read as their LZF twin (flags one bit, as uint8; nsamples a 16-bit
+    float, as float32) and equal to h5py."""
+    import torch_make_h5_fixture as gen
+
+    flags, nsamples = gen.lzf_cube_arrays()
+    path = os.path.join(DATA_TORCH, gen.NBIT_CUBE)
+    with _h5lite.File(path, "r") as f, h5py.File(path, "r") as ref:
+        for name, want in (("flags", flags.astype(np.uint8)), ("nsamples", nsamples)):
+            got = f["Data/" + name][()]
+            assert [fid for fid, _ in f["Data/" + name]._info().filters] == [5, 1], name
+            assert _bit_same(got, want) and _bit_same(got, ref["Data/" + name][()]), name
+    assert os.path.getsize(path) < 1 << 20
+
