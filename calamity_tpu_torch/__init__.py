@@ -4,9 +4,11 @@ The calibration paths of ``calamity_tpu`` (file read, per-baseline DPSS,
 DFT or mixed components, ``FitSpec`` packing, Cholesky warm start, descent
 with any optimizer of the reference registry, uvh5/calfits write-back),
 serial, batched over (time, pol) slices and as the warm-started time scan
-(``parallel``), with checkpointed fits, in PyTorch, with the fused
-dense-chunk loss as a hand-written CUDA kernel for Hopper
-(``csrc/fused_chunk_loss.cu``) that reads the basis once for every slice.
+(``parallel``), with checkpointed fits, in PyTorch, with the chunk losses
+as hand-written CUDA kernels for Hopper: the fused dense-chunk loss
+(``csrc/fused_chunk_loss.cu``), which reads the basis once for every
+slice, and the shared-basis chunk loss (``csrc/shared_chunk_loss.cu``),
+which reads one operator's tile once for many groups.
 
 The JAX package stays the reference, and this package imports nothing of
 it and never imports ``jax``: it carries its own copies of the JAX-free

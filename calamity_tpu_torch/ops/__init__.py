@@ -1,2 +1,3 @@
 """Device ops: forward model and chi-square loss, the fused dense-chunk
-loss (CUDA kernel + plain version), and the Cholesky warm start."""
+loss and the shared-basis chunk loss (CUDA kernels + plain versions), the
+gain products, and the Cholesky warm start."""

@@ -54,10 +54,17 @@ class KernelLibrary:
         # g_r, g_i, a0, a1, pr, pi; N, rows, nants, F; dtype; stream
         lib.gain_products.argtypes = [vp] * 6 + [ll] * 4 + [ci, vp]
         lib.gain_products.restype = ci
+        # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
+        # valid, partials, dcoeffs, dpr, dpi; N, G, F, V, U; mode; stream
+        lib.shared_chunk_loss.argtypes = (
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 5 + [ci, vp]
+        )
+        lib.shared_chunk_loss.restype = ci
         self.fcl_error_string = lib.fcl_error_string
         self.fused_chunk_loss = lib.fused_chunk_loss
         self.gain_grad = lib.gain_grad
         self.gain_products = lib.gain_products
+        self.shared_chunk_loss = lib.shared_chunk_loss
         self._lib = lib
 
     def plan(self, nbatch, ngrps, nfreqs, nvecs, comps_dtype, mode, comps_ptr):

@@ -72,17 +72,23 @@ def explain_fused_loss_inapplicable(comps, coeffs, data, wgts):
 
 
 def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
-    """Warn (once per fit) naming every chunk the gate sends to the plain
-    torch loss, and why. Returns the list of reasons."""
+    """Warn (once per fit) naming every chunk that neither this kernel nor
+    the shared-basis kernel (``ops.shared``) takes, and why; those chunks
+    take the plain torch loss. Returns the list of reasons."""
+    from .shared import explain_shared_loss_inapplicable
+
     reasons = []
     for cnum, (comps, _, _) in enumerate(chunks):
-        reason = explain_fused_loss_inapplicable(comps, fg_r[cnum], data_r[cnum], wgts[cnum])
-        if reason is not None:
-            reasons.append(f"chunk {cnum}: {reason}")
+        args = (comps, fg_r[cnum], data_r[cnum], wgts[cnum])
+        dense = explain_fused_loss_inapplicable(*args)
+        shared = explain_shared_loss_inapplicable(*args)
+        if dense is not None and shared is not None:
+            # the reason of the kernel whose layout the chunk has
+            layout_dense = comps.shape[0] >= fg_r[cnum].shape[-2]
+            reasons.append(f"chunk {cnum}: {dense if layout_dense else shared}")
     if reasons:
         warnings.warn(
-            "these chunks take the plain torch loss, not the fused kernel: "
-            + "; ".join(reasons),
+            "these chunks take the plain torch loss, not a kernel: " + "; ".join(reasons),
             stacklevel=3,
         )
     return reasons
@@ -231,16 +237,23 @@ class _FusedChunkLossBatched(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        dcoeffs, dpr, dpi = ctx.saved_tensors
-        g = gbar.reshape(-1, 1, 1)  # the gradients are linear in each slice's cotangent
-        if dcoeffs is not None and ctx.needs_input_grad[0]:
-            dcoeffs = dcoeffs * g.unsqueeze(0)
-        else:
-            dcoeffs = None
-        dpr = dpr * g if ctx.needs_input_grad[1] else None
-        dpi = dpi * g if ctx.needs_input_grad[2] else None
         # comps, data and weights are never differentiated parameters
-        return dcoeffs, dpr, dpi, None, None, None, None
+        return scaled_grads(ctx, gbar) + (None,) * 4
+
+
+def scaled_grads(ctx, gbar):
+    """(dcoeffs, dpr, dpi) of a chunk-loss Function's backward: the saved
+    gradients at a unit cotangent scaled by each slice's cotangent ``gbar``
+    (exact: they are linear in it), None where no gradient is wanted."""
+    dcoeffs, dpr, dpi = ctx.saved_tensors
+    g = gbar.reshape(-1, 1, 1)
+    if dcoeffs is not None and ctx.needs_input_grad[0]:
+        dcoeffs = dcoeffs * g.unsqueeze(0)
+    else:
+        dcoeffs = None
+    dpr = dpr * g if ctx.needs_input_grad[1] else None
+    dpi = dpi * g if ctx.needs_input_grad[2] else None
+    return dcoeffs, dpr, dpi
 
 
 def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):

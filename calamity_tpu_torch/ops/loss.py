@@ -3,9 +3,10 @@
 Port of calamity_tpu/ops/loss.py. The foreground model per chunk is a
 batched matvec of the padded basis tensor against the stacked (real, imag)
 coefficients; complex arithmetic is expanded into real products; antenna
-gains are gathered by index. Chunks that the fused-kernel gate accepts go
-through ``ops.fused.fused_chunk_loss`` instead (the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor).
+gains are gathered by index. Chunks that a kernel's gate accepts go through
+that kernel instead (on a CUDA tensor; its plain version on a CPU tensor):
+a dense B=1 chunk through ``ops.fused.fused_chunk_loss``, a shared or
+shared-batched B=1 chunk through ``ops.shared.shared_chunk_loss``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .fused import explain_fused_loss_inapplicable, fused_chunk_loss
 from .gains import gain_products
+from .shared import explain_shared_loss_inapplicable, group_mask, shared_chunk_loss
 
 
 def fg_model(coeffs_r, coeffs_i, comps):
@@ -162,9 +164,10 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
 
     chunks: tuple of (comps, a0, a1) triples; fg_r/fg_i/data_*/wgts: matching
     sequences; a chunk's weights may be one (..., 1) plane broadcast over
-    frequency. A chunk the fused-kernel gate accepts (dense B=1, float32 or
-    bfloat16 comps, float32 operands) goes through ``fused_chunk_loss``;
-    every other chunk takes the plain torch ops below.
+    frequency. A chunk a kernel's gate accepts (B=1, float32 or bfloat16
+    comps, float32 operands) goes through that kernel: a dense one through
+    ``fused_chunk_loss``, a shared or shared-batched one through
+    ``shared_chunk_loss``; every other chunk takes the plain torch ops below.
 
     ``remat`` wraps each plain chunk term in ``torch.utils.checkpoint``,
     so the backward pass recomputes the foreground model instead of saving
@@ -172,17 +175,18 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
     total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     term = _chunk_term_remat if remat else _chunk_term
     for cnum, (comps, a0, a1) in enumerate(chunks):
-        gate = explain_fused_loss_inapplicable(comps, fg_r[cnum], data_r[cnum], wgts[cnum])
-        if gate is None:
+        gates = (comps, fg_r[cnum], data_r[cnum], wgts[cnum])
+        dense = explain_fused_loss_inapplicable(*gates) is None
+        if dense or explain_shared_loss_inapplicable(*gates) is None:
             pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
             coeffs2 = torch.stack([fg_r[cnum], fg_i[cnum]], dim=0)
             dr = data_r[cnum][:, 0]
             # a frequency-invariant weights plane (trailing axis 1) reaches
             # the kernel as a stride-0 view of the data's shape
             w = wgts[cnum][:, 0].expand(dr.shape)
-            total = total + fused_chunk_loss(
-                coeffs2, pr[:, 0], pi[:, 0], comps[:, 0], dr, data_i[cnum][:, 0], w
-            )
+            args = (coeffs2, pr[:, 0], pi[:, 0], comps[:, 0], dr, data_i[cnum][:, 0], w)
+            total = total + (fused_chunk_loss(*args) if dense
+                             else shared_chunk_loss(*args, group_mask(a0)))
             continue
         total = total + term(
             g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1,

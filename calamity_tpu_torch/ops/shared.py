@@ -1,0 +1,262 @@
+"""Forward model and weighted chi-square of one shared-basis chunk, with its
+gradients, for a batch of slices.
+
+A shared chunk (U = 1 operator for all G groups) or a shared-batched one
+(1 < U < G operators, group g using operator ``g // (G // U)``: the
+packing lays groups out class-major) computes, per slice n,
+
+    v[n, g] = comps[u(g)] @ coeffs[n, g]    (basis matvec, re and im)
+    model   = (g_i conj g_j)[n, g] * v[n, g]
+    loss[n] = sum(w[n] * |data[n] - model|^2)
+
+the shared branches of the reference's ``fg_model`` / ``fg_model_batched``
+(calamity_tpu/ops/loss.py:62-81, :108-121), ``data_model`` and ``mse``,
+which the JAX package leaves to XLA. As for the dense chunk
+(``ops.fused``), the gradients at a loss cotangent of 1 come out of the
+same pass and the autograd Function's backward only scales them by each
+slice's cotangent.
+
+On a CUDA tensor the pass is the hand-written kernel in
+``csrc/shared_chunk_loss.cu`` (built on first use by ``ops._build``),
+which stages each channel tile of an operator in shared memory once for a
+tile of 32 (group, slice) pairs; on a CPU tensor it is
+:func:`loss_and_grads_plain`'s torch ops. There is no other route: a CUDA
+launch that fails raises. Groups that hold no baseline (the packing's
+record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
+kernel does not read their data.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import LAUNCHES
+from .fused import _COMPS_DTYPES, _WGTS_DTYPES, LOSS_ALL, LOSS_DP, LOSS_ONLY, _f32, scaled_grads
+from .gains import valid_rows
+
+KERNEL_NAME = "shared_chunk_loss"
+_MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
+
+
+def _smem_bytes(nvecs, csize):
+    """The kernel's shared memory for one comps tile of 32 channels (rows
+    padded to 16 bytes, plus 16), the (V, 68) coefficients and a (32, 68)
+    column tile: the least it can run with (``smem_bytes`` at one stage in
+    the source)."""
+    unit = 16 // csize
+    row = -(-nvecs // unit) * unit + unit
+    return 32 * row * csize + nvecs * 68 * 4 + 32 * 68 * 4
+
+
+def explain_shared_loss_inapplicable(comps, coeffs, data, wgts):
+    """Why the shared-basis kernel cannot take a chunk, or None if it can.
+
+    comps: the chunk's (u, nbls, nfreqs, nvecs) basis; coeffs, data, wgts:
+    one of its coefficient, data and weight tensors, of one slice or of a
+    batch. The chunk must be shared (u = 1 < ngrps) or shared-batched (1 <
+    u < ngrps, u dividing ngrps) with one baseline per group, comps and
+    weights float32 or bfloat16, coefficients and data float32, all on one
+    device, and a basis narrow enough for the kernel's shared memory."""
+    u, nbls, _, nvecs = comps.shape
+    ngrps = coeffs.shape[-2]
+    if not u < ngrps:
+        return f"dense operator layout ({u} operators for {ngrps} groups)"
+    if ngrps % u:
+        return f"{ngrps} groups are not a whole number of groups for each of {u} operators"
+    if nbls != 1:
+        return f"nbls={nbls} (kernel covers the per-baseline B=1 layout)"
+    if comps.dtype not in _COMPS_DTYPES:
+        return f"comps dtype {comps.dtype} (float32/bfloat16 only)"
+    for name, t, ok in (("coefficient", coeffs, (torch.float32,)),
+                        ("data", data, (torch.float32,)),
+                        ("weights", wgts, _WGTS_DTYPES)):
+        if t.dtype not in ok:
+            return f"{name} dtype {t.dtype} ({'/'.join(str(d)[6:] for d in ok)} only)"
+        if t.device != comps.device:
+            return f"{name} on {t.device}, comps on {comps.device}"
+    if _smem_bytes(nvecs, comps.element_size()) > _MAX_SMEM:
+        return f"nvecs={nvecs} (a basis row too wide for the kernel's shared memory)"
+    return None
+
+
+def group_mask(a0):
+    """(ngrps,) bool on ``a0``'s device: the groups of a chunk whose index
+    tensor ``a0`` (ngrps, nbls) holds a baseline, as the packing recorded
+    them (``ops.gains.mark_valid``); None where none were recorded (every
+    group counts). Built once per record and kept on ``a0``."""
+    valid = valid_rows(a0)
+    if valid is None:
+        return None
+    cached = getattr(a0, "_group_mask", None)
+    if cached is not None and cached[0] is valid:
+        return cached[1]
+    mask = torch.as_tensor(valid.reshape(valid.shape[0], -1).any(axis=1), device=a0.device)
+    a0._group_mask = (valid, mask)
+    return mask
+
+
+def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL):
+    """Plain torch version of the kernel: ``(losses (N,), dcoeffs (2, N, G,
+    V), dpr (N, G, F), dpi (N, G, F))``, the gradients at a loss cotangent
+    of 1 (``None`` where ``mode`` does not ask for them); the groups
+    ``valid`` leaves out (a (G,) bool mask) count as weight 0 and data 0.
+    The reference the kernel is held against, and the CPU path."""
+    nu, nfreqs, nvecs = comps3.shape
+    _, nbatch, ngrps, _ = coeffs2.shape
+    shape = (2, nbatch, nu, ngrps // nu)
+    comps = _f32(comps3)
+    v = torch.einsum("ufv,knugv->knugf", comps, coeffs2.reshape(shape + (nvecs,)))
+    v = v.reshape(2, nbatch, ngrps, nfreqs)
+    vr, vi = v[0], v[1]
+    mr = pr * vr + pi * vi
+    mi = -pi * vr + pr * vi
+    er = dr - mr
+    ei = di - mi
+    wf = _f32(w)
+    if valid is not None:
+        keep = valid.reshape(1, -1, 1)
+        er, ei, wf = (torch.where(keep, x, 0.0) for x in (er, ei, wf))
+    losses = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
+    if mode == LOSS_ONLY:
+        return losses, None, None, None
+    dmr = -2.0 * wf * er
+    dmi = -2.0 * wf * ei
+    dpr = vr * dmr + vi * dmi
+    dpi = vi * dmr - vr * dmi
+    dcoeffs = None
+    if mode == LOSS_ALL:
+        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
+        dcoeffs = torch.einsum("ufv,knugf->knugv", comps, dv.reshape(shape + (nfreqs,)))
+        dcoeffs = dcoeffs.reshape(2, nbatch, ngrps, nvecs)
+    return losses, dcoeffs, dpr, dpi
+
+
+def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid):
+    nu, nfreqs, nvecs = comps3.shape
+    if comps3.dtype not in _COMPS_DTYPES:
+        raise TypeError(f"comps dtype {comps3.dtype} (float32/bfloat16 only)")
+    if coeffs2.dim() != 4 or coeffs2.shape[0] != 2 or coeffs2.shape[3] != nvecs:
+        raise ValueError(f"coeffs2 shape {tuple(coeffs2.shape)}, expected (2, N, G, {nvecs})")
+    nbatch, ngrps = coeffs2.shape[1], coeffs2.shape[2]
+    if ngrps % nu:
+        raise ValueError(f"{ngrps} groups for {nu} operators: not a whole number each")
+    planes = (("pr", pr), ("pi", pi), ("dr", dr), ("di", di), ("w", w))
+    for name, t in planes:
+        if tuple(t.shape) != (nbatch, ngrps, nfreqs):
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected {(nbatch, ngrps, nfreqs)}")
+    named = (("coeffs2", coeffs2),) + planes + (("comps", comps3),)
+    if valid is not None:
+        if valid.dtype != torch.bool or tuple(valid.shape) != (ngrps,):
+            raise ValueError(f"valid {valid.dtype} {tuple(valid.shape)}, expected bool "
+                             f"({ngrps},)")
+        named += (("valid", valid),)
+    for name, t in named:
+        if t.device != comps3.device:
+            raise ValueError(f"{name} on {t.device}, comps on {comps3.device}")
+        if name == "w":
+            if t.dtype not in _WGTS_DTYPES:
+                raise TypeError(f"w dtype {t.dtype} (float32/bfloat16 only)")
+        elif name not in ("comps", "valid") and t.dtype != torch.float32:
+            raise TypeError(f"{name} dtype {t.dtype} (float32 only)")
+    # comps, coefficients, gain products and the mask are read densely; the
+    # data and weight planes through their strides (group-block views, a
+    # broadcast channel axis)
+    for name, t in named:
+        if name not in ("dr", "di", "w") and not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if dr.stride() != di.stride():
+        raise ValueError(f"dr strides {dr.stride()} differ from di strides {di.stride()}")
+    if _smem_bytes(nvecs, comps3.element_size()) > _MAX_SMEM:
+        raise ValueError(f"nvecs={nvecs}: a basis row too wide for the kernel's shared memory")
+    if comps3.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
+
+
+def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL):
+    """:func:`loss_and_grads_plain` from the CUDA kernel. Raises on any
+    operand the kernel does not take and on a failed launch."""
+    from ._build import load_kernels
+
+    _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid)
+    lib = load_kernels()
+    nu, nfreqs, nvecs = comps3.shape
+    _, nbatch, ngrps, _ = coeffs2.shape
+    dev = comps3.device
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    partials = out(nbatch, ngrps)
+    dpr = dpi = dcoeffs = None
+    if mode != LOSS_ONLY:
+        dpr, dpi = out(nbatch, ngrps, nfreqs), out(nbatch, ngrps, nfreqs)
+    if mode == LOSS_ALL:
+        dcoeffs = out(2, nbatch, ngrps, nvecs)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = lib.shared_chunk_loss(
+            comps3.data_ptr(), 0 if comps3.dtype == torch.float32 else 1, coeffs2.data_ptr(),
+            pr.data_ptr(), pi.data_ptr(), dr.data_ptr(), di.data_ptr(), *dr.stride(),
+            w.data_ptr(), 0 if w.dtype == torch.float32 else 1, *w.stride(), ptr(valid),
+            partials.data_ptr(), ptr(dcoeffs), ptr(dpr), ptr(dpi), nbatch, ngrps, nfreqs, nvecs,
+            nu, mode, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err} "
+                           f"({lib.fcl_error_string(err).decode()})")
+    LAUNCHES.add(KERNEL_NAME)
+    # the partials are summed outside the kernel, in a fixed order
+    return torch.sum(partials, dim=1), dcoeffs, dpr, dpi
+
+
+def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, mode):
+    if comps3.device.type == "cuda":
+        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+    if comps3.device.type == "cpu":
+        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+    raise ValueError(f"unsupported device {comps3.device}")
+
+
+class _SharedChunkLossBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3, valid):
+        # frozen coefficients need only the gain-product gradients
+        mode = LOSS_ALL if ctx.needs_input_grad[0] else LOSS_DP
+        losses, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid,
+                                                    mode)
+        ctx.save_for_backward(dcoeffs, dpr, dpi)
+        return losses
+
+    @staticmethod
+    def backward(ctx, gbar):
+        # comps, data, weights and the mask are never differentiated
+        return scaled_grads(ctx, gbar) + (None,) * 5
+
+
+def shared_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
+    """Weighted chi-square of one shared or shared-batched B=1 chunk for N
+    slices: (N,) losses, differentiable in coeffs2, pr and pi. With no
+    gradient wanted the loss-only instance runs and nothing is saved.
+
+    coeffs2: (2, N, ngrps, nvecs) stacked (real, imag) coefficients
+    pr, pi:  (N, ngrps, nfreqs) Re / -Im of g_i conj(g_j) per baseline
+    dr, di:  (N, ngrps, nfreqs) float32, any strides (e.g. a group-block view)
+    w:       (N, ngrps, nfreqs) float32 or bfloat16, any strides
+    comps3:  (nu, nfreqs, nvecs) float32 or bfloat16, nu dividing ngrps
+    valid:   (ngrps,) bool, the groups that hold a baseline (None: every one)
+    """
+    if torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
+                                    or pi.requires_grad):
+        return _SharedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3, valid)
+    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, LOSS_ONLY)[0]
+
+
+def shared_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
+    """:func:`shared_chunk_loss_batched` of one slice (the signature of
+    ``ops.fused.fused_chunk_loss``): coeffs2 (2, ngrps, nvecs); pr, pi, dr,
+    di, w (ngrps, nfreqs)."""
+    planes = tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
+    return shared_chunk_loss_batched(coeffs2.unsqueeze(1), *planes, comps3, valid)[0]

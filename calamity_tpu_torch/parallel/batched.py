@@ -17,10 +17,13 @@ that runs out of patience is frozen (its parameters and optimizer moments
 stop moving) while the others keep stepping; the optimizer's scalar step
 count advances while any slice runs. A dense one-baseline-per-group chunk
 goes through the fused kernel with a slice axis
-(``ops.fused.fused_chunk_loss_batched``: one comps read for every slice);
-every other chunk takes torch ops whose contraction also reads comps once
-for the batch. Every chunk's gain gradient is ``ops.gains.GainProducts``'
-backward (on the card a kernel that sums in a fixed order).
+(``ops.fused.fused_chunk_loss_batched``: one comps read for every slice),
+a shared or shared-batched one through the shared-basis kernel
+(``ops.shared.shared_chunk_loss_batched``: an operator's tile read once for
+a tile of (group, slice) pairs); every other chunk takes torch ops whose
+contraction also reads comps once for the batch. Every chunk's gain
+gradient is ``ops.gains.GainProducts``' backward (on the card a kernel
+that sums in a fixed order).
 
 PyTorch runs eagerly, so the reference's jit-compiled ``while_loop`` is a
 host loop here; the host polls the freeze mask every ``poll_every`` steps,
@@ -60,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
 from ..ops.gains import carry_valid, gain_products_batched
 from ..ops.loss import fg_model_batched, fg_model_host_batched
+from ..ops.shared import explain_shared_loss_inapplicable, group_mask, shared_chunk_loss_batched
 from ..solver.fit import _big, init_params
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
 from ..utils import echo
@@ -106,12 +110,20 @@ def _plain_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
     return (torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),)
 
 
-def _fused_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
+def _kernel_operands(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
+    """A B=1 chunk's operands of the chunk-loss kernels, with a slice axis."""
     pr, pi = gain_products_batched(gr, gi, a0, a1)  # (nbatch, ngrps, 1, nfreqs)
     coeffs2 = torch.stack([fr, fi], dim=0)  # (2, nbatch, ngrps, nvecs)
     wp = w[:, :, 0].expand(dr.shape[0], dr.shape[1], dr.shape[3])
-    return (fused_chunk_loss_batched(coeffs2, pr[:, :, 0], pi[:, :, 0], dr[:, :, 0],
-                                     di[:, :, 0], wp, comps[:, 0]),)
+    return coeffs2, pr[:, :, 0], pi[:, :, 0], dr[:, :, 0], di[:, :, 0], wp, comps[:, 0]
+
+
+def _fused_losses(*args):
+    return (fused_chunk_loss_batched(*_kernel_operands(*args)),)
+
+
+def _shared_losses(*args):
+    return (shared_chunk_loss_batched(*_kernel_operands(*args), group_mask(args[-2])),)
 
 
 def _sum_terms(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
@@ -156,10 +168,13 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
 
 
 def _chunk_term_fn(comps, fr, dr, w, remat):
-    """The term of one chunk: the fused kernel where its gate accepts the
-    chunk, torch ops otherwise (checkpointed under ``remat``)."""
+    """The term of one chunk: the fused or the shared-basis kernel where
+    its gate accepts the chunk, torch ops otherwise (checkpointed under
+    ``remat``)."""
     if explain_fused_loss_inapplicable(comps, fr, dr, w) is None:
         return _fused_losses
+    if explain_shared_loss_inapplicable(comps, fr, dr, w) is None:
+        return _shared_losses
     if remat:
         return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False)
     return _plain_losses
@@ -175,8 +190,9 @@ def batched_chunk_losses(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
     """Per-slice chi-square, shape (nbatch,) (reference
     parallel/batched.py:139-213).
 
-    A dense B=1 chunk goes through the fused kernel wherever its gate
-    accepts it; ``use_pallas`` is accepted for parity and ignored.
+    A B=1 chunk goes through the fused (dense) or the shared-basis kernel
+    wherever its gate accepts it; ``use_pallas`` is accepted for parity and
+    ignored.
     ``remat`` recomputes each plain chunk's model on the backward pass;
     ``loss_block`` evaluates each chunk over group blocks of that size."""
     del use_pallas

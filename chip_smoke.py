@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 3,3g,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's three CUDA kernels from the sources in the checkout,
+It builds the port's four CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version, drives the port's main path (file read,
 DPSS components, FitSpec packing, Cholesky warm start, Adamax descent,
 uvh5/calfits write-back) at full width, and checks what comes out. Phases:
@@ -27,7 +27,13 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    chunks with their padding (the lists that leave it out against those
    that keep it, equal to the bit; one step's launches timed); a padded
    row and an antenna with no rows; a skewed list (two passes); float64,
-   a ragged channel count and unaligned operands;
+   a ragged channel count and unaligned operands; and (3s) the shared-basis
+   kernel at the HERA core's four packed chunk shapes with their padding
+   (N = 1 and 8, float32 and bfloat16 comps), every instance against its
+   plain version, two launches equal to the bit, the autograd Function
+   against the torch ops it replaces, each case timed against its bound,
+   the plain version, those torch ops and cuBLAS' batched matvec; a block
+   of whole classes as views; ragged and wide shapes;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -75,8 +81,10 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    eigh on the card against the host numpy eigh;
 10. the HERA core (``scripts/hera_core_demo_torch.py``: 361 antennas, 4388
    baselines, 1536 channels) with the default shared-basis packing at full
-   width, its idle share under the profiler, and at cut width against the
-   dense packing.
+   width, every shared chunk through the shared-basis kernel, its idle
+   share under the profiler, and at cut width fitted twice (equal to the
+   bit) and against the dense packing (the shared-basis kernel against the
+   fused one).
 
 Every phase resets the kernels' launch counters before it drives its path
 and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
@@ -128,6 +136,11 @@ KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
 GAIN_KERNEL_REPLACES = "calamity_tpu/ops/loss.py:183"
 GAIN_KERNEL_SOURCE = "calamity_tpu_torch/csrc/gain_grad.cu"
 PROD_KERNEL_SOURCE = "calamity_tpu_torch/csrc/gain_products.cu"
+# a shared-basis chunk's loss: the shared branches of fg_model and
+# fg_model_batched (:108), data_model (:199), mse (:208) and their transposes
+# under jax.grad, in XLA (no Pallas kernel)
+SHARED_KERNEL_REPLACES = "calamity_tpu/ops/loss.py:62"
+SHARED_KERNEL_SOURCE = "calamity_tpu_torch/csrc/shared_chunk_loss.cu"
 MESH_NFREQS = 384  # phase 9 (c): the smaller file's channels, times and polarizations
 MESH_NTIMES = 2
 MESH_NPOLS = 1
@@ -242,9 +255,12 @@ def phase_build():
     check(lib.build_seconds > 0.0, "kernel library was not built from source")
     log(f"built {os.path.relpath(lib.path)} from {[os.path.relpath(s) for s in _build.sources()]}"
         f" in {lib.build_seconds:.2f} s")
+    func = ""  # the entry function ptxas reports on
     for line in lib.build_log.splitlines():
+        if "Function properties for" in line:
+            func = line.split("Function properties for", 1)[1].strip()
         if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  nvcc: {line.strip()}")
+            log(f"  nvcc: {func[:96]}: {line.strip()}")
     return lib
 
 
@@ -646,6 +662,8 @@ def hera_packed_chunks():
                    device="cuda", nvec_bucketing=True, shared_basis=True)
     out = [(c.a0.cpu().numpy().reshape(-1), c.a1.cpu().numpy().reshape(-1),
             gains.valid_rows(c.a0).reshape(-1)) for c in spec.chunks]
+    # each chunk's (U, F, V): the shared-basis kernel's shapes (phase 3s)
+    _HERA["comps_shapes"] = [(c.comps.shape[0],) + tuple(c.comps.shape[2:]) for c in spec.chunks]
     check(all(np.array_equal(v, m.valid.reshape(-1)) for (_, _, v), m in zip(out, spec.meta)),
           "the chunks' index tensors do not carry ChunkMeta.valid")
     return out, spec.nants
@@ -824,6 +842,217 @@ def phase_kernel_vs_plain(main_shape):
 
 
 # ---------------------------------------------------------------------- #
+# phase 3s: the shared-basis kernel against plain
+# ---------------------------------------------------------------------- #
+def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=None):
+    """Operands of the shared-basis kernel for a chunk of ``nu`` operators
+    and ``len(valid)`` groups (padding groups: zero weight); with ``block``
+    = (u0, u1) the operands are those of the classes [u0, u1) of that
+    chunk, views of its tensors, as a group block or a mesh block takes
+    them. Returns (args for ``loss_and_grads_*`` without the mask, the
+    mask)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    ngrps = len(valid)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+
+    comps = t(nu, nfreqs, nvecs)
+    comps /= torch.linalg.vector_norm(comps, dim=1, keepdim=True)
+    comps = comps.to(comps_dtype)
+    mask = torch.as_tensor(np.asarray(valid, bool), device=dev)
+    coeffs2 = t(2, nbatch, ngrps, nvecs)
+    pr, pi = 1 + 0.1 * t(nbatch, ngrps, nfreqs), 0.1 * t(nbatch, ngrps, nfreqs)
+    dr, di = t(nbatch, ngrps, nfreqs), t(nbatch, ngrps, nfreqs)
+    w = t(nbatch, ngrps, nfreqs).abs() * mask.reshape(1, -1, 1)
+    w /= w.sum(dim=(1, 2), keepdim=True)
+    args = [coeffs2, pr, pi, dr, di, w, comps]
+    if block is None:
+        return args, mask
+    gmax = ngrps // nu
+    g = slice(block[0] * gmax, block[1] * gmax)
+    # the dense operands are copies (the wrapper takes them contiguous, as
+    # a block's gain products and stacked coefficients are); the data and
+    # weights stay views
+    return ([coeffs2[:, :, g].contiguous(), pr[:, g].contiguous(), pi[:, g].contiguous(),
+             dr[:, g], di[:, g], w[:, g], comps[block[0]:block[1]]], mask[g])
+
+
+def _shared_bound(args, mask, grads=True):
+    """(ms, "bytes" | "operations", bytes) of the shared-basis kernel's work
+    on these inputs: comps and the coefficients read once, the planes of
+    the groups that hold a baseline read once (padding's are not needed),
+    the losses and (``grads``) dpr, dpi and dcoeffs written once; per valid
+    entry 4 V multiply-adds (8 V operations) and 28 others."""
+    coeffs2, pr, pi, dr, di, w, comps = args
+    nbatch, ngrps, nfreqs = pr.shape
+    nvecs = comps.shape[-1]
+    entries = nbatch * int(mask.sum()) * nfreqs
+    moved = nbytes(comps) + nbytes(coeffs2) + entries * (16 + w.element_size()) + 4 * nbatch
+    flops = entries * (4 * nvecs + 12)
+    if grads:
+        moved += nbytes(coeffs2) + 2 * nbytes(pr)
+        flops += entries * (4 * nvecs + 16)
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def _torch_ops_losses(coeffs2, pr, pi, dr, di, w, comps3):
+    """The torch ops the kernel replaces, differentiable by autograd: the
+    shared branches of ``fg_model_batched`` (a bfloat16 basis upcast to a
+    float32 copy first), the gain-weighted model and the weighted sum."""
+    import torch
+
+    from calamity_tpu_torch.ops.loss import fg_model_batched
+
+    vr, vi = fg_model_batched(coeffs2[0], coeffs2[1], comps3.unsqueeze(1))
+    vr, vi = vr[:, :, 0], vi[:, :, 0]
+    mr = pr * vr + pi * vi
+    mi = -pi * vr + pr * vi
+    return torch.sum(w.float() * ((dr - mr) ** 2 + (di - mi) ** 2), dim=(1, 2))
+
+
+def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=False,
+                   block=None):
+    """Every instance of the shared-basis kernel against its plain version
+    (loss rel 1e-5, gradients rel 1e-4), two launches on the same inputs
+    equal to the bit, and the autograd Function against the torch ops it
+    replaces under autograd at a different cotangent per slice; with
+    ``timed``, CUDA-event times through the wrapper and, replayed from a
+    CUDA graph, of the device alone."""
+    import torch
+
+    from calamity_tpu_torch.ops import fused, shared
+
+    args, mask = shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype,
+                               SEED + 13 * nbatch + nu + nvecs, block)
+    dt = str(comps_dtype).replace("torch.", "")
+    tag = (f"{tag}: N={nbatch} U={args[6].shape[0]} G={args[1].shape[1]} V={nvecs} {dt} comps"
+           + (f", classes {block} of {nu} as views" if block else ""))
+    errs, worst = [], {}
+    for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL):
+        got = shared.loss_and_grads_kernel(*args, mask, mode)
+        again = shared.loss_and_grads_kernel(*args, mask, mode)
+        want = shared.loss_and_grads_plain(*args, mask, mode)
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag} mode {mode}: two launches differ")
+        loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+        check(loss_rel <= 1e-5, f"{tag} mode {mode}: loss rel {loss_rel}")
+        worst["loss"] = max(worst.get("loss", 0.0), loss_rel)
+        errs.append(float((got[0] - want[0]).abs().max()))
+        for name, g, p in zip(("dcoeffs", "dpr", "dpi"), got[1:], want[1:]):
+            check((g is None) == (p is None), f"{tag} mode {mode}: {name} presence")
+            if p is None:
+                continue
+            r = rel(g, p)
+            check(r <= 1e-4, f"{tag} mode {mode}: {name} rel {r}")
+            worst[name] = max(worst.get(name, 0.0), r)
+            errs.append(float((g - p).abs().max()))
+        if got[1] is not None:
+            pad = ~mask
+            check(not bool(got[1][:, :, pad].any() or got[2][:, pad].any()),
+                  f"{tag}: padding groups' gradients are not zero")
+    cot = torch.arange(1, nbatch + 1, device=args[0].device, dtype=torch.float32)
+
+    def grads(fn, *extra):
+        leaves = [a.detach().clone().requires_grad_(i < 3) for i, a in enumerate(args)]
+        torch.sum(fn(*leaves, *extra) * cot).backward()
+        return [leaves[i].grad for i in range(3)]
+
+    g_rel = [rel(a, b) for a, b in zip(grads(shared.shared_chunk_loss_batched, mask),
+                                       grads(_torch_ops_losses))]
+    check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
+    log(f"  {tag}: max rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; two launches equal to the bit; against the torch ops under autograd (coeffs, pr, "
+        f"pi) {', '.join(f'{x:.2e}' for x in g_rel)}")
+    out = {"max_abs_err": max(errs)}
+    if not timed:
+        return out
+
+    def fwdbwd(fn, *extra):
+        leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
+        return lambda: torch.sum(fn(*leaves, *extra)).backward()
+
+    coeffs2, comps = args[0], args[6]
+    nu, ngrps = comps.shape[0], coeffs2.shape[2]
+    # cuBLAS' batched matvec of the same operators: (U, F, V) x (U, V, 2 N gmax)
+    rhs = (coeffs2.reshape(2, nbatch, nu, ngrps // nu, nvecs).permute(2, 4, 0, 1, 3)
+           .reshape(nu, nvecs, -1).contiguous())
+    comps_f = comps.float()
+    kern = lambda: shared.loss_and_grads_kernel(*args, mask)  # noqa: E731
+    t = {"plain_ms": cuda_median_ms(lambda: shared.loss_and_grads_plain(*args, mask)),
+         "ms": cuda_median_ms(kern),
+         "device_ms": cuda_graph_ms(kern),
+         "loss_only_ms": cuda_median_ms(
+             lambda: shared.loss_and_grads_kernel(*args, mask, fused.LOSS_ONLY)),
+         "library_ms": cuda_median_ms(lambda: torch.bmm(comps_f, rhs)),
+         "fwdbwd_ms": cuda_median_ms(fwdbwd(shared.shared_chunk_loss_batched, mask)),
+         "torch_ops_fwdbwd_ms": cuda_median_ms(fwdbwd(_torch_ops_losses))}
+    out.update(t)
+    out["bound_ms"], out["bound_by"], moved = _shared_bound(args, mask)
+    out["roofline_share"] = out["bound_ms"] / t["device_ms"]
+    log(f"    loss+gradients: kernel {t['ms']:.4f} ms (the device alone {t['device_ms']:.4f}) "
+        f"against bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {moved / 1e9:.3f} GB; share "
+        f"{out['roofline_share']:.3f}), plain {t['plain_ms']:.4f} ms; loss only "
+        f"{t['loss_only_ms']:.4f} ms; cuBLAS bmm of the matvec {t['library_ms']:.4f} ms; "
+        f"forward+backward through the Function {t['fwdbwd_ms']:.4f} ms, the torch ops it "
+        f"replaces under autograd {t['torch_ops_fwdbwd_ms']:.4f} ms; {nvidia_smi_line()}")
+    return out
+
+
+def phase_shared_kernel():
+    """Phase 3s: the shared-basis kernel at the HERA core's four packed
+    chunk shapes with their padding, N = 1 and 8, float32 and bfloat16
+    comps, every instance against its plain version and repeated launches
+    equal to the bit, each timed; one step's four launches at N = 1 summed;
+    a block of whole classes as views; ragged shapes (channels not a whole
+    number of tiles, short pair tiles, modes past the register tiles, rows
+    copied by plain loads, a one-tile ring)."""
+    import torch
+
+    log("== phase 3s: the shared-basis kernel against plain (loss rel 1e-5, gradients rel "
+        "1e-4, two launches bit-equal)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    chunks, _ = hera_packed_chunks()
+    shapes = _HERA["comps_shapes"]
+    results = {}
+    for c, ((nu, nfreqs, nvecs), (_, _, valid)) in enumerate(zip(shapes, chunks)):
+        for cdt in (f32, bf16):
+            for n in (1, 8):
+                results[(c, n, cdt)] = compare_shared(f"HERA chunk {c}", n, nu, nfreqs, nvecs,
+                                                      valid, cdt, timed=True)
+                torch.cuda.empty_cache()
+    for cdt in (f32, bf16):
+        # chunk 1 (3 classes) cut to its middle class, as a group block or a
+        # mesh rank takes it
+        nu, nfreqs, nvecs = shapes[1]
+        results[("view", cdt)] = compare_shared("HERA chunk 1", 8, nu, nfreqs, nvecs,
+                                                chunks[1][2], cdt, block=(1, 2))
+        for n in (1, 3):
+            for nu, gmax, nf, nv in ((1, 2, 37, 3), (3, 5, 100, 130), (2, 7, 64, 557),
+                                     (1, 33, 64, 200)):
+                valid = np.ones(nu * gmax, bool)
+                if nu > 1:
+                    valid[gmax - 1::gmax] = False  # each class's last group is padding
+                results[(n, nu, gmax, nf, nv, cdt)] = compare_shared(
+                    "ragged", n, nu, nf, nv, valid, cdt)
+    for cdt in (f32, bf16):
+        for n in (1, 8):
+            step = [results[(c, n, cdt)] for c in range(len(shapes))]
+            log(f"  HERA step of {len(step)} chunks, N={n} {str(cdt)[6:]} comps: kernel "
+                f"{sum(r['ms'] for r in step):.4f} ms (the device alone "
+                f"{sum(r['device_ms'] for r in step):.4f}) against bound "
+                f"{sum(r['bound_ms'] for r in step):.4f} ms; the torch ops it replaces under "
+                f"autograd {sum(r['torch_ops_fwdbwd_ms'] for r in step):.4f} ms")
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------- #
 # phase 4: the main path at full size
 # ---------------------------------------------------------------------- #
 def random_disc_array(rng):
@@ -921,7 +1150,7 @@ def phase_main_path(tmp, path, uvd, comps):
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
     hists = info[0]  # fit histories by polarization index, then time index
     recorded = 0
@@ -1070,7 +1299,7 @@ def phase_in_loop(packed):
         out_cpu = fitmod.fit_gains_and_foregrounds(
             g_r.cpu(), g_i.cpu(), cpu(fg_r), cpu(fg_i), cpu(data_r), cpu(data_i), cpu(wgts),
             tuple(cpu(c) for c in chunks), **kw)
-    check(not [w for w in caught if "fused kernel" in str(w.message)], "gate fallbacks")
+    check(not [w for w in caught if "plain torch loss" in str(w.message)], "gate fallbacks")
     h_gpu = np.asarray(out_gpu[4]["loss"])
     h_cpu = np.asarray(out_cpu[4]["loss"])
     check(len(h_gpu) == len(h_cpu) == N_LOOP_STEPS, f"step counts {len(h_gpu)} {len(h_cpu)}")
@@ -1088,6 +1317,7 @@ def phase_cli(tmp, repo):
     from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.ops.fused import KERNEL_NAME, explain_fused_loss_inapplicable
+    from calamity_tpu_torch.ops.shared import explain_shared_loss_inapplicable
     from calamity_tpu_torch.solver.tensorize import FitSpec
 
     log("== phase 6: the port's CLI script with default flags on a 6-antenna Golomb file")
@@ -1115,10 +1345,12 @@ def phase_cli(tmp, repo):
                    shared_basis=True)
     data_r, _, wgts = spec.pack_data(uvd_x, "xx", spec.times[0])
     for cnum, (c, a0, _) in enumerate(spec.device_chunks()):
-        coeffs = c.new_zeros((a0.shape[0], c.shape[-1]))
-        reason = explain_fused_loss_inapplicable(c, coeffs, data_r[cnum], wgts[cnum])
-        log(f"  chunk {cnum}: comps {tuple(c.shape)}, groups {a0.shape[0]}: "
-            f"{'kernel' if reason is None else 'plain (' + reason + ')'}")
+        gates = (c, c.new_zeros((a0.shape[0], c.shape[-1])), data_r[cnum], wgts[cnum])
+        dense = explain_fused_loss_inapplicable(*gates)
+        shared = explain_shared_loss_inapplicable(*gates)
+        route = ("the fused kernel" if dense is None else "the shared-basis kernel"
+                 if shared is None else f"plain ({dense}; {shared})")
+        log(f"  chunk {cnum}: comps {tuple(c.shape)}, groups {a0.shape[0]}: {route}")
     for w in caught:
         log(f"  warning: {w.message}")
     back = VisData.from_uvh5(outs[0])
@@ -1159,6 +1391,7 @@ def cli_on_foreign_files(tmp, repo):
     from calamity_tpu_torch.io import CalData, VisData
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+    from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
 
     log(f"  the CLI on files the port did not write (reader: {h5py.__name__}), on the card and "
         "on the CPU (gains, model, resid rel 1e-4)")
@@ -1177,7 +1410,7 @@ def cli_on_foreign_files(tmp, repo):
                              os.path.join(data_torch, "hera_int_visdata.uvh5"),
                              "--host_data_dtype", "complex64"],
     }
-    out = {"launches": 0, "prod_launches": 0}
+    out = {"launches": 0, "prod_launches": 0, "shared_launches": 0}
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
     for tag, files in cases.items():
         res = {}
@@ -1194,8 +1427,9 @@ def cli_on_foreign_files(tmp, repo):
             res[device] = (VisData.from_uvh5(names[0]).data_array,
                            VisData.from_uvh5(names[1]).data_array,
                            CalData.from_calfits(names[2]).gain_array, time.time() - t0,
-                           LAUNCHES.get(GAIN_KERNEL), LAUNCHES.get(PROD_KERNEL))
-        (r_c, m_c, g_c, s_c, n_c, p_c), (r_h, m_h, g_h, s_h, _, _) = res["cuda"], res["cpu"]
+                           LAUNCHES.get(GAIN_KERNEL), LAUNCHES.get(PROD_KERNEL),
+                           LAUNCHES.get(SHARED_KERNEL))
+        (r_c, m_c, g_c, s_c, n_c, p_c, sh_c), (r_h, m_h, g_h, s_h, *_) = res["cuda"], res["cpu"]
         host_dtype = files[files.index("--host_data_dtype") + 1] if "--host_data_dtype" in files \
             else None
         src = VisData.from_uvh5(files[1], data_dtype=host_dtype)
@@ -1204,7 +1438,8 @@ def cli_on_foreign_files(tmp, repo):
         dg = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
         dm = float(np.max(np.abs(m_c - m_h)) / np.max(np.abs(m_h)))
         dr = float(np.max(np.abs(r_c - r_h)) / np.max(np.abs(m_h)))
-        log(f"    {tag}: card {s_c:.1f} s ({GAIN_KERNEL} launches {n_c}, {PROD_KERNEL} {p_c}), "
+        log(f"    {tag}: card {s_c:.1f} s ({GAIN_KERNEL} launches {n_c}, {PROD_KERNEL} {p_c}, "
+            f"{SHARED_KERNEL} {sh_c}), "
             f"CPU {s_h:.1f} s; card "
             f"against CPU: gains rel {dg:.2e}, model rel {dm:.2e}, resid {dr:.2e} of the model's "
             f"peak; card resid/data {ratio:.3e} (limit 1e-2)")
@@ -1213,6 +1448,7 @@ def cli_on_foreign_files(tmp, repo):
               f"{tag}: resid/data {ratio}, {n_c} and {p_c} launches")
         out["launches"] += n_c
         out["prod_launches"] += p_c
+        out["shared_launches"] += sh_c
     # read seconds through the port's HDF5 reader
     from calamity_tpu_torch.io import FlagWeights
 
@@ -1470,7 +1706,7 @@ def drivers_dft_and_mixed(uvd_dpss):
             correct_model=False, grp_size_threshold=1, model_regularization="post_hoc",
             shared_basis=False, device="cuda")
     torch.cuda.synchronize()
-    plain = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    plain = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     resid = cal_utils.apply_gains(resid, fitted)
     model = cal_utils.apply_gains(model, fitted)
     ratio = rms(resid.data_array) / rms(model.data_array)
@@ -1582,7 +1818,7 @@ def phase_time_parallel(tmp, comps=None):
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
     steps, seconds = timings["phase_steps"], timings["phase_seconds"]
     recorded, warmups = sum(steps), len(steps)
@@ -1699,7 +1935,7 @@ def phase_scan(tmp, tp):
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fallbacks = [str(w.message) for w in caught if "fused kernel" in str(w.message)]
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
     recorded = fits = 0
     for pol in range(uvd.Npols):
@@ -2197,7 +2433,7 @@ def hera_idle_share(corrupted, comps):
         r = out[name]
         log(f"  {name} step under the profiler: device {r['device_ms']:.3f} ms in "
             f"{r['kernels']:.0f} kernels; host clock {r['plain_ms']:.3f} ms/step without the "
-            f"profiler; idle share {r['idle_share']:.3f}; per step {prof.gain_kernels_line(r)}; "
+            f"profiler; idle share {r['idle_share']:.3f}; per step {prof.kernels_line(r)}; "
             "costliest: "
             + "; ".join(f"{ms:.4f} ms x{n:.0f} {key[:48]}" for ms, n, key in r["top"][:4]))
     return out
@@ -2219,6 +2455,7 @@ def phase_hera_core():
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+    from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
 
     log("== phase 10: the HERA core (scripts/hera_core_demo_torch.py) with the default "
         "shared-basis packing")
@@ -2233,16 +2470,21 @@ def phase_hera_core():
     layouts = demo.chunk_layouts(corrupted, comps)
     for c in layouts:
         log(f"  chunk: {_layout_line(c)}")
-    check(any(c["kind"] != "dense" for c in layouts), "the default packing packed no shared chunk")
+    nshared = sum(c["kind"] != "dense" for c in layouts)
+    check(nshared > 0, "the default packing packed no shared chunk")
     timings = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.reset()
     t0 = time.time()
-    model, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: LAUNCHES.get(name) for name in (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL)}
+    kernel_names = (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL, SHARED_KERNEL)
+    launches = {name: LAUNCHES.get(name) for name in kernel_names}
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     h = info[0][0]
     steps = h["phase_steps"]
@@ -2252,47 +2494,59 @@ def phase_hera_core():
         f"clock, incl. the per-step sync); loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e}")
     log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; calibrate_and_model_dpss in all {wall:.1f}")
-    log(f"  launches: {KERNEL_NAME} {launches[KERNEL_NAME]}, {GAIN_KERNEL} "
-        f"{launches[GAIN_KERNEL]}, {PROD_KERNEL} {launches[PROD_KERNEL]} for {len(h['loss'])} "
-        "recorded steps; peak device memory "
+    log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" for {len(h['loss'])} recorded steps ({nshared} shared chunks); peak device memory "
         f"{peak_gb:.3f} GB; resid rms / data rms {ratio:.4e} (limit 1e-2); {nvidia_smi_line()}")
     check(ratio <= 1e-2, f"HERA core resid/data {ratio}")
     check(np.isfinite(gains.gain_array).all(), "HERA core: non-finite gains")
     check(min(launches[GAIN_KERNEL], launches[PROD_KERNEL]) >= len(h["loss"]),
           f"{launches[GAIN_KERNEL]} {GAIN_KERNEL}, {launches[PROD_KERNEL]} {PROD_KERNEL} "
           f"launches for {len(h['loss'])} steps")
+    check(launches[SHARED_KERNEL] >= nshared * len(h["loss"]),
+          f"{launches[SHARED_KERNEL]} {SHARED_KERNEL} launches for {nshared} shared chunks and "
+          f"{len(h['loss'])} steps")
+    check(not fallbacks, f"HERA core: chunks named as fallbacks: {fallbacks}")
     idle = hera_idle_share(corrupted, comps)
     del model, resid, gains, corrupted, comps
     torch.cuda.empty_cache()
 
-    # cut width: the default packing against the dense one, both on the card
+    # cut width: the default packing twice (equal to the bit) and the dense
+    # one, on the card: the shared-basis kernel against the fused kernel
     small, small_comps, sfacts = demo.build(**HERA_CUT)
     runs = {}
-    for shared in (True, False):
+    for key, shared in (("shared", True), ("again", True), ("dense", False)):
         t0 = time.time()
+        LAUNCHES.reset()
         _, r, _, inf = demo.fit(small, small_comps, device="cuda", shared_basis=shared,
                                 maxsteps=HERA_CUT_STEPS, tol=0.0, patience=0)
         torch.cuda.synchronize()
-        runs[shared] = (np.asarray(inf[0][0]["loss"]), _core_resid_ratio(small, r),
-                        inf[0][0]["phase_steps"], time.time() - t0,
-                        [_layout_line(c) for c in demo.chunk_layouts(small, small_comps, shared)])
-    (h_s, r_s, st_s, t_s, lay_s), (h_d, r_d, st_d, t_d, lay_d) = runs[True], runs[False]
+        runs[key] = (np.asarray(inf[0][0]["loss"]), _core_resid_ratio(small, r),
+                     inf[0][0]["phase_steps"], time.time() - t0,
+                     [_layout_line(c) for c in demo.chunk_layouts(small, small_comps, shared)],
+                     {name: LAUNCHES.get(name) for name in (KERNEL_NAME, SHARED_KERNEL)})
+    (h_s, r_s, st_s, t_s, lay_s, n_s), (h_d, r_d, st_d, t_d, lay_d, n_d) = (runs["shared"],
+                                                                            runs["dense"])
+    h_again = runs["again"][0]
     n = min(200, len(h_s), len(h_d))
     rel200 = float(np.max(np.abs(h_s[:n] - h_d[:n]) / np.abs(h_d[:n])))
     n_all = min(len(h_s), len(h_d))
     rel_all = float(np.max(np.abs(h_s[:n_all] - h_d[:n_all]) / np.abs(h_d[:n_all])))
     log(f"  cut width ({sfacts['nants']} antennas, {sfacts['nbls']} baselines, "
         f"{HERA_CUT['nfreqs']} channels; tol 0, {HERA_CUT_STEPS} steps a phase): shared packing "
-        f"{lay_s}, steps {st_s}, resid/data {r_s:.3e}, {t_s:.1f} s; dense packing {lay_d}, "
-        f"steps {st_d}, resid/data {r_d:.3e}, {t_d:.1f} s; first {n} losses max rel "
-        f"{rel200:.2e} (limit 1e-4), all {n_all} max rel {rel_all:.2e}")
+        f"{lay_s}, steps {st_s}, resid/data {r_s:.3e}, {t_s:.1f} s, launches {n_s}; fitted "
+        f"again: histories equal to the bit {bool(np.array_equal(h_s, h_again))}; dense packing "
+        f"{lay_d}, steps {st_d}, resid/data {r_d:.3e}, {t_d:.1f} s, launches {n_d}; first {n} "
+        f"losses max rel {rel200:.2e} (limit 1e-4), all {n_all} max rel {rel_all:.2e}")
     check(st_s == st_d == [HERA_CUT_STEPS] * 2, f"cut width: steps {st_s} and {st_d}")
+    check(np.array_equal(h_s, h_again), "cut width: the shared packing's two fits differ")
+    check(n_s[SHARED_KERNEL] > 0 and n_d[KERNEL_NAME] > 0 and n_d[SHARED_KERNEL] == 0,
+          f"cut width: launches shared {n_s}, dense {n_d}")
     check(rel200 <= 1e-4, f"cut width: shared and dense histories differ: rel {rel200}")
     check(max(r_s, r_d) <= 2 * min(r_s, r_d), f"cut width: resid/data {r_s} against {r_d}")
     return {"launches": launches, "steps": steps, "ms_per_step": rates, "peak_gb": peak_gb,
             "resid_ratio": ratio, "idle": {k: v["idle_share"] for k, v in idle.items()},
             "profile": {k: {"device_ms": v["device_ms"], "kernels": v["kernels"],
-                            "plain_ms": v["plain_ms"], "gain_kernels": v["gain_kernels"]}
+                            "plain_ms": v["plain_ms"], "named": v["named"]}
                         for k, v in idle.items()},
             "layouts": layouts}
 
@@ -2328,6 +2582,9 @@ def main():
         if want("3g"):
             out["gain"] = phase_gain_grad()
             mark("phase 3g")
+        if want("3s"):
+            out["shared"] = phase_shared_kernel()
+            mark("phase 3s")
         if any(want(p) for p in ("3", "4", "5")):
             t0 = time.time()
             path = os.path.join(tmp, "main.uvh5")
@@ -2390,8 +2647,10 @@ def kernels_line(out):
     from calamity_tpu_torch.ops.fused import KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+    from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
 
     fused, gain, prods = out["fused"], out["gain"]["grad"], out["gain"]["products"]
+    shared = out["shared"]
     packed = out["gain"]["hera_packed"]
     main, tp, scan, mesh, cli, hera = (out[k] for k in ("main", "tp", "scan", "mesh", "cli",
                                                         "hera"))
@@ -2496,7 +2755,46 @@ def kernels_line(out):
                           "plain_ms": packed[n]["products_plain_ms"],
                           "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
-    }]
+    }, shared_kernel_entry(SHARED_KERNEL, shared, hera, cli)]
+
+
+def shared_kernel_entry(name, shared, hera, cli):
+    """The kernels line's entry of the shared-basis kernel: launches on the
+    paths that run shared chunks (the HERA core, the CLI on the foreign
+    files), its times at the HERA core's chunks (phase 3s); the headline is
+    one step of the four chunks at N = 1, float32 comps, as the HERA core's
+    float32 phase runs it."""
+    import torch
+
+    f32 = torch.float32
+    chunks = sorted({k[0] for k in shared if isinstance(k[0], int) and len(k) == 3})
+    step = [shared[(c, 1, f32)] for c in chunks]
+    by_path = {"hera_core": hera["launches"][name], "cli_foreign_files": cli["shared_launches"]}
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SHARED_KERNEL_SOURCE,
+        "replaces": SHARED_KERNEL_REPLACES,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in shared.values()),
+        # the HERA core's step of four chunks, N = 1, float32 comps
+        "ms": sum(r["ms"] for r in step),
+        "device_ms": sum(r["device_ms"] for r in step),
+        "plain_ms": sum(r["plain_ms"] for r in step),
+        "bound_ms": sum(r["bound_ms"] for r in step),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step) else "operations",
+        # cuBLAS' batched matvec of the same operators alone (no single
+        # PyTorch call computes the loss with its gradients)
+        "library_ms": sum(r["library_ms"] for r in step),
+        "torch_ops_fwdbwd_ms": sum(r["torch_ops_fwdbwd_ms"] for r in step),
+        "timed": {f"chunk {c} N={n} {str(cdt).replace('torch.', '')} comps": {
+            k: shared[(c, n, cdt)][k] for k in ("ms", "device_ms", "plain_ms", "loss_only_ms",
+                                                "library_ms", "fwdbwd_ms", "torch_ops_fwdbwd_ms",
+                                                "bound_ms", "roofline_share")}
+            for c in chunks for n in (1, 8) for cdt in (f32, torch.bfloat16)},
+        "card": nvidia_smi_line(),
+    }
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ at full width: 361 antennas, 4388 baselines, 1536 channels, the default
 shared-basis packing). For the bf16-comps and float32 phases of the mixed
 schedule it times 48 descent steps (after 16 warm-up steps) under
 ``torch.profiler``: device time per step by kernel, kernels per step, the
-launches and device time per step of the gain kernels (``gain_grad``,
+launches and device time per step of the port's hand-written kernels
+(``fused_chunk_loss``, ``shared_chunk_loss``, ``gain_grad``,
 ``gain_products``), and the device's idle share against the host clock.
 It then times the same steps without the profiler.
 """
@@ -45,7 +46,8 @@ from calamity_tpu_torch.solver.tensorize import FitSpec  # noqa: E402
 
 NSTEPS = 48
 NWARMUP = 16
-GAIN_KERNELS = ("gain_grad", "gain_products")  # substrings of the kernels' names
+# substrings of the hand-written kernels' names
+KERNELS = ("fused_chunk_loss", "shared_chunk_loss", "gain_grad", "gain_products")
 
 
 def serial_stepper(chs, spec, uvd, gains):
@@ -115,7 +117,8 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
     (``wall_ms``, ``plain_ms``), the device ms per step summed over the
     kernels (``device_ms``), kernels per step, the idle share against the
     host clock without the profiler, and the 16 costliest kernels as (ms per
-    step, launches per step, name)."""
+    step, launches per step, name); ``named``: each hand-written kernel's
+    (device ms, launches) per step."""
     for _ in range(max(1, nwarmup // per_call)):
         step()
     calls = max(1, nsteps // per_call)
@@ -130,10 +133,10 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
         wall_ms = 1e3 * (time.perf_counter() - start) / nsteps
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / nsteps
-    # each gain kernel's (device ms, launches) per step, over its passes
+    # each hand-written kernel's (device ms, launches) per step, over its passes
     named = {name: (sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / nsteps,
                     sum(e.count for e in kernels if name in e.key) / nsteps)
-             for name in GAIN_KERNELS}
+             for name in KERNELS}
     top = [(e.self_device_time_total / 1e3 / nsteps, e.count / nsteps, e.key)
            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]]
     torch.cuda.synchronize()
@@ -144,7 +147,7 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
     plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
     return {"wall_ms": wall_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
             "kernels": sum(e.count for e in kernels) / nsteps,
-            "idle_share": 1 - dev_ms / plain_ms, "top": top, "gain_kernels": named}
+            "idle_share": 1 - dev_ms / plain_ms, "top": top, "named": named}
 
 
 def hera_problem():
@@ -157,10 +160,9 @@ def hera_problem():
     return corrupted, spec, gains
 
 
-def gain_kernels_line(out):
-    """The gain kernels' launches and device ms per step, as one line."""
-    return "; ".join(f"{name} x{n:.1f} {ms:.4f} ms" for name, (ms, n) in
-                     out["gain_kernels"].items())
+def kernels_line(out):
+    """The hand-written kernels' launches and device ms per step, as one line."""
+    return "; ".join(f"{name} x{n:.1f} {ms:.4f} ms" for name, (ms, n) in out["named"].items())
 
 
 def main():
@@ -199,7 +201,7 @@ def main():
               f"share {1 - out['device_ms'] / out['wall_ms']:.3f}")
         for ms, count, key in out["top"]:
             print(f"  {ms:8.4f} ms/step x{count:<5.1f} {key[:90]}")
-        print(f"  gain kernels per step: {gain_kernels_line(out)}")
+        print(f"  hand-written kernels per step: {kernels_line(out)}")
         print(f"  host clock without the profiler {out['plain_ms']:.3f} ms/step; idle share "
               f"{out['idle_share']:.3f}")
     print(chip_smoke.nvidia_smi_line())

@@ -133,12 +133,15 @@ def test_hopper_gate():
 
 
 def test_fallback_warning_names_each_chunk():
+    # the shared chunk goes to the shared-basis kernel; only the
+    # multi-baseline chunk, which neither kernel takes, is named
     dense = (torch.zeros((3, 1, 8, 2)), torch.zeros((3, 1), dtype=torch.int32), None)
     shared = (torch.zeros((1, 1, 8, 2)), torch.zeros((4, 1), dtype=torch.int32), None)
-    fr = [torch.zeros((3, 2)), torch.zeros((4, 2))]
-    data = [torch.zeros((3, 1, 8)), torch.zeros((4, 1, 8))]
-    with pytest.warns(UserWarning, match="chunk 1: shared-basis"):
-        reasons = fused.warn_fused_fallbacks((dense, shared), fr, data, data)
+    dense_b2 = (torch.zeros((3, 2, 8, 2)), torch.zeros((3, 2), dtype=torch.int32), None)
+    fr = [torch.zeros((3, 2)), torch.zeros((4, 2)), torch.zeros((3, 2))]
+    data = [torch.zeros((3, 1, 8)), torch.zeros((4, 1, 8)), torch.zeros((3, 2, 8))]
+    with pytest.warns(UserWarning, match="chunk 2: nbls=2"):
+        reasons = fused.warn_fused_fallbacks((dense, shared, dense_b2), fr, data, data)
     assert len(reasons) == 1
 
 
@@ -216,7 +219,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.load_kernels()
     assert [os.path.basename(s) for s in _build.sources()] == ["fused_chunk_loss.cu",
                                                                 "gain_grad.cu",
-                                                                "gain_products.cu"]
+                                                                "gain_products.cu",
+                                                                "shared_chunk_loss.cu"]
 
 
 # ---------------------------------------------------------------------- #
