@@ -1,5 +1,6 @@
 // Weighted chi-square of one shared-basis chunk, with its gradients, for a
-// batch of N (time, pol) slices, for Hopper (sm_90a).
+// batch of N (time, pol) slices, for Hopper (sm_90a), both of its products
+// on the tensor cores at float32 accuracy.
 //
 // Replaces the XLA operations the JAX package runs for a shared (U = 1) or
 // shared-batched (1 < U < G) chunk: the shared branches of `fg_model` and
@@ -22,58 +23,98 @@
 //   dcoeffs[k, n, g, :] = sum_f comps[u, f, :] * dv_k[n, g, f]
 // Three instances of one template, as for the dense kernel: the loss only;
 // the loss with dpr/dpi (coefficients frozen); the loss with every gradient.
-// All accumulation is float32 (no TF32); bfloat16 comps and weights are
-// widened where they are read.
 //
-// What bounds it: bytes and FMAs about equally. Each (slice, group,
+// Precision: split TF32. Both products run on `mma.sync.m16n8k8` with TF32
+// operands, each float32 operand x split into hi = tf32(x) and lo = tf32(x -
+// hi) (`cvt.rna.tf32.f32`; the subtraction is exact), and each fragment
+// product accumulated as a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms
+// first) into a float32 accumulator: three `mma`s. hi + lo holds x to about
+// 2^-22 and the dropped a_lo b_lo is about 2^-22 of the product, so a
+// product is good to about 2^-21 relative (float32: 2^-24), inside the
+// tolerances the kernel is held to (loss rel 1e-5, gradients rel 1e-4). A
+// bfloat16 comps value is exact in TF32, so only the other operand is split:
+// two `mma`s. A single TF32 product (about 1e-3) would poison the fit's
+// floor, as the reference's `Precision.HIGHEST` (loss.py:40-43) guards
+// against; these split products are the port's only TF32, and
+// `allow_tf32` stays off everywhere else. Everything outside the products
+// (model, residual, loss, dm, dpr, dpi, dv) is float32 on CUDA cores.
+//
+// What bounds it. The least time is set by bytes: each (slice, group,
 // channel) entry reads pr, pi, dr, di and w and writes dpr and dpi (28
-// bytes, float32), and costs 4 V fused multiply-adds (2 V for the matvec, 2
-// V for the coefficient gradient). At the HERA core's four chunks (7168
-// groups, 1536 channels, V = 32 and 64, N = 1) that is 0.31 GB, 0.095 ms
-// at 3.35 TB/s, and 5.2 GFLOP, 0.08 ms at the float32 rate. The basis is
-// small (one operator serves up to 2048 groups) and stays in L2. What holds
-// this design from those lines is shared memory and latency: each thread's
-// register tiles (2 x 8 in phase A, 4 x 8 in phase B) read 2.5 and 1.5 bytes
-// of shared memory a multiply-add, and a block's channel loop is a chain of
-// waits between few warps. Registers are capped at 168 a thread, so three
-// blocks share an SM (the HERA core's four launches at N = 1: 0.589 ms
-// uncapped, 0.515 ms capped, PERF.md).
+// bytes, float32): at the HERA core's four chunks (4388 groups that hold a
+// baseline, 1536 channels, N = 1) 0.23 GB, 0.069 ms at 3.35 TB/s. The
+// split products are 4 V multiply-adds an entry times three, about 0.02 ms
+// at the tensor cores' 495 TFLOP/s (`mma.sync` reaches only part of that
+// rate). The basis is small (one operator serves up to 2048 groups) and
+// stays in L2.
+// What holds this design from the bytes is issue and latency: a warp's
+// tile is a chain of shared-memory reads, splits (seven instructions each),
+// `mma`s and plane loads, and 168 registers a thread leave three blocks
+// (twelve warps) an SM to hide it; keeping split operands in shared memory
+// trades ALU work for shared-memory reads, which pays for bfloat16 comps'
+// coefficients only (PERF.md).
+//
+// Why `mma.sync` and not `wgmma`: `wgmma` takes TF32 operands from shared
+// memory only K-major, and only 16-bit types may be transposed. The
+// coefficient gradient's operand is comps with K running over channels,
+// which is M-major in the staged (channel, mode) tile. With the products
+// off the CUDA cores the kernel is bound by bytes, and `mma.sync`'s rate is
+// more than enough; it also lets both products run on fragments held in
+// registers (below), which `wgmma`'s warpgroup tiles would not.
 //
 // Design: every (group, slice) pair of an operator is independent but for
 // the operator it reads, so a block takes one operator and a tile of 32
-// pairs (64 columns: re and im of each pair's coefficients) and walks its
-// channels, 32 a tile. That makes the chunk two small products a tile:
-// (32 channels x V) x (V x 64 columns) for the model, and (V x 32
-// channels) x (32 channels x 64 columns) for the coefficient gradient.
-// - A chunk has few tiles of pairs at N = 1 (32 to 96 at the HERA core's
-//   shapes: a block an SM at most, and a block's walk over 48 channel
-//   tiles is a chain of latencies), so a tile of pairs is split over the
-//   channels among a thread-block cluster of up to 8 blocks, doubled while
-//   the launch has fewer than 8 blocks an SM. Each block keeps its part of
-//   the losses and of the coefficient gradient in shared memory; after a
-//   cluster barrier each block sums a share of the entries over the
-//   cluster's blocks in split order, reading their shared memory (DSMEM),
-//   and writes them once. With modes past the register tiles (V > 64) the
-//   tile is not split.
-// - The operator's channel tile is staged in shared memory once per block
-//   and tile, in its own dtype (bfloat16 stays bfloat16 and is widened on
-//   the read), by `cp.async` 16-byte copies in a ring of two tiles: the
-//   next tile loads while this one computes. Rows are padded by 16 bytes so
-//   the phase-A reads of four rows fall in distinct banks. Where a row is
-//   not a whole number of 16-byte units, the tile is copied by plain loads.
-// - The block's coefficients are staged once, as (V, 64) floats in shared
-//   memory, and read as float4 broadcasts.
-// - Phase A, a 2-channel x 8-column register tile per thread, summed over
-//   the modes in order; the results go to a (32, 64) shared tile.
-// - Epilogue, one thread per (channel, pair) in turn: the pair's planes
-//   are loaded at the top of the tile, before the wait for its comps, so
-//   their latency hides behind phase A; the loss goes to per-thread
-//   registers, dpr/dpi are written coalesced along the channel axis, dv
-//   replaces the model in the shared tile.
-// - Phase B, a 4-mode x 8-column register tile of the coefficient gradient
-//   per thread, held across the block's channel loop (the first 64 modes);
-//   modes past 64 accumulate in the output itself, the block owning its
-//   pairs', tile by tile.
+// pairs and walks its channels, 32 a tile. Each of its four warps owns 8
+// pairs: an m16 row tile of 8 real and 8 imaginary coefficient rows.
+// - Phase A (the model) is, per warp and tile, (16 rows x V) x (V x 32
+//   channels): A is the coefficients, staged once per block in shared
+//   memory by `cp.async` (with the first comps tile), B is the comps tile.
+//   With bfloat16 comps (and V <= 64) the coefficients are split once into
+//   (hi, lo) pairs in shared memory; with float32 comps both operands are
+//   split where they are read, which measured faster (the pairs double the
+//   shared-memory reads of a k-step, and float32 comps' own split leaves
+//   the shared memory the scarcer resource).
+//   In the accumulator a thread holds, for one pair, the real part (row g)
+//   and the imaginary part (row g + 8) of the model at columns 2t and 2t +
+//   1 of each n8 tile: the epilogue (m, the loss, dm, dpr/dpi, dv) runs on
+//   those fragments in registers. The tile's channels are stored in the
+//   ring in an order (`tile_row`) that makes a thread's eight entries two
+//   runs of four adjacent channels, so its planes are read and dpr/dpi
+//   written 16 bytes at a time, a pair's 128-byte row by four lanes. The
+//   next tile's planes are loaded right after the epilogue, so their
+//   latency hides behind phase B, the barrier and phase A.
+// - Phase B (the coefficient gradient) is, per warp and tile, (16 rows x 32
+//   channels) x (32 channels x V). Its A operand is dv^T, and the thread
+//   holds exactly that fragment: reading the k index t as channel 2t and t
+//   + 4 as channel 2t + 1 (a sum over channels may take them in any fixed
+//   order), the epilogue's dv registers are phase B's A fragment. So dv
+//   never goes through shared memory, and the warps share nothing but the
+//   read-only comps tile and coefficients: one barrier a tile. The
+//   accumulator (16 rows x 64 modes) stays in registers across the block's
+//   channel loop; modes past 64 accumulate in the output itself, each
+//   entry owned by one thread, tile by tile.
+// - The comps tile is staged in its own dtype (bfloat16 stays bfloat16 and
+//   is widened on the read, exactly) by `cp.async` 16-byte copies in a ring
+//   of two tiles: the next tile loads while this one computes. Rows of the
+//   ring and of the coefficients are an odd number of 16-byte units long,
+//   so every fragment read (row g and column t in phase A, row 2t and
+//   column g in phase B) falls in distinct banks. Where a row is not a
+//   whole number of 16-byte units, it is copied by plain loads. The
+//   tensor-core tiles read whole k-steps and all 32 rows, so the modes past
+//   V up to a multiple of 8 and, in the last tile, the rows past F are
+//   zeros (and the coefficients past V and the dv of channels past F are
+//   zeros too).
+// - A table of the block's 32 pairs (slice, group, whether the operator
+//   has it, whether it holds a baseline) is built once in shared memory, so
+//   no thread divides by N in the loops.
+// - A tile of pairs is split over the channels among a thread-block
+//   cluster of up to 8 blocks, doubled while the launch has fewer than 8
+//   blocks an SM (a chunk has 32 to 96 tiles of pairs at the HERA core's
+//   shapes at N = 1). Each block keeps its part of the losses and of the
+//   coefficient gradient in shared memory; after a cluster barrier each
+//   block sums a share of the entries over the cluster's blocks in split
+//   order, reading their shared memory (DSMEM), and writes them once. With
+//   modes past the register tiles (V > 64) the tile is not split.
 // - Padding groups (the packing's record of which groups hold a baseline,
 //   `valid`): their planes are not read and their loss, dpr, dpi and
 //   dcoeffs come out zero; a block whose pairs are all padding writes its
@@ -81,10 +122,11 @@
 // - Every sum is taken in a fixed order and nothing uses atomics: the
 //   per-pair loss partials are summed over a block's channels by a fixed
 //   shuffle tree, over the cluster in split order and over groups by the
-//   caller, so two launches are equal to the bit.
+//   caller, and each `mma` sums in a fixed order, so two launches are equal
+//   to the bit.
 // Any N, G, F and V are taken for which a ring of two (or one) tiles and
-// the coefficients fit in shared memory: V up to 420 float32 or 555
-// bfloat16 modes with two tiles, 557 or 664 with one; the gate in
+// the coefficients fit in shared memory: V up to 448 float32 or 600
+// bfloat16 modes with two tiles, 600 or 720 with one; the gate in
 // ops/shared.py leaves larger V to the torch ops.
 
 #include <cuda_bf16.h>
@@ -93,38 +135,78 @@
 #include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMinBlocks = 3;            // blocks an SM (168 registers a thread)
+constexpr int kThreads = 128;            // four warps
+constexpr int kMinBlocks = 3;            // blocks an SM: 168 registers (2 and 4 measured slower)
 constexpr int kPairs = 32;               // (group, slice) pairs a block
-constexpr int kCols = 2 * kPairs;        // columns: (re, im) of each pair
+constexpr int kCols = 2 * kPairs;        // coefficient columns: (re, im) of each pair
 constexpr int kRows = 32;                // channels a tile
-constexpr int kCS = kCols + 4;           // row stride of the column tiles (float4-aligned)
-constexpr int kModesB = 4;               // phase B: modes a thread (mg + 16 i)
-constexpr int kModeGroups = 16;          // phase B: mode lanes
-constexpr int kCapacity = kModesB * kModeGroups;  // modes held in registers
+constexpr int kWarpPairs = 8;            // pairs a warp: one m16 tile of (re, im) rows
+constexpr int kModeTiles = 8;            // phase B: n8 tiles of modes held in registers
+constexpr int kCapacity = 8 * kModeTiles;  // modes held in registers
 constexpr size_t kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
 enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2 };
 
-// the comps tile's row stride in elements: V rounded up to 16 bytes, plus 16
-// bytes (rows of a phase-A warp's reads in distinct banks)
+// V rounded up to whole k-steps of 8 modes
+__host__ __device__ inline long long modes8(long long V) { return (V + 7) / 8 * 8; }
+
+// the comps tile's row stride in elements: at least modes8(V), an odd number
+// of 16-byte units (the fragment reads of both products in distinct banks)
 __host__ __device__ inline long long row_stride(long long V, int csize) {
   const long long unit = 16 / csize;
-  return (V + unit - 1) / unit * unit + unit;
+  long long rs = (modes8(V) + unit - 1) / unit * unit;
+  if ((rs / unit) % 2 == 0) rs += unit;
+  return rs;
 }
+
+// the coefficients' row stride in floats: an odd number of 16-byte units
+// (phase A's fragment reads, row g and column t, in distinct banks)
+__host__ __device__ inline long long coef_stride(long long V) { return modes8(V) + 4; }
+
+constexpr int kTableBytes = 3 * kPairs * 4;  // the pair table: slice, group, flags
 
 __host__ __device__ inline size_t smem_bytes(long long V, int csize, int stages) {
   return static_cast<size_t>(stages) * kRows * row_stride(V, csize) * csize +
-         static_cast<size_t>(V) * kCS * 4 + static_cast<size_t>(kRows) * kCS * 4;
+         static_cast<size_t>(kCols) * coef_stride(V) * 4 + kTableBytes;
+}
+
+// with the coefficients split once in shared memory (V <= 64): a ring of
+// two tiles, the coefficients as TF32 (hi, lo) pairs, the table, and the
+// raw coefficients they are split from
+__host__ __device__ inline size_t smem_bytes_pre(long long V, int csize) {
+  return smem_bytes(V, csize, 2) + static_cast<size_t>(kCols) * coef_stride(V) * 8;
+}
+
+// the ring's row of channel r of a tile: r = 16 h + 4 a + 2 l + c goes to
+// row 16 h + 8 l + 2 a + c, so that the accumulator entries a thread holds
+// (its column pair 2 a + c of n-tiles 2 h + l) are four adjacent channels
+// twice, read and written 16 bytes at a time
+__device__ __forceinline__ int tile_row(int r) {
+  return (r & 17) | ((r & 2) << 2) | ((r & 12) >> 1);
+}
+
+__device__ __forceinline__ float load_w(const void* w, int w_bf16, int64_t i) {
+  return w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i])
+                : static_cast<const float*>(w)[i];
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename TC>
+__device__ __forceinline__ TC zero_of() {
+  if constexpr (std::is_same<TC, float>::value) {
+    return 0.f;
+  } else {
+    return __float2bfloat16(0.f);
+  }
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -133,28 +215,58 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// s[i][j] += c[i] * (a, b)[j] for two float4 columns
-template <int R>
-__device__ __forceinline__ void fma8(float (&s)[R][8], const float (&c)[R], const float4 a,
-                                     const float4 b) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    s[i][0] = fmaf(c[i], a.x, s[i][0]);
-    s[i][1] = fmaf(c[i], a.y, s[i][1]);
-    s[i][2] = fmaf(c[i], a.z, s[i][2]);
-    s[i][3] = fmaf(c[i], a.w, s[i][3]);
-    s[i][4] = fmaf(c[i], b.x, s[i][4]);
-    s[i][5] = fmaf(c[i], b.y, s[i][5]);
-    s[i][6] = fmaf(c[i], b.z, s[i][6]);
-    s[i][7] = fmaf(c[i], b.w, s[i][7]);
+// x = hi + lo in TF32: hi = tf32(x) (its low 13 bits cleared, so that x - hi
+// is exact), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
+  hi = h;
+  lo = l;
+}
+
+// d += a b on one m16n8k8 tile, TF32 operands, float32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at float32 accuracy: a given split; b (comps) split for float32
+// comps, three products small terms first; a bfloat16 b is exact in TF32,
+// two products
+template <typename TC>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], float b0, float b1) {
+  if constexpr (std::is_same<TC, float>::value) {
+    uint32_t b0h, b0l, b1h, b1l;
+    split_tf32(b0, b0h, b0l);
+    split_tf32(b1, b1h, b1l);
+    mma_tf32(d, alo, b0h, b1h);
+    mma_tf32(d, ahi, b0l, b1l);
+    mma_tf32(d, ahi, b0h, b1h);
+  } else {
+    mma_tf32(d, alo, __float_as_uint(b0), __float_as_uint(b1));
+    mma_tf32(d, ahi, __float_as_uint(b0), __float_as_uint(b1));
   }
 }
 
-template <typename TC, int MODE>
+__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+template <typename TC, int MODE, bool kPre>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
                          const float* __restrict__ pr, const float* __restrict__ pi,
@@ -170,11 +282,19 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   constexpr bool kAll = MODE == kLossAll;
   extern __shared__ __align__(128) unsigned char smem[];
   const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // the fragments' row group and column pair
   const int Vs = static_cast<int>(V);
+  const int V8 = static_cast<int>(modes8(V));
+  const int nks = V8 / 8;  // k-steps of phase A; mode tiles of phase B
   const int RS = static_cast<int>(row_stride(V, sizeof(TC)));
+  const int CS = static_cast<int>(coef_stride(V));
   const size_t tile_bytes = static_cast<size_t>(kRows) * RS * sizeof(TC);
+  // the coefficients: raw floats, or with kPre (hi, lo) pairs split once
   float* coef = reinterpret_cast<float*>(smem + stages * tile_bytes);
-  float* red = coef + static_cast<size_t>(V) * kCS;
+  int* tab = reinterpret_cast<int*>(coef + kCols * CS * (kPre ? 2 : 1));
+  // where the coefficients are copied to: with kPre, after the table
+  float* raw = kPre ? reinterpret_cast<float*>(tab + 3 * kPairs) : coef;
 
   // a cluster of `splits` blocks takes one tile of pairs; block `split` of it
   // the channel tiles [jt0, jt1)
@@ -182,30 +302,30 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   const int pair_tile = blockIdx.x / splits;
   const int64_t u = pair_tile / blocks_per_op;
   const int64_t q0 = static_cast<int64_t>(pair_tile % blocks_per_op) * kPairs;
-  const int64_t npairs = gmax * N;  // the operator's (group, slice) pairs, group-major
   const int64_t GF = G * F;
   const TC* op = comps + u * F * V;
   const int ntiles = static_cast<int>((F + kRows - 1) / kRows);
   const int jt0 = split * ntiles / splits, jt1 = (split + 1) * ntiles / splits;
-  // pair p of the block: its slice n and group g; whether the operator has it
-  auto pair_at = [&](int p, int& n, int& g) {
-    const int64_t q = q0 + p;
-    g = static_cast<int>(u * gmax + q / N);
-    n = static_cast<int>(q % N);
-    return q < npairs;
-  };
 
-  // a block of padding only writes its zeros
+  // the pair table: pair p of the block (the operator's pairs are
+  // group-major) is slice tab[p] of group tab[32 + p]; tab[64 + p] has bit 1
+  // where the operator has the pair and bit 2 where its group holds a
+  // baseline. A block of padding only writes its zeros.
   {
     bool mine = false;
     if (t < kPairs) {
-      int n, g;
-      mine = pair_at(t, n, g) && (valid == nullptr || valid[g]);
+      const int64_t q = q0 + t;
+      const int g = static_cast<int>(u * gmax + q / N);
+      const bool in = q < gmax * N;
+      mine = in && (valid == nullptr || valid[g]);
+      tab[t] = static_cast<int>(q % N);
+      tab[kPairs + t] = g;
+      tab[2 * kPairs + t] = (in ? 1 : 0) | (mine ? 2 : 0);
     }
     if (!__syncthreads_or(mine)) {
       for (int p = 0; p < kPairs && split == 0; ++p) {
-        int n, g;
-        if (!pair_at(p, n, g)) break;
+        if (!(tab[2 * kPairs + p] & 1)) break;
+        const int64_t n = tab[p], g = tab[kPairs + p];
         if (t == 0) partials[n * G + g] = 0.f;
         if constexpr (kDp) {
           for (int64_t f = t; f < F; f += kThreads) {
@@ -223,49 +343,77 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
       return;
     }
   }
+  auto in_op = [&](int p) { return (tab[2 * kPairs + p] & 1) != 0; };
+  auto coef_row = [&](int row) {  // row = part * 32 + p: the pair's coefficients in coeffs2
+    return coeffs2 + ((row / kPairs * N + tab[row % kPairs]) * G + tab[kPairs + row % kPairs]) * V;
+  };
 
-  // the block's coefficients, (V, 64): column 2 p + c is part c of pair p
-  for (int64_t idx = t; idx < static_cast<int64_t>(kCols) * V; idx += kThreads) {
-    const int col = static_cast<int>(idx / V);
-    const int64_t k = idx - col * V;
-    int n, g;
-    coef[k * kCS + col] = pair_at(col >> 1, n, g)
-        ? coeffs2[(((col & 1) * N + n) * G + g) * V + k] : 0.f;
+  // the block's coefficients, (64 rows: re then im of each pair) x CS: by
+  // 16-byte copies (with the first comps tile) where rows are whole 16-byte
+  // units; zero past V and for pairs the operator does not have
+  if ((V & 3) == 0 && (reinterpret_cast<uintptr_t>(coeffs2) & 15) == 0) {
+    const int per_row = Vs / 4;
+    for (int q = t; q < kCols * per_row; q += kThreads) {
+      const int row = q / per_row, c = q - row * per_row;
+      if (in_op(row % kPairs)) cp_async16(raw + row * CS + 4 * c, coef_row(row) + 4 * c);
+    }
+  } else {
+    for (int q = t; q < kCols * Vs; q += kThreads) {
+      const int row = q / Vs, k = q - row * Vs;
+      if (in_op(row % kPairs)) raw[row * CS + k] = coef_row(row)[k];
+    }
+  }
+  if (V8 > Vs) {
+    for (int q = t; q < kCols * (V8 - Vs); q += kThreads) {
+      raw[(q / (V8 - Vs)) * CS + Vs + q % (V8 - Vs)] = 0.f;
+    }
+  }
+  if (!in_op(kPairs - 1)) {  // the operator's last tile of pairs, cut short
+    for (int q = t; q < kCols * Vs; q += kThreads) {
+      const int row = q / Vs;
+      if (!in_op(row % kPairs)) raw[row * CS + q % Vs] = 0.f;
+    }
+  }
+  // the ring's modes past V (read by phase A's last k-step) stay zero
+  if (V8 > Vs) {
+    TC* ring = reinterpret_cast<TC*>(smem);
+    for (int idx = t; idx < stages * kRows * (V8 - Vs); idx += kThreads) {
+      ring[(idx / (V8 - Vs)) * RS + Vs + idx % (V8 - Vs)] = zero_of<TC>();
+    }
   }
 
-  // phase A: channels ra, ra + 16 and columns [ca * 8, ca * 8 + 8)
-  const int ca = t % 8, ra = t / 8;
-  // epilogue: channel fe of the tile, pairs pw + 4 j
-  const int fe = t % 32, pw = t / 32;
-  constexpr int kPer = kPairs / (kThreads / 32);
-  // phase B: modes mb + 16 i and columns [cb * 8, cb * 8 + 8)
-  const int mb = t % kModeGroups, cb = t / kModeGroups;
-
-  int en[kPer], eg[kPer];  // 32-bit: registers are what the epilogue is short of
-  bool ein[kPer], eok[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    ein[j] = pair_at(pw + 4 * j, en[j], eg[j]);
-    eok[j] = ein[j] && (valid == nullptr || valid[eg[j]]);
-  }
+  // this thread's pair in the epilogue and phase B: rows g (re) and g + 8
+  // (im) of its warp's tile; its entries of a tile are channels f0 + 4 tig
+  // + [0, 4) and f0 + 16 + 4 tig + [0, 4) (see `tile_row`)
+  const int pe = warp * kWarpPairs + gid;
+  const int eflags = tab[2 * kPairs + pe];
+  const bool ein = eflags & 1, eok = eflags & 2;
+  const int64_t en = tab[pe], eg = tab[kPairs + pe];
+  const float* pr_row = pr + en * GF + eg * F;
+  const float* pi_row = pi + en * GF + eg * F;
+  const float* dr_row = dr + en * d_sn + eg * d_sg;
+  const float* di_row = di + en * d_sn + eg * d_sg;
+  const int64_t w_row = en * w_sn + eg * w_sg;
+  // 16-byte plane reads and dpr/dpi writes where rows and strides allow
+  const bool vec4 = (F & 3) == 0;
+  const bool dvec = d_sf == 1 && ((d_sn | d_sg) & 3) == 0 &&
+                    ((reinterpret_cast<uintptr_t>(dr) | reinterpret_cast<uintptr_t>(di)) & 15) == 0;
+  const bool wvec = w_sf == 1 && ((w_sn | w_sg) & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(w) & (w_bf16 ? 7 : 15)) == 0;
   if constexpr (kAll) {
-    // modes past the register tiles accumulate in the output itself; each
-    // (mode, column) belongs to one thread throughout
-    for (int64_t k0 = kCapacity; k0 < V; k0 += kCapacity) {
-#pragma unroll
-      for (int i = 0; i < kModesB; ++i) {
-        const int64_t k = k0 + mb + kModeGroups * i;
-        if (k >= V) continue;
-        for (int j = 0; j < 8; ++j) {
-          const int col = cb * 8 + j;
-          int n, g;
-          if (pair_at(col >> 1, n, g)) dcoeffs[(((col & 1) * N + n) * G + g) * V + k] = 0.f;
-        }
+    // modes past the register tiles accumulate in the output itself
+    const int extra = Vs - kCapacity;
+    for (int idx = t; idx < kCols * extra; idx += kThreads) {
+      const int row = idx / extra;
+      if (in_op(row % kPairs)) {
+        const int64_t n = tab[row % kPairs], g = tab[kPairs + row % kPairs];
+        dcoeffs[((row / kPairs * N + n) * G + g) * V + kCapacity + idx % extra] = 0.f;
       }
     }
   }
 
-  // the comps tile jt into its stage
+  // the comps tile jt into its stage, channel r at row tile_row(r); rows
+  // past F zeroed
   auto issue = [&](int jt) {
     if (jt < jt1) {
       const int64_t f0 = static_cast<int64_t>(jt) * kRows;
@@ -276,190 +424,287 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
         const int per_row = static_cast<int>(V * sizeof(TC) / 16);
         for (int q = t; q < rows * per_row; q += kThreads) {
           const int r = q / per_row, c = q - r * per_row;
-          cp_async16(reinterpret_cast<unsigned char*>(dst + r * RS) + 16 * c,
+          cp_async16(reinterpret_cast<unsigned char*>(dst + tile_row(r) * RS) + 16 * c,
                      reinterpret_cast<const unsigned char*>(src + r * V) + 16 * c);
         }
       } else {
         for (int q = t; q < rows * Vs; q += kThreads) {
           const int r = q / Vs, k = q - r * Vs;
-          dst[r * RS + k] = src[static_cast<int64_t>(r) * V + k];
+          dst[tile_row(r) * RS + k] = src[static_cast<int64_t>(r) * V + k];
         }
+      }
+      for (int q = t; q < (kRows - rows) * V8; q += kThreads) {
+        dst[tile_row(rows + q / V8) * RS + q % V8] = zero_of<TC>();
       }
     }
     cp_async_commit();  // one group a tile, empty past the last
   };
 
-  float lacc[kPer];
-  float acc[kModesB][8];
+  // this thread's planes of tile jt: entry 4 h + c is channel f0 + 16 h + 4
+  // tig + c; zeros past F and for padding
+  float p_r[8], p_i[8], d_r[8], d_i[8], wv[8];
+  auto load_planes = [&](int jt) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) lacc[j] = 0.f;
+    for (int j = 0; j < 8; ++j) p_r[j] = p_i[j] = d_r[j] = d_i[j] = wv[j] = 0.f;
+    if (!eok) return;
 #pragma unroll
-  for (int i = 0; i < kModesB; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      const int64_t fb = static_cast<int64_t>(jt) * kRows + 16 * h + 4 * tig;
+      if (fb + 3 < F) {
+        if (vec4) {
+          const float4 a = *reinterpret_cast<const float4*>(pr_row + fb);
+          const float4 b = *reinterpret_cast<const float4*>(pi_row + fb);
+          p_r[4 * h] = a.x, p_r[4 * h + 1] = a.y, p_r[4 * h + 2] = a.z, p_r[4 * h + 3] = a.w;
+          p_i[4 * h] = b.x, p_i[4 * h + 1] = b.y, p_i[4 * h + 2] = b.z, p_i[4 * h + 3] = b.w;
+        } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
+          for (int c = 0; c < 4; ++c) {
+            p_r[4 * h + c] = pr_row[fb + c];
+            p_i[4 * h + c] = pi_row[fb + c];
+          }
+        }
+        if (dvec) {
+          const float4 a = *reinterpret_cast<const float4*>(dr_row + fb);
+          const float4 b = *reinterpret_cast<const float4*>(di_row + fb);
+          d_r[4 * h] = a.x, d_r[4 * h + 1] = a.y, d_r[4 * h + 2] = a.z, d_r[4 * h + 3] = a.w;
+          d_i[4 * h] = b.x, d_i[4 * h + 1] = b.y, d_i[4 * h + 2] = b.z, d_i[4 * h + 3] = b.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            d_r[4 * h + c] = dr_row[(fb + c) * d_sf];
+            d_i[4 * h + c] = di_row[(fb + c) * d_sf];
+          }
+        }
+        if (wvec && !w_bf16) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(static_cast<const float*>(w) + w_row + fb);
+          wv[4 * h] = a.x, wv[4 * h + 1] = a.y, wv[4 * h + 2] = a.z, wv[4 * h + 3] = a.w;
+        } else if (wvec) {
+          const uint2 a = *reinterpret_cast<const uint2*>(
+              static_cast<const __nv_bfloat16*>(w) + w_row + fb);
+          wv[4 * h] = __uint_as_float(a.x << 16);  // bfloat16 to float32: the high half
+          wv[4 * h + 1] = __uint_as_float(a.x & 0xffff0000u);
+          wv[4 * h + 2] = __uint_as_float(a.y << 16);
+          wv[4 * h + 3] = __uint_as_float(a.y & 0xffff0000u);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) wv[4 * h + c] = load_w(w, w_bf16, w_row + (fb + c) * w_sf);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (fb + c < F) {
+            p_r[4 * h + c] = pr_row[fb + c];
+            p_i[4 * h + c] = pi_row[fb + c];
+            d_r[4 * h + c] = dr_row[(fb + c) * d_sf];
+            d_i[4 * h + c] = di_row[(fb + c) * d_sf];
+            wv[4 * h + c] = load_w(w, w_bf16, w_row + (fb + c) * w_sf);
+          }
+        }
+      }
+    }
+  };
 
+  float lacc = 0.f;
+  float bacc[kModeTiles][4];
+#pragma unroll
+  for (int i = 0; i < kModeTiles; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bacc[i][j] = 0.f;
+  }
+  const float* ca = coef + pe * CS + tig;  // phase A's A fragments: re, im rows of the pair
+  const float2* ca2 = reinterpret_cast<const float2*>(coef) + pe * CS + tig;
+
+  load_planes(jt0);
   issue(jt0);
-  if (stages > 1) issue(jt0 + 1);
+  if constexpr (kPre) {
+    // the coefficients split once, into (hi, lo) pairs
+    cp_async_wait_all();
+    __syncthreads();
+    float2* c2 = reinterpret_cast<float2*>(coef);
+    for (int row = warp; row < kCols; row += kThreads / 32) {
+      for (int k = lane; k < V8; k += 32) {
+        uint32_t hi, lo;
+        split_tf32(raw[row * CS + k], hi, lo);
+        c2[row * CS + k] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+      }
+    }
+  }
   for (int jt = jt0; jt < jt1; ++jt) {
     const int64_t f0 = static_cast<int64_t>(jt) * kRows;
-    const int rows = static_cast<int>(F - f0 < kRows ? F - f0 : kRows);
-    const int64_t f = f0 + fe;
-    const bool erow = fe < rows;
-    // this thread's planes of the tile, loaded before the wait
-    float p_r[kPer], p_i[kPer], d_r[kPer], d_i[kPer], wv[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      p_r[j] = p_i[j] = d_r[j] = d_i[j] = wv[j] = 0.f;
-      if (erow && eok[j]) {
-        const int64_t prow = en[j] * GF + eg[j] * F + f;
-        const int64_t drow = en[j] * d_sn + eg[j] * d_sg + f * d_sf;
-        const int64_t wrow = en[j] * w_sn + eg[j] * w_sg + f * w_sf;
-        p_r[j] = pr[prow];
-        p_i[j] = pi[prow];
-        d_r[j] = dr[drow];
-        d_i[j] = di[drow];
-        wv[j] = w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[wrow])
-                       : static_cast<const float*>(w)[wrow];
-      }
-    }
-    if (stages > 1) {
-      cp_async_wait_one();
-    } else {
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-    }
-    __syncthreads();  // the tile (and, first, the coefficients) are in
+    cp_async_wait_all();
+    __syncthreads();  // tile jt (and, first, the coefficients) in; tile jt - 1 done with
+    if (stages > 1) issue(jt + 1);
     const TC* tile = reinterpret_cast<const TC*>(smem + ((jt - jt0) % stages) * tile_bytes);
 
-    // phase A: the model's dot products, over the modes in order; channels
-    // past the tile read stale rows and are dropped
-    {
-      float s[2][8];
+    // phase A: the model of the warp's 8 pairs at the tile's 32 channels,
+    // over the modes in k-steps of 8
+    float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+    if constexpr (kPre) {
+      const int b0 = gid * RS + tig;
+#pragma unroll 2
+      for (int s = 0; s < nks; ++s) {
+        const float2* a = ca2 + 8 * s;
+        const float2 x0 = a[0], x1 = a[kPairs * CS], x2 = a[4], x3 = a[kPairs * CS + 4];
+        const uint32_t ahi[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                 __float_as_uint(x2.x), __float_as_uint(x3.x)};
+        const uint32_t alo[4] = {__float_as_uint(x0.y), __float_as_uint(x1.y),
+                                 __float_as_uint(x2.y), __float_as_uint(x3.y)};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int b = b0 + 8 * nt * RS + 8 * s;
+          mma_split<TC>(acc[nt], ahi, alo, to_f32(tile[b]), to_f32(tile[b + 4]));
+        }
       }
-      const TC* r0 = tile + ra * RS;
-      const TC* r1 = tile + (ra + 16) * RS;
-      const float* cf = coef + ca * 8;
-#pragma unroll 4
-      for (int k = 0; k < Vs; ++k) {
-        const float c[2] = {to_f32(r0[k]), to_f32(r1[k])};
-        const float4 a = *reinterpret_cast<const float4*>(cf + k * kCS);
-        const float4 b = *reinterpret_cast<const float4*>(cf + k * kCS + 4);
-        fma8<2>(s, c, a, b);
-      }
+    } else {
+      const TC* bcol = tile + gid * RS + tig;
+#pragma unroll 2
+      for (int s = 0; s < nks; ++s) {
+        const float* a = ca + 8 * s;
+        uint32_t ahi[4], alo[4];
+        split4(a[0], a[kPairs * CS], a[4], a[kPairs * CS + 4], ahi, alo);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float* out = red + (ra + 16 * i) * kCS + ca * 8;
-        *reinterpret_cast<float4*>(out) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-        *reinterpret_cast<float4*>(out + 4) = make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
+        for (int nt = 0; nt < 4; ++nt) {
+          const TC* b = bcol + 8 * nt * RS + 8 * s;
+          mma_split<TC>(acc[nt], ahi, alo, to_f32(b[0]), to_f32(b[4]));
+        }
       }
     }
-    __syncthreads();  // the model tile is complete
 
-    // epilogue: channel fe, this thread's pairs
+    // epilogue, on the fragments: in n-tile nt, row g is v_r and row g + 8
+    // v_i of the pair, column 2 tig + c its entry 2 nt + c
+    float dvr[4][2], dvi[4][2], gr[8], gi[8];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      if (!(erow && ein[j])) continue;
-      const int p = pw + 4 * j;
-      float* m = red + fe * kCS + 2 * p;
-      const float sr = m[0], si = m[1];
+    for (int j = 0; j < 8; ++j) {
+      const int nt = j >> 1, c = j & 1;
+      const bool ok = eok && f0 + 16 * (j >> 2) + 4 * tig + (j & 3) < F;
+      const float sr = acc[nt][c], si = acc[nt][2 + c];
       const float mr = p_r[j] * sr + p_i[j] * si;
       const float mi = -p_i[j] * sr + p_r[j] * si;
       const float er = d_r[j] - mr;
       const float ei = d_i[j] - mi;
-      lacc[j] += wv[j] * (er * er + ei * ei);
-      if constexpr (kDp) {
-        const float dmr = -2.f * wv[j] * er;
-        const float dmi = -2.f * wv[j] * ei;
-        const int64_t prow = en[j] * GF + eg[j] * F + f;
-        dpr[prow] = sr * dmr + si * dmi;
-        dpi[prow] = si * dmr - sr * dmi;
-        if constexpr (kAll) {
-          m[0] = p_r[j] * dmr - p_i[j] * dmi;
-          m[1] = p_i[j] * dmr + p_r[j] * dmi;
+      if (ok) lacc += wv[j] * (er * er + ei * ei);
+      const float dmr = ok ? -2.f * wv[j] * er : 0.f;
+      const float dmi = ok ? -2.f * wv[j] * ei : 0.f;
+      gr[j] = sr * dmr + si * dmi;
+      gi[j] = si * dmr - sr * dmi;
+      dvr[nt][c] = p_r[j] * dmr - p_i[j] * dmi;
+      dvi[nt][c] = p_i[j] * dmr + p_r[j] * dmi;
+    }
+    if constexpr (kDp) {
+      if (ein) {
+        float* const dpr_row = dpr + en * GF + eg * F;
+        float* const dpi_row = dpi + en * GF + eg * F;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t fb = f0 + 16 * h + 4 * tig;
+          if (vec4 && fb + 3 < F) {
+            *reinterpret_cast<float4*>(dpr_row + fb) =
+                make_float4(gr[4 * h], gr[4 * h + 1], gr[4 * h + 2], gr[4 * h + 3]);
+            *reinterpret_cast<float4*>(dpi_row + fb) =
+                make_float4(gi[4 * h], gi[4 * h + 1], gi[4 * h + 2], gi[4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (fb + c < F) {
+                dpr_row[fb + c] = gr[4 * h + c];
+                dpi_row[fb + c] = gi[4 * h + c];
+              }
+            }
+          }
         }
       }
     }
+    // the next tile's planes, in flight through phase B, the barrier and
+    // phase A
+    if (jt + 1 < jt1) load_planes(jt + 1);
 
     if constexpr (kAll) {
-      __syncthreads();  // the dv tile is complete
-      // phase B: the coefficient gradient, over the tile's channels in order
-      const float* dcol = red + cb * 8;
-#pragma unroll 4
-      for (int r = 0; r < rows; ++r) {
-        const TC* row = tile + r * RS;
-        float c[kModesB];
+      // phase B: dcoeffs^T += dv^T comps over the tile's channels; the k
+      // index t is the tile's row 8 nt + 2 t and t + 4 its row 8 nt + 2 t +
+      // 1, so the A fragment is this thread's dv
 #pragma unroll
-        for (int i = 0; i < kModesB; ++i) {
-          const int k = mb + kModeGroups * i;
-          c[i] = k < Vs ? to_f32(row[k]) : 0.f;
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t ahi[4], alo[4];
+        split4(dvr[nt][0], dvi[nt][0], dvr[nt][1], dvi[nt][1], ahi, alo);
+        const int b = (8 * nt + 2 * tig) * RS + gid;
+#pragma unroll
+        for (int mt = 0; mt < kModeTiles; ++mt) {
+          if (mt >= nks) continue;
+          const int m = b + 8 * mt;
+          mma_split<TC>(bacc[mt], ahi, alo, to_f32(tile[m]), to_f32(tile[m + RS]));
         }
-        const float4 a = *reinterpret_cast<const float4*>(dcol + r * kCS);
-        const float4 b = *reinterpret_cast<const float4*>(dcol + r * kCS + 4);
-        fma8<kModesB>(acc, c, a, b);
       }
-      for (int k0 = kCapacity; k0 < Vs; k0 += kCapacity) {
-        float x[kModesB][8];
+      // modes past the register tiles, 64 at a time, into the output
+      for (int k0 = kCapacity; !kPre && k0 < Vs; k0 += kCapacity) {
+        float x[kModeTiles][4];
 #pragma unroll
-        for (int i = 0; i < kModesB; ++i) {
+        for (int i = 0; i < kModeTiles; ++i) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) x[i][j] = 0.f;
+          for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
         }
-        for (int r = 0; r < rows; ++r) {
-          const TC* row = tile + r * RS;
-          float c[kModesB];
 #pragma unroll
-          for (int i = 0; i < kModesB; ++i) {
-            const int k = k0 + mb + kModeGroups * i;
-            c[i] = k < Vs ? to_f32(row[k]) : 0.f;
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t ahi[4], alo[4];
+          split4(dvr[nt][0], dvi[nt][0], dvr[nt][1], dvi[nt][1], ahi, alo);
+          const TC* b = tile + (8 * nt + 2 * tig) * RS + gid + k0;
+#pragma unroll
+          for (int mt = 0; mt < kModeTiles; ++mt) {
+            if (k0 + 8 * mt < V8) {
+              mma_split<TC>(x[mt], ahi, alo, to_f32(b[8 * mt]), to_f32(b[RS + 8 * mt]));
+            }
           }
-          const float4 a = *reinterpret_cast<const float4*>(dcol + r * kCS);
-          const float4 b = *reinterpret_cast<const float4*>(dcol + r * kCS + 4);
-          fma8<kModesB>(x, c, a, b);
         }
+        if (ein) {
 #pragma unroll
-        for (int i = 0; i < kModesB; ++i) {
-          const int64_t k = k0 + mb + kModeGroups * i;
-          if (k >= V) continue;
+          for (int mt = 0; mt < kModeTiles; ++mt) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = cb * 8 + j;
-            int n, g;
-            if (pair_at(col >> 1, n, g)) dcoeffs[(((col & 1) * N + n) * G + g) * V + k] += x[i][j];
+            for (int c = 0; c < 2; ++c) {
+              const int k = k0 + 8 * mt + 2 * tig + c;
+              if (k < Vs) {
+                dcoeffs[(en * G + eg) * V + k] += x[mt][c];
+                dcoeffs[((N + en) * G + eg) * V + k] += x[mt][2 + c];
+              }
+            }
           }
         }
       }
     }
-    __syncthreads();  // every read of this stage and of the column tile is done
-    issue(jt + stages);
+    if (stages == 1) {
+      __syncthreads();  // every read of the one stage is done
+      issue(jt + 1);
+    }
   }
 
-  // each pair's loss over this block's channels: the channel lanes' partials
-  // summed by a fixed shuffle tree over the warp
-  float* lsum = red;  // (32,): the block's per-pair losses
-  float* part = coef;  // (min(V, 64), 64): the block's coefficient gradient
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    float s = lacc[j];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (fe == 0) lsum[pw + 4 * j] = s;
-  }
+  // each pair's loss over this block's channels: its four lanes' partials
+  // summed by a fixed shuffle tree
+  lacc += __shfl_xor_sync(0xffffffffu, lacc, 1);
+  lacc += __shfl_xor_sync(0xffffffffu, lacc, 2);
+  __syncthreads();  // every warp is done with the ring and the coefficients
+  float* lsum = reinterpret_cast<float*>(smem);  // (32,): the block's per-pair losses
+  float* part = coef;  // (64, kv): the block's coefficient gradient, row (re, im) major
+  if (tig == 0) lsum[pe] = lacc;
+  const int kv = kAll ? (Vs < kCapacity ? Vs : kCapacity) : 0;
   if constexpr (kAll) {
 #pragma unroll
-    for (int i = 0; i < kModesB; ++i) {
-      const int k = mb + kModeGroups * i;
-      if (k >= Vs) continue;
+    for (int mt = 0; mt < kModeTiles; ++mt) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part[k * kCols + cb * 8 + j] = acc[i][j];
+      for (int c = 0; c < 2; ++c) {
+        const int k = 8 * mt + 2 * tig + c;
+        if (k < kv) {
+          part[pe * kv + k] = bacc[mt][c];
+          part[(kPairs + pe) * kv + k] = bacc[mt][2 + c];
+        }
+      }
     }
   }
   // the cluster's blocks sum their parts in split order, each block a share
   // of the entries, reading the others' shared memory (one block: its own)
-  const int kv = kAll ? (Vs < kCapacity ? Vs : kCapacity) : 0;
   const int entries = kv * kCols + kPairs;
   if (splits > 1) {
     cg::this_cluster().sync();
@@ -468,19 +713,20 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   }
   for (int e = split * kThreads + t; e < entries; e += splits * kThreads) {
     const bool loss = e >= kv * kCols;
-    const int p = loss ? e - kv * kCols : (e % kCols) >> 1;
-    int n, g;
-    if (!pair_at(p, n, g)) continue;
+    const int row = loss ? 0 : e / kv;
+    const int p = loss ? e - kv * kCols : row % kPairs;
+    if (!in_op(p)) continue;
     float s = 0.f;
     for (int r = 0; r < splits; ++r) {
       const float* src = splits > 1 ? cg::this_cluster().map_shared_rank(loss ? lsum : part, r)
                                     : (loss ? lsum : part);
       s += src[loss ? p : e];
     }
+    const int64_t n = tab[p], g = tab[kPairs + p];
     if (loss) {
       partials[n * G + g] = s;
     } else {
-      dcoeffs[((((e % kCols) & 1) * N + n) * G + g) * V + e / kCols] = s;
+      dcoeffs[((row / kPairs * N + n) * G + g) * V + e % kv] = s;
     }
   }
   if (splits > 1) cg::this_cluster().sync();  // no block leaves while others read it
@@ -514,15 +760,15 @@ int plan_splits(long long pair_tiles, long long F, long long V) {
   return splits;
 }
 
-template <typename TC, int MODE>
+template <typename TC, int MODE, bool kPre>
 int launch(int grid, int splits, int stages, int vec16, cudaStream_t s, const void* comps,
            const float* coeffs2, const float* pr, const float* pi, const float* dr,
            const float* di, int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* w, int w_bf16,
            int64_t w_sn, int64_t w_sg, int64_t w_sf, const unsigned char* valid,
            float* partials, float* dcoeffs, float* dpr, float* dpi, int64_t N, int64_t G,
            int64_t F, int64_t V, int64_t gmax, int blocks_per_op) {
-  const size_t smem = smem_bytes(V, sizeof(TC), stages);
-  auto kernel = shared_chunk_loss_kernel<TC, MODE>;
+  const size_t smem = kPre ? smem_bytes_pre(V, sizeof(TC)) : smem_bytes(V, sizeof(TC), stages);
+  auto kernel = shared_chunk_loss_kernel<TC, MODE, kPre>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -549,13 +795,21 @@ int launch(int grid, int splits, int stages, int vec16, cudaStream_t s, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TC, typename... Args>
+template <typename TC, bool kPre, typename... Args>
 int launch_mode(int mode, Args... args) {
   switch (mode) {
-    case kLossOnly: return launch<TC, kLossOnly>(args...);
-    case kLossDp: return launch<TC, kLossDp>(args...);
-    default: return launch<TC, kLossAll>(args...);
+    case kLossOnly: return launch<TC, kLossOnly, kPre>(args...);
+    case kLossDp: return launch<TC, kLossDp, kPre>(args...);
+    default: return launch<TC, kLossAll, kPre>(args...);
   }
+}
+
+// bfloat16 comps: the coefficients split once into shared memory wherever
+// the modes fit the register tiles
+template <typename... Args>
+int launch_bf16(bool pre, int mode, Args... args) {
+  return pre ? launch_mode<__nv_bfloat16, true>(mode, args...)
+             : launch_mode<__nv_bfloat16, false>(mode, args...);
 }
 
 }  // namespace
@@ -588,7 +842,8 @@ int shared_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, 
       (comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int stages = plan_stages(V, csize);
+  const bool pre = comps_dtype == 1 && V <= kCapacity;
+  const int stages = pre ? 2 : plan_stages(V, csize);
   const long long gmax = G / U;
   const long long per_op = (gmax * N + kPairs - 1) / kPairs;
   if (stages == 0 || per_op * U > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -600,13 +855,13 @@ int shared_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, 
     return static_cast<int>(cudaErrorInvalidValue);
   const int bpo = static_cast<int>(per_op);
   if (comps_dtype == 0) {
-    return launch_mode<float>(mode, grid, splits, stages, vec16, s, comps, coeffs2, pr, pi, dr,
-                              di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf, valid,
-                              partials, dcoeffs, dpr, dpi, N, G, F, V, gmax, bpo);
+    return launch_mode<float, false>(mode, grid, splits, stages, vec16, s, comps, coeffs2, pr,
+                                     pi, dr, di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf,
+                                     valid, partials, dcoeffs, dpr, dpi, N, G, F, V, gmax, bpo);
   }
-  return launch_mode<__nv_bfloat16>(mode, grid, splits, stages, vec16, s, comps, coeffs2, pr,
-                                    pi, dr, di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf,
-                                    valid, partials, dcoeffs, dpr, dpi, N, G, F, V, gmax, bpo);
+  return launch_bf16(pre, mode, grid, splits, stages, vec16, s, comps, coeffs2, pr, pi, dr, di,
+                     d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf, valid, partials, dcoeffs,
+                     dpr, dpi, N, G, F, V, gmax, bpo);
 }
 
 }  // extern "C"

@@ -19,11 +19,13 @@ slice's cotangent.
 On a CUDA tensor the pass is the hand-written kernel in
 ``csrc/shared_chunk_loss.cu`` (built on first use by ``ops._build``),
 which stages each channel tile of an operator in shared memory once for a
-tile of 32 (group, slice) pairs; on a CPU tensor it is
+tile of 32 (group, slice) pairs and runs both products on the tensor
+cores with split TF32 operands (float32 accuracy); on a CPU tensor it is
 :func:`loss_and_grads_plain`'s torch ops. There is no other route: a CUDA
 launch that fails raises. Groups that hold no baseline (the packing's
 record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
-kernel does not read their data.
+kernel does not read their data. :func:`loss_and_grads_tf32` emulates
+the kernel's split products for the tests; no path calls it.
 """
 
 from __future__ import annotations
@@ -39,13 +41,17 @@ _MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
 
 
 def _smem_bytes(nvecs, csize):
-    """The kernel's shared memory for one comps tile of 32 channels (rows
-    padded to 16 bytes, plus 16), the (V, 68) coefficients and a (32, 68)
-    column tile: the least it can run with (``smem_bytes`` at one stage in
-    the source)."""
+    """The kernel's shared memory for one comps tile of 32 channels (rows of
+    at least V rounded up to 8 modes, an odd number of 16-byte units), the
+    64 coefficient rows (V rounded up to 8 modes, plus 4) and its table of
+    32 pairs: the least it can run with (``smem_bytes`` at one stage in the
+    source)."""
     unit = 16 // csize
-    row = -(-nvecs // unit) * unit + unit
-    return 32 * row * csize + nvecs * 68 * 4 + 32 * 68 * 4
+    modes8 = -(-nvecs // 8) * 8
+    row = -(-modes8 // unit) * unit
+    if (row // unit) % 2 == 0:
+        row += unit
+    return 32 * row * csize + 64 * (modes8 + 4) * 4 + 3 * 32 * 4
 
 
 def explain_shared_loss_inapplicable(comps, coeffs, data, wgts):
@@ -101,11 +107,59 @@ def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LO
     of 1 (``None`` where ``mode`` does not ask for them); the groups
     ``valid`` leaves out (a (G,) bool mask) count as weight 0 and data 0.
     The reference the kernel is held against, and the CPU path."""
+    return _loss_and_grads_with(torch.einsum, coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest value with 10 stored mantissa bits, ties away from zero (the
+    low 13 bits cleared); infinities and NaNs unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    rounded = (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x):
+    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (the
+    subtraction is exact in float32); ``hi + lo`` holds x to about 2^-22."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL,
+                        split=True):
+    """:func:`loss_and_grads_plain` with both products formed as the
+    kernel forms them on the tensor cores: each float32 operand split into
+    TF32 hi and lo (:func:`tf32_split`) and the products ``x_lo c_hi +
+    x_hi c_lo + x_hi c_hi`` summed in float32, small terms first (a
+    bfloat16 comps value is exact in TF32: ``x_lo c + x_hi c``). With
+    ``split=False``, one product of the TF32-rounded operands: the single
+    TF32 product the kernel does not use. For the tests and the smoke
+    test's comparisons only; no path calls it."""
+    exact = comps3.dtype == torch.bfloat16
+
+    def product(eq, comps, x):
+        c_hi, c_lo = (comps, None) if exact else tf32_split(comps)
+        if not split:
+            return torch.einsum(eq, c_hi, tf32_round(x))
+        x_hi, x_lo = tf32_split(x)
+        small = torch.einsum(eq, c_hi, x_lo)
+        if not exact:
+            small = small + torch.einsum(eq, c_lo, x_hi)
+        return small + torch.einsum(eq, c_hi, x_hi)
+
+    return _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+
+
+def _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode):
+    """The kernel's function with its two products (the matvec and the
+    coefficient contraction) taken by ``product(equation, comps, x)``."""
     nu, nfreqs, nvecs = comps3.shape
     _, nbatch, ngrps, _ = coeffs2.shape
     shape = (2, nbatch, nu, ngrps // nu)
     comps = _f32(comps3)
-    v = torch.einsum("ufv,knugv->knugf", comps, coeffs2.reshape(shape + (nvecs,)))
+    v = product("ufv,knugv->knugf", comps, coeffs2.reshape(shape + (nvecs,)))
     v = v.reshape(2, nbatch, ngrps, nfreqs)
     vr, vi = v[0], v[1]
     mr = pr * vr + pi * vi
@@ -126,7 +180,7 @@ def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LO
     dcoeffs = None
     if mode == LOSS_ALL:
         dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
-        dcoeffs = torch.einsum("ufv,knugf->knugv", comps, dv.reshape(shape + (nfreqs,)))
+        dcoeffs = product("ufv,knugf->knugv", comps, dv.reshape(shape + (nfreqs,)))
         dcoeffs = dcoeffs.reshape(2, nbatch, ngrps, nvecs)
     return losses, dcoeffs, dpr, dpi
 

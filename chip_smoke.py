@@ -30,10 +30,12 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    a ragged channel count and unaligned operands; and (3s) the shared-basis
    kernel at the HERA core's four packed chunk shapes with their padding
    (N = 1 and 8, float32 and bfloat16 comps), every instance against its
-   plain version, two launches equal to the bit, the autograd Function
-   against the torch ops it replaces, each case timed against its bound,
-   the plain version, those torch ops and cuBLAS' batched matvec; a block
-   of whole classes as views; ragged and wide shapes;
+   plain version and against the emulation of its split TF32 products
+   (``ops.shared.loss_and_grads_tf32``), two launches equal to the bit,
+   the autograd Function against the torch ops it replaces, each case
+   timed against its bound, the plain version, those torch ops and cuBLAS'
+   batched matvec; a block of whole classes as views; ragged and wide
+   shapes; bfloat16 weights and a weight plane;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -268,7 +270,9 @@ def phase_build():
 # phase 3: kernel against plain
 # ---------------------------------------------------------------------- #
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (the kernel takes no TF32)
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (the fused and gain kernels)
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense (the shared-basis kernel's
+# products: each of its float32 multiply-adds takes two or three TF32 products)
 
 
 def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, extra=0,
@@ -844,13 +848,15 @@ def phase_kernel_vs_plain(main_shape):
 # ---------------------------------------------------------------------- #
 # phase 3s: the shared-basis kernel against plain
 # ---------------------------------------------------------------------- #
-def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=None):
+def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=None,
+                  wgts="float32"):
     """Operands of the shared-basis kernel for a chunk of ``nu`` operators
     and ``len(valid)`` groups (padding groups: zero weight); with ``block``
     = (u0, u1) the operands are those of the classes [u0, u1) of that
     chunk, views of its tensors, as a group block or a mesh block takes
-    them. Returns (args for ``loss_and_grads_*`` without the mask, the
-    mask)."""
+    them; ``wgts`` "bfloat16" gives bfloat16 weights, "plane" one weight a
+    (slice, group) broadcast over the channels (a stride-0 view). Returns
+    (args for ``loss_and_grads_*`` without the mask, the mask)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -869,6 +875,10 @@ def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=Non
     dr, di = t(nbatch, ngrps, nfreqs), t(nbatch, ngrps, nfreqs)
     w = t(nbatch, ngrps, nfreqs).abs() * mask.reshape(1, -1, 1)
     w /= w.sum(dim=(1, 2), keepdim=True)
+    if wgts == "bfloat16":
+        w = w.to(torch.bfloat16)
+    elif wgts == "plane":
+        w = w[..., :1].expand(-1, -1, nfreqs)
     args = [coeffs2, pr, pi, dr, di, w, comps]
     if block is None:
         return args, mask
@@ -886,17 +896,25 @@ def _shared_bound(args, mask, grads=True):
     on these inputs: comps and the coefficients read once, the planes of
     the groups that hold a baseline read once (padding's are not needed),
     the losses and (``grads``) dpr, dpi and dcoeffs written once; per valid
-    entry 4 V multiply-adds (8 V operations) and 28 others."""
+    entry 4 V multiply-adds (8 V operations) of the products, on the tensor
+    cores at the TF32 rate over the split products each takes (3 for
+    float32 comps, 2 for bfloat16), and 28 others at the float32 rate; the
+    two units run side by side, so the operations take the longer of the
+    two."""
+    import torch
+
     coeffs2, pr, pi, dr, di, w, comps = args
     nbatch, ngrps, nfreqs = pr.shape
     nvecs = comps.shape[-1]
     entries = nbatch * int(mask.sum()) * nfreqs
     moved = nbytes(comps) + nbytes(coeffs2) + entries * (16 + w.element_size()) + 4 * nbatch
-    flops = entries * (4 * nvecs + 12)
+    mma_flops, flops = entries * 4 * nvecs, entries * 12
     if grads:
         moved += nbytes(coeffs2) + 2 * nbytes(pr)
-        flops += entries * (4 * nvecs + 16)
-    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+        mma_flops, flops = 2 * mma_flops, flops + entries * 16
+    products = 3 if comps.dtype == torch.float32 else 2
+    t_bytes = 1e3 * moved / HBM_BYTES_PER_S
+    t_ops = max(1e3 * mma_flops * products / TF32_FLOPS, 1e3 * flops / F32_FLOPS)
     return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
 
 
@@ -916,7 +934,7 @@ def _torch_ops_losses(coeffs2, pr, pi, dr, di, w, comps3):
 
 
 def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=False,
-                   block=None):
+                   block=None, wgts="float32"):
     """Every instance of the shared-basis kernel against its plain version
     (loss rel 1e-5, gradients rel 1e-4), two launches on the same inputs
     equal to the bit, and the autograd Function against the torch ops it
@@ -928,16 +946,22 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
     from calamity_tpu_torch.ops import fused, shared
 
     args, mask = shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype,
-                               SEED + 13 * nbatch + nu + nvecs, block)
+                               SEED + 13 * nbatch + nu + nvecs, block, wgts)
     dt = str(comps_dtype).replace("torch.", "")
-    tag = (f"{tag}: N={nbatch} U={args[6].shape[0]} G={args[1].shape[1]} V={nvecs} {dt} comps"
-           + (f", classes {block} of {nu} as views" if block else ""))
-    errs, worst = [], {}
+    tag = (f"{tag}: N={nbatch} U={args[6].shape[0]} G={args[1].shape[1]} F={nfreqs} V={nvecs} "
+           f"{dt} comps" + (f", classes {block} of {nu} as views" if block else "")
+           + ("" if wgts == "float32" else f", {wgts} weights"))
+    errs, worst, emu = [], {}, {}
     for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL):
         got = shared.loss_and_grads_kernel(*args, mask, mode)
         again = shared.loss_and_grads_kernel(*args, mask, mode)
         want = shared.loss_and_grads_plain(*args, mask, mode)
+        # the kernel's split TF32 products emulated with torch ops
+        split = shared.loss_and_grads_tf32(*args, mask, mode)
         torch.cuda.synchronize()
+        for name, g, e in zip(("loss", "dcoeffs", "dpr", "dpi"), got, split):
+            if e is not None:
+                emu[name] = max(emu.get(name, 0.0), rel(g, e))
         check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
               f"{tag} mode {mode}: two launches differ")
         loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
@@ -967,9 +991,10 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
                                        grads(_torch_ops_losses))]
     check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
     log(f"  {tag}: max rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + "; against the split TF32 emulation " + ", ".join(f"{k} {v:.2e}" for k, v in emu.items())
         + f"; two launches equal to the bit; against the torch ops under autograd (coeffs, pr, "
         f"pi) {', '.join(f'{x:.2e}' for x in g_rel)}")
-    out = {"max_abs_err": max(errs)}
+    out = {"max_abs_err": max(errs), "max_rel": worst, "emulation_max_rel": emu}
     if not timed:
         return out
 
@@ -1004,14 +1029,32 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
     return out
 
 
+# phase 3s's ragged shapes, (U, gmax, F, V): the tensor-core tiles' edges (a
+# short last channel tile, F = 37, 100, 1500; modes not a whole number of
+# k-steps, V = 3, 60, 130, or of the 64 held in registers; V = 64 exactly),
+# modes past the register tiles, rows copied by plain loads, a one-tile ring
+SHARED_RAGGED = ((1, 2, 37, 3), (3, 5, 100, 130), (2, 7, 64, 557), (1, 33, 64, 200),
+                 (1, 40, 1500, 60), (2, 24, 1500, 64), (3, 11, 37, 64), (1, 70, 1500, 3))
+
+
+def ragged_valid(nu, gmax):
+    """The groups of a ragged case: with more than one class, each class's
+    last group is padding."""
+    valid = np.ones(nu * gmax, bool)
+    if nu > 1:
+        valid[gmax - 1::gmax] = False
+    return valid
+
+
 def phase_shared_kernel():
     """Phase 3s: the shared-basis kernel at the HERA core's four packed
     chunk shapes with their padding, N = 1 and 8, float32 and bfloat16
     comps, every instance against its plain version and repeated launches
     equal to the bit, each timed; one step's four launches at N = 1 summed;
     a block of whole classes as views; ragged shapes (channels not a whole
-    number of tiles, short pair tiles, modes past the register tiles, rows
-    copied by plain loads, a one-tile ring)."""
+    number of tiles, short pair tiles, modes not a whole number of k-steps
+    and past the register tiles, rows copied by plain loads, a one-tile
+    ring); bfloat16 weights and a weight plane at chunk 2's shape."""
     import torch
 
     log("== phase 3s: the shared-basis kernel against plain (loss rel 1e-5, gradients rel "
@@ -1033,13 +1076,15 @@ def phase_shared_kernel():
         results[("view", cdt)] = compare_shared("HERA chunk 1", 8, nu, nfreqs, nvecs,
                                                 chunks[1][2], cdt, block=(1, 2))
         for n in (1, 3):
-            for nu, gmax, nf, nv in ((1, 2, 37, 3), (3, 5, 100, 130), (2, 7, 64, 557),
-                                     (1, 33, 64, 200)):
-                valid = np.ones(nu * gmax, bool)
-                if nu > 1:
-                    valid[gmax - 1::gmax] = False  # each class's last group is padding
+            for nu, gmax, nf, nv in SHARED_RAGGED:
                 results[(n, nu, gmax, nf, nv, cdt)] = compare_shared(
-                    "ragged", n, nu, nf, nv, valid, cdt)
+                    "ragged", n, nu, nf, nv, ragged_valid(nu, gmax), cdt)
+        # the weights as bfloat16 and as one plane a (slice, group)
+        nu, nfreqs, nvecs = shapes[2]
+        for wgts in ("bfloat16", "plane"):
+            for n in (1, 8):
+                results[(wgts, n, cdt)] = compare_shared("HERA chunk 2", n, nu, nfreqs, nvecs,
+                                                         chunks[2][2], cdt, wgts=wgts)
     for cdt in (f32, bf16):
         for n in (1, 8):
             step = [results[(c, n, cdt)] for c in range(len(shapes))]

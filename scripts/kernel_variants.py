@@ -1,12 +1,14 @@
 #!/usr/bin/env python
-"""Build variants of the fused chunk-loss kernel side by side and time them
-in turns, on one GPU.
+"""Build variants of a chunk-loss kernel side by side and time them in
+turns, on one GPU.
 
-    python3 scripts/kernel_variants.py NAME=SOURCE[:NVCC_FLAGS] [NAME=SOURCE ...]
+    python3 scripts/kernel_variants.py [--kernel fused|shared] NAME=SOURCE[:NVCC_FLAGS] ...
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Each SOURCE is a variant of ``calamity_tpu_torch/csrc/fused_chunk_loss.cu``
-with the same C interface (an empty SOURCE means that file itself);
+(``--kernel fused``, the default) or of ``csrc/shared_chunk_loss.cu``
+(``--kernel shared``) with the same C interface (an empty SOURCE means
+that file itself);
 NVCC_FLAGS, space-separated, are added to the package's own (``-D...``
 switches, for one). The variants are built in parallel into
 ``calamity_tpu_torch/_build/variants/``, each build's ``-Xptxas -v``
@@ -22,8 +24,22 @@ are timed at the main chunk (2016 x 1536 x 118; N = 8 and 1 slices;
 float32 and bfloat16 comps) with CUDA events, the loss with every gradient
 and the loss only, in turns over the variants, twice. Every time stands
 beside the card's name and power limit.
+
+With ``--kernel shared`` each variant is held against the plain version
+(``chip_smoke.compare_shared``: every instance, two launches equal to the
+bit, padding's gradients zero) at phase 3s's ragged shapes (N = 3) and at
+the HERA core's chunk 1 at N = 8, then timed at the HERA core's step: its
+four packed chunks with their padding (``chip_smoke.hera_packed_chunks``),
+the loss with every gradient, N = 1 and 8, float32 and bfloat16 comps,
+the four launches replayed from a CUDA graph (the device alone) and
+through the wrapper, against the step's bound, in turns over the
+variants, twice. To time an earlier version of the source beside the
+current one, save it with ``git show REV:calamity_tpu_torch/csrc/
+shared_chunk_loss.cu`` under ``calamity_tpu_torch/_build/``, which git
+ignores.
 """
 
+import argparse
 import os
 import re
 import subprocess
@@ -53,15 +69,15 @@ CHECKS = (  # (nbatch, shape, weights dtype, keyword arguments of chip_smoke.com
 )
 
 
-def registers(log):
-    """'<instance>:<registers>r/<spill bytes>s' for each kernel in a
-    ``-Xptxas -v`` report."""
+def registers(log, kernel="fused_chunk_loss"):
+    """'<instance>:<registers>r/<spill bytes>s' for each entry function of
+    ``kernel``'s source in a ``-Xptxas -v`` report."""
     out, inst, spill = [], None, "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
             m = re.search(r"_(kernel|wide)I(.*?)EEv", fn)
-            inst = f"{m.group(1)}:{m.group(2)}" if m else fn
+            inst = (f"{m.group(1)}:{m.group(2)}" if m else fn) if kernel in fn else None
         elif "spill stores" in line:
             spill = line.split(",")[1].strip().split()[0]
         elif "Used" in line and "registers" in line and inst:
@@ -69,7 +85,7 @@ def registers(log):
     return out
 
 
-def build(variants):
+def build(variants, kernel):
     nvcc = _build.find_nvcc()
     sodir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(sodir, exist_ok=True)
@@ -78,7 +94,7 @@ def build(variants):
         so = os.path.join(sodir, f"{name}.so")
         # each variant library also holds the package's other kernels
         others = [s for s in _build.sources()
-                  if s.endswith(".cu") and os.path.basename(s) != "fused_chunk_loss.cu"]
+                  if s.endswith(".cu") and os.path.basename(s) != f"{kernel}.cu"]
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", *flags, "-o", so, src, *others]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so, time.time())
@@ -90,26 +106,85 @@ def build(variants):
         if proc.returncode != 0:
             print(f"{name}: BUILD FAILED\n{log[-4000:]}", flush=True)
             continue
-        print(f"{name}: built in {time.time() - t0:.1f} s; " + " ".join(registers(log)),
+        print(f"{name}: built in {time.time() - t0:.1f} s; " + " ".join(registers(log, kernel)),
               flush=True)
         libs[name] = _build.KernelLibrary(so, time.time() - t0, log)
     return libs
 
 
+def check_shared(libs):
+    """The variants that agree with the plain version at the shared-basis
+    kernel's checks."""
+    agree = []
+    quiet, cs.log = cs.log, (lambda msg="": None)
+    chunks, _ = cs.hera_packed_chunks()
+    nu, nf, nv = cs._HERA["comps_shapes"][1]
+    for name, lib in libs.items():
+        _build._LOADED[:] = [lib]
+        try:
+            for cdt in (torch.float32, torch.bfloat16):
+                for u, gmax, f, v in cs.SHARED_RAGGED:
+                    cs.compare_shared("check", 3, u, f, v, cs.ragged_valid(u, gmax), cdt)
+                cs.compare_shared("HERA chunk 1", 8, nu, nf, nv, chunks[1][2], cdt)
+                torch.cuda.empty_cache()
+            agree.append(name)
+            print(f"{name}: agrees with the plain version", flush=True)
+        except Exception:  # report and go on with the other variants
+            print(f"{name}: DISAGREES\n{traceback.format_exc()[-3000:]}", flush=True)
+    cs.log = quiet
+    return agree
+
+
+def time_shared(libs, agree, card):
+    """The HERA core's step of four packed chunks, in turns over the
+    variants: device-alone and wrapper ms against the step's bound."""
+    from calamity_tpu_torch.ops import shared
+
+    chunks, _ = cs.hera_packed_chunks()
+    shapes = cs._HERA["comps_shapes"]
+    for nbatch in (1, 8):
+        for cdt in (torch.float32, torch.bfloat16):
+            ops = [cs.shared_inputs(nbatch, nu, nf, nv, valid, cdt, cs.SEED + 13 * nbatch + c)
+                   for c, ((nu, nf, nv), (_, _, valid)) in enumerate(zip(shapes, chunks))]
+            bounds = [cs._shared_bound(a, m) for a, m in ops]
+            bound_ms = sum(b[0] for b in bounds)
+            by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
+
+            def step():
+                return [shared.loss_and_grads_kernel(*a, m) for a, m in ops]
+
+            for rnd in range(2):
+                for name in agree:
+                    _build._LOADED[:] = [libs[name]]
+                    dev_ms, ms = cs.cuda_graph_ms(step), cs.cuda_median_ms(step)
+                    print(f"HERA step, 4 chunks, N={nbatch} {str(cdt)[6:]} comps, round {rnd}, "
+                          f"{name}: the device alone {dev_ms:.4f} ms (share of the "
+                          f"{bound_ms:.4f} ms bound, {by}, {bound_ms / dev_ms:.3f}), through "
+                          f"the wrapper {ms:.4f} ms; {card}", flush=True)
+            del ops
+            torch.cuda.empty_cache()
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("fused", "shared"), default="fused")
+    ap.add_argument("variants", nargs="+", metavar="NAME=SOURCE[:NVCC_FLAGS]")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    kernel = f"{args.kernel}_chunk_loss"
     variants = {}
-    for arg in sys.argv[1:]:
+    for arg in args.variants:
         name, _, spec = arg.partition("=")
         src, _, flags = spec.partition(":")
-        variants[name] = (src or os.path.join(_build.CSRC_DIR, "fused_chunk_loss.cu"),
-                          flags.split())
-    if not variants:
-        sys.exit(__doc__)
+        variants[name] = (src or os.path.join(_build.CSRC_DIR, f"{kernel}.cu"), flags.split())
     card = cs.nvidia_smi_line()
     print(card, flush=True)
-    libs = build(variants)
+    libs = build(variants, kernel)
+    if args.kernel == "shared":
+        sys.path.insert(0, os.path.join(REPO, "scripts"))  # hera_core_demo_torch
+        time_shared(libs, check_shared(libs), card)
+        return
     f32, bf16 = torch.float32, torch.bfloat16
     agree = []
     quiet, cs.log = cs.log, (lambda msg="": None)

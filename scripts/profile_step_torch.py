@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera]
+    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
@@ -14,7 +14,10 @@ first time slice through that batched descent at N = 1, which is how the
 warm-started time scan steps each time. With ``--hera`` it profiles
 the serial step of the HERA core instead (``scripts/hera_core_demo_torch.py``
 at full width: 361 antennas, 4388 baselines, 1536 channels, the default
-shared-basis packing). For the bf16-comps and float32 phases of the mixed
+shared-basis packing), and with ``--hera --nbatch N`` its batched step over
+N slices: the core's one slice and N - 1 copies of it with seeded noise of
+1% of the data's rms added where the weights are not zero. For the
+bf16-comps and float32 phases of the mixed
 schedule it times 48 descent steps (after 16 warm-up steps) under
 ``torch.profiler``: device time per step by kernel, kernels per step, the
 launches and device time per step of the port's hand-written kernels
@@ -37,7 +40,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from calamity_tpu_torch import cal_utils  # noqa: E402
-from calamity_tpu_torch.calibration import POLL_EVERY  # noqa: E402
+from calamity_tpu_torch.calibration import POLL_EVERY, _compress_freq_invariant_wgts  # noqa: E402
 from calamity_tpu_torch.ops.lstsq import blocked_init_from_data, gram_cholesky_chunk  # noqa: E402
 from calamity_tpu_torch.parallel import batched  # noqa: E402
 from calamity_tpu_torch.solver import fit as fitmod  # noqa: E402
@@ -72,10 +75,16 @@ def serial_stepper(chs, spec, uvd, gains):
     return step, 1
 
 
-def batched_stepper(chs, spec, uvd, gains):
+def batched_stepper(chs, spec, uvd, gains, nbatch=None):
     """POLL_EVERY batched descent steps over every slice of ``uvd`` per
-    call, through the driver's segment loop (one host poll per call)."""
+    call, through the driver's segment loop (one host poll per call); with
+    ``nbatch`` larger than the file's slices, the first slice repeated to
+    ``nbatch``, each copy with seeded noise (1% of the data's rms) where
+    its weights are not zero."""
     slices = [(pol, t) for pol in uvd.get_pols() for t in spec.times]
+    nfile = len(slices)
+    if nbatch is not None and nbatch > nfile:
+        slices += [slices[0]] * (nbatch - nfile)
     nb = len(slices)
     stacks = [[np.zeros((nb,) + m.conj.shape + (spec.nfreqs,), dtype=np.float32)
                for m in spec.meta] for _ in range(3)]
@@ -86,9 +95,17 @@ def batched_stepper(chs, spec, uvd, gains):
         gr, gi = spec.pack_gains(gains, pol, t)
         g_r.append(gr)
         g_i.append(gi)
+    for b in range(nfile, nb):
+        rng = np.random.default_rng(chip_smoke.SEED + b)
+        for d_r, d_i, ww in zip(*stacks):
+            rms = np.sqrt(np.mean(d_r[0] ** 2 + d_i[0] ** 2))
+            for d in (d_r, d_i):
+                d[b] += np.where(ww[b] > 0, 0.01 * rms * rng.standard_normal(d[b].shape), 0.0)
     dev = torch.device("cuda")
+    # one weights plane per slice where every channel's weights are equal,
+    # as the driver compresses them
+    stacks[2] = [_compress_freq_invariant_wgts(x) for x in stacks[2]]
     dr, di, w = ([torch.as_tensor(x, device=dev) for x in s] for s in stacks)
-    w = [x[..., :1].contiguous() for x in w]  # unflagged: one weights plane per slice
     fr, fi = [], []
     for (comps, _, _), c_full, d_r, d_i, ww in zip(chs, spec.device_chunks(), dr, di, w):
         chol, active = gram_cholesky_chunk(c_full[0])
@@ -172,10 +189,11 @@ def main():
     ap.add_argument("--scan", action="store_true",
                     help="one slice through the batched descent, as the time scan steps it")
     ap.add_argument("--hera", action="store_true",
-                    help="the serial step of the HERA core with the default packing")
+                    help="the serial (or, with --nbatch N, the batched) step of the HERA core "
+                         "with the default packing")
     args = ap.parse_args()
-    if (args.scan or args.hera) and args.nbatch != 1 or args.scan and args.hera:
-        ap.error("--scan and --hera step one slice each; leave --nbatch at 1")
+    if args.scan and (args.nbatch != 1 or args.hera):
+        ap.error("--scan steps one slice of the disc array; leave --nbatch at 1, no --hera")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     if args.hera:
@@ -192,9 +210,12 @@ def main():
     chunks = spec.device_chunks()
     print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
-    make = serial_stepper if args.nbatch == 1 and not args.scan else batched_stepper
     for name, chs in phases:
-        step, per_call = make(chs, spec, uvd, gains)
+        if args.nbatch == 1 and not args.scan:
+            step, per_call = serial_stepper(chs, spec, uvd, gains)
+        else:
+            step, per_call = batched_stepper(chs, spec, uvd, gains,
+                                             args.nbatch if args.hera else None)
         out = profile(step, per_call)
         print(f"== {name} step: host clock {out['wall_ms']:.3f} ms/step under the profiler; "
               f"device {out['device_ms']:.3f} ms/step in {out['kernels']:.0f} kernels; idle "

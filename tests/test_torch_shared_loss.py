@@ -316,10 +316,10 @@ def test_shared_gate():
     assert _gate(c, 4, wgts_dtype=torch.bfloat16) is None
     assert "weights dtype" in _gate(c, 4, wgts_dtype=torch.float64)
     # the widest basis whose one-tile ring fits the kernel's shared memory
-    assert _gate(torch.zeros((1, 1, 8, 557)), 4) is None
-    assert "nvecs=558" in _gate(torch.zeros((1, 1, 8, 558)), 4)
-    assert _gate(torch.zeros((1, 1, 8, 664), dtype=torch.bfloat16), 4) is None
-    assert "nvecs=665" in _gate(torch.zeros((1, 1, 8, 665), dtype=torch.bfloat16), 4)
+    assert _gate(torch.zeros((1, 1, 8, 600)), 4) is None
+    assert "nvecs=601" in _gate(torch.zeros((1, 1, 8, 601)), 4)
+    assert _gate(torch.zeros((1, 1, 8, 720), dtype=torch.bfloat16), 4) is None
+    assert "nvecs=721" in _gate(torch.zeros((1, 1, 8, 721), dtype=torch.bfloat16), 4)
 
 
 def test_warning_names_only_chunks_no_kernel_takes():
