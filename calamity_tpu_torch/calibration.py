@@ -922,8 +922,7 @@ def _calibrate_time_parallel(
         patience=int(patience),
         loss_block=loss_block,
     )
-    if cfg.regularization != "sum":
-        warn_fused_fallbacks(run_chunks, fg_r_b, data_r_b, wgts_b)
+    warn_fused_fallbacks(run_chunks, fg_r_b, data_r_b, wgts_b)
     if n_profile_steps > 0:
         # a short batched descent traced by the profiler before the fit
         # (reference calibration.py:1986-2003)
@@ -1286,7 +1285,7 @@ def _calibrate_time_scan(
                 prior_i_s[sl], regularization=cfg.regularization,
                 reduce=None if shard is None else shard.sum_bl_host)
 
-        if not warned and cfg.regularization != "sum":
+        if not warned:
             warned = True
             probes = [torch.empty((0,), dtype=fg_init[0][0].dtype, device=device)] * nchunks
             warn_fused_fallbacks(fit_chunks, fg_init[0], probes, probes)

@@ -22,6 +22,19 @@
 // (coefficients frozen); the loss with every gradient. All accumulation is
 // float32 (no TF32); bfloat16 comps and weights are widened on load.
 //
+// The "sum" flux prior (calamity_tpu/parallel/batched.py:216-272) adds
+// per slice the weighted model sums M_r = sum w m_r and M_i = sum w m_i,
+// and its loss (sum_chunks chi2 + (sum M_r - P_r)^2 + (sum M_i - P_i)^2)
+// gives them a cotangent that depends on every chunk's sums: the
+// gradients cannot be formed in the forward pass. Three more instances:
+// the "sum" forward (the loss-only pass that also writes the partials of
+// M_r and M_i beside the chi-square's), and the "sum" backward with
+// dpr/dpi or with every gradient, at per-slice cotangents (gx, gr, gi) of
+// (chi2, M_r, M_i), which only change dm:
+//   dm_r = w (gr - 2 gx (dr - m_r)),   dm_i = w (gi - 2 gx (di - m_i))
+// The backward writes no loss; the cotangents are staged in shared memory
+// once per slice tile.
+//
 // What bounds it: bytes, then registers. Each comps value is read from
 // device memory once for up to 8 slices and feeds 4 N fused multiply-adds
 // (2 N in the matvec, 2 N in the coefficient gradient); the per-slice planes
@@ -106,7 +119,19 @@ constexpr size_t kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
 // of each block's reserved)
 constexpr size_t kPerBlock = 233472 / kMinBlocks - 1024;
 
-enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2 };
+// the chi-square's instances (0-2) and the "sum" prior's (3-5)
+enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2, kSumFwd = 3, kSumDp = 4, kSumAll = 5 };
+
+__host__ __device__ constexpr bool has_dp(int mode) {
+  return mode == kLossDp || mode == kLossAll || mode >= kSumDp;
+}
+__host__ __device__ constexpr bool has_all(int mode) { return mode == kLossAll || mode == kSumAll; }
+__host__ __device__ constexpr bool has_cot(int mode) { return mode >= kSumDp; }
+// the partial sums an instance writes per (slice, group): the chi-square;
+// the "sum" forward also M_r and M_i; the "sum" backward none
+__host__ __device__ constexpr int n_terms(int mode) {
+  return mode == kSumFwd ? 3 : mode >= kSumDp ? 0 : 1;
+}
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
@@ -117,11 +142,11 @@ __host__ __device__ constexpr int tile_cols(int m) { return m < 8 ? m : 8; }
 
 // byte offsets of the shared-memory sections of one block
 struct Layout {
-  size_t tile_bytes, tiles, coef, red, dv, total;
+  size_t tile_bytes, tiles, coef, cot, red, dv, total;
 };
 
-__host__ __device__ inline Layout make_layout(int m, int rows, long long V,
-                                              int csize, bool coef_smem, bool grads) {
+__host__ __device__ inline Layout make_layout(int m, int rows, long long V, int csize,
+                                              bool coef_smem, bool grads, bool cot) {
   Layout L;
   size_t off = 8 * kStages;  // the mbarriers
   off = round16(off);
@@ -130,6 +155,8 @@ __host__ __device__ inline Layout make_layout(int m, int rows, long long V,
   off += kStages * L.tile_bytes;
   L.coef = off;
   if (coef_smem) off += round16(static_cast<size_t>(V) * m * 4);
+  L.cot = off;  // the "sum" backward's cotangents: (3, NT)
+  if (cot) off += round16(static_cast<size_t>(3) * (m / 2) * 4);
   L.red = off;  // phase A exchange; loss reduction
   off += round16(static_cast<size_t>(kThreads) * kTileA * tile_cols(m) * 4);
   L.dv = off;
@@ -233,18 +260,23 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
                         int w_bf16, int64_t w_sn, int64_t w_sg, int64_t w_sf,
                         float* __restrict__ partials, float* __restrict__ dcoeffs,
                         float* __restrict__ dpr, float* __restrict__ dpi,
-                        float* __restrict__ coef_scratch, int64_t N, int64_t G, int64_t F,
-                        int64_t V, int rows, int bulk, int pairs, int coef_smem) {
+                        float* __restrict__ coef_scratch, const float* __restrict__ cot,
+                        int64_t N, int64_t G, int64_t F, int64_t V, int rows, int bulk,
+                        int pairs, int coef_smem) {
   constexpr int M = 2 * NT;           // dot products per row: (re, im) per slice
   constexpr int C = tile_cols(M);     // columns of a thread's register tile
   constexpr int CG = M / C;           // column groups
   constexpr int NH = (NT + 1) / 2;    // most slices of one thread's epilogue (rows <= kThreads / 2)
   constexpr int DVS = dv_stride(M);
-  constexpr bool kDp = MODE >= kLossDp;
-  constexpr bool kAll = MODE == kLossAll;
+  constexpr bool kDp = has_dp(MODE);
+  constexpr bool kAll = has_all(MODE);
+  constexpr bool kCot = has_cot(MODE);
+  constexpr int kTerms = n_terms(MODE);
+  constexpr int NS = kTerms == 3 ? NH : 1;  // the model sums' accumulators
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(M, rows, V, sizeof(TC), coef_smem != 0, kAll);
+  const Layout L = make_layout(M, rows, V, sizeof(TC), coef_smem != 0, kAll, kCot);
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
+  float* cots = reinterpret_cast<float*>(smem + L.cot);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* dvs = reinterpret_cast<float*>(smem + L.dv);
 
@@ -336,6 +368,14 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
       const int n = j >> 1;
       coef[k * M + j] = n < nt ? coeffs2[(((j & 1) * N + n0 + n) * G + g) * V + k] : 0.f;
     }
+    if constexpr (kCot) {
+      // the slice tile's cotangents: -2 gx, gr, gi of each slice
+      for (int idx = t; idx < 3 * NT; idx += kThreads) {
+        const int c = idx / NT, n = idx - c * NT;
+        const float x = n < nt ? cot[c * N + n0 + n] : 0.f;
+        cots[idx] = c == 0 ? -2.f * x : x;
+      }
+    }
     if constexpr (kAll) {
       // modes past the register tiles accumulate in the output itself
       for (int64_t k = capacity + t; k < V; k += kThreads) {
@@ -343,9 +383,11 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
           dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] = 0.f;
       }
     }
-    float lacc[NH];
+    float lacc[NH], mrs[NS], mis[NS];
 #pragma unroll
     for (int q = 0; q < NH; ++q) lacc[q] = 0.f;
+#pragma unroll
+    for (int q = 0; q < NS; ++q) mrs[q] = mis[q] = 0.f;
     float acc[kTileB][C];
 #pragma unroll
     for (int m = 0; m < kTileB; ++m) {
@@ -436,10 +478,20 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
         const float mi = -p_i[q] * sr + p_r[q] * si;
         const float er = d_r[q] - mr;
         const float ei = d_i[q] - mi;
-        lacc[q] += wv[q] * (er * er + ei * ei);
+        if constexpr (kTerms > 0) lacc[q] += wv[q] * (er * er + ei * ei);
+        if constexpr (kTerms == 3) {
+          mrs[q] += wv[q] * mr;
+          mis[q] += wv[q] * mi;
+        }
         if constexpr (kDp) {
-          const float dmr = -2.f * wv[q] * er;
-          const float dmi = -2.f * wv[q] * ei;
+          float dmr, dmi;
+          if constexpr (kCot) {
+            dmr = wv[q] * fmaf(cots[n], er, cots[NT + n]);
+            dmi = wv[q] * fmaf(cots[n], ei, cots[2 * NT + n]);
+          } else {
+            dmr = -2.f * wv[q] * er;
+            dmi = -2.f * wv[q] * ei;
+          }
           const int64_t prow = (n0 + n) * GF + g * F + f;
           dpr[prow] = sr * dmr + si * dmi;
           dpi[prow] = si * dmr - sr * dmi;
@@ -496,18 +548,30 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
       if (i + kStages < total) issue(i + kStages);
     }
 
-    // the slice tile's loss partials: one per (slice, block), summed over
-    // the rows in a fixed order
+    // the slice tile's partials (the loss; with the "sum" forward also M_r
+    // and M_i): one per (term, slice, block), summed over the rows in a
+    // fixed order
+    if constexpr (kTerms > 0) {
 #pragma unroll
-    for (int q = 0; q < NH; ++q) {
-      const int n = ne0 + q;
-      if (n < ne1) red[n * rows + re] = lacc[q];
-    }
-    __syncthreads();
-    if (t < nt) {
-      float sum = 0.f;
-      for (int r = 0; r < rows; ++r) sum += red[t * rows + r];
-      partials[(n0 + t) * G + g] = sum;
+      for (int q = 0; q < NH; ++q) {
+        const int n = ne0 + q;
+        if (n < ne1) {
+          red[n * rows + re] = lacc[q];
+          if constexpr (kTerms == 3) {
+            red[(NT + n) * rows + re] = mrs[q];
+            red[(2 * NT + n) * rows + re] = mis[q];
+          }
+        }
+      }
+      __syncthreads();
+      if (t < kTerms * NT) {
+        const int c = t / NT, n = t - c * NT;
+        if (n < nt) {
+          float sum = 0.f;
+          for (int r = 0; r < rows; ++r) sum += red[t * rows + r];
+          partials[(c * N + n0 + n) * G + g] = sum;
+        }
+      }
     }
     if constexpr (kAll) {
 #pragma unroll
@@ -540,12 +604,15 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
                       int64_t d_sg, int64_t d_sf, const void* __restrict__ w, int w_bf16,
                       int64_t w_sn, int64_t w_sg, int64_t w_sf, float* __restrict__ partials,
                       float* __restrict__ dcoeffs, float* __restrict__ dpr,
-                      float* __restrict__ dpi, float* __restrict__ coef_scratch, int64_t N,
-                      int64_t G, int64_t F, int64_t V) {
+                      float* __restrict__ dpi, float* __restrict__ coef_scratch,
+                      const float* __restrict__ cot, int64_t N, int64_t G, int64_t F,
+                      int64_t V) {
   constexpr int M = 2 * NT;
   constexpr int kWarps = kThreads / 32;
-  constexpr bool kDp = MODE >= kLossDp;
-  constexpr bool kAll = MODE == kLossAll;
+  constexpr bool kDp = has_dp(MODE);
+  constexpr bool kAll = has_all(MODE);
+  constexpr bool kCot = has_cot(MODE);
+  constexpr int kTerms = n_terms(MODE);
   __shared__ float wsum[kWarps][M];
   __shared__ float dvrow[M];
   const int t = threadIdx.x;
@@ -562,7 +629,13 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
       if (kAll && (j >> 1) < nt) dcoeffs[out] = 0.f;
     }
     __syncthreads();  // coefficients staged, gradient zeroed
-    float lacc = 0.f;  // thread n < nt: slice n's loss
+    float lacc = 0.f, mrs = 0.f, mis = 0.f;  // thread n < nt: slice n's terms
+    float gx = 0.f, gr = 0.f, gi = 0.f;      // and its cotangents: -2 gx, gr, gi
+    if (kCot && t < nt) {
+      gx = -2.f * cot[n0 + t];
+      gr = cot[N + n0 + t];
+      gi = cot[2 * N + n0 + t];
+    }
     for (int64_t f = 0; f < F; ++f) {
       const TC* row = comps + (g * F + f) * V;
       float s[M];
@@ -596,12 +669,18 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
         const float p_r = pr[prow], p_i = pi[prow];
         const float wv = w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[wrow])
                                 : static_cast<const float*>(w)[wrow];
-        const float er = dr[drow] - (p_r * sr + p_i * si);
-        const float ei = di[drow] - (-p_i * sr + p_r * si);
-        lacc += wv * (er * er + ei * ei);
+        const float mr = p_r * sr + p_i * si;
+        const float mi = -p_i * sr + p_r * si;
+        const float er = dr[drow] - mr;
+        const float ei = di[drow] - mi;
+        if constexpr (kTerms > 0) lacc += wv * (er * er + ei * ei);
+        if constexpr (kTerms == 3) {
+          mrs += wv * mr;
+          mis += wv * mi;
+        }
         if constexpr (kDp) {
-          const float dmr = -2.f * wv * er;
-          const float dmi = -2.f * wv * ei;
+          const float dmr = kCot ? wv * fmaf(gx, er, gr) : -2.f * wv * er;
+          const float dmi = kCot ? wv * fmaf(gx, ei, gi) : -2.f * wv * ei;
           dpr[prow] = sr * dmr + si * dmi;
           dpi[prow] = si * dmr - sr * dmi;
           if constexpr (kAll) {
@@ -620,7 +699,13 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
       }
       __syncthreads();  // wsum and dvrow are free for the next row
     }
-    if (t < nt) partials[(n0 + t) * G + g] = lacc;
+    if (kTerms > 0 && t < nt) {
+      partials[(n0 + t) * G + g] = lacc;
+      if (kTerms == 3) {
+        partials[(N + n0 + t) * G + g] = mrs;
+        partials[(2 * N + n0 + t) * G + g] = mis;
+      }
+    }
     __syncthreads();  // the coefficients are free for the next slice tile
   }
 }
@@ -638,13 +723,13 @@ struct Plan {
 // nothing fits, and takes the wide-row kernel when not even one row fits.
 bool make_plan(long long N, long long F, long long V, int csize, int mode, uintptr_t comps_ptr,
                Plan* plan) {
-  const bool grads = mode == kLossAll;
+  const bool grads = has_all(mode), cot = has_cot(mode);
   for (int nt = N > 4 ? 8 : N > 2 ? 4 : static_cast<int>(N); nt >= 1; nt /= 2) {
     const int m = 2 * nt;
     for (size_t budget : {kPerBlock, kMaxSmem}) {
       for (int rows = kThreads / 2; rows >= 1; rows /= 2) {
         for (int coef_smem = 1; coef_smem >= 0; --coef_smem) {
-          const Layout L = make_layout(m, rows, V, csize, coef_smem != 0, grads);
+          const Layout L = make_layout(m, rows, V, csize, coef_smem != 0, grads, cot);
           if (L.total > budget) continue;
           plan->nt = nt;
           plan->rows = rows;
@@ -669,11 +754,11 @@ int launch(const Plan& p, int grid, cudaStream_t s, const void* comps, const flo
            const float* pr, const float* pi, const float* dr, const float* di, int64_t d_sn,
            int64_t d_sg, int64_t d_sf, const void* w, int w_bf16, int64_t w_sn, int64_t w_sg,
            int64_t w_sf, float* partials, float* dcoeffs, float* dpr, float* dpi,
-           float* scratch, int64_t N, int64_t G, int64_t F, int64_t V) {
+           float* scratch, const float* cot, int64_t N, int64_t G, int64_t F, int64_t V) {
   if (p.rows == 0) {
     fused_chunk_loss_wide<NT, TC, MODE><<<grid, kThreads, 0, s>>>(
         static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16,
-        w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V);
+        w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, cot, N, G, F, V);
     return static_cast<int>(cudaGetLastError());
   }
   auto kernel = fused_chunk_loss_kernel<NT, TC, MODE>;
@@ -684,7 +769,7 @@ int launch(const Plan& p, int grid, cudaStream_t s, const void* comps, const flo
   }
   kernel<<<grid, kThreads, p.smem, s>>>(
       static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16, w_sn,
-      w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V, p.rows, p.bulk,
+      w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, cot, N, G, F, V, p.rows, p.bulk,
       p.pairs, p.coef_smem);
   return static_cast<int>(cudaGetLastError());
 }
@@ -704,7 +789,10 @@ int launch_mode(int mode, const Plan& p, Args... args) {
   switch (mode) {
     case kLossOnly: return launch_nt<TC, kLossOnly>(p, args...);
     case kLossDp: return launch_nt<TC, kLossDp>(p, args...);
-    default: return launch_nt<TC, kLossAll>(p, args...);
+    case kLossAll: return launch_nt<TC, kLossAll>(p, args...);
+    case kSumFwd: return launch_nt<TC, kSumFwd>(p, args...);
+    case kSumDp: return launch_nt<TC, kSumDp>(p, args...);
+    default: return launch_nt<TC, kSumAll>(p, args...);
   }
 }
 
@@ -726,7 +814,7 @@ int fcl_plan(long long N, long long G, long long F, long long V, int comps_dtype
              const void* comps_ptr, long long* out) {
   Plan p;
   if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || N > INT_MAX || G > INT_MAX || F > INT_MAX ||
-      mode < 0 || mode > 2 ||
+      mode < kLossOnly || mode > kSumAll ||
       !make_plan(N, F, V, comps_dtype == 0 ? 4 : 2, mode, reinterpret_cast<uintptr_t>(comps_ptr),
                  &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -741,25 +829,30 @@ int fcl_plan(long long N, long long G, long long F, long long V, int comps_dtype
 // coeffs2: (2, N, G, V) contiguous float32; pr, pi: (N, G, F) contiguous
 // float32; dr, di: float32 at dr[n * d_sn + g * d_sg + f * d_sf]; w: float32
 // (w_dtype 0) or bfloat16 (1) at w[n * w_sn + g * w_sg + f * w_sf] (strides
-// in elements). Outputs, float32 and contiguous: partials (N, G), summed
-// over G by the caller; for mode >= 1 dpr and dpi (N, G, F); for mode 2
-// dcoeffs (2, N, G, V); the gradients at a loss cotangent of 1. mode 0 is
-// the loss only, 1 the loss with dpr/dpi, 2 every gradient. scratch: see
-// fcl_plan (may be null otherwise). All on the current device. Launches on
-// `stream` and returns the launch's CUDA error (0 on success); it does not
-// synchronise.
+// in elements). Outputs, float32 and contiguous: partials (T, N, G), summed
+// over G by the caller; for modes 1, 2, 4 and 5 dpr and dpi (N, G, F); for
+// modes 2 and 5 dcoeffs (2, N, G, V). mode 0 is the loss only, 1 the loss
+// with dpr/dpi, 2 every gradient, each at a loss cotangent of 1 (T = 1:
+// the chi-square); mode 3 the "sum" forward (T = 3: the chi-square, M_r,
+// M_i); modes 4 and 5 the "sum" backward with dpr/dpi or every gradient at
+// the cotangents cot (3, N) float32 contiguous (of the chi-square, M_r and
+// M_i; no partials, which may be null). scratch: see fcl_plan (may be null
+// otherwise). All on the current device. Launches on `stream` and returns
+// the launch's CUDA error (0 on success); it does not synchronise.
 int fused_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, const float* pr,
                      const float* pi, const float* dr, const float* di, long long d_sn,
                      long long d_sg, long long d_sf, const void* w, int w_dtype, long long w_sn,
                      long long w_sg, long long w_sf, float* partials, float* dcoeffs, float* dpr,
-                     float* dpi, float* scratch, long long N, long long G, long long F,
-                     long long V, int mode, void* stream) {
+                     float* dpi, float* scratch, const float* cot, long long N, long long G,
+                     long long F, long long V, int mode, void* stream) {
   long long out[6];
   const int err = fcl_plan(N, G, F, V, comps_dtype, mode, comps, out);
   if (err != 0) return err;
   if ((comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (out[4] == 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((out[4] == 0 && scratch == nullptr) || (has_cot(mode) && cot == nullptr) ||
+      (n_terms(mode) > 0 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Plan p{static_cast<int>(out[0]), static_cast<int>(out[1]), static_cast<int>(out[2]),
                static_cast<int>(out[3]), static_cast<int>(out[4]), static_cast<size_t>(out[5])};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -767,11 +860,11 @@ int fused_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, c
   if (comps_dtype == 0) {
     return launch_mode<float>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf,
                               w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch,
-                              N, G, F, V);
+                              cot, N, G, F, V);
   }
   return launch_mode<__nv_bfloat16>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg,
                                     d_sf, w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr,
-                                    dpi, scratch, N, G, F, V);
+                                    dpi, scratch, cot, N, G, F, V);
 }
 
 }  // extern "C"

@@ -23,6 +23,13 @@
 //   dcoeffs[k, n, g, :] = sum_f comps[u, f, :] * dv_k[n, g, f]
 // Three instances of one template, as for the dense kernel: the loss only;
 // the loss with dpr/dpi (coefficients frozen); the loss with every gradient.
+// And, as there, three for the "sum" flux prior: its forward (the loss-only
+// pass that also sums M_r = sum w m_r and M_i = sum w m_i per pair, carried
+// through the cluster's fixed-order sum beside the loss), and its backward
+// with dpr/dpi or every gradient at per-slice cotangents (gx, gr, gi) of
+// (chi2, M_r, M_i), which only change dm (dm = w (g - 2 gx (d - m))) and
+// write no loss. A pair's cotangents are staged once in shared memory, in
+// the unread columns past its coefficient row.
 //
 // Precision: split TF32. Both products run on `mma.sync.m16n8k8` with TF32
 // operands, each float32 operand x split into hi = tf32(x) and lo = tf32(x -
@@ -151,7 +158,19 @@ constexpr int kModeTiles = 8;            // phase B: n8 tiles of modes held in r
 constexpr int kCapacity = 8 * kModeTiles;  // modes held in registers
 constexpr size_t kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
-enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2 };
+// the chi-square's instances (0-2) and the "sum" prior's (3-5)
+enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2, kSumFwd = 3, kSumDp = 4, kSumAll = 5 };
+
+__host__ __device__ constexpr bool has_dp(int mode) {
+  return mode == kLossDp || mode == kLossAll || mode >= kSumDp;
+}
+__host__ __device__ constexpr bool has_all(int mode) { return mode == kLossAll || mode == kSumAll; }
+__host__ __device__ constexpr bool has_cot(int mode) { return mode >= kSumDp; }
+// the partial sums an instance writes per (slice, group): the chi-square;
+// the "sum" forward also M_r and M_i; the "sum" backward none
+__host__ __device__ constexpr int n_terms(int mode) {
+  return mode == kSumFwd ? 3 : mode >= kSumDp ? 0 : 1;
+}
 
 // V rounded up to whole k-steps of 8 modes
 __host__ __device__ inline long long modes8(long long V) { return (V + 7) / 8 * 8; }
@@ -275,11 +294,13 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
                          int w_bf16, int64_t w_sn, int64_t w_sg, int64_t w_sf,
                          const unsigned char* __restrict__ valid, float* __restrict__ partials,
                          float* __restrict__ dcoeffs, float* __restrict__ dpr,
-                         float* __restrict__ dpi, int64_t N, int64_t G, int64_t F, int64_t V,
-                         int64_t gmax, int blocks_per_op, int stages, int vec16,
-                         int splits) {
-  constexpr bool kDp = MODE >= kLossDp;
-  constexpr bool kAll = MODE == kLossAll;
+                         float* __restrict__ dpi, const float* __restrict__ cot, int64_t N,
+                         int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op,
+                         int stages, int vec16, int splits) {
+  constexpr bool kDp = has_dp(MODE);
+  constexpr bool kAll = has_all(MODE);
+  constexpr bool kCot = has_cot(MODE);
+  constexpr int kTerms = n_terms(MODE);
   extern __shared__ __align__(128) unsigned char smem[];
   const int t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
@@ -326,7 +347,9 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
       for (int p = 0; p < kPairs && split == 0; ++p) {
         if (!(tab[2 * kPairs + p] & 1)) break;
         const int64_t n = tab[p], g = tab[kPairs + p];
-        if (t == 0) partials[n * G + g] = 0.f;
+        if (t == 0) {
+          for (int c = 0; c < kTerms; ++c) partials[(c * N + n) * G + g] = 0.f;
+        }
         if constexpr (kDp) {
           for (int64_t f = t; f < F; f += kThreads) {
             dpr[n * GF + g * F + f] = 0.f;
@@ -344,6 +367,20 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
     }
   }
   auto in_op = [&](int p) { return (tab[2 * kPairs + p] & 1) != 0; };
+  // pair p's cotangents (-2 gx, gr, gi) in the columns past its real
+  // coefficient row that no product reads (V8 to V8 + 3)
+  auto cot_of = [&](int p) {
+    return kPre ? coef + 2 * (p * CS + V8) : coef + p * CS + V8;
+  };
+  if constexpr (kCot) {
+    if (t < kPairs) {
+      const int64_t n = tab[t];
+      float* c = cot_of(t);
+      c[0] = -2.f * cot[n];
+      c[1] = cot[N + n];
+      c[2] = cot[2 * N + n];
+    }
+  }
   auto coef_row = [&](int row) {  // row = part * 32 + p: the pair's coefficients in coeffs2
     return coeffs2 + ((row / kPairs * N + tab[row % kPairs]) * G + tab[kPairs + row % kPairs]) * V;
   };
@@ -505,7 +542,7 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
     }
   };
 
-  float lacc = 0.f;
+  float lacc = 0.f, mracc = 0.f, miacc = 0.f;
   float bacc[kModeTiles][4];
 #pragma unroll
   for (int i = 0; i < kModeTiles; ++i) {
@@ -579,6 +616,13 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
     // epilogue, on the fragments: in n-tile nt, row g is v_r and row g + 8
     // v_i of the pair, column 2 tig + c its entry 2 nt + c
     float dvr[4][2], dvi[4][2], gr[8], gi[8];
+    float cx = 0.f, cr = 0.f, ci = 0.f;  // the "sum" backward's cotangents of the pair
+    if constexpr (kCot) {
+      const float* c = cot_of(pe);
+      cx = c[0];
+      cr = c[1];
+      ci = c[2];
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int nt = j >> 1, c = j & 1;
@@ -588,9 +632,17 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
       const float mi = -p_i[j] * sr + p_r[j] * si;
       const float er = d_r[j] - mr;
       const float ei = d_i[j] - mi;
-      if (ok) lacc += wv[j] * (er * er + ei * ei);
-      const float dmr = ok ? -2.f * wv[j] * er : 0.f;
-      const float dmi = ok ? -2.f * wv[j] * ei : 0.f;
+      if (ok && kTerms > 0) lacc += wv[j] * (er * er + ei * ei);
+      if (ok && kTerms == 3) {
+        mracc += wv[j] * mr;
+        miacc += wv[j] * mi;
+      }
+      float dmr = ok ? -2.f * wv[j] * er : 0.f;
+      float dmi = ok ? -2.f * wv[j] * ei : 0.f;
+      if constexpr (kCot) {
+        dmr = ok ? wv[j] * fmaf(cx, er, cr) : 0.f;
+        dmi = ok ? wv[j] * fmaf(cx, ei, ci) : 0.f;
+      }
       gr[j] = sr * dmr + si * dmi;
       gi[j] = si * dmr - sr * dmi;
       dvr[nt][c] = p_r[j] * dmr - p_i[j] * dmi;
@@ -681,14 +733,27 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
     }
   }
 
-  // each pair's loss over this block's channels: its four lanes' partials
-  // summed by a fixed shuffle tree
+  // each pair's loss (and model sums) over this block's channels: its four
+  // lanes' partials summed by a fixed shuffle tree
   lacc += __shfl_xor_sync(0xffffffffu, lacc, 1);
   lacc += __shfl_xor_sync(0xffffffffu, lacc, 2);
+  if constexpr (kTerms == 3) {
+    mracc += __shfl_xor_sync(0xffffffffu, mracc, 1);
+    mracc += __shfl_xor_sync(0xffffffffu, mracc, 2);
+    miacc += __shfl_xor_sync(0xffffffffu, miacc, 1);
+    miacc += __shfl_xor_sync(0xffffffffu, miacc, 2);
+  }
   __syncthreads();  // every warp is done with the ring and the coefficients
-  float* lsum = reinterpret_cast<float*>(smem);  // (32,): the block's per-pair losses
+  // (kTerms, 32): the block's per-pair loss (and M_r, M_i)
+  float* lsum = reinterpret_cast<float*>(smem);
   float* part = coef;  // (64, kv): the block's coefficient gradient, row (re, im) major
-  if (tig == 0) lsum[pe] = lacc;
+  if (tig == 0 && kTerms > 0) {
+    lsum[pe] = lacc;
+    if (kTerms == 3) {
+      lsum[kPairs + pe] = mracc;
+      lsum[2 * kPairs + pe] = miacc;
+    }
+  }
   const int kv = kAll ? (Vs < kCapacity ? Vs : kCapacity) : 0;
   if constexpr (kAll) {
 #pragma unroll
@@ -705,7 +770,7 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   }
   // the cluster's blocks sum their parts in split order, each block a share
   // of the entries, reading the others' shared memory (one block: its own)
-  const int entries = kv * kCols + kPairs;
+  const int entries = kv * kCols + kTerms * kPairs;
   if (splits > 1) {
     cg::this_cluster().sync();
   } else {
@@ -714,17 +779,18 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   for (int e = split * kThreads + t; e < entries; e += splits * kThreads) {
     const bool loss = e >= kv * kCols;
     const int row = loss ? 0 : e / kv;
-    const int p = loss ? e - kv * kCols : row % kPairs;
+    const int term = loss ? e - kv * kCols : 0;  // (the term, the pair) of a loss entry
+    const int p = loss ? term % kPairs : row % kPairs;
     if (!in_op(p)) continue;
     float s = 0.f;
     for (int r = 0; r < splits; ++r) {
       const float* src = splits > 1 ? cg::this_cluster().map_shared_rank(loss ? lsum : part, r)
                                     : (loss ? lsum : part);
-      s += src[loss ? p : e];
+      s += src[loss ? term : e];
     }
     const int64_t n = tab[p], g = tab[kPairs + p];
     if (loss) {
-      partials[n * G + g] = s;
+      partials[(term / kPairs * N + n) * G + g] = s;
     } else {
       dcoeffs[((row / kPairs * N + n) * G + g) * V + e % kv] = s;
     }
@@ -765,8 +831,8 @@ int launch(int grid, int splits, int stages, int vec16, cudaStream_t s, const vo
            const float* coeffs2, const float* pr, const float* pi, const float* dr,
            const float* di, int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* w, int w_bf16,
            int64_t w_sn, int64_t w_sg, int64_t w_sf, const unsigned char* valid,
-           float* partials, float* dcoeffs, float* dpr, float* dpi, int64_t N, int64_t G,
-           int64_t F, int64_t V, int64_t gmax, int blocks_per_op) {
+           float* partials, float* dcoeffs, float* dpr, float* dpi, const float* cot, int64_t N,
+           int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op) {
   const size_t smem = kPre ? smem_bytes_pre(V, sizeof(TC)) : smem_bytes(V, sizeof(TC), stages);
   auto kernel = shared_chunk_loss_kernel<TC, MODE, kPre>;
   if (smem > 48 * 1024) {
@@ -789,7 +855,7 @@ int launch(int grid, int splits, int stages, int vec16, cudaStream_t s, const vo
   cfg.numAttrs = splits > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
-      w_bf16, w_sn, w_sg, w_sf, valid, partials, dcoeffs, dpr, dpi, N, G, F, V, gmax,
+      w_bf16, w_sn, w_sg, w_sf, valid, partials, dcoeffs, dpr, dpi, cot, N, G, F, V, gmax,
       blocks_per_op, stages, vec16, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -800,7 +866,10 @@ int launch_mode(int mode, Args... args) {
   switch (mode) {
     case kLossOnly: return launch<TC, kLossOnly, kPre>(args...);
     case kLossDp: return launch<TC, kLossDp, kPre>(args...);
-    default: return launch<TC, kLossAll, kPre>(args...);
+    case kLossAll: return launch<TC, kLossAll, kPre>(args...);
+    case kSumFwd: return launch<TC, kSumFwd, kPre>(args...);
+    case kSumDp: return launch<TC, kSumDp, kPre>(args...);
+    default: return launch<TC, kSumAll, kPre>(args...);
   }
 }
 
@@ -822,10 +891,14 @@ extern "C" {
 // dr[n * d_sn + g * d_sg + f * d_sf]; w: float32 (w_dtype 0) or bfloat16 (1)
 // at w[n * w_sn + g * w_sg + f * w_sf] (strides in elements); valid: (G,)
 // bytes, nonzero where a group holds a baseline, or null for every group.
-// Outputs, float32 and contiguous: partials (N, G), summed over G by the
-// caller; for mode >= 1 dpr and dpi (N, G, F); for mode 2 dcoeffs (2, N, G,
-// V); the gradients at a loss cotangent of 1. mode 0 is the loss only, 1
-// the loss with dpr/dpi, 2 every gradient. All on the current device.
+// Outputs, float32 and contiguous: partials (T, N, G), summed over G by the
+// caller; for modes 1, 2, 4 and 5 dpr and dpi (N, G, F); for modes 2 and 5
+// dcoeffs (2, N, G, V). mode 0 is the loss only, 1 the loss with dpr/dpi, 2
+// every gradient, each at a loss cotangent of 1 (T = 1: the chi-square);
+// mode 3 the "sum" forward (T = 3: the chi-square, M_r, M_i); modes 4 and
+// 5 the "sum" backward with dpr/dpi or every gradient at the cotangents
+// cot (3, N) float32 contiguous (of the chi-square, M_r and M_i; no
+// partials, which may be null). All on the current device.
 // Launches on `stream` and returns the launch's CUDA error (0 on success,
 // cudaErrorInvalidValue for a shape it does not take); it does not
 // synchronise.
@@ -833,13 +906,14 @@ int shared_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, 
                       const float* pi, const float* dr, const float* di, long long d_sn,
                       long long d_sg, long long d_sf, const void* w, int w_dtype, long long w_sn,
                       long long w_sg, long long w_sf, const unsigned char* valid,
-                      float* partials, float* dcoeffs, float* dpr, float* dpi, long long N,
-                      long long G, long long F, long long V, long long U, int mode,
-                      void* stream) {
+                      float* partials, float* dcoeffs, float* dpr, float* dpi,
+                      const float* cot, long long N, long long G, long long F, long long V,
+                      long long U, int mode, void* stream) {
   const int csize = comps_dtype == 0 ? 4 : 2;
   if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || U <= 0 || G % U != 0 || N > INT_MAX ||
-      G > INT_MAX || F > INT_MAX || V > INT_MAX || mode < 0 || mode > 2 ||
-      (comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1)) {
+      G > INT_MAX || F > INT_MAX || V > INT_MAX || mode < kLossOnly || mode > kSumAll ||
+      (comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1) ||
+      (has_cot(mode) && cot == nullptr) || (n_terms(mode) > 0 && partials == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool pre = comps_dtype == 1 && V <= kCapacity;
@@ -857,11 +931,12 @@ int shared_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, 
   if (comps_dtype == 0) {
     return launch_mode<float, false>(mode, grid, splits, stages, vec16, s, comps, coeffs2, pr,
                                      pi, dr, di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf,
-                                     valid, partials, dcoeffs, dpr, dpi, N, G, F, V, gmax, bpo);
+                                     valid, partials, dcoeffs, dpr, dpi, cot, N, G, F, V, gmax,
+                                     bpo);
   }
   return launch_bf16(pre, mode, grid, splits, stages, vec16, s, comps, coeffs2, pr, pi, dr, di,
                      d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf, valid, partials, dcoeffs,
-                     dpr, dpi, N, G, F, V, gmax, bpo);
+                     dpr, dpi, cot, N, G, F, V, gmax, bpo);
 }
 
 }  // extern "C"

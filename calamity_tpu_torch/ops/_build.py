@@ -21,9 +21,12 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# -split-compile=0: each nvcc runs its optimization passes on as many
+# threads as the host has cores (the six instances of each chunk-loss
+# kernel otherwise make one source the build's long pole)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-split-compile=0", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -41,9 +44,9 @@ class KernelLibrary:
         lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]
         lib.fcl_plan.restype = ci
         # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
-        # partials, dcoeffs, dpr, dpi, scratch; N, G, F, V; mode; stream
+        # partials, dcoeffs, dpr, dpi, scratch, cot; N, G, F, V; mode; stream
         lib.fused_chunk_loss.argtypes = (
-            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 4 + [ci, vp]
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 6 + [ll] * 4 + [ci, vp]
         )
         lib.fused_chunk_loss.restype = ci
         # dpr, dpi, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
@@ -55,9 +58,9 @@ class KernelLibrary:
         lib.gain_products.argtypes = [vp] * 6 + [ll] * 4 + [ci, vp]
         lib.gain_products.restype = ci
         # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
-        # valid, partials, dcoeffs, dpr, dpi; N, G, F, V, U; mode; stream
+        # valid, partials, dcoeffs, dpr, dpi, cot; N, G, F, V, U; mode; stream
         lib.shared_chunk_loss.argtypes = (
-            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 5 + [ci, vp]
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 6 + [ll] * 5 + [ci, vp]
         )
         lib.shared_chunk_loss.restype = ci
         self.fcl_error_string = lib.fcl_error_string

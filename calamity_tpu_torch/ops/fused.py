@@ -23,6 +23,14 @@ picks one of three instances: the loss only (no gradient wanted), the
 loss with the gain-product gradients (frozen coefficients), or the loss
 with every gradient. The serial path is the same kernel with one slice.
 
+The "sum" flux prior (``model_regularization="sum"``, the default of the
+Python entry points) also needs each slice's weighted model sums M_r =
+sum(w * model_r) and M_i, and gives them a cotangent that depends on
+every chunk's sums, so its gradients cannot come out of the forward pass:
+:func:`fused_chunk_terms_batched` runs the kernel's "sum" forward instance
+(the chi-square, M_r and M_i of each slice) and, in the backward pass, its
+"sum" backward instance at the three per-slice cotangents.
+
 The gate below is written for this kernel, which takes any N, G, F and V.
 The reference's TPU gate (F and V multiples of 128, a group tile in
 {32, 16, 8}) does not apply.
@@ -94,38 +102,87 @@ def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
     return reasons
 
 
-LOSS_ONLY, LOSS_DP, LOSS_ALL = 0, 1, 2  # the kernel's three instances
+# the kernels' instances: the chi-square alone (the loss; with the
+# gain-product gradients; with every gradient) and the "sum" prior's terms
+# (the forward; the backward with the gain-product gradients; with every
+# gradient). ops.shared's kernel has the same six.
+LOSS_ONLY, LOSS_DP, LOSS_ALL = 0, 1, 2
+SUM_FWD, SUM_DP, SUM_ALL = 3, 4, 5
+MODE_NAMES = ("loss_only", "loss_dp", "loss_all", "sum_fwd", "sum_dp", "sum_all")
+_DP_MODES = (LOSS_DP, LOSS_ALL, SUM_DP, SUM_ALL)
+_ALL_MODES = (LOSS_ALL, SUM_ALL)
+_COT_MODES = (SUM_DP, SUM_ALL)
+
+
+def n_terms(mode):
+    """Per-slice sums an instance returns: the chi-square; the "sum"
+    forward's chi-square, M_r and M_i; none for the "sum" backward."""
+    return 3 if mode == SUM_FWD else 0 if mode in _COT_MODES else 1
 
 
 def _f32(t):
     return t if t.dtype == torch.float32 else t.to(torch.float32)
 
 
-def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
-    """Plain torch version of the kernel: ``(losses (N,), dcoeffs (2, N, G,
-    V), dpr (N, G, F), dpi (N, G, F))``, the gradients at a loss cotangent
-    of 1 (``None`` where ``mode`` does not ask for them): the reference's
-    forward and ``_bwd_xla`` with a slice axis. The reference the kernel is
-    held against, and the CPU path."""
-    v = torch.einsum("gfv,kngv->kngf", _f32(comps3), coeffs2)
+def check_cot(cot, nbatch, device):
+    """A "sum" backward instance's cotangents: (3, N) float32 on ``device``."""
+    if cot is None:
+        raise ValueError("the \"sum\" backward instances take cot, (3, N) cotangents")
+    if tuple(cot.shape) != (3, nbatch) or cot.dtype != torch.float32 or cot.device != device:
+        raise ValueError(f"cot {cot.dtype} {tuple(cot.shape)} on {cot.device}, expected "
+                         f"float32 (3, {nbatch}) on {device}")
+
+
+def after_matvec(v, pr, pi, dr, di, wf, mode, cot, contract, keep=None):
+    """The kernels' function after the basis matvec ``v`` (2, N, G, F):
+    ``(terms, dcoeffs, dpr, dpi)`` as :func:`loss_and_grads_plain` returns
+    them, with ``contract(dv)`` the coefficient contraction; groups where
+    the (1, G, 1) mask ``keep`` is False count as weight 0 and data 0."""
     vr, vi = v[0], v[1]
     mr = pr * vr + pi * vi
     mi = -pi * vr + pr * vi
     er = dr - mr
     ei = di - mi
-    wf = _f32(w)
-    losses = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
-    if mode == LOSS_ONLY:
-        return losses, None, None, None
-    dmr = -2.0 * wf * er
-    dmi = -2.0 * wf * ei
+    if keep is not None:
+        er, ei, wf = (torch.where(keep, x, 0.0) for x in (er, ei, wf))
+    terms = None
+    if n_terms(mode):
+        terms = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
+        if mode == SUM_FWD:
+            terms = torch.stack([terms, torch.sum(wf * mr, dim=(1, 2)),
+                                 torch.sum(wf * mi, dim=(1, 2))])
+    if mode not in _DP_MODES:
+        return terms, None, None, None
+    if mode in _COT_MODES:
+        gx, gr, gi = (c.reshape(-1, 1, 1) for c in cot)
+        dmr = wf * (gr - 2.0 * gx * er)
+        dmi = wf * (gi - 2.0 * gx * ei)
+    else:
+        dmr = -2.0 * wf * er
+        dmi = -2.0 * wf * ei
     dpr = vr * dmr + vi * dmi
     dpi = vi * dmr - vr * dmi
     dcoeffs = None
-    if mode == LOSS_ALL:
-        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
-        dcoeffs = torch.einsum("gfv,kngf->kngv", _f32(comps3), dv)
-    return losses, dcoeffs, dpr, dpi
+    if mode in _ALL_MODES:
+        dcoeffs = contract(torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0))
+    return terms, dcoeffs, dpr, dpi
+
+
+def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot=None):
+    """Plain torch version of the kernel: ``(losses (N,), dcoeffs (2, N, G,
+    V), dpr (N, G, F), dpi (N, G, F))``, the gradients at a loss cotangent
+    of 1 (``None`` where ``mode`` does not ask for them): the reference's
+    forward and ``_bwd_xla`` with a slice axis. ``SUM_FWD`` returns the
+    (3, N) terms (chi-square, M_r, M_i) and no gradient; ``SUM_DP`` and
+    ``SUM_ALL`` no terms and the gradients at ``cot``, the (3, N)
+    cotangents of those terms. The reference the kernel is held against,
+    and the CPU path."""
+    if mode in _COT_MODES:
+        check_cot(cot, coeffs2.shape[1], comps3.device)
+    comps = _f32(comps3)
+    v = torch.einsum("gfv,kngv->kngf", comps, coeffs2)
+    return after_matvec(v, pr, pi, dr, di, _f32(w), mode, cot,
+                        lambda dv: torch.einsum("gfv,kngf->kngv", comps, dv))
 
 
 def fused_chunk_loss_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
@@ -170,13 +227,16 @@ def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3):
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 
 
-def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
+def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot=None):
     """:func:`loss_and_grads_plain` from the CUDA kernel, in one read of
     comps. Raises on any operand the kernel does not take and on a failed
     launch."""
     from ._build import load_kernels
 
     _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3)
+    if mode in _COT_MODES:
+        check_cot(cot, coeffs2.shape[1], comps3.device)
+        cot = cot.contiguous()
     lib = load_kernels()
     ngrps, nfreqs, nvecs = comps3.shape
     nbatch = coeffs2.shape[1]
@@ -187,11 +247,12 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    partials = out(nbatch, ngrps)
+    nt = n_terms(mode)
+    partials = out(nt, nbatch, ngrps) if nt else None
     dpr = dpi = dcoeffs = scratch = None
-    if mode != LOSS_ONLY:
+    if mode in _DP_MODES:
         dpr, dpi = out(nbatch, ngrps, nfreqs), out(nbatch, ngrps, nfreqs)
-    if mode == LOSS_ALL:
+    if mode in _ALL_MODES:
         dcoeffs = out(2, nbatch, ngrps, nvecs)
     if not plan["coef_smem"]:
         scratch = out(ngrps * nvecs * 2 * plan["slices_per_tile"])
@@ -203,26 +264,41 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
         err = lib.fused_chunk_loss(
             comps3.data_ptr(), comps_dtype, coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(),
             dr.data_ptr(), di.data_ptr(), *dr.stride(), w.data_ptr(),
-            0 if w.dtype == torch.float32 else 1, *w.stride(), partials.data_ptr(),
-            ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(scratch), nbatch, ngrps, nfreqs, nvecs, mode,
-            torch.cuda.current_stream(dev).cuda_stream,
+            0 if w.dtype == torch.float32 else 1, *w.stride(), ptr(partials),
+            ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(scratch), ptr(cot), nbatch, ngrps, nfreqs,
+            nvecs, mode, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"{KERNEL_NAME} launch failed: CUDA error {err} "
             f"({lib.fcl_error_string(err).decode()})"
         )
-    LAUNCHES.add(KERNEL_NAME)
-    # the partials are summed outside the kernel, in a fixed order: no
-    # atomics, so each slice's loss is the same from run to run
-    return torch.sum(partials, dim=1), dcoeffs, dpr, dpi
+    count_launch(KERNEL_NAME, mode)
+    return sum_partials(partials, mode), dcoeffs, dpr, dpi
 
 
-def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode):
+def count_launch(name, mode):
+    """One launch of kernel ``name``, counted under its name and under
+    its instance's (``name:sum_fwd``, ...)."""
+    LAUNCHES.add(name)
+    LAUNCHES.add(f"{name}:{MODE_NAMES[mode]}")
+
+
+def sum_partials(partials, mode):
+    """The (T, N, G) partials of a launch summed over the groups outside
+    the kernel, in a fixed order (no atomics, so each sum is the same from
+    run to run): the (N,) losses, the (3, N) "sum" terms, or None."""
+    if partials is None:
+        return None
+    terms = torch.sum(partials, dim=2)
+    return terms if mode == SUM_FWD else terms[0]
+
+
+def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode, cot=None):
     if comps3.device.type == "cuda":
-        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode)
+        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode, cot)
     if comps3.device.type == "cpu":
-        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode)
+        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode, cot)
     raise ValueError(f"unsupported device {comps3.device}")
 
 
@@ -256,6 +332,54 @@ def scaled_grads(ctx, gbar):
     return dcoeffs, dpr, dpi
 
 
+def sum_term_grads(ctx, tbar, run):
+    """(dcoeffs, dpr, dpi) of a "sum" terms Function's backward: the
+    "sum" backward instance, ``run(*saved, mode=..., cot=...)``, at the
+    (3, N) cotangents ``tbar`` of the chi-square, M_r and M_i; only the
+    gain-product gradients where the coefficients want none, None where no
+    gradient is wanted."""
+    want = ctx.needs_input_grad[:3]
+    mode = SUM_ALL if want[0] else SUM_DP
+    _, dcoeffs, dpr, dpi = run(*ctx.saved_tensors, mode=mode, cot=tbar.contiguous())
+    return tuple(g if w else None for g, w in zip((dcoeffs, dpr, dpi), want))
+
+
+def _wants_grad(coeffs2, pr, pi):
+    return torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
+                                        or pi.requires_grad)
+
+
+class _FusedChunkTermsBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
+        # the operands themselves, no copies: the backward instance reads them again
+        ctx.save_for_backward(coeffs2, pr, pi, dr, di, w, comps3)
+        return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]
+
+    @staticmethod
+    def backward(ctx, tbar):
+        return sum_term_grads(ctx, tbar, _loss_and_grads) + (None,) * 4
+
+
+def fused_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3):
+    """The "sum" prior's terms of one dense B=1 chunk for N slices: a (3,
+    N) tensor of each slice's chi-square, M_r = sum(w * model_r) and M_i =
+    sum(w * model_i), differentiable in coeffs2, pr and pi (operands as
+    :func:`fused_chunk_loss_batched`'s). The forward runs the kernel's
+    "sum" forward instance and keeps references to the operands; the
+    backward runs its "sum" backward instance at the three cotangents.
+    With no gradient wanted only the forward runs and nothing is saved."""
+    if _wants_grad(coeffs2, pr, pi):
+        return _FusedChunkTermsBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
+    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]
+
+
+def fused_chunk_terms_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
+    """Plain torch forward of :func:`fused_chunk_terms_batched`,
+    differentiable by autograd: (3, N)."""
+    return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]
+
+
 def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
     """Fused weighted chi-square of one B=1 chunk for N slices sharing its
     basis: (N,) losses, differentiable in coeffs2, pr and pi. With no
@@ -268,8 +392,7 @@ def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
     w:       (N, ngrps, nfreqs) float32 or bfloat16, any strides
     comps3:  (ngrps, nfreqs, nvecs) float32 or bfloat16
     """
-    if torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
-                                    or pi.requires_grad):
+    if _wants_grad(coeffs2, pr, pi):
         return _FusedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
     return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, LOSS_ONLY)[0]
 
@@ -297,3 +420,9 @@ def fused_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w):
     dr, di, w: (ngrps, nfreqs); w float32 or bfloat16
     """
     return fused_chunk_loss_batched(*_one(coeffs2, pr, pi, dr, di, w), comps3)[0]
+
+
+def fused_chunk_terms(coeffs2, pr, pi, comps3, dr, di, w):
+    """The "sum" prior's terms of one slice of a dense B=1 chunk (the
+    signature of :func:`fused_chunk_loss`): (3,) chi-square, M_r, M_i."""
+    return fused_chunk_terms_batched(*_one(coeffs2, pr, pi, dr, di, w), comps3)[:, 0]

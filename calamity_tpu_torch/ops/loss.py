@@ -6,7 +6,8 @@ coefficients; complex arithmetic is expanded into real products; antenna
 gains are gathered by index. Chunks that a kernel's gate accepts go through
 that kernel instead (on a CUDA tensor; its plain version on a CPU tensor):
 a dense B=1 chunk through ``ops.fused.fused_chunk_loss``, a shared or
-shared-batched B=1 chunk through ``ops.shared.shared_chunk_loss``.
+shared-batched B=1 chunk through ``ops.shared.shared_chunk_loss`` (with
+the "sum" prior, through their ``*_chunk_terms``).
 """
 
 from __future__ import annotations
@@ -15,9 +16,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .fused import explain_fused_loss_inapplicable, fused_chunk_loss
+from .fused import explain_fused_loss_inapplicable, fused_chunk_loss, fused_chunk_terms
 from .gains import gain_products
-from .shared import explain_shared_loss_inapplicable, group_mask, shared_chunk_loss
+from .shared import (
+    explain_shared_loss_inapplicable,
+    group_mask,
+    shared_chunk_loss,
+    shared_chunk_terms,
+)
 
 
 def fg_model(coeffs_r, coeffs_i, comps):
@@ -175,24 +181,27 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
     total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     term = _chunk_term_remat if remat else _chunk_term
     for cnum, (comps, a0, a1) in enumerate(chunks):
-        gates = (comps, fg_r[cnum], data_r[cnum], wgts[cnum])
-        dense = explain_fused_loss_inapplicable(*gates) is None
-        if dense or explain_shared_loss_inapplicable(*gates) is None:
-            pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
-            coeffs2 = torch.stack([fg_r[cnum], fg_i[cnum]], dim=0)
-            dr = data_r[cnum][:, 0]
-            # a frequency-invariant weights plane (trailing axis 1) reaches
-            # the kernel as a stride-0 view of the data's shape
-            w = wgts[cnum][:, 0].expand(dr.shape)
-            args = (coeffs2, pr[:, 0], pi[:, 0], comps[:, 0], dr, data_i[cnum][:, 0], w)
-            total = total + (fused_chunk_loss(*args) if dense
-                             else shared_chunk_loss(*args, group_mask(a0)))
-            continue
-        total = total + term(
-            g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1,
-            data_r[cnum], data_i[cnum], wgts[cnum],
-        )
+        args = (g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1, data_r[cnum], data_i[cnum],
+                wgts[cnum])
+        loss = _kernel_term(fused_chunk_loss, shared_chunk_loss, *args)
+        total = total + (term(*args) if loss is None else loss)
     return total
+
+
+def _kernel_term(dense_op, shared_op, g_r, g_i, fr, fi, comps, a0, a1, dr, di, w):
+    """A chunk's term through a chunk-loss kernel's op, ``dense_op`` (a
+    dense chunk) or ``shared_op`` (a shared or shared-batched one), where
+    its gate accepts the chunk; None where neither kernel takes it."""
+    dense = explain_fused_loss_inapplicable(comps, fr, dr, w) is None
+    if not dense and explain_shared_loss_inapplicable(comps, fr, dr, w) is not None:
+        return None
+    pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
+    dr = dr[:, 0]
+    # a frequency-invariant weights plane (trailing axis 1) reaches the
+    # kernel as a stride-0 view of the data's shape
+    args = (torch.stack([fr, fi], dim=0), pr[:, 0], pi[:, 0], comps[:, 0], dr, di[:, 0],
+            w[:, 0].expand(dr.shape))
+    return dense_op(*args) if dense else shared_op(*args, group_mask(a0))
 
 
 def chunked_loss_sum_regularized(
@@ -201,11 +210,23 @@ def chunked_loss_sum_regularized(
     """Chi-square plus the "sum" flux-scale prior
     (reference mse_chunked_sum_regularized, calibration.py:1623-1656):
     penalizes deviation of the weighted model flux sums from the sky-model
-    prior sums, pinning the overall amplitude/phase degeneracy."""
+    prior sums, pinning the overall amplitude/phase degeneracy. A chunk a
+    kernel's gate accepts (as in :func:`chunked_loss`) takes that kernel's
+    "sum" instances (``fused_chunk_terms``, ``shared_chunk_terms``: the
+    chi-square and both flux sums in one pass, their gradients in a second
+    at the prior's cotangents); every other chunk the torch ops below."""
     total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     mr_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     mi_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     for cnum, (comps, a0, a1) in enumerate(chunks):
+        terms = _kernel_term(fused_chunk_terms, shared_chunk_terms, g_r, g_i, fg_r[cnum],
+                             fg_i[cnum], comps, a0, a1, data_r[cnum], data_i[cnum], wgts[cnum])
+        if terms is not None:
+            chi2, mrs, mis = terms
+            total = total + chi2
+            mr_sum = mr_sum + mrs
+            mi_sum = mi_sum + mis
+            continue
         model_r, model_i = data_model(g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1)
         w = wgts[cnum]
         if w.dtype != model_r.dtype:

@@ -25,15 +25,36 @@ cores with split TF32 operands (float32 accuracy); on a CPU tensor it is
 launch that fails raises. Groups that hold no baseline (the packing's
 record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
 kernel does not read their data. :func:`loss_and_grads_tf32` emulates
-the kernel's split products for the tests; no path calls it.
+the kernel's split products for the tests; no path calls it. As in
+``ops.fused``, the "sum" prior's terms (each slice's chi-square, M_r and
+M_i) come from the kernel's "sum" forward instance and their gradients
+from its "sum" backward instance (:func:`shared_chunk_terms_batched`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._device import LAUNCHES
-from .fused import _COMPS_DTYPES, _WGTS_DTYPES, LOSS_ALL, LOSS_DP, LOSS_ONLY, _f32, scaled_grads
+from .fused import (
+    _ALL_MODES,
+    _COMPS_DTYPES,
+    _COT_MODES,
+    _DP_MODES,
+    _WGTS_DTYPES,
+    LOSS_ALL,
+    LOSS_DP,
+    LOSS_ONLY,
+    SUM_FWD,
+    _f32,
+    _wants_grad,
+    after_matvec,
+    check_cot,
+    count_launch,
+    n_terms,
+    scaled_grads,
+    sum_partials,
+    sum_term_grads,
+)
 from .gains import valid_rows
 
 KERNEL_NAME = "shared_chunk_loss"
@@ -101,13 +122,18 @@ def group_mask(a0):
     return mask
 
 
-def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL):
+def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL,
+                         cot=None):
     """Plain torch version of the kernel: ``(losses (N,), dcoeffs (2, N, G,
     V), dpr (N, G, F), dpi (N, G, F))``, the gradients at a loss cotangent
     of 1 (``None`` where ``mode`` does not ask for them); the groups
     ``valid`` leaves out (a (G,) bool mask) count as weight 0 and data 0.
+    The "sum" instances as in ``ops.fused.loss_and_grads_plain``:
+    ``SUM_FWD`` returns the (3, N) terms (chi-square, M_r, M_i),
+    ``SUM_DP`` and ``SUM_ALL`` the gradients at their cotangents ``cot``.
     The reference the kernel is held against, and the CPU path."""
-    return _loss_and_grads_with(torch.einsum, coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+    return _loss_and_grads_with(torch.einsum, coeffs2, pr, pi, dr, di, w, comps3, valid, mode,
+                                cot)
 
 
 def tf32_round(x):
@@ -128,7 +154,7 @@ def tf32_split(x):
 
 
 def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL,
-                        split=True):
+                        split=True, cot=None):
     """:func:`loss_and_grads_plain` with both products formed as the
     kernel forms them on the tensor cores: each float32 operand split into
     TF32 hi and lo (:func:`tf32_split`) and the products ``x_lo c_hi +
@@ -149,40 +175,27 @@ def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOS
             small = small + torch.einsum(eq, c_lo, x_hi)
         return small + torch.einsum(eq, c_hi, x_hi)
 
-    return _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+    return _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot)
 
 
-def _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode):
+def _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot=None):
     """The kernel's function with its two products (the matvec and the
     coefficient contraction) taken by ``product(equation, comps, x)``."""
     nu, nfreqs, nvecs = comps3.shape
     _, nbatch, ngrps, _ = coeffs2.shape
+    if mode in _COT_MODES:
+        check_cot(cot, nbatch, comps3.device)
     shape = (2, nbatch, nu, ngrps // nu)
     comps = _f32(comps3)
     v = product("ufv,knugv->knugf", comps, coeffs2.reshape(shape + (nvecs,)))
-    v = v.reshape(2, nbatch, ngrps, nfreqs)
-    vr, vi = v[0], v[1]
-    mr = pr * vr + pi * vi
-    mi = -pi * vr + pr * vi
-    er = dr - mr
-    ei = di - mi
-    wf = _f32(w)
-    if valid is not None:
-        keep = valid.reshape(1, -1, 1)
-        er, ei, wf = (torch.where(keep, x, 0.0) for x in (er, ei, wf))
-    losses = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
-    if mode == LOSS_ONLY:
-        return losses, None, None, None
-    dmr = -2.0 * wf * er
-    dmi = -2.0 * wf * ei
-    dpr = vr * dmr + vi * dmi
-    dpi = vi * dmr - vr * dmi
-    dcoeffs = None
-    if mode == LOSS_ALL:
-        dv = torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0)  # (2, N, G, F)
-        dcoeffs = product("ufv,knugf->knugv", comps, dv.reshape(shape + (nfreqs,)))
-        dcoeffs = dcoeffs.reshape(2, nbatch, ngrps, nvecs)
-    return losses, dcoeffs, dpr, dpi
+
+    def contract(dv):  # dv (2, N, G, F)
+        out = product("ufv,knugf->knugv", comps, dv.reshape(shape + (nfreqs,)))
+        return out.reshape(2, nbatch, ngrps, nvecs)
+
+    keep = None if valid is None else valid.reshape(1, -1, 1)
+    return after_matvec(v.reshape(2, nbatch, ngrps, nfreqs), pr, pi, dr, di, _f32(w), mode, cot,
+                        contract, keep)
 
 
 def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid):
@@ -226,12 +239,16 @@ def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid):
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 
 
-def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL):
+def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL,
+                          cot=None):
     """:func:`loss_and_grads_plain` from the CUDA kernel. Raises on any
     operand the kernel does not take and on a failed launch."""
     from ._build import load_kernels
 
     _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid)
+    if mode in _COT_MODES:
+        check_cot(cot, coeffs2.shape[1], comps3.device)
+        cot = cot.contiguous()
     lib = load_kernels()
     nu, nfreqs, nvecs = comps3.shape
     _, nbatch, ngrps, _ = coeffs2.shape
@@ -240,11 +257,12 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=L
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    partials = out(nbatch, ngrps)
+    nt = n_terms(mode)
+    partials = out(nt, nbatch, ngrps) if nt else None
     dpr = dpi = dcoeffs = None
-    if mode != LOSS_ONLY:
+    if mode in _DP_MODES:
         dpr, dpi = out(nbatch, ngrps, nfreqs), out(nbatch, ngrps, nfreqs)
-    if mode == LOSS_ALL:
+    if mode in _ALL_MODES:
         dcoeffs = out(2, nbatch, ngrps, nvecs)
 
     def ptr(t):
@@ -255,22 +273,21 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=L
             comps3.data_ptr(), 0 if comps3.dtype == torch.float32 else 1, coeffs2.data_ptr(),
             pr.data_ptr(), pi.data_ptr(), dr.data_ptr(), di.data_ptr(), *dr.stride(),
             w.data_ptr(), 0 if w.dtype == torch.float32 else 1, *w.stride(), ptr(valid),
-            partials.data_ptr(), ptr(dcoeffs), ptr(dpr), ptr(dpi), nbatch, ngrps, nfreqs, nvecs,
-            nu, mode, torch.cuda.current_stream(dev).cuda_stream,
+            ptr(partials), ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(cot), nbatch, ngrps, nfreqs,
+            nvecs, nu, mode, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err} "
                            f"({lib.fcl_error_string(err).decode()})")
-    LAUNCHES.add(KERNEL_NAME)
-    # the partials are summed outside the kernel, in a fixed order
-    return torch.sum(partials, dim=1), dcoeffs, dpr, dpi
+    count_launch(KERNEL_NAME, mode)
+    return sum_partials(partials, mode), dcoeffs, dpr, dpi
 
 
-def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, mode):
+def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot=None):
     if comps3.device.type == "cuda":
-        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot)
     if comps3.device.type == "cpu":
-        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid, mode)
+        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot)
     raise ValueError(f"unsupported device {comps3.device}")
 
 
@@ -302,10 +319,38 @@ def shared_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
     comps3:  (nu, nfreqs, nvecs) float32 or bfloat16, nu dividing ngrps
     valid:   (ngrps,) bool, the groups that hold a baseline (None: every one)
     """
-    if torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
-                                    or pi.requires_grad):
+    if _wants_grad(coeffs2, pr, pi):
         return _SharedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3, valid)
     return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, LOSS_ONLY)[0]
+
+
+class _SharedChunkTermsBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3, valid):
+        # the operands themselves, no copies: the backward instance reads them again
+        ctx.save_for_backward(coeffs2, pr, pi, dr, di, w, comps3, valid)
+        return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, SUM_FWD)[0]
+
+    @staticmethod
+    def backward(ctx, tbar):
+        def run(*saved, mode, cot):
+            return _loss_and_grads(*saved, mode, cot)
+
+        return sum_term_grads(ctx, tbar, run) + (None,) * 5
+
+
+def shared_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
+    """The "sum" prior's terms of one shared or shared-batched B=1 chunk
+    for N slices: a (3, N) tensor of each slice's chi-square, M_r =
+    sum(w * model_r) and M_i = sum(w * model_i) (padding groups count
+    zero), differentiable in coeffs2, pr and pi (operands as
+    :func:`shared_chunk_loss_batched`'s). The forward runs the kernel's
+    "sum" forward instance and keeps references to the operands; the
+    backward its "sum" backward instance at the three cotangents. With no
+    gradient wanted only the forward runs and nothing is saved."""
+    if _wants_grad(coeffs2, pr, pi):
+        return _SharedChunkTermsBatched.apply(coeffs2, pr, pi, dr, di, w, comps3, valid)
+    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, SUM_FWD)[0]
 
 
 def shared_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
@@ -314,3 +359,10 @@ def shared_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
     di, w (ngrps, nfreqs)."""
     planes = tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
     return shared_chunk_loss_batched(coeffs2.unsqueeze(1), *planes, comps3, valid)[0]
+
+
+def shared_chunk_terms(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
+    """:func:`shared_chunk_terms_batched` of one slice (the signature of
+    :func:`shared_chunk_loss`): (3,) chi-square, M_r, M_i."""
+    planes = tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
+    return shared_chunk_terms_batched(coeffs2.unsqueeze(1), *planes, comps3, valid)[:, 0]

@@ -20,7 +20,9 @@ goes through the fused kernel with a slice axis
 (``ops.fused.fused_chunk_loss_batched``: one comps read for every slice),
 a shared or shared-batched one through the shared-basis kernel
 (``ops.shared.shared_chunk_loss_batched``: an operator's tile read once for
-a tile of (group, slice) pairs); every other chunk takes torch ops whose
+a tile of (group, slice) pairs); under the "sum" prior through the same
+kernels' "sum" instances (``fused_chunk_terms_batched``,
+``shared_chunk_terms_batched``); every other chunk takes torch ops whose
 contraction also reads comps once for the batch. Every chunk's gain
 gradient is ``ops.gains.GainProducts``' backward (on the card a kernel
 that sums in a fixed order).
@@ -60,10 +62,19 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused import explain_fused_loss_inapplicable, fused_chunk_loss_batched
+from ..ops.fused import (
+    explain_fused_loss_inapplicable,
+    fused_chunk_loss_batched,
+    fused_chunk_terms_batched,
+)
 from ..ops.gains import carry_valid, gain_products_batched
 from ..ops.loss import fg_model_batched, fg_model_host_batched
-from ..ops.shared import explain_shared_loss_inapplicable, group_mask, shared_chunk_loss_batched
+from ..ops.shared import (
+    explain_shared_loss_inapplicable,
+    group_mask,
+    shared_chunk_loss_batched,
+    shared_chunk_terms_batched,
+)
 from ..solver.fit import _big, init_params
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
 from ..utils import echo
@@ -126,6 +137,14 @@ def _shared_losses(*args):
     return (shared_chunk_loss_batched(*_kernel_operands(*args), group_mask(args[-2])),)
 
 
+def _fused_terms(*args):
+    return tuple(fused_chunk_terms_batched(*_kernel_operands(*args)))
+
+
+def _shared_terms(*args):
+    return tuple(shared_chunk_terms_batched(*_kernel_operands(*args), group_mask(args[-2])))
+
+
 def _sum_terms(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
     mr, mi = _chunk_model(gr, gi, fr, fi, comps, a0, a1)
     w = _weights_as(w, dr)
@@ -167,14 +186,17 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
     return total
 
 
-def _chunk_term_fn(comps, fr, dr, w, remat):
+def _chunk_term_fn(comps, fr, dr, w, remat, terms=False):
     """The term of one chunk: the fused or the shared-basis kernel where
     its gate accepts the chunk, torch ops otherwise (checkpointed under
-    ``remat``)."""
+    ``remat``). With ``terms``, the "sum" prior's three terms (chi-square,
+    M_r, M_i) instead of the chi-square alone."""
     if explain_fused_loss_inapplicable(comps, fr, dr, w) is None:
-        return _fused_losses
+        return _fused_terms if terms else _fused_losses
     if explain_shared_loss_inapplicable(comps, fr, dr, w) is None:
-        return _shared_losses
+        return _shared_terms if terms else _shared_losses
+    if terms:
+        return _sum_terms
     if remat:
         return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False)
     return _plain_losses
@@ -218,8 +240,8 @@ def _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
                 comps, a0, a1)
         ngrps = a0.shape[0]
         blk = _loss_block_size(ngrps, _gmax(comps, ngrps), loss_block)
-        loss, mrs, mis = (_sum_terms(*args) if blk is None
-                          else _chunk_blocks(_sum_terms, *args, blk))
+        term = _chunk_term_fn(comps, fg_r[cnum], data_r[cnum], wgts[cnum], False, terms=True)
+        loss, mrs, mis = term(*args) if blk is None else _chunk_blocks(term, *args, blk)
         total = total + loss
         mr_sum = mr_sum + mrs
         mi_sum = mi_sum + mis
@@ -230,8 +252,9 @@ def batched_chunk_losses_sum_regularized(
     g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r, prior_i, loss_block=None,
 ):
     """Per-slice chi-square plus the "sum" flux prior, one prior pair per
-    slice, shape (nbatch,) (reference parallel/batched.py:216-272). Torch
-    ops: the fused kernel does not form the model flux sums."""
+    slice, shape (nbatch,) (reference parallel/batched.py:216-272). A B=1
+    chunk goes through a chunk-loss kernel's "sum" instances wherever its
+    gate accepts it, as in :func:`batched_chunk_losses`."""
     total, mr_sum, mi_sum = _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r,
                                                    data_i, wgts, loss_block)
     return total + torch.square(mr_sum - prior_r) + torch.square(mi_sum - prior_i)

@@ -301,7 +301,7 @@ def fit_gains_and_foregrounds(
         prior_r_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
         prior_i_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
         regularization = None
-        warn_fused_fallbacks(chunks, fg_r, data_r, wgts)
+    warn_fused_fallbacks(chunks, fg_r, data_r, wgts)
 
     cfg = FitConfig(
         optimizer=optimizer,

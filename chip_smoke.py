@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's four CUDA kernels from the sources in the checkout,
@@ -12,8 +12,12 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 1. environment: torch, CUDA, the card and its power limit, nvcc, triton;
 2. build of the kernel library;
 3. every instance of the kernel (the loss only; with the gain-product
-   gradients; with every gradient, in one comps read) against its plain
-   version: at the main path's chunk shape with N = 8 and 1 slices, at
+   gradients; with every gradient, in one comps read; and the "sum"
+   prior's: its forward, the chi-square with the model flux sums M_r and
+   M_i, held within 1e-5 of sum w |m|, and its backward with the
+   gain-product or every gradient at random cotangents and at a
+   chi-square cotangent of 0, two launches equal to the bit) against its
+   plain version: at the main path's chunk shape with N = 8 and 1 slices, at
    ragged shapes with N = 1, 3 and 9, on group-block views, at an unaligned
    comps offset, at wide bases (a smaller row tile, modes past the register
    slots, coefficients in scratch, rows too wide for any tile), float32 and
@@ -35,7 +39,10 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    the autograd Function against the torch ops it replaces, each case
    timed against its bound, the plain version, those torch ops and cuBLAS'
    batched matvec; a block of whole classes as views; ragged and wide
-   shapes; bfloat16 weights and a weight plane;
+   shapes, the widest bases the gate admits among them (600 float32 and
+   720 bfloat16 modes); bfloat16 weights and a weight plane; the "sum"
+   instances as in phase 3, also against the split TF32 emulation, each
+   timed against its bound;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -86,7 +93,17 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    width, every shared chunk through the shared-basis kernel, its idle
    share under the profiler, and at cut width fitted twice (equal to the
    bit) and against the dense packing (the shared-basis kernel against the
-   fused one).
+   fused one);
+11. the entry points' default "sum" prior: (a) the HERA core at full width
+   through ``calibrate_and_model_dpss`` as phase 10 runs it but with the
+   "sum" prior and a step budget, fitted twice (equal to the bit), every shared chunk's "sum"
+   forward and backward instances launched each step, no chunk on the
+   plain terms, resid/data <= 1e-2, the step's device time and idle share
+   under the profiler; (b) phase 7's file through
+   ``read_calibrate_and_model_dpss`` with ``time_parallel=True,
+   shared_basis=False`` and the "sum" prior (the fused kernel's "sum"
+   instances at N = 8), then 50 recorded batched steps on the card
+   against a CPU copy of one slice (histories rel 1e-4).
 
 Every phase resets the kernels' launch counters before it drives its path
 and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
@@ -100,6 +117,7 @@ import json
 import multiprocessing as mp
 import os
 import queue
+import re
 import runpy
 import shutil
 import subprocess
@@ -257,12 +275,15 @@ def phase_build():
     check(lib.build_seconds > 0.0, "kernel library was not built from source")
     log(f"built {os.path.relpath(lib.path)} from {[os.path.relpath(s) for s in _build.sources()]}"
         f" in {lib.build_seconds:.2f} s")
-    func = ""  # the entry function ptxas reports on
+    func = ""  # the entry function ptxas reports on, as <kernel>I<template arguments>
     for line in lib.build_log.splitlines():
         if "Function properties for" in line:
             func = line.split("Function properties for", 1)[1].strip()
+            named = re.search(r"([a-z]+(?:_[a-z]+)*_(?:kernel|wide|partials|segments))I(.*?)EEv",
+                              func)
+            func = f"{named.group(1)}<{named.group(2)}>" if named else func[:96]
         if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  nvcc: {func[:96]}: {line.strip()}")
+            log(f"  nvcc: {func}: {line.strip()}")
     return lib
 
 
@@ -312,12 +333,16 @@ def nbytes(t):
     return t.numel() * t.element_size()
 
 
-def bound(args, grads):
+def bound(args, grads, sums=False):
     """The least time the card could take for the kernel's work on these
     inputs: the larger of the bytes it must move (each input read once,
     each output written once) over the memory rate and its float32
-    operations over the float32 rate. Returns (ms, "bytes" | "operations",
-    bytes)."""
+    operations over the float32 rate. ``grads``: False, "dp" (dpr and dpi
+    alone) or True (every gradient). ``sums``: a "sum" instance (the
+    forward writes M_r and M_i beside the loss, 4 more operations an
+    entry; the backward reads three cotangents a slice, writes no loss and
+    takes 4 more operations an entry for dm). Returns (ms, "bytes" |
+    "operations", bytes)."""
     coeffs2, pr, pi, dr, di, w, comps = args
     nbatch, ngrps, nfreqs = pr.shape
     nvecs = comps.shape[-1]
@@ -326,15 +351,155 @@ def bound(args, grads):
     # 2 FMAs per comps value and slice (re, im) in the matvec; per row and
     # slice 12 operations for the model, residual and weighted square
     flops = 4 * rows * nvecs + 12 * rows
+    if sums:
+        moved += 8 * nbatch
+        flops += 4 * rows
     if grads:
-        moved += nbytes(coeffs2) + 2 * nbytes(pr)  # dcoeffs, dpr, dpi written
-        flops += 4 * rows * nvecs + 16 * rows  # the coefficient contraction; dm, dp, dv
+        moved += 2 * nbytes(pr)  # dpr, dpi written
+        flops += 16 * rows  # dm, dp, dv
+    if grads is True:
+        moved += nbytes(coeffs2)  # dcoeffs written
+        flops += 4 * rows * nvecs  # the coefficient contraction
     t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
     return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
 
 
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def sum_cotangents(nbatch, device, seed):
+    """The "sum" backward's cotangents (3, N) of (chi-square, M_r, M_i):
+    seeded random ones (a chi-square cotangent other than 1 for every
+    slice), and the same with the chi-square's set to 0 (the flux sums'
+    alone)."""
+    import torch
+
+    base = np.random.default_rng(seed).standard_normal((3, nbatch)).astype(np.float32)
+    zero = base.copy()
+    zero[0] = 0.0
+    return {k: torch.as_tensor(v, device=device) for k, v in (("random", base), ("gx=0", zero))}
+
+
+def flux_scale(args, valid=None):
+    """(2, N): sum over a slice of w |m_r| and of w |m_i|, the scale the
+    model flux sums M_r and M_i are held against (near a fit they are a
+    small difference of large sums). Dense (comps (G, F, V)) and shared
+    (comps (U, F, V)) layouts alike."""
+    import torch
+
+    coeffs2, pr, pi, dr, di, w, comps = args
+    nu, (_, nbatch, ngrps, nvecs) = comps.shape[0], coeffs2.shape
+    c = coeffs2.reshape(2, nbatch, nu, ngrps // nu, nvecs)
+    v = torch.einsum("ufv,knugv->knugf", comps.float(), c).reshape(2, nbatch, ngrps, -1)
+    mr, mi = pr * v[0] + pi * v[1], -pi * v[0] + pr * v[1]
+    wf = w.float() if valid is None else w.float() * valid.reshape(1, -1, 1)
+    return torch.stack([torch.sum(wf * mr.abs(), dim=(1, 2)), torch.sum(wf * mi.abs(), dim=(1, 2))])
+
+
+def term_errors(got, want, scale):
+    """(chi-square rel per slice, M_r and M_i rel to their scale), worst over
+    the slices."""
+    chi = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+    return chi, float(((got[1:] - want[1:]).abs() / scale).max())
+
+
+def check_sum_instances(tag, op, args, extra=(), emulate=None, seed=0):
+    """The "sum" instances of a chunk-loss kernel (``op``: ``ops.fused`` or
+    ``ops.shared``; ``extra``: the shared kernel's mask) against their
+    plain version: the forward's chi-square rel 1e-5 per slice, M_r and
+    M_i within 1e-5 of sum w |m| (the flux scale); the backward's
+    gradients rel 1e-4 at random cotangents and at a cotangent of the
+    chi-square of 0; two launches of each equal to the bit;
+    with ``emulate`` (the shared kernel's split TF32 emulation) also
+    against that at the same tolerances. Returns (worst rel by name, the
+    largest abs errors, worst rel against the emulation)."""
+    import torch
+
+    from calamity_tpu_torch.ops import fused
+
+    scale = flux_scale(args, extra[0] if extra else None)
+    worst, errs, emu = {}, [], {}
+
+    def hold(name, value, limit, into):
+        check(value <= limit, f"{tag} {name}: rel {value} (limit {limit})")
+        into[name] = max(into.get(name, 0.0), value)
+
+    def run(mode, cot=None):
+        got = op.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
+        again = op.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
+        want = op.loss_and_grads_plain(*args, *extra, mode=mode, cot=cot)
+        split = None if emulate is None else emulate(*args, *extra, mode=mode, cot=cot)
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag} {fused.MODE_NAMES[mode]}: two launches differ")
+        return got, want, split
+
+    got, want, split = run(fused.SUM_FWD)
+    chi, flux = term_errors(got[0], want[0], scale)
+    hold("sum_fwd chi2", chi, 1e-5, worst)
+    hold("sum_fwd M", flux, 1e-5, worst)
+    errs.append(float((got[0] - want[0]).abs().max()))
+    check(all(g is None for g in got[1:]), f"{tag} sum_fwd: gradients returned")
+    if split is not None:
+        chi, flux = term_errors(got[0], split[0], scale)
+        hold("sum_fwd chi2", chi, 1e-5, emu)
+        hold("sum_fwd M", flux, 1e-5, emu)
+    for cname, cot in sum_cotangents(args[0].shape[1], args[0].device, seed).items():
+        for mode in (fused.SUM_DP, fused.SUM_ALL):
+            got, want, split = run(mode, cot)
+            check(got[0] is None, f"{tag} {fused.MODE_NAMES[mode]}: a loss returned")
+            names = ("dcoeffs", "dpr", "dpi")
+            for name, g, p, e in zip(names, got[1:], want[1:], (split or want)[1:]):
+                check((g is None) == (p is None), f"{tag} {fused.MODE_NAMES[mode]}: {name}")
+                if p is None:
+                    continue
+                hold(f"{fused.MODE_NAMES[mode]} {name}", rel(g, p), 1e-4, worst)
+                errs.append(float((g - p).abs().max()))
+                if split is not None:
+                    hold(f"{fused.MODE_NAMES[mode]} {name}", rel(g, e), 1e-4, emu)
+            if extra and got[1] is not None:
+                pad = ~extra[0]
+                check(not bool(got[1][:, :, pad].any() or got[2][:, pad].any()),
+                      f"{tag} {cname}: padding groups' gradients are not zero")
+    return worst, errs, emu
+
+
+def sum_function_rel(args, terms_fn, plain_fn, extra=(), seed=0):
+    """The "sum" terms' autograd Function against the plain terms under
+    autograd at random cotangents of the three terms: rel of (dcoeffs,
+    dpr, dpi)."""
+    import torch
+
+    cot = sum_cotangents(args[0].shape[1], args[0].device, seed + 1)["random"]
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_(i < 3) for i, a in enumerate(args)]
+        torch.sum(fn(*leaves, *extra) * cot).backward()
+        return [leaves[i].grad for i in range(3)]
+
+    return [rel(a, b) for a, b in zip(grads(terms_fn), grads(plain_fn))]
+
+
+def time_sum_instances(op, args, extra, bound_fn):
+    """CUDA-event ms of each "sum" instance through the wrapper and, replayed
+    from a CUDA graph, the device alone, beside its bound."""
+    from calamity_tpu_torch.ops import fused
+
+    cot = sum_cotangents(args[0].shape[1], args[0].device, 0)["random"]
+    out = {}
+    for mode, grads in ((fused.SUM_FWD, False), (fused.SUM_DP, "dp"), (fused.SUM_ALL, True)):
+        call = lambda m=mode: op.loss_and_grads_kernel(  # noqa: E731
+            *args, *extra, mode=m, cot=None if m == fused.SUM_FWD else cot)
+        out[fused.MODE_NAMES[mode]] = {"ms": cuda_median_ms(call),
+                                       "device_ms": cuda_graph_ms(call),
+                                       "bound_ms": bound_fn(grads)[0]}
+    return out
+
+
+def _sum_line(timed):
+    return "; ".join(f"{k} {v['ms']:.4f} ms (the device alone {v['device_ms']:.4f}) against "
+                     f"bound {v['bound_ms']:.4f}" for k, v in timed.items())
 
 
 def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_offset=False):
@@ -387,6 +552,11 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
     g_rel = [rel(a, b) for a, b in zip(grads(fused.fused_chunk_loss_batched),
                                        grads(fused.fused_chunk_loss_batched_plain))]
     check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
+    sum_worst, sum_errs, _ = check_sum_instances(tag, fused, args, seed=nbatch + ngrps)
+    errs += sum_errs
+    s_rel = sum_function_rel(args, fused.fused_chunk_terms_batched,
+                             fused.fused_chunk_terms_batched_plain, seed=nbatch)
+    check(max(s_rel) <= 1e-4, f"{tag}: the sum terms' autograd gradients rel {s_rel}")
     layout = ("the wide-row kernel" if plan["rows"] == 0 else
               f"rows {plan['rows']}, "
               f"{'bulk' if plan['bulk'] else 'cp.async'} copies, "
@@ -394,10 +564,15 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
               f"{'in shared memory' if plan['coef_smem'] else 'in scratch'}")
     log(f"  {tag}: {layout}; max rel "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-        + f"; autograd (coeffs, pr, pi) {', '.join(f'{x:.2e}' for x in g_rel)}")
-    out = {"max_abs_err": max(errs), "plan": plan}
+        + f"; autograd (coeffs, pr, pi) {', '.join(f'{x:.2e}' for x in g_rel)}; \"sum\" "
+        "instances, two launches equal to the bit, max rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sum_worst.items())
+        + f"; their autograd {', '.join(f'{x:.2e}' for x in s_rel)}")
+    out = {"max_abs_err": max(errs), "plan": plan, "sum_max_rel": sum_worst}
     if not timed:
         return out
+    out["sum"] = time_sum_instances(fused, args, (), lambda g: bound(args, g, sums=True))
+    log(f"    \"sum\" instances: {_sum_line(out['sum'])}; {nvidia_smi_line()}")
 
     def fwdbwd(fn):
         leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
@@ -891,11 +1066,12 @@ def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=Non
              dr[:, g], di[:, g], w[:, g], comps[block[0]:block[1]]], mask[g])
 
 
-def _shared_bound(args, mask, grads=True):
+def _shared_bound(args, mask, grads=True, sums=False):
     """(ms, "bytes" | "operations", bytes) of the shared-basis kernel's work
     on these inputs: comps and the coefficients read once, the planes of
     the groups that hold a baseline read once (padding's are not needed),
-    the losses and (``grads``) dpr, dpi and dcoeffs written once; per valid
+    the losses and (``grads``: "dp" or True) dpr, dpi and (True) dcoeffs
+    written once; with ``sums`` as in :func:`bound`; per valid
     entry 4 V multiply-adds (8 V operations) of the products, on the tensor
     cores at the TF32 rate over the split products each takes (3 for
     float32 comps, 2 for bfloat16), and 28 others at the float32 rate; the
@@ -909,9 +1085,12 @@ def _shared_bound(args, mask, grads=True):
     entries = nbatch * int(mask.sum()) * nfreqs
     moved = nbytes(comps) + nbytes(coeffs2) + entries * (16 + w.element_size()) + 4 * nbatch
     mma_flops, flops = entries * 4 * nvecs, entries * 12
+    if sums:
+        moved, flops = moved + 8 * nbatch, flops + entries * 4
     if grads:
-        moved += nbytes(coeffs2) + 2 * nbytes(pr)
-        mma_flops, flops = 2 * mma_flops, flops + entries * 16
+        moved, flops = moved + 2 * nbytes(pr), flops + entries * 16
+    if grads is True:
+        moved, mma_flops = moved + nbytes(coeffs2), 2 * mma_flops
     products = 3 if comps.dtype == torch.float32 else 2
     t_bytes = 1e3 * moved / HBM_BYTES_PER_S
     t_ops = max(1e3 * mma_flops * products / TF32_FLOPS, 1e3 * flops / F32_FLOPS)
@@ -931,6 +1110,23 @@ def _torch_ops_losses(coeffs2, pr, pi, dr, di, w, comps3):
     mr = pr * vr + pi * vi
     mi = -pi * vr + pr * vi
     return torch.sum(w.float() * ((dr - mr) ** 2 + (di - mi) ** 2), dim=(1, 2))
+
+
+def _torch_ops_terms(coeffs2, pr, pi, dr, di, w, comps3, valid):
+    """The torch ops the "sum" instances replace (``parallel.batched._sum_terms``'
+    model and sums on a shared chunk's operands), differentiable by
+    autograd: (3, N) chi-square, M_r, M_i; padding groups' weights zeroed."""
+    import torch
+
+    from calamity_tpu_torch.ops.loss import fg_model_batched
+
+    vr, vi = fg_model_batched(coeffs2[0], coeffs2[1], comps3.unsqueeze(1))
+    vr, vi = vr[:, :, 0], vi[:, :, 0]
+    mr = pr * vr + pi * vi
+    mi = -pi * vr + pr * vi
+    wf = w.float() * valid.reshape(1, -1, 1)
+    return torch.stack([torch.sum(wf * ((dr - mr) ** 2 + (di - mi) ** 2), dim=(1, 2)),
+                        torch.sum(wf * mr, dim=(1, 2)), torch.sum(wf * mi, dim=(1, 2))])
 
 
 def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=False,
@@ -990,13 +1186,26 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
     g_rel = [rel(a, b) for a, b in zip(grads(shared.shared_chunk_loss_batched, mask),
                                        grads(_torch_ops_losses))]
     check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
+    sum_worst, sum_errs, sum_emu = check_sum_instances(
+        tag, shared, args, (mask,), emulate=shared.loss_and_grads_tf32, seed=nbatch + nvecs)
+    errs += sum_errs
+    s_rel = sum_function_rel(args, shared.shared_chunk_terms_batched, _torch_ops_terms, (mask,),
+                             seed=nbatch)
+    check(max(s_rel) <= 1e-4, f"{tag}: the sum terms' autograd gradients rel {s_rel}")
     log(f"  {tag}: max rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + "; against the split TF32 emulation " + ", ".join(f"{k} {v:.2e}" for k, v in emu.items())
         + f"; two launches equal to the bit; against the torch ops under autograd (coeffs, pr, "
-        f"pi) {', '.join(f'{x:.2e}' for x in g_rel)}")
-    out = {"max_abs_err": max(errs), "max_rel": worst, "emulation_max_rel": emu}
+        f"pi) {', '.join(f'{x:.2e}' for x in g_rel)}; \"sum\" instances max rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sum_worst.items()) + ", against the emulation "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sum_emu.items())
+        + f", their autograd against the torch ops {', '.join(f'{x:.2e}' for x in s_rel)}")
+    out = {"max_abs_err": max(errs), "max_rel": worst, "emulation_max_rel": emu,
+           "sum_max_rel": sum_worst, "sum_emulation_max_rel": sum_emu}
     if not timed:
         return out
+    out["sum"] = time_sum_instances(shared, args, (mask,),
+                                    lambda g: _shared_bound(args, mask, g, sums=True))
+    log(f"    \"sum\" instances: {_sum_line(out['sum'])}; {nvidia_smi_line()}")
 
     def fwdbwd(fn, *extra):
         leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
@@ -1029,12 +1238,22 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
     return out
 
 
-# phase 3s's ragged shapes, (U, gmax, F, V): the tensor-core tiles' edges (a
-# short last channel tile, F = 37, 100, 1500; modes not a whole number of
-# k-steps, V = 3, 60, 130, or of the 64 held in registers; V = 64 exactly),
-# modes past the register tiles, rows copied by plain loads, a one-tile ring
+# phase 3s's ragged shapes, (U, gmax, F, V[, the one comps dtype]): the
+# tensor-core tiles' edges (a short last channel tile, F = 37, 100, 1500;
+# modes not a whole number of k-steps, V = 3, 60, 130, or of the 64 held in
+# registers; V = 64 exactly), modes past the register tiles, rows copied by
+# plain loads, a one-tile ring; and the widest bases the gate admits
+# (``ops.shared._smem_bytes``), 600 modes of float32 comps and 720 of
+# bfloat16
 SHARED_RAGGED = ((1, 2, 37, 3), (3, 5, 100, 130), (2, 7, 64, 557), (1, 33, 64, 200),
-                 (1, 40, 1500, 60), (2, 24, 1500, 64), (3, 11, 37, 64), (1, 70, 1500, 3))
+                 (1, 40, 1500, 60), (2, 24, 1500, 64), (3, 11, 37, 64), (1, 70, 1500, 3),
+                 (1, 7, 1536, 600, "float32"), (1, 7, 1536, 720, "bfloat16"))
+
+
+def ragged_cases(comps_dtype):
+    """The (U, gmax, F, V) of :data:`SHARED_RAGGED` run with ``comps_dtype``."""
+    name = str(comps_dtype).replace("torch.", "")
+    return [case[:4] for case in SHARED_RAGGED if len(case) == 4 or case[4] == name]
 
 
 def ragged_valid(nu, gmax):
@@ -1076,7 +1295,7 @@ def phase_shared_kernel():
         results[("view", cdt)] = compare_shared("HERA chunk 1", 8, nu, nfreqs, nvecs,
                                                 chunks[1][2], cdt, block=(1, 2))
         for n in (1, 3):
-            for nu, gmax, nf, nv in SHARED_RAGGED:
+            for nu, gmax, nf, nv in ragged_cases(cdt):
                 results[(n, nu, gmax, nf, nv, cdt)] = compare_shared(
                     "ragged", n, nu, nf, nv, ragged_valid(nu, gmax), cdt)
         # the weights as bfloat16 and as one plane a (slice, group)
@@ -1092,7 +1311,10 @@ def phase_shared_kernel():
                 f"{sum(r['ms'] for r in step):.4f} ms (the device alone "
                 f"{sum(r['device_ms'] for r in step):.4f}) against bound "
                 f"{sum(r['bound_ms'] for r in step):.4f} ms; the torch ops it replaces under "
-                f"autograd {sum(r['torch_ops_fwdbwd_ms'] for r in step):.4f} ms")
+                f"autograd {sum(r['torch_ops_fwdbwd_ms'] for r in step):.4f} ms; a \"sum\" step "
+                "(forward and backward with every gradient): "
+                + ", ".join(f"{k} {sum(r['sum'][m][k] for r in step for m in ('sum_fwd', 'sum_all')):.4f}"
+                            for k in ("ms", "device_ms", "bound_ms")))
     torch.cuda.empty_cache()
     return results
 
@@ -1860,6 +2082,7 @@ def phase_time_parallel(tmp, comps=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = LAUNCHES.get(KERNEL_NAME)
+    instances = instance_launches(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1934,7 +2157,7 @@ def phase_time_parallel(tmp, comps=None):
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
     return {"launches": launches, "gain_launches": gain_launches, "prod_launches": prod_launches,
-            "path": path, "uvd": uvd,
+            "instances": instances, "path": path, "uvd": uvd,
             "comps": comps, "info": info, "ratios": ratios, "timings": timings}
 
 
@@ -2456,9 +2679,10 @@ def _core_resid_ratio(corrupted, resid):
     return rms(resid.data_array[good]) / rms(corrupted.data_array[good])
 
 
-def hera_idle_share(corrupted, comps):
+def hera_idle_share(corrupted, comps, regularization=None):
     """The serial step of the HERA core's packing under ``torch.profiler``,
-    for both phases of the mixed schedule (``scripts/profile_step_torch.py``)."""
+    for both phases of the mixed schedule (``scripts/profile_step_torch.py``;
+    ``regularization="sum"``: the "sum" prior's step)."""
     import torch
 
     import profile_step_torch as prof
@@ -2473,7 +2697,7 @@ def hera_idle_share(corrupted, comps):
     out = {}
     for name, chs in (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)),
                       ("f32", chunks)):
-        step, per_call = prof.serial_stepper(chs, spec, corrupted, gains)
+        step, per_call = prof.serial_stepper(chs, spec, corrupted, gains, regularization)
         out[name] = prof.profile(step, per_call)
         r = out[name]
         log(f"  {name} step under the profiler: device {r['device_ms']:.3f} ms in "
@@ -2505,7 +2729,6 @@ def phase_hera_core():
     log("== phase 10: the HERA core (scripts/hera_core_demo_torch.py) with the default "
         "shared-basis packing")
     corrupted, comps, facts = hera_core_build()
-    _HERA.clear()  # phase 10 is its last user
     log(f"  {facts['nants']} antennas, {facts['nbls']} baselines <= 45 m, {facts['nuniq']} unique "
         f"spacings, {corrupted.Nfreqs} channels; host seconds: simulate "
         f"{facts['simulate_s']:.2f}, basis {facts['basis_s']:.2f}, project "
@@ -2529,6 +2752,7 @@ def phase_hera_core():
     wall = time.time() - t0
     kernel_names = (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL, SHARED_KERNEL)
     launches = {name: LAUNCHES.get(name) for name in kernel_names}
+    shared_instances = instance_launches(SHARED_KERNEL)
     fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     h = info[0][0]
@@ -2588,12 +2812,263 @@ def phase_hera_core():
           f"cut width: launches shared {n_s}, dense {n_d}")
     check(rel200 <= 1e-4, f"cut width: shared and dense histories differ: rel {rel200}")
     check(max(r_s, r_d) <= 2 * min(r_s, r_d), f"cut width: resid/data {r_s} against {r_d}")
-    return {"launches": launches, "steps": steps, "ms_per_step": rates, "peak_gb": peak_gb,
+    return {"launches": launches, "instances": shared_instances, "steps": steps,
+            "ms_per_step": rates, "peak_gb": peak_gb,
             "resid_ratio": ratio, "idle": {k: v["idle_share"] for k, v in idle.items()},
             "profile": {k: {"device_ms": v["device_ms"], "kernels": v["kernels"],
                             "plain_ms": v["plain_ms"], "named": v["named"]}
                         for k, v in idle.items()},
             "layouts": layouts}
+
+
+# ---------------------------------------------------------------------- #
+# phase 11: the default "sum" prior at full width
+# ---------------------------------------------------------------------- #
+SUM_LOOP_STEPS = 50  # phase 11 (b): recorded batched steps, card against a CPU copy
+# phase 11 (a)'s step budget a phase of the mixed schedule, for the
+# script's time limit: unbudgeted, the fit takes [2836, 424] steps
+# (PERF.md section 5)
+HERA_SUM_MAXSTEPS = 500
+
+
+class PlainTerms:
+    """Counts, while it is entered, the calls of the plain torch terms a
+    "sum" fit falls back to for a chunk no kernel takes:
+    ``parallel.batched._sum_terms`` and the plain model of
+    ``ops.loss.chunked_loss_sum_regularized`` (``ops.loss.data_model``)."""
+
+    def __enter__(self):
+        from calamity_tpu_torch.ops import loss
+        from calamity_tpu_torch.parallel import batched
+
+        self.calls = 0
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in ((batched, "_sum_terms"), (loss, "data_model"))]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted(*args, **kw):
+            self.calls += 1
+            return fn(*args, **kw)
+
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def instance_launches(name):
+    """Launches of each instance of a chunk-loss kernel since the counters
+    were last reset, by instance name."""
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops.fused import MODE_NAMES
+
+    return {m: LAUNCHES.get(f"{name}:{m}") for m in MODE_NAMES if LAUNCHES.get(f"{name}:{m}")}
+
+
+def phase_sum_hera():
+    """Phase 11 (a): the HERA core at full width (361 antennas, 4388
+    baselines, 1536 channels, the default shared-basis packing) through
+    ``calibrate_and_model_dpss`` with the entry point's default "sum"
+    prior, fitted twice on a step budget (:data:`HERA_SUM_MAXSTEPS`):
+    steps, ms/step, launches of each kernel and instance a step (every
+    shared chunk's "sum" forward and backward instances each step, no
+    chunk on the plain terms, none named as a fallback), resid/data <=
+    1e-2, the two fits equal to the bit, and the step's device time and
+    idle share under the profiler."""
+    import torch
+
+    import hera_core_demo_torch as demo
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+    from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
+
+    log('== phase 11 (a): the HERA core with the defaults\' "sum" prior, fitted twice, '
+        f"{HERA_SUM_MAXSTEPS} steps a phase at most")
+    corrupted, comps, _ = hera_core_build()
+    nshared = sum(c["kind"] != "dense" for c in demo.chunk_layouts(corrupted, comps))
+    runs = []
+    for _ in range(2):
+        timings = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        t0 = time.time()
+        with PlainTerms() as plain, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings,
+                                             maxsteps=HERA_SUM_MAXSTEPS,
+                                             model_regularization="sum")
+            torch.cuda.synchronize()
+        h = info[0][0]
+        runs.append({
+            "wall": time.time() - t0, "hist": np.asarray(h["loss"]), "steps": h["phase_steps"],
+            "ms_per_step": [1e3 * s / max(n, 1) for s, n in zip(h["phase_seconds"],
+                                                               h["phase_steps"])],
+            "launches": {k: LAUNCHES.get(k) for k in (KERNEL_NAME, SHARED_KERNEL, GAIN_KERNEL,
+                                                      PROD_KERNEL)},
+            "instances": instance_launches(SHARED_KERNEL), "plain_calls": plain.calls,
+            "fallbacks": [str(w.message) for w in caught if "plain torch loss" in str(w.message)],
+            "ratio": _core_resid_ratio(corrupted, resid), "timings": timings,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "finite": bool(np.isfinite(gains.gain_array).all())})
+    first, again = runs
+    recorded = len(first["hist"])
+    per_step = {k: v / recorded for k, v in first["instances"].items()}
+    log(f"  phase steps (bf16, f32) {first['steps']}, ms/step "
+        f"{', '.join(f'{r:.3f}' for r in first['ms_per_step'])} (host clock, incl. the per-step "
+        f"sync); loss {first['hist'][0]:.6e} -> {first['hist'][-1]:.6e}; fit_s "
+        f"{first['timings'].get('fit_s', float('nan')):.2f}, calibrate_and_model_dpss in all "
+        f"{first['wall']:.1f} s; peak device memory {first['peak_gb']:.3f} GB")
+    log(f"  launches {first['launches']} for {recorded} recorded steps and {nshared} shared "
+        f"chunks; {SHARED_KERNEL} by instance {first['instances']} ("
+        + ", ".join(f"{k} {v / nshared:.3f} a chunk and step" for k, v in per_step.items())
+        + f"); plain-term calls {first['plain_calls']}; resid rms / data rms "
+        f"{first['ratio']:.4e} (limit 1e-2); {nvidia_smi_line()}")
+    log(f"  fitted again: steps {again['steps']}, histories equal to the bit "
+        f"{bool(np.array_equal(first['hist'], again['hist']))}, resid/data {again['ratio']:.4e}")
+    for r in runs:
+        check(r["plain_calls"] == 0, f"a B=1 chunk took the plain terms {r['plain_calls']} times")
+        check(not r["fallbacks"], f"chunks named as fallbacks: {r['fallbacks']}")
+        check(r["finite"], "HERA core sum fit: non-finite gains")
+        check(r["ratio"] <= 1e-2, f"HERA core sum fit: resid/data {r['ratio']}")
+        check(r["launches"][KERNEL_NAME] == 0, f"dense launches in the HERA core: {r['launches']}")
+        for inst in ("sum_fwd", "sum_all"):
+            check(r["instances"].get(inst, 0) >= nshared * len(r["hist"]),
+                  f"{r['instances']} for {nshared} shared chunks and {len(r['hist'])} steps")
+        check(min(r["launches"][GAIN_KERNEL], r["launches"][PROD_KERNEL]) >= len(r["hist"]),
+              f"gain kernels {r['launches']} for {len(r['hist'])} steps")
+    check(first["steps"] == again["steps"] and np.array_equal(first["hist"], again["hist"]),
+          "the HERA core's two sum fits differ")
+    idle = hera_idle_share(corrupted, comps, regularization="sum")
+    _HERA.clear()  # phase 11 is its last user
+    return {"steps": first["steps"], "ms_per_step": first["ms_per_step"],
+            "launches": first["launches"], "instances": first["instances"],
+            "per_step": per_step, "resid_ratio": first["ratio"], "peak_gb": first["peak_gb"],
+            "idle": {k: v["idle_share"] for k, v in idle.items()},
+            "profile": {k: {"device_ms": v["device_ms"], "kernels": v["kernels"],
+                            "plain_ms": v["plain_ms"], "named": v["named"]}
+                        for k, v in idle.items()}}
+
+
+def batched_sum_in_loop(tp):
+    """Phase 7's file packed as the time-parallel driver packs it (8
+    slices, float32 comps), :data:`SUM_LOOP_STEPS` recorded batched "sum"
+    steps on the card (the fused kernel's "sum" instances at N = 8) and,
+    with a CPU copy of the first slice (the kernels' plain versions; every
+    slice of the batched descent is its own descent, so one slice takes
+    the steps it takes among eight, and the CPU's steps at N = 8 would
+    take two minutes), its history within rel 1e-4."""
+    import profile_step_torch as prof
+    from calamity_tpu_torch import cal_utils
+    from calamity_tpu_torch.calibration import POLL_EVERY
+    from calamity_tpu_torch.parallel import batched
+    from calamity_tpu_torch.solver import fit as fitmod
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    uvd = tp["uvd"]
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    spec = FitSpec(uvd, tp["comps"], {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", shared_basis=False)
+    chunks = spec.device_chunks()
+    packed = prof.batched_problem(spec, uvd, gains)
+    cfg = fitmod.FitConfig(tol=0.0, maxsteps=SUM_LOOP_STEPS, regularization="sum",
+                           opt_kwargs=(("learning_rate", 1e-2),))
+    nbatch = packed[3].shape[0]
+    firsts = [0]
+    hists = {}
+    for where, rows in (("cuda", slice(None)), ("cpu", firsts)):
+        def on(x):
+            return [on(y) for y in x] if isinstance(x, (list, tuple)) else x[rows].to(where)
+
+        dr, di, w, g_r, g_i, fr, fi = (on(x) for x in packed)
+        chs = [tuple(x.to(where) for x in c) for c in chunks]
+        priors = prof.sum_priors(dr, di, w, dims=(1, 2, 3))
+        opt, one_step = batched._batched_step_fn(cfg, chs, dr, di, w, fr, fi, *priors)
+        params = fitmod.init_params(cfg, g_r, g_i, fr, fi)
+        carry = batched._fresh_carry(cfg, g_r.shape[0], np.float32, g_r.device, None)
+        t0 = time.time()
+        out = batched._batched_segment(cfg, one_step, params, opt.init(params), carry, 0,
+                                       SUM_LOOP_STEPS, poll_every=POLL_EVERY)
+        hists[where] = out[3]
+        log(f"  {SUM_LOOP_STEPS} batched sum steps of {g_r.shape[0]} slices on {where}: "
+            f"{time.time() - t0:.1f} s")
+    h_gpu, h_cpu = hists["cuda"][:, firsts], hists["cpu"]
+    check(hists["cuda"].shape == (SUM_LOOP_STEPS, nbatch) and h_cpu.shape == h_gpu.shape,
+          f"histories {hists['cuda'].shape} {h_cpu.shape}")
+    rel = float(np.max(np.abs(h_gpu - h_cpu) / np.abs(h_cpu)))
+    log(f"  history of slice {firsts[0]}, card (N = {nbatch}) against CPU: max rel {rel:.3e} "
+        "(limit 1e-4)")
+    check(rel <= 1e-4, f"batched sum histories disagree: rel {rel}")
+    return rel
+
+
+def phase_sum_time_parallel(tmp, tp):
+    """Phase 11 (b): phase 7's file (8 slices) through
+    ``read_calibrate_and_model_dpss`` with ``time_parallel=True,
+    shared_basis=False`` and the default "sum" prior: every step through
+    the fused kernel's "sum" instances at N = 8, no chunk on the plain
+    terms, resid/data <= 1e-2 on every slice; then
+    :func:`batched_sum_in_loop`."""
+    import torch
+
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+
+    log('== phase 11 (b): phase 7\'s file, time-parallel, dense chunks, the defaults\' "sum" '
+        "prior")
+    uvd = tp["uvd"]
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    with PlainTerms() as plain, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, resid, gains, info = read_calibrate_and_model_dpss(
+            input_data_files=tp["path"], resid_outfilename=os.path.join(tmp, "sum_resid.uvh5"),
+            clobber=True, min_dly=MIN_DLY_NS, offset=MIN_DLY_NS, time_parallel=True,
+            shared_basis=False, fg_model_comps_dict=tp["comps"], learning_rate=1e-2,
+            maxsteps=MAXSTEPS, tol=TOL, device="cuda", timings=timings)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    instances = instance_launches(KERNEL_NAME)
+    launches = {k: LAUNCHES.get(k) for k in (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL)}
+    steps, seconds = timings["phase_steps"], timings["phase_seconds"]
+    recorded = sum(steps) + len(steps)  # recorded and warm-up batch steps
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
+    ratios = []
+    for pol in range(uvd.Npols):
+        for t in np.unique(uvd.time_array):
+            rows = np.isclose(uvd.time_array, t, rtol=0.0, atol=1e-7)
+            good = ~uvd.flag_array[rows, 0, :, pol]
+            ratios.append(rms(resid.data_array[rows, 0, :, pol][good])
+                          / rms(uvd.data_array[rows, 0, :, pol][good]))
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
+    log(f"  batch steps (bf16, f32) {steps}, ms/step "
+        f"{', '.join(f'{1e3 * s / max(n, 1):.3f}' for s, n in zip(seconds, steps))} (host clock, "
+        f"8 slices a step); read_calibrate_and_model_dpss in all {wall:.1f} s (basis given); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {KERNEL_NAME} by "
+        f"instance {instances} for {recorded} batch steps; plain-term calls {plain.calls}; "
+        f"resid/data per slice {', '.join(f'{r:.3e}' for r in ratios)} (limit 1e-2)")
+    check(plain.calls == 0, f"a B=1 chunk took the plain terms {plain.calls} times")
+    check(not fallbacks, f"chunks named as fallbacks: {fallbacks}")
+    check(np.isfinite(gains.gain_array).all(), "non-finite gains")
+    check(len(ratios) == TP_NTIMES * TP_NPOLS and max(ratios) <= 1e-2, f"resid/data {ratios}")
+    for inst in ("sum_fwd", "sum_all"):
+        check(instances.get(inst, 0) >= recorded, f"{instances} for {recorded} batch steps")
+    check(min(launches.values()) >= recorded, f"{launches} for {recorded} batch steps")
+    rel = batched_sum_in_loop(tp)
+    return {"launches": launches, "instances": instances, "steps": steps,
+            "ms_per_step": [1e3 * s / max(n, 1) for s, n in zip(seconds, steps)],
+            "ratios": ratios, "in_loop_rel": rel}
 
 
 def main():
@@ -2656,7 +3131,7 @@ def main():
         if want("6"):
             out["cli"] = phase_cli(tmp, repo)
             mark("phase 6")
-        if any(want(p) for p in ("7", "8", "9")):
+        if any(want(p) for p in ("7", "8", "9", "11")):
             # phase 4's basis: the same baselines and channels
             out["tp"] = phase_time_parallel(tmp, out["main"]["comps"] if "main" in out else None)
             mark("phase 7")
@@ -2669,6 +3144,11 @@ def main():
         if want("10"):
             out["hera"] = phase_hera_core()
             mark("phase 10")
+        if want("11"):
+            out["sum_hera"] = phase_sum_hera()
+            mark("phase 11 (a)")
+            out["sum_tp"] = phase_sum_time_parallel(tmp, out["tp"])
+            mark("phase 11 (b)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
@@ -2699,6 +3179,7 @@ def kernels_line(out):
     packed = out["gain"]["hera_packed"]
     main, tp, scan, mesh, cli, hera = (out[k] for k in ("main", "tp", "scan", "mesh", "cli",
                                                         "hera"))
+    sum_hera, sum_tp = out["sum_hera"], out["sum_tp"]
     # the largest abs error of a loss or a gradient, kernel against plain, over phase 3
     n8 = fused[(8, torch.float32)]
     timed = {f"N={n} {str(cdt).replace('torch.', '')} comps": {
@@ -2712,18 +3193,24 @@ def kernels_line(out):
                      # phase 9 (b): per rank of the mesh (1, 2)
                      "mesh_1x2": [r["launches"] for r in mesh["b"]],
                      "mesh_1x1": mesh["a"]["launches"],
-                     "hera_core": hera["launches"][KERNEL_NAME]}
+                     "hera_core": hera["launches"][KERNEL_NAME],
+                     "hera_core_sum": sum_hera["launches"][KERNEL_NAME],
+                     "time_parallel_sum": sum_tp["launches"][KERNEL_NAME]}
     gain_by_path = {"serial": main["gain_launches"], "serial_twice": out["twice"]["launches"],
                     "time_parallel": tp["gain_launches"], "time_scan": scan["gain_launches"],
                     "mesh_1x2": [r["gain_launches"] for r in mesh["b"]],
                     "mesh_1x1": mesh["a"]["gain_launches"], "cli_foreign_files": cli["launches"],
-                    "hera_core": hera["launches"][GAIN_KERNEL]}
+                    "hera_core": hera["launches"][GAIN_KERNEL],
+                    "hera_core_sum": sum_hera["launches"][GAIN_KERNEL],
+                    "time_parallel_sum": sum_tp["launches"][GAIN_KERNEL]}
     prod_by_path = {"serial": main["prod_launches"], "serial_twice": out["twice"]["prod_launches"],
                     "time_parallel": tp["prod_launches"], "time_scan": scan["prod_launches"],
                     "mesh_1x2": [r["prod_launches"] for r in mesh["b"]],
                     "mesh_1x1": mesh["a"]["prod_launches"],
                     "cli_foreign_files": cli["prod_launches"],
-                    "hera_core": hera["launches"][PROD_KERNEL]}
+                    "hera_core": hera["launches"][PROD_KERNEL],
+                    "hera_core_sum": sum_hera["launches"][PROD_KERNEL],
+                    "time_parallel_sum": sum_tp["launches"][PROD_KERNEL]}
     g8, p8 = gain[("phase7", 8)], prods[("phase7", 8)]
     return [{
         "name": KERNEL_NAME,
@@ -2731,8 +3218,12 @@ def kernels_line(out):
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (main["launches"] + tp["launches"] + scan["launches"]
-                     + sum(fused_by_path["mesh_1x2"]) + fused_by_path["hera_core"]),
+                     + sum(fused_by_path["mesh_1x2"]) + fused_by_path["hera_core"]
+                     + fused_by_path["time_parallel_sum"]),
         "launches_by_path": fused_by_path,
+        # each instance: its launches on the main path that runs it (the
+        # "sum" instances: phase 11 (b)) and its times at N=8, float32 comps
+        "instances": fused_instances(n8, tp, sum_tp),
         "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
         # the instance the descent launches (loss and every gradient), at the
         # time-parallel path's chunk: N=8, float32 comps
@@ -2800,10 +3291,24 @@ def kernels_line(out):
                           "plain_ms": packed[n]["products_plain_ms"],
                           "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
-    }, shared_kernel_entry(SHARED_KERNEL, shared, hera, cli)]
+    }, shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera)]
 
 
-def shared_kernel_entry(name, shared, hera, cli):
+def fused_instances(n8, tp, sum_tp):
+    """The fused kernel's instances for the kernels line: launches on the
+    time-parallel path that runs each (phase 7 for the chi-square's, phase
+    11 (b) for the "sum" prior's) and ms at the main chunk, N=8, float32
+    comps."""
+    out = {"loss_all": {"ms": n8["grad_ms"], "bound_ms": n8["bound_ms"],
+                        "launches": tp["instances"].get("loss_all", 0)},
+           "loss_only": {"ms": n8["loss_only_ms"], "bound_ms": n8["loss_only_bound_ms"],
+                         "launches": tp["instances"].get("loss_only", 0)}}
+    for name, t in n8["sum"].items():
+        out[name] = dict(t, launches=sum_tp["instances"].get(name, 0))
+    return out
+
+
+def shared_kernel_entry(name, shared, hera, cli, sum_hera):
     """The kernels line's entry of the shared-basis kernel: launches on the
     paths that run shared chunks (the HERA core, the CLI on the foreign
     files), its times at the HERA core's chunks (phase 3s); the headline is
@@ -2814,7 +3319,17 @@ def shared_kernel_entry(name, shared, hera, cli):
     f32 = torch.float32
     chunks = sorted({k[0] for k in shared if isinstance(k[0], int) and len(k) == 3})
     step = [shared[(c, 1, f32)] for c in chunks]
-    by_path = {"hera_core": hera["launches"][name], "cli_foreign_files": cli["shared_launches"]}
+    by_path = {"hera_core": hera["launches"][name], "cli_foreign_files": cli["shared_launches"],
+               "hera_core_sum": sum_hera["launches"][name]}
+    # each instance over the HERA step's four chunks, N = 1, float32 comps;
+    # the "sum" instances' launches from phase 11 (a)
+    instances = {"loss_all": {k: sum(r[k] for r in step) for k in ("ms", "device_ms",
+                                                                   "bound_ms")}}
+    instances["loss_all"]["launches"] = hera["instances"].get("loss_all", 0)
+    for inst in step[0]["sum"]:
+        instances[inst] = {k: sum(r["sum"][inst][k] for r in step)
+                           for k in ("ms", "device_ms", "bound_ms")}
+        instances[inst]["launches"] = sum_hera["instances"].get(inst, 0)
     return {
         "name": name,
         "route": "cuda",
@@ -2822,6 +3337,7 @@ def shared_kernel_entry(name, shared, hera, cli):
         "replaces": SHARED_KERNEL_REPLACES,
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
+        "instances": instances,
         "max_abs_err": max(r["max_abs_err"] for r in shared.values()),
         # the HERA core's step of four chunks, N = 1, float32 comps
         "ms": sum(r["ms"] for r in step),

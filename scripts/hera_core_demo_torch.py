@@ -137,9 +137,12 @@ def chunk_layouts(uvd, comps, shared_basis=True, nvec_bucketing=True):
 
 
 def fit(corrupted, comps, device="cuda", maxsteps=3000, tol=1e-11, patience=500,
-        comps_precision=None, shared_basis=True, dtype=np.float32, timings=None):
+        comps_precision=None, shared_basis=True, dtype=np.float32, timings=None,
+        model_regularization="post_hoc"):
     """``calibrate_and_model_dpss`` on the corrupted core with the demo's
-    settings: (model, resid, gains, fit history)."""
+    settings (``model_regularization="sum"``: the entry point's default
+    flux prior instead of the demo's post_hoc): (model, resid, gains, fit
+    history)."""
     from calamity_tpu_torch import calibration
 
     return calibration.calibrate_and_model_dpss(
@@ -154,7 +157,7 @@ def fit(corrupted, comps, device="cuda", maxsteps=3000, tol=1e-11, patience=500,
         learning_rate=1e-2,
         correct_resid=True,
         correct_model=True,
-        model_regularization="post_hoc",
+        model_regularization=model_regularization,
         nvec_bucketing=True,
         shared_basis=shared_basis,
         dtype=dtype,

@@ -15,7 +15,8 @@ switches, for one). The variants are built in parallel into
 report beside its library as ``NAME.log``, and one line
 per variant gives each template instance's registers and spill bytes
 (``kernel|wide:<slices per tile><comps type><mode>``: mode 0 the loss only, 1 with the
-gain-product gradients, 2 with every gradient). Each variant is held
+gain-product gradients, 2 with every gradient; 3 the "sum" prior's forward, 4 and 5 its
+backward with the gain-product or every gradient). Each variant is held
 against the plain version at ragged shapes, a group-block view, an
 unaligned comps offset, wide bases and the wide-row kernel (loss rel 1e-5,
 gradients rel 1e-4, as in ``chip_smoke.py``'s phase 3; a shape a variant
@@ -123,7 +124,7 @@ def check_shared(libs):
         _build._LOADED[:] = [lib]
         try:
             for cdt in (torch.float32, torch.bfloat16):
-                for u, gmax, f, v in cs.SHARED_RAGGED:
+                for u, gmax, f, v in cs.ragged_cases(cdt):
                     cs.compare_shared("check", 3, u, f, v, cs.ragged_valid(u, gmax), cdt)
                 cs.compare_shared("HERA chunk 1", 8, nu, nf, nv, chunks[1][2], cdt)
                 torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]]
+    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]] [--sum]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
@@ -23,7 +23,10 @@ schedule it times 48 descent steps (after 16 warm-up steps) under
 launches and device time per step of the port's hand-written kernels
 (``fused_chunk_loss``, ``shared_chunk_loss``, ``gain_grad``,
 ``gain_products``), and the device's idle share against the host clock.
-It then times the same steps without the profiler.
+It then times the same steps without the profiler. With ``--sum`` the
+step is that of the "sum" flux prior (``model_regularization="sum"``, the
+Python entry points' default; the sky model is the data, as the driver
+sets it for identity gains) instead of the chi-square alone.
 """
 
 import argparse
@@ -53,16 +56,24 @@ NWARMUP = 16
 KERNELS = ("fused_chunk_loss", "shared_chunk_loss", "gain_grad", "gain_products")
 
 
-def serial_stepper(chs, spec, uvd, gains):
-    """One serial descent step (the first time slice) per call."""
+def sum_priors(dr, di, w, dims=None):
+    """The "sum" prior's sums of a sky model equal to the data: sum(w * d)
+    over every chunk, real and imaginary (per slice over ``dims``)."""
+    return tuple(sum(torch.sum(d * x, dim=dims) for d, x in zip(ds, w)) for ds in (dr, di))
+
+
+def serial_stepper(chs, spec, uvd, gains, regularization=None):
+    """One serial descent step (the first time slice) per call; with
+    ``regularization="sum"`` the "sum" prior's step."""
     t0 = spec.times[0]
     rows = np.isclose(uvd.time_array, t0, rtol=0.0, atol=1e-7)
     rms = np.sqrt(np.mean(np.abs(uvd.data_array[rows, 0, :, 0]) ** 2))
     dr, di, w = spec.pack_data(uvd, "xx", t0, data_scale_factor=rms)
     g_r, g_i = spec.pack_gains(gains, "xx", t0)
     fr, fi = tuple(spec.init_coeffs(dr, w)), tuple(spec.init_coeffs(di, w))
-    cfg = fitmod.FitConfig(tol=0.0)
-    loss_fn = fitmod.make_loss_fn(cfg, chs, dr, di, w, fr, fi, None, None)
+    cfg = fitmod.FitConfig(tol=0.0, regularization=regularization)
+    priors = sum_priors(dr, di, w) if regularization == "sum" else (None, None)
+    loss_fn = fitmod.make_loss_fn(cfg, chs, dr, di, w, fr, fi, *priors)
     opt = get_optimizer("Adamax", learning_rate=1e-2)
     state = {"params": fitmod.init_params(cfg, g_r, g_i, fr, fi)}
     state["opt"] = opt.init(state["params"])
@@ -75,12 +86,12 @@ def serial_stepper(chs, spec, uvd, gains):
     return step, 1
 
 
-def batched_stepper(chs, spec, uvd, gains, nbatch=None):
-    """POLL_EVERY batched descent steps over every slice of ``uvd`` per
-    call, through the driver's segment loop (one host poll per call); with
-    ``nbatch`` larger than the file's slices, the first slice repeated to
-    ``nbatch``, each copy with seeded noise (1% of the data's rms) where
-    its weights are not zero."""
+def batched_problem(spec, uvd, gains, nbatch=None):
+    """Every slice of ``uvd`` packed on the spec's device as the
+    time-parallel driver packs them, with warm-started coefficients: (dr, di, w, g_r,
+    g_i, fr, fi); with ``nbatch`` larger than the file's slices, the first
+    slice repeated to ``nbatch``, each copy with seeded noise (1% of the
+    data's rms) where its weights are not zero."""
     slices = [(pol, t) for pol in uvd.get_pols() for t in spec.times]
     nfile = len(slices)
     if nbatch is not None and nbatch > nfile:
@@ -101,22 +112,34 @@ def batched_stepper(chs, spec, uvd, gains, nbatch=None):
             rms = np.sqrt(np.mean(d_r[0] ** 2 + d_i[0] ** 2))
             for d in (d_r, d_i):
                 d[b] += np.where(ww[b] > 0, 0.01 * rms * rng.standard_normal(d[b].shape), 0.0)
-    dev = torch.device("cuda")
+    dev = spec.device
     # one weights plane per slice where every channel's weights are equal,
     # as the driver compresses them
     stacks[2] = [_compress_freq_invariant_wgts(x) for x in stacks[2]]
     dr, di, w = ([torch.as_tensor(x, device=dev) for x in s] for s in stacks)
     fr, fi = [], []
-    for (comps, _, _), c_full, d_r, d_i, ww in zip(chs, spec.device_chunks(), dr, di, w):
+    for c_full, d_r, d_i, ww in zip(spec.device_chunks(), dr, di, w):
         chol, active = gram_cholesky_chunk(c_full[0])
         cr, ci, *_ = blocked_init_from_data(chol, active, c_full[0], d_r, d_i, ww, d_r.shape[1])
         fr.append(cr)
         fi.append(ci)
-    cfg = fitmod.FitConfig(tol=0.0, maxsteps=10 ** 9, opt_kwargs=(("learning_rate", 1e-2),))
-    opt, one_step = batched._batched_step_fn(cfg, chs, dr, di, w, fr, fi, None, None)
-    params = fitmod.init_params(cfg, torch.stack(g_r), torch.stack(g_i), fr, fi)
+    return dr, di, w, torch.stack(g_r), torch.stack(g_i), fr, fi
+
+
+def batched_stepper(chs, spec, uvd, gains, nbatch=None, regularization=None):
+    """POLL_EVERY batched descent steps over the slices of
+    :func:`batched_problem` per call, through the driver's segment loop
+    (one host poll per call); with ``regularization="sum"`` the "sum"
+    prior's step."""
+    dr, di, w, g_r, g_i, fr, fi = batched_problem(spec, uvd, gains, nbatch)
+    cfg = fitmod.FitConfig(tol=0.0, maxsteps=10 ** 9, opt_kwargs=(("learning_rate", 1e-2),),
+                           regularization=regularization)
+    priors = (sum_priors(dr, di, w, dims=(1, 2, 3)) if regularization == "sum"
+              else (None, None))
+    opt, one_step = batched._batched_step_fn(cfg, chs, dr, di, w, fr, fi, *priors)
+    params = fitmod.init_params(cfg, g_r, g_i, fr, fi)
     state = {"params": params, "opt": opt.init(params), "step": 0,
-             "carry": batched._fresh_carry(cfg, nb, np.float32, dev, None)}
+             "carry": batched._fresh_carry(cfg, g_r.shape[0], np.float32, g_r.device, None)}
 
     def step():
         (state["params"], state["opt"], state["carry"], _, n) = batched._batched_segment(
@@ -191,7 +214,11 @@ def main():
     ap.add_argument("--hera", action="store_true",
                     help="the serial (or, with --nbatch N, the batched) step of the HERA core "
                          "with the default packing")
+    ap.add_argument("--sum", action="store_true",
+                    help='the step of the "sum" flux prior (the default regularization of the '
+                         "Python entry points)")
     args = ap.parse_args()
+    regularization = "sum" if args.sum else None
     if args.scan and (args.nbatch != 1 or args.hera):
         ap.error("--scan steps one slice of the disc array; leave --nbatch at 1, no --hera")
     if not torch.cuda.is_available():
@@ -208,14 +235,15 @@ def main():
         spec = FitSpec(uvd, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
                        device="cuda")
     chunks = spec.device_chunks()
-    print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}")
+    print(f"chunks {[tuple(c.shape) for c, _, _ in chunks]}; slices per step {args.nbatch}; "
+          f"regularization {regularization}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
     for name, chs in phases:
         if args.nbatch == 1 and not args.scan:
-            step, per_call = serial_stepper(chs, spec, uvd, gains)
+            step, per_call = serial_stepper(chs, spec, uvd, gains, regularization)
         else:
             step, per_call = batched_stepper(chs, spec, uvd, gains,
-                                             args.nbatch if args.hera else None)
+                                             args.nbatch if args.hera else None, regularization)
         out = profile(step, per_call)
         print(f"== {name} step: host clock {out['wall_ms']:.3f} ms/step under the profiler; "
               f"device {out['device_ms']:.3f} ms/step in {out['kernels']:.0f} kernels; idle "

@@ -76,7 +76,8 @@ def test_read_calibrate_and_model_dpss_matches_jax(cli_scenario, redundant_visda
     _, _, gj, info_j = jcal.read_calibrate_and_model_dpss(
         resid_outfilename=out_j["resid.uvh5"], model_outfilename=out_j["model.uvh5"],
         gain_outfilename=out_j["gains.calfits"], **kw)
-    # the in-memory default regularization, "sum", takes the plain loss
+    # the in-memory default regularization, "sum": every B=1 chunk takes a
+    # chunk-loss kernel's "sum" instances (on the CPU, their plain versions)
     model, resid, gt, info_t = tcal.read_calibrate_and_model_dpss(
         resid_outfilename=out_t["resid.uvh5"], model_outfilename=out_t["model.uvh5"],
         gain_outfilename=out_t["gains.calfits"], device="cpu", **kw)
