@@ -25,15 +25,26 @@
 // The "sum" flux prior (calamity_tpu/parallel/batched.py:216-272) adds
 // per slice the weighted model sums M_r = sum w m_r and M_i = sum w m_i,
 // and its loss (sum_chunks chi2 + (sum M_r - P_r)^2 + (sum M_i - P_i)^2)
-// gives them a cotangent that depends on every chunk's sums: the
-// gradients cannot be formed in the forward pass. Three more instances:
-// the "sum" forward (the loss-only pass that also writes the partials of
-// M_r and M_i beside the chi-square's), and the "sum" backward with
-// dpr/dpi or with every gradient, at per-slice cotangents (gx, gr, gi) of
-// (chi2, M_r, M_i), which only change dm:
-//   dm_r = w (gr - 2 gx (dr - m_r)),   dm_i = w (gi - 2 gx (di - m_i))
-// The backward writes no loss; the cotangents are staged in shared memory
-// once per slice tile.
+// gives them a cotangent that depends on every chunk's sums, known only
+// after every chunk's forward. At per-slice cotangents (gx, gr, gi) of
+// (chi2, M_r, M_i) only dm changes, dm_r = w (gr - 2 gx (dr - m_r)) and
+// dm_i = w (gi - 2 gx (di - m_i)), so every gradient is linear in them:
+//   dpr     = gx dpr_chi + gr (w v_r) + gi (w v_i)
+//   dpi     = gx dpi_chi + gr (w v_i) - gi (w v_r)
+//   dcoeffs_re = gx D_re + gr C(w pr) - gi C(w pi)
+//   dcoeffs_im = gx D_im + gr C(w pi) + gi C(w pr)
+// with dpr_chi, dpi_chi and D = C(dv) the chi-square's gradients at a
+// cotangent of 1 and C(x)[k] = sum_f comps[g, f, k] x[f]. Three "sum"
+// instances: the forward alone (the loss-only pass that also writes the
+// partials of M_r and M_i beside the chi-square's; no gradient wanted),
+// and the one-pass forward with dpr/dpi (coefficients frozen) or with
+// every gradient, which in the same read of comps also write the pieces
+// above: dpr_chi, dpi_chi, w v_r, w v_i and, with every gradient, D_re,
+// D_im, C(w pr), C(w pi), four columns a slice in phase B. A second
+// kernel, `fused_sum_combine_kernel`, forms the gradients from those
+// pieces and the cotangents in one elementwise launch, without comps.
+// (The shared-basis kernel's modes 4 and 5, its "sum" backward, are not
+// instances of this kernel.)
 //
 // What bounds it: bytes, then registers. Each comps value is read from
 // device memory once for up to 8 slices and feeds 4 N fused multiply-adds
@@ -85,6 +96,25 @@
 //   each row and dv as float4 broadcasts. Modes past that are owned one per
 //   thread and accumulated in the output itself (the block owns its group's
 //   gradient), tile by tile.
+// - Phase B of the one-pass "sum" instance takes four columns a slice (32
+//   at 8 slices), which a thread's register tile cannot hold at 128
+//   registers. It runs on the tensor cores instead, as the shared-basis
+//   kernel's products do: `mma.sync.m16n8k8` with TF32 operands, each
+//   float32 operand split into a TF32 hi and lo, the product accumulated
+//   as a_lo b_hi + a_hi b_lo + a_hi b_hi (float32 comps: three `mma`s) or
+//   a b_lo + a b_hi (bfloat16 comps, exact in TF32: two), good to about
+//   2^-20 relative. A is comps^T (16 modes x 8 rows of the tile, read from
+//   the ring and split by truncation), B the four columns of each slice (8
+//   rows x 8 columns), split once by the epilogue (cvt.rna) into (hi, lo)
+//   pairs in shared memory (its stores 4-way conflicted: an XOR swizzle
+//   that removed that cost more in phase B's addressing). At 8 slices a
+//   tile the instance runs three blocks an SM at 168 registers: at 128 it
+//   spilled 460-488 bytes and took 2.10 ms against 1.68 (f32, N = 8, the
+//   device alone; PERF.md). Each warp holds 32 accumulators a thread
+//   across the F loop: m16 tiles w, w + 4, ... of the modes over every
+//   column (128 modes at 8 slices a tile, 256 at 4, 512 below); modes past
+//   those are summed tile by tile into the output, each entry by one lane.
+//   Rows past the tile and modes past V read as zero.
 // - Loop counters and shared-memory offsets are 32-bit: registers, not
 //   instructions, are what this kernel is short of.
 // - The per-slice loss partials are one per block, summed by the caller in
@@ -106,6 +136,7 @@
 #include <climits>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -115,38 +146,63 @@ constexpr int kTileA = 2;                 // phase A: rows a thread
 constexpr int kTileB = 2;                 // phase B: modes a thread
 constexpr int kStages = 2;                // comps tiles in the ring
 constexpr size_t kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
-// the most a block may take so that kMinBlocks fit on an SM (228 KB, 1 KB
-// of each block's reserved)
-constexpr size_t kPerBlock = 233472 / kMinBlocks - 1024;
+// the most a block may take so that `blocks` fit on an SM (228 KB, 1 KB of
+// each block's reserved)
+__host__ __device__ constexpr size_t smem_per_block(int blocks) { return 233472 / blocks - 1024; }
+constexpr size_t kPerBlock = smem_per_block(kMinBlocks);
 
-// the chi-square's instances (0-2) and the "sum" prior's (3-5)
-enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2, kSumFwd = 3, kSumDp = 4, kSumAll = 5 };
+// the chi-square's instances (0-2) and the "sum" prior's: its forward alone
+// (3) and its one-pass forward with dpr/dpi (6) or every gradient (7).
+// Modes 4 and 5 are the shared-basis kernel's "sum" backward; this kernel
+// has none.
+enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2, kSumFwd = 3, kSumFwdDp = 6, kSumFwdAll = 7 };
 
-__host__ __device__ constexpr bool has_dp(int mode) {
-  return mode == kLossDp || mode == kLossAll || mode >= kSumDp;
+__host__ __device__ constexpr bool is_mode(int mode) {
+  return (mode >= kLossOnly && mode <= kSumFwd) || mode == kSumFwdDp || mode == kSumFwdAll;
 }
-__host__ __device__ constexpr bool has_all(int mode) { return mode == kLossAll || mode == kSumAll; }
-__host__ __device__ constexpr bool has_cot(int mode) { return mode >= kSumDp; }
+__host__ __device__ constexpr bool has_dp(int mode) {
+  return mode == kLossDp || mode == kLossAll || mode >= kSumFwdDp;
+}
+// the chi-square's coefficient gradient in registers on CUDA cores
+__host__ __device__ constexpr bool has_all(int mode) { return mode == kLossAll; }
+// the one-pass "sum" instances: dpr/dpi at a chi-square cotangent of 1 and
+// the planes w v_r, w v_i (and with every gradient phase B on the tensor cores)
+__host__ __device__ constexpr bool one_pass(int mode) { return mode >= kSumFwdDp; }
+__host__ __device__ constexpr bool has_mma(int mode) { return mode == kSumFwdAll; }
+// blocks an SM holds: the one-pass instance's 32 accumulators a thread
+// across the F loop spill at 128 registers with 8 slices a tile (460-488
+// bytes): three blocks of 168 registers there
+__host__ __device__ constexpr int blocks_per_sm(int mode, int nt) {
+  return has_mma(mode) && nt == 8 ? 3 : kMinBlocks;
+}
 // the partial sums an instance writes per (slice, group): the chi-square;
-// the "sum" forward also M_r and M_i; the "sum" backward none
+// the "sum" instances also M_r and M_i
 __host__ __device__ constexpr int n_terms(int mode) {
-  return mode == kSumFwd ? 3 : mode >= kSumDp ? 0 : 1;
+  return mode == kSumFwd || one_pass(mode) ? 3 : 1;
 }
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
 __host__ __device__ constexpr int dv_stride(int m) { return m % 4 == 0 ? m + 4 : m; }
 
+// the tensor-core phase B's (hi, lo) pairs of dv: 4 NT columns (at least
+// one n8 tile) per row, in float2 units; a row stride of 4 mod 16 puts a
+// half-warp's B fragment reads (rows tig, columns gid) in distinct banks
+__host__ __device__ constexpr int pair_cols(int m) { return 2 * m < 8 ? 8 : 2 * m; }
+__host__ __device__ constexpr int pair_stride(int m) { return pair_cols(m) + 4; }
+// rows of that tile: whole k-steps of 8
+__host__ __device__ constexpr int pair_rows(int rows) { return rows < 8 ? 8 : rows; }
+
 // columns of a thread's register tile (the rest of the 2 NT go to others)
 __host__ __device__ constexpr int tile_cols(int m) { return m < 8 ? m : 8; }
 
 // byte offsets of the shared-memory sections of one block
 struct Layout {
-  size_t tile_bytes, tiles, coef, cot, red, dv, total;
+  size_t tile_bytes, tiles, coef, red, dv, total;
 };
 
 __host__ __device__ inline Layout make_layout(int m, int rows, long long V, int csize,
-                                              bool coef_smem, bool grads, bool cot) {
+                                              bool coef_smem, int mode) {
   Layout L;
   size_t off = 8 * kStages;  // the mbarriers
   off = round16(off);
@@ -155,12 +211,11 @@ __host__ __device__ inline Layout make_layout(int m, int rows, long long V, int 
   off += kStages * L.tile_bytes;
   L.coef = off;
   if (coef_smem) off += round16(static_cast<size_t>(V) * m * 4);
-  L.cot = off;  // the "sum" backward's cotangents: (3, NT)
-  if (cot) off += round16(static_cast<size_t>(3) * (m / 2) * 4);
   L.red = off;  // phase A exchange; loss reduction
   off += round16(static_cast<size_t>(kThreads) * kTileA * tile_cols(m) * 4);
   L.dv = off;
-  if (grads) off += round16(static_cast<size_t>(rows) * dv_stride(m) * 4);
+  if (has_all(mode)) off += round16(static_cast<size_t>(rows) * dv_stride(m) * 4);
+  if (has_mma(mode)) off += round16(static_cast<size_t>(pair_rows(rows)) * pair_stride(m) * 8);
   L.total = off;
   return L;
 }
@@ -251,8 +306,94 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
+// x = hi + lo in TF32: hi = tf32(x) (its low 13 bits cleared, so that x - hi
+// is exact), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
+  hi = h;
+  lo = l;
+}
+
+// d += a b on one m16n8k8 tile, TF32 operands, float32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// phase B of the one-pass instance on one k-step: d[j] += A B for the m16
+// tile of modes at m0 and each of the NTN n8 tiles of columns; A is the
+// comps tile's rows r0.. r0 + 7 at those modes (zero past rows_here and V),
+// B's (hi, lo) pairs given. Float32 comps: A split by truncation (hi = x
+// with its low 13 bits cleared, lo = x - hi, exact, of which the tensor
+// core reads the TF32 part: 2^-20 of x against cvt.rna's 2^-22, two
+// instructions against six), three products small terms first; bfloat16
+// comps are exact in TF32: two.
+template <typename TC, int NTN>
+__device__ __forceinline__ void mma_rows(float (&d)[NTN][4], const TC* tile, int Vs, int rows_here,
+                                         int r0, int m0, int gid, int tig,
+                                         const uint32_t (&bh)[NTN][2],
+                                         const uint32_t (&bl)[NTN][2]) {
+  float a[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = r0 + tig + 4 * (q >> 1), m = m0 + gid + 8 * (q & 1);
+    a[q] = r < rows_here && m < Vs ? to_f32(tile[r * Vs + m]) : 0.f;
+  }
+  if constexpr (sizeof(TC) == 4) {
+    uint32_t ahi[4], alo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ahi[q] = __float_as_uint(a[q]) & 0xffffe000u;
+      alo[q] = __float_as_uint(a[q] - __uint_as_float(ahi[q]));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      mma_tf32(d[nt], alo, bh[nt][0], bh[nt][1]);
+      mma_tf32(d[nt], ahi, bl[nt][0], bl[nt][1]);
+      mma_tf32(d[nt], ahi, bh[nt][0], bh[nt][1]);
+    }
+  } else {
+    const uint32_t ax[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]), __float_as_uint(a[2]),
+                            __float_as_uint(a[3])};
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      mma_tf32(d[nt], ax, bl[nt][0], bl[nt][1]);
+      mma_tf32(d[nt], ax, bh[nt][0], bh[nt][1]);
+    }
+  }
+}
+
+// B's (hi, lo) pairs of k-step r0 for each n8 tile: rows r0 + tig and r0 +
+// tig + 4, column 8 nt + gid
+template <int NTN>
+__device__ __forceinline__ void load_b(const float2* dvp, int stride, int r0, int gid, int tig,
+                                       uint32_t (&bh)[NTN][2], uint32_t (&bl)[NTN][2]) {
+#pragma unroll
+  for (int nt = 0; nt < NTN; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = dvp[(r0 + tig + 4 * h) * stride + 8 * nt + gid];
+      bh[nt][h] = __float_as_uint(x.x);
+      bl[nt][h] = __float_as_uint(x.y);
+    }
+  }
+}
+
+// the output index of entry (column col = 4 n + c, mode k) of the one-pass
+// instance's (4, N, G, V) coefficient pieces: D_re, D_im, C(w pr), C(w pi)
+__device__ __forceinline__ int64_t piece_index(int col, int64_t n0, int64_t N, int64_t G,
+                                               int64_t g, int64_t V, int64_t k) {
+  return (((col & 3) * N + n0 + (col >> 2)) * G + g) * V + k;
+}
+
 template <int NT, typename TC, int MODE>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(MODE, NT))
 fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
                         const float* __restrict__ pr, const float* __restrict__ pi,
                         const float* __restrict__ dr, const float* __restrict__ di,
@@ -260,9 +401,8 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
                         int w_bf16, int64_t w_sn, int64_t w_sg, int64_t w_sf,
                         float* __restrict__ partials, float* __restrict__ dcoeffs,
                         float* __restrict__ dpr, float* __restrict__ dpi,
-                        float* __restrict__ coef_scratch, const float* __restrict__ cot,
-                        int64_t N, int64_t G, int64_t F, int64_t V, int rows, int bulk,
-                        int pairs, int coef_smem) {
+                        float* __restrict__ coef_scratch, int64_t N, int64_t G, int64_t F,
+                        int64_t V, int rows, int bulk, int pairs, int coef_smem) {
   constexpr int M = 2 * NT;           // dot products per row: (re, im) per slice
   constexpr int C = tile_cols(M);     // columns of a thread's register tile
   constexpr int CG = M / C;           // column groups
@@ -270,20 +410,29 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
   constexpr int DVS = dv_stride(M);
   constexpr bool kDp = has_dp(MODE);
   constexpr bool kAll = has_all(MODE);
-  constexpr bool kCot = has_cot(MODE);
+  constexpr bool kOne = one_pass(MODE);
+  constexpr bool kMma = has_mma(MODE);
   constexpr int kTerms = n_terms(MODE);
   constexpr int NS = kTerms == 3 ? NH : 1;  // the model sums' accumulators
+  // the tensor-core phase B: n8 tiles of the 4 NT columns, m16 tiles of
+  // modes a warp holds (32 accumulators a thread), modes held in registers
+  constexpr int NTN = pair_cols(M) / 8;
+  constexpr int MTW = 8 / NTN;
+  constexpr int kCapB = (kThreads / 32) * MTW * 16;
+  constexpr int PS = pair_stride(M);
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(M, rows, V, sizeof(TC), coef_smem != 0, kAll, kCot);
+  const Layout L = make_layout(M, rows, V, sizeof(TC), coef_smem != 0, MODE);
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
-  float* cots = reinterpret_cast<float*>(smem + L.cot);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* dvs = reinterpret_cast<float*>(smem + L.dv);
+  float2* dvp = reinterpret_cast<float2*>(smem + L.dv);
 
   const int t = threadIdx.x;
+  const int warp = t >> 5, gid = (t & 31) >> 2, tig = t & 3;  // the mma fragments' lanes
   const int64_t g = blockIdx.x;
   float* coef = coef_smem ? reinterpret_cast<float*>(smem + L.coef) : coef_scratch + g * V * M;
   const int64_t GF = G * F;
+  const int64_t NGF = N * GF;  // the one-pass instances' second planes: w v_r, w v_i
   // shared-memory offsets and tile counters in 32 bits (the plan keeps N, F
   // and a tile row within int range): registers are what this kernel is
   // short of
@@ -317,6 +466,10 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&mbar[s]), bulk ? 1 : kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (kMma) {
+    // dv's (hi, lo) pairs start at zero: rows past the tile, columns past 4 NT
+    for (int idx = t; idx < pair_rows(rows) * PS; idx += kThreads) dvp[idx] = make_float2(0.f, 0.f);
   }
   __syncthreads();
 
@@ -368,19 +521,16 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
       const int n = j >> 1;
       coef[k * M + j] = n < nt ? coeffs2[(((j & 1) * N + n0 + n) * G + g) * V + k] : 0.f;
     }
-    if constexpr (kCot) {
-      // the slice tile's cotangents: -2 gx, gr, gi of each slice
-      for (int idx = t; idx < 3 * NT; idx += kThreads) {
-        const int c = idx / NT, n = idx - c * NT;
-        const float x = n < nt ? cot[c * N + n0 + n] : 0.f;
-        cots[idx] = c == 0 ? -2.f * x : x;
-      }
-    }
     if constexpr (kAll) {
       // modes past the register tiles accumulate in the output itself
       for (int64_t k = capacity + t; k < V; k += kThreads) {
         for (int j = 0; j < 2 * nt; ++j)
           dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] = 0.f;
+      }
+    }
+    if constexpr (kMma) {
+      for (int64_t k = kCapB + t; k < V; k += kThreads) {
+        for (int col = 0; col < 4 * nt; ++col) dcoeffs[piece_index(col, n0, N, G, g, V, k)] = 0.f;
       }
     }
     float lacc[NH], mrs[NS], mis[NS];
@@ -393,6 +543,15 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
     for (int m = 0; m < kTileB; ++m) {
 #pragma unroll
       for (int j = 0; j < C; ++j) acc[m][j] = 0.f;
+    }
+    float bacc[kMma ? MTW : 1][NTN][4];
+#pragma unroll
+    for (int m = 0; m < (kMma ? MTW : 1); ++m) {
+#pragma unroll
+      for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bacc[m][n][j] = 0.f;
+      }
     }
     __syncthreads();  // coef staged
 
@@ -468,7 +627,16 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
 #pragma unroll
       for (int q = 0; q < NH; ++q) {
         const int n = ne0 + q;
-        if (!(erow && n < ne1 && n < nt)) continue;
+        if (n >= ne1) continue;
+        if (!(erow && n < nt)) {
+          // the tensor cores read every row of a k-step and every column of
+          // an n8 tile: zeros here
+          if constexpr (kMma) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dvp[re * PS + 4 * n + c] = make_float2(0.f, 0.f);
+          }
+          continue;
+        }
         float sr = 0.f, si = 0.f;
         for (int p = 0; p < parts; ++p) {  // a fixed order
           sr += red[(p * M + 2 * n) * rows + re];
@@ -478,26 +646,35 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
         const float mi = -p_i[q] * sr + p_r[q] * si;
         const float er = d_r[q] - mr;
         const float ei = d_i[q] - mi;
-        if constexpr (kTerms > 0) lacc[q] += wv[q] * (er * er + ei * ei);
+        lacc[q] += wv[q] * (er * er + ei * ei);
         if constexpr (kTerms == 3) {
           mrs[q] += wv[q] * mr;
           mis[q] += wv[q] * mi;
         }
         if constexpr (kDp) {
-          float dmr, dmi;
-          if constexpr (kCot) {
-            dmr = wv[q] * fmaf(cots[n], er, cots[NT + n]);
-            dmi = wv[q] * fmaf(cots[n], ei, cots[2 * NT + n]);
-          } else {
-            dmr = -2.f * wv[q] * er;
-            dmi = -2.f * wv[q] * ei;
-          }
+          // the chi-square's gradients at a cotangent of 1
+          const float dmr = -2.f * wv[q] * er;
+          const float dmi = -2.f * wv[q] * ei;
           const int64_t prow = (n0 + n) * GF + g * F + f;
           dpr[prow] = sr * dmr + si * dmi;
           dpi[prow] = si * dmr - sr * dmi;
+          if constexpr (kOne) {
+            dpr[NGF + prow] = wv[q] * sr;
+            dpi[NGF + prow] = wv[q] * si;
+          }
           if constexpr (kAll) {
             dvs[re * DVS + 2 * n] = p_r[q] * dmr - p_i[q] * dmi;
             dvs[re * DVS + 2 * n + 1] = p_i[q] * dmr + p_r[q] * dmi;
+          }
+          if constexpr (kMma) {
+            const float x[4] = {p_r[q] * dmr - p_i[q] * dmi, p_i[q] * dmr + p_r[q] * dmi,
+                                wv[q] * p_r[q], wv[q] * p_i[q]};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              uint32_t hi, lo;
+              split_tf32(x[c], hi, lo);
+              dvp[re * PS + 4 * n + c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+            }
           }
         }
       }
@@ -544,33 +721,69 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
           }
         }
       }
-      __syncthreads();  // every read of this stage and of red is done
-      if (i + kStages < total) issue(i + kStages);
-    }
-
-    // the slice tile's partials (the loss; with the "sum" forward also M_r
-    // and M_i): one per (term, slice, block), summed over the rows in a
-    // fixed order
-    if constexpr (kTerms > 0) {
+      if constexpr (kMma) {
+        __syncthreads();  // the dv pairs are complete
+        // phase B on the tensor cores: this warp's m16 tiles of modes w, w +
+        // 4, ... over the tile's rows in k-steps of 8
+        for (int r0 = 0; r0 < rows_here; r0 += 8) {
+          uint32_t bh[NTN][2], bl[NTN][2];
+          load_b<NTN>(dvp, PS, r0, gid, tig, bh, bl);
 #pragma unroll
-      for (int q = 0; q < NH; ++q) {
-        const int n = ne0 + q;
-        if (n < ne1) {
-          red[n * rows + re] = lacc[q];
-          if constexpr (kTerms == 3) {
-            red[(NT + n) * rows + re] = mrs[q];
-            red[(2 * NT + n) * rows + re] = mis[q];
+          for (int mt = 0; mt < MTW; ++mt) {
+            const int m0 = (warp + 4 * mt) * 16;
+            if (m0 < Vs) mma_rows<TC, NTN>(bacc[mt], tile, Vs, rows_here, r0, m0, gid, tig, bh, bl);
+          }
+        }
+        // modes past the register tiles: one m16 tile at a time, added to
+        // the output (each entry by one lane, tile after tile)
+        for (int m0 = kCapB + warp * 16; m0 < Vs; m0 += 64) {
+          float x[NTN][4];
+#pragma unroll
+          for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) x[n][j] = 0.f;
+          }
+          for (int r0 = 0; r0 < rows_here; r0 += 8) {
+            uint32_t bh[NTN][2], bl[NTN][2];
+            load_b<NTN>(dvp, PS, r0, gid, tig, bh, bl);
+            mma_rows<TC, NTN>(x, tile, Vs, rows_here, r0, m0, gid, tig, bh, bl);
+          }
+#pragma unroll
+          for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int col = 8 * n + 2 * tig + (j & 1), k = m0 + gid + 8 * (j >> 1);
+              if (k < Vs && (col >> 2) < nt)
+                dcoeffs[piece_index(col, n0, N, G, g, V, k)] += x[n][j];
+            }
           }
         }
       }
-      __syncthreads();
-      if (t < kTerms * NT) {
-        const int c = t / NT, n = t - c * NT;
-        if (n < nt) {
-          float sum = 0.f;
-          for (int r = 0; r < rows; ++r) sum += red[t * rows + r];
-          partials[(c * N + n0 + n) * G + g] = sum;
+      __syncthreads();  // every read of this stage, of red and of dv is done
+      if (i + kStages < total) issue(i + kStages);
+    }
+
+    // the slice tile's partials (the loss; with the "sum" instances also M_r
+    // and M_i): one per (term, slice, block), summed over the rows in a
+    // fixed order
+#pragma unroll
+    for (int q = 0; q < NH; ++q) {
+      const int n = ne0 + q;
+      if (n < ne1) {
+        red[n * rows + re] = lacc[q];
+        if constexpr (kTerms == 3) {
+          red[(NT + n) * rows + re] = mrs[q];
+          red[(2 * NT + n) * rows + re] = mis[q];
         }
+      }
+    }
+    __syncthreads();
+    if (t < kTerms * NT) {
+      const int c = t / NT, n = t - c * NT;
+      if (n < nt) {
+        float sum = 0.f;
+        for (int r = 0; r < rows; ++r) sum += red[t * rows + r];
+        partials[(c * N + n0 + n) * G + g] = sum;
       }
     }
     if constexpr (kAll) {
@@ -583,6 +796,22 @@ fused_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__ 
           const int col = cb * C + j;
           if ((col >> 1) < nt)
             dcoeffs[(((col & 1) * N + n0 + (col >> 1)) * G + g) * V + k] = acc[m][j];
+        }
+      }
+    }
+    if constexpr (kMma) {
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt) {
+        const int m0 = (warp + 4 * mt) * 16;
+        if (m0 >= Vs) continue;
+#pragma unroll
+        for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 8 * n + 2 * tig + (j & 1), k = m0 + gid + 8 * (j >> 1);
+            if (k < Vs && (col >> 2) < nt)
+              dcoeffs[piece_index(col, n0, N, G, g, V, k)] = bacc[mt][n][j];
+          }
         }
       }
     }
@@ -604,38 +833,46 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
                       int64_t d_sg, int64_t d_sf, const void* __restrict__ w, int w_bf16,
                       int64_t w_sn, int64_t w_sg, int64_t w_sf, float* __restrict__ partials,
                       float* __restrict__ dcoeffs, float* __restrict__ dpr,
-                      float* __restrict__ dpi, float* __restrict__ coef_scratch,
-                      const float* __restrict__ cot, int64_t N, int64_t G, int64_t F,
-                      int64_t V) {
+                      float* __restrict__ dpi, float* __restrict__ coef_scratch, int64_t N,
+                      int64_t G, int64_t F, int64_t V) {
   constexpr int M = 2 * NT;
   constexpr int kWarps = kThreads / 32;
   constexpr bool kDp = has_dp(MODE);
   constexpr bool kAll = has_all(MODE);
-  constexpr bool kCot = has_cot(MODE);
+  constexpr bool kOne = one_pass(MODE);
+  constexpr bool kMma = has_mma(MODE);
   constexpr int kTerms = n_terms(MODE);
+  constexpr int kCols = kMma ? 2 * M : M;  // the coefficient gradient's columns a slice tile
   __shared__ float wsum[kWarps][M];
-  __shared__ float dvrow[M];
+  __shared__ float dvrow[kCols];
   const int t = threadIdx.x;
   const int64_t g = blockIdx.x;
   float* coef = coef_scratch + g * V * M;
   const int64_t GF = G * F;
+  const int64_t NGF = N * GF;
+  // column j of dvrow: (re, im) of slice j / 2, or with the one-pass
+  // instance piece j % 4 of slice j / 4
+  auto out_index = [&](int j, int64_t n0, int64_t k) {
+    return kMma ? piece_index(j, n0, N, G, g, V, k)
+                : (((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k;
+  };
   for (int64_t n0 = 0; n0 < N; n0 += NT) {
     const int nt = static_cast<int>(N - n0 < NT ? N - n0 : NT);
+    const int ncols = (kMma ? 4 : 2) * nt;
     for (int64_t idx = t; idx < V * M; idx += kThreads) {
       const int j = static_cast<int>(idx / V);
       const int64_t k = idx - j * V;
       const int64_t out = (((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k;
       coef[k * M + j] = (j >> 1) < nt ? coeffs2[out] : 0.f;
-      if (kAll && (j >> 1) < nt) dcoeffs[out] = 0.f;
+    }
+    if (kAll || kMma) {
+      for (int64_t idx = t; idx < V * ncols; idx += kThreads) {
+        const int j = static_cast<int>(idx / V);
+        dcoeffs[out_index(j, n0, idx - j * V)] = 0.f;
+      }
     }
     __syncthreads();  // coefficients staged, gradient zeroed
     float lacc = 0.f, mrs = 0.f, mis = 0.f;  // thread n < nt: slice n's terms
-    float gx = 0.f, gr = 0.f, gi = 0.f;      // and its cotangents: -2 gx, gr, gi
-    if (kCot && t < nt) {
-      gx = -2.f * cot[n0 + t];
-      gr = cot[N + n0 + t];
-      gi = cot[2 * N + n0 + t];
-    }
     for (int64_t f = 0; f < F; ++f) {
       const TC* row = comps + (g * F + f) * V;
       float s[M];
@@ -673,33 +910,42 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
         const float mi = -p_i * sr + p_r * si;
         const float er = dr[drow] - mr;
         const float ei = di[drow] - mi;
-        if constexpr (kTerms > 0) lacc += wv * (er * er + ei * ei);
+        lacc += wv * (er * er + ei * ei);
         if constexpr (kTerms == 3) {
           mrs += wv * mr;
           mis += wv * mi;
         }
         if constexpr (kDp) {
-          const float dmr = kCot ? wv * fmaf(gx, er, gr) : -2.f * wv * er;
-          const float dmi = kCot ? wv * fmaf(gx, ei, gi) : -2.f * wv * ei;
+          const float dmr = -2.f * wv * er;
+          const float dmi = -2.f * wv * ei;
           dpr[prow] = sr * dmr + si * dmi;
           dpi[prow] = si * dmr - sr * dmi;
+          if constexpr (kOne) {
+            dpr[NGF + prow] = wv * sr;
+            dpi[NGF + prow] = wv * si;
+          }
           if constexpr (kAll) {
             dvrow[2 * t] = p_r * dmr - p_i * dmi;
             dvrow[2 * t + 1] = p_i * dmr + p_r * dmi;
           }
+          if constexpr (kMma) {
+            dvrow[4 * t] = p_r * dmr - p_i * dmi;
+            dvrow[4 * t + 1] = p_i * dmr + p_r * dmi;
+            dvrow[4 * t + 2] = wv * p_r;
+            dvrow[4 * t + 3] = wv * p_i;
+          }
         }
       }
-      if constexpr (kAll) {
+      if constexpr (kAll || kMma) {
         __syncthreads();  // dv of the row is complete
         for (int64_t k = t; k < V; k += kThreads) {
           const float c = to_f32(row[k]);
-          for (int j = 0; j < 2 * nt; ++j)
-            dcoeffs[(((j & 1) * N + n0 + (j >> 1)) * G + g) * V + k] += c * dvrow[j];
+          for (int j = 0; j < ncols; ++j) dcoeffs[out_index(j, n0, k)] += c * dvrow[j];
         }
       }
       __syncthreads();  // wsum and dvrow are free for the next row
     }
-    if (kTerms > 0 && t < nt) {
+    if (t < nt) {
       partials[(n0 + t) * G + g] = lacc;
       if (kTerms == 3) {
         partials[(N + n0 + t) * G + g] = mrs;
@@ -707,6 +953,59 @@ fused_chunk_loss_wide(const TC* __restrict__ comps, const float* __restrict__ co
       }
     }
     __syncthreads();  // the coefficients are free for the next slice tile
+  }
+}
+
+// The one-pass "sum" instances' gradients at the per-slice cotangents cot
+// (3, N) = (gx, gr, gi) of (chi2, M_r, M_i), elementwise: with e the
+// entries of slice n of a (N, G, F) plane,
+//   dpr = gx dpr_chi + gr (w v_r) + gi (w v_i)
+//   dpi = gx dpi_chi + gr (w v_i) - gi (w v_r)
+// from dpr2 = (dpr_chi, w v_r) and dpi2 = (dpi_chi, w v_i), and with every
+// gradient, from pieces (4, N, G, V) = (D_re, D_im, C(w pr), C(w pi)),
+//   dcoeffs_re = gx D_re + gr C(w pr) - gi C(w pi)
+//   dcoeffs_im = gx D_im + gr C(w pi) + gi C(w pr).
+// A grid-stride loop over the planes' entries, then the coefficients'; four
+// entries a thread at a time where a slice's span is a whole number of
+// 16-byte units (VEC = 4), else one.
+template <int VEC>
+__global__ void __launch_bounds__(256)
+fused_sum_combine_kernel(const float* __restrict__ dpr2, const float* __restrict__ dpi2,
+                         const float* __restrict__ pieces, const float* __restrict__ cot,
+                         float* __restrict__ dpr, float* __restrict__ dpi,
+                         float* __restrict__ dcoeffs, int64_t N, int64_t GF, int64_t GV) {
+  using Vec = typename std::conditional<VEC == 4, float4, float>::type;
+  const int64_t np = N * GF / VEC, nc = pieces == nullptr ? 0 : N * GV / VEC;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  auto lin = [](const Vec& a, float x, const Vec& b, float y, const Vec& c, float z) {
+    if constexpr (VEC == 4) {
+      return make_float4(x * a.x + y * b.x + z * c.x, x * a.y + y * b.y + z * c.y,
+                         x * a.z + y * b.z + z * c.z, x * a.w + y * b.w + z * c.w);
+    } else {
+      return x * a + y * b + z * c;
+    }
+  };
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; q < np + nc;
+       q += step) {
+    const bool plane = q < np;
+    const int64_t e = plane ? q : q - np;   // in units of VEC
+    const int64_t per = (plane ? GF : GV) / VEC;
+    const int64_t n = e / per;
+    const float gx = cot[n], gr = cot[N + n], gi = cot[2 * N + n];
+    if (plane) {
+      const Vec* a = reinterpret_cast<const Vec*>(dpr2);
+      const Vec* b = reinterpret_cast<const Vec*>(dpi2);
+      const int64_t off = N * GF / VEC;
+      const Vec chr = a[e], wvr = a[off + e], chi = b[e], wvi = b[off + e];
+      reinterpret_cast<Vec*>(dpr)[e] = lin(chr, gx, wvr, gr, wvi, gi);
+      reinterpret_cast<Vec*>(dpi)[e] = lin(chi, gx, wvi, gr, wvr, -gi);
+    } else {
+      const Vec* p = reinterpret_cast<const Vec*>(pieces);
+      const int64_t off = N * GV / VEC;
+      const Vec dre = p[e], dim = p[off + e], cpr = p[2 * off + e], cpi = p[3 * off + e];
+      reinterpret_cast<Vec*>(dcoeffs)[e] = lin(dre, gx, cpr, gr, cpi, -gi);
+      reinterpret_cast<Vec*>(dcoeffs)[off + e] = lin(dim, gx, cpi, gr, cpr, gi);
+    }
   }
 }
 
@@ -718,28 +1017,43 @@ struct Plan {
 
 // slices per tile: the least power of two >= N, at most 8; then the largest
 // row tile (at most half a block: a thread's epilogue holds at most half
-// the slices) that lets kMinBlocks blocks share an SM, else one; the
-// coefficients in shared memory where they fit. Halves the slice tile when
-// nothing fits, and takes the wide-row kernel when not even one row fits.
+// the slices) that lets the instance's blocks share an SM (kMinBlocks;
+// blocks_per_sm of the one-pass instance), else one; the coefficients in
+// shared memory where they fit (the one-pass instance keeps them there
+// before it takes a larger row tile: its dv pairs grow with the rows, and
+// phase A reads the coefficients from scratch slower than the tile saves).
+// Halves the slice tile when nothing fits, and takes the wide-row kernel
+// when not even one row fits.
 bool make_plan(long long N, long long F, long long V, int csize, int mode, uintptr_t comps_ptr,
                Plan* plan) {
-  const bool grads = has_all(mode), cot = has_cot(mode);
   for (int nt = N > 4 ? 8 : N > 2 ? 4 : static_cast<int>(N); nt >= 1; nt /= 2) {
     const int m = 2 * nt;
-    for (size_t budget : {kPerBlock, kMaxSmem}) {
-      for (int rows = kThreads / 2; rows >= 1; rows /= 2) {
+    const size_t per_block = has_mma(mode) ? smem_per_block(blocks_per_sm(mode, nt)) : kPerBlock;
+    auto take = [&](int rows, int coef_smem, size_t budget) {
+      const Layout L = make_layout(m, rows, V, csize, coef_smem != 0, mode);
+      if (L.total > budget) return false;
+      plan->nt = nt;
+      plan->rows = rows;
+      plan->coef_smem = coef_smem;
+      plan->smem = L.total;
+      const long long rb = static_cast<long long>(rows) * V * csize;
+      plan->bulk = comps_ptr % 16 == 0 && rb % 16 == 0 && (F * V * csize) % 16 == 0 &&
+                   ((F % rows) * V * csize) % 16 == 0;
+      plan->pairs = V % 2 == 0 && (csize == 4 || comps_ptr % 4 == 0);
+      return true;
+    };
+    for (size_t budget : {per_block, kMaxSmem}) {
+      if (has_mma(mode)) {
         for (int coef_smem = 1; coef_smem >= 0; --coef_smem) {
-          const Layout L = make_layout(m, rows, V, csize, coef_smem != 0, grads, cot);
-          if (L.total > budget) continue;
-          plan->nt = nt;
-          plan->rows = rows;
-          plan->coef_smem = coef_smem;
-          plan->smem = L.total;
-          const long long rb = static_cast<long long>(rows) * V * csize;
-          plan->bulk = comps_ptr % 16 == 0 && rb % 16 == 0 && (F * V * csize) % 16 == 0 &&
-                       ((F % rows) * V * csize) % 16 == 0;
-          plan->pairs = V % 2 == 0 && (csize == 4 || comps_ptr % 4 == 0);
-          return true;
+          for (int rows = kThreads / 2; rows >= 1; rows /= 2) {
+            if (take(rows, coef_smem, budget)) return true;
+          }
+        }
+      } else {
+        for (int rows = kThreads / 2; rows >= 1; rows /= 2) {
+          for (int coef_smem = 1; coef_smem >= 0; --coef_smem) {
+            if (take(rows, coef_smem, budget)) return true;
+          }
         }
       }
     }
@@ -754,11 +1068,11 @@ int launch(const Plan& p, int grid, cudaStream_t s, const void* comps, const flo
            const float* pr, const float* pi, const float* dr, const float* di, int64_t d_sn,
            int64_t d_sg, int64_t d_sf, const void* w, int w_bf16, int64_t w_sn, int64_t w_sg,
            int64_t w_sf, float* partials, float* dcoeffs, float* dpr, float* dpi,
-           float* scratch, const float* cot, int64_t N, int64_t G, int64_t F, int64_t V) {
+           float* scratch, int64_t N, int64_t G, int64_t F, int64_t V) {
   if (p.rows == 0) {
     fused_chunk_loss_wide<NT, TC, MODE><<<grid, kThreads, 0, s>>>(
         static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16,
-        w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, cot, N, G, F, V);
+        w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V);
     return static_cast<int>(cudaGetLastError());
   }
   auto kernel = fused_chunk_loss_kernel<NT, TC, MODE>;
@@ -769,8 +1083,8 @@ int launch(const Plan& p, int grid, cudaStream_t s, const void* comps, const flo
   }
   kernel<<<grid, kThreads, p.smem, s>>>(
       static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_bf16, w_sn,
-      w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, cot, N, G, F, V, p.rows, p.bulk,
-      p.pairs, p.coef_smem);
+      w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch, N, G, F, V, p.rows, p.bulk, p.pairs,
+      p.coef_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,8 +1105,8 @@ int launch_mode(int mode, const Plan& p, Args... args) {
     case kLossDp: return launch_nt<TC, kLossDp>(p, args...);
     case kLossAll: return launch_nt<TC, kLossAll>(p, args...);
     case kSumFwd: return launch_nt<TC, kSumFwd>(p, args...);
-    case kSumDp: return launch_nt<TC, kSumDp>(p, args...);
-    default: return launch_nt<TC, kSumAll>(p, args...);
+    case kSumFwdDp: return launch_nt<TC, kSumFwdDp>(p, args...);
+    default: return launch_nt<TC, kSumFwdAll>(p, args...);
   }
 }
 
@@ -808,13 +1122,13 @@ const char* fcl_error_string(int err) {
 // per tile (0: the wide-row kernel), bulk copies (1) or cp.async (0), pair
 // reads, coefficients in shared memory (1) or in the scratch buffer (0),
 // shared-memory bytes}. Returns 0, or cudaErrorInvalidValue for an empty or
-// out-of-range shape. Where out[4] == 0 the caller passes a scratch buffer
-// of G * V * 2 * out[0] floats.
+// out-of-range shape or a mode this kernel does not have. Where out[4] == 0
+// the caller passes a scratch buffer of G * V * 2 * out[0] floats.
 int fcl_plan(long long N, long long G, long long F, long long V, int comps_dtype, int mode,
              const void* comps_ptr, long long* out) {
   Plan p;
   if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || N > INT_MAX || G > INT_MAX || F > INT_MAX ||
-      mode < kLossOnly || mode > kSumAll ||
+      !is_mode(mode) ||
       !make_plan(N, F, V, comps_dtype == 0 ? 4 : 2, mode, reinterpret_cast<uintptr_t>(comps_ptr),
                  &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -830,28 +1144,30 @@ int fcl_plan(long long N, long long G, long long F, long long V, int comps_dtype
 // float32; dr, di: float32 at dr[n * d_sn + g * d_sg + f * d_sf]; w: float32
 // (w_dtype 0) or bfloat16 (1) at w[n * w_sn + g * w_sg + f * w_sf] (strides
 // in elements). Outputs, float32 and contiguous: partials (T, N, G), summed
-// over G by the caller; for modes 1, 2, 4 and 5 dpr and dpi (N, G, F); for
-// modes 2 and 5 dcoeffs (2, N, G, V). mode 0 is the loss only, 1 the loss
-// with dpr/dpi, 2 every gradient, each at a loss cotangent of 1 (T = 1:
-// the chi-square); mode 3 the "sum" forward (T = 3: the chi-square, M_r,
-// M_i); modes 4 and 5 the "sum" backward with dpr/dpi or every gradient at
-// the cotangents cot (3, N) float32 contiguous (of the chi-square, M_r and
-// M_i; no partials, which may be null). scratch: see fcl_plan (may be null
-// otherwise). All on the current device. Launches on `stream` and returns
-// the launch's CUDA error (0 on success); it does not synchronise.
+// over G by the caller; for modes 1 and 2 dpr and dpi (N, G, F), for mode 2
+// dcoeffs (2, N, G, V): mode 0 is the loss only, 1 the loss with dpr/dpi, 2
+// every gradient, each at a loss cotangent of 1 (T = 1: the chi-square).
+// Mode 3 is the "sum" forward (T = 3: the chi-square, M_r, M_i); modes 6
+// and 7 the same terms with, for the "sum" gradients, dpr = (dpr_chi, w v_r)
+// and dpi = (dpi_chi, w v_i), each (2, N, G, F), and with mode 7 dcoeffs =
+// (D_re, D_im, C(w pr), C(w pi)), (4, N, G, V) (fused_sum_combine forms the
+// gradients from them). scratch: see fcl_plan (may be null otherwise). All
+// on the current device. Launches on `stream` and returns the launch's CUDA
+// error (0 on success); it does not synchronise.
 int fused_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, const float* pr,
                      const float* pi, const float* dr, const float* di, long long d_sn,
                      long long d_sg, long long d_sf, const void* w, int w_dtype, long long w_sn,
                      long long w_sg, long long w_sf, float* partials, float* dcoeffs, float* dpr,
-                     float* dpi, float* scratch, const float* cot, long long N, long long G,
-                     long long F, long long V, int mode, void* stream) {
+                     float* dpi, float* scratch, long long N, long long G, long long F,
+                     long long V, int mode, void* stream) {
   long long out[6];
   const int err = fcl_plan(N, G, F, V, comps_dtype, mode, comps, out);
   if (err != 0) return err;
   if ((comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((out[4] == 0 && scratch == nullptr) || (has_cot(mode) && cot == nullptr) ||
-      (n_terms(mode) > 0 && partials == nullptr))
+  if ((out[4] == 0 && scratch == nullptr) || partials == nullptr ||
+      (has_dp(mode) && (dpr == nullptr || dpi == nullptr)) ||
+      ((has_all(mode) || has_mma(mode)) && dcoeffs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p{static_cast<int>(out[0]), static_cast<int>(out[1]), static_cast<int>(out[2]),
                static_cast<int>(out[3]), static_cast<int>(out[4]), static_cast<size_t>(out[5])};
@@ -860,11 +1176,48 @@ int fused_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, c
   if (comps_dtype == 0) {
     return launch_mode<float>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf,
                               w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr, dpi, scratch,
-                              cot, N, G, F, V);
+                              N, G, F, V);
   }
   return launch_mode<__nv_bfloat16>(mode, p, grid, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg,
                                     d_sf, w, w_dtype, w_sn, w_sg, w_sf, partials, dcoeffs, dpr,
-                                    dpi, scratch, cot, N, G, F, V);
+                                    dpi, scratch, N, G, F, V);
+}
+
+// The "sum" gradients of modes 6 and 7 at the cotangents cot (3, N) of
+// (chi2, M_r, M_i): dpr2, dpi2 (2, N, G, F) and pieces (4, N, G, V) as
+// fused_chunk_loss wrote them (pieces null: coefficients frozen, no
+// dcoeffs), into dpr, dpi (N, G, F) and dcoeffs (2, N, G, V). All float32,
+// contiguous, on the current device; launches on `stream`, returns the
+// launch's CUDA error.
+int fused_sum_combine(const float* dpr2, const float* dpi2, const float* pieces,
+                      const float* cot, float* dpr, float* dpi, float* dcoeffs, long long N,
+                      long long G, long long F, long long V, void* stream) {
+  if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || dpr2 == nullptr || dpi2 == nullptr ||
+      cot == nullptr || dpr == nullptr || dpi == nullptr ||
+      (pieces != nullptr && dcoeffs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long GF = G * F, GV = G * V;
+  uintptr_t bits = 0;
+  for (const void* ptr : {static_cast<const void*>(dpr2), static_cast<const void*>(dpi2),
+                          static_cast<const void*>(pieces), static_cast<const void*>(dpr),
+                          static_cast<const void*>(dpi), static_cast<const void*>(dcoeffs)})
+    bits |= reinterpret_cast<uintptr_t>(ptr);
+  const bool vec = bits % 16 == 0 && GF % 4 == 0 && (pieces == nullptr || GV % 4 == 0);
+  const long long work = (N * GF + (pieces == nullptr ? 0 : N * GV)) / (vec ? 4 : 1);
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = (work + 255) / 256;
+  const int grid = static_cast<int>(blocks < 8LL * sms ? blocks : 8LL * sms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    fused_sum_combine_kernel<4><<<grid, 256, 0, s>>>(dpr2, dpi2, pieces, cot, dpr, dpi, dcoeffs,
+                                                     N, GF, GV);
+  } else {
+    fused_sum_combine_kernel<1><<<grid, 256, 0, s>>>(dpr2, dpi2, pieces, cot, dpr, dpi, dcoeffs,
+                                                     N, GF, GV);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -44,11 +44,14 @@ class KernelLibrary:
         lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]
         lib.fcl_plan.restype = ci
         # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
-        # partials, dcoeffs, dpr, dpi, scratch, cot; N, G, F, V; mode; stream
+        # partials, dcoeffs, dpr, dpi, scratch; N, G, F, V; mode; stream
         lib.fused_chunk_loss.argtypes = (
-            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 6 + [ll] * 4 + [ci, vp]
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 5 + [ll] * 4 + [ci, vp]
         )
         lib.fused_chunk_loss.restype = ci
+        # dpr2, dpi2, pieces, cot, dpr, dpi, dcoeffs; N, G, F, V; stream
+        lib.fused_sum_combine.argtypes = [vp] * 7 + [ll] * 4 + [vp]
+        lib.fused_sum_combine.restype = ci
         # dpr, dpi, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
         # multi_ants, multi_slot, dg_r, dg_i, part_r, part_i; N, rows, nants,
         # F, nseg, nmulti, nslots, nentries; dtype; stream
@@ -65,6 +68,7 @@ class KernelLibrary:
         lib.shared_chunk_loss.restype = ci
         self.fcl_error_string = lib.fcl_error_string
         self.fused_chunk_loss = lib.fused_chunk_loss
+        self.fused_sum_combine = lib.fused_sum_combine
         self.gain_grad = lib.gain_grad
         self.gain_products = lib.gain_products
         self.shared_chunk_loss = lib.shared_chunk_loss

@@ -26,10 +26,15 @@ with every gradient. The serial path is the same kernel with one slice.
 The "sum" flux prior (``model_regularization="sum"``, the default of the
 Python entry points) also needs each slice's weighted model sums M_r =
 sum(w * model_r) and M_i, and gives them a cotangent that depends on
-every chunk's sums, so its gradients cannot come out of the forward pass:
-:func:`fused_chunk_terms_batched` runs the kernel's "sum" forward instance
-(the chi-square, M_r and M_i of each slice) and, in the backward pass, its
-"sum" backward instance at the three per-slice cotangents.
+every chunk's sums, known only after every chunk's forward. Every
+gradient is linear in the three per-slice cotangents, so
+:func:`fused_chunk_terms_batched` runs, where a gradient is wanted, the
+kernel's one-pass "sum" instance: in one read of comps the chi-square, M_r
+and M_i of each slice and the pieces their gradients are made of (the
+chi-square's gradients at a cotangent of 1, the planes w * v and the
+coefficient sums of w * (pr, pi)); its backward forms the gradients from
+the pieces and the cotangents (:func:`combine`, a second, elementwise
+kernel of the same source), without reading comps again.
 
 The gate below is written for this kernel, which takes any N, G, F and V.
 The reference's TPU gate (F and V multiples of 128, a group tile in
@@ -104,20 +109,32 @@ def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
 
 # the kernels' instances: the chi-square alone (the loss; with the
 # gain-product gradients; with every gradient) and the "sum" prior's terms
-# (the forward; the backward with the gain-product gradients; with every
-# gradient). ops.shared's kernel has the same six.
+# (the forward alone; the backward with the gain-product gradients; with
+# every gradient; the one-pass forward with the pieces of the gain-product
+# gradients; of every gradient). The shared-basis kernel (ops.shared) has
+# the first six, modes 0-5; this module's kernel has modes 0-3, 6 and 7:
+# its "sum" gradients come from the one-pass instances and :func:`combine`.
+# loss_and_grads_plain takes all eight (SUM_DP and SUM_ALL are the two-pass
+# reference the one-pass instances are held against).
 LOSS_ONLY, LOSS_DP, LOSS_ALL = 0, 1, 2
 SUM_FWD, SUM_DP, SUM_ALL = 3, 4, 5
-MODE_NAMES = ("loss_only", "loss_dp", "loss_all", "sum_fwd", "sum_dp", "sum_all")
-_DP_MODES = (LOSS_DP, LOSS_ALL, SUM_DP, SUM_ALL)
-_ALL_MODES = (LOSS_ALL, SUM_ALL)
+SUM_FWD_DP, SUM_FWD_ALL = 6, 7
+MODE_NAMES = ("loss_only", "loss_dp", "loss_all", "sum_fwd", "sum_dp", "sum_all",
+              "sum_fwd_dp", "sum_fwd_all")
+KERNEL_MODES = (LOSS_ONLY, LOSS_DP, LOSS_ALL, SUM_FWD, SUM_FWD_DP, SUM_FWD_ALL)
+_DP_MODES = (LOSS_DP, LOSS_ALL, SUM_DP, SUM_ALL, SUM_FWD_DP, SUM_FWD_ALL)
+_ALL_MODES = (LOSS_ALL, SUM_ALL, SUM_FWD_ALL)
 _COT_MODES = (SUM_DP, SUM_ALL)
+_ONE_PASS_MODES = (SUM_FWD_DP, SUM_FWD_ALL)
+_SUM_TERMS_MODES = (SUM_FWD,) + _ONE_PASS_MODES
+COMBINE_NAME = "fused_sum_combine"
 
 
 def n_terms(mode):
     """Per-slice sums an instance returns: the chi-square; the "sum"
-    forward's chi-square, M_r and M_i; none for the "sum" backward."""
-    return 3 if mode == SUM_FWD else 0 if mode in _COT_MODES else 1
+    forward's (and the one-pass instances') chi-square, M_r and M_i; none
+    for the "sum" backward."""
+    return 3 if mode in _SUM_TERMS_MODES else 0 if mode in _COT_MODES else 1
 
 
 def _f32(t):
@@ -148,7 +165,7 @@ def after_matvec(v, pr, pi, dr, di, wf, mode, cot, contract, keep=None):
     terms = None
     if n_terms(mode):
         terms = torch.sum(wf * (er * er + ei * ei), dim=(1, 2))
-        if mode == SUM_FWD:
+        if mode in _SUM_TERMS_MODES:
             terms = torch.stack([terms, torch.sum(wf * mr, dim=(1, 2)),
                                  torch.sum(wf * mi, dim=(1, 2))])
     if mode not in _DP_MODES:
@@ -162,9 +179,14 @@ def after_matvec(v, pr, pi, dr, di, wf, mode, cot, contract, keep=None):
         dmi = -2.0 * wf * ei
     dpr = vr * dmr + vi * dmi
     dpi = vi * dmr - vr * dmi
-    dcoeffs = None
-    if mode in _ALL_MODES:
-        dcoeffs = contract(torch.stack([pr * dmr - pi * dmi, pi * dmr + pr * dmi], dim=0))
+    dv = [pr * dmr - pi * dmi, pi * dmr + pr * dmi]
+    if mode in _ONE_PASS_MODES:
+        # the pieces of the "sum" gradients: the planes w v beside the
+        # chi-square's dpr, dpi, and the coefficient sums of w (pr, pi)
+        # beside its coefficient gradient
+        dpr, dpi = torch.stack([dpr, wf * vr]), torch.stack([dpi, wf * vi])
+        dv += [wf * pr, wf * pi]
+    dcoeffs = contract(torch.stack(dv, dim=0)) if mode in _ALL_MODES else None
     return terms, dcoeffs, dpr, dpi
 
 
@@ -175,14 +197,68 @@ def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot=
     forward and ``_bwd_xla`` with a slice axis. ``SUM_FWD`` returns the
     (3, N) terms (chi-square, M_r, M_i) and no gradient; ``SUM_DP`` and
     ``SUM_ALL`` no terms and the gradients at ``cot``, the (3, N)
-    cotangents of those terms. The reference the kernel is held against,
-    and the CPU path."""
+    cotangents of those terms (the two-pass reference; the kernel has no
+    such instance). ``SUM_FWD_DP`` and ``SUM_FWD_ALL`` return the terms and
+    the pieces :func:`combine` forms those gradients from: dpr, dpi (2, N,
+    G, F) = the chi-square's at a cotangent of 1 and w * (v_r, v_i); with
+    ``SUM_FWD_ALL`` dcoeffs (4, N, G, V) = the chi-square's (re, im) and
+    the coefficient sums of w * pr and w * pi. The reference the kernel is
+    held against, and the CPU path."""
     if mode in _COT_MODES:
         check_cot(cot, coeffs2.shape[1], comps3.device)
     comps = _f32(comps3)
     v = torch.einsum("gfv,kngv->kngf", comps, coeffs2)
     return after_matvec(v, pr, pi, dr, di, _f32(w), mode, cot,
                         lambda dv: torch.einsum("gfv,kngf->kngv", comps, dv))
+
+
+def tf32_trunc(x):
+    """float32 ``x`` as the tensor cores read a TF32 operand: its low 13
+    bits cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, mode=SUM_FWD_ALL):
+    """:func:`loss_and_grads_plain` with the coefficient contraction
+    formed as the one-pass instance forms it on the tensor cores: dv split
+    into TF32 hi and lo (``ops.shared.tf32_split``), float32 comps into hi
+    = :func:`tf32_trunc` and lo = the TF32 part of the rest, and the
+    products ``c_lo x_hi + c_hi x_lo + c_hi x_hi`` summed in float32, small
+    terms first (a bfloat16 comps value is exact in TF32: ``c x_lo + c
+    x_hi``); the matvec and the rest float32, as in the kernel. For the
+    tests and the smoke test's comparisons only; no path calls it."""
+    from .shared import tf32_split
+
+    comps = _f32(comps3)
+    eq = "gfv,kngf->kngv"
+
+    def contract(dv):
+        x_hi, x_lo = tf32_split(dv)
+        if comps3.dtype == torch.bfloat16:
+            return torch.einsum(eq, comps, x_lo) + torch.einsum(eq, comps, x_hi)
+        c_hi = tf32_trunc(comps)
+        c_lo = tf32_trunc(comps - c_hi)
+        small = torch.einsum(eq, c_lo, x_hi) + torch.einsum(eq, c_hi, x_lo)
+        return small + torch.einsum(eq, c_hi, x_hi)
+
+    v = torch.einsum("gfv,kngv->kngf", comps, coeffs2)
+    return after_matvec(v, pr, pi, dr, di, _f32(w), mode, None, contract)
+
+
+def combine_plain(dcoeffs, dpr, dpi, cot):
+    """Plain torch version of the combine kernel: the "sum" gradients
+    ``(dcoeffs (2, N, G, V) or None, dpr, dpi (N, G, F))`` at the (3, N)
+    cotangents ``cot`` = (gx, gr, gi) of (chi-square, M_r, M_i), from a
+    one-pass instance's pieces (``dcoeffs`` None: frozen coefficients)."""
+    check_cot(cot, dpr.shape[1], dpr.device)
+    gx, gr, gi = (c.reshape(-1, 1, 1) for c in cot)
+    out_r = gx * dpr[0] + gr * dpr[1] + gi * dpi[1]
+    out_i = gx * dpi[0] + gr * dpi[1] - gi * dpr[1]
+    if dcoeffs is None:
+        return None, out_r, out_i
+    d_re, d_im, c_r, c_i = dcoeffs
+    return torch.stack([gx * d_re + gr * c_r - gi * c_i, gx * d_im + gr * c_i + gi * c_r]), \
+        out_r, out_i
 
 
 def fused_chunk_loss_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
@@ -227,16 +303,16 @@ def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3):
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 
 
-def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot=None):
+def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL):
     """:func:`loss_and_grads_plain` from the CUDA kernel, in one read of
-    comps. Raises on any operand the kernel does not take and on a failed
-    launch."""
+    comps, for the kernel's modes (:data:`KERNEL_MODES`). Raises on any
+    operand the kernel does not take and on a failed launch."""
     from ._build import load_kernels
 
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"the fused kernel has no instance {MODE_NAMES[mode]} (mode {mode}); "
+                         "its \"sum\" gradients come from the one-pass instances and combine")
     _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3)
-    if mode in _COT_MODES:
-        check_cot(cot, coeffs2.shape[1], comps3.device)
-        cot = cot.contiguous()
     lib = load_kernels()
     ngrps, nfreqs, nvecs = comps3.shape
     nbatch = coeffs2.shape[1]
@@ -247,13 +323,13 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    nt = n_terms(mode)
-    partials = out(nt, nbatch, ngrps) if nt else None
+    partials = out(n_terms(mode), nbatch, ngrps)
     dpr = dpi = dcoeffs = scratch = None
+    planes = 2 if mode in _ONE_PASS_MODES else 1
     if mode in _DP_MODES:
-        dpr, dpi = out(nbatch, ngrps, nfreqs), out(nbatch, ngrps, nfreqs)
+        dpr, dpi = (out(planes, nbatch, ngrps, nfreqs).squeeze(0) for _ in range(2))
     if mode in _ALL_MODES:
-        dcoeffs = out(2, nbatch, ngrps, nvecs)
+        dcoeffs = out(2 * planes, nbatch, ngrps, nvecs)
     if not plan["coef_smem"]:
         scratch = out(ngrps * nvecs * 2 * plan["slices_per_tile"])
 
@@ -265,16 +341,64 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot
             comps3.data_ptr(), comps_dtype, coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(),
             dr.data_ptr(), di.data_ptr(), *dr.stride(), w.data_ptr(),
             0 if w.dtype == torch.float32 else 1, *w.stride(), ptr(partials),
-            ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(scratch), ptr(cot), nbatch, ngrps, nfreqs,
-            nvecs, mode, torch.cuda.current_stream(dev).cuda_stream,
+            ptr(dcoeffs), ptr(dpr), ptr(dpi), ptr(scratch), nbatch, ngrps, nfreqs, nvecs, mode,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"{KERNEL_NAME} launch failed: CUDA error {err} "
-            f"({lib.fcl_error_string(err).decode()})"
-        )
+    _raise_on(lib, err, KERNEL_NAME)
     count_launch(KERNEL_NAME, mode)
     return sum_partials(partials, mode), dcoeffs, dpr, dpi
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.fcl_error_string(err).decode()})")
+
+
+def combine_kernel(dcoeffs, dpr, dpi, cot):
+    """:func:`combine_plain` from the CUDA kernel: one elementwise launch.
+    Raises on operands it does not take and on a failed launch."""
+    from ._build import load_kernels
+
+    _, nbatch, ngrps, nfreqs = dpr.shape
+    dev = dpr.device
+    check_cot(cot, nbatch, dev)
+    nvecs = 1 if dcoeffs is None else dcoeffs.shape[-1]
+    shapes = (("dpr", dpr, (2, nbatch, ngrps, nfreqs)), ("dpi", dpi, (2, nbatch, ngrps, nfreqs)),
+              ("dcoeffs", dcoeffs, (4, nbatch, ngrps, nvecs)), ("cot", cot, (3, nbatch)))
+    for name, t, shape in shapes:
+        if t is None:
+            continue
+        if dev.type != "cuda" or t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 CUDA tensors on one device expected, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} {tuple(t.shape)}, expected contiguous {shape}")
+    lib = load_kernels()
+    out_r, out_i = (torch.empty((nbatch, ngrps, nfreqs), dtype=torch.float32, device=dev)
+                    for _ in range(2))
+    dco = None if dcoeffs is None else torch.empty((2, nbatch, ngrps, nvecs),
+                                                   dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_sum_combine(
+            dpr.data_ptr(), dpi.data_ptr(), None if dcoeffs is None else dcoeffs.data_ptr(),
+            cot.data_ptr(), out_r.data_ptr(), out_i.data_ptr(),
+            None if dco is None else dco.data_ptr(), nbatch, ngrps, nfreqs, nvecs,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, COMBINE_NAME)
+    LAUNCHES.add(COMBINE_NAME)
+    return dco, out_r, out_i
+
+
+def combine(dcoeffs, dpr, dpi, cot):
+    """The "sum" gradients (dcoeffs or None, dpr, dpi) at the (3, N)
+    cotangents ``cot`` from a one-pass instance's pieces: the kernel on
+    CUDA tensors, :func:`combine_plain` on CPU tensors."""
+    if dpr.device.type == "cuda":
+        return combine_kernel(dcoeffs, dpr, dpi, cot)
+    if dpr.device.type == "cpu":
+        return combine_plain(dcoeffs, dpr, dpi, cot)
+    raise ValueError(f"unsupported device {dpr.device}")
 
 
 def count_launch(name, mode):
@@ -291,14 +415,14 @@ def sum_partials(partials, mode):
     if partials is None:
         return None
     terms = torch.sum(partials, dim=2)
-    return terms if mode == SUM_FWD else terms[0]
+    return terms if mode in _SUM_TERMS_MODES else terms[0]
 
 
-def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode, cot=None):
+def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode):
     if comps3.device.type == "cuda":
-        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode, cot)
+        return loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, mode)
     if comps3.device.type == "cpu":
-        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode, cot)
+        return loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode)
     raise ValueError(f"unsupported device {comps3.device}")
 
 
@@ -332,18 +456,6 @@ def scaled_grads(ctx, gbar):
     return dcoeffs, dpr, dpi
 
 
-def sum_term_grads(ctx, tbar, run):
-    """(dcoeffs, dpr, dpi) of a "sum" terms Function's backward: the
-    "sum" backward instance, ``run(*saved, mode=..., cot=...)``, at the
-    (3, N) cotangents ``tbar`` of the chi-square, M_r and M_i; only the
-    gain-product gradients where the coefficients want none, None where no
-    gradient is wanted."""
-    want = ctx.needs_input_grad[:3]
-    mode = SUM_ALL if want[0] else SUM_DP
-    _, dcoeffs, dpr, dpi = run(*ctx.saved_tensors, mode=mode, cot=tbar.contiguous())
-    return tuple(g if w else None for g, w in zip((dcoeffs, dpr, dpi), want))
-
-
 def _wants_grad(coeffs2, pr, pi):
     return torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
                                         or pi.requires_grad)
@@ -352,13 +464,18 @@ def _wants_grad(coeffs2, pr, pi):
 class _FusedChunkTermsBatched(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
-        # the operands themselves, no copies: the backward instance reads them again
-        ctx.save_for_backward(coeffs2, pr, pi, dr, di, w, comps3)
-        return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]
+        # one read of comps: the terms and the pieces of every gradient
+        # (frozen coefficients: of the gain-product gradients)
+        mode = SUM_FWD_ALL if ctx.needs_input_grad[0] else SUM_FWD_DP
+        terms, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode)
+        ctx.save_for_backward(dcoeffs, dpr, dpi)
+        return terms
 
     @staticmethod
     def backward(ctx, tbar):
-        return sum_term_grads(ctx, tbar, _loss_and_grads) + (None,) * 4
+        grads = combine(*ctx.saved_tensors, tbar.contiguous())
+        want = ctx.needs_input_grad[:3]
+        return tuple(g if w else None for g, w in zip(grads, want)) + (None,) * 4
 
 
 def fused_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3):
@@ -366,9 +483,11 @@ def fused_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3):
     N) tensor of each slice's chi-square, M_r = sum(w * model_r) and M_i =
     sum(w * model_i), differentiable in coeffs2, pr and pi (operands as
     :func:`fused_chunk_loss_batched`'s). The forward runs the kernel's
-    "sum" forward instance and keeps references to the operands; the
-    backward runs its "sum" backward instance at the three cotangents.
-    With no gradient wanted only the forward runs and nothing is saved."""
+    one-pass "sum" instance and keeps its pieces of the gradients (2 planes
+    of dpr and 2 of dpi, (N, G, F) each; with every gradient 4 coefficient
+    sets); the backward forms the gradients at the three cotangents from
+    them (:func:`combine`). With no gradient wanted only the "sum" forward
+    runs and nothing is saved."""
     if _wants_grad(coeffs2, pr, pi):
         return _FusedChunkTermsBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
     return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]

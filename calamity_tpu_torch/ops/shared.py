@@ -25,10 +25,15 @@ cores with split TF32 operands (float32 accuracy); on a CPU tensor it is
 launch that fails raises. Groups that hold no baseline (the packing's
 record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
 kernel does not read their data. :func:`loss_and_grads_tf32` emulates
-the kernel's split products for the tests; no path calls it. As in
-``ops.fused``, the "sum" prior's terms (each slice's chi-square, M_r and
-M_i) come from the kernel's "sum" forward instance and their gradients
-from its "sum" backward instance (:func:`shared_chunk_terms_batched`).
+the kernel's split products for the tests; no path calls it. The kernel
+has modes 0-5 of ``ops.fused``'s numbering: the chi-square's three
+instances, and for the "sum" prior its forward (each slice's chi-square,
+M_r and M_i) and its backward at the three per-slice cotangents, with
+dpr/dpi or every gradient (:func:`shared_chunk_terms_batched`: two
+launches a step). It has no one-pass instances (the dense kernel's modes
+6 and 7): its basis is a few operators that stay in L2, so a second pass
+costs planes, not basis reads, and one pass would move more planes (15 an
+entry with the combine, against the two passes' 12).
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from .fused import (
     LOSS_ALL,
     LOSS_DP,
     LOSS_ONLY,
+    SUM_ALL,
+    SUM_DP,
     SUM_FWD,
     _f32,
     _wants_grad,
@@ -53,7 +60,6 @@ from .fused import (
     n_terms,
     scaled_grads,
     sum_partials,
-    sum_term_grads,
 )
 from .gains import valid_rows
 
@@ -333,10 +339,12 @@ class _SharedChunkTermsBatched(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, tbar):
-        def run(*saved, mode, cot):
-            return _loss_and_grads(*saved, mode, cot)
-
-        return sum_term_grads(ctx, tbar, run) + (None,) * 5
+        # the "sum" backward instance at the three cotangents; only the
+        # gain-product gradients where the coefficients want none
+        want = ctx.needs_input_grad[:3]
+        mode = SUM_ALL if want[0] else SUM_DP
+        _, dcoeffs, dpr, dpi = _loss_and_grads(*ctx.saved_tensors, mode, tbar.contiguous())
+        return tuple(g if w else None for g, w in zip((dcoeffs, dpr, dpi), want)) + (None,) * 5
 
 
 def shared_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):

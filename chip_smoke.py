@@ -14,9 +14,11 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 3. every instance of the kernel (the loss only; with the gain-product
    gradients; with every gradient, in one comps read; and the "sum"
    prior's: its forward, the chi-square with the model flux sums M_r and
-   M_i, held within 1e-5 of sum w |m|, and its backward with the
-   gain-product or every gradient at random cotangents and at a
-   chi-square cotangent of 0, two launches equal to the bit) against its
+   M_i, held within 1e-5 of sum w |m|, and its one-pass forward with the
+   pieces of the gain-product or every gradient, each piece held rel
+   1e-4; the combine of those pieces at random cotangents and at a
+   chi-square cotangent of 0 against the two-pass plain gradients; two
+   launches equal to the bit) against its
    plain version: at the main path's chunk shape with N = 8 and 1 slices, at
    ragged shapes with N = 1, 3 and 9, on group-block views, at an unaligned
    comps offset, at wide bases (a smaller row tile, modes past the register
@@ -101,9 +103,10 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    plain terms, resid/data <= 1e-2, the step's device time and idle share
    under the profiler; (b) phase 7's file through
    ``read_calibrate_and_model_dpss`` with ``time_parallel=True,
-   shared_basis=False`` and the "sum" prior (the fused kernel's "sum"
-   instances at N = 8), then 50 recorded batched steps on the card
-   against a CPU copy of one slice (histories rel 1e-4).
+   shared_basis=False`` and the "sum" prior (the fused kernel's one-pass
+   "sum" instance at N = 8 and the combine: one read of comps a step),
+   then 50 recorded batched steps on the card against a CPU copy of one
+   slice (histories rel 1e-4).
 
 Every phase resets the kernels' launch counters before it drives its path
 and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
@@ -150,6 +153,9 @@ SCAN_NTIMES = 3  # the small multi-time file of phase 6's scan CLI run
 SCAN_CK_EVERY = 10  # its checkpoint cadence; the cut is at time 1's first float32 save
 KERNEL_REPLACES = "calamity_tpu/ops/fused.py:152"  # with its backward _bwd_xla, :223
 KERNEL_SOURCE = "calamity_tpu_torch/csrc/fused_chunk_loss.cu"
+# the combine forms the "sum" prior's gradients of a dense chunk, the
+# backward the JAX package takes through _bwd_xla under jax.grad
+COMBINE_REPLACES = "calamity_tpu/ops/fused.py:223"
 # the gain gather and its gradient: jnp.take and XLA's scatter-add in its
 # gradient (no Pallas kernel; the port's kernels compute the products in one
 # launch and sum the gradient in a fixed order)
@@ -297,12 +303,14 @@ TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense (the shared-basi
 
 
 def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, extra=0,
-                   odd_offset=False):
+                   odd_offset=False, w_plane=False):
     """Inputs of the kernel; with ``extra`` > 0 the per-slice planes are
     views of (nbatch, ngrps + extra, nfreqs) cubes at groups
     [extra // 2, extra // 2 + ngrps), as a loss block reads them; with
     ``odd_offset`` comps starts one element into its storage (a span that
-    is not 16-byte aligned: the kernel's cp.async path)."""
+    is not 16-byte aligned: the kernel's cp.async path); with ``w_plane``
+    the weights are one value a (slice, group), broadcast over the
+    channels (a channel stride of 0, as a compressed weight plane)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -322,11 +330,12 @@ def batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype, seed, 
     coeffs2 = t(2, nbatch, ngrps, nvecs)
     pr, pi = 1 + 0.1 * t(nbatch, ngrps, nfreqs), 0.1 * t(nbatch, ngrps, nfreqs)
     dr, di = t(nbatch, gt, nfreqs), t(nbatch, gt, nfreqs)
-    w = t(nbatch, gt, nfreqs).abs()
-    w /= w.sum(dim=(1, 2), keepdim=True)
+    w = t(nbatch, gt, 1 if w_plane else nfreqs).abs()
+    w /= w.sum(dim=(1, 2), keepdim=True) * (nfreqs if w_plane else 1)
+    w = w.to(wgts_dtype).expand(nbatch, gt, nfreqs)
     g0 = extra // 2
     sl = slice(g0, g0 + ngrps)
-    return [coeffs2, pr, pi, dr[:, sl], di[:, sl], w[:, sl].to(wgts_dtype), comps]
+    return [coeffs2, pr, pi, dr[:, sl], di[:, sl], w[:, sl], comps]
 
 
 def nbytes(t):
@@ -408,48 +417,90 @@ def check_sum_instances(tag, op, args, extra=(), emulate=None, seed=0):
     """The "sum" instances of a chunk-loss kernel (``op``: ``ops.fused`` or
     ``ops.shared``; ``extra``: the shared kernel's mask) against their
     plain version: the forward's chi-square rel 1e-5 per slice, M_r and
-    M_i within 1e-5 of sum w |m| (the flux scale); the backward's
-    gradients rel 1e-4 at random cotangents and at a cotangent of the
-    chi-square of 0; two launches of each equal to the bit;
-    with ``emulate`` (the shared kernel's split TF32 emulation) also
+    M_i within 1e-5 of sum w |m| (the flux scale); two launches of each
+    equal to the bit. The shared kernel's "sum" backward: its gradients rel
+    1e-4 at random cotangents and at a cotangent of the chi-square of 0.
+    The fused kernel's one-pass instances: their terms as the forward's,
+    each piece of the gradients (a plane or a coefficient set) rel 1e-4,
+    and at each set of cotangents the combine of the kernel's pieces
+    against the two-pass plain gradients rel 1e-4 (two combines equal to
+    the bit). With ``emulate`` (the kernels' split TF32 emulation) also
     against that at the same tolerances. Returns (worst rel by name, the
-    largest abs errors, worst rel against the emulation)."""
+    largest abs errors of the instances, worst rel against the emulation,
+    the largest abs errors of the combine)."""
     import torch
 
     from calamity_tpu_torch.ops import fused
 
     scale = flux_scale(args, extra[0] if extra else None)
-    worst, errs, emu = {}, [], {}
+    worst, errs, emu, cerrs = {}, [], {}, []
 
     def hold(name, value, limit, into):
         check(value <= limit, f"{tag} {name}: rel {value} (limit {limit})")
         into[name] = max(into.get(name, 0.0), value)
 
+    def twice(name, fn, *a, **kw):
+        got, again = fn(*a, **kw), fn(*a, **kw)
+        check(all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)),
+              f"{tag} {name}: two launches differ")
+        return got
+
     def run(mode, cot=None):
-        got = op.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
-        again = op.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
-        want = op.loss_and_grads_plain(*args, *extra, mode=mode, cot=cot)
-        split = None if emulate is None else emulate(*args, *extra, mode=mode, cot=cot)
+        kw = {} if cot is None else {"cot": cot}
+        got = twice(fused.MODE_NAMES[mode], op.loss_and_grads_kernel, *args, *extra, mode=mode,
+                    **kw)
+        want = op.loss_and_grads_plain(*args, *extra, mode=mode, **kw)
+        split = None if emulate is None else emulate(*args, *extra, mode=mode, **kw)
         torch.cuda.synchronize()
-        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
-              f"{tag} {fused.MODE_NAMES[mode]}: two launches differ")
         return got, want, split
 
+    def hold_terms(name, got, want, split):
+        chi, flux = term_errors(got[0], want[0], scale)
+        hold(f"{name} chi2", chi, 1e-5, worst)
+        hold(f"{name} M", flux, 1e-5, worst)
+        errs.append(float((got[0] - want[0]).abs().max()))
+        if split is not None:
+            chi, flux = term_errors(got[0], split[0], scale)
+            hold(f"{name} chi2", chi, 1e-5, emu)
+            hold(f"{name} M", flux, 1e-5, emu)
+
     got, want, split = run(fused.SUM_FWD)
-    chi, flux = term_errors(got[0], want[0], scale)
-    hold("sum_fwd chi2", chi, 1e-5, worst)
-    hold("sum_fwd M", flux, 1e-5, worst)
-    errs.append(float((got[0] - want[0]).abs().max()))
+    hold_terms("sum_fwd", got, want, split)
     check(all(g is None for g in got[1:]), f"{tag} sum_fwd: gradients returned")
-    if split is not None:
-        chi, flux = term_errors(got[0], split[0], scale)
-        hold("sum_fwd chi2", chi, 1e-5, emu)
-        hold("sum_fwd M", flux, 1e-5, emu)
-    for cname, cot in sum_cotangents(args[0].shape[1], args[0].device, seed).items():
+    cots = sum_cotangents(args[0].shape[1], args[0].device, seed)
+    names = ("dcoeffs", "dpr", "dpi")
+    if op is fused:
+        pieces = {"dcoeffs": ("D_re", "D_im", "C(w pr)", "C(w pi)"), "dpr": ("dpr_chi", "w v_r"),
+                  "dpi": ("dpi_chi", "w v_i")}
+        for one, two in ((fused.SUM_FWD_DP, fused.SUM_DP), (fused.SUM_FWD_ALL, fused.SUM_ALL)):
+            mname = fused.MODE_NAMES[one]
+            got, want, split = run(one)
+            hold_terms(mname, got, want, split)
+            for name, g, p, e in zip(names, got[1:], want[1:], (split or want)[1:]):
+                check((g is None) == (p is None), f"{tag} {mname}: {name}")
+                for q, piece in enumerate(pieces[name] if p is not None else ()):
+                    hold(f"{mname} {piece}", rel(g[q], p[q]), 1e-4, worst)
+                    errs.append(float((g[q] - p[q]).abs().max()))
+                    if split is not None:
+                        hold(f"{mname} {piece}", rel(g[q], e[q]), 1e-4, emu)
+            for cot in cots.values():
+                grads = twice(f"{fused.COMBINE_NAME} after {mname}", fused.combine_kernel,
+                              *got[1:], cot)
+                ref = fused.loss_and_grads_plain(*args, mode=two, cot=cot)[1:]
+                emu_grads = None if split is None else fused.combine_plain(*split[1:], cot)
+                for k, (name, g, p) in enumerate(zip(names, grads, ref)):
+                    check((g is None) == (p is None), f"{tag} combine after {mname}: {name}")
+                    if p is None:
+                        continue
+                    hold(f"combine after {mname} {name}", rel(g, p), 1e-4, worst)
+                    cerrs.append(float((g - p).abs().max()))
+                    if emu_grads is not None:
+                        hold(f"combine after {mname} {name}", rel(g, emu_grads[k]), 1e-4, emu)
+        return worst, errs, emu, cerrs
+    for cname, cot in cots.items():
         for mode in (fused.SUM_DP, fused.SUM_ALL):
             got, want, split = run(mode, cot)
             check(got[0] is None, f"{tag} {fused.MODE_NAMES[mode]}: a loss returned")
-            names = ("dcoeffs", "dpr", "dpi")
             for name, g, p, e in zip(names, got[1:], want[1:], (split or want)[1:]):
                 check((g is None) == (p is None), f"{tag} {fused.MODE_NAMES[mode]}: {name}")
                 if p is None:
@@ -462,7 +513,7 @@ def check_sum_instances(tag, op, args, extra=(), emulate=None, seed=0):
                 pad = ~extra[0]
                 check(not bool(got[1][:, :, pad].any() or got[2][:, pad].any()),
                       f"{tag} {cname}: padding groups' gradients are not zero")
-    return worst, errs, emu
+    return worst, errs, emu, cerrs
 
 
 def sum_function_rel(args, terms_fn, plain_fn, extra=(), seed=0):
@@ -482,8 +533,9 @@ def sum_function_rel(args, terms_fn, plain_fn, extra=(), seed=0):
 
 
 def time_sum_instances(op, args, extra, bound_fn):
-    """CUDA-event ms of each "sum" instance through the wrapper and, replayed
-    from a CUDA graph, the device alone, beside its bound."""
+    """CUDA-event ms of each "sum" instance of the shared kernel through
+    the wrapper and, replayed from a CUDA graph, the device alone, beside
+    its bound."""
     from calamity_tpu_torch.ops import fused
 
     cot = sum_cotangents(args[0].shape[1], args[0].device, 0)["random"]
@@ -497,12 +549,112 @@ def time_sum_instances(op, args, extra, bound_fn):
     return out
 
 
+def one_pass_bound(args, grads):
+    """:func:`bound` of a one-pass "sum" instance of the fused kernel
+    (``grads`` "dp": frozen coefficients; True: every gradient): it reads
+    the inputs once and writes the three terms, the 4 planes of the pieces
+    of dpr and dpi and, with every gradient, 4 coefficient sets; its
+    float32 operations (the matvec, the model, the loss, the sums, dm, the
+    pieces) at the float32 rate plus, with every gradient, the four
+    columns a slice of the coefficient sums on the tensor cores at the
+    TF32 rate, three products each for float32 comps and two for
+    bfloat16 (the two units run side by side: the longer of the two, as
+    in :func:`_shared_bound`). Returns (ms, "bytes" | "operations",
+    bytes)."""
+    import torch
+
+    coeffs2, pr, pi, dr, di, w, comps = args
+    nbatch, ngrps, nfreqs = pr.shape
+    nvecs = comps.shape[-1]
+    rows = nbatch * ngrps * nfreqs
+    moved = sum(nbytes(x) for x in args) + 12 * nbatch + 4 * nbytes(pr)
+    flops = 4 * rows * nvecs + 36 * rows
+    tf32 = 0
+    if grads is True:
+        moved += 2 * nbytes(coeffs2)
+        tf32 = (3 if comps.dtype == torch.float32 else 2) * 8 * rows * nvecs
+    t_bytes = 1e3 * moved / HBM_BYTES_PER_S
+    t_ops = max(1e3 * flops / F32_FLOPS, 1e3 * tf32 / TF32_FLOPS)
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def combine_bound(args, grads):
+    """:func:`bound` of the combine after a one-pass instance: it reads 4
+    planes, the cotangents and, with every gradient, 4 coefficient sets,
+    and writes 2 planes (and 2 sets), 3 multiply-adds an entry written."""
+    coeffs2, pr = args[0], args[1]
+    moved = 6 * nbytes(pr) + 12 * pr.shape[0] + (3 * nbytes(coeffs2) if grads is True else 0)
+    flops = 6 * 2 * pr.numel() + (6 * coeffs2.numel() if grads is True else 0)
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes", moved) if t_bytes >= t_ops else (t_ops, "operations", moved)
+
+
+def time_fused_sum(args):
+    """CUDA-event ms through the wrapper and, replayed from a CUDA graph,
+    the device alone, beside the bound, of the fused kernel's "sum"
+    instances, of the combine after each one-pass instance (and of its
+    plain version), and of a "sum" step's chunk work: the one pass with
+    every gradient plus its combine, and through the terms' autograd
+    Function with the memory that allocates."""
+    import torch
+
+    from calamity_tpu_torch.ops import fused
+
+    cot = sum_cotangents(args[0].shape[1], args[0].device, 0)["random"]
+    out = {}
+    for mode, grads in ((fused.SUM_FWD, False), (fused.SUM_FWD_DP, "dp"),
+                        (fused.SUM_FWD_ALL, True)):
+        call = lambda m=mode: fused.loss_and_grads_kernel(*args, mode=m)  # noqa: E731
+        b = bound(args, False, sums=True) if mode == fused.SUM_FWD else one_pass_bound(args, grads)
+        out[fused.MODE_NAMES[mode]] = {"ms": cuda_median_ms(call), "device_ms": cuda_graph_ms(call),
+                                       "bound_ms": b[0], "bound_by": b[1]}
+        if mode == fused.SUM_FWD:
+            continue
+        pieces = call()[1:]
+        comb = lambda p=pieces: fused.combine_kernel(*p, cot)  # noqa: E731
+        b = combine_bound(args, grads)
+        out[f"combine_{'all' if grads is True else 'dp'}"] = {
+            "ms": cuda_median_ms(comb), "device_ms": cuda_graph_ms(comb),
+            "plain_ms": cuda_median_ms(lambda p=pieces: fused.combine_plain(*p, cot)),
+            "bound_ms": b[0], "bound_by": b[1]}
+        del pieces
+
+    def step():
+        return fused.combine_kernel(*fused.loss_and_grads_kernel(*args, mode=fused.SUM_FWD_ALL)[1:],
+                                    cot)
+
+    out["sum_step"] = {"ms": cuda_median_ms(step), "device_ms": cuda_graph_ms(step),
+                       "bound_ms": out["sum_fwd_all"]["bound_ms"] + out["combine_all"]["bound_ms"]}
+    # the terms' autograd Function, forward and backward, and the device
+    # memory it allocates beyond its inputs (the saved pieces, the gradients)
+    leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
+
+    def fwdbwd():
+        torch.sum(fused.fused_chunk_terms_batched(*leaves) * cot).backward()
+
+    ms = cuda_median_ms(fwdbwd)
+    for a in leaves:
+        a.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwdbwd()
+    torch.cuda.synchronize()
+    out["sum_function"] = {"ms": ms, "bound_ms": out["sum_step"]["bound_ms"],
+                           "transient_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    return out
+
+
 def _sum_line(timed):
-    return "; ".join(f"{k} {v['ms']:.4f} ms (the device alone {v['device_ms']:.4f}) against "
-                     f"bound {v['bound_ms']:.4f}" for k, v in timed.items())
+    return "; ".join(f"{k} {v['ms']:.4f} ms"
+                     + (f" (the device alone {v['device_ms']:.4f})" if "device_ms" in v else "")
+                     + f" against bound {v['bound_ms']:.4f}"
+                     + (f", transient memory {v['transient_gb']:.3f} GB" if "transient_gb" in v
+                        else "") for k, v in timed.items())
 
 
-def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_offset=False):
+def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_offset=False,
+            w_plane=False):
     """Every instance of the kernel against the plain version on the same
     inputs (loss rel 1e-5, gradients rel 1e-4), and the autograd Function
     against the plain forward under autograd at a different cotangent per
@@ -513,13 +665,15 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
 
     ngrps, nfreqs, nvecs = shape
     args = batched_inputs(nbatch, ngrps, nfreqs, nvecs, comps_dtype, wgts_dtype,
-                          SEED + 7 * nbatch + ngrps + nvecs, extra, odd_offset)
+                          SEED + 7 * nbatch + ngrps + nvecs, extra, odd_offset, w_plane)
     names = "/".join(str(d).replace("torch.", "") for d in (comps_dtype, wgts_dtype))
     tag = f"N={nbatch} {shape} comps/weights {names}"
     if extra:
         tag += f", group-block view of {ngrps + extra} groups"
     if odd_offset:
         tag += ", comps at an odd element offset"
+    if w_plane:
+        tag += ", weights broadcast over the channels (stride 0)"
     from calamity_tpu_torch.ops._build import load_kernels
 
     plan = load_kernels().plan(nbatch, ngrps, nfreqs, nvecs, int(comps_dtype != torch.float32),
@@ -552,7 +706,11 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
     g_rel = [rel(a, b) for a, b in zip(grads(fused.fused_chunk_loss_batched),
                                        grads(fused.fused_chunk_loss_batched_plain))]
     check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
-    sum_worst, sum_errs, _ = check_sum_instances(tag, fused, args, seed=nbatch + ngrps)
+    # at the main chunk also against the split TF32 emulation of the one
+    # pass's coefficient sums
+    sum_worst, sum_errs, sum_emu, comb_errs = check_sum_instances(
+        tag, fused, args, emulate=fused.loss_and_grads_tf32 if timed else None,
+        seed=nbatch + ngrps)
     errs += sum_errs
     s_rel = sum_function_rel(args, fused.fused_chunk_terms_batched,
                              fused.fused_chunk_terms_batched_plain, seed=nbatch)
@@ -567,12 +725,15 @@ def compare(nbatch, shape, comps_dtype, wgts_dtype, timed=False, extra=0, odd_of
         + f"; autograd (coeffs, pr, pi) {', '.join(f'{x:.2e}' for x in g_rel)}; \"sum\" "
         "instances, two launches equal to the bit, max rel "
         + ", ".join(f"{k} {v:.2e}" for k, v in sum_worst.items())
+        + (", against the split TF32 emulation "
+           + ", ".join(f"{k} {v:.2e}" for k, v in sum_emu.items()) if sum_emu else "")
         + f"; their autograd {', '.join(f'{x:.2e}' for x in s_rel)}")
-    out = {"max_abs_err": max(errs), "plan": plan, "sum_max_rel": sum_worst}
+    out = {"max_abs_err": max(errs), "plan": plan, "sum_max_rel": sum_worst,
+           "combine_max_abs_err": max(comb_errs)}
     if not timed:
         return out
-    out["sum"] = time_sum_instances(fused, args, (), lambda g: bound(args, g, sums=True))
-    log(f"    \"sum\" instances: {_sum_line(out['sum'])}; {nvidia_smi_line()}")
+    out["sum"] = time_fused_sum(args)
+    log(f"    \"sum\" instances and the combine: {_sum_line(out['sum'])}; {nvidia_smi_line()}")
 
     def fwdbwd(fn):
         leaves = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
@@ -1011,11 +1172,15 @@ def phase_kernel_vs_plain(main_shape):
                     results[(n, shape, cdt, wdt)] = compare(n, shape, cdt, wdt)
             results[("view", cdt, wdt)] = compare(3, (7, 129, 130), cdt, wdt, extra=5)
         results[("odd", cdt)] = compare(3, (7, 129, 118), cdt, f32, odd_offset=True)
+        results[("w_plane", cdt)] = compare(3, (7, 129, 118), cdt, bf16, w_plane=True)
         results[("scratch", cdt)] = compare(8, (2, 16, 4000), cdt, f32)
         results[("rows8", cdt)] = compare(3, (3, 50, 700), cdt, f32)
         results[("wide", cdt)] = compare(3, (2, 3, 60000), cdt, f32)
     results["main_view"] = compare(8, (ngrps // 2, nfreqs, nvecs), f32, f32,
                                    extra=ngrps - ngrps // 2)
+    torch.cuda.empty_cache()
+    # two slice tiles, the second of one slice, at the main shape
+    results["main_n9"] = compare(9, main_shape, f32, f32)
     torch.cuda.empty_cache()
     return results
 
@@ -1186,7 +1351,7 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
     g_rel = [rel(a, b) for a, b in zip(grads(shared.shared_chunk_loss_batched, mask),
                                        grads(_torch_ops_losses))]
     check(max(g_rel) <= 1e-4, f"{tag}: autograd gradients rel {g_rel}")
-    sum_worst, sum_errs, sum_emu = check_sum_instances(
+    sum_worst, sum_errs, sum_emu, _ = check_sum_instances(
         tag, shared, args, (mask,), emulate=shared.loss_and_grads_tf32, seed=nbatch + nvecs)
     errs += sum_errs
     s_rel = sum_function_rel(args, shared.shared_chunk_terms_batched, _torch_ops_terms, (mask,),
@@ -3012,14 +3177,15 @@ def phase_sum_time_parallel(tmp, tp):
     """Phase 11 (b): phase 7's file (8 slices) through
     ``read_calibrate_and_model_dpss`` with ``time_parallel=True,
     shared_basis=False`` and the default "sum" prior: every step through
-    the fused kernel's "sum" instances at N = 8, no chunk on the plain
-    terms, resid/data <= 1e-2 on every slice; then
-    :func:`batched_sum_in_loop`."""
+    the fused kernel's one-pass "sum" instance at N = 8 and one combine
+    (one read of comps a chunk and step), no chunk on the plain terms,
+    resid/data <= 1e-2 on every slice; ms a batch step and peak memory;
+    then :func:`batched_sum_in_loop`."""
     import torch
 
     from calamity_tpu_torch import LAUNCHES
     from calamity_tpu_torch.calibration import read_calibrate_and_model_dpss
-    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.fused import COMBINE_NAME, KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
 
@@ -3040,9 +3206,13 @@ def phase_sum_time_parallel(tmp, tp):
         torch.cuda.synchronize()
     wall = time.time() - t0
     instances = instance_launches(KERNEL_NAME)
-    launches = {k: LAUNCHES.get(k) for k in (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL)}
+    launches = {k: LAUNCHES.get(k) for k in (KERNEL_NAME, COMBINE_NAME, GAIN_KERNEL, PROD_KERNEL)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps, seconds = timings["phase_steps"], timings["phase_seconds"]
     recorded = sum(steps) + len(steps)  # recorded and warm-up batch steps
+    one_pass = instances.get("sum_fwd_all", 0) + instances.get("sum_fwd_dp", 0)
+    # launches that read comps for the "sum" terms, a batch step (the parent's two)
+    reads = (one_pass + instances.get("sum_fwd", 0)) / recorded
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
     ratios = []
     for pol in range(uvd.Npols):
@@ -3055,20 +3225,25 @@ def phase_sum_time_parallel(tmp, tp):
     log(f"  batch steps (bf16, f32) {steps}, ms/step "
         f"{', '.join(f'{1e3 * s / max(n, 1):.3f}' for s, n in zip(seconds, steps))} (host clock, "
         f"8 slices a step); read_calibrate_and_model_dpss in all {wall:.1f} s (basis given); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {KERNEL_NAME} by "
-        f"instance {instances} for {recorded} batch steps; plain-term calls {plain.calls}; "
-        f"resid/data per slice {', '.join(f'{r:.3e}' for r in ratios)} (limit 1e-2)")
+        f"peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} by instance {instances} and "
+        f"{launches[COMBINE_NAME]} {COMBINE_NAME} launches for {recorded} batch steps ({reads:.4f} "
+        f"comps-reading \"sum\" launches a step); plain-term calls {plain.calls}; resid/data per "
+        f"slice {', '.join(f'{r:.3e}' for r in ratios)} (limit 1e-2); {nvidia_smi_line()}")
     check(plain.calls == 0, f"a B=1 chunk took the plain terms {plain.calls} times")
     check(not fallbacks, f"chunks named as fallbacks: {fallbacks}")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     check(len(ratios) == TP_NTIMES * TP_NPOLS and max(ratios) <= 1e-2, f"resid/data {ratios}")
-    for inst in ("sum_fwd", "sum_all"):
-        check(instances.get(inst, 0) >= recorded, f"{instances} for {recorded} batch steps")
+    check(instances.get("sum_fwd_all", 0) >= recorded, f"{instances} for {recorded} batch steps")
+    check(launches[COMBINE_NAME] == one_pass,
+          f"{launches[COMBINE_NAME]} combines for {one_pass} one-pass launches")
+    # one read of comps a step; the "sum" forward alone runs only where no
+    # gradient is wanted (a few evaluations outside the descent)
+    check(reads < 1.1, f"{reads} comps-reading launches a batch step: {instances}")
     check(min(launches.values()) >= recorded, f"{launches} for {recorded} batch steps")
     rel = batched_sum_in_loop(tp)
     return {"launches": launches, "instances": instances, "steps": steps,
             "ms_per_step": [1e3 * s / max(n, 1) for s, n in zip(seconds, steps)],
-            "ratios": ratios, "in_loop_rel": rel}
+            "ratios": ratios, "in_loop_rel": rel, "peak_gb": peak_gb, "reads_per_step": reads}
 
 
 def main():
@@ -3169,7 +3344,7 @@ def kernels_line(out):
     """The kernels of the main paths, with what this run measured of them."""
     import torch
 
-    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.fused import COMBINE_NAME, KERNEL_NAME
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
     from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
@@ -3291,7 +3466,8 @@ def kernels_line(out):
                           "plain_ms": packed[n]["products_plain_ms"],
                           "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
-    }, shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera)]
+    }, combine_entry(COMBINE_NAME, fused, sum_tp),
+        shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera)]
 
 
 def fused_instances(n8, tp, sum_tp):
@@ -3303,9 +3479,39 @@ def fused_instances(n8, tp, sum_tp):
                         "launches": tp["instances"].get("loss_all", 0)},
            "loss_only": {"ms": n8["loss_only_ms"], "bound_ms": n8["loss_only_bound_ms"],
                          "launches": tp["instances"].get("loss_only", 0)}}
-    for name, t in n8["sum"].items():
-        out[name] = dict(t, launches=sum_tp["instances"].get(name, 0))
+    for name in ("sum_fwd", "sum_fwd_dp", "sum_fwd_all"):
+        out[name] = dict(n8["sum"][name], launches=sum_tp["instances"].get(name, 0))
     return out
+
+
+def combine_entry(name, fused, sum_tp):
+    """The kernels line's entry of the combine, the second kernel of the
+    fused source: its launches on the "sum" time-parallel path (phase 11
+    (b)), its times after the one pass with every gradient at the main
+    chunk, N=8, float32 comps (phase 3)."""
+    import torch
+
+    c8 = fused[(8, torch.float32)]["sum"]["combine_all"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": COMBINE_REPLACES,
+        "launches": sum_tp["launches"][name],
+        "launches_by_path": {"time_parallel_sum": sum_tp["launches"][name]},
+        "max_abs_err": max(r["combine_max_abs_err"] for r in fused.values()),
+        "ms": c8["ms"],
+        "device_ms": c8["device_ms"],
+        "plain_ms": c8["plain_ms"],
+        "bound_ms": c8["bound_ms"],
+        "bound_by": c8["bound_by"],
+        # no single PyTorch call forms the three linear combinations
+        "library_ms": None,
+        "timed": {f"N={n} {str(cdt).replace('torch.', '')} comps {k}": fused[(n, cdt)]["sum"][k]
+                  for n in (8, 1) for cdt in (torch.float32, torch.bfloat16)
+                  for k in ("combine_all", "combine_dp")},
+        "card": nvidia_smi_line(),
+    }
 
 
 def shared_kernel_entry(name, shared, hera, cli, sum_hera):

@@ -2,7 +2,8 @@
 """Build variants of a chunk-loss kernel side by side and time them in
 turns, on one GPU.
 
-    python3 scripts/kernel_variants.py [--kernel fused|shared] NAME=SOURCE[:NVCC_FLAGS] ...
+    python3 scripts/kernel_variants.py [--kernel fused|shared] [--sum-pair SOURCE]
+        NAME=SOURCE[:NVCC_FLAGS] ...
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Each SOURCE is a variant of ``calamity_tpu_torch/csrc/fused_chunk_loss.cu``
@@ -15,8 +16,8 @@ switches, for one). The variants are built in parallel into
 report beside its library as ``NAME.log``, and one line
 per variant gives each template instance's registers and spill bytes
 (``kernel|wide:<slices per tile><comps type><mode>``: mode 0 the loss only, 1 with the
-gain-product gradients, 2 with every gradient; 3 the "sum" prior's forward, 4 and 5 its
-backward with the gain-product or every gradient). Each variant is held
+gain-product gradients, 2 with every gradient; 3 the "sum" prior's forward, 6 and 7 its
+one-pass forward with the pieces of the gain-product or every gradient). Each variant is held
 against the plain version at ragged shapes, a group-block view, an
 unaligned comps offset, wide bases and the wide-row kernel (loss rel 1e-5,
 gradients rel 1e-4, as in ``chip_smoke.py``'s phase 3; a shape a variant
@@ -25,6 +26,16 @@ are timed at the main chunk (2016 x 1536 x 118; N = 8 and 1 slices;
 float32 and bfloat16 comps) with CUDA events, the loss with every gradient
 and the loss only, in turns over the variants, twice. Every time stands
 beside the card's name and power limit.
+
+With ``--sum-pair SOURCE`` (an earlier fused source whose "sum" gradients
+took a second launch: modes 3 and 5 of its C interface, which also took
+the cotangents) the "sum" prior's chunk work is timed too, at the main
+chunk, in turns: that source's forward plus backward against each
+variant's one pass with every gradient plus the combine, the device alone
+(replayed from a CUDA graph) and through the wrappers, each beside its
+bound; the pair is first held against the plain version. Save the earlier
+source with ``git show REV:calamity_tpu_torch/csrc/fused_chunk_loss.cu``
+under ``calamity_tpu_torch/_build/``.
 
 With ``--kernel shared`` each variant is held against the plain version
 (``chip_smoke.compare_shared``: every instance, two launches equal to the
@@ -41,6 +52,7 @@ ignores.
 """
 
 import argparse
+import ctypes
 import os
 import re
 import subprocess
@@ -113,6 +125,109 @@ def build(variants, kernel):
     return libs
 
 
+class SumPair:
+    """An earlier fused source's "sum" forward (mode 3) and backward with
+    every gradient (mode 5), through its own C interface (with the
+    cotangents after the scratch buffer), built with the package's other
+    sources."""
+
+    def __init__(self, src):
+        nvcc = _build.find_nvcc()
+        sodir = os.path.join(_build.BUILD_DIR, "variants")
+        os.makedirs(sodir, exist_ok=True)
+        so = os.path.join(sodir, "sum_pair.so")
+        others = [x for x in _build.sources()
+                  if x.endswith(".cu") and os.path.basename(x) != "fused_chunk_loss.cu"]
+        t0 = time.time()
+        out = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so, src, *others],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            sys.exit(f"sum pair: BUILD FAILED\n{(out.stdout + out.stderr)[-4000:]}")
+        print(f"sum pair: built in {time.time() - t0:.1f} s; "
+              + " ".join(registers(out.stdout + out.stderr)), flush=True)
+        lib = ctypes.CDLL(so)
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]
+        lib.fused_chunk_loss.argtypes = (
+            [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 6 + [ll] * 4 + [ci, vp])
+        self.lib = lib
+
+    def run(self, args, mode, cot=None):
+        """(terms (3, N) or None, dcoeffs, dpr, dpi) of ``mode`` 3 or 5."""
+        coeffs2, pr, pi, dr, di, w, comps = args
+        ngrps, nfreqs, nvecs = comps.shape
+        nbatch = coeffs2.shape[1]
+        cdt = int(comps.dtype != torch.float32)
+        plan = (ctypes.c_longlong * 6)()
+        assert self.lib.fcl_plan(nbatch, ngrps, nfreqs, nvecs, cdt, mode, comps.data_ptr(),
+                                 plan) == 0
+
+        def out(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=comps.device)
+
+        partials = out(3, nbatch, ngrps) if mode == fused.SUM_FWD else None
+        dco = dpr = dpi = None
+        if mode == fused.SUM_ALL:
+            dco, dpr, dpi = out(2, nbatch, ngrps, nvecs), out(*pr.shape), out(*pr.shape)
+        scratch = None if plan[4] else out(ngrps * nvecs * 2 * plan[0])
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        err = self.lib.fused_chunk_loss(
+            comps.data_ptr(), cdt, coeffs2.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+            dr.data_ptr(), di.data_ptr(), *dr.stride(), w.data_ptr(),
+            int(w.dtype != torch.float32), *w.stride(), ptr(partials), ptr(dco), ptr(dpr),
+            ptr(dpi), ptr(scratch), ptr(cot), nbatch, ngrps, nfreqs, nvecs, mode,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"sum pair launch failed: CUDA error {err}"
+        return (None if partials is None else partials.sum(dim=2)), dco, dpr, dpi
+
+    def step(self, args, cot):
+        self.run(args, fused.SUM_FWD)
+        return self.run(args, fused.SUM_ALL, cot)
+
+
+def time_sum(pair, libs, agree, card):
+    """The "sum" prior's chunk work at the main chunk, in turns: the earlier
+    source's forward plus backward, each variant's one pass plus combine."""
+    f32 = torch.float32
+    for nbatch in (8, 1):
+        for cdt in (f32, torch.bfloat16):
+            args = cs.batched_inputs(nbatch, *MAIN_SHAPE, cdt, f32, 1)
+            cot = cs.sum_cotangents(nbatch, args[0].device, 0)["random"]
+            terms, *grads = pair.step(args, cot)
+            want = fused.loss_and_grads_plain(*args, mode=fused.SUM_ALL, cot=cot)[1:]
+            want_terms = fused.loss_and_grads_plain(*args, mode=fused.SUM_FWD)[0]
+            errs = [cs.rel(pair.run(args, fused.SUM_FWD)[0][0], want_terms[0])]
+            errs += [cs.rel(g, w) for g, w in zip(grads, want)]
+            assert max(errs[1:]) <= 1e-4 and errs[0] <= 1e-5, errs
+            pair_bound = cs.bound(args, False, sums=True)[0] + cs.bound(args, True, sums=True)[0]
+            one_bound = cs.one_pass_bound(args, True)[0] + cs.combine_bound(args, True)[0]
+            tag = f"N={nbatch} {str(cdt)[6:]} comps"
+            print(f"{tag}: the sum pair against plain, rel chi2, dcoeffs, dpr, dpi "
+                  + ", ".join(f"{e:.2e}" for e in errs), flush=True)
+
+            def one_pass():
+                pieces = fused.loss_and_grads_kernel(*args, mode=fused.SUM_FWD_ALL)[1:]
+                return fused.combine_kernel(*pieces, cot)
+
+            for rnd in range(2):
+                dev, ms = cs.cuda_graph_ms(lambda: pair.step(args, cot)), \
+                    cs.cuda_median_ms(lambda: pair.step(args, cot))
+                print(f"{tag}, round {rnd}, sum pair (forward + backward): the device alone "
+                      f"{dev:.4f} ms, through the wrapper {ms:.4f} ms, bound {pair_bound:.4f}; "
+                      f"{card}", flush=True)
+                for name in agree:
+                    _build._LOADED[:] = [libs[name]]
+                    dev, ms = cs.cuda_graph_ms(one_pass), cs.cuda_median_ms(one_pass)
+                    print(f"{tag}, round {rnd}, {name} (one pass + combine): the device alone "
+                          f"{dev:.4f} ms, through the wrappers {ms:.4f} ms, bound "
+                          f"{one_bound:.4f}; {card}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
 def check_shared(libs):
     """The variants that agree with the plain version at the shared-basis
     kernel's checks."""
@@ -169,6 +284,8 @@ def time_shared(libs, agree, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("fused", "shared"), default="fused")
+    ap.add_argument("--sum-pair", metavar="SOURCE",
+                    help='an earlier fused source whose "sum" gradients took a second launch')
     ap.add_argument("variants", nargs="+", metavar="NAME=SOURCE[:NVCC_FLAGS]")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -181,6 +298,7 @@ def main():
         variants[name] = (src or os.path.join(_build.CSRC_DIR, f"{kernel}.cu"), flags.split())
     card = cs.nvidia_smi_line()
     print(card, flush=True)
+    pair = SumPair(args.sum_pair) if args.sum_pair else None
     libs = build(variants, kernel)
     if args.kernel == "shared":
         sys.path.insert(0, os.path.join(REPO, "scripts"))  # hera_core_demo_torch
@@ -224,6 +342,8 @@ def main():
                           f"shared; {card}", flush=True)
             del args
             torch.cuda.empty_cache()
+    if pair is not None:
+        time_sum(pair, libs, agree, card)
 
 
 if __name__ == "__main__":

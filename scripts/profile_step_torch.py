@@ -21,8 +21,9 @@ bf16-comps and float32 phases of the mixed
 schedule it times 48 descent steps (after 16 warm-up steps) under
 ``torch.profiler``: device time per step by kernel, kernels per step, the
 launches and device time per step of the port's hand-written kernels
-(``fused_chunk_loss``, ``shared_chunk_loss``, ``gain_grad``,
-``gain_products``), and the device's idle share against the host clock.
+(``fused_chunk_loss``, ``fused_sum_combine``, ``shared_chunk_loss``,
+``gain_grad``, ``gain_products``), and the device's idle share against
+the host clock.
 It then times the same steps without the profiler. With ``--sum`` the
 step is that of the "sum" flux prior (``model_regularization="sum"``, the
 Python entry points' default; the sky model is the data, as the driver
@@ -53,7 +54,8 @@ from calamity_tpu_torch.solver.tensorize import FitSpec  # noqa: E402
 NSTEPS = 48
 NWARMUP = 16
 # substrings of the hand-written kernels' names
-KERNELS = ("fused_chunk_loss", "shared_chunk_loss", "gain_grad", "gain_products")
+KERNELS = ("fused_chunk_loss", "fused_sum_combine", "shared_chunk_loss", "gain_grad",
+           "gain_products")
 
 
 def sum_priors(dr, di, w, dims=None):

@@ -4,16 +4,21 @@
 adds to the chi-square the squared distance of each slice's weighted model
 flux sums, M_r = sum(w * model_r) and M_i, from the sky model's. Its chunk
 terms (chi-square, M_r, M_i) come from each kernel's "sum" forward
-instance, and their gradients from its "sum" backward instance at the
-three per-slice cotangents (``ops.fused.fused_chunk_terms_batched``,
-``ops.shared.shared_chunk_terms_batched``). On the CPU those instances are
-their plain versions, held here against the JAX package on the same seeded
-numpy inputs:
+instance. Their gradients come, for a shared chunk, from the shared
+kernel's "sum" backward instance at the three per-slice cotangents
+(``ops.shared.shared_chunk_terms_batched``) and, for a dense chunk, from
+the fused kernel's one-pass instance, which writes in the forward's read
+of comps the pieces the gradients are made of, and the combine, which
+forms them at the cotangents (``ops.fused.fused_chunk_terms_batched``). On
+the CPU those instances are their plain versions, held here against the
+JAX package on the same seeded numpy inputs:
 
 - each plain instance against ``jax.vjp`` of the chunk terms, for dense,
   shared and shared-batched chunks (with padding groups), float32 and
   bfloat16 comps and weights, at random cotangents and at a chi-square
-  cotangent of 0;
+  cotangent of 0; the dense one-pass instances plus the combine also
+  against the two-pass plain version (``SUM_DP``, ``SUM_ALL``), and near
+  a fit, with the split TF32 emulation of their coefficient sums;
 - the routed losses, ``ops.loss.chunked_loss_sum_regularized`` (serial)
   and ``parallel.batched.batched_chunk_losses_sum_regularized`` (blocked
   and not), against the JAX package's, value and gradients, and the mesh's
@@ -28,7 +33,9 @@ numpy inputs:
 Tolerances: the chi-square rel 1e-5 per slice; M_r and M_i within 1e-5 of
 sum(w |m|), the scale they are summed from (near a fit M - P is a small
 difference of large sums, so the sums themselves are held, not only the
-squared prior term); gradients rel 1e-4; a float32 fit's history rel 1e-4.
+squared prior term); gradients rel 1e-4; the one-pass instances plus the
+combine against the two-pass plain version (both float32 torch ops in
+another order) rel 1e-5; a float32 fit's history rel 1e-4.
 The kernel-against-plain tests need a CUDA card and are skipped without
 one.
 """
@@ -220,8 +227,133 @@ def test_backward_instances_need_their_cotangents():
 
 
 # ---------------------------------------------------------------------- #
+# the dense kernel's one-pass instances and the combine
+# ---------------------------------------------------------------------- #
+# each one-pass instance and the two-pass "sum" backward it replaces
+ONE_PASS = {"frozen_coefficients": (fused.SUM_FWD_DP, fused.SUM_DP),
+            "all_gradients": (fused.SUM_FWD_ALL, fused.SUM_ALL)}
+TWO_PASS_TOL = 1e-5
+
+
+def _check_one_pass(args, cot_sets, want, one_pass=fused.loss_and_grads_plain, grad_tol=GRAD_TOL):
+    """Each one-pass instance (``one_pass``: the plain version or its
+    emulation) plus the plain combine against the two-pass plain version
+    and against ``want[cname]`` = the JAX package's (terms, gradients,
+    flux scale) at each set of cotangents."""
+    nbatch, ngrps, nfreqs = args[1].shape
+    nvecs = args[0].shape[-1]
+    for case, (one, two) in ONE_PASS.items():
+        got = one_pass(*args, mode=one)
+        assert got[1] is None if one == fused.SUM_FWD_DP else \
+            got[1].shape == (4, nbatch, ngrps, nvecs)
+        assert got[2].shape == got[3].shape == (2, nbatch, ngrps, nfreqs)
+        two_terms = fused.loss_and_grads_plain(*args, mode=fused.SUM_FWD)[0]
+        assert rel_err(got[0], two_terms) <= TWO_PASS_TOL
+        for cname, cot in cot_sets.items():
+            want_terms, want_grads, scale = want[cname]
+            _assert_terms(got[0], want_terms, scale)
+            grads = fused.combine(*got[1:], torch.as_tensor(cot))
+            ref = fused.loss_and_grads_plain(*args, mode=two, cot=torch.as_tensor(cot))[1:]
+            for name, g, r, j in zip(("dcoeffs", "dpr", "dpi"), grads, ref, want_grads):
+                assert (g is None) == (r is None) == (name == "dcoeffs" and case != "all_gradients")
+                if g is not None:
+                    assert rel_err(g, r) <= TWO_PASS_TOL, (case, cname, name)
+                    assert rel_err(g, j) <= grad_tol, (case, cname, name)
+
+
+@pytest.mark.parametrize("wgts_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("comps_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nbatch", [1, 3])
+def test_one_pass_plain_and_combine_match_two_pass_and_jax(nbatch, comps_dtype, wgts_dtype):
+    """The dense kernel's one-pass instances (frozen coefficients: the
+    pieces of dpr/dpi; every gradient: also the four coefficient sets),
+    plain version, plus the plain combine at random cotangents and at a
+    chi-square cotangent of 0: the terms equal the "sum" forward's, the
+    gradients the two-pass "sum" backward's (rel 1e-5), and both match
+    ``jax.vjp`` of the chunk terms."""
+    p = _problem("dense", nbatch, seed=12)
+    (tcd, jcd), (twd, jwd) = DTYPES[comps_dtype], DTYPES[wgts_dtype]
+    ops = _op_inputs(p, seed=13)
+    args = [torch.as_tensor(x) for x in ops]
+    args[5] = args[5].to(twd)
+    args[6] = args[6].to(tcd)
+    cots = _cotangents(nbatch, seed=14)
+    _check_one_pass(args, cots, {c: _jax_terms(ops, jcd, jwd, cot) for c, cot in cots.items()})
+
+
+def _dense_near_fit(nbatch, comps_dtype, seed, noise=1e-2):
+    """numpy operands of a dense chunk near a fit: the data the model of
+    the coefficients (with comps as rounded to ``comps_dtype``) plus
+    ``noise`` of its rms, the coefficients then moved by a tenth of that;
+    and the (3, N) cotangents the "sum" prior gives there, (1, 2 (M_r -
+    P_r), 2 (M_i - P_i)) with the priors P within 1e-3 of the model's flux
+    sums M: the flux terms' cotangents are small against the chi-square's,
+    and M - P a small difference of large sums."""
+    p = _problem("dense", nbatch, seed=seed)
+    ops = _op_inputs(p, seed=seed + 1)
+    coeffs2, pr, pi, _, _, w, comps = (x.astype(np.float64) for x in ops)
+    comps = torch.as_tensor(comps.astype(np.float32)).to(comps_dtype).double().numpy()
+    v = np.einsum("gfv,kngv->kngf", comps, coeffs2)
+    mr, mi = pr * v[0] + pi * v[1], -pi * v[0] + pr * v[1]
+    rng = np.random.default_rng(seed + 2)
+    scale = np.sqrt(np.mean(mr ** 2 + mi ** 2))
+    dr = mr + noise * scale * rng.standard_normal(mr.shape)
+    di = mi + noise * scale * rng.standard_normal(mi.shape)
+    coeffs2 = coeffs2 + 0.1 * noise * rng.standard_normal(coeffs2.shape)
+    flux = np.stack([np.sum(w * mr, axis=(1, 2)), np.sum(w * mi, axis=(1, 2))])
+    cot = np.concatenate([np.ones((1, nbatch)), 2e-3 * flux])
+    out = [x.astype(np.float32) for x in (coeffs2, pr, pi, dr, di, w)] + [ops[6]]
+    return out, cot.astype(np.float32)
+
+
+@pytest.mark.parametrize("comps_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nbatch", [1, 3])
+def test_one_pass_near_a_fit_matches_jax(nbatch, comps_dtype):
+    """Near a fit, at the cotangents the "sum" prior gives there: the
+    one-pass instances' plain version and the emulation of their split
+    TF32 coefficient sums (``ops.fused.loss_and_grads_tf32``, as the kernel
+    forms them on the tensor cores), each plus the combine, against the
+    two-pass plain version and ``jax.vjp`` (terms rel 1e-5, M within 1e-5
+    of sum w |m|, gradients rel 1e-4)."""
+    tcd, jcd = DTYPES[comps_dtype]
+    ops, cot = _dense_near_fit(nbatch, tcd, seed=15)
+    args = [torch.as_tensor(x) for x in ops]
+    args[6] = args[6].to(tcd)
+    want = {"near_fit": _jax_terms(ops, jcd, jnp.float32, cot)}
+    for one_pass in (fused.loss_and_grads_plain, fused.loss_and_grads_tf32):
+        _check_one_pass(args, {"near_fit": cot}, want, one_pass)
+
+
+def test_combine_takes_its_cotangents():
+    """The combine's cotangents are (3, N) float32 on the pieces' device;
+    its kernel takes CUDA tensors only."""
+    args = [torch.as_tensor(x) for x in _op_inputs(_problem("dense", 2), seed=16)]
+    _, dcoeffs, dpr, dpi = fused.loss_and_grads_plain(*args, mode=fused.SUM_FWD_ALL)
+    with pytest.raises(ValueError, match=r"float32 \(3, 2\)"):
+        fused.combine(dcoeffs, dpr, dpi, torch.zeros((3, 3)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused.combine_kernel(dcoeffs, dpr, dpi, torch.zeros((3, 2)))
+    with pytest.raises(ValueError, match="no instance sum_all"):
+        fused.loss_and_grads_kernel(*args, mode=fused.SUM_ALL)
+
+
+# ---------------------------------------------------------------------- #
 # the autograd Functions
 # ---------------------------------------------------------------------- #
+def _spy_combine(monkeypatch):
+    """Record every combine of ``ops.fused`` (whether it had coefficient
+    pieces)."""
+    calls = []
+    real = fused.combine
+
+    def spy(dcoeffs, *args):
+        calls.append(dcoeffs is not None)
+        return real(dcoeffs, *args)
+
+    monkeypatch.setattr(fused, "combine", spy)
+    return calls
+
+
 def _spy(monkeypatch, module):
     """Record the mode of every pass of ``module``'s op (``ops.fused`` or
     ``ops.shared``)."""
@@ -237,18 +369,24 @@ def _spy(monkeypatch, module):
     return calls
 
 
+# the passes of each kind, and the combines of the dense kind
 @pytest.mark.parametrize("case, want_modes", [
-    ("no_grad_wanted", [fused.SUM_FWD]),
-    ("frozen_coefficients", [fused.SUM_FWD, fused.SUM_DP]),
-    ("all_gradients", [fused.SUM_FWD, fused.SUM_ALL]),
+    ("no_grad_wanted", {"dense": ([fused.SUM_FWD], 0), "shared_batched": [fused.SUM_FWD]}),
+    ("frozen_coefficients", {"dense": ([fused.SUM_FWD_DP], 1),
+                             "shared_batched": [fused.SUM_FWD, fused.SUM_DP]}),
+    ("all_gradients", {"dense": ([fused.SUM_FWD_ALL], 1),
+                       "shared_batched": [fused.SUM_FWD, fused.SUM_ALL]}),
 ])
 @pytest.mark.parametrize("kind", ["dense", "shared_batched"])
 def test_terms_function_runs_the_forward_then_the_backward_instance(monkeypatch, kind, case,
                                                                     want_modes):
-    """The forward runs the "sum" forward instance; the backward the "sum"
-    backward instance, with dpr/dpi only where the coefficients are
-    frozen; with no gradient wanted only the forward runs. The gradients
-    equal the plain terms' under autograd."""
+    """Shared kernel: the forward runs the "sum" forward instance, the
+    backward the "sum" backward instance, with dpr/dpi only where the
+    coefficients are frozen. Dense kernel: where a gradient is wanted, one
+    pass, the one-pass instance (the pieces of dpr/dpi only where the
+    coefficients are frozen), and in the backward one combine; no second
+    pass. With no gradient wanted only the "sum" forward runs. The
+    gradients equal the plain terms' under autograd."""
     module = fused if kind == "dense" else shared
     p = _problem(kind, 2, seed=7)
     args = [torch.as_tensor(x) for x in _op_inputs(p, seed=8)]
@@ -258,6 +396,7 @@ def test_terms_function_runs_the_forward_then_the_backward_instance(monkeypatch,
     ref = [a.clone().requires_grad_(i in want_grad) for i, a in enumerate(args)]
     ref_terms = module.loss_and_grads_plain(*ref, *extra, mode=fused.SUM_FWD)[0]
     calls = _spy(monkeypatch, module)
+    combines = _spy_combine(monkeypatch)
     for i in want_grad:
         args[i].requires_grad_(True)
     fn = (fused.fused_chunk_terms_batched if kind == "dense"
@@ -270,7 +409,9 @@ def test_terms_function_runs_the_forward_then_the_backward_instance(monkeypatch,
         want = torch.autograd.grad(torch.sum(ref_terms * cot), [ref[i] for i in want_grad])
         for g, w in zip(got, want):
             assert rel_err(g, w) <= 1e-6
+    want_modes, want_combines = want_modes[kind] if kind == "dense" else (want_modes[kind], 0)
     assert calls == want_modes
+    assert len(combines) == want_combines
 
 
 def test_cpu_terms_launch_no_kernel():
@@ -361,7 +502,7 @@ def test_serial_sum_loss_matches_jax(comps_dtype, monkeypatch):
         [torch.as_tensor(p["di"][0]) for p in ps], [torch.as_tensor(p["w"][0]) for p in ps],
         torch.as_tensor(prior_r[0]), torch.as_tensor(prior_i[0]))
     tgrad = torch.autograd.grad(tval, [gr, gi] + fr + fi)
-    assert modes[fused] == [fused.SUM_FWD, fused.SUM_ALL]
+    assert modes[fused] == [fused.SUM_FWD_ALL]
     assert modes[shared] == [fused.SUM_FWD] * 2 + [fused.SUM_ALL] * 2
     assert rel_err(tval, jval) <= LOSS_TOL
     jflat = [jgrad[0], jgrad[1]] + list(jgrad[2]) + list(jgrad[3])
@@ -415,7 +556,8 @@ def test_batched_sum_losses_match_jax(comps_dtype, loss_block, monkeypatch):
     tl = tb.batched_chunk_losses_sum_regularized(*args, torch.as_tensor(prior_r),
                                                  torch.as_tensor(prior_i), loss_block=loss_block)
     tg = torch.autograd.grad(torch.sum(tl * torch.as_tensor(cot)), leaves)
-    assert set(modes[fused]) == {fused.SUM_FWD, fused.SUM_ALL}
+    # the dense chunk: one pass (recomputed per block under the blocks' checkpoint)
+    assert set(modes[fused]) == {fused.SUM_FWD_ALL}
     assert set(modes[shared]) == {fused.SUM_FWD, fused.SUM_ALL}
     assert sums and all(s[1] == 2 for s in sums)  # only the B=2 chunk took the torch ops
     assert rel_err(tl, jl) <= LOSS_TOL
@@ -457,7 +599,8 @@ def test_mesh_objective_matches_jax_gradient(monkeypatch):
               "fg_i": [x.detach() for x in fi]}
     losses, _, _ = one_step(params, None)
     jl, jg = _jax_batched(ps, prior_r, prior_i, np.ones(2, np.float32))
-    assert set(modes[fused]) == set(modes[shared]) == {fused.SUM_FWD, fused.SUM_ALL}
+    assert set(modes[fused]) == {fused.SUM_FWD_ALL}
+    assert set(modes[shared]) == {fused.SUM_FWD, fused.SUM_ALL}
     assert rel_err(losses, jl) <= LOSS_TOL
     got = [rec.grads["g_r"], rec.grads["g_i"]] + list(rec.grads["fg_r"]) + list(rec.grads["fg_i"])
     for g, want in zip(got, jg):
@@ -516,8 +659,9 @@ def test_default_fit_takes_no_plain_terms(cut_core, monkeypatch, shared_basis, t
     the HERA core at cut size (25 antennas, 64 channels; shared chunks, or
     with ``shared_basis=False`` dense ones), serial and time-parallel: no
     B=1 float32 chunk reaches the torch terms (``_sum_terms``, the plain
-    model of ``chunked_loss_sum_regularized``), every step runs a kernel's
-    "sum" forward and backward instances, and no chunk is named as a
+    model of ``chunked_loss_sum_regularized``), every step runs the shared
+    kernel's "sum" forward and backward instances or the dense kernel's
+    one-pass instance and a combine, and no chunk is named as a
     fallback."""
     corrupted, comps, _ = cut_core
 
@@ -527,6 +671,7 @@ def test_default_fit_takes_no_plain_terms(cut_core, monkeypatch, shared_basis, t
     monkeypatch.setattr(tb, "_sum_terms", refuse)
     monkeypatch.setattr(tloss, "data_model", refuse)
     modes = {m: _spy(monkeypatch, m) for m in (fused, shared)}
+    combines = _spy_combine(monkeypatch)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         _, _, _, info = tcal.calibrate_and_model_dpss(
@@ -535,9 +680,14 @@ def test_default_fit_takes_no_plain_terms(cut_core, monkeypatch, shared_basis, t
             time_parallel=time_parallel, device="cpu")
     assert not [w for w in caught if "plain torch loss" in str(w.message)]
     calls = modes[shared] if shared_basis else modes[fused]
-    assert calls.count(fused.SUM_FWD) >= 10 and calls.count(fused.SUM_ALL) >= 10
+    grad_mode = fused.SUM_ALL if shared_basis else fused.SUM_FWD_ALL
+    assert calls.count(grad_mode) >= 10
     assert not (modes[fused] if shared_basis else modes[shared])
-    assert set(calls) <= {fused.SUM_FWD, fused.SUM_ALL}
+    if shared_basis:
+        assert calls.count(fused.SUM_FWD) >= 10 and not combines
+    else:  # one pass a chunk and step; the "sum" forward alone only where no gradient is wanted
+        assert combines.count(True) == calls.count(fused.SUM_FWD_ALL)
+    assert set(calls) <= {fused.SUM_FWD, grad_mode}
     hist = info[0][next(iter(info[0]))] if time_parallel else info[0][0]
     assert np.all(np.isfinite(hist["loss"]))
 
@@ -572,26 +722,48 @@ def _cuda():
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_cuda_sum_instances_match_plain(kind, nbatch, comps_dtype):
     """Each "sum" instance of the kernel that takes ``kind`` against its
-    plain version, two launches equal to the bit."""
+    plain version, two launches equal to the bit; for the dense kernel its
+    one-pass instances' pieces and, at each set of cotangents, the combine
+    of the kernel's pieces against the two-pass plain gradients."""
     dev = _cuda()
     module = fused if kind == "dense" else shared
     p = _problem(kind, nbatch, seed=60)
     args = [torch.as_tensor(x, device=dev) for x in _op_inputs(p, seed=61)]
     args[6] = args[6].to(comps_dtype)
     extra = () if kind == "dense" else (torch.as_tensor(p["valid"][:, 0], device=dev),)
-    got = module.loss_and_grads_kernel(*args, *extra, mode=fused.SUM_FWD)
-    again = module.loss_and_grads_kernel(*args, *extra, mode=fused.SUM_FWD)
+
+    def twice(fn, *a, **kw):
+        got, again = fn(*a, **kw), fn(*a, **kw)
+        for g, x in zip(got, again):
+            assert (g is None and x is None) or torch.equal(g, x)
+        return got
+
+    got = twice(module.loss_and_grads_kernel, *args, *extra, mode=fused.SUM_FWD)
     want = module.loss_and_grads_plain(*args, *extra, mode=fused.SUM_FWD)
-    assert torch.equal(got[0], again[0])
     assert rel_err(got[0][0], want[0][0]) <= LOSS_TOL
-    for cot in _cotangents(nbatch, seed=62).values():
-        cot = torch.as_tensor(cot, device=dev)
-        for mode in (fused.SUM_DP, fused.SUM_ALL):
-            got = module.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
-            again = module.loss_and_grads_kernel(*args, *extra, mode=mode, cot=cot)
-            want = module.loss_and_grads_plain(*args, *extra, mode=mode, cot=cot)
-            for g, a, w in zip(got[1:], again[1:], want[1:]):
+    cots = [torch.as_tensor(c, device=dev) for c in _cotangents(nbatch, seed=62).values()]
+    if kind == "dense":
+        for one, two in ONE_PASS.values():
+            got = twice(fused.loss_and_grads_kernel, *args, mode=one)
+            want = fused.loss_and_grads_plain(*args, mode=one)
+            assert rel_err(got[0][0], want[0][0]) <= LOSS_TOL
+            for g, w in zip(got[1:], want[1:]):
                 assert (g is None) == (w is None)
                 if w is not None:
-                    assert torch.equal(g, a)
+                    assert rel_err(g, w) <= GRAD_TOL
+            for cot in cots:
+                grads = twice(fused.combine_kernel, *got[1:], cot)
+                ref = fused.loss_and_grads_plain(*args, mode=two, cot=cot)[1:]
+                for g, w in zip(grads, ref):
+                    assert (g is None) == (w is None)
+                    if w is not None:
+                        assert rel_err(g, w) <= GRAD_TOL
+        return
+    for cot in cots:
+        for mode in (fused.SUM_DP, fused.SUM_ALL):
+            got = twice(module.loss_and_grads_kernel, *args, *extra, mode=mode, cot=cot)
+            want = module.loss_and_grads_plain(*args, *extra, mode=mode, cot=cot)
+            for g, w in zip(got[1:], want[1:]):
+                assert (g is None) == (w is None)
+                if w is not None:
                     assert rel_err(g, w) <= GRAD_TOL
