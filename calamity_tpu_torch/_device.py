@@ -8,6 +8,8 @@ asked for the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -50,7 +52,11 @@ class LaunchCounter:
     """Counts of hand-written kernel launches, by kernel name.
 
     A wrapper adds one where it launches its kernel and nowhere else, so a
-    run can show that its main path went through the kernels."""
+    run can show that its main path went through the kernels. A CUDA graph
+    launches what its capture recorded each time it is replayed: the
+    wrappers' counts during a capture launched nothing, so
+    :meth:`recording` takes them back out and returns them, and
+    :meth:`replayed` adds them once per replay."""
 
     def __init__(self):
         self._counts = {}
@@ -63,6 +69,25 @@ class LaunchCounter:
 
     def reset(self):
         self._counts.clear()
+
+    def counts(self):
+        """Every count, by name (a copy)."""
+        return dict(self._counts)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within the block, counts go to the dict this yields (the launches
+        of one replay of the graph being captured), not to the totals."""
+        totals, self._counts = self._counts, {}
+        try:
+            yield self._counts
+        finally:
+            self._counts = totals
+
+    def replayed(self, counts, times=1):
+        """``times`` replays of a graph whose capture recorded ``counts``."""
+        for name, n in counts.items():
+            self._counts[name] = self._counts.get(name, 0) + n * times
 
 
 LAUNCHES = LaunchCounter()

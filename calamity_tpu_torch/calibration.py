@@ -44,6 +44,7 @@ from .ops.gains import carry_valid
 from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
 from .parallel.mesh import is_writer
 from .solver.fit import fit_gains_and_foregrounds
+from .solver.graph import POLL_EVERY
 from .solver.tensorize import FitSpec, to_numpy
 from .utils import echo, select_baselines
 
@@ -676,9 +677,6 @@ def _compress_freq_invariant_wgts(w):
     return w
 
 
-# host polls of the batched descent's freeze mask: one device-to-host read
-# per this many steps (the trajectory does not depend on it)
-POLL_EVERY = 16
 
 
 def _calibrate_time_parallel(

@@ -162,7 +162,9 @@ def _chunk_term(g_r, g_i, fr, fi, comps, a0, a1, dr, di, w):
 
 
 def _chunk_term_remat(*args):
-    return checkpoint(_chunk_term, *args, use_reentrant=False)
+    # no RNG state to save (the loss draws no random numbers), which a
+    # CUDA-graph capture could not read
+    return checkpoint(_chunk_term, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False):

@@ -27,11 +27,16 @@ contraction also reads comps once for the batch. Every chunk's gain
 gradient is ``ops.gains.GainProducts``' backward (on the card a kernel
 that sums in a fixed order).
 
-PyTorch runs eagerly, so the reference's jit-compiled ``while_loop`` is a
-host loop here; the host polls the freeze mask every ``poll_every`` steps,
-and steps taken after the last slice froze are undone exactly (masked on
-the device, the step count rewound), so the trajectory does not depend on
-the polling interval.
+The reference's jit-compiled ``while_loop`` keeps its carry on the device,
+and so does :class:`_BatchedDescent`: one step function updates the
+parameters, the optimizer state, the freeze mask and the per-slice
+bookkeeping in place and writes a (steps, nbatch) history, a step taken
+after the last slice froze (or past the segment) changing nothing, the
+optimizer's step count included. On CUDA the step is captured once into a
+CUDA graph and replayed (``solver.graph``); the host reads the freeze mask
+once per ``poll_every`` steps, and the trajectory does not depend on that
+interval. Under a mesh the same step runs eagerly (gloo's collectives
+cannot be captured).
 
 Under a ('data', 'bl') mesh (``parallel.mesh``; one process per device)
 each rank runs these functions on its blocks, with a ``MeshShard``
@@ -75,7 +80,8 @@ from ..ops.shared import (
     shared_chunk_loss_batched,
     shared_chunk_terms_batched,
 )
-from ..solver.fit import _big, init_params
+from ..solver.fit import _big, _buffers, init_params
+from ..solver.graph import StepGraph
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
 from ..utils import echo
 
@@ -179,9 +185,11 @@ def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
             views[(g0, g1)] = (a1, a0[g0:g1], a1[g0:g1])
             carry_valid(a0, views[(g0, g1)][1], slice(g0, g1))
         _, a0_b, a1_b = views[(g0, g1)]
+        # the loss draws no random numbers: no RNG state to save, which a
+        # CUDA-graph capture could not read
         out = checkpoint(term, gr, gi, fr[:, g0:g1], fi[:, g0:g1], dr[:, g0:g1],
                          di[:, g0:g1], w[:, g0:g1], comps_b, a0_b, a1_b,
-                         use_reentrant=False)
+                         use_reentrant=False, preserve_rng_state=False)
         total = out if total is None else tuple(t + o for t, o in zip(total, out))
     return total
 
@@ -198,7 +206,8 @@ def _chunk_term_fn(comps, fr, dr, w, remat, terms=False):
     if terms:
         return _sum_terms
     if remat:
-        return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False)
+        return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False,
+                                     preserve_rng_state=False)
     return _plain_losses
 
 
@@ -341,25 +350,19 @@ def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, pri
     return opt, one_step
 
 
-def _select(mask, new, old):
-    """Leafwise ``where(mask, new, old)`` along the leading slice axis;
-    leaves without one (the optimizer's step count) take ``new``."""
+def _keep(mask, new, old, live=None):
+    """``old`` takes ``new``'s values where ``mask`` holds along the leading
+    slice axis, in place; leaves without one (the optimizer's step count)
+    where ``live`` (a 0-d bool)."""
     nbatch = mask.shape[0]
 
     def sel(n, o):
-        if not isinstance(n, torch.Tensor) or n.dim() == 0 or n.shape[0] != nbatch:
-            return n
-        return torch.where(mask.reshape((nbatch,) + (1,) * (n.dim() - 1)), n, o)
+        if n.dim() == 0 or n.shape[0] != nbatch:
+            torch.where(live, n, o, out=o)
+        else:
+            torch.where(mask.reshape((nbatch,) + (1,) * (n.dim() - 1)), n, o, out=o)
 
-    return tree_map(sel, new, old)
-
-
-def _rewind_count(opt_state, n):
-    """The optimizer state with its step count taken back by ``n`` (states
-    without a count field are returned as they are)."""
-    if n and "count" in getattr(opt_state, "_fields", ()):
-        return opt_state._replace(count=opt_state.count - n)
-    return opt_state
+    tree_map(sel, new, old)
 
 
 class _Carry(NamedTuple):
@@ -400,83 +403,124 @@ def _all_frozen(frozen, shard):
     return bool(frozen.all()) if shard is None else shard.all_frozen(frozen)
 
 
+class _BatchedDescent:
+    """The batched descent's carry on the device, advanced in place by one
+    step: the reference's ``_batched_segment_impl`` ``while_loop``
+    (parallel/batched.py:443-559). The carry is the parameters, the
+    optimizer state, the :class:`_Carry` bookkeeping, the segment's
+    counters (live steps taken, their limit, the unrecorded warm-up steps
+    at its start, the global recorded steps before it) and a (``capacity``,
+    nbatch) float32 history. A step is live while it is within the segment
+    and some slice runs (under a mesh: some slice of the whole batch, so
+    every rank takes the same steps); a slice's parameters and moments move
+    only while it runs, the step count only on a live step. On CUDA the
+    step is one CUDA-graph replay (``solver.graph.StepGraph``), eager under
+    a mesh; :meth:`close` releases the graph."""
+
+    def __init__(self, cfg, one_step, params, opt_state, carry, capacity, shard=None,
+                 name="batched descent", verbose=False):
+        dev = carry.prev.device
+        self.cfg, self.one_step, self.shard = cfg, one_step, shard
+        self.params = _buffers(params, dev)
+        self.opt_state = _buffers(opt_state, dev)
+        self.prev, self.frozen, self.nsteps_slice = (
+            x.clone() for x in (carry.prev, carry.frozen, carry.nsteps_slice))
+        self.best_loss = None if carry.best_loss is None else carry.best_loss.clone()
+        self.best_params = None if carry.best_params is None else _buffers(carry.best_params,
+                                                                            dev)
+        self.since = None if carry.since_best is None else carry.since_best.clone()
+        self.it, self.total, self.warmup, self.step0 = (
+            torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
+        self.history = torch.full((max(int(capacity), 1), self.prev.shape[0]), float("nan"),
+                                  dtype=torch.float32, device=dev)
+        self.graph = StepGraph(self._step, dev, name, capture=shard is None, verbose=verbose)
+
+    def carry(self):
+        return _Carry(self.prev, self.frozen, self.nsteps_slice, self.best_loss,
+                      self.best_params, self.since)
+
+    def _step(self):
+        cfg = self.cfg
+        live = (self.it < self.total) & ~self.frozen.all()
+        if self.shard is not None:
+            live = self.shard.any_rows(live)
+        losses, new_params, new_opt = self.one_step(self.params, self.opt_state)
+        active = ~self.frozen & live
+        _keep(active, new_params, self.params)
+        _keep(active, new_opt, self.opt_state, live)
+        idx = self.it - self.warmup  # -1 on the warm-up step
+        rec = idx >= 0
+        gstep = self.step0 + idx
+        # frozen slices re-evaluate to their converged loss: not recorded
+        slot = torch.clamp(idx, 0, self.history.shape[0] - 1).reshape(1)
+        recording = active & rec
+        self.history.index_copy_(0, slot, torch.where(
+            recording, losses.to(torch.float32), self.history.index_select(0, slot)[0])[None])
+        recorded_live = live & rec
+        stop = ~torch.isfinite(losses)
+        # the first recorded global step cannot trigger the tol stop
+        stop = stop | ((gstep >= 1) & (torch.abs(losses - self.prev) < cfg.tol))
+        newly = recording & stop
+        if self.best_loss is not None:
+            is_best = recorded_live & (losses < self.best_loss)
+            torch.where(is_best, losses, self.best_loss, out=self.best_loss)
+        if self.since is not None:
+            torch.where(recording, torch.where(is_best, 0, self.since + 1), self.since,
+                        out=self.since)
+            newly = newly | (recording & (self.since >= cfg.patience))
+        torch.where(newly, gstep + 1, self.nsteps_slice, out=self.nsteps_slice)
+        self.frozen.logical_or_(newly)
+        torch.where(recorded_live, losses, self.prev, out=self.prev)
+        if self.best_params is not None:
+            _keep(is_best, self.params, self.best_params)
+        self.it.add_(live.to(torch.int64))
+
+    def segment(self, step0, seg_len, warmup=0, poll_every=1):
+        """Up to ``seg_len`` recorded steps after ``warmup`` unrecorded
+        ones, ``step0`` global recorded steps already taken (so a resumed
+        segment records global step numbers). The host issues the steps in
+        blocks of ``poll_every`` and reads the freeze mask after each; the
+        segment ends when every slice is frozen. Returns (history
+        (recorded, nbatch) float32 numpy of this rank's rows, recorded)."""
+        nbatch = self.prev.shape[0]
+        total = seg_len + warmup
+        if total <= 0 or _all_frozen(self.frozen, self.shard):
+            return np.zeros((0, nbatch), np.float32), 0
+        if seg_len > self.history.shape[0]:
+            raise ValueError(f"a segment of {seg_len} steps in a history of "
+                             f"{self.history.shape[0]}")
+        self.it.zero_()
+        self.total.fill_(total)
+        self.warmup.fill_(warmup)
+        self.step0.fill_(step0)
+        self.history.fill_(float("nan"))
+        issued = 0
+        while issued < total:
+            n = min(poll_every, total - issued)
+            for _ in range(n):
+                self.graph()
+            issued += n
+            if _all_frozen(self.frozen, self.shard):  # the host's one read of a block
+                break
+        recorded = max(int(self.it) - warmup, 0)
+        return self.history[:recorded].cpu().numpy(), recorded
+
+    def close(self):
+        self.graph.close()
+
+
 def _batched_segment(cfg, one_step, params, opt_state, carry, step0, seg_len, warmup=0,
                      poll_every=1, shard=None):
     """Up to ``seg_len`` recorded steps (after ``warmup`` unrecorded ones)
     of the batched descent from explicit state (reference
-    ``_batched_segment_impl``, parallel/batched.py:443-559).
-
-    ``step0`` is the number of global recorded steps already taken, so a
-    resumed segment records global step numbers. The loop ends when every
-    slice is frozen; the host reads the freeze mask every ``poll_every``
-    steps, and the steps a block ran after the last freeze change nothing.
-    Under a mesh (``shard``) a step is live while any slice of the whole
-    batch runs, so every rank takes the same steps and stops together.
-    Returns (params, opt_state, carry, history (recorded, nbatch) float32
-    numpy of this rank's rows, recorded)."""
-    nbatch = carry.prev.shape[0]
-    total = seg_len + warmup
-    if total <= 0 or _all_frozen(carry.frozen, shard):
-        return params, opt_state, carry, np.zeros((0, nbatch), np.float32), 0
-    prev, frozen, nsteps_slice, best_loss, best_params, since = carry
-    nan = torch.tensor(float("nan"), dtype=torch.float32, device=prev.device)
-    rows = []
-    it = 0
-    while it < total:
-        lives, row_of = [], []
-        for _ in range(min(poll_every, total - it)):
-            idx = it - warmup
-            rec = idx >= 0
-            gstep = step0 + idx
-            live = ~frozen.all()  # False only on a step past the last freeze
-            if shard is not None:
-                live = shard.any_rows(live)
-            losses, new_params, new_opt = one_step(params, opt_state)
-            active = ~frozen
-            params = _select(active, new_params, params)
-            opt_state = _select(active, new_opt, opt_state)
-            if rec:
-                row_of.append(len(rows))
-                rows.append(torch.where(active, losses.to(torch.float32), nan))
-                recorded_live = live.expand(nbatch)
-                stop = ~torch.isfinite(losses)
-                if gstep >= 1:
-                    # the first recorded global step cannot trigger the tol stop
-                    stop = stop | (torch.abs(losses - prev) < cfg.tol)
-                newly = active & stop
-                if best_loss is not None:
-                    is_best = recorded_live & (losses < best_loss)
-                    best_loss = torch.where(is_best, losses, best_loss)
-                if since is not None:
-                    since = torch.where(active, torch.where(is_best, 0, since + 1), since)
-                    newly = newly | (active & (since >= cfg.patience))
-                nsteps_slice = torch.where(newly, gstep + 1, nsteps_slice)
-                frozen = frozen | newly
-                prev = torch.where(recorded_live, losses, prev)
-                if best_params is not None:
-                    best_params = _select(is_best, params, best_params)
-            else:
-                row_of.append(None)
-            lives.append(live)
-            it += 1
-        # the host poll: one device-to-host read per block
-        wasted = int((~torch.stack(lives)).sum())
-        if wasted:
-            # all-frozen is absorbing, so the wasted steps end the block
-            # and changed nothing but the optimizer's step count
-            opt_state = _rewind_count(opt_state, wasted)
-            first = next((r for r in row_of[len(row_of) - wasted:] if r is not None), None)
-            if first is not None:
-                del rows[first:]
-            it -= wasted
-            break
-        if _all_frozen(frozen, shard):
-            break
-    recorded = max(it - warmup, 0)
-    history = (torch.stack(rows).cpu().numpy() if rows
-               else np.zeros((0, nbatch), np.float32))
-    carry = _Carry(prev, frozen, nsteps_slice, best_loss, best_params, since)
-    return params, opt_state, carry, history, recorded
+    ``_batched_segment_impl``, parallel/batched.py:443-559), through a
+    :class:`_BatchedDescent` of its own. Returns (params, opt_state, carry,
+    history (recorded, nbatch) float32 numpy of this rank's rows,
+    recorded)."""
+    d = _BatchedDescent(cfg, one_step, params, opt_state, carry, seg_len, shard)
+    history, recorded = d.segment(step0, seg_len, warmup, poll_every)
+    d.close()
+    return d.params, d.opt_state, d.carry(), history, recorded
 
 
 def batched_fit_segment(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_const,
@@ -484,7 +528,7 @@ def batched_fit_segment(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_cons
                         warmup=0, poll_every=1, shard=None):
     """A checkpointable batched descent segment: carried state in and out,
     so the host can persist it between segments (the batched counterpart
-    of ``solver.fit._fit_segment``; reference parallel/batched.py:578-606).
+    of ``solver.fit._Descent.segment``; reference parallel/batched.py:578-606).
     ``fg_r_const``/``fg_i_const`` are read only under ``cfg.freeze_model``."""
     _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r_const,
                                    fg_i_const, prior_r, prior_i, shard)
@@ -658,10 +702,6 @@ def _saved_tree(cfg, params, opt_state, carry):
     }
 
 
-def _clone_tree(tree):
-    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
-
-
 def _whole_saved(tree, shard, local=False):
     """A :func:`_saved_tree` gathered whole from this rank's blocks (the
     format an unsharded run of the padded batch writes), or with
@@ -722,7 +762,7 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
     big = float(_big(np.dtype(dtype)))
     params = init_params(cfg, g_r, g_i, fg_r, fg_i)
     opt_state = opt.init(params) if opt_state0 is None else opt_state0
-    carry = _fresh_carry(cfg, nbatch, dtype, g_r.device, _clone_tree(params), shard)
+    carry = _fresh_carry(cfg, nbatch, dtype, g_r.device, params, shard)
     _, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r,
                                    prior_i, shard)
     ckpt_path = latest_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
@@ -759,7 +799,7 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
         best_loss = carry.best_loss
         if cfg.use_min:
             # saved without argmin tracking: restart it at the resume point
-            best_params = tree["best_params"] if stored_use_min else _clone_tree(params)
+            best_params = tree["best_params"] if stored_use_min else params
             if stored_use_min:
                 best_loss = tree["best_loss"]
         history_all = np.asarray(scal["history"], dtype=np.float32).reshape(-1, nbatch_all)
@@ -781,11 +821,14 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
                                             dtype=carry.prev.dtype, device=g_r.device)
         carry = _Carry(tree["prev"], frozen, nsteps_slice, best_loss, best_params, since)
 
+    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
+    cap = seg if steps_per_execution is None else max(1, min(int(steps_per_execution), seg))
+    # one carry on the device (one captured step) for every segment
+    d = _BatchedDescent(cfg, one_step, params, opt_state, carry, cap, shard, verbose=verbose)
+
     def segment(*args, **kwargs):
-        out = _batched_segment(cfg, one_step, *args, shard=shard, **kwargs)
-        if shard is None:
-            return out
-        return out[:3] + (shard.gather_rows_host(out[3], axis=1), out[4])
+        hist, recorded = d.segment(*args, **kwargs)
+        return hist if shard is None else shard.gather_rows_host(hist, axis=1), recorded
 
     guard = None
     factor = loss_guard_factor()
@@ -794,32 +837,29 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
             # the warm-up step alone first (the trajectory does not depend
             # on how the steps are cut), so the independent value is taken
             # at the parameters the first recorded step evaluates
-            params, opt_state, carry, _, _ = segment(params, opt_state, carry, 0, 0, warmup=1)
+            segment(0, 0, warmup=1)
             warmup_pending = False
-        guard = np.asarray(expected_loss_fn(params), dtype=np.float64)
+        guard = np.asarray(expected_loss_fn(d.params), dtype=np.float64)
 
-    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
-    cap = seg if steps_per_execution is None else max(1, min(int(steps_per_execution), seg))
     since_save = 0
 
     def save(step_total):
-        whole = _whole_saved(_saved_tree(cfg, params, opt_state, carry), shard)
+        whole = _whole_saved(_saved_tree(cfg, d.params, d.opt_state, d.carry()), shard)
         if is_writer():
             save_state(os.path.join(checkpoint_dir, f"step_{step_total}"), whole,
                        {"step": step_total, "history": history_all})
         if shard is not None:
             shard.barrier()
         echo(f"{datetime.datetime.now()} checkpointed batched fit at step {step_total} "
-             f"({int(carry.frozen.sum())}/{nbatch} slices frozen)", verbose=verbose)
+             f"({int(d.frozen.sum())}/{nbatch} slices frozen)", verbose=verbose)
 
-    while step_total < cfg.maxsteps and not _all_frozen(carry.frozen, shard):
+    while step_total < cfg.maxsteps and not _all_frozen(d.frozen, shard):
         seg_len = min(cap, seg - since_save, cfg.maxsteps - step_total)
         if warmup_pending and steps_per_execution is not None:
             # the warm-up is a real step: keep the per-call bound honest
             seg_len = max(0, seg_len - 1)
-        params, opt_state, carry, hist, nseg = segment(
-            params, opt_state, carry, step_total, seg_len,
-            warmup=1 if warmup_pending else 0, poll_every=poll_every)
+        hist, nseg = segment(step_total, seg_len, warmup=1 if warmup_pending else 0,
+                             poll_every=poll_every)
         was_warmup, warmup_pending = warmup_pending, False
         if nseg == 0:
             if was_warmup:
@@ -836,13 +876,15 @@ def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, 
         since_save += nseg
         if since_save >= seg:
             will_continue = (step_total < cfg.maxsteps
-                             and not _all_frozen(carry.frozen, shard))
+                             and not _all_frozen(d.frozen, shard))
             if checkpoint_dir is not None and (tail_save or will_continue):
                 save(step_total)
             since_save = 0
     if checkpoint_dir is not None and since_save > 0 and tail_save:
         save(step_total)  # a partial tail: resume re-enters at the true end state
-    return _result(cfg, params, carry, history_all, step_total, opt_state, fg_r, fg_i, shard)
+    d.close()
+    return _result(cfg, d.params, d.carry(), history_all, step_total, d.opt_state, fg_r, fg_i,
+                   shard)
 
 
 # ---------------------------------------------------------------------- #

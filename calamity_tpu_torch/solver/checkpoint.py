@@ -5,7 +5,8 @@ fallback (``:66-75``): a checkpoint is a directory holding ``state.npz``
 (every leaf of the saved trees, plus named scalars and arrays) and
 ``treedef.pkl`` (the pickled structure of the trees). Leaves are tensors
 (restored onto the device and dtype of the caller's template), Python
-ints (the optimizer's step count) or arrays. No orbax, no jax.
+ints or 0-d integer tensors (the optimizer's step count, saved as an int
+either way) or arrays. No orbax, no jax.
 
 Saves are atomic: the state is written to a ``.tmp`` sibling and renamed
 over the final name only when complete, so ``latest_checkpoint`` never
@@ -47,6 +48,10 @@ def _flatten(tree, leaves):
         return (type(tree).__name__, tuple(_flatten(v, leaves) for v in tree))
     leaves.append(tree)
     if isinstance(tree, torch.Tensor):
+        if tree.dim() == 0 and not (tree.dtype.is_floating_point or tree.dtype == torch.bool):
+            # the optimizer's step count, on the device: saved as the int
+            # it was before it moved there, so either form loads either
+            return ("int",)
         return ("tensor", tuple(tree.shape))
     if isinstance(tree, (bool, int, float)):
         return (type(tree).__name__,)

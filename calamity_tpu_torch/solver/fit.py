@@ -9,16 +9,20 @@ the float32 / bfloat16 / mixed basis-precision schedules, and the
 segmented descent checkpointed under ``checkpoint_dir`` (``solver.checkpoint``),
 and ``n_profile_steps``: a short descent traced by ``torch.profiler``.
 
-PyTorch runs eagerly, so the loop is a Python loop. The stop conditions
-are checked on the host after every step, which costs one device-to-host
-sync per step. The stop arithmetic is done in numpy scalars of the fit
-dtype, as the reference does it on the device.
+The reference runs each descent as one ``lax.while_loop`` on the device.
+Here the loop's carry lives on the device too (:class:`_Descent`): one step
+function evaluates the reference's ``cond`` on the device, takes the step,
+keeps it only where ``cond`` held (``where(live, new, old)`` on parameters,
+optimizer state and step count) and writes the history, |delta loss|, the
+best loss and its parameters and the steps since it. On CUDA that step is
+captured once into a CUDA graph and replayed (``solver.graph``); the host
+reads the stop test once per ``POLL_EVERY`` steps and the trajectory does
+not depend on that interval, since a step after the stop changes nothing.
 """
 
 from __future__ import annotations
 
 import datetime
-import math
 import os
 import time
 from typing import Any, NamedTuple, Optional, Tuple
@@ -29,6 +33,7 @@ import torch
 from ..ops.fused import warn_fused_fallbacks
 from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
 from ..utils import echo
+from .graph import POLL_EVERY, StepGraph
 from .optimizers import get_optimizer, tree_leaves, tree_map
 
 
@@ -89,47 +94,125 @@ def value_and_grad(loss_fn, params):
     return loss.detach(), tree_map(lambda _: next(grads), p)
 
 
-def _nan_min(a, b):
-    # jnp.minimum semantics: NaN in either operand gives NaN
-    return a if (a < b or math.isnan(a)) else b
+def _buffers(tree, device):
+    """Fresh device buffers holding a tree's values (a Python-int step
+    count becomes a 0-d int64 tensor), for a descent to update in place."""
+    return tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
+                    else torch.tensor(x, dtype=torch.int64, device=device), tree)
 
 
-def _fit_segment(cfg, seg_len, loss_fn, opt, params, opt_state, prev_loss, best_loss,
-                 best_params, since_best=0):
-    """Run up to ``seg_len`` descent steps from explicit optimizer state.
+def _assign(dst, src):
+    """Copy a tree's values into a tree of buffers of one structure."""
+    tree_map(lambda d, v: d.copy_(v), dst, src)
 
-    Returns (params, opt_state, prev, best_loss, best_params, history,
-    nsteps, converged, since_best) as the reference's ``_fit_segment``."""
-    dt = np.dtype(type(prev_loss))
-    big = _big(dt)
-    tol = dt.type(cfg.tol)
-    history = []
-    step = 0
-    prev = prev_loss
-    delta = big
-    since = since_best
-    while (step < seg_len and delta >= tol
-           and (cfg.patience <= 0 or since < cfg.patience) and np.isfinite(prev)):
-        loss_t, grads = value_and_grad(loss_fn, params)
-        new_params, opt_state = opt.update(grads, opt_state, params)
-        loss = dt.type(loss_t.item())  # the per-step host sync
-        history.append(float(loss))
-        delta = abs(loss - prev) if prev < big else big
-        is_best = bool(loss < best_loss)
-        best_loss = _nan_min(loss, best_loss)
-        if is_best:
-            best_params = new_params
-        since = 0 if is_best else since + 1
-        prev = loss
-        params = new_params
-        step += 1
-    converged = bool(delta < tol)
-    if cfg.patience > 0:
-        # since_best also grows on a NaN/inf step, so a divergence that lands
-        # on the patience boundary surfaces as a divergence, not convergence
-        converged = converged or (since >= cfg.patience and bool(np.isfinite(prev)))
-    return (params, opt_state, prev, best_loss, best_params, history, step, converged,
-            since)
+
+def _keep(cond, new, old):
+    """``old`` takes ``new``'s values where ``cond`` holds, in place (one
+    ``where`` a leaf, written into ``old``)."""
+    tree_map(lambda n, o: torch.where(cond, n, o, out=o), new, old)
+
+
+class _Descent:
+    """One slice's descent carry on the device, advanced in place by one
+    step: the reference's ``_fit_segment`` ``while_loop``
+    (calamity_tpu/solver/fit.py:128-207). The carry is the step and the
+    segment's end, the parameters, the optimizer state, the last loss,
+    |delta loss| (``big`` until a second loss), the best loss and its
+    parameters, the steps since it and a history buffer of ``capacity``
+    losses in the fit dtype. The step is one CUDA-graph replay on CUDA
+    (``solver.graph.StepGraph``); :meth:`close` releases the graph."""
+
+    def __init__(self, cfg, loss_fn, opt, params, opt_state, capacity, name="serial descent",
+                 verbose=False):
+        g = params["g_r"]
+        dev = g.device
+        self.cfg, self.loss_fn, self.opt = cfg, loss_fn, opt
+        self.dtype = g.dtype
+        self.np_dtype = np.dtype(_np_dtype(g))
+        self.big = float(_big(self.np_dtype))
+        self.params = _buffers(params, dev)
+        self.opt_state = _buffers(opt_state, dev)
+        self.best_params = _buffers(params, dev)
+
+        def scalar(value, dtype):
+            return torch.full((), value, dtype=dtype, device=dev)
+
+        self.step, self.end, self.since = (scalar(0, torch.int64) for _ in range(3))
+        self.prev, self.delta, self.best_loss = (scalar(self.big, g.dtype) for _ in range(3))
+        self.history = torch.full((max(int(capacity), 1),), float("nan"), dtype=g.dtype,
+                                  device=dev)
+        self.graph = StepGraph(self._step, dev, name, verbose=verbose)
+
+    def _live(self):
+        # the reference's cond (solver/fit.py:174-179)
+        live = (self.step < self.end) & (self.delta >= self.cfg.tol) & torch.isfinite(self.prev)
+        if self.cfg.patience > 0:
+            live = live & (self.since < self.cfg.patience)
+        return live
+
+    def _step(self):
+        """The reference's body (solver/fit.py:181-193) where ``cond``
+        holds, and nothing where it does not: no host value is read."""
+        live = self._live()
+        loss, grads = value_and_grad(self.loss_fn, self.params)
+        new_params, new_opt = self.opt.update(grads, self.opt_state, self.params)
+        loss = loss.to(self.dtype)
+        is_best = live & (loss < self.best_loss)
+        _keep(is_best, new_params, self.best_params)
+        _keep(live, new_params, self.params)
+        _keep(live, new_opt, self.opt_state)
+        slot = torch.clamp(self.step, max=self.history.numel() - 1).reshape(1)
+        self.history.index_copy_(0, slot, torch.where(live, loss,
+                                                      self.history.index_select(0, slot)))
+        delta = torch.where(self.prev < self.big, torch.abs(loss - self.prev), self.big)
+        torch.where(live, delta, self.delta, out=self.delta)
+        # torch.minimum propagates NaN, as jnp.minimum does
+        torch.where(live, torch.minimum(loss, self.best_loss), self.best_loss,
+                    out=self.best_loss)
+        torch.where(live, torch.where(is_best, 0, self.since + 1), self.since, out=self.since)
+        torch.where(live, loss, self.prev, out=self.prev)
+        self.step.add_(live.to(torch.int64))
+
+    def segment(self, seg_len, prev, best_loss, since=0):
+        """Up to ``seg_len`` steps from the last loss ``prev``, the best
+        loss and the steps since it (the reference's ``_fit_segment`` from
+        explicit state; parameters and optimizer state are the carry's).
+        The host issues the steps in blocks of ``POLL_EVERY`` and reads the
+        stop test after each. Returns (history as a list, steps, converged,
+        prev, best_loss, since), the scalars as the fit dtype's numpy
+        scalars."""
+        if seg_len > self.history.numel():
+            raise ValueError(f"a segment of {seg_len} steps in a history of "
+                             f"{self.history.numel()}")
+        self.step.zero_()
+        self.end.fill_(int(seg_len))
+        self.prev.fill_(float(prev))
+        self.delta.fill_(self.big)
+        self.best_loss.fill_(float(best_loss))
+        self.since.fill_(int(since))
+        issued = 0
+        live = bool(self._live())
+        while live and issued < seg_len:
+            n = min(POLL_EVERY, seg_len - issued)
+            for _ in range(n):
+                self.graph()
+            issued += n
+            live = bool(self._live())  # the host's one read of a block
+        nsteps = int(self.step)
+        prev, delta, best_loss, since = torch.stack(
+            [x.to(torch.float64) for x in (self.prev, self.delta, self.best_loss, self.since)]
+        ).tolist()
+        dt = self.np_dtype.type
+        prev, delta, best_loss, since = dt(prev), dt(delta), dt(best_loss), int(since)
+        converged = bool(delta < dt(self.cfg.tol))
+        if self.cfg.patience > 0:
+            # since_best also grows on a NaN/inf step, so a divergence that
+            # lands on the patience boundary surfaces as a divergence
+            converged = converged or (since >= self.cfg.patience and bool(np.isfinite(prev)))
+        return self.history[:nsteps].tolist(), nsteps, converged, prev, best_loss, since
+
+    def close(self):
+        self.graph.close()
 
 
 def init_params(cfg, g_r, g_i, fg_r, fg_i):
@@ -146,17 +229,28 @@ def _outputs(cfg, params, fg_r, fg_i):
     return params["g_r"], params["g_i"], tuple(params["fg_r"]), tuple(params["fg_i"])
 
 
-def _fit_core(cfg, loss_fn, params, opt, opt_state):
-    """A warm-up step followed by one maxsteps segment. Returns
-    (params, opt_state, prev, best_loss, best_params, history, nsteps)."""
-    big = _big(np.dtype(_np_dtype(params["g_r"])))
+def _fit_core(cfg, loss_fn, params, opt, opt_state, verbose=False):
+    """A warm-up step followed by one maxsteps segment. Returns (the
+    :class:`_Descent`, whose carry holds the parameters, optimizer state
+    and best parameters, prev, best_loss, history, nsteps)."""
+    d = _Descent(cfg, loss_fn, opt, params, opt_state, cfg.maxsteps, verbose=verbose)
     # the warm-up step is not recorded (reference calibration.py:693)
-    params, opt_state, *_ = _fit_segment(cfg, 1, loss_fn, opt, params, opt_state, big, big,
-                                         params)
-    params, opt_state, prev, best_loss, best_params, history, nsteps, _, _ = _fit_segment(
-        cfg, cfg.maxsteps, loss_fn, opt, params, opt_state, big, big, params
-    )
-    return params, opt_state, prev, best_loss, best_params, history, nsteps
+    d.segment(1, d.big, d.big)
+    _assign(d.best_params, d.params)
+    history, nsteps, _, prev, best_loss, _ = d.segment(cfg.maxsteps, d.big, d.big)
+    return d, prev, best_loss, history, nsteps
+
+
+def _polish(cfg, loss_fn, opt, d0, verbose=False):
+    """The float32 phase of the mixed schedule from the bfloat16 phase's
+    descent ``d0`` (whose graph is released first): its parameters and
+    Adamax state carried over, no second warm-up step. Returns as
+    :func:`_fit_core`."""
+    d0.close()
+    d = _Descent(cfg, loss_fn, opt, d0.params, d0.opt_state, cfg.maxsteps,
+                 name="serial descent (float32 phase)", verbose=verbose)
+    history, nsteps, _, prev, best_loss, _ = d.segment(cfg.maxsteps, d.big, d.big)
+    return d, prev, best_loss, history, nsteps
 
 
 def profile_trace(log_dir, fn):
@@ -187,26 +281,27 @@ def _fit_checkpointed(cfg, loss_fn, params, opt, checkpoint_dir, checkpoint_ever
                       verbose):
     """Segmented descent with a checkpoint after every segment of
     ``checkpoint_every`` steps (reference solver/fit.py:210-327). Same
-    trajectory as :func:`_fit_core`; a resumed run continues from the
-    latest checkpoint under ``checkpoint_dir``. Returns (params, opt_state,
-    prev, best_loss, best_params, history, nsteps)."""
+    trajectory as :func:`_fit_core`, one :class:`_Descent` (one captured
+    step) for every segment; a resumed run continues from the latest
+    checkpoint under ``checkpoint_dir``. Returns as :func:`_fit_core`."""
     from .checkpoint import FitCheckpoint, latest_checkpoint, load_checkpoint, save_checkpoint
 
-    dt = np.dtype(_np_dtype(params["g_r"]))
-    big = _big(dt)
-    opt_state = opt.init(params)
-    prev, best_loss, best_params = big, big, params
+    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
+    d = _Descent(cfg, loss_fn, opt, params, opt.init(params), seg, verbose=verbose)
+    dt = d.np_dtype.type
+    prev = best_loss = dt(d.big)
     history_all = np.zeros((0,), dtype=np.float64)
     step_total = 0
-    seg = max(1, min(int(checkpoint_every), cfg.maxsteps))
     ckpt_path = latest_checkpoint(checkpoint_dir)
     if resume and ckpt_path is not None:
         echo(f"{datetime.datetime.now()} Resuming from {ckpt_path}", verbose=verbose)
-        like = FitCheckpoint(params, opt_state, 0, float(big), float(big), best_params,
+        like = FitCheckpoint(d.params, d.opt_state, 0, d.big, d.big, d.best_params,
                              history_all)
         ck = load_checkpoint(ckpt_path, like)
-        params, opt_state, best_params = ck.params, ck.opt_state, ck.best_params
-        prev, best_loss = dt.type(ck.prev_loss), dt.type(ck.best_loss)
+        _assign(d.params, ck.params)
+        _assign(d.opt_state, ck.opt_state)
+        _assign(d.best_params, ck.best_params)
+        prev, best_loss = dt(ck.prev_loss), dt(ck.best_loss)
         history_all = ck.history
         step_total = ck.step
         # steps since the best loss, from the stored history (the first
@@ -215,17 +310,15 @@ def _fit_checkpointed(cfg, loss_fn, params, opt, checkpoint_dir, checkpoint_ever
                  if len(history_all) else 0)
     else:
         # the unrecorded warm-up step (reference calibration.py:693)
-        params, opt_state, *_ = _fit_segment(cfg, 1, loss_fn, opt, params, opt_state, big, big,
-                                             params)
-        best_params = params
+        d.segment(1, d.big, d.big)
+        _assign(d.best_params, d.params)
         since = 0
 
     converged = False
     while step_total < cfg.maxsteps and not converged:
         seg_len = min(seg, cfg.maxsteps - step_total)
-        (params, opt_state, prev, best_loss, best_params, hist, nseg, converged,
-         since) = _fit_segment(cfg, seg_len, loss_fn, opt, params, opt_state, prev, best_loss,
-                               best_params, since)
+        hist, nseg, converged, prev, best_loss, since = d.segment(seg_len, prev, best_loss,
+                                                                  since)
         if nseg == 0:
             # the stop condition held on entry (a resume past patience), or
             # the loss is non-finite: nothing to record or to save again
@@ -234,13 +327,12 @@ def _fit_checkpointed(cfg, loss_fn, params, opt, checkpoint_dir, checkpoint_ever
         step_total += nseg
         save_checkpoint(
             os.path.join(checkpoint_dir, f"step_{step_total}"),
-            FitCheckpoint(params, opt_state, step_total, float(prev), float(best_loss),
-                          best_params, history_all),
+            FitCheckpoint(d.params, d.opt_state, step_total, float(prev), float(best_loss),
+                          d.best_params, history_all),
         )
         echo(f"{datetime.datetime.now()} checkpointed at step {step_total} "
              f"(loss {float(prev):.3e})", verbose=verbose)
-    return (params, opt_state, prev, best_loss, best_params, history_all.tolist(),
-            step_total)
+    return d, prev, best_loss, history_all.tolist(), step_total
 
 
 def fit_gains_and_foregrounds(
@@ -345,16 +437,18 @@ def fit_gains_and_foregrounds(
         # solver/fit.py:444-458): every step runs, no stop, nothing returned
         prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
         prof_loss = loss_of(phases[0] if comps_precision == "bfloat16" else chunks)
-        profile_trace(profile_log_dir,
-                      lambda: _fit_core(prof_cfg, prof_loss, params, opt, opt.init(params)))
+        prof, _ = profile_trace(
+            profile_log_dir, lambda: _fit_core(prof_cfg, prof_loss, params, opt, opt.init(params)))
+        prof[0].close()
 
     if checkpoint_dir is not None:
         from .checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
 
         def run_checkpointed(chs, p, ckdir):
-            p, _, prev, best_loss, best_params, hist, _ = _fit_checkpointed(
+            d, prev, best_loss, hist, _ = _fit_checkpointed(
                 cfg, loss_of(chs), p, opt, ckdir, checkpoint_every, resume, verbose)
-            return (best_params, best_loss, hist) if cfg.use_min else (p, prev, hist)
+            d.close()
+            return (d.best_params, best_loss, hist) if cfg.use_min else (d.params, prev, hist)
 
         if comps_precision == "mixed":
             # each phase is its own checkpointed descent (fresh optimizer
@@ -379,18 +473,14 @@ def fit_gains_and_foregrounds(
                                                  checkpoint_dir)
             histories = [hist]
     else:
-        opt_state = opt.init(params)
         for pnum, chs in enumerate(phases):
             if pnum == 0:
-                params, opt_state, prev, best_loss, best_params, hist, n = timed(
-                    _fit_core, cfg, loss_of(chs), params, opt, opt_state)
+                d, prev, best_loss, hist, n = timed(_fit_core, cfg, loss_of(chs), params, opt,
+                                                    opt.init(params), verbose)
             else:
                 # float32 polish of the mixed schedule: Adamax state carried
                 # over from the bf16 phase, no second warm-up step
-                big = _big(np.dtype(_np_dtype(g_r)))
-                params, opt_state, prev, best_loss, best_params, hist, n, _, _ = timed(
-                    _fit_segment, cfg, cfg.maxsteps, loss_of(chs), opt, params, opt_state,
-                    big, big, params)
+                d, prev, best_loss, hist, n = timed(_polish, cfg, loss_of(chs), opt, d, verbose)
             histories.append(hist)
             if pnum == 0 and len(phases) > 1:
                 echo(
@@ -398,7 +488,8 @@ def fit_gains_and_foregrounds(
                     f"steps; polishing in float32...",
                     verbose=verbose,
                 )
-        out_params = best_params if cfg.use_min else params
+        d.close()
+        out_params = d.best_params if cfg.use_min else d.params
         final_loss = best_loss if cfg.use_min else prev
     g_r_o, g_i_o, fg_r_o, fg_i_o = _outputs(cfg, out_params, fg_r, fg_i)
     history = [x for h in histories for x in h]

@@ -14,7 +14,12 @@ Ftrl, Nadam, SGD, RMSprop, Adagrad and LAMB. Each update follows the
 arithmetic of optax's transform chain (the reference's in-repo one for
 Ftrl), so a float64 run agrees with the reference to rounding. A state
 field that an optimizer does not use is an empty tuple, so every state
-saves in a checkpoint; ``count`` is the step count where optax keeps one.
+saves in a checkpoint; ``count`` is the step count where optax keeps one:
+a 0-d int64 tensor on the parameters' device, so that an update reads no
+host value and a captured step (``solver.graph``) replays at every count.
+The bias corrections ``1 - b**count`` come from a table the host forms
+once per optimizer, dtype and device (:class:`_BiasCorrection`), indexed on
+the device by the count.
 """
 
 from __future__ import annotations
@@ -22,6 +27,11 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+# the longest bias-correction table: a beta whose correction has not
+# rounded to 1 by then (one within about 4e-5 of 1) takes the last entry
+# for every later count
+_BIAS_TABLE_MAX = 1 << 20
 
 
 def tree_map(fn, *trees):
@@ -46,10 +56,74 @@ def tree_leaves(tree):
     return [tree]
 
 
+def _zero_count(params):
+    """A fresh step count: 0-d int64 on the parameters' device."""
+    return torch.zeros((), dtype=torch.int64, device=tree_leaves(params)[0].device)
+
+
+def _next_count(count, params):
+    """``count + 1`` as a tensor on the parameters' device (a state may
+    carry a Python int, as one converted from optax or written by hand)."""
+    if not isinstance(count, torch.Tensor):
+        count = torch.tensor(int(count), dtype=torch.int64,
+                             device=tree_leaves(params)[0].device)
+    return count + 1
+
+
+def _bias_values(b):
+    """``1 - b**k`` for k = 0, 1, ... as Python floats (double precision,
+    as the update formed it on the host), up to the first k where it
+    rounds to 1, so that every later count reads the last entry exactly."""
+    values = []
+    for k in range(_BIAS_TABLE_MAX):
+        try:
+            v = 1 - b**k
+        except OverflowError:  # |b| > 1: the correction overflows, as it did per step
+            break
+        values.append(v)
+        if k > 0 and v == 1.0:
+            break
+    return values
+
+
+class _BiasCorrection:
+    """``1 - b**count`` rounded to a moment's dtype, for a count on the
+    device: one table per dtype and device, formed on the host at the first
+    update (before any capture) and indexed by the count, equal to the bit
+    to forming the value on the host at each step."""
+
+    def __init__(self, b):
+        self._values = None
+        self.b = b
+        self._tables = {}
+
+    def table(self, like):
+        key = (like.dtype, like.device)
+        if key not in self._tables:
+            if self._values is None:
+                self._values = _bias_values(self.b)
+            self._tables[key] = torch.tensor(self._values, dtype=like.dtype, device=like.device)
+        return self._tables[key]
+
+    def at(self, count):
+        """A function of a moment tensor: this count's correction in its
+        dtype, 0-d on its device (one lookup per dtype)."""
+        looked = {}
+
+        def of(t):
+            if t.dtype not in looked:
+                table = self.table(t)
+                idx = torch.clamp(count, max=table.numel() - 1).reshape(1)
+                looked[t.dtype] = torch.index_select(table, 0, idx).reshape(())
+            return looked[t.dtype]
+
+        return of
+
+
 class AdamaxState(NamedTuple):
     """optax ``ScaleByAdamState`` of adamax: step count and the two moments."""
 
-    count: int
+    count: Any  # 0-d int64 tensor
     mu: Any
     nu: Any
 
@@ -64,23 +138,22 @@ def adamax(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7):
     p += -lr * (mu / (1 - b1**t)) / nu, with every product taken in the
     parameter dtype in that order."""
     b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
+    bias1 = _BiasCorrection(b1)
 
     def init(params):
         zeros = tree_map(torch.zeros_like, params)
-        return AdamaxState(count=0, mu=zeros, nu=tree_map(torch.zeros_like, params))
+        return AdamaxState(count=_zero_count(params), mu=zeros,
+                           nu=tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
     def update(grads, state, params):
-        count = state.count + 1
+        count = _next_count(state.count, params)
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
         nu = tree_map(lambda g, n: torch.maximum(torch.abs(g) + eps, b2 * n), grads, state.nu)
         # the bias correction is formed in double precision and rounded to
         # the moment dtype, as optax does under 64-bit mode
-        bc = 1 - b1**count
-        new_params = tree_map(
-            lambda p, m, n: p + (m / torch.tensor(bc, dtype=m.dtype)) / n * (-lr),
-            params, mu, nu,
-        )
+        bc = bias1.at(count)
+        new_params = tree_map(lambda p, m, n: p + (m / bc(m)) / n * (-lr), params, mu, nu)
         return new_params, AdamaxState(count=count, mu=mu, nu=nu)
 
     return Optimizer(init, update)
@@ -89,7 +162,7 @@ def adamax(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7):
 class AdamState(NamedTuple):
     """optax ``ScaleByAdamState`` (adam, nadam and the first stage of lamb)."""
 
-    count: int
+    count: Any  # 0-d int64 tensor
     mu: Any
     nu: Any
 
@@ -102,34 +175,36 @@ def _moment(g, m, decay, order):
 def _scaled(bc, t):
     # bias correction formed in double precision, rounded to the moment
     # dtype, then divided in that dtype (optax tree_bias_correction)
-    return t / torch.tensor(bc, dtype=t.dtype, device=t.device)
+    return t / bc(t)
 
 
 def _apply(params, updates):
     return tree_map(lambda p, u: p + u, params, updates)
 
 
-def _adam_updates(grads, state, b1, b2, eps, eps_root, nesterov):
+def _adam_updates(grads, state, params, bias1, bias2, eps, eps_root, nesterov):
     """optax ``scale_by_adam``: (updates, new state), before the learning
-    rate."""
-    count = state.count + 1
+    rate; ``bias1``, ``bias2``: the :class:`_BiasCorrection` of beta_1 and
+    beta_2."""
+    b1 = bias1.b
+    count = _next_count(state.count, params)
     mu = tree_map(lambda g, m: _moment(g, m, b1, 1), grads, state.mu)
-    nu = tree_map(lambda g, n: _moment(g, n, b2, 2), grads, state.nu)
+    nu = tree_map(lambda g, n: _moment(g, n, bias2.b, 2), grads, state.nu)
     if nesterov:
-        bc_next, bc_now = 1 - b1 ** (count + 1), 1 - b1 ** count
+        bc_next, bc_now = bias1.at(count + 1), bias1.at(count)
         mu_hat = tree_map(lambda m, g: b1 * _scaled(bc_next, m) + (1 - b1) * _scaled(bc_now, g),
                           mu, grads)
     else:
-        bc1 = 1 - b1 ** count
+        bc1 = bias1.at(count)
         mu_hat = tree_map(lambda m: _scaled(bc1, m), mu)
-    bc2 = 1 - b2 ** count
+    bc2 = bias2.at(count)
     updates = tree_map(lambda m, n: m / (torch.sqrt(_scaled(bc2, n) + eps_root) + eps),
                        mu_hat, nu)
     return updates, AdamState(count=count, mu=mu, nu=nu)
 
 
 def _adam_init(params):
-    return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
+    return AdamState(count=_zero_count(params), mu=tree_map(torch.zeros_like, params),
                      nu=tree_map(torch.zeros_like, params))
 
 
@@ -137,11 +212,13 @@ def adam(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7, eps_root=0.
          nesterov=False):
     """optax ``adam`` (``nadam`` with ``nesterov=True``): u = mu_hat /
     (sqrt(nu_hat + eps_root) + eps), p += -lr * u."""
-    b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
+    eps, lr = float(epsilon), float(learning_rate)
+    bias1, bias2 = _BiasCorrection(float(beta_1)), _BiasCorrection(float(beta_2))
 
     @torch.no_grad()
     def update(grads, state, params):
-        updates, state = _adam_updates(grads, state, b1, b2, eps, float(eps_root), nesterov)
+        updates, state = _adam_updates(grads, state, params, bias1, bias2, eps, float(eps_root),
+                                       nesterov)
         return _apply(params, tree_map(lambda u: -lr * u, updates)), state
 
     return Optimizer(_adam_init, update)
@@ -162,7 +239,8 @@ def lamb(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-6, weight_deca
     leaves, a function that sums a tree of squared leaf norms over the
     ranks each leaf is split across (``parallel.mesh.MeshShard``), so the
     norms are the whole leaves'."""
-    b1, b2, eps, lr = float(beta_1), float(beta_2), float(epsilon), float(learning_rate)
+    eps, lr = float(epsilon), float(learning_rate)
+    bias1, bias2 = _BiasCorrection(float(beta_1)), _BiasCorrection(float(beta_2))
     wd = float(weight_decay)
 
     def ratio_of(pn, un):
@@ -175,7 +253,7 @@ def lamb(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-6, weight_deca
 
     @torch.no_grad()
     def update(grads, state, params):
-        updates, state = _adam_updates(grads, state, b1, b2, eps, 0.0, False)
+        updates, state = _adam_updates(grads, state, params, bias1, bias2, eps, 0.0, False)
         updates = tree_map(lambda u, p: u + wd * p, updates, params)
         updates = tree_map(lambda u, pn, un: u * ratio_of(pn, un), updates, norms(params),
                            norms(updates))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11]
+    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11,12]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's four CUDA kernels from the sources in the checkout,
@@ -106,7 +106,22 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    shared_basis=False`` and the "sum" prior (the fused kernel's one-pass
    "sum" instance at N = 8 and the combine: one read of comps a step),
    then 50 recorded batched steps on the card against a CPU copy of one
-   slice (histories rel 1e-4).
+   slice (histories rel 1e-4);
+12. the descent loop captured against the same loop uncaptured: every
+   descent above runs as the entry points run it, its step one replay of a
+   CUDA graph (``solver.graph``) with the stop test, history and argmin on
+   the device and a host poll every 16 steps. Four descents are run that
+   way and again uncaptured (``solver.graph.eager_steps``), on step
+   budgets: (a) phase 4's packed slice, serial, the mixed schedule; (b)
+   the HERA core's slice at full width with the demo's patience, use_min
+   and the "sum" prior; (c) phase 7's 8 slices, batched, the "sum" prior;
+   (d) a checkpointed serial fit, and the graphed one cut mid-fit and
+   resumed. Each pair is equal to the bit (steps, histories, final
+   parameters, launches); the host ms a step of both, the captures (seconds,
+   pool bytes, replays), peak memory, and the replayed step under the
+   profiler (device ms, idle share; (b)'s eager step too); (b)'s replayed
+   step takes at most 1.3 times its device time on the host clock and at
+   most a third of the eager step's.
 
 Every phase resets the kernels' launch counters before it drives its path
 and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
@@ -1591,7 +1606,7 @@ def phase_main_path(tmp, path, uvd, comps):
         recorded += len(h["loss"])
         rates = [1e3 * s / max(n, 1) for s, n in zip(h["phase_seconds"], steps)]
         log(f"  time {t}: phase steps (bf16, f32) {steps}, ms/step "
-            f"{', '.join(f'{r:.3f}' for r in rates)} (host clock, incl. per-step sync); "
+            f"{', '.join(f'{r:.3f}' for r in rates)} (host clock, captures and polls included); "
             f"loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e}")
     log(f"  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
@@ -2845,8 +2860,9 @@ def _core_resid_ratio(corrupted, resid):
 
 
 def hera_idle_share(corrupted, comps, regularization=None):
-    """The serial step of the HERA core's packing under ``torch.profiler``,
-    for both phases of the mixed schedule (``scripts/profile_step_torch.py``;
+    """The serial step of the HERA core's packing, replayed from its CUDA
+    graph as the descent runs it, under ``torch.profiler``, for both phases
+    of the mixed schedule (``scripts/profile_step_torch.py``;
     ``regularization="sum"``: the "sum" prior's step)."""
     import torch
 
@@ -2862,12 +2878,14 @@ def hera_idle_share(corrupted, comps, regularization=None):
     out = {}
     for name, chs in (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)),
                       ("f32", chunks)):
-        step, per_call = prof.serial_stepper(chs, spec, corrupted, gains, regularization)
+        step, per_call, d = prof.serial_stepper(chs, spec, corrupted, gains, regularization)
         out[name] = prof.profile(step, per_call)
+        d.close()
         r = out[name]
-        log(f"  {name} step under the profiler: device {r['device_ms']:.3f} ms in "
+        log(f"  {name} step (replayed) under the profiler: device {r['device_ms']:.3f} ms in "
             f"{r['kernels']:.0f} kernels; host clock {r['plain_ms']:.3f} ms/step without the "
-            f"profiler; idle share {r['idle_share']:.3f}; per step {prof.kernels_line(r)}; "
+            f"profiler, {r['event_ms']:.3f} between CUDA events; idle share "
+            f"{r['idle_share']:.3f}; per step {prof.kernels_line(r)}; "
             "costliest: "
             + "; ".join(f"{ms:.4f} ms x{n:.0f} {key[:48]}" for ms, n, key in r["top"][:4]))
     return out
@@ -2925,7 +2943,7 @@ def phase_hera_core():
     rates = [1e3 * s / max(n, 1) for s, n in zip(h["phase_seconds"], steps)]
     ratio = _core_resid_ratio(corrupted, resid)
     log(f"  phase steps (bf16, f32) {steps}, ms/step {', '.join(f'{r:.3f}' for r in rates)} (host "
-        f"clock, incl. the per-step sync); loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e}")
+        f"clock, captures and polls included); loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e}")
     log("  host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items()))
         + f"; calibrate_and_model_dpss in all {wall:.1f}")
     log("  launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
@@ -3086,8 +3104,8 @@ def phase_sum_hera():
     recorded = len(first["hist"])
     per_step = {k: v / recorded for k, v in first["instances"].items()}
     log(f"  phase steps (bf16, f32) {first['steps']}, ms/step "
-        f"{', '.join(f'{r:.3f}' for r in first['ms_per_step'])} (host clock, incl. the per-step "
-        f"sync); loss {first['hist'][0]:.6e} -> {first['hist'][-1]:.6e}; fit_s "
+        f"{', '.join(f'{r:.3f}' for r in first['ms_per_step'])} (host clock, captures and "
+        f"polls included); loss {first['hist'][0]:.6e} -> {first['hist'][-1]:.6e}; fit_s "
         f"{first['timings'].get('fit_s', float('nan')):.2f}, calibrate_and_model_dpss in all "
         f"{first['wall']:.1f} s; peak device memory {first['peak_gb']:.3f} GB")
     log(f"  launches {first['launches']} for {recorded} recorded steps and {nshared} shared "
@@ -3111,7 +3129,6 @@ def phase_sum_hera():
     check(first["steps"] == again["steps"] and np.array_equal(first["hist"], again["hist"]),
           "the HERA core's two sum fits differ")
     idle = hera_idle_share(corrupted, comps, regularization="sum")
-    _HERA.clear()  # phase 11 is its last user
     return {"steps": first["steps"], "ms_per_step": first["ms_per_step"],
             "launches": first["launches"], "instances": first["instances"],
             "per_step": per_step, "resid_ratio": first["ratio"], "peak_gb": first["peak_gb"],
@@ -3246,6 +3263,252 @@ def phase_sum_time_parallel(tmp, tp):
             "ratios": ratios, "in_loop_rel": rel, "peak_gb": peak_gb, "reads_per_step": reads}
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: the descent captured in a CUDA graph against the same descent
+# uncaptured
+# ---------------------------------------------------------------------- #
+GRAPH_STEPS = 400  # phase 12's step budget a phase: the runs are compared, not converged
+GRAPH_CK_STEPS = 150  # case (d): steps a phase, a checkpoint every GRAPH_CK_EVERY
+GRAPH_CK_EVERY = 50
+
+
+def graphed_and_eager(fn):
+    """``fn()`` run as the entry points run it (each descent step one
+    replay of its CUDA graph), then uncaptured (``solver.graph.eager_steps``,
+    the private switch: every step's launches issued from the host): for
+    each, its result, host seconds, launches by name, peak device memory and
+    the captures it made."""
+    import contextlib
+
+    import torch
+
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.solver import graph
+
+    runs = {}
+    for kind in ("graphed", "eager"):
+        first = len(graph.CAPTURES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if kind == "graphed" else graph.eager_steps():
+            out = fn()
+        torch.cuda.synchronize()
+        runs[kind] = {"out": out, "seconds": time.perf_counter() - t0,
+                      "launches": LAUNCHES.counts(),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "captures": [dict(c) for c in graph.CAPTURES[first:]]}
+    check(runs["graphed"]["captures"] and not runs["eager"]["captures"],
+          f"captures graphed {runs['graphed']['captures']}, eager {runs['eager']['captures']}")
+    check(runs["graphed"]["launches"] == runs["eager"]["launches"],
+          f"launches graphed {runs['graphed']['launches']} and eager "
+          f"{runs['eager']['launches']} differ")
+    return runs
+
+
+def _graph_line(tag, runs, steps):
+    """One log line of a phase 12 case: host ms a step of both runs, the
+    captures, launches a step, peak memory."""
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+
+    g, e = runs["graphed"], runs["eager"]
+    caps = g["captures"]
+    log(f"  ({tag}) {steps} recorded steps, equal to the bit; host ms/step graphed "
+        f"{1e3 * g['seconds'] / steps:.3f}, eager {1e3 * e['seconds'] / steps:.3f} (whole fit, "
+        f"captures included); {len(caps)} captures, "
+        + ", ".join(f"{c['name']} {c['seconds']:.3f} s pool {c['pool_bytes'] / 1e6:.1f} MB "
+                    f"{c['replays']} replays" for c in caps)
+        + f"; {GAIN_KERNEL} launches a step {g['launches'].get(GAIN_KERNEL, 0) / steps:.3f} both; "
+        f"peak device memory graphed {g['peak_gb']:.3f} GB, eager {e['peak_gb']:.3f} GB")
+
+
+def _graph_stats(runs, steps):
+    return {k: {"ms_per_step": 1e3 * r["seconds"] / steps, "peak_gb": r["peak_gb"],
+                "captures": r["captures"]} for k, r in runs.items()}
+
+
+def _same_fit(a, b):
+    """Two ``fit_gains_and_foregrounds`` results equal to the bit: steps,
+    histories, gains and coefficients."""
+    import torch
+
+    ha, hb = a[4], b[4]
+    return (ha["loss"] == hb["loss"] and ha.get("phase_steps") == hb.get("phase_steps")
+            and all(torch.equal(x, y) for x, y in zip([a[0], a[1], *a[2], *a[3]],
+                                                      [b[0], b[1], *b[2], *b[3]])))
+
+
+def _profile_steps(tag, chs, problem, batched=False, regularization=None, eager=False):
+    """The step of ``problem`` replayed (and with ``eager``, uncaptured)
+    under the profiler (``scripts/profile_step_torch.py``): device ms,
+    kernels, host ms and idle share of each. The device time is the
+    profiler's kernel sum, or, where the profiler saw no kernel of the
+    replays, the time between CUDA events around them."""
+    import profile_step_torch as prof
+
+    out = {}
+    for kind, capture in (("graphed", True), ("eager", False))[:2 if eager else 1]:
+        if batched:
+            step, per_call, d = prof.batched_stepper(chs, None, None, None, None, regularization,
+                                                     capture, problem=problem)
+        else:
+            step, per_call, d = prof.serial_stepper(chs, None, None, None, regularization,
+                                                    capture, problem=problem)
+        r = prof.profile(step, per_call)
+        d.close()
+        r["dev_ms"] = r["device_ms"] if r["device_ms"] > 0 else r["event_ms"]
+        r["idle"] = 1 - r["dev_ms"] / r["plain_ms"]
+        out[kind] = r
+    g = out["graphed"]
+    log(f"  ({tag}) step under the profiler: replayed device {g['device_ms']:.3f} ms in "
+        f"{g['kernels']:.0f} kernels (between CUDA events {g['event_ms']:.3f}), host "
+        f"{g['plain_ms']:.3f} ms/step, idle share {g['idle']:.3f}"
+        + ("" if not eager else
+           f"; eager device {out['eager']['device_ms']:.3f} ms in "
+           f"{out['eager']['kernels']:.0f} kernels, host {out['eager']['plain_ms']:.3f} "
+           f"ms/step, idle share {out['eager']['idle']:.3f}"))
+    return {k: {x: v[x] for x in ("device_ms", "event_ms", "dev_ms", "plain_ms", "kernels", "idle")}
+            for k, v in out.items()}
+
+
+def phase_graph(tmp, main, tp):
+    """Phase 12: four descents captured as the entry points run them (one
+    CUDA-graph replay a step) against the same descents uncaptured, each
+    pair equal to the bit (steps, histories, final parameters, launches):
+    (a) phase 4's packed slice, serial, the mixed schedule; (b) the HERA
+    core's slice at full width with the demo's patience and use_min and the
+    "sum" prior; (c) phase 7's 8 slices, batched, with the "sum" prior (the
+    fused kernel's one pass); (d) a checkpointed serial fit of (a)'s slice,
+    and the graphed one cut mid-fit and resumed. Each on a step budget
+    (:data:`GRAPH_STEPS` a phase); the host ms a step of both runs, the
+    captures, peak memory, and (a)-(c)'s step replayed under the profiler,
+    (b)'s also uncaptured. (b)'s replayed step must take at most 1.3 times
+    its device time on the host clock, and at most a third of the eager
+    step's."""
+    import torch
+
+    import profile_step_torch as prof
+    from calamity_tpu_torch import cal_utils
+    from calamity_tpu_torch.calibration import POLL_EVERY
+    from calamity_tpu_torch.parallel import batched
+    from calamity_tpu_torch.solver import fit as fitmod
+    from calamity_tpu_torch.solver.optimizers import tree_leaves
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    log(f"== phase 12: the descent captured in a CUDA graph against the same descent uncaptured "
+        f"({GRAPH_STEPS} steps a phase at most; host polls every {POLL_EVERY} steps)")
+    out = {}
+
+    def serial(problem, chunks, **kw):
+        dr, di, w, g_r, g_i, fr, fi = problem
+        return fitmod.fit_gains_and_foregrounds(
+            g_r.clone(), g_i.clone(), [x.clone() for x in fr], [x.clone() for x in fi], dr, di,
+            w, chunks, learning_rate=1e-2, **kw)
+
+    def recorded(res):
+        return len(res[4]["loss"])
+
+    # (a) phase 4's packed slice
+    packed = packed_slice(main)
+    slice4 = tuple(packed[k] for k in ("data_r", "data_i", "wgts", "g_r", "g_i", "fg_r", "fg_i"))
+    kw_a = dict(maxsteps=GRAPH_STEPS, tol=TOL, model_regularization="post_hoc",
+                comps_precision="mixed")
+    runs = graphed_and_eager(lambda: serial(slice4, packed["chunks"], **kw_a))
+    check(_same_fit(runs["graphed"]["out"], runs["eager"]["out"]),
+          "(a) the graphed and the eager serial fits differ")
+    steps = recorded(runs["graphed"]["out"])
+    _graph_line("a", runs, steps)
+    prof_a = _profile_steps("a, float32 phase", packed["chunks"], slice4)
+    out["a"] = {"steps": runs["graphed"]["out"][4]["phase_steps"],
+                "runs": _graph_stats(runs, steps), "profile": prof_a}
+
+    # (d) the same slice, checkpointed, and the graphed run cut and resumed
+    ck = {k: os.path.join(tmp, f"graph_ck_{k}") for k in ("graphed", "eager", "resumed")}
+    kw_d = dict(maxsteps=GRAPH_CK_STEPS, tol=0.0, model_regularization="post_hoc",
+                comps_precision="mixed", checkpoint_every=GRAPH_CK_EVERY)
+    which = iter(("graphed", "eager"))
+    runs = graphed_and_eager(lambda: serial(slice4, packed["chunks"],
+                                            checkpoint_dir=ck[next(which)], **kw_d))
+    check(_same_fit(runs["graphed"]["out"], runs["eager"]["out"]),
+          "(d) the graphed and the eager checkpointed fits differ")
+    shutil.copytree(ck["graphed"], ck["resumed"])
+    cut = os.path.join(ck["resumed"], "phase_f32")
+    for name in os.listdir(cut):
+        if int(name.split("_")[1]) > GRAPH_CK_EVERY:
+            shutil.rmtree(os.path.join(cut, name))
+    resumed = serial(slice4, packed["chunks"], checkpoint_dir=ck["resumed"], **kw_d)
+    check(_same_fit(resumed, runs["graphed"]["out"]),
+          "(d) the resumed graphed fit differs from the uninterrupted one")
+    steps = recorded(runs["graphed"]["out"])
+    _graph_line("d", runs, steps)
+    log(f"  (d) cut after the float32 phase's step {GRAPH_CK_EVERY}, resumed graphed: equal to the "
+        "bit to the uninterrupted fits")
+    out["d"] = {"steps": runs["graphed"]["out"][4]["phase_steps"],
+                "runs": _graph_stats(runs, steps)}
+    del packed, slice4
+
+    # (b) the HERA core's slice at full width, the "sum" prior
+    corrupted, comps, _ = hera_core_build()
+    gains = cal_utils.blank_uvcal_from_uvdata(corrupted)
+    spec = FitSpec(corrupted, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", nvec_bucketing=True, shared_basis=True)
+    chunks = spec.device_chunks()
+    hera = prof.serial_problem(spec, corrupted, gains)
+    kw_b = dict(maxsteps=GRAPH_STEPS, tol=1e-11, patience=500, use_min=True,
+                model_regularization="sum", sky_model_r=hera[0], sky_model_i=hera[1],
+                comps_precision="mixed")
+    runs = graphed_and_eager(lambda: serial(hera, chunks, **kw_b))
+    check(_same_fit(runs["graphed"]["out"], runs["eager"]["out"]),
+          "(b) the graphed and the eager HERA core fits differ")
+    steps = recorded(runs["graphed"]["out"])
+    _graph_line("b", runs, steps)
+    prof_b = {}
+    for name, chs in (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)),
+                      ("f32", chunks)):
+        prof_b[name] = _profile_steps(f"b, {name} phase", chs, hera, regularization="sum",
+                                      eager=True)
+    out["b"] = {"steps": runs["graphed"]["out"][4]["phase_steps"],
+                "runs": _graph_stats(runs, steps), "profile": prof_b}
+    for name, p in prof_b.items():
+        g, e = p["graphed"], p["eager"]
+        log(f"  (b) {name} phase: replayed host/device {g['plain_ms'] / g['dev_ms']:.3f} (limit "
+            f"1.3), replayed/eager host {g['plain_ms'] / e['plain_ms']:.3f} (limit 1/3)")
+        check(g["plain_ms"] <= 1.3 * g["dev_ms"] and 3 * g["plain_ms"] <= e["plain_ms"],
+              f"(b) {name}: the replayed step {g} against the eager one {e}")
+    del hera, chunks, spec
+    _HERA.clear()  # phase 12 is its last user
+
+    # (c) phase 7's 8 slices, batched, the "sum" prior
+    uvd = tp["uvd"]
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    spec = FitSpec(uvd, tp["comps"], {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", shared_basis=False)
+    chunks = spec.device_chunks()
+    problem = prof.batched_problem(spec, uvd, gains)
+    dr, di, w, g_r, g_i, fr, fi = problem
+    cfg = fitmod.FitConfig(tol=TOL, maxsteps=GRAPH_STEPS, regularization="sum",
+                           opt_kwargs=(("learning_rate", 1e-2),))
+    priors = prof.sum_priors(dr, di, w, dims=(1, 2, 3))
+    runs = graphed_and_eager(lambda: batched.batched_fit_core(
+        cfg, chunks, dr, di, w, g_r, g_i, fr, fi, *priors, poll_every=POLL_EVERY))
+    rg, re_ = runs["graphed"]["out"], runs["eager"]["out"]
+    check(rg.nsteps == re_.nsteps and np.array_equal(rg.nsteps_slice, re_.nsteps_slice)
+          and np.array_equal(rg.loss_history, re_.loss_history, equal_nan=True)
+          and all(torch.equal(x, y) for x, y in zip(
+              tree_leaves(rg.opt_state) + [rg.g_r, rg.g_i, *rg.fg_r, *rg.fg_i, rg.final_loss],
+              tree_leaves(re_.opt_state) + [re_.g_r, re_.g_i, *re_.fg_r, *re_.fg_i,
+                                            re_.final_loss])),
+          "(c) the graphed and the eager batched descents differ")
+    steps = int(rg.nsteps)
+    _graph_line("c", runs, steps)
+    log(f"  (c) steps per slice {rg.nsteps_slice.tolist()}, step count "
+        f"{int(rg.opt_state.count)}")
+    prof_c = _profile_steps("c", chunks, problem, batched=True, regularization="sum")
+    out["c"] = {"steps": int(rg.nsteps), "runs": _graph_stats(runs, steps), "profile": prof_c}
+    return out
+
+
 def main():
     import torch
 
@@ -3280,7 +3543,7 @@ def main():
         if want("3s"):
             out["shared"] = phase_shared_kernel()
             mark("phase 3s")
-        if any(want(p) for p in ("3", "4", "5")):
+        if any(want(p) for p in ("3", "4", "5", "12")):
             t0 = time.time()
             path = os.path.join(tmp, "main.uvh5")
             uvd, comps = make_corrupted_file(path)
@@ -3296,7 +3559,7 @@ def main():
         if want("3"):
             out["fused"] = phase_kernel_vs_plain((ngrps, nfreqs, nvecs))
             mark("phase 3")
-        if want("4") or want("5"):
+        if any(want(p) for p in ("4", "5", "12")):
             out["main"] = phase_main_path(tmp, path, uvd, comps)
             packed = packed_slice(out["main"])
             out["twice"] = fit_twice(packed)
@@ -3306,7 +3569,7 @@ def main():
         if want("6"):
             out["cli"] = phase_cli(tmp, repo)
             mark("phase 6")
-        if any(want(p) for p in ("7", "8", "9", "11")):
+        if any(want(p) for p in ("7", "8", "9", "11", "12")):
             # phase 4's basis: the same baselines and channels
             out["tp"] = phase_time_parallel(tmp, out["main"]["comps"] if "main" in out else None)
             mark("phase 7")
@@ -3324,6 +3587,9 @@ def main():
             mark("phase 11 (a)")
             out["sum_tp"] = phase_sum_time_parallel(tmp, out["tp"])
             mark("phase 11 (b)")
+        if want("12"):
+            out["graph"] = phase_graph(tmp, out["main"], out["tp"])
+            mark("phase 12")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")

@@ -2,14 +2,20 @@
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
     python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]] [--sum]
+                                          [--graph]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
 groups, 1536 channels) and packs it on the card: with ``--nbatch 1`` (the
 default) the first time slice for the serial descent, with ``--nbatch N``
 N (time, pol) slices (N / 2 times x 2 polarizations for even N) for the
-batched time-parallel descent, stepped as the driver steps it (blocks of
-``calibration.POLL_EVERY`` steps between host polls); with ``--scan`` the
+batched time-parallel descent, each stepped as the driver steps it: the
+descent's carry on the device (``solver.fit._Descent``,
+``parallel.batched._BatchedDescent``), each step one replay of its CUDA
+graph, blocks of ``calibration.POLL_EVERY`` steps between host polls. With
+``--graph`` it profiles that replayed step and beside it, in the same run,
+the same step uncaptured (``solver.graph.eager_steps``: PyTorch's ~200
+launches a step issued from the host). With ``--scan`` the
 first time slice through that batched descent at N = 1, which is how the
 warm-started time scan steps each time. With ``--hera`` it profiles
 the serial step of the HERA core instead (``scripts/hera_core_demo_torch.py``
@@ -24,7 +30,9 @@ launches and device time per step of the port's hand-written kernels
 (``fused_chunk_loss``, ``fused_sum_combine``, ``shared_chunk_loss``,
 ``gain_grad``, ``gain_products``), and the device's idle share against
 the host clock.
-It then times the same steps without the profiler. With ``--sum`` the
+It then times the same steps without the profiler, on the host clock and
+between CUDA events (for a replayed step, which the host issues faster
+than the card runs it, the events read the device's time). With ``--sum`` the
 step is that of the "sum" flux prior (``model_regularization="sum"``, the
 Python entry points' default; the sky model is the data, as the driver
 sets it for identity gains) instead of the chi-square alone.
@@ -48,6 +56,7 @@ from calamity_tpu_torch.calibration import POLL_EVERY, _compress_freq_invariant_
 from calamity_tpu_torch.ops.lstsq import blocked_init_from_data, gram_cholesky_chunk  # noqa: E402
 from calamity_tpu_torch.parallel import batched  # noqa: E402
 from calamity_tpu_torch.solver import fit as fitmod  # noqa: E402
+from calamity_tpu_torch.solver import graph  # noqa: E402
 from calamity_tpu_torch.solver.optimizers import get_optimizer  # noqa: E402
 from calamity_tpu_torch.solver.tensorize import FitSpec  # noqa: E402
 
@@ -64,28 +73,47 @@ def sum_priors(dr, di, w, dims=None):
     return tuple(sum(torch.sum(d * x, dim=dims) for d, x in zip(ds, w)) for ds in (dr, di))
 
 
-def serial_stepper(chs, spec, uvd, gains, regularization=None):
-    """One serial descent step (the first time slice) per call; with
-    ``regularization="sum"`` the "sum" prior's step."""
+def serial_problem(spec, uvd, gains):
+    """The first time slice of ``uvd`` packed on the spec's device as the
+    serial driver packs it, with warm-started coefficients: (dr, di, w,
+    g_r, g_i, fr, fi)."""
     t0 = spec.times[0]
     rows = np.isclose(uvd.time_array, t0, rtol=0.0, atol=1e-7)
     rms = np.sqrt(np.mean(np.abs(uvd.data_array[rows, 0, :, 0]) ** 2))
     dr, di, w = spec.pack_data(uvd, "xx", t0, data_scale_factor=rms)
     g_r, g_i = spec.pack_gains(gains, "xx", t0)
-    fr, fi = tuple(spec.init_coeffs(dr, w)), tuple(spec.init_coeffs(di, w))
+    return dr, di, w, g_r, g_i, tuple(spec.init_coeffs(dr, w)), tuple(spec.init_coeffs(di, w))
+
+
+def _descent(make, capture):
+    # a descent whose step is captured (as the driver runs it) or eager
+    if capture:
+        return make()
+    with graph.eager_steps():
+        return make()
+
+
+def serial_stepper(chs, spec, uvd, gains, regularization=None, capture=True, problem=None):
+    """POLL_EVERY serial descent steps (the first time slice, or
+    ``problem``, a :func:`serial_problem`) per call, as the driver runs
+    them: one replay of the captured step each (eager with
+    ``capture=False``) and one host poll; with ``regularization="sum"`` the
+    "sum" prior's step. Returns (step, steps a call, the descent)."""
+    dr, di, w, g_r, g_i, fr, fi = problem or serial_problem(spec, uvd, gains)
     cfg = fitmod.FitConfig(tol=0.0, regularization=regularization)
     priors = sum_priors(dr, di, w) if regularization == "sum" else (None, None)
     loss_fn = fitmod.make_loss_fn(cfg, chs, dr, di, w, fr, fi, *priors)
     opt = get_optimizer("Adamax", learning_rate=1e-2)
-    state = {"params": fitmod.init_params(cfg, g_r, g_i, fr, fi)}
-    state["opt"] = opt.init(state["params"])
+    params = fitmod.init_params(cfg, g_r, g_i, fr, fi)
+    d = _descent(lambda: fitmod._Descent(cfg, loss_fn, opt, params, opt.init(params),
+                                         POLL_EVERY), capture)
+    state = {"prev": d.big, "best": d.big, "since": 0}
 
     def step():
-        loss, grads = fitmod.value_and_grad(loss_fn, state["params"])
-        state["params"], state["opt"] = opt.update(grads, state["opt"], state["params"])
-        loss.item()  # the descent's per-step host read
+        _, _, _, state["prev"], state["best"], state["since"] = d.segment(
+            POLL_EVERY, state["prev"], state["best"], state["since"])
 
-    return step, 1
+    return step, POLL_EVERY, d
 
 
 def batched_problem(spec, uvd, gains, nbatch=None):
@@ -128,39 +156,41 @@ def batched_problem(spec, uvd, gains, nbatch=None):
     return dr, di, w, torch.stack(g_r), torch.stack(g_i), fr, fi
 
 
-def batched_stepper(chs, spec, uvd, gains, nbatch=None, regularization=None):
+def batched_stepper(chs, spec, uvd, gains, nbatch=None, regularization=None, capture=True,
+                    problem=None):
     """POLL_EVERY batched descent steps over the slices of
-    :func:`batched_problem` per call, through the driver's segment loop
-    (one host poll per call); with ``regularization="sum"`` the "sum"
-    prior's step."""
-    dr, di, w, g_r, g_i, fr, fi = batched_problem(spec, uvd, gains, nbatch)
+    :func:`batched_problem` (or ``problem``, one made by it) per call, as
+    the driver runs them (one replay of the captured step each, eager with
+    ``capture=False``, and one host poll); with ``regularization="sum"`` the
+    "sum" prior's step. Returns (step, steps a call, the descent)."""
+    dr, di, w, g_r, g_i, fr, fi = problem or batched_problem(spec, uvd, gains, nbatch)
     cfg = fitmod.FitConfig(tol=0.0, maxsteps=10 ** 9, opt_kwargs=(("learning_rate", 1e-2),),
                            regularization=regularization)
     priors = (sum_priors(dr, di, w, dims=(1, 2, 3)) if regularization == "sum"
               else (None, None))
     opt, one_step = batched._batched_step_fn(cfg, chs, dr, di, w, fr, fi, *priors)
     params = fitmod.init_params(cfg, g_r, g_i, fr, fi)
-    state = {"params": params, "opt": opt.init(params), "step": 0,
-             "carry": batched._fresh_carry(cfg, g_r.shape[0], np.float32, g_r.device, None)}
+    carry = batched._fresh_carry(cfg, g_r.shape[0], np.float32, g_r.device, None)
+    d = _descent(lambda: batched._BatchedDescent(cfg, one_step, params, opt.init(params), carry,
+                                                 POLL_EVERY), capture)
+    state = {"step": 0}
 
     def step():
-        (state["params"], state["opt"], state["carry"], _, n) = batched._batched_segment(
-            cfg, one_step, state["params"], state["opt"], state["carry"], state["step"],
-            POLL_EVERY, poll_every=POLL_EVERY)
-        state["step"] += n
+        state["step"] += d.segment(state["step"], POLL_EVERY, poll_every=POLL_EVERY)[1]
 
-    return step, POLL_EVERY
+    return step, POLL_EVERY, d
 
 
 def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
     """``step`` (``per_call`` descent steps a call) after ``nwarmup`` warm-up
     steps: ``nsteps`` steps under ``torch.profiler``, then the same without
     it. Returns the host ms per step with and without the profiler
-    (``wall_ms``, ``plain_ms``), the device ms per step summed over the
-    kernels (``device_ms``), kernels per step, the idle share against the
-    host clock without the profiler, and the 16 costliest kernels as (ms per
-    step, launches per step, name); ``named``: each hand-written kernel's
-    (device ms, launches) per step."""
+    (``wall_ms``, ``plain_ms``), the ms per step between CUDA events around
+    the steps without the profiler (``event_ms``), the device ms per step
+    summed over the kernels (``device_ms``), kernels per step, the idle
+    share against the host clock without the profiler, and the 16 costliest
+    kernels as (ms per step, launches per step, name); ``named``: each
+    hand-written kernel's (device ms, launches) per step."""
     for _ in range(max(1, nwarmup // per_call)):
         step()
     calls = max(1, nsteps // per_call)
@@ -182,12 +212,16 @@ def profile(step, per_call, nsteps=NSTEPS, nwarmup=NWARMUP):
     top = [(e.self_device_time_total / 1e3 / nsteps, e.count / nsteps, e.key)
            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]]
     torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     start = time.perf_counter()
+    events[0].record()
     for _ in range(calls):
         step()
+    events[1].record()
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - start) / nsteps
     return {"wall_ms": wall_ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "event_ms": events[0].elapsed_time(events[1]) / nsteps,
             "kernels": sum(e.count for e in kernels) / nsteps,
             "idle_share": 1 - dev_ms / plain_ms, "top": top, "named": named}
 
@@ -216,6 +250,8 @@ def main():
     ap.add_argument("--hera", action="store_true",
                     help="the serial (or, with --nbatch N, the batched) step of the HERA core "
                          "with the default packing")
+    ap.add_argument("--graph", action="store_true",
+                    help="the replayed step and, beside it, the same step uncaptured")
     ap.add_argument("--sum", action="store_true",
                     help='the step of the "sum" flux prior (the default regularization of the '
                          "Python entry points)")
@@ -241,20 +277,30 @@ def main():
           f"regularization {regularization}")
     phases = (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)), ("f32", chunks))
     for name, chs in phases:
-        if args.nbatch == 1 and not args.scan:
-            step, per_call = serial_stepper(chs, spec, uvd, gains, regularization)
-        else:
-            step, per_call = batched_stepper(chs, spec, uvd, gains,
-                                             args.nbatch if args.hera else None, regularization)
-        out = profile(step, per_call)
-        print(f"== {name} step: host clock {out['wall_ms']:.3f} ms/step under the profiler; "
-              f"device {out['device_ms']:.3f} ms/step in {out['kernels']:.0f} kernels; idle "
-              f"share {1 - out['device_ms'] / out['wall_ms']:.3f}")
-        for ms, count, key in out["top"]:
-            print(f"  {ms:8.4f} ms/step x{count:<5.1f} {key[:90]}")
-        print(f"  hand-written kernels per step: {kernels_line(out)}")
-        print(f"  host clock without the profiler {out['plain_ms']:.3f} ms/step; idle share "
-              f"{out['idle_share']:.3f}")
+        for capture in (True, False) if args.graph else (True,):
+            if args.nbatch == 1 and not args.scan:
+                step, per_call, d = serial_stepper(chs, spec, uvd, gains, regularization,
+                                                   capture)
+            else:
+                step, per_call, d = batched_stepper(chs, spec, uvd, gains,
+                                                    args.nbatch if args.hera else None,
+                                                    regularization, capture)
+            out = profile(step, per_call)
+            kind = "replayed" if d.graph.capture else "eager"
+            print(f"== {name} step, {kind}: host clock {out['wall_ms']:.3f} ms/step under the "
+                  f"profiler; device {out['device_ms']:.3f} ms/step in {out['kernels']:.0f} "
+                  f"kernels; idle share {1 - out['device_ms'] / out['wall_ms']:.3f}")
+            for ms, count, key in out["top"]:
+                print(f"  {ms:8.4f} ms/step x{count:<5.1f} {key[:90]}")
+            print(f"  hand-written kernels per step: {kernels_line(out)}")
+            print(f"  host clock without the profiler {out['plain_ms']:.3f} ms/step, between "
+                  f"CUDA events {out['event_ms']:.3f} ms/step; idle share "
+                  f"{out['idle_share']:.3f}")
+            if d.graph.record is not None:
+                r = d.graph.record
+                print(f"  capture {r['seconds']:.3f} s, pool {r['pool_bytes']} bytes, "
+                      f"{r['replays']} replays")
+            d.close()
     print(chip_smoke.nvidia_smi_line())
 
 
