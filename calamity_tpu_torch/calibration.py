@@ -41,12 +41,12 @@ from .io.flags import FlagWeights
 from .io.polarizations import polstr2num
 from .io.visdata import VisData
 from .ops.gains import carry_valid
-from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host, fg_model_host_batched
+from .ops.loss import fg_model_all_chunks, fg_model_all_chunks_host
 from .parallel.mesh import is_writer
 from .solver.fit import fit_gains_and_foregrounds
 from .solver.graph import POLL_EVERY
 from .solver.tensorize import FitSpec, to_numpy
-from .utils import echo, select_baselines
+from .utils import echo, host_map, rss_gib, select_baselines
 
 __all__ = [
     "renormalize",
@@ -233,6 +233,19 @@ def _add_seconds(timings, key, t0):
     return _time.time()
 
 
+# threads of the time-parallel path's host stages: each holds a slice's
+# temporaries, several GB at the full HERA array's size
+_HOST_THREADS = 4
+
+
+def _mark_rss(timings):
+    """Record the host's resident set after the write-back
+    (``writeback_rss_gib``, as the reference records it), where a
+    ``timings`` dict is given."""
+    if timings is not None:
+        timings["writeback_rss_gib"] = rss_gib()
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -321,7 +334,8 @@ def calibrate_and_model_tensor(
 
     ``timings``: optional dict that receives host wall-clock seconds per
     stage (``packing_s``, ``pack_data_s``, ``warm_start_s``, ``fit_s``,
-    ``writeback_s``, ``finalize_s``; repeated stages accumulate).
+    ``writeback_s``, ``finalize_s``; repeated stages accumulate) and
+    ``writeback_rss_gib``, the host's resident set after the write-back.
 
     Returns (model, resid, gains, fit_history).
     """
@@ -587,6 +601,7 @@ def calibrate_and_model_tensor(
         uvdata, model, resid, gains, correct_model, correct_resid
     )
     _mark("finalize_s", t_st)
+    _mark_rss(timings)
     return model, resid, gains, fit_history
 
 
@@ -769,17 +784,19 @@ def _calibrate_time_parallel(
     data_r_h, data_i_h, wgts_h = alloc_stacks(), alloc_stacks(), alloc_stacks()
     sky_r_h = alloc_stacks() if have_sky else []
     sky_i_h = alloc_stacks() if have_sky else []
-    g_r_l, g_i_l = [], []
-    for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
+
+    def extract(b):
+        # slice b's rows of the host stacks are its own
+        _, pol, _, time, rms = slices[b]
         spec.pack_data_into(uvdata, pol, time, data_r_h, data_i_h, wgts_h, b,
                             data_scale_factor=rms, weights=weights,
                             nsamples_in_weights=nsamples_in_weights)
         if have_sky:
             spec.pack_data_into(sky_model, pol, time, sky_r_h, sky_i_h, None, b,
                                 data_scale_factor=rms)
-        g_r, g_i = spec.pack_gains(gains, pol, time)
-        g_r_l.append(g_r)
-        g_i_l.append(g_i)
+        return spec.pack_gains(gains, pol, time)
+
+    g_r_l, g_i_l = (list(x) for x in zip(*host_map(extract, range(len(slices)), _HOST_THREADS)))
     # dummy rows repeat the last slice's gains (their zero weights keep
     # them inert)
     g_r_l += g_r_l[-1:] * (nbatch - len(slices))
@@ -1036,11 +1053,12 @@ def _calibrate_time_parallel(
             timings["collective_calls"] = shard.collective_calls
     g_r_out = to_numpy(g_r_out)
     g_i_out = to_numpy(g_i_out)
-    # every slice's host model, one basis read per chunk
-    models_out = [fg_model_host_batched(to_numpy(fr), to_numpy(fi), hc)
-                  for fr, fi, hc in zip(fr_out, fi_out, spec.host_comps)]
-    # release the descent's device memory before the host write-back
-    result = data_r_b = data_i_b = wgts_b = chunks_lo = fr_out = fi_out = None  # noqa: F841
+    fr_out = [to_numpy(x) for x in fr_out]
+    fi_out = [to_numpy(x) for x in fi_out]
+    # release the descent's device memory and the host stacks (the guard's)
+    # before the host write-back, which holds one slice's model at a time
+    result = data_r_b = data_i_b = wgts_b = chunks_lo = None  # noqa: F841
+    data_r_h = data_i_h = wgts_h = data_r_g = data_i_g = None  # noqa: F841
     for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
         loss = hist2[: int(ns2[b]), b].tolist()
         entry = {"loss": loss}
@@ -1048,17 +1066,32 @@ def _calibrate_time_parallel(
             entry = {"loss": hist1[: int(ns1[b]), b].tolist() + loss,
                      "phase_steps": [int(ns1[b]), int(ns2[b])]}
         fit_history[polnum][time_index] = entry
-        spec.insert_model(model, [(vr[b], vi[b]) for vr, vi in models_out], pol, time, rms)
-        spec.insert_gains(gains, g_r_out[b], g_i_out[b], pol, time)
-        bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
-        if (not freeze_model and model_regularization == "post_hoc"
-                and np.any(~model.flag_array[bltsel])):
-            renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model, gains=gains,
-                        polarization=pol, time=time, additional_flags=uvdata.flag_array)
+
+    def write_back(bs):
+        # one time's slices, its polarizations in order: the rows of the
+        # model and the gains of one time are that time's own
+        for b in bs:
+            _, pol, _, time, rms = slices[b]
+            spec.insert_model(model, fg_model_all_chunks_host([f[b] for f in fr_out],
+                                                              [f[b] for f in fi_out],
+                                                              spec.host_comps), pol, time, rms)
+            spec.insert_gains(gains, g_r_out[b], g_i_out[b], pol, time)
+            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+            if (not freeze_model and model_regularization == "post_hoc"
+                    and np.any(~model.flag_array[bltsel])):
+                renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model,
+                            gains=gains, polarization=pol, time=time,
+                            additional_flags=uvdata.flag_array)
+
+    by_time = {}
+    for b, sl in enumerate(slices):
+        by_time.setdefault(sl[2], []).append(b)
+    host_map(write_back, list(by_time.values()), _HOST_THREADS)
     model, resid = _finalize_model_resid(
         uvdata, model, resid, gains, correct_model, correct_resid
     )
     _tmark("writeback_s", t_tp)
+    _mark_rss(timings)
     return model, resid, gains, fit_history
 
 
@@ -1424,6 +1457,7 @@ def _calibrate_time_scan(
         uvdata, model, resid, gains, correct_model, correct_resid
     )
     _smark("writeback_s", t0)
+    _mark_rss(timings)
     return model, resid, gains, fit_history
 
 

@@ -881,9 +881,66 @@ int launch_bf16(bool pre, int mode, Args... args) {
              : launch_mode<__nv_bfloat16, false>(mode, args...);
 }
 
+// blocks an SM of one instance at `smem` bytes of dynamic shared memory, as
+// the CUDA runtime's occupancy calculator gives them
+template <typename TC, int MODE, bool kPre>
+int occupancy(size_t smem, int* blocks) {
+  auto kernel = shared_chunk_loss_kernel<TC, MODE, kPre>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem));
+}
+
+template <typename TC, bool kPre>
+int occupancy_mode(int mode, size_t smem, int* blocks) {
+  switch (mode) {
+    case kLossOnly: return occupancy<TC, kLossOnly, kPre>(smem, blocks);
+    case kLossDp: return occupancy<TC, kLossDp, kPre>(smem, blocks);
+    case kLossAll: return occupancy<TC, kLossAll, kPre>(smem, blocks);
+    case kSumFwd: return occupancy<TC, kSumFwd, kPre>(smem, blocks);
+    case kSumDp: return occupancy<TC, kSumDp, kPre>(smem, blocks);
+    default: return occupancy<TC, kSumAll, kPre>(smem, blocks);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The launch plan of shared_chunk_loss for these shapes, into out[6]:
+// {stages of the comps ring, channel splits a tile of pairs (the cluster),
+// blocks of the grid (splits included), dynamic shared memory a block in
+// bytes, 1 where the coefficients are split once into shared memory, the
+// blocks an SM the CUDA runtime's occupancy calculator gives the instance
+// at that shared memory}. Returns 0, cudaErrorInvalidValue for a shape the
+// kernel does not take, or the runtime's error.
+int shared_plan(long long N, long long G, long long F, long long V, long long U,
+                int comps_dtype, int mode, long long* out) {
+  const int csize = comps_dtype == 0 ? 4 : 2;
+  if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || U <= 0 || G % U != 0 || mode < kLossOnly ||
+      mode > kSumAll || (comps_dtype != 0 && comps_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool pre = comps_dtype == 1 && V <= kCapacity;
+  const int stages = pre ? 2 : plan_stages(V, csize);
+  if (stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_op = (G / U * N + kPairs - 1) / kPairs;
+  const int splits = plan_splits(per_op * U, F, V);
+  const size_t smem = pre ? smem_bytes_pre(V, csize) : smem_bytes(V, csize, stages);
+  int blocks = 0;
+  const int err = comps_dtype == 0 ? occupancy_mode<float, false>(mode, smem, &blocks)
+                  : pre            ? occupancy_mode<__nv_bfloat16, true>(mode, smem, &blocks)
+                                   : occupancy_mode<__nv_bfloat16, false>(mode, smem, &blocks);
+  if (err != 0) return err;
+  const long long vals[6] = {stages, splits, per_op * U * splits, static_cast<long long>(smem),
+                             pre ? 1 : 0, blocks};
+  for (int q = 0; q < 6; ++q) out[q] = vals[q];
+  return 0;
+}
 
 // comps: (U, F, V) contiguous, float32 (comps_dtype 0) or bfloat16 (1);
 // group g uses operator g / (G / U). coeffs2: (2, N, G, V) contiguous

@@ -66,6 +66,8 @@ class KernelLibrary:
             [vp, ci] + [vp] * 5 + [ll] * 3 + [vp, ci] + [ll] * 3 + [vp] * 6 + [ll] * 5 + [ci, vp]
         )
         lib.shared_chunk_loss.restype = ci
+        lib.shared_plan.argtypes = [ll] * 5 + [ci, ci, ctypes.POINTER(ll)]
+        lib.shared_plan.restype = ci
         self.fcl_error_string = lib.fcl_error_string
         self.fused_chunk_loss = lib.fused_chunk_loss
         self.fused_sum_combine = lib.fused_sum_combine
@@ -85,6 +87,20 @@ class KernelLibrary:
                 f"F={nfreqs}, V={nvecs} ({self.fcl_error_string(err).decode()})"
             )
         keys = ("slices_per_tile", "rows", "bulk", "pairs", "coef_smem", "smem_bytes")
+        return dict(zip(keys, out))
+
+    def shared_plan(self, nbatch, ngrps, nfreqs, nvecs, nu, comps_dtype, mode):
+        """The shared-basis kernel's launch plan as a dict (see
+        ``shared_plan`` in its source), the blocks an SM from the CUDA
+        runtime's occupancy calculator; raises on a shape it does not take."""
+        out = (ctypes.c_longlong * 6)()
+        err = self._lib.shared_plan(nbatch, ngrps, nfreqs, nvecs, nu, comps_dtype, mode, out)
+        if err != 0:
+            raise ValueError(
+                f"the shared-basis kernel has no launch plan for N={nbatch}, G={ngrps}, "
+                f"F={nfreqs}, V={nvecs}, U={nu} ({self.fcl_error_string(err).decode()})"
+            )
+        keys = ("stages", "splits", "grid", "smem_bytes", "pre_split", "blocks_per_sm")
         return dict(zip(keys, out))
 
 

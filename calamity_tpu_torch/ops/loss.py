@@ -85,48 +85,28 @@ def fg_model_batched(coeffs_r, coeffs_i, comps):
 
 def fg_model_host(coeffs_r, coeffs_i, comps):
     """numpy mirror of :func:`fg_model` for write-back (same three
-    packings; float32 BLAS contractions for float32 comps)."""
+    packings; BLAS contractions in the basis' dtype). A shared (one
+    operator) or shared-batched chunk (operator u serves the groups [u
+    gmax, (u + 1) gmax)) takes one product per operator against its
+    groups' real and imaginary coefficients: an einsum with the operator as
+    a batch axis would leave BLAS for numpy's own loops, minutes at the
+    full array's size."""
     comps = np.asarray(comps)
     cr = np.asarray(coeffs_r, dtype=comps.dtype)
     ci = np.asarray(coeffs_i, dtype=comps.dtype)
+    nu, nbls, nfreqs, nvecs = comps.shape
     ngrps = cr.shape[0]
-    nu = comps.shape[0]
-    if nu == 1 and ngrps > 1:
-        vr = np.einsum("bfv,gv->gbf", comps[0], cr, optimize=True)
-        vi = np.einsum("bfv,gv->gbf", comps[0], ci, optimize=True)
-    elif 1 < nu < ngrps:
-        gmax = ngrps // nu
-        crr = cr.reshape(nu, gmax, cr.shape[-1])
-        cii = ci.reshape(nu, gmax, ci.shape[-1])
-        nb, nf = comps.shape[1], comps.shape[2]
-        vr = np.einsum("ubfv,ugv->ugbf", comps, crr, optimize=True)
-        vi = np.einsum("ubfv,ugv->ugbf", comps, cii, optimize=True)
-        vr = vr.reshape(ngrps, nb, nf)
-        vi = vi.reshape(ngrps, nb, nf)
-    else:
+    if nu == ngrps:
         vr = np.einsum("gbfv,gv->gbf", comps, cr, optimize=True)
         vi = np.einsum("gbfv,gv->gbf", comps, ci, optimize=True)
-    return vr, vi
-
-
-def fg_model_host_batched(coeffs_r, coeffs_i, comps):
-    """:func:`fg_model_host` for a batch of slices: coeffs (nbatch, ngrps,
-    nvecs) -> (vr, vi) each (nbatch, ngrps, nbls, nfreqs). A dense chunk's
-    basis is read once, by one float32 BLAS contraction against every
-    slice's real and imaginary coefficients; shared layouts go slice by
-    slice."""
-    comps = np.asarray(comps)
-    cr = np.asarray(coeffs_r, dtype=comps.dtype)
-    ci = np.asarray(coeffs_i, dtype=comps.dtype)
-    nbatch, ngrps = cr.shape[:2]
-    if comps.shape[0] != ngrps:
-        outs = [fg_model_host(cr[b], ci[b], comps) for b in range(nbatch)]
-        return np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs])
-    _, nbls, nfreqs, nvecs = comps.shape
-    rhs = np.concatenate([cr, ci]).transpose(1, 2, 0)  # (ngrps, nvecs, 2 nbatch)
-    v = np.matmul(comps.reshape(ngrps, nbls * nfreqs, nvecs), rhs)
-    v = v.transpose(2, 0, 1).reshape(2 * nbatch, ngrps, nbls, nfreqs)
-    return v[:nbatch], v[nbatch:]
+        return vr, vi
+    gmax = ngrps // nu
+    rhs = (np.concatenate([cr, ci]).reshape(2, nu, gmax, nvecs).transpose(1, 3, 0, 2)
+           .reshape(nu, nvecs, 2 * gmax))
+    v = np.matmul(comps.reshape(nu, nbls * nfreqs, nvecs), rhs)
+    v = (v.reshape(nu, nbls, nfreqs, 2, gmax).transpose(3, 0, 4, 1, 2)
+         .reshape(2, ngrps, nbls, nfreqs))
+    return v[0], v[1]
 
 
 def fg_model_all_chunks_host(fg_r, fg_i, host_comps):

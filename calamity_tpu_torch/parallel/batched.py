@@ -73,7 +73,7 @@ from ..ops.fused import (
     fused_chunk_terms_batched,
 )
 from ..ops.gains import carry_valid, gain_products_batched
-from ..ops.loss import fg_model_batched, fg_model_host_batched
+from ..ops.loss import fg_model_batched, fg_model_host
 from ..ops.shared import (
     explain_shared_loss_inapplicable,
     group_mask,
@@ -83,7 +83,7 @@ from ..ops.shared import (
 from ..solver.fit import _big, _buffers, init_params
 from ..solver.graph import StepGraph
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
-from ..utils import echo
+from ..utils import echo, host_map
 
 
 def _loss_block_size(ngrps, gmax, requested, multiple_of=1):
@@ -624,31 +624,49 @@ def host_batched_losses(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts,
     return total
 
 
+_HOST_BLOCK = 2048  # groups a float64 block of the host terms
+
+
 def _host_terms(g_r, g_i, fg_r, fg_i, host_chunks, data_r, data_i, wgts, regularization):
+    """(3, nbatch) float64: each slice's chi-square and model flux sums.
+    Each (chunk, slice) is one task of ``utils.host_map``, its float64
+    arithmetic taken over blocks of :data:`_HOST_BLOCK` groups; the tasks'
+    sums are added in a fixed order, so the value does not depend on the
+    threads."""
     g_r = np.asarray(g_r, dtype=np.float64)
     g_i = np.asarray(g_i, dtype=np.float64)
     nbatch = g_r.shape[0]
-    total = np.zeros((nbatch,), dtype=np.float64)
-    mr_sum = np.zeros((nbatch,), dtype=np.float64)
-    mi_sum = np.zeros((nbatch,), dtype=np.float64)
-    for cnum, (comps, a0, a1) in enumerate(host_chunks):
+    with_sums = regularization == "sum"
+
+    def task(cnum, b):
+        comps, a0, a1 = host_chunks[cnum]
         a0 = np.asarray(a0)
         a1 = np.asarray(a1)
-        vr_all, vi_all = fg_model_host_batched(fg_r[cnum], fg_i[cnum], comps)
-        for b in range(nbatch):
-            vr, vi = vr_all[b], vi_all[b]
-            pr = g_r[b][a0] * g_r[b][a1] + g_i[b][a0] * g_i[b][a1]
-            pi = g_r[b][a0] * g_i[b][a1] - g_i[b][a0] * g_r[b][a1]
+        vr_c, vi_c = fg_model_host(fg_r[cnum][b], fg_i[cnum][b], comps)
+        gr, gi = g_r[b], g_i[b]
+        out = np.zeros((3,), dtype=np.float64)
+        for g0 in range(0, a0.shape[0], _HOST_BLOCK):
+            sl = slice(g0, g0 + _HOST_BLOCK)
+            r0, r1 = a0[sl], a1[sl]
+            vr, vi = vr_c[sl], vi_c[sl]
+            pr = gr[r0] * gr[r1] + gi[r0] * gi[r1]
+            pi = gr[r0] * gi[r1] - gi[r0] * gr[r1]
             mr = pr * vr + pi * vi
             mi = -pi * vr + pr * vi
-            dr = np.asarray(data_r[cnum][b], dtype=np.float64)
-            di = np.asarray(data_i[cnum][b], dtype=np.float64)
-            w = np.asarray(wgts[cnum][b], dtype=np.float64)
-            total[b] += np.sum(w * (np.square(dr - mr) + np.square(di - mi)))
-            if regularization == "sum":
-                mr_sum[b] += np.sum(mr * w)
-                mi_sum[b] += np.sum(mi * w)
-    return np.stack([total, mr_sum, mi_sum])
+            dr = np.asarray(data_r[cnum][b][sl], dtype=np.float64)
+            di = np.asarray(data_i[cnum][b][sl], dtype=np.float64)
+            w = np.asarray(wgts[cnum][b][sl], dtype=np.float64)
+            out[0] += np.sum(w * (np.square(dr - mr) + np.square(di - mi)))
+            if with_sums:
+                out[1] += np.sum(mr * w)
+                out[2] += np.sum(mi * w)
+        return out
+
+    keys = [(c, b) for c in range(len(host_chunks)) for b in range(nbatch)]
+    terms = np.zeros((3, nbatch), dtype=np.float64)
+    for (_, b), part in zip(keys, host_map(lambda k: task(*k), keys)):
+        terms[:, b] += part
+    return terms
 
 
 def check_initial_loss(recorded0, expected0, factor, context=""):

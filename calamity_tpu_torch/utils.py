@@ -1,9 +1,13 @@
-"""Small shared utilities (logging, progress bars, baseline selection).
+"""Small shared utilities (logging, progress bars, baseline selection, a
+thread map for the host stages).
 
 Parity targets: reference calamity/utils.py (echo, PBARS, select_baselines).
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import tqdm
@@ -20,6 +24,20 @@ def echo(message, verbose=True):
     """Print-if-verbose (reference utils.py:8-10)."""
     if verbose:
         print(message)
+
+
+def host_map(fn, items, threads=None):
+    """``[fn(x) for x in items]`` over a pool of ``threads`` threads (default
+    one a core): numpy releases the interpreter lock in its array loops, so
+    host stages over independent slices or blocks run side by side. The
+    results come in the items' order; an exception is raised when its
+    item's result is read."""
+    threads = min(len(items), threads or os.cpu_count() or 1)
+    if threads <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        futures = [pool.submit(fn, x) for x in items]
+        return [f.result() for f in futures]
 
 
 def rss_gib():

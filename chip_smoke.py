@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11,12]
+    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11,12,13]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's four CUDA kernels from the sources in the checkout,
@@ -44,7 +44,14 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    shapes, the widest bases the gate admits among them (600 float32 and
    720 bfloat16 modes); bfloat16 weights and a weight plane; the "sum"
    instances as in phase 3, also against the split TF32 emulation, each
-   timed against its bound;
+   timed against its bound; and at the full HERA array's widths (phase
+   13's packing): its six heaviest and narrowest chunks (V = 128, 256 and
+   512) with their padding, N = 1 and 8, float32 and bfloat16 comps, the
+   chi-square's instances against the plain version and two launches equal
+   to the bit, each timed through the wrapper and the device alone beside
+   its bound, the plain version and cuBLAS' matvec, with its launch plan
+   (blocks an SM from the runtime's occupancy calculator), and one step's
+   18 launches timed together;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -121,7 +128,16 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    pool bytes, replays), peak memory, and the replayed step under the
    profiler (device ms, idle share; (b)'s eager step too); (b)'s replayed
    step takes at most 1.3 times its device time on the host clock and at
-   most a third of the eager step's.
+   most a third of the eager step's;
+13. the full HERA array (``scripts/hera_full_demo_torch.py``: 331 antennas,
+   all 54,615 baselines, 1536 channels; 18 shared and shared-batched
+   chunks of 77,748 groups, V up to 512) with the demo's arguments: (a) one
+   slice on the serial path, every chunk through the shared-basis kernel
+   each step, resid/data <= 1e-2, its step replayed under the profiler;
+   (b) 4 slices on the time-parallel path with the campaign's RFI flags,
+   bfloat16 weights and loss blocks, losses finite and falling, then the
+   same slices packed once and stepped with and without the loss blocks
+   (peak memory, ms a batch step).
 
 Every phase resets the kernels' launch counters before it drives its path
 and reads them after. ``--phases`` runs a subset (1 and 2 always run) and
@@ -284,6 +300,22 @@ def phase_environment():
     except ImportError as exc:
         log(f"triton: not importable ({exc})")
     log(f"device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+
+
+def registers(log, kernel="fused_chunk_loss"):
+    """'<instance>:<registers>r/<spill bytes>s' for each entry function of
+    ``kernel``'s source in a ``-Xptxas -v`` report."""
+    out, inst, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            m = re.search(r"_(kernel|wide)I(.*?)EEv", fn)
+            inst = (f"{m.group(1)}:{m.group(2)}" if m else fn) if kernel in fn else None
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip().split()[0]
+        elif "Used" in line and "registers" in line and inst:
+            out.append(f"{inst}:{line.split('Used')[1].split()[0]}r/{spill}s")
+    return out
 
 
 def phase_build():
@@ -1204,21 +1236,26 @@ def phase_kernel_vs_plain(main_shape):
 # phase 3s: the shared-basis kernel against plain
 # ---------------------------------------------------------------------- #
 def shared_inputs(nbatch, nu, nfreqs, nvecs, valid, comps_dtype, seed, block=None,
-                  wgts="float32"):
+                  wgts="float32", on_card=False):
     """Operands of the shared-basis kernel for a chunk of ``nu`` operators
     and ``len(valid)`` groups (padding groups: zero weight); with ``block``
     = (u0, u1) the operands are those of the classes [u0, u1) of that
     chunk, views of its tensors, as a group block or a mesh block takes
     them; ``wgts`` "bfloat16" gives bfloat16 weights, "plane" one weight a
-    (slice, group) broadcast over the channels (a stride-0 view). Returns
-    (args for ``loss_and_grads_*`` without the mask, the mask)."""
+    (slice, group) broadcast over the channels (a stride-0 view). The
+    numbers come from numpy's generator or, with ``on_card``, from torch's
+    on the card (the full array's planes: up to 180 M entries a stack).
+    Returns (args for ``loss_and_grads_*`` without the mask, the mask)."""
     import torch
 
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     ngrps = len(valid)
+    gen = torch.Generator(device=dev).manual_seed(seed) if on_card else None
 
     def t(*shape):
+        if on_card:
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
 
     comps = t(nu, nfreqs, nvecs)
@@ -1497,6 +1534,205 @@ def phase_shared_kernel():
                             for k in ("ms", "device_ms", "bound_ms")))
     torch.cuda.empty_cache()
     return results
+
+
+# the full HERA array (``scripts/hera_full_demo_torch.py``, phase 13): its
+# size, and the six chunks of its packing (U, gmax, V) that phase 3s times,
+# the heaviest and the narrowest
+FULL_CHUNKS = 18
+FULL_GROUPS = 77748
+FULL_SHAPES = ((22, 1024, 256), (24, 512, 256), (10, 2048, 128), (4, 256, 512), (9, 64, 512),
+               (3, 16, 512))
+# phase 13 (b)'s slices: the JAX package's campaign fitted 8 flagged
+# poltimes; 4 here, for the script's time limit (its host stages, the
+# extraction, the step-0 guard and the write-back, take 25-30 s a slice)
+FULL_NTIMES = 4
+_FULL = {}  # the full array's simulation and packing, built once for phases 3s and 13
+
+
+def hera_full_build():
+    """``scripts/hera_full_demo_torch.py``'s lattice at full width (331
+    antennas, 54,615 baselines, 1536 channels) over :data:`FULL_NTIMES`
+    times, built once, with its default packing on the card: a dict of
+    ``corrupted``, ``comps``, ``facts``, ``spec`` (the FitSpec, whose chunks
+    do not depend on the times), ``gains`` (blank) and ``seconds``."""
+    import hera_full_demo_torch as demo
+    from calamity_tpu_torch import cal_utils
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    if not _FULL:
+        t0 = time.time()
+        corrupted, comps, facts = demo.build(ntimes=FULL_NTIMES)
+        gains = cal_utils.blank_uvcal_from_uvdata(corrupted)
+        spec = FitSpec(corrupted, comps, {int(a): i for i, a in enumerate(gains.ant_array)},
+                       device="cuda", nvec_bucketing=True, shared_basis=True)
+        _FULL.update(corrupted=corrupted, comps=comps, facts=facts, spec=spec, gains=gains,
+                     seconds=time.time() - t0)
+        log(f"  (built the full array: {facts['nants']} antennas, {facts['nbls']} baselines, "
+            f"{FULL_NTIMES} times, {len(spec.chunks)} chunks in {_FULL['seconds']:.1f} s, host; "
+            + ", ".join(f"{k} {facts[k]:.2f}" for k in ("simulate_s", "basis_s", "corrupt_s"))
+            + ")")
+    return _FULL
+
+
+def full_array_chunk(shape):
+    """The full array's packed chunk of (U, gmax, V) ``shape``: (its index
+    in the packing, its groups' validity as numpy)."""
+    spec = hera_full_build()["spec"]
+    for c, chunk in enumerate(spec.chunks):
+        nu, nv = chunk.comps.shape[0], chunk.comps.shape[-1]
+        if (nu, chunk.a0.shape[0] // nu, nv) == tuple(shape):
+            return c, spec.meta[c].valid.reshape(-1)
+    raise AssertionError(f"the full array packs no chunk {shape}")
+
+
+def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed):
+    """The shared-basis kernel at one of the full array's chunks: the three
+    chi-square instances against the plain version (loss rel 1e-5,
+    gradients rel 1e-4, padding's gradients zero), two launches equal to the
+    bit; the instance the descent runs (every gradient) timed through the
+    wrapper and, replayed from a CUDA graph, the device alone, beside its
+    bound, the plain version, cuBLAS' matvec and the launch plan (blocks an
+    SM from the runtime's occupancy calculator)."""
+    import torch
+
+    from calamity_tpu_torch.ops import _build, fused, shared
+
+    args, mask = shared_inputs(nbatch, nu, NFREQS, nvecs, valid, comps_dtype, seed,
+                               on_card=True)
+    dt = str(comps_dtype).replace("torch.", "")
+    ngrps = len(valid)
+    tag = (f"full array U={nu} gmax={ngrps // nu} V={nvecs}: N={nbatch} {dt} comps, "
+           f"{int(mask.sum())} of {ngrps} groups valid")
+    worst, errs = {}, []
+    for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL):
+        got = shared.loss_and_grads_kernel(*args, mask, mode)
+        again = shared.loss_and_grads_kernel(*args, mask, mode)
+        want = shared.loss_and_grads_plain(*args, mask, mode)
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag} mode {mode}: two launches differ")
+        loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+        check(loss_rel <= 1e-5, f"{tag} mode {mode}: loss rel {loss_rel}")
+        worst["loss"] = max(worst.get("loss", 0.0), loss_rel)
+        errs.append(float((got[0] - want[0]).abs().max()))
+        for name, g, p in zip(("dcoeffs", "dpr", "dpi"), got[1:], want[1:]):
+            check((g is None) == (p is None), f"{tag} mode {mode}: {name} presence")
+            if p is None:
+                continue
+            r = rel(g, p)
+            check(r <= 1e-4, f"{tag} mode {mode}: {name} rel {r}")
+            worst[name] = max(worst.get(name, 0.0), r)
+            errs.append(float((g - p).abs().max()))
+        if got[1] is not None:
+            check(not bool(got[1][:, :, ~mask].any() or got[2][:, ~mask].any()),
+                  f"{tag}: padding groups' gradients are not zero")
+        del got, again, want
+    coeffs2, comps = args[0], args[6]
+    rhs = (coeffs2.reshape(2, nbatch, nu, ngrps // nu, nvecs).permute(2, 4, 0, 1, 3)
+           .reshape(nu, nvecs, -1).contiguous())
+    comps_f = comps.float()
+    kern = lambda: shared.loss_and_grads_kernel(*args, mask)  # noqa: E731
+    out = {"max_abs_err": max(errs), "max_rel": worst,
+           "ms": cuda_median_ms(kern, n=5, per_sample=2),
+           "device_ms": cuda_graph_ms(kern, n=5, per_sample=2),
+           "plain_ms": cuda_median_ms(lambda: shared.loss_and_grads_plain(*args, mask), n=3,
+                                      per_sample=1, warmup=1),
+           "library_ms": cuda_median_ms(lambda: torch.bmm(comps_f, rhs), n=5, per_sample=2),
+           "plan": _build.load_kernels().shared_plan(
+               nbatch, ngrps, NFREQS, nvecs, nu, 0 if comps_dtype == torch.float32 else 1,
+               fused.LOSS_ALL)}
+    out["bound_ms"], out["bound_by"], moved = _shared_bound(args, mask)
+    out["roofline_share"] = out["bound_ms"] / out["device_ms"]
+    plan = out["plan"]
+    log(f"  {tag}: max rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; two launches equal to the bit; every gradient {out['ms']:.4f} ms (the device alone "
+        f"{out['device_ms']:.4f}) against bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
+        f"{moved / 1e9:.3f} GB; share {out['roofline_share']:.3f}), plain {out['plain_ms']:.4f} "
+        f"ms, cuBLAS bmm of the matvec {out['library_ms']:.4f} ms; plan: {plan['grid']} blocks "
+        f"in clusters of {plan['splits']}, {plan['stages']}-tile ring, {plan['smem_bytes']} "
+        f"bytes of shared memory, {plan['blocks_per_sm']} blocks an SM")
+    return out
+
+
+def full_array_step(nbatch, comps_dtype):
+    """One step's launches of the shared-basis kernel over every chunk of
+    the full array's packing (every gradient, the real padding), timed
+    together through the wrappers and, replayed from a CUDA graph, the
+    device alone, beside the summed bound, plain version and cuBLAS
+    matvecs."""
+    import torch
+
+    from calamity_tpu_torch.ops import shared
+
+    spec = hera_full_build()["spec"]
+    cases = []
+    for c, chunk in enumerate(spec.chunks):
+        nu, _, _, nv = chunk.comps.shape
+        valid = spec.meta[c].valid.reshape(-1)
+        args, mask = shared_inputs(nbatch, nu, NFREQS, nv, valid, comps_dtype, SEED + c,
+                                   on_card=True)
+        coeffs2, comps = args[0], args[6]
+        rhs = (coeffs2.reshape(2, nbatch, nu, len(valid) // nu, nv).permute(2, 4, 0, 1, 3)
+               .reshape(nu, nv, -1).contiguous())
+        cases.append((args, mask, comps.float(), rhs))
+
+    def step():
+        for args, mask, _, _ in cases:
+            shared.loss_and_grads_kernel(*args, mask)
+
+    def bmms():
+        for _, _, comps_f, rhs in cases:
+            torch.bmm(comps_f, rhs)
+
+    def plain():
+        for args, mask, _, _ in cases:
+            shared.loss_and_grads_plain(*args, mask)
+
+    out = {"ms": cuda_median_ms(step, n=5, per_sample=1),
+           "device_ms": cuda_graph_ms(step, n=5, per_sample=1),
+           "plain_ms": cuda_median_ms(plain, n=3, per_sample=1, warmup=1),
+           "library_ms": cuda_median_ms(bmms, n=5, per_sample=1),
+           "bound_ms": sum(_shared_bound(a, m)[0] for a, m, _, _ in cases),
+           "launches": len(cases)}
+    out["roofline_share"] = out["bound_ms"] / out["device_ms"]
+    log(f"  full array, one step's {len(cases)} launches, N={nbatch} "
+        f"{str(comps_dtype).replace('torch.', '')} comps: {out['ms']:.4f} ms (the device alone "
+        f"{out['device_ms']:.4f}) against bound {out['bound_ms']:.4f} ms (share "
+        f"{out['roofline_share']:.3f}); plain {out['plain_ms']:.4f} ms; cuBLAS bmm of the "
+        f"matvecs {out['library_ms']:.4f} ms; {nvidia_smi_line()}")
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shared_full_array():
+    """Phase 3s at the full array's widths: the six chunks of
+    :data:`FULL_SHAPES` with their padding (N = 1 and 8, float32 and
+    bfloat16 comps) by :func:`compare_shared_full`, and a whole step's
+    launches by :func:`full_array_step`; with the registers and spills of
+    the instance every-gradient step runs (from the build's ptxas report)."""
+    import torch
+
+    from calamity_tpu_torch.ops import _build
+
+    log("== phase 3s (full array): the shared-basis kernel at the full HERA array's chunks, "
+        "F = 1536 (loss rel 1e-5, gradients rel 1e-4, two launches bit-equal)")
+    regs = registers(_build.load_kernels().build_log, "shared_chunk_loss")
+    log(f"  registers/spill bytes of the shared-basis instances: {' '.join(regs)}")
+    out = {"registers": regs}
+    for shape in FULL_SHAPES:
+        c, valid = full_array_chunk(shape)
+        nu, _, nv = shape
+        for cdt in (torch.float32, torch.bfloat16):
+            for n in (1, 8):
+                out[(shape, n, cdt)] = compare_shared_full(n, nu, nv, valid, cdt,
+                                                           SEED + 7 * c + n)
+                torch.cuda.empty_cache()
+    for cdt in (torch.float32, torch.bfloat16):
+        for n in (1, 8):
+            out[("step", n, cdt)] = full_array_step(n, cdt)
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -3267,7 +3503,9 @@ def phase_sum_time_parallel(tmp, tp):
 # phase 12: the descent captured in a CUDA graph against the same descent
 # uncaptured
 # ---------------------------------------------------------------------- #
-GRAPH_STEPS = 400  # phase 12's step budget a phase: the runs are compared, not converged
+# phase 12's step budget a phase: the runs are compared, not converged (400
+# before phase 13 took its share of the script's time limit)
+GRAPH_STEPS = 200
 GRAPH_CK_STEPS = 150  # case (d): steps a phase, a checkpoint every GRAPH_CK_EVERY
 GRAPH_CK_EVERY = 50
 
@@ -3509,6 +3747,226 @@ def phase_graph(tmp, main, tp):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 13: the full HERA array
+# ---------------------------------------------------------------------- #
+# (a)'s step budget a phase of the mixed schedule: the demo's 2000, cut for
+# the script's time limit (the loss falls 34-fold in the first 250 steps:
+# resid/data 2.1e-3 after 1000 + 1000 steps, about 8e-3 after 250)
+FULL_MAXSTEPS = 400
+FULL_TP_STEPS = 15  # (b): batch steps a phase, replayed from the step graph (time limit)
+FULL_RFI_FRAC = 0.05  # (b): the campaign's RFI flags, bf16 weights and loss blocks
+FULL_LOSS_BLOCK = 512
+
+
+def _full_profile(tag, chs, problem):
+    """The full array's serial step of ``problem`` replayed from its CUDA
+    graph under the profiler (``scripts/profile_step_torch.py``): device
+    ms, kernels, host ms and idle share."""
+    import profile_step_torch as prof
+
+    step, per_call, d = prof.serial_stepper(chs, None, None, None, problem=problem)
+    r = prof.profile(step, per_call)
+    d.close()
+    log(f"  ({tag}) step replayed under the profiler: device {r['device_ms']:.3f} ms in "
+        f"{r['kernels']:.0f} kernels (between CUDA events {r['event_ms']:.3f}); host "
+        f"{r['plain_ms']:.3f} ms/step without the profiler; idle share {r['idle_share']:.3f}; "
+        f"per step {prof.kernels_line(r)}")
+    return {k: r[k] for k in ("device_ms", "event_ms", "plain_ms", "kernels", "idle_share",
+                              "named")}
+
+
+def phase_hera_full():
+    """Phase 13: ``scripts/hera_full_demo_torch.py``'s configuration at full
+    width (331 antennas, all 54,615 baselines, 1536 channels; 18 chunks of
+    77,748 groups, every one shared or shared-batched). (a) One slice on the
+    serial path with the demo's arguments, :data:`FULL_MAXSTEPS` steps a
+    phase at most: every chunk's loss on the shared-basis kernel each step,
+    resid/data <= 1e-2, finite gains; steps, host ms a step, peak memory,
+    the ``timings`` stages, and the step replayed under the profiler. (b)
+    :data:`FULL_NTIMES` slices on the time-parallel path as the JAX
+    package's campaign ran its 8 (5% RFI flags, bfloat16 weights, loss
+    blocks of 512 groups), :data:`FULL_TP_STEPS` batch steps a phase:
+    losses finite and falling, every chunk on the kernel; ms a batch step,
+    launches a step, peak memory, ``writeback_s`` and the host's resident
+    set; then the same slices packed once and stepped by the batched
+    descent with and without the loss blocks (peak memory and ms a batch
+    step of each, or that the
+    unblocked one does not fit)."""
+    import torch
+
+    import hera_core_demo_torch as core
+    import hera_full_demo_torch as demo
+    import profile_step_torch as prof
+    from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.calibration import POLL_EVERY
+    from calamity_tpu_torch.ops.fused import KERNEL_NAME
+    from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
+    from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
+    from calamity_tpu_torch.ops.shared import KERNEL_NAME as SHARED_KERNEL
+    from calamity_tpu_torch.parallel import batched
+    from calamity_tpu_torch.solver import fit as fitmod
+
+    log("== phase 13: the full HERA array (scripts/hera_full_demo_torch.py) with the demo's "
+        "arguments")
+    full = hera_full_build()
+    corrupted, comps, facts, spec = (full[k] for k in ("corrupted", "comps", "facts", "spec"))
+    check((facts["nants"], facts["nbls"], facts["nuniq"]) == (331, 54615, 630),
+          f"full array: {facts}")
+    names = (KERNEL_NAME, SHARED_KERNEL, GAIN_KERNEL, PROD_KERNEL)
+    out = {"facts": facts, "build_s": full["seconds"]}
+
+    # (a) the leading slice, serial
+    one = corrupted.select(times=np.unique(corrupted.time_array)[:1], inplace=False)
+    layouts = core.chunk_layouts(one, comps)
+    ngroups = sum(c["groups"] for c in layouts)
+    log(f"  {len(layouts)} chunks, {ngroups} groups: "
+        + "; ".join(f"{c['kind']} ({c['U']}, {c['gmax']}, {c['V']})" for c in layouts))
+    check(len(layouts) == FULL_CHUNKS and ngroups == FULL_GROUPS
+          and all(c["kind"] != "dense" for c in layouts), f"full array layouts {layouts}")
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, resid, gains, info = demo.fit(one, comps, device="cuda", maxsteps=FULL_MAXSTEPS,
+                                         timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: LAUNCHES.get(k) for k in names}
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    h = info[0][0]
+    recorded = len(h["loss"])
+    rates = [1e3 * sec / max(n, 1) for sec, n in zip(h["phase_seconds"], h["phase_steps"])]
+    ratio = _core_resid_ratio(one, resid)
+    log(f"  (a) one slice: phase steps (bf16, f32) {h['phase_steps']}, ms/step "
+        f"{', '.join(f'{r:.3f}' for r in rates)} (host clock, captures and polls included); "
+        f"loss {h['loss'][0]:.6e} -> {h['loss'][-1]:.6e} (every 250 steps: "
+        f"{', '.join(f'{x:.3e}' for x in h['loss'][::250])}); calibrate_and_model_dpss in all "
+        f"{wall:.1f} s; peak device memory {peak_gb:.3f} GB; resid rms / data rms {ratio:.4e} "
+        f"(limit 1e-2)")
+    log("  (a) host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items())
+                                          if np.isscalar(v)))
+    log(f"  (a) launches {launches} for {recorded} recorded steps: {SHARED_KERNEL} "
+        f"{launches[SHARED_KERNEL] / recorded:.3f} a step for {len(layouts)} chunks, by instance "
+        f"{instance_launches(SHARED_KERNEL)}; {nvidia_smi_line()}")
+    check(not fallbacks, f"full array: chunks named as fallbacks: {fallbacks}")
+    check(launches[KERNEL_NAME] == 0, f"dense launches in the full array: {launches}")
+    check(launches[SHARED_KERNEL] >= FULL_CHUNKS * recorded,
+          f"{launches[SHARED_KERNEL]} {SHARED_KERNEL} launches for {FULL_CHUNKS} chunks and "
+          f"{recorded} steps")
+    check(min(launches[GAIN_KERNEL], launches[PROD_KERNEL]) >= recorded,
+          f"gain kernels {launches} for {recorded} steps")
+    check(np.isfinite(gains.gain_array).all(), "full array (a): non-finite gains")
+    check(ratio <= 1e-2, f"full array (a): resid/data {ratio}")
+    out["a"] = {"steps": h["phase_steps"], "ms_per_step": rates, "peak_gb": peak_gb,
+                "launches": launches, "instances": instance_launches(SHARED_KERNEL),
+                "resid_ratio": ratio, "wall_s": wall,
+                "timings": {k: v for k, v in timings.items() if np.isscalar(v)}}
+    del one, resid, gains, info
+    torch.cuda.empty_cache()
+    problem = prof.serial_problem(spec, corrupted, full["gains"])
+    chunks = spec.device_chunks()
+    out["a"]["profile"] = {
+        name: _full_profile(f"a, {name} phase", chs, problem)
+        for name, chs in (("bf16", fitmod.convert_chunks_dtype(chunks, torch.bfloat16)),
+                          ("f32", chunks))}
+    del problem
+    torch.cuda.empty_cache()
+
+    # (b) the slices, time-parallel, as the campaign ran them
+    flagged = demo.rfi_flags(corrupted, FULL_RFI_FRAC)
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, resid, gains, info = demo.fit(
+            corrupted, comps, device="cuda", maxsteps=FULL_TP_STEPS, time_parallel=True,
+            wgts_precision="bfloat16", loss_block_ngrps=FULL_LOSS_BLOCK, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: LAUNCHES.get(k) for k in names}
+    fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, seconds = timings["phase_steps"], timings["phase_seconds"]
+    batch_steps = sum(steps) + len(steps)  # recorded and warm-up batch steps
+    rates = [1e3 * sec / max(n, 1) for sec, n in zip(seconds, steps)]
+    hists = [np.asarray(info[0][t]["loss"]) for t in sorted(info[0])]
+    ratios = list(_slice_ratios(corrupted, resid).values())
+    log(f"  (b) {len(hists)} slices, {int(flagged.sum())} of {corrupted.Nfreqs} channels flagged "
+        f"in RFI bands, bfloat16 weights, loss blocks of {FULL_LOSS_BLOCK} groups: batch steps "
+        f"(bf16, f32) {steps}, ms/step {', '.join(f'{r:.3f}' for r in rates)} (host clock, "
+        f"{len(hists)} slices a step); in all {wall:.1f} s; peak device memory {peak_gb:.3f} GB; "
+        f"launches {launches} for {batch_steps} batch steps "
+        f"({launches[SHARED_KERNEL] / batch_steps:.2f} {SHARED_KERNEL} a step); loss per slice "
+        + ", ".join(f"{x[0]:.4e} -> {x[-1]:.4e}" for x in hists)
+        + f"; resid/data per slice {', '.join(f'{r:.3e}' for r in ratios)}")
+    log("  (b) host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timings.items())
+                                          if np.isscalar(v)) + f"; {nvidia_smi_line()}")
+    check(len(hists) == FULL_NTIMES, f"full array (b): {len(hists)} slices")
+    check(all(np.isfinite(x).all() and x[-1] < x[0] for x in hists),
+          f"full array (b): losses not finite or not falling: {[(x[0], x[-1]) for x in hists]}")
+    check(not fallbacks, f"full array (b): chunks named as fallbacks: {fallbacks}")
+    check(launches[KERNEL_NAME] == 0 and launches[SHARED_KERNEL] >= FULL_CHUNKS * batch_steps,
+          f"full array (b): launches {launches} for {batch_steps} batch steps")
+    out["b"] = {"steps": steps, "ms_per_step": rates, "peak_gb": peak_gb, "launches": launches,
+                "launches_per_step": {k: v / batch_steps for k, v in launches.items()},
+                "flagged_channels": int(flagged.sum()), "resid_ratios": ratios,
+                "wall_s": wall, "timings": {k: v for k, v in timings.items() if np.isscalar(v)}}
+    del resid, gains, info
+    torch.cuda.empty_cache()
+
+    # the slices packed once, stepped with and without the loss blocks
+    problem = list(prof.batched_problem(spec, corrupted, full["gains"]))
+    problem[2] = [w.to(torch.bfloat16) if w.shape[-1] > 1 else w for w in problem[2]]
+    dr, di, w, g_r, g_i, fr, fi = problem
+    out["blocks"] = {}
+    for blk in (FULL_LOSS_BLOCK, None):
+        cfg = fitmod.FitConfig(tol=0.0, maxsteps=FULL_TP_STEPS, remat=True, loss_block=blk,
+                               opt_kwargs=(("learning_rate", 1e-2),))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        try:
+            res = batched.batched_fit_core(cfg, chunks, dr, di, w, g_r.clone(), g_i.clone(),
+                                           [x.clone() for x in fr], [x.clone() for x in fi],
+                                           poll_every=POLL_EVERY)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as exc:
+            log(f"  (b) loss blocks {blk}: does not fit in the card's memory ({exc})")
+            out["blocks"][str(blk)] = {"fits": False}
+            torch.cuda.empty_cache()
+            continue
+        sec = time.perf_counter() - t0
+        nst = int(res.nsteps)
+        hist = np.asarray(res.loss_history[:nst])
+        entry = {"fits": True, "steps": nst, "ms_per_step": 1e3 * sec / max(nst, 1),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "shared_per_step": LAUNCHES.get(SHARED_KERNEL) / max(nst + 1, 1)}
+        out["blocks"][str(blk)] = entry
+        log(f"  (b) the packed {FULL_NTIMES} slices, float32 comps, loss blocks {blk}: {nst} "
+            f"batch steps, "
+            f"{entry['ms_per_step']:.3f} ms/step (host clock, the capture included), peak "
+            f"device memory {entry['peak_gb']:.3f} GB, {entry['shared_per_step']:.2f} "
+            f"{SHARED_KERNEL} launches a step; losses finite and falling "
+            f"{bool(np.isfinite(hist).all() and (hist[-1] < hist[0]).all())}")
+        check(np.isfinite(hist).all() and (hist[-1] < hist[0]).all(),
+              f"full array, loss blocks {blk}: losses {hist[0]} -> {hist[-1]}")
+        del res
+        torch.cuda.empty_cache()
+    del problem, dr, di, w, fr, fi
+    _FULL.clear()  # phase 13 is its last user
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -3542,6 +4000,7 @@ def main():
             mark("phase 3g")
         if want("3s"):
             out["shared"] = phase_shared_kernel()
+            out["shared_full"] = phase_shared_full_array()
             mark("phase 3s")
         if any(want(p) for p in ("3", "4", "5", "12")):
             t0 = time.time()
@@ -3590,6 +4049,9 @@ def main():
         if want("12"):
             out["graph"] = phase_graph(tmp, out["main"], out["tp"])
             mark("phase 12")
+        if want("13"):
+            out["full"] = phase_hera_full()
+            mark("phase 13")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     jax_loaded = sorted(m for m in sys.modules if m in ("jax", "calamity_tpu")
@@ -3620,7 +4082,7 @@ def kernels_line(out):
     packed = out["gain"]["hera_packed"]
     main, tp, scan, mesh, cli, hera = (out[k] for k in ("main", "tp", "scan", "mesh", "cli",
                                                         "hera"))
-    sum_hera, sum_tp = out["sum_hera"], out["sum_tp"]
+    sum_hera, sum_tp, full = out["sum_hera"], out["sum_tp"], out["full"]
     # the largest abs error of a loss or a gradient, kernel against plain, over phase 3
     n8 = fused[(8, torch.float32)]
     timed = {f"N={n} {str(cdt).replace('torch.', '')} comps": {
@@ -3643,7 +4105,9 @@ def kernels_line(out):
                     "mesh_1x1": mesh["a"]["gain_launches"], "cli_foreign_files": cli["launches"],
                     "hera_core": hera["launches"][GAIN_KERNEL],
                     "hera_core_sum": sum_hera["launches"][GAIN_KERNEL],
-                    "time_parallel_sum": sum_tp["launches"][GAIN_KERNEL]}
+                    "time_parallel_sum": sum_tp["launches"][GAIN_KERNEL],
+                    "hera_full": full["a"]["launches"][GAIN_KERNEL],
+                    "hera_full_time_parallel": full["b"]["launches"][GAIN_KERNEL]}
     prod_by_path = {"serial": main["prod_launches"], "serial_twice": out["twice"]["prod_launches"],
                     "time_parallel": tp["prod_launches"], "time_scan": scan["prod_launches"],
                     "mesh_1x2": [r["prod_launches"] for r in mesh["b"]],
@@ -3651,7 +4115,9 @@ def kernels_line(out):
                     "cli_foreign_files": cli["prod_launches"],
                     "hera_core": hera["launches"][PROD_KERNEL],
                     "hera_core_sum": sum_hera["launches"][PROD_KERNEL],
-                    "time_parallel_sum": sum_tp["launches"][PROD_KERNEL]}
+                    "time_parallel_sum": sum_tp["launches"][PROD_KERNEL],
+                    "hera_full": full["a"]["launches"][PROD_KERNEL],
+                    "hera_full_time_parallel": full["b"]["launches"][PROD_KERNEL]}
     g8, p8 = gain[("phase7", 8)], prods[("phase7", 8)]
     return [{
         "name": KERNEL_NAME,
@@ -3733,7 +4199,7 @@ def kernels_line(out):
                           "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
     }, combine_entry(COMBINE_NAME, fused, sum_tp),
-        shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera)]
+        shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera, full, out["shared_full"])]
 
 
 def fused_instances(n8, tp, sum_tp):
@@ -3780,19 +4246,22 @@ def combine_entry(name, fused, sum_tp):
     }
 
 
-def shared_kernel_entry(name, shared, hera, cli, sum_hera):
+def shared_kernel_entry(name, shared, hera, cli, sum_hera, full, shared_full):
     """The kernels line's entry of the shared-basis kernel: launches on the
     paths that run shared chunks (the HERA core, the CLI on the foreign
-    files), its times at the HERA core's chunks (phase 3s); the headline is
-    one step of the four chunks at N = 1, float32 comps, as the HERA core's
-    float32 phase runs it."""
+    files, the full array), its times at the HERA core's chunks and at the
+    full array's (phase 3s); the headline is one step of the HERA core's
+    four chunks at N = 1, float32 comps, as the HERA core's float32 phase
+    runs it."""
     import torch
 
     f32 = torch.float32
     chunks = sorted({k[0] for k in shared if isinstance(k[0], int) and len(k) == 3})
     step = [shared[(c, 1, f32)] for c in chunks]
     by_path = {"hera_core": hera["launches"][name], "cli_foreign_files": cli["shared_launches"],
-               "hera_core_sum": sum_hera["launches"][name]}
+               "hera_core_sum": sum_hera["launches"][name],
+               "hera_full": full["a"]["launches"][name],
+               "hera_full_time_parallel": full["b"]["launches"][name]}
     # each instance over the HERA step's four chunks, N = 1, float32 comps;
     # the "sum" instances' launches from phase 11 (a)
     instances = {"loss_all": {k: sum(r[k] for r in step) for k in ("ms", "device_ms",
@@ -3826,6 +4295,14 @@ def shared_kernel_entry(name, shared, hera, cli, sum_hera):
                                                 "library_ms", "fwdbwd_ms", "torch_ops_fwdbwd_ms",
                                                 "bound_ms", "roofline_share")}
             for c in chunks for n in (1, 8) for cdt in (f32, torch.bfloat16)},
+        # the full array's six chunks and its whole step of 18 launches
+        "timed_full_array": {
+            f"{'step' if k[0] == 'step' else 'chunk (U, gmax, V) = ' + str(k[0])} N={k[1]} "
+            f"{str(k[2]).replace('torch.', '')} comps": {
+                x: v[x] for x in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                  "roofline_share", "plan") if x in v}
+            for k, v in shared_full.items() if isinstance(k, tuple)},
+        "registers": shared_full["registers"],
         "card": nvidia_smi_line(),
     }
 

@@ -82,22 +82,6 @@ CHECKS = (  # (nbatch, shape, weights dtype, keyword arguments of chip_smoke.com
 )
 
 
-def registers(log, kernel="fused_chunk_loss"):
-    """'<instance>:<registers>r/<spill bytes>s' for each entry function of
-    ``kernel``'s source in a ``-Xptxas -v`` report."""
-    out, inst, spill = [], None, "?"
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-            m = re.search(r"_(kernel|wide)I(.*?)EEv", fn)
-            inst = (f"{m.group(1)}:{m.group(2)}" if m else fn) if kernel in fn else None
-        elif "spill stores" in line:
-            spill = line.split(",")[1].strip().split()[0]
-        elif "Used" in line and "registers" in line and inst:
-            out.append(f"{inst}:{line.split('Used')[1].split()[0]}r/{spill}s")
-    return out
-
-
 def build(variants, kernel):
     nvcc = _build.find_nvcc()
     sodir = os.path.join(_build.BUILD_DIR, "variants")
@@ -119,7 +103,7 @@ def build(variants, kernel):
         if proc.returncode != 0:
             print(f"{name}: BUILD FAILED\n{log[-4000:]}", flush=True)
             continue
-        print(f"{name}: built in {time.time() - t0:.1f} s; " + " ".join(registers(log, kernel)),
+        print(f"{name}: built in {time.time() - t0:.1f} s; " + " ".join(cs.registers(log, kernel)),
               flush=True)
         libs[name] = _build.KernelLibrary(so, time.time() - t0, log)
     return libs
@@ -144,7 +128,7 @@ class SumPair:
         if out.returncode != 0:
             sys.exit(f"sum pair: BUILD FAILED\n{(out.stdout + out.stderr)[-4000:]}")
         print(f"sum pair: built in {time.time() - t0:.1f} s; "
-              + " ".join(registers(out.stdout + out.stderr)), flush=True)
+              + " ".join(cs.registers(out.stdout + out.stderr)), flush=True)
         lib = ctypes.CDLL(so)
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]

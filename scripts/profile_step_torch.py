@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Where a descent step of calamity_tpu_torch spends its time, on one GPU.
 
-    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]] [--sum]
-                                          [--graph]
+    python3 scripts/profile_step_torch.py [--nbatch N | --scan | --hera [--nbatch N]
+                                           | --hera-full [--nbatch 4]] [--sum] [--graph]
 
 Run from the root of a checkout on a machine with a CUDA card. It builds
 the main-path problem of ``chip_smoke.py`` (64 antennas, 2016 dense B=1
@@ -22,7 +22,12 @@ the serial step of the HERA core instead (``scripts/hera_core_demo_torch.py``
 at full width: 361 antennas, 4388 baselines, 1536 channels, the default
 shared-basis packing), and with ``--hera --nbatch N`` its batched step over
 N slices: the core's one slice and N - 1 copies of it with seeded noise of
-1% of the data's rms added where the weights are not zero. For the
+1% of the data's rms added where the weights are not zero. With
+``--hera-full`` it profiles the full HERA array's serial step
+(``scripts/hera_full_demo_torch.py`` at full width: 331 antennas, 54,615
+baselines, 1536 channels, 18 shared and shared-batched chunks), and with
+``--hera-full --nbatch 4`` the batched step of the 4 times
+``chip_smoke.py`` phase 13 builds (``FULL_NTIMES``). For the
 bf16-comps and float32 phases of the mixed
 schedule it times 48 descent steps (after 16 warm-up steps) under
 ``torch.profiler``: device time per step by kernel, kernels per step, the
@@ -130,9 +135,9 @@ def batched_problem(spec, uvd, gains, nbatch=None):
     stacks = [[np.zeros((nb,) + m.conj.shape + (spec.nfreqs,), dtype=np.float32)
                for m in spec.meta] for _ in range(3)]
     g_r, g_i = [], []
+    scale = np.sqrt(np.mean(np.abs(uvd.data_array) ** 2))
     for b, (pol, t) in enumerate(slices):
-        spec.pack_data_into(uvd, pol, t, *stacks, b,
-                            data_scale_factor=np.sqrt(np.mean(np.abs(uvd.data_array) ** 2)))
+        spec.pack_data_into(uvd, pol, t, *stacks, b, data_scale_factor=scale)
         gr, gi = spec.pack_gains(gains, pol, t)
         g_r.append(gr)
         g_i.append(gi)
@@ -250,6 +255,9 @@ def main():
     ap.add_argument("--hera", action="store_true",
                     help="the serial (or, with --nbatch N, the batched) step of the HERA core "
                          "with the default packing")
+    ap.add_argument("--hera-full", action="store_true",
+                    help="the serial (or, with --nbatch 4, the batched) step of the full HERA "
+                         "array with the default packing")
     ap.add_argument("--graph", action="store_true",
                     help="the replayed step and, beside it, the same step uncaptured")
     ap.add_argument("--sum", action="store_true",
@@ -257,11 +265,16 @@ def main():
                          "Python entry points)")
     args = ap.parse_args()
     regularization = "sum" if args.sum else None
-    if args.scan and (args.nbatch != 1 or args.hera):
+    if args.scan and (args.nbatch != 1 or args.hera or args.hera_full):
         ap.error("--scan steps one slice of the disc array; leave --nbatch at 1, no --hera")
+    if args.hera_full and args.nbatch not in (1, chip_smoke.FULL_NTIMES):
+        ap.error(f"--hera-full steps one slice or its {chip_smoke.FULL_NTIMES} times")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    if args.hera:
+    if args.hera_full:
+        full = chip_smoke.hera_full_build()
+        uvd, spec, gains = full["corrupted"], full["spec"], full["gains"]
+    elif args.hera:
         uvd, spec, gains = hera_problem()
     else:
         npols = 2 if args.nbatch % 2 == 0 else 1
