@@ -33,7 +33,8 @@
 //
 // Precision: split TF32. Both products run on `mma.sync.m16n8k8` with TF32
 // operands, each float32 operand x split into hi = tf32(x) and lo = tf32(x -
-// hi) (`cvt.rna.tf32.f32`; the subtraction is exact), and each fragment
+// hi) (`cvt.rna.tf32.f32`, or past 64 modes the same rounding on the bits;
+// the subtraction is exact), and each fragment
 // product accumulated as a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms
 // first) into a float32 accumulator: three `mma`s. hi + lo holds x to about
 // 2^-22 and the dropped a_lo b_lo is about 2^-22 of the product, so a
@@ -98,8 +99,7 @@
 //   never goes through shared memory, and the warps share nothing but the
 //   read-only comps tile and coefficients: one barrier a tile. The
 //   accumulator (16 rows x 64 modes) stays in registers across the block's
-//   channel loop; modes past 64 accumulate in the output itself, each
-//   entry owned by one thread, tile by tile.
+//   channel loop.
 // - The comps tile is staged in its own dtype (bfloat16 stays bfloat16 and
 //   is widened on the read, exactly) by `cp.async` 16-byte copies in a ring
 //   of two tiles: the next tile loads while this one computes. Rows of the
@@ -120,8 +120,7 @@
 //   shapes at N = 1). Each block keeps its part of the losses and of the
 //   coefficient gradient in shared memory; after a cluster barrier each
 //   block sums a share of the entries over the cluster's blocks in split
-//   order, reading their shared memory (DSMEM), and writes them once. With
-//   modes past the register tiles (V > 64) the tile is not split.
+//   order, reading their shared memory (DSMEM), and writes them once.
 // - Padding groups (the packing's record of which groups hold a baseline,
 //   `valid`): their planes are not read and their loss, dpr, dpi and
 //   dcoeffs come out zero; a block whose pairs are all padding writes its
@@ -131,10 +130,30 @@
 //   shuffle tree, over the cluster in split order and over groups by the
 //   caller, and each `mma` sums in a fixed order, so two launches are equal
 //   to the bit.
-// Any N, G, F and V are taken for which a ring of two (or one) tiles and
-// the coefficients fit in shared memory: V up to 448 float32 or 600
-// bfloat16 modes with two tiles, 600 or 720 with one; the gate in
-// ops/shared.py leaves larger V to the torch ops.
+// That design holds V <= 64, the register tile (`kCapacity`), in one block.
+//
+// Past 64 modes (`shared_chunk_loss_sliced`, below) the modes are sliced
+// over the blocks of a cluster: ceil(V / 64) blocks take a tile of pairs,
+// block r the modes [64 r, 64 r + 64), so a block's shared memory (a ring of
+// two 32-channel tiles of its slice, its slice of the coefficients, two
+// exchange buffers: 50 KB float32, 42 KB bfloat16) and its registers (128)
+// do not grow with V, and four blocks (sixteen warps) share an SM. Per
+// channel tile, phase A forms the slice's part of the model of its 32 pairs
+// and leaves it in shared memory; after a cluster barrier each block runs
+// the epilogue (m, the loss, dm, dpr/dpi, dv) of its share of the pairs,
+// the model summed over the slices in rank order through DSMEM, each plane
+// entry read once and dpr/dpi written once as above, and leaves the dv of
+// its pairs in shared memory; after a second barrier phase B reads the dv
+// of its warps' pairs from the blocks that own them and adds its slice of
+// comps into its 64-mode register tile of dcoeffs, written once at the end:
+// nothing is summed in global memory. A chunk of few tiles of pairs also
+// splits its channels over the cluster (up to 16 blocks, non-portable past
+// 8), the splits summed in split order at the end as above. What holds it
+// from its bound is the same issue and latency, now with sixteen warps an
+// SM; twelve, with one barrier a tile in a ring of three tiles, measured
+// slower (PERF.md).
+// Any N, G, F and V up to 1024 (a cluster of 16 slices) are taken; the gate
+// in ops/shared.py leaves wider bases to the torch ops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -156,7 +175,6 @@ constexpr int kRows = 32;                // channels a tile
 constexpr int kWarpPairs = 8;            // pairs a warp: one m16 tile of (re, im) rows
 constexpr int kModeTiles = 8;            // phase B: n8 tiles of modes held in registers
 constexpr int kCapacity = 8 * kModeTiles;  // modes held in registers
-constexpr size_t kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
 // the chi-square's instances (0-2) and the "sum" prior's (3-5)
 enum Mode { kLossOnly = 0, kLossDp = 1, kLossAll = 2, kSumFwd = 3, kSumDp = 4, kSumAll = 5 };
@@ -173,11 +191,11 @@ __host__ __device__ constexpr int n_terms(int mode) {
 }
 
 // V rounded up to whole k-steps of 8 modes
-__host__ __device__ inline long long modes8(long long V) { return (V + 7) / 8 * 8; }
+__host__ __device__ constexpr long long modes8(long long V) { return (V + 7) / 8 * 8; }
 
 // the comps tile's row stride in elements: at least modes8(V), an odd number
 // of 16-byte units (the fragment reads of both products in distinct banks)
-__host__ __device__ inline long long row_stride(long long V, int csize) {
+__host__ __device__ constexpr long long row_stride(long long V, int csize) {
   const long long unit = 16 / csize;
   long long rs = (modes8(V) + unit - 1) / unit * unit;
   if ((rs / unit) % 2 == 0) rs += unit;
@@ -239,14 +257,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // x = hi + lo in TF32: hi = tf32(x) (its low 13 bits cleared, so that x - hi
-// is exact), lo = tf32(x - hi)
+// is exact), lo = tf32(x - hi). kInt rounds on the bits, to nearest with
+// ties away from zero as `cvt.rna.tf32.f32` does (the same bits for every
+// finite x short of float32's largest): an integer add and mask, then
+// fma(x, 0, hi), which leaves a finite x's hi as it is and makes hi a NaN
+// where x is a NaN or an infinity (rounding a NaN's bits can carry into the
+// sign bit and leave a zero); lo needs no such care, as x - hi is finite
+// wherever hi is. The sliced kernel's choice (PERF.md); without kInt
+// `cvt.rna.tf32.f32` rounds: the V <= 64 kernel keeps the instruction it
+// was designed and timed with
+template <bool kInt = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  h &= 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
-  hi = h;
-  lo = l;
+  if constexpr (kInt) {
+    const float h = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+    hi = __float_as_uint(fmaf(x, 0.f, h));
+    lo = (__float_as_uint(x - h) + 0x1000u) & 0xffffe000u;
+  } else {
+    uint32_t h, l;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+    h &= 0xffffe000u;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
+    hi = h;
+    lo = l;
+  }
 }
 
 // d += a b on one m16n8k8 tile, TF32 operands, float32 accumulator
@@ -261,13 +294,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // d += a b at float32 accuracy: a given split; b (comps) split for float32
 // comps, three products small terms first; a bfloat16 b is exact in TF32,
 // two products
-template <typename TC>
+template <typename TC, bool kInt = false>
 __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ahi)[4],
                                           const uint32_t (&alo)[4], float b0, float b1) {
   if constexpr (std::is_same<TC, float>::value) {
     uint32_t b0h, b0l, b1h, b1l;
-    split_tf32(b0, b0h, b0l);
-    split_tf32(b1, b1h, b1l);
+    split_tf32<kInt>(b0, b0h, b0l);
+    split_tf32<kInt>(b1, b1h, b1l);
     mma_tf32(d, alo, b0h, b1h);
     mma_tf32(d, ahi, b0l, b1l);
     mma_tf32(d, ahi, b0h, b1h);
@@ -277,12 +310,13 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ahi)[4
   }
 }
 
+template <bool kInt = false>
 __device__ __forceinline__ void split4(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
                                        uint32_t (&lo)[4]) {
-  split_tf32(a0, hi[0], lo[0]);
-  split_tf32(a1, hi[1], lo[1]);
-  split_tf32(a2, hi[2], lo[2]);
-  split_tf32(a3, hi[3], lo[3]);
+  split_tf32<kInt>(a0, hi[0], lo[0]);
+  split_tf32<kInt>(a1, hi[1], lo[1]);
+  split_tf32<kInt>(a2, hi[2], lo[2]);
+  split_tf32<kInt>(a3, hi[3], lo[3]);
 }
 
 template <typename TC, int MODE, bool kPre>
@@ -296,7 +330,7 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
                          float* __restrict__ dcoeffs, float* __restrict__ dpr,
                          float* __restrict__ dpi, const float* __restrict__ cot, int64_t N,
                          int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op,
-                         int stages, int vec16, int splits) {
+                         int stages, int vec16, int /* slices: 1 */, int splits) {
   constexpr bool kDp = has_dp(MODE);
   constexpr bool kAll = has_all(MODE);
   constexpr bool kCot = has_cot(MODE);
@@ -437,17 +471,6 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
                     ((reinterpret_cast<uintptr_t>(dr) | reinterpret_cast<uintptr_t>(di)) & 15) == 0;
   const bool wvec = w_sf == 1 && ((w_sn | w_sg) & 3) == 0 &&
                     (reinterpret_cast<uintptr_t>(w) & (w_bf16 ? 7 : 15)) == 0;
-  if constexpr (kAll) {
-    // modes past the register tiles accumulate in the output itself
-    const int extra = Vs - kCapacity;
-    for (int idx = t; idx < kCols * extra; idx += kThreads) {
-      const int row = idx / extra;
-      if (in_op(row % kPairs)) {
-        const int64_t n = tab[row % kPairs], g = tab[kPairs + row % kPairs];
-        dcoeffs[((row / kPairs * N + n) * G + g) * V + kCapacity + idx % extra] = 0.f;
-      }
-    }
-  }
 
   // the comps tile jt into its stage, channel r at row tile_row(r); rows
   // past F zeroed
@@ -692,44 +715,6 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
           mma_split<TC>(bacc[mt], ahi, alo, to_f32(tile[m]), to_f32(tile[m + RS]));
         }
       }
-      // modes past the register tiles, 64 at a time, into the output
-      for (int k0 = kCapacity; !kPre && k0 < Vs; k0 += kCapacity) {
-        float x[kModeTiles][4];
-#pragma unroll
-        for (int i = 0; i < kModeTiles; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          uint32_t ahi[4], alo[4];
-          split4(dvr[nt][0], dvi[nt][0], dvr[nt][1], dvi[nt][1], ahi, alo);
-          const TC* b = tile + (8 * nt + 2 * tig) * RS + gid + k0;
-#pragma unroll
-          for (int mt = 0; mt < kModeTiles; ++mt) {
-            if (k0 + 8 * mt < V8) {
-              mma_split<TC>(x[mt], ahi, alo, to_f32(b[8 * mt]), to_f32(b[RS + 8 * mt]));
-            }
-          }
-        }
-        if (ein) {
-#pragma unroll
-          for (int mt = 0; mt < kModeTiles; ++mt) {
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int k = k0 + 8 * mt + 2 * tig + c;
-              if (k < Vs) {
-                dcoeffs[(en * G + eg) * V + k] += x[mt][c];
-                dcoeffs[((N + en) * G + eg) * V + k] += x[mt][2 + c];
-              }
-            }
-          }
-        }
-      }
-    }
-    if (stages == 1) {
-      __syncthreads();  // every read of the one stage is done
-      issue(jt + 1);
     }
   }
 
@@ -798,112 +783,564 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
   if (splits > 1) cg::this_cluster().sync();  // no block leaves while others read it
 }
 
-// two tiles in the ring where they fit, else one; 0 where not even one fits
-int plan_stages(long long V, int csize) {
-  for (int stages = 2; stages >= 1; --stages) {
-    if (smem_bytes(V, csize, stages) <= kMaxSmem) return stages;
-  }
-  return 0;
+// ---------------------------------------------------------------------- //
+// Bases wider than the register tiles (V > 64): the modes sliced over the
+// blocks of a cluster
+// ---------------------------------------------------------------------- //
+constexpr int kSlice = 64;               // modes a block holds: phase B's register tile
+constexpr int kMaxCluster = 16;          // the H100's largest cluster (V up to 1024)
+constexpr int kSlicedMinBlocks = 4;      // blocks an SM: 128 registers, 42-50 KB of shared memory
+constexpr int kSlicedStages = 2;         // the comps ring (three measured slower: PERF.md)
+constexpr int kSliceCS = kSlice + 4;     // the coefficients' row stride in floats
+constexpr int kOwned = 16;               // pairs a block's epilogue runs, at most
+// the exchange buffers' row stride in floats: the float2 fragment accesses
+// (row g, column 2 t) of a half warp fall in distinct banks
+constexpr int kXS = kRows + 8;
+constexpr int kSlicedTargetBlocks = 4;   // channel splits doubled below this many blocks an SM
+
+// the ring; the coefficients; the partial models (64 rows); the dv of the
+// pairs the block owns (2 x 16 rows); the table; the cotangents
+__host__ __device__ constexpr size_t sliced_smem_bytes(int csize) {
+  return static_cast<size_t>(kSlicedStages) * kRows * row_stride(kSlice, csize) * csize +
+         static_cast<size_t>(kCols) * kSliceCS * 4 + static_cast<size_t>(kCols) * kXS * 4 +
+         2 * kOwned * kXS * 4 + kTableBytes + 3 * kPairs * 4;
 }
 
-// channel splits a tile of pairs: doubled (up to a cluster of 8, each block
-// keeping at least one channel tile) while the launch has fewer than 8
-// blocks an SM, so a chunk of few pair tiles still fills the card; one where
-// modes past the register tiles accumulate in the output
-int plan_splits(long long pair_tiles, long long F, long long V) {
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A cluster of `slices` x `splits` blocks takes one tile of 32 pairs: block
+// (split s, slice r) the modes [64 r, 64 r + 64) and the channel tiles of
+// split s. Per channel tile: phase A forms the slice's part of the model in
+// registers and leaves it in the block's exchange buffer; after a cluster
+// barrier the block runs the epilogue of the pairs it owns (pairs
+// [32 r / S, 32 (r + 1) / S)), the model summed over the slices' buffers in
+// rank order (DSMEM), and leaves their dv in its dv buffer; after a second
+// barrier (which also frees the exchange buffer for the next tile) phase B
+// reads the dv of its warps' pairs from their owners and adds comps' slice
+// into its register tile of dcoeffs, which it writes once at the end.
+template <typename TC, int MODE>
+__global__ void __launch_bounds__(kThreads, kSlicedMinBlocks)
+shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
+                         const float* __restrict__ pr, const float* __restrict__ pi,
+                         const float* __restrict__ dr, const float* __restrict__ di,
+                         int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* __restrict__ w,
+                         int w_bf16, int64_t w_sn, int64_t w_sg, int64_t w_sf,
+                         const unsigned char* __restrict__ valid, float* __restrict__ partials,
+                         float* __restrict__ dcoeffs, float* __restrict__ dpr,
+                         float* __restrict__ dpi, const float* __restrict__ cot, int64_t N,
+                         int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op,
+                         int /* stages: kSlicedStages */, int vec16, int slices, int splits) {
+  constexpr bool kDp = has_dp(MODE);
+  constexpr bool kAll = has_all(MODE);
+  constexpr bool kCot = has_cot(MODE);
+  constexpr int kTerms = n_terms(MODE);
+  constexpr int RS = static_cast<int>(row_stride(kSlice, sizeof(TC)));
+  constexpr int kTile = kRows * RS;  // elements of a ring stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  TC* ring = reinterpret_cast<TC*>(smem);
+  float* coef = reinterpret_cast<float*>(ring + kSlicedStages * kTile);
+  float* const xa = coef + kCols * kSliceCS;  // (64, kXS): the slice's partial models
+  float* const xd = xa + kCols * kXS;          // (2 x 16, kXS): the owned pairs' dv
+  int* tab = reinterpret_cast<int*>(xd + 2 * kOwned * kXS);
+  float* cotv = reinterpret_cast<float*>(tab + 3 * kPairs);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int S = slices;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = rank / S, slice = rank - split * S;
+  const int pair_tile = blockIdx.x / (S * splits);
+  const int64_t u = pair_tile / blocks_per_op;
+  const int64_t q0 = static_cast<int64_t>(pair_tile % blocks_per_op) * kPairs;
+  const int64_t GF = G * F;
+  const TC* op = comps + u * F * V;
+  const int k0 = slice * kSlice;  // the slice's first mode
+  const int W = static_cast<int>(V - k0 < kSlice ? V - k0 : kSlice);
+  const int W8 = (W + 7) / 8 * 8;
+  const int nks = W8 / 8;
+  const int ntiles = static_cast<int>((F + kRows - 1) / kRows);
+  const int jt0 = split * ntiles / splits, jt1 = (split + 1) * ntiles / splits;
+  // every block of the cluster passes the same barriers: as many rounds as
+  // the longest split has tiles
+  const int rounds = (ntiles + splits - 1) / splits;
+  // the pairs whose epilogue this block runs
+  const int p0 = slice * kPairs / S, np = (slice + 1) * kPairs / S - p0;
+
+  // the pair table, as in shared_chunk_loss_kernel; a tile of padding only
+  // writes its zeros (every block of the cluster leaves together)
+  {
+    bool mine = false;
+    if (t < kPairs) {
+      const int64_t q = q0 + t;
+      const int g = static_cast<int>(u * gmax + q / N);
+      const bool in = q < gmax * N;
+      mine = in && (valid == nullptr || valid[g]);
+      tab[t] = static_cast<int>(q % N);
+      tab[kPairs + t] = g;
+      tab[2 * kPairs + t] = (in ? 1 : 0) | (mine ? 2 : 0);
+    }
+    if (!__syncthreads_or(mine)) {
+      for (int p = 0; p < kPairs && rank == 0; ++p) {
+        if (!(tab[2 * kPairs + p] & 1)) break;
+        const int64_t n = tab[p], g = tab[kPairs + p];
+        if (t == 0) {
+          for (int c = 0; c < kTerms; ++c) partials[(c * N + n) * G + g] = 0.f;
+        }
+        if constexpr (kDp) {
+          for (int64_t f = t; f < F; f += kThreads) {
+            dpr[n * GF + g * F + f] = 0.f;
+            dpi[n * GF + g * F + f] = 0.f;
+          }
+        }
+        if constexpr (kAll) {
+          for (int64_t k = t; k < V; k += kThreads) {
+            dcoeffs[(n * G + g) * V + k] = 0.f;
+            dcoeffs[((N + n) * G + g) * V + k] = 0.f;
+          }
+        }
+      }
+      return;
+    }
+  }
+  auto in_op = [&](int p) { return (tab[2 * kPairs + p] & 1) != 0; };
+  if constexpr (kCot) {  // each pair's cotangents (-2 gx, gr, gi)
+    if (t < kPairs) {
+      const int64_t n = tab[t];
+      cotv[t] = -2.f * cot[n];
+      cotv[kPairs + t] = cot[N + n];
+      cotv[2 * kPairs + t] = cot[2 * N + n];
+    }
+  }
+  // the slice of the block's coefficients (64 rows: re then im of each
+  // pair), split once into TF32 (hi, lo); zero past the slice's modes and
+  // for pairs the operator does not have
+  for (int row = warp; row < kCols; row += kThreads / 32) {
+    const int p = row % kPairs;
+    const float* src =
+        in_op(p) ? coeffs2 + ((row / kPairs * N + tab[p]) * G + tab[kPairs + p]) * V + k0
+                 : nullptr;
+    for (int k = lane; k < W8; k += 32) {
+      coef[row * kSliceCS + k] = src != nullptr && k < W ? src[k] : 0.f;
+    }
+  }
+  // the ring's modes past the slice's (read by phase A's last k-step) stay zero
+  if (W8 > W) {
+    for (int idx = t; idx < kSlicedStages * kRows * (W8 - W); idx += kThreads) {
+      ring[(idx / (W8 - W)) * RS + W + idx % (W8 - W)] = zero_of<TC>();
+    }
+  }
+
+  // the comps tile jt's slice into its stage, channel r at row r; rows
+  // past F zeroed
+  auto issue = [&](int jt) {
+    if (jt < jt1) {
+      const int64_t f0 = static_cast<int64_t>(jt) * kRows;
+      const int rows = static_cast<int>(F - f0 < kRows ? F - f0 : kRows);
+      TC* dst = ring + ((jt - jt0) % kSlicedStages) * kTile;
+      const TC* src = op + f0 * V + k0;
+      constexpr int kPer16 = 16 / static_cast<int>(sizeof(TC));
+      if (vec16 && W == kSlice) {  // a whole slice: 16-byte copies a row known
+        constexpr int kPerRow = kSlice / kPer16;
+        for (int q = t; q < rows * kPerRow; q += kThreads) {
+          const int r = q / kPerRow, c = q - r * kPerRow;
+          cp_async16(dst + r * RS + c * kPer16, src + r * V + c * kPer16);
+        }
+      } else if (vec16) {
+        const int per_row = W / kPer16;
+        for (int q = t; q < rows * per_row; q += kThreads) {
+          const int r = q / per_row, c = q - r * per_row;
+          cp_async16(dst + r * RS + c * kPer16, src + r * V + c * kPer16);
+        }
+      } else {
+        for (int q = t; q < rows * W; q += kThreads) {
+          const int r = q / W, k = q - r * W;
+          dst[r * RS + k] = src[r * V + k];
+        }
+      }
+      for (int q = t; q < (kRows - rows) * W8; q += kThreads) {
+        dst[(rows + q / W8) * RS + q % W8] = zero_of<TC>();
+      }
+    }
+    cp_async_commit();  // one group a tile, empty past the last
+  };
+
+  // this thread's epilogue entries: pair p0 + 4 j + warp at channel f0 +
+  // lane (a warp reads a pair's 32 channels, 128 bytes a plane); zeros past
+  // F and for padding
+  float e_pr[4], e_pi[4], e_dr[4], e_di[4], e_w[4];
+  auto load_planes = [&](int jt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      e_pr[j] = e_pi[j] = e_dr[j] = e_di[j] = e_w[j] = 0.f;
+      const int p = p0 + 4 * j + warp;
+      const int64_t f = static_cast<int64_t>(jt) * kRows + lane;
+      if (4 * j + warp < np && (tab[2 * kPairs + p] & 2) && f < F) {
+        const int64_t n = tab[p], g = tab[kPairs + p];
+        e_pr[j] = pr[n * GF + g * F + f];
+        e_pi[j] = pi[n * GF + g * F + f];
+        e_dr[j] = dr[n * d_sn + g * d_sg + f * d_sf];
+        e_di[j] = di[n * d_sn + g * d_sg + f * d_sf];
+        e_w[j] = load_w(w, w_bf16, n * w_sn + g * w_sg + f * w_sf);
+      }
+    }
+  };
+
+  float lacc[4], mracc[4], miacc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) lacc[j] = mracc[j] = miacc[j] = 0.f;
+  float bacc[kModeTiles][4];
+#pragma unroll
+  for (int i = 0; i < kModeTiles; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bacc[i][j] = 0.f;
+  }
+  // phase A's and B's rows: the warp's pair pe, re (row g) and im (row g + 8)
+  const int pe = warp * kWarpPairs + gid;
+  const float* ca = coef + pe * kSliceCS + tig;
+  // phase B's dv of pair pe: row pe - 32 r' / S (re) and 16 rows on (im) in
+  // the buffer of the block r' that owns it
+  const int owner = (S * (pe + 1) - 1) / kPairs;
+  const int orow = pe - owner * kPairs / S;
+  const float* const dv_src =
+      kAll ? static_cast<const float*>(cluster.map_shared_rank(xd, split * S + owner)) + orow * kXS
+           : nullptr;
+
+  load_planes(jt0);
+  issue(jt0);
+  for (int it = 0; it < rounds; ++it) {
+    const int jt = jt0 + it;
+    const bool live = jt < jt1;  // else a round of barriers only
+    const int64_t f0 = static_cast<int64_t>(jt) * kRows;
+    cp_async_wait_all();
+    __syncthreads();  // tile jt (and, first, the coefficients) in; tile jt - 1 done with
+    issue(jt + 1);
+    const TC* tile = ring + (it % kSlicedStages) * kTile;
+    if (live) {
+      // phase A: the slice's part of the model of the warp's 8 pairs at the
+      // tile's 32 channels, over its modes in k-steps of 8
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < kSlice / 8; ++s) {
+        if (s < nks) {
+          const float* a = ca + 8 * s;
+          uint32_t ahi[4], alo[4];
+          split4<true>(a[0], a[kPairs * kSliceCS], a[4], a[kPairs * kSliceCS + 4], ahi, alo);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int b = (8 * nt + gid) * RS + 8 * s + tig;
+            mma_split<TC, true>(acc[nt], ahi, alo, to_f32(tile[b]), to_f32(tile[b + 4]));
+          }
+        }
+      }
+      // row pe (re) and 32 + pe (im) of the buffer, channel 8 nt + 2 tig + c
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        *reinterpret_cast<float2*>(xa + pe * kXS + 8 * nt + 2 * tig) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(xa + (kPairs + pe) * kXS + 8 * nt + 2 * tig) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+    cluster_arrive();
+    cluster_wait();  // every slice's part of the tile's model in
+    if (live) {
+      // the epilogue of the block's pairs, the model summed over the slices
+      // in rank order
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * j + warp >= np) continue;
+        const int p = p0 + 4 * j + warp;
+        float sr = 0.f, si = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < S; ++q) {
+          const float* x = static_cast<const float*>(cluster.map_shared_rank(xa, split * S + q));
+          sr += x[p * kXS + lane];
+          si += x[(kPairs + p) * kXS + lane];
+        }
+        const int flags = tab[2 * kPairs + p];
+        const int64_t f = f0 + lane;
+        const bool ok = (flags & 2) && f < F;
+        const float mr = e_pr[j] * sr + e_pi[j] * si;
+        const float mi = -e_pi[j] * sr + e_pr[j] * si;
+        const float er = e_dr[j] - mr;
+        const float ei = e_di[j] - mi;
+        if (ok && kTerms > 0) lacc[j] += e_w[j] * (er * er + ei * ei);
+        if (ok && kTerms == 3) {
+          mracc[j] += e_w[j] * mr;
+          miacc[j] += e_w[j] * mi;
+        }
+        float dmr = ok ? -2.f * e_w[j] * er : 0.f;
+        float dmi = ok ? -2.f * e_w[j] * ei : 0.f;
+        if constexpr (kCot) {
+          dmr = ok ? e_w[j] * fmaf(cotv[p], er, cotv[kPairs + p]) : 0.f;
+          dmi = ok ? e_w[j] * fmaf(cotv[p], ei, cotv[2 * kPairs + p]) : 0.f;
+        }
+        if constexpr (kDp) {
+          if ((flags & 1) && f < F) {
+            const int64_t n = tab[p], g = tab[kPairs + p];
+            dpr[n * GF + g * F + f] = sr * dmr + si * dmi;
+            dpi[n * GF + g * F + f] = si * dmr - sr * dmi;
+          }
+        }
+        if constexpr (kAll) {
+          xd[(4 * j + warp) * kXS + lane] = e_pr[j] * dmr - e_pi[j] * dmi;
+          xd[(kOwned + 4 * j + warp) * kXS + lane] = e_pi[j] * dmr + e_pr[j] * dmi;
+        }
+      }
+    }
+    cluster_arrive();
+    // the next tile's planes, in flight through the barrier, phase B and
+    // phase A
+    if (live && jt + 1 < jt1) load_planes(jt + 1);
+    cluster_wait();  // the tile's dv of every pair in; every epilogue done with xa
+    if (kAll && live) {
+      // phase B: dcoeffs^T += dv^T comps over the tile's channels, the k
+      // index t read as channel 8 ks + 2 t and t + 4 as 8 ks + 2 t + 1
+      float2 re[4], im[4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        re[ks] = *reinterpret_cast<const float2*>(dv_src + 8 * ks + 2 * tig);
+        im[ks] = *reinterpret_cast<const float2*>(dv_src + kOwned * kXS + 8 * ks + 2 * tig);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t ahi[4], alo[4];
+        split4<true>(re[ks].x, im[ks].x, re[ks].y, im[ks].y, ahi, alo);
+        const int b = (8 * ks + 2 * tig) * RS + gid;
+#pragma unroll
+        for (int mt = 0; mt < kModeTiles; ++mt) {
+          if (mt < nks) {
+            mma_split<TC, true>(bacc[mt], ahi, alo, to_f32(tile[b + 8 * mt]),
+                                to_f32(tile[b + RS + 8 * mt]));
+          }
+        }
+      }
+    }
+  }
+
+  // each pair's sums over this block's channels: a fixed shuffle tree over
+  // the 32 lanes
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      lacc[j] += __shfl_xor_sync(0xffffffffu, lacc[j], m);
+      if constexpr (kTerms == 3) {
+        mracc[j] += __shfl_xor_sync(0xffffffffu, mracc[j], m);
+        miacc[j] += __shfl_xor_sync(0xffffffffu, miacc[j], m);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the coefficients
+  float* red = coef;                   // (64, W): the block's part of dcoeffs
+  float* lsum = red + kCols * kSlice;  // (kTerms, 32): its pairs' sums
+  if (lane == 0 && kTerms > 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * j + warp < np) {
+        const int p = p0 + 4 * j + warp;
+        lsum[p] = lacc[j];
+        if (kTerms == 3) {
+          lsum[kPairs + p] = mracc[j];
+          lsum[2 * kPairs + p] = miacc[j];
+        }
+      }
+    }
+  }
+  if constexpr (kAll) {
+#pragma unroll
+    for (int mt = 0; mt < kModeTiles; ++mt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int k = 8 * mt + 2 * tig + c;
+        if (k < W) {
+          red[pe * W + k] = bacc[mt][c];
+          red[(kPairs + pe) * W + k] = bacc[mt][2 + c];
+        }
+      }
+    }
+  }
+  // the splits' parts summed in split order, each block of a slice a share
+  // of its entries, reading the others' shared memory
+  cluster_arrive();
+  cluster_wait();
+  const int nd = kAll ? kCols * W : 0;
+  const int entries = nd + kTerms * np;
+  for (int e = split * kThreads + t; e < entries; e += splits * kThreads) {
+    const bool loss = e >= nd;
+    const int row = loss ? 0 : e / W;
+    const int term = loss ? (e - nd) / np : 0;
+    const int p = loss ? p0 + (e - nd) % np : row % kPairs;
+    if (!in_op(p)) continue;
+    const int off = loss ? term * kPairs + p : e;
+    float s = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float* src =
+          static_cast<const float*>(cluster.map_shared_rank(loss ? lsum : red, r * S + slice));
+      s += src[off];
+    }
+    const int64_t n = tab[p], g = tab[kPairs + p];
+    if (loss) {
+      partials[(term * N + n) * G + g] = s;
+    } else {
+      dcoeffs[((row / kPairs * N + n) * G + g) * V + k0 + e % W] = s;
+    }
+  }
+  cluster_arrive();
+  cluster_wait();  // no block leaves while others read it
+}
+
+int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
     cudaGetLastError();
     sms = 132;
   }
-  const long long ntiles = (F + kRows - 1) / kRows;
-  int splits = 1;
-  while (V <= kCapacity && splits < 8 && 2 * splits <= ntiles &&
-         pair_tiles * splits < 8LL * sms) {
-    splits *= 2;
-  }
-  return splits;
+  return sms;
 }
 
-template <typename TC, int MODE, bool kPre>
-int launch(int grid, int splits, int stages, int vec16, cudaStream_t s, const void* comps,
-           const float* coeffs2, const float* pr, const float* pi, const float* dr,
-           const float* di, int64_t d_sn, int64_t d_sg, int64_t d_sf, const void* w, int w_bf16,
-           int64_t w_sn, int64_t w_sg, int64_t w_sf, const unsigned char* valid,
-           float* partials, float* dcoeffs, float* dpr, float* dpi, const float* cot, int64_t N,
-           int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op) {
-  const size_t smem = kPre ? smem_bytes_pre(V, sizeof(TC)) : smem_bytes(V, sizeof(TC), stages);
-  auto kernel = shared_chunk_loss_kernel<TC, MODE, kPre>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// The launch plan. V <= 64: a ring of two tiles; the channels of a tile of
+// pairs split over a cluster, doubled (up to 8 blocks, each keeping at least
+// one channel tile) while the launch has fewer than 8 blocks an SM; bfloat16
+// comps' coefficients split once in shared memory. V > 64: a cluster of
+// ceil(V / 64) mode slices a tile of pairs, its channels split as well,
+// doubled (up to 16 blocks) while the launch has fewer than
+// kSlicedTargetBlocks blocks an SM.
+struct Plan {
+  int stages, slices, splits, pre;
+  long long grid;  // blocks, the clusters' included
+  size_t smem;
+};
+
+bool make_plan(long long N, long long G, long long F, long long V, long long U, int csize,
+               Plan* plan) {
+  if (V > static_cast<long long>(kSlice) * kMaxCluster) return false;
+  const long long pair_tiles = (G / U * N + kPairs - 1) / kPairs * U;
+  const long long ntiles = (F + kRows - 1) / kRows;
+  const long long sms = sm_count();
+  int splits = 1;
+  if (V <= kCapacity) {
+    while (splits < 8 && 2 * splits <= ntiles && pair_tiles * splits < 8 * sms) splits *= 2;
+    plan->pre = csize == 2;
+    plan->stages = 2;
+    plan->slices = 1;
+    plan->smem = plan->pre ? smem_bytes_pre(V, csize) : smem_bytes(V, csize, 2);
+  } else {
+    const int slices = static_cast<int>((V + kSlice - 1) / kSlice);
+    while (slices * splits * 2 <= kMaxCluster && 2 * splits <= ntiles &&
+           pair_tiles * slices * splits < kSlicedTargetBlocks * sms) {
+      splits *= 2;
+    }
+    plan->pre = 0;
+    plan->stages = kSlicedStages;
+    plan->slices = slices;
+    plan->smem = sliced_smem_bytes(csize);
   }
-  // the blocks of one tile of pairs form a cluster of `splits`
+  plan->splits = splits;
+  plan->grid = pair_tiles * plan->slices * splits;
+  return plan->grid <= INT_MAX && G / U * N <= INT_MAX;
+}
+
+template <typename TC, int MODE, bool kSliced>
+auto kernel_of() {
+  if constexpr (kSliced) {
+    return &shared_chunk_loss_sliced<TC, MODE>;
+  } else {
+    return &shared_chunk_loss_kernel<TC, MODE, std::is_same<TC, __nv_bfloat16>::value>;
+  }
+}
+
+// shared memory past 48 KB, and clusters past 8 blocks
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return static_cast<int>(err);
+}
+
+template <typename TC, int MODE, bool kSliced>
+int launch(const Plan& plan, int vec16, cudaStream_t s, const void* comps, const float* coeffs2,
+           const float* pr, const float* pi, const float* dr, const float* di, int64_t d_sn,
+           int64_t d_sg, int64_t d_sf, const void* w, int w_bf16, int64_t w_sn, int64_t w_sg,
+           int64_t w_sf, const unsigned char* valid, float* partials, float* dcoeffs, float* dpr,
+           float* dpi, const float* cot, int64_t N, int64_t G, int64_t F, int64_t V,
+           int64_t gmax, int blocks_per_op) {
+  auto kernel = kernel_of<TC, MODE, kSliced>();
+  const int err = prepare(kernel, plan.smem);
+  if (err != 0) return err;
+  // the blocks of one tile of pairs form a cluster
+  const int cluster = plan.slices * plan.splits;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(grid) * splits);
+  cfg.gridDim = dim3(static_cast<unsigned>(plan.grid));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = plan.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TC*>(comps), coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w,
       w_bf16, w_sn, w_sg, w_sf, valid, partials, dcoeffs, dpr, dpi, cot, N, G, F, V, gmax,
-      blocks_per_op, stages, vec16, splits);
-  if (err != cudaSuccess) return static_cast<int>(err);
+      blocks_per_op, plan.stages, vec16, plan.slices, plan.splits);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TC, bool kPre, typename... Args>
+template <typename TC, bool kSliced, typename... Args>
 int launch_mode(int mode, Args... args) {
   switch (mode) {
-    case kLossOnly: return launch<TC, kLossOnly, kPre>(args...);
-    case kLossDp: return launch<TC, kLossDp, kPre>(args...);
-    case kLossAll: return launch<TC, kLossAll, kPre>(args...);
-    case kSumFwd: return launch<TC, kSumFwd, kPre>(args...);
-    case kSumDp: return launch<TC, kSumDp, kPre>(args...);
-    default: return launch<TC, kSumAll, kPre>(args...);
+    case kLossOnly: return launch<TC, kLossOnly, kSliced>(args...);
+    case kLossDp: return launch<TC, kLossDp, kSliced>(args...);
+    case kLossAll: return launch<TC, kLossAll, kSliced>(args...);
+    case kSumFwd: return launch<TC, kSumFwd, kSliced>(args...);
+    case kSumDp: return launch<TC, kSumDp, kSliced>(args...);
+    default: return launch<TC, kSumAll, kSliced>(args...);
   }
-}
-
-// bfloat16 comps: the coefficients split once into shared memory wherever
-// the modes fit the register tiles
-template <typename... Args>
-int launch_bf16(bool pre, int mode, Args... args) {
-  return pre ? launch_mode<__nv_bfloat16, true>(mode, args...)
-             : launch_mode<__nv_bfloat16, false>(mode, args...);
 }
 
 // blocks an SM of one instance at `smem` bytes of dynamic shared memory, as
 // the CUDA runtime's occupancy calculator gives them
-template <typename TC, int MODE, bool kPre>
+template <typename TC, int MODE, bool kSliced>
 int occupancy(size_t smem, int* blocks) {
-  auto kernel = shared_chunk_loss_kernel<TC, MODE, kPre>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  auto kernel = kernel_of<TC, MODE, kSliced>();
+  const int err = prepare(kernel, smem);
+  if (err != 0) return err;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem));
 }
 
-template <typename TC, bool kPre>
+template <typename TC, bool kSliced>
 int occupancy_mode(int mode, size_t smem, int* blocks) {
   switch (mode) {
-    case kLossOnly: return occupancy<TC, kLossOnly, kPre>(smem, blocks);
-    case kLossDp: return occupancy<TC, kLossDp, kPre>(smem, blocks);
-    case kLossAll: return occupancy<TC, kLossAll, kPre>(smem, blocks);
-    case kSumFwd: return occupancy<TC, kSumFwd, kPre>(smem, blocks);
-    case kSumDp: return occupancy<TC, kSumDp, kPre>(smem, blocks);
-    default: return occupancy<TC, kSumAll, kPre>(smem, blocks);
+    case kLossOnly: return occupancy<TC, kLossOnly, kSliced>(smem, blocks);
+    case kLossDp: return occupancy<TC, kLossDp, kSliced>(smem, blocks);
+    case kLossAll: return occupancy<TC, kLossAll, kSliced>(smem, blocks);
+    case kSumFwd: return occupancy<TC, kSumFwd, kSliced>(smem, blocks);
+    case kSumDp: return occupancy<TC, kSumDp, kSliced>(smem, blocks);
+    default: return occupancy<TC, kSumAll, kSliced>(smem, blocks);
   }
 }
 
@@ -911,34 +1348,35 @@ int occupancy_mode(int mode, size_t smem, int* blocks) {
 
 extern "C" {
 
-// The launch plan of shared_chunk_loss for these shapes, into out[6]:
-// {stages of the comps ring, channel splits a tile of pairs (the cluster),
-// blocks of the grid (splits included), dynamic shared memory a block in
-// bytes, 1 where the coefficients are split once into shared memory, the
-// blocks an SM the CUDA runtime's occupancy calculator gives the instance
-// at that shared memory}. Returns 0, cudaErrorInvalidValue for a shape the
-// kernel does not take, or the runtime's error.
+// The launch plan of shared_chunk_loss for these shapes, into out[8]:
+// {stages of the comps ring, channel splits a tile of pairs, blocks of the
+// grid (the clusters' included), dynamic shared memory a block in bytes, 1
+// where the coefficients are split once into shared memory, the blocks an
+// SM the CUDA runtime's occupancy calculator gives the instance at that
+// shared memory, mode slices a tile of pairs (1 for V <= 64), blocks a
+// cluster (slices x splits)}. Returns 0, cudaErrorInvalidValue for a shape
+// the kernel does not take, or the runtime's error.
 int shared_plan(long long N, long long G, long long F, long long V, long long U,
                 int comps_dtype, int mode, long long* out) {
   const int csize = comps_dtype == 0 ? 4 : 2;
+  Plan plan;
   if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || U <= 0 || G % U != 0 || mode < kLossOnly ||
-      mode > kSumAll || (comps_dtype != 0 && comps_dtype != 1)) {
+      mode > kSumAll || (comps_dtype != 0 && comps_dtype != 1) ||
+      !make_plan(N, G, F, V, U, csize, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool pre = comps_dtype == 1 && V <= kCapacity;
-  const int stages = pre ? 2 : plan_stages(V, csize);
-  if (stages == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long per_op = (G / U * N + kPairs - 1) / kPairs;
-  const int splits = plan_splits(per_op * U, F, V);
-  const size_t smem = pre ? smem_bytes_pre(V, csize) : smem_bytes(V, csize, stages);
+  const bool sliced = plan.slices > 1;
   int blocks = 0;
-  const int err = comps_dtype == 0 ? occupancy_mode<float, false>(mode, smem, &blocks)
-                  : pre            ? occupancy_mode<__nv_bfloat16, true>(mode, smem, &blocks)
-                                   : occupancy_mode<__nv_bfloat16, false>(mode, smem, &blocks);
+  const int err = comps_dtype == 0
+                      ? (sliced ? occupancy_mode<float, true>(mode, plan.smem, &blocks)
+                                : occupancy_mode<float, false>(mode, plan.smem, &blocks))
+                      : (sliced ? occupancy_mode<__nv_bfloat16, true>(mode, plan.smem, &blocks)
+                                : occupancy_mode<__nv_bfloat16, false>(mode, plan.smem, &blocks));
   if (err != 0) return err;
-  const long long vals[6] = {stages, splits, per_op * U * splits, static_cast<long long>(smem),
-                             pre ? 1 : 0, blocks};
-  for (int q = 0; q < 6; ++q) out[q] = vals[q];
+  const long long vals[8] = {plan.stages, plan.splits, plan.grid,
+                             static_cast<long long>(plan.smem), plan.pre, blocks,
+                             plan.slices, static_cast<long long>(plan.slices) * plan.splits};
+  for (int q = 0; q < 8; ++q) out[q] = vals[q];
   return 0;
 }
 
@@ -955,7 +1393,7 @@ int shared_plan(long long N, long long G, long long F, long long V, long long U,
 // mode 3 the "sum" forward (T = 3: the chi-square, M_r, M_i); modes 4 and
 // 5 the "sum" backward with dpr/dpi or every gradient at the cotangents
 // cot (3, N) float32 contiguous (of the chi-square, M_r and M_i; no
-// partials, which may be null). All on the current device.
+// partials, which may be null). All on the current device. V up to 1024.
 // Launches on `stream` and returns the launch's CUDA error (0 on success,
 // cudaErrorInvalidValue for a shape it does not take); it does not
 // synchronise.
@@ -967,33 +1405,28 @@ int shared_chunk_loss(const void* comps, int comps_dtype, const float* coeffs2, 
                       const float* cot, long long N, long long G, long long F, long long V,
                       long long U, int mode, void* stream) {
   const int csize = comps_dtype == 0 ? 4 : 2;
+  Plan plan;
   if (N <= 0 || G <= 0 || F <= 0 || V <= 0 || U <= 0 || G % U != 0 || N > INT_MAX ||
       G > INT_MAX || F > INT_MAX || V > INT_MAX || mode < kLossOnly || mode > kSumAll ||
       (comps_dtype != 0 && comps_dtype != 1) || (w_dtype != 0 && w_dtype != 1) ||
-      (has_cot(mode) && cot == nullptr) || (n_terms(mode) > 0 && partials == nullptr)) {
+      (has_cot(mode) && cot == nullptr) || (n_terms(mode) > 0 && partials == nullptr) ||
+      !make_plan(N, G, F, V, U, csize, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool pre = comps_dtype == 1 && V <= kCapacity;
-  const int stages = pre ? 2 : plan_stages(V, csize);
   const long long gmax = G / U;
-  const long long per_op = (gmax * N + kPairs - 1) / kPairs;
-  if (stages == 0 || per_op * U > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int bpo = static_cast<int>((gmax * N + kPairs - 1) / kPairs);
   const int vec16 = reinterpret_cast<uintptr_t>(comps) % 16 == 0 && (V * csize) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = static_cast<int>(per_op * U);
-  const int splits = plan_splits(per_op * U, F, V);
-  if (static_cast<long long>(grid) * splits > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int bpo = static_cast<int>(per_op);
-  if (comps_dtype == 0) {
-    return launch_mode<float, false>(mode, grid, splits, stages, vec16, s, comps, coeffs2, pr,
-                                     pi, dr, di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf,
-                                     valid, partials, dcoeffs, dpr, dpi, cot, N, G, F, V, gmax,
-                                     bpo);
+#define SHARED_ARGS                                                                             \
+  plan, vec16, s, comps, coeffs2, pr, pi, dr, di, d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf, \
+      valid, partials, dcoeffs, dpr, dpi, cot, N, G, F, V, gmax, bpo
+  if (plan.slices > 1) {
+    return comps_dtype == 0 ? launch_mode<float, true>(mode, SHARED_ARGS)
+                            : launch_mode<__nv_bfloat16, true>(mode, SHARED_ARGS);
   }
-  return launch_bf16(pre, mode, grid, splits, stages, vec16, s, comps, coeffs2, pr, pi, dr, di,
-                     d_sn, d_sg, d_sf, w, w_dtype, w_sn, w_sg, w_sf, valid, partials, dcoeffs,
-                     dpr, dpi, cot, N, G, F, V, gmax, bpo);
+  return comps_dtype == 0 ? launch_mode<float, false>(mode, SHARED_ARGS)
+                          : launch_mode<__nv_bfloat16, false>(mode, SHARED_ARGS);
+#undef SHARED_ARGS
 }
 
 }  // extern "C"

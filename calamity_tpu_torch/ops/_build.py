@@ -92,15 +92,17 @@ class KernelLibrary:
     def shared_plan(self, nbatch, ngrps, nfreqs, nvecs, nu, comps_dtype, mode):
         """The shared-basis kernel's launch plan as a dict (see
         ``shared_plan`` in its source), the blocks an SM from the CUDA
-        runtime's occupancy calculator; raises on a shape it does not take."""
-        out = (ctypes.c_longlong * 6)()
+        runtime's occupancy calculator; raises on a shape it does not
+        take."""
+        out = (ctypes.c_longlong * 8)()
         err = self._lib.shared_plan(nbatch, ngrps, nfreqs, nvecs, nu, comps_dtype, mode, out)
         if err != 0:
             raise ValueError(
                 f"the shared-basis kernel has no launch plan for N={nbatch}, G={ngrps}, "
                 f"F={nfreqs}, V={nvecs}, U={nu} ({self.fcl_error_string(err).decode()})"
             )
-        keys = ("stages", "splits", "grid", "smem_bytes", "pre_split", "blocks_per_sm")
+        keys = ("stages", "splits", "grid", "smem_bytes", "pre_split", "blocks_per_sm", "slices",
+                "cluster")
         return dict(zip(keys, out))
 
 

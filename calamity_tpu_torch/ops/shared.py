@@ -20,7 +20,11 @@ On a CUDA tensor the pass is the hand-written kernel in
 ``csrc/shared_chunk_loss.cu`` (built on first use by ``ops._build``),
 which stages each channel tile of an operator in shared memory once for a
 tile of 32 (group, slice) pairs and runs both products on the tensor
-cores with split TF32 operands (float32 accuracy); on a CPU tensor it is
+cores with split TF32 operands (float32 accuracy); past 64 modes a
+cluster of blocks takes the tile, each block 64 of the modes, the
+slices' parts of the model summed over the cluster's shared memory in a
+fixed order (``KernelLibrary.shared_plan`` in ``ops._build`` reads its
+launch plan); on a CPU tensor it is
 :func:`loss_and_grads_plain`'s torch ops. There is no other route: a CUDA
 launch that fails raises. Groups that hold no baseline (the packing's
 record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
@@ -64,21 +68,9 @@ from .fused import (
 from .gains import valid_rows
 
 KERNEL_NAME = "shared_chunk_loss"
-_MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
-
-
-def _smem_bytes(nvecs, csize):
-    """The kernel's shared memory for one comps tile of 32 channels (rows of
-    at least V rounded up to 8 modes, an odd number of 16-byte units), the
-    64 coefficient rows (V rounded up to 8 modes, plus 4) and its table of
-    32 pairs: the least it can run with (``smem_bytes`` at one stage in the
-    source)."""
-    unit = 16 // csize
-    modes8 = -(-nvecs // 8) * 8
-    row = -(-modes8 // unit) * unit
-    if (row // unit) % 2 == 0:
-        row += unit
-    return 32 * row * csize + 64 * (modes8 + 4) * 4 + 3 * 32 * 4
+REG_MODES = 64  # modes phase B holds in registers: at most this many, one block a tile of pairs
+MAX_CLUSTER = 16  # the H100's largest thread-block cluster (non-portable past 8)
+MAX_NVECS = REG_MODES * MAX_CLUSTER  # wider bases: a cluster of 64-mode slices would not fit
 
 
 def explain_shared_loss_inapplicable(comps, coeffs, data, wgts):
@@ -89,7 +81,7 @@ def explain_shared_loss_inapplicable(comps, coeffs, data, wgts):
     batch. The chunk must be shared (u = 1 < ngrps) or shared-batched (1 <
     u < ngrps, u dividing ngrps) with one baseline per group, comps and
     weights float32 or bfloat16, coefficients and data float32, all on one
-    device, and a basis narrow enough for the kernel's shared memory."""
+    device, and a basis of at most :data:`MAX_NVECS` modes."""
     u, nbls, _, nvecs = comps.shape
     ngrps = coeffs.shape[-2]
     if not u < ngrps:
@@ -107,8 +99,8 @@ def explain_shared_loss_inapplicable(comps, coeffs, data, wgts):
             return f"{name} dtype {t.dtype} ({'/'.join(str(d)[6:] for d in ok)} only)"
         if t.device != comps.device:
             return f"{name} on {t.device}, comps on {comps.device}"
-    if _smem_bytes(nvecs, comps.element_size()) > _MAX_SMEM:
-        return f"nvecs={nvecs} (a basis row too wide for the kernel's shared memory)"
+    if nvecs > MAX_NVECS:
+        return f"nvecs={nvecs} (wider than a cluster of {MAX_CLUSTER} blocks of {REG_MODES} modes)"
     return None
 
 
@@ -165,10 +157,14 @@ def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOS
     kernel forms them on the tensor cores: each float32 operand split into
     TF32 hi and lo (:func:`tf32_split`) and the products ``x_lo c_hi +
     x_hi c_lo + x_hi c_hi`` summed in float32, small terms first (a
-    bfloat16 comps value is exact in TF32: ``x_lo c + x_hi c``). With
-    ``split=False``, one product of the TF32-rounded operands: the single
-    TF32 product the kernel does not use. For the tests and the smoke
-    test's comparisons only; no path calls it."""
+    bfloat16 comps value is exact in TF32: ``x_lo c + x_hi c``). Past
+    :data:`REG_MODES` modes the kernel's blocks each hold a slice of 64
+    modes: the model is formed per slice and the slices summed in slice
+    order, as the cluster sums them; the coefficient gradient of each
+    slice is its own. With ``split=False``, one product of the
+    TF32-rounded operands: the single TF32 product the kernel does not
+    use. For the tests and the smoke test's comparisons only; no path calls
+    it."""
     exact = comps3.dtype == torch.bfloat16
 
     def product(eq, comps, x):
@@ -181,7 +177,20 @@ def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOS
             small = small + torch.einsum(eq, c_lo, x_hi)
         return small + torch.einsum(eq, c_hi, x_hi)
 
-    return _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot)
+    def sliced(eq, comps, x):
+        nvecs = comps.shape[-1]
+        if nvecs <= REG_MODES:
+            return product(eq, comps, x)
+        cuts = [slice(k, k + REG_MODES) for k in range(0, nvecs, REG_MODES)]
+        if eq.endswith("v"):  # the coefficient gradient: each slice's own modes
+            return torch.cat([product(eq, comps[..., c], x) for c in cuts], dim=-1)
+        parts = [product(eq, comps[..., c], x[..., c]) for c in cuts]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    return _loss_and_grads_with(sliced, coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot)
 
 
 def _loss_and_grads_with(product, coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot=None):
@@ -239,8 +248,8 @@ def _check_kernel_operands(coeffs2, pr, pi, dr, di, w, comps3, valid):
             raise ValueError(f"{name} is not contiguous")
     if dr.stride() != di.stride():
         raise ValueError(f"dr strides {dr.stride()} differ from di strides {di.stride()}")
-    if _smem_bytes(nvecs, comps3.element_size()) > _MAX_SMEM:
-        raise ValueError(f"nvecs={nvecs}: a basis row too wide for the kernel's shared memory")
+    if nvecs > MAX_NVECS:
+        raise ValueError(f"nvecs={nvecs}: wider than the kernel's {MAX_NVECS} modes")
     if comps3.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors; comps is on {comps3.device}")
 

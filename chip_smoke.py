@@ -41,8 +41,8 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    the autograd Function against the torch ops it replaces, each case
    timed against its bound, the plain version, those torch ops and cuBLAS'
    batched matvec; a block of whole classes as views; ragged and wide
-   shapes, the widest bases the gate admits among them (600 float32 and
-   720 bfloat16 modes); bfloat16 weights and a weight plane; the "sum"
+   shapes (past 64 modes the cluster's mode slices, up to 1024 modes, a
+   cluster of 16); bfloat16 weights and a weight plane; the "sum"
    instances as in phase 3, also against the split TF32 emulation, each
    timed against its bound; and at the full HERA array's widths (phase
    13's packing): its six heaviest and narrowest chunks (V = 128, 256 and
@@ -50,8 +50,14 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    chi-square's instances against the plain version and two launches equal
    to the bit, each timed through the wrapper and the device alone beside
    its bound, the plain version and cuBLAS' matvec, with its launch plan
-   (blocks an SM from the runtime's occupancy calculator), and one step's
-   18 launches timed together;
+   (cluster, ring, shared memory, blocks an SM from the runtime's
+   occupancy calculator) and its instance's registers and spills, and one
+   step's 18 launches timed together; the launch plan (within a block's
+   227 KB and a cluster of 16, ceil(V / 64) mode slices a tile of pairs,
+   four blocks an SM past 64 modes) at those chunks, the ragged shapes and
+   every width from 65 modes to 600 / 720; a coefficient or a data value
+   made NaN on the card gives a NaN loss or NaN gradients at V = 64 and
+   128, both comps types;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
@@ -309,7 +315,7 @@ def registers(log, kernel="fused_chunk_loss"):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            m = re.search(r"_(kernel|wide)I(.*?)EEv", fn)
+            m = re.search(r"_(kernel|wide|sliced)I(.*?)EEv", fn)
             inst = (f"{m.group(1)}:{m.group(2)}" if m else fn) if kernel in fn else None
         elif "spill stores" in line:
             spill = line.split(",")[1].strip().split()[0]
@@ -332,7 +338,8 @@ def phase_build():
     for line in lib.build_log.splitlines():
         if "Function properties for" in line:
             func = line.split("Function properties for", 1)[1].strip()
-            named = re.search(r"([a-z]+(?:_[a-z]+)*_(?:kernel|wide|partials|segments))I(.*?)EEv",
+            named = re.search(r"([a-z]+(?:_[a-z]+)*_(?:kernel|wide|sliced|partials|segments))I"
+                              r"(.*?)EEv",
                               func)
             func = f"{named.group(1)}<{named.group(2)}>" if named else func[:96]
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1457,13 +1464,15 @@ def compare_shared(tag, nbatch, nu, nfreqs, nvecs, valid, comps_dtype, timed=Fal
 
 # phase 3s's ragged shapes, (U, gmax, F, V[, the one comps dtype]): the
 # tensor-core tiles' edges (a short last channel tile, F = 37, 100, 1500;
-# modes not a whole number of k-steps, V = 3, 60, 130, or of the 64 held in
-# registers; V = 64 exactly), modes past the register tiles, rows copied by
-# plain loads, a one-tile ring; and the widest bases the gate admits
-# (``ops.shared._smem_bytes``), 600 modes of float32 comps and 720 of
-# bfloat16
+# modes not a whole number of k-steps, V = 3, 60, 130, or of the 64 a block
+# holds; V = 64 exactly); past 64 modes a cluster of 64-mode slices (V = 65:
+# one mode in the second; 130, 200, 557 with the last slice short; rows
+# copied by plain loads); the widest bases of the gate before the slices
+# (600 float32, 720 bfloat16: clusters of 10 and 12) and the widest now,
+# 1024 modes (a cluster of 16)
 SHARED_RAGGED = ((1, 2, 37, 3), (3, 5, 100, 130), (2, 7, 64, 557), (1, 33, 64, 200),
                  (1, 40, 1500, 60), (2, 24, 1500, 64), (3, 11, 37, 64), (1, 70, 1500, 3),
+                 (2, 9, 100, 65), (1, 3, 100, 1024),
                  (1, 7, 1536, 600, "float32"), (1, 7, 1536, 720, "bfloat16"))
 
 
@@ -1586,7 +1595,21 @@ def full_array_chunk(shape):
     raise AssertionError(f"the full array packs no chunk {shape}")
 
 
-def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed):
+def instance_registers(regs, comps_dtype, nvecs, mode=2):
+    """The '<registers>r/<spill bytes>s' of the shared-basis instance a
+    chunk of ``nvecs`` modes runs (``mode`` 2: every gradient), from
+    :func:`registers`' list."""
+    import torch
+
+    design = "sliced" if nvecs > 64 else "kernel"
+    ctype = "f" if comps_dtype == torch.float32 else "13__nv_bfloat16"
+    for r in regs:
+        if r.startswith(f"{design}:{ctype}Li{mode}E"):
+            return r.rsplit(":", 1)[1]
+    return "not in the report"
+
+
+def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed, regs=()):
     """The shared-basis kernel at one of the full array's chunks: the three
     chi-square instances against the plain version (loss rel 1e-5,
     gradients rel 1e-4, padding's gradients zero), two launches equal to the
@@ -1650,8 +1673,10 @@ def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed):
         f"{out['device_ms']:.4f}) against bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
         f"{moved / 1e9:.3f} GB; share {out['roofline_share']:.3f}), plain {out['plain_ms']:.4f} "
         f"ms, cuBLAS bmm of the matvec {out['library_ms']:.4f} ms; plan: {plan['grid']} blocks "
-        f"in clusters of {plan['splits']}, {plan['stages']}-tile ring, {plan['smem_bytes']} "
-        f"bytes of shared memory, {plan['blocks_per_sm']} blocks an SM")
+        f"in clusters of {plan['cluster']} ({plan['slices']} mode slices x {plan['splits']} "
+        f"channel splits), {plan['stages']}-tile ring, {plan['smem_bytes']} bytes of shared "
+        f"memory, {plan['blocks_per_sm']} blocks an SM; registers/spill bytes "
+        f"{instance_registers(regs, comps_dtype, nvecs)}")
     return out
 
 
@@ -1706,6 +1731,80 @@ def full_array_step(nbatch, comps_dtype):
     return out
 
 
+def check_shared_plans():
+    """The kernel's launch plan (``shared_plan`` in its source) on this card
+    at the full array's six chunks (N = 1 and 8), every ragged shape (N = 1
+    and 3) and every width from 65 modes to 600 (float32) or 720 (bfloat16)
+    at U = 1, gmax = 7, F = 1536, N = 1, both comps types each: within a
+    block's 227 KB of shared memory and a cluster of 16, ceil(V / 64) mode
+    slices times the channel splits on each tile of 32 pairs, and past 64
+    modes at least four blocks an SM. Returns the number of shapes."""
+    import torch
+
+    from calamity_tpu_torch.ops import _build, fused
+
+    lib = _build.load_kernels()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(n, nu * gmax, NFREQS, nv, nu, cdt) for nu, gmax, nv in FULL_SHAPES
+             for cdt in (f32, bf16) for n in (1, 8)]
+    cases += [(n, nu * gmax, nf, nv, nu, cdt) for cdt in (f32, bf16)
+              for nu, gmax, nf, nv in ragged_cases(cdt) for n in (1, 3)]
+    cases += [(1, 7, NFREQS, nv, 1, cdt) for cdt, top in ((f32, 600), (bf16, 720))
+              for nv in range(65, top + 1)]
+    blocks = set()
+    for n, g, f, v, u, cdt in cases:
+        c = lib.shared_plan(n, g, f, v, u, int(cdt != f32), fused.LOSS_ALL)
+        pair_tiles = -(-(g // u * n) // 32) * u
+        slices = -(-v // 64)
+        check(c["smem_bytes"] <= 227 * 1024 and c["cluster"] <= 16 and c["stages"] == 2
+              and c["slices"] == slices and c["cluster"] == slices * c["splits"]
+              and c["grid"] == pair_tiles * c["cluster"]
+              and (v <= 64 or c["blocks_per_sm"] >= 4),
+              f"the launch plan of N={n} G={g} F={f} V={v} U={u} {cdt}: {c}")
+        blocks.add((v > 64, str(cdt)[6:], c["blocks_per_sm"]))
+    log(f"  the launch plan at {len(cases)} shapes ({sms} SMs): each within 227 KB of shared "
+        "memory and a cluster of 16, ceil(V / 64) slices a tile of pairs; blocks an SM "
+        f"(sliced, comps, blocks): {sorted(blocks)}")
+    return len(cases)
+
+
+def check_shared_nan():
+    """A coefficient made NaN on the card (0/0) gives a NaN loss, and a data
+    value made NaN gives NaN gradients, as the plain version does: at V =
+    64 (one block a tile) and V = 128 (a cluster of two mode slices), both
+    comps types, the loss-only and every-gradient instances. The TF32 split
+    must not round a NaN operand to zero. Returns the number of cases."""
+    import torch
+
+    from calamity_tpu_torch.ops import fused, shared
+
+    ncase = 0
+    for nv in (64, 128):
+        for cdt in (torch.float32, torch.bfloat16):
+            valid = np.ones(4, bool)
+            args, mask = shared_inputs(1, 1, 100, nv, valid, cdt, SEED + nv)
+            zero = torch.zeros((), device=args[0].device)
+            coeffs = args[0].clone()
+            coeffs[0, 0, 1, nv - 1] = zero / zero
+            nan_coef = [coeffs] + list(args[1:])
+            got = shared.loss_and_grads_kernel(*nan_coef, mask, fused.LOSS_ONLY)[0]
+            check(bool(torch.isnan(got).all()),
+                  f"V={nv} {cdt}: a NaN coefficient gives the loss {got.tolist()}")
+            dr = args[3].clone()
+            dr[0, 2, 7] = zero / zero
+            nan_data = list(args[:3]) + [dr] + list(args[4:])
+            got = shared.loss_and_grads_kernel(*nan_data, mask, fused.LOSS_ALL)
+            check(bool(torch.isnan(got[0]).all()) and bool(torch.isnan(got[1][:, 0, 2]).all())
+                  and bool(torch.isnan(got[2][0, 2, 7])),
+                  f"V={nv} {cdt}: a NaN data value gives a finite loss or gradient")
+            ncase += 2
+    torch.cuda.synchronize()
+    log(f"  NaN operands: {ncase} cases (V = 64 and 128, float32 and bfloat16 comps), a NaN "
+        "coefficient gives a NaN loss and a NaN data value NaN gradients")
+    return ncase
+
+
 def phase_shared_full_array():
     """Phase 3s at the full array's widths: the six chunks of
     :data:`FULL_SHAPES` with their padding (N = 1 and 8, float32 and
@@ -1720,14 +1819,15 @@ def phase_shared_full_array():
         "F = 1536 (loss rel 1e-5, gradients rel 1e-4, two launches bit-equal)")
     regs = registers(_build.load_kernels().build_log, "shared_chunk_loss")
     log(f"  registers/spill bytes of the shared-basis instances: {' '.join(regs)}")
-    out = {"registers": regs}
+    out = {"registers": regs, "plans_checked": check_shared_plans(),
+           "nan_cases": check_shared_nan()}
     for shape in FULL_SHAPES:
         c, valid = full_array_chunk(shape)
         nu, _, nv = shape
         for cdt in (torch.float32, torch.bfloat16):
             for n in (1, 8):
                 out[(shape, n, cdt)] = compare_shared_full(n, nu, nv, valid, cdt,
-                                                           SEED + 7 * c + n)
+                                                           SEED + 7 * c + n, regs)
                 torch.cuda.empty_cache()
     for cdt in (torch.float32, torch.bfloat16):
         for n in (1, 8):

@@ -39,12 +39,15 @@ under ``calamity_tpu_torch/_build/``.
 
 With ``--kernel shared`` each variant is held against the plain version
 (``chip_smoke.compare_shared``: every instance, two launches equal to the
-bit, padding's gradients zero) at phase 3s's ragged shapes (N = 3) and at
-the HERA core's chunk 1 at N = 8, then timed at the HERA core's step: its
-four packed chunks with their padding (``chip_smoke.hera_packed_chunks``),
-the loss with every gradient, N = 1 and 8, float32 and bfloat16 comps,
-the four launches replayed from a CUDA graph (the device alone) and
-through the wrapper, against the step's bound, in turns over the
+bit, padding's gradients zero) at phase 3s's ragged shapes (N = 3; a shape
+wider than a variant takes is named and passed over) and at the HERA
+core's chunk 1 at N = 8, then timed: the HERA core's step (its four packed
+chunks with their padding, ``chip_smoke.hera_packed_chunks``), the full
+HERA array's six chunks of ``chip_smoke.FULL_SHAPES`` with their padding
+and its whole step of 18 launches (``chip_smoke.hera_full_build``, built
+on the host first, about a minute); the loss with every gradient, N = 1
+and 8, float32 and bfloat16 comps, replayed from a CUDA graph (the device
+alone) and through the wrapper, against the bound, in turns over the
 variants, twice. To time an earlier version of the source beside the
 current one, save it with ``git show REV:calamity_tpu_torch/csrc/
 shared_chunk_loss.cu`` under ``calamity_tpu_torch/_build/``, which git
@@ -214,7 +217,8 @@ def time_sum(pair, libs, agree, card):
 
 def check_shared(libs):
     """The variants that agree with the plain version at the shared-basis
-    kernel's checks."""
+    kernel's checks (a ragged shape wider than a variant takes, which it
+    refuses as an invalid launch, is named and passed over)."""
     agree = []
     quiet, cs.log = cs.log, (lambda msg="": None)
     chunks, _ = cs.hera_packed_chunks()
@@ -224,7 +228,13 @@ def check_shared(libs):
         try:
             for cdt in (torch.float32, torch.bfloat16):
                 for u, gmax, f, v in cs.ragged_cases(cdt):
-                    cs.compare_shared("check", 3, u, f, v, cs.ragged_valid(u, gmax), cdt)
+                    try:
+                        cs.compare_shared("check", 3, u, f, v, cs.ragged_valid(u, gmax), cdt)
+                    except RuntimeError as exc:
+                        if "invalid argument" not in str(exc):
+                            raise
+                        print(f"{name}: no launch for U={u} gmax={gmax} F={f} V={v} "
+                              f"{str(cdt)[6:]} comps", flush=True)
                 cs.compare_shared("HERA chunk 1", 8, nu, nf, nv, chunks[1][2], cdt)
                 torch.cuda.empty_cache()
             agree.append(name)
@@ -235,32 +245,63 @@ def check_shared(libs):
     return agree
 
 
+def _time_in_turns(libs, agree, tag, fn, bound_ms, by, card, per_sample=5):
+    """Device-alone (replayed from a CUDA graph) and wrapper ms of ``fn``,
+    in turns over the variants, twice."""
+    for rnd in range(2):
+        for name in agree:
+            _build._LOADED[:] = [libs[name]]
+            dev_ms = cs.cuda_graph_ms(fn, n=5 if per_sample == 1 else 20, per_sample=per_sample)
+            ms = cs.cuda_median_ms(fn, n=5 if per_sample == 1 else 20, per_sample=per_sample)
+            print(f"{tag}, round {rnd}, {name}: the device alone {dev_ms:.4f} ms (share of the "
+                  f"{bound_ms:.4f} ms bound, {by}, {bound_ms / dev_ms:.3f}), through the wrapper "
+                  f"{ms:.4f} ms; {card}", flush=True)
+
+
 def time_shared(libs, agree, card):
-    """The HERA core's step of four packed chunks, in turns over the
-    variants: device-alone and wrapper ms against the step's bound."""
+    """In turns over the variants, device-alone and wrapper ms against the
+    bound: the HERA core's step of four packed chunks; the full HERA array's
+    six chunks of ``chip_smoke.FULL_SHAPES`` and its step of 18 launches;
+    N = 1 and 8, float32 and bfloat16 comps, the loss with every gradient."""
     from calamity_tpu_torch.ops import shared
 
     chunks, _ = cs.hera_packed_chunks()
     shapes = cs._HERA["comps_shapes"]
+
+    def run(ops):
+        return lambda: [shared.loss_and_grads_kernel(*a, m) for a, m in ops]
+
+    def bound(ops):
+        bounds = [cs._shared_bound(a, m) for a, m in ops]
+        by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
+        return sum(b[0] for b in bounds), by
+
     for nbatch in (1, 8):
         for cdt in (torch.float32, torch.bfloat16):
+            tag = f"N={nbatch} {str(cdt)[6:]} comps"
             ops = [cs.shared_inputs(nbatch, nu, nf, nv, valid, cdt, cs.SEED + 13 * nbatch + c)
                    for c, ((nu, nf, nv), (_, _, valid)) in enumerate(zip(shapes, chunks))]
-            bounds = [cs._shared_bound(a, m) for a, m in ops]
-            bound_ms = sum(b[0] for b in bounds)
-            by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
-
-            def step():
-                return [shared.loss_and_grads_kernel(*a, m) for a, m in ops]
-
-            for rnd in range(2):
-                for name in agree:
-                    _build._LOADED[:] = [libs[name]]
-                    dev_ms, ms = cs.cuda_graph_ms(step), cs.cuda_median_ms(step)
-                    print(f"HERA step, 4 chunks, N={nbatch} {str(cdt)[6:]} comps, round {rnd}, "
-                          f"{name}: the device alone {dev_ms:.4f} ms (share of the "
-                          f"{bound_ms:.4f} ms bound, {by}, {bound_ms / dev_ms:.3f}), through "
-                          f"the wrapper {ms:.4f} ms; {card}", flush=True)
+            _time_in_turns(libs, agree, f"HERA step, 4 chunks, {tag}", run(ops), *bound(ops), card)
+            del ops
+            torch.cuda.empty_cache()
+    spec = cs.hera_full_build()["spec"]
+    for nbatch in (1, 8):
+        for cdt in (torch.float32, torch.bfloat16):
+            tag = f"N={nbatch} {str(cdt)[6:]} comps"
+            for shape in cs.FULL_SHAPES:
+                c, valid = cs.full_array_chunk(shape)
+                ops = [cs.shared_inputs(nbatch, shape[0], cs.NFREQS, shape[2], valid, cdt,
+                                        cs.SEED + c, on_card=True)]
+                _time_in_turns(libs, agree, f"full array chunk (U, gmax, V) = {shape}, {tag}",
+                               run(ops), *bound(ops), card, per_sample=2)
+                del ops
+                torch.cuda.empty_cache()
+            ops = [cs.shared_inputs(nbatch, ch.comps.shape[0], cs.NFREQS, ch.comps.shape[-1],
+                                    spec.meta[c].valid.reshape(-1), cdt, cs.SEED + c,
+                                    on_card=True)
+                   for c, ch in enumerate(spec.chunks)]
+            _time_in_turns(libs, agree, f"full array step, {len(ops)} launches, {tag}", run(ops),
+                           *bound(ops), card, per_sample=1)
             del ops
             torch.cuda.empty_cache()
 

@@ -299,19 +299,39 @@ FULL_ARRAY_SHAPES = ((22, 1024, 256), (24, 512, 256), (10, 2048, 128), (4, 256, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("comps_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", FULL_ARRAY_SHAPES)
-def test_cuda_kernel_matches_plain_at_the_full_arrays_chunks(shape):
+def test_cuda_kernel_matches_plain_at_the_full_arrays_chunks(shape, comps_dtype):
     """The shared-basis kernel at one of the full array's chunks, N = 1,
-    float32 comps, the last group of each class padding: every chi-square
-    instance against its plain version (loss rel 1e-5, gradients rel
-    1e-4), two launches equal to the bit."""
-    from calamity_tpu_torch.ops import fused, shared
+    float32 and bfloat16 comps, the last group of each class padding: every
+    chi-square instance and every "sum" instance (its forward; its
+    backwards at random cotangents) against its plain version (loss and
+    terms rel 1e-5, M_r and M_i against sum w|m|, gradients rel 1e-4), two
+    launches equal to the bit, the padding's gradients zero. Its launch
+    plan at N = 1 and 8: within a block's 227 KB of shared memory and a
+    cluster of 16, at least four blocks an SM, ceil(V / 64) mode slices
+    times the channel splits on each tile of 32 pairs; at N = 1 a V = 512
+    chunk at least 8 blocks a tile."""
+    from calamity_tpu_torch.ops import _build, fused, shared
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
     dev = torch.device("cuda")
     nu, gmax, nv = shape
     ngrps, nf = nu * gmax, 1536
+    for nbatch in (1, 8):
+        plan = _build.load_kernels().shared_plan(nbatch, ngrps, nf, nv, nu,
+                                                 int(comps_dtype == "bfloat16"), fused.LOSS_ALL)
+        pair_tiles = -(-(gmax * nbatch) // 32) * nu
+        assert plan["smem_bytes"] <= 227 * 1024 and plan["blocks_per_sm"] >= 4
+        assert plan["slices"] == -(-nv // 64)
+        assert plan["cluster"] == plan["slices"] * plan["splits"] <= 16
+        assert plan["grid"] == pair_tiles * plan["cluster"]
+        if nv == 512 and nbatch == 1:
+            assert plan["grid"] >= 8 * pair_tiles
     rng = np.random.default_rng(nu + gmax + nv)
     valid = np.ones(ngrps, bool)
     valid[gmax - 1::gmax] = False
@@ -324,15 +344,29 @@ def test_cuda_kernel_matches_plain_at_the_full_arrays_chunks(shape):
     comps3 /= torch.linalg.vector_norm(comps3, dim=1, keepdim=True)
     w = t(1, ngrps, nf).abs() * mask.reshape(1, -1, 1)
     args = [t(2, 1, ngrps, nv), 1 + 0.1 * t(1, ngrps, nf), 0.1 * t(1, ngrps, nf),
-            t(1, ngrps, nf), t(1, ngrps, nf), w / w.sum(), comps3]
-    for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL):
-        got = shared.loss_and_grads_kernel(*args, mask, mode)
-        again = shared.loss_and_grads_kernel(*args, mask, mode)
-        want = shared.loss_and_grads_plain(*args, mask, mode)
+            t(1, ngrps, nf), t(1, ngrps, nf), w / w.sum(), comps3.to(getattr(torch, comps_dtype))]
+    cot = t(3, 1)
+    for mode in (fused.LOSS_ONLY, fused.LOSS_DP, fused.LOSS_ALL, fused.SUM_FWD, fused.SUM_DP,
+                 fused.SUM_ALL):
+        c = cot if mode in (fused.SUM_DP, fused.SUM_ALL) else None
+        got = shared.loss_and_grads_kernel(*args, mask, mode, c)
+        again = shared.loss_and_grads_kernel(*args, mask, mode, c)
+        want = shared.loss_and_grads_plain(*args, mask, mode, c)
         torch.cuda.synchronize()
         assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
-        assert float(((got[0] - want[0]).abs() / want[0].abs()).max()) <= 1e-5
+        if mode == fused.SUM_FWD:
+            # M_r and M_i relative to sum w|m|, as chip_smoke.py holds them
+            scale = chip_smoke.flux_scale(args, mask)
+            assert float((got[0][0] - want[0][0]).abs().max() / want[0][0].abs().max()) <= 1e-5
+            assert float(((got[0][1:] - want[0][1:]).abs() / scale).max()) <= 1e-5
+        elif want[0] is not None:
+            assert float(((got[0] - want[0]).abs() / want[0].abs()).max()) <= 1e-5
         for g, p in zip(got[1:], want[1:]):
             assert (g is None) == (p is None)
             if p is not None:
                 assert float((g - p).abs().max() / p.abs().max()) <= 1e-4
+        if got[2] is not None:
+            assert not bool(got[2][:, ~mask].any())
+        if got[1] is not None:
+            assert not bool(got[1][:, :, ~mask].any())
+

@@ -35,6 +35,8 @@ from calamity_tpu_torch.ops.gains import carry_valid, mark_valid
 from calamity_tpu_torch.parallel import batched as tb
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 import hera_core_demo_torch as demo  # noqa: E402
 
 NA, NF = 7, 40
@@ -315,11 +317,47 @@ def test_shared_gate():
     assert "data dtype" in _gate(c, 4, data_dtype=torch.float64)
     assert _gate(c, 4, wgts_dtype=torch.bfloat16) is None
     assert "weights dtype" in _gate(c, 4, wgts_dtype=torch.float64)
-    # the widest basis whose one-tile ring fits the kernel's shared memory
-    assert _gate(torch.zeros((1, 1, 8, 600)), 4) is None
-    assert "nvecs=601" in _gate(torch.zeros((1, 1, 8, 601)), 4)
-    assert _gate(torch.zeros((1, 1, 8, 720), dtype=torch.bfloat16), 4) is None
-    assert "nvecs=721" in _gate(torch.zeros((1, 1, 8, 721), dtype=torch.bfloat16), 4)
+    # the widest basis: a cluster of 16 blocks of 64 modes
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _gate(torch.zeros((1, 1, 8, 1024), dtype=dtype), 4) is None
+        assert "nvecs=1025" in _gate(torch.zeros((1, 1, 8, 1025), dtype=dtype), 4)
+
+
+def _gate_takes(nu, gmax, nfreqs, nvecs, comps_dtype):
+    """The gate takes the chunk (a view of zeros: it reads shapes and types
+    only)."""
+    z, ngrps = torch.zeros(()), nu * gmax
+    comps = z.to(comps_dtype).expand(nu, 1, nfreqs, nvecs)
+    assert shared.explain_shared_loss_inapplicable(
+        comps, z.expand(ngrps, nvecs), z.expand(ngrps, 1, nfreqs), z.expand(ngrps, 1, nfreqs)
+    ) is None
+
+
+@pytest.mark.parametrize("comps_dtype", [torch.float32, torch.bfloat16])
+def test_gate_takes_every_width_past_the_register_tile(comps_dtype):
+    """Every basis from 65 modes to the widest the gate took before the
+    slices (600 float32, 720 bfloat16) goes to the kernel (its launch plans
+    are checked on the card: ``chip_smoke.check_shared_plans``)."""
+    top = 600 if comps_dtype == torch.float32 else 720
+    for nvecs in range(65, top + 1):
+        _gate_takes(1, 7, 1536, nvecs, comps_dtype)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.FULL_SHAPES)
+def test_gate_takes_the_full_arrays_chunks(shape):
+    """The full HERA array's six timed chunks, both comps types."""
+    nu, gmax, nvecs = shape
+    for comps_dtype in (torch.float32, torch.bfloat16):
+        _gate_takes(nu, gmax, 1536, nvecs, comps_dtype)
+
+
+@pytest.mark.parametrize("case", chip_smoke.SHARED_RAGGED, ids=str)
+def test_gate_takes_the_ragged_shapes(case):
+    """Every ragged shape of ``chip_smoke.py``'s phase 3s, in its comps
+    types."""
+    nu, gmax, nfreqs, nvecs = case[:4]
+    for name in (case[4:] or ("float32", "bfloat16")):
+        _gate_takes(nu, gmax, nfreqs, nvecs, getattr(torch, name))
 
 
 def test_warning_names_only_chunks_no_kernel_takes():
@@ -471,8 +509,8 @@ def test_cuda_kernel_matches_plain(kind, nbatch, comps_dtype):
                                    (1, 33, 64, 557)])
 def test_cuda_kernel_matches_plain_at_ragged_and_wide_shapes(shape):
     """Channels not a whole number of tiles, pair tiles cut short, modes
-    past the register tiles (accumulated in the output), rows not a whole
-    number of 16-byte units (copied by plain loads) and a one-tile ring."""
+    past the register tile (a cluster of 64-mode slices), rows not a whole
+    number of 16-byte units (copied by plain loads)."""
     dev = _cuda()
     nu, gmax, nf, nv = shape
     rng = np.random.default_rng(9)
@@ -489,3 +527,34 @@ def test_cuda_kernel_matches_plain_at_ragged_and_wide_shapes(shape):
     assert rel_err(got[0], want[0]) <= LOSS_TOL
     for g, w in zip(got[1:], want[1:]):
         assert rel_err(g, w) <= GRAD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("comps_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nvecs", [64, 128])
+def test_cuda_kernel_keeps_nan_operands(nvecs, comps_dtype):
+    """A coefficient made NaN on the card (0/0) gives a NaN loss and a data
+    value made NaN NaN gradients, as the plain version does, at one block a
+    tile of pairs (V = 64) and a cluster of two mode slices (V = 128): the
+    kernel's TF32 split keeps a NaN a NaN."""
+    dev = _cuda()
+    rng = np.random.default_rng(nvecs)
+    ngrps, nf = 4, 100
+    comps3 = torch.as_tensor(rng.standard_normal((1, nf, nvecs)), dtype=torch.float32,
+                             device=dev).to(comps_dtype)
+    args = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (
+        rng.standard_normal((2, 1, ngrps, nvecs)), 1 + 0.1 * rng.standard_normal((1, ngrps, nf)),
+        0.1 * rng.standard_normal((1, ngrps, nf)), rng.standard_normal((1, ngrps, nf)),
+        rng.standard_normal((1, ngrps, nf)), np.abs(rng.standard_normal((1, ngrps, nf))))]
+    zero = torch.zeros((), device=dev)
+    coeffs = args[0].clone()
+    coeffs[0, 0, 1, nvecs - 1] = zero / zero
+    for fn in (shared.loss_and_grads_kernel, shared.loss_and_grads_plain):
+        loss = fn(coeffs, *args[1:], comps3, None, fused.LOSS_ONLY)[0]
+        assert bool(torch.isnan(loss).all())
+    dr = args[3].clone()
+    dr[0, 2, 7] = zero / zero
+    loss, dcoeffs, dpr, _ = shared.loss_and_grads_kernel(*args[:3], dr, *args[4:], comps3, None,
+                                                         fused.LOSS_ALL)
+    assert bool(torch.isnan(loss).all()) and bool(torch.isnan(dcoeffs[:, 0, 2]).all())
+    assert bool(torch.isnan(dpr[0, 2, 7]))
