@@ -41,6 +41,14 @@ class KernelLibrary:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.fcl_error_string.argtypes = [ci]
         lib.fcl_error_string.restype = ctypes.c_char_p
+        dd = ctypes.c_double
+        # leaves, nleaves, carry, bias table, its length; 1 - b1, b1, b2, eps,
+        # -lr; dtype; launched; stream
+        lib.adamax_step.argtypes = [vp, ci, vp, vp, ll] + [dd] * 5 + [ci, vp, vp]
+        lib.adamax_step.restype = ci
+        # carry, dtype, stream
+        lib.descent_carry.argtypes = [vp, ci, vp]
+        lib.descent_carry.restype = ci
         lib.fcl_plan.argtypes = [ll] * 4 + [ci, ci, vp, ctypes.POINTER(ll)]
         lib.fcl_plan.restype = ci
         # comps, dtype; coeffs2, pr, pi, dr, di; d strides; w, dtype; w strides;
@@ -69,6 +77,8 @@ class KernelLibrary:
         lib.shared_plan.argtypes = [ll] * 5 + [ci, ci, ctypes.POINTER(ll)]
         lib.shared_plan.restype = ci
         self.fcl_error_string = lib.fcl_error_string
+        self.adamax_step = lib.adamax_step
+        self.descent_carry = lib.descent_carry
         self.fused_chunk_loss = lib.fused_chunk_loss
         self.fused_sum_combine = lib.fused_sum_combine
         self.gain_grad = lib.gain_grad

@@ -32,11 +32,13 @@ and so does :class:`_BatchedDescent`: one step function updates the
 parameters, the optimizer state, the freeze mask and the per-slice
 bookkeeping in place and writes a (steps, nbatch) history, a step taken
 after the last slice froze (or past the segment) changing nothing, the
-optimizer's step count included. On CUDA the step is captured once into a
-CUDA graph and replayed (``solver.graph``); the host reads the freeze mask
-once per ``poll_every`` steps, and the trajectory does not depend on that
-interval. Under a mesh the same step runs eagerly (gloo's collectives
-cannot be captured).
+optimizer's step count included; with Adamax, the default, the update
+and that bookkeeping are two kernels on the card (``ops.adamax``). On CUDA
+the step is captured once into a CUDA graph and replayed
+(``solver.graph``); the host reads the freeze mask once per
+``poll_every`` steps, and the trajectory does not depend on that interval.
+Under a mesh the same step runs eagerly (gloo's collectives cannot be
+captured), the kernels taking the ranks' live flag.
 
 Under a ('data', 'bl') mesh (``parallel.mesh``; one process per device)
 each rank runs these functions on its blocks, with a ``MeshShard``
@@ -67,6 +69,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import adamax as adamax_ops
 from ..ops.fused import (
     explain_fused_loss_inapplicable,
     fused_chunk_loss_batched,
@@ -325,7 +328,7 @@ def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, pri
         objective = torch.sum(total + 2 * dr * mr_sum + 2 * di * mi_sum)
         return losses, objective
 
-    def one_step(params, opt_state):
+    def losses_and_grads(params):
         with torch.enable_grad():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             out = losses_fn(p)
@@ -344,25 +347,24 @@ def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, pri
             grads = dict(grads, g_r=g_r.view_as(grads["g_r"]), g_i=g_i.view_as(grads["g_i"]))
             if not isinstance(out, tuple):
                 losses = rest.to(losses.dtype)
-        new_params, opt_state = opt.update(grads, opt_state, params)
+        return losses, grads
+
+    return opt, _BatchedStep(opt, losses_and_grads)
+
+
+class _BatchedStep(NamedTuple):
+    """One batched step's function: ``one_step(params, opt_state) ->
+    (losses, params, opt_state)``, the optimizer's update of the summed
+    loss's gradient; ``losses_and_grads(params) -> (losses, grads)`` alone,
+    for a descent that updates in place (``ops.adamax``)."""
+
+    opt: Any
+    losses_and_grads: Any
+
+    def __call__(self, params, opt_state):
+        losses, grads = self.losses_and_grads(params)
+        new_params, opt_state = self.opt.update(grads, opt_state, params)
         return losses, new_params, opt_state
-
-    return opt, one_step
-
-
-def _keep(mask, new, old, live=None):
-    """``old`` takes ``new``'s values where ``mask`` holds along the leading
-    slice axis, in place; leaves without one (the optimizer's step count)
-    where ``live`` (a 0-d bool)."""
-    nbatch = mask.shape[0]
-
-    def sel(n, o):
-        if n.dim() == 0 or n.shape[0] != nbatch:
-            torch.where(live, n, o, out=o)
-        else:
-            torch.where(mask.reshape((nbatch,) + (1,) * (n.dim() - 1)), n, o, out=o)
-
-    tree_map(sel, new, old)
 
 
 class _Carry(NamedTuple):
@@ -433,6 +435,9 @@ class _BatchedDescent:
             torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
         self.history = torch.full((max(int(capacity), 1), self.prev.shape[0]), float("nan"),
                                   dtype=torch.float32, device=dev)
+        self.gate = adamax_ops.BatchedCarry(
+            self.it, self.total, self.warmup, self.step0, self.frozen, self.prev, self.best_loss,
+            self.since, self.nsteps_slice, self.history, cfg.tol, cfg.patience)
         self.graph = StepGraph(self._step, dev, name, capture=shard is None, verbose=verbose)
 
     def carry(self):
@@ -440,40 +445,29 @@ class _BatchedDescent:
                       self.best_params, self.since)
 
     def _step(self):
-        cfg = self.cfg
-        live = (self.it < self.total) & ~self.frozen.all()
+        """The reference's body (parallel/batched.py:505-552) for the slices
+        that run, and nothing for the others. With Adamax the update and
+        the bookkeeping are two kernels on the card (``ops.adamax``); the
+        other optimizers update their trees and gate them leaf by leaf."""
+        gate = self.gate
         if self.shard is not None:
-            live = self.shard.any_rows(live)
+            # the ranks' flag: every rank takes the same steps
+            gate = gate._replace(live=self.shard.any_rows(adamax_ops.batched_live(gate)))
+        opt = getattr(self.one_step, "opt", None)
+        if getattr(opt, "hyper", None) is not None:
+            losses, grads = self.one_step.losses_and_grads(self.params)
+            adamax_ops.adamax_step(opt, self.params, grads, self.opt_state, self.best_params,
+                                   gate, losses)
+            adamax_ops.descent_carry(gate, losses, self.opt_state.count)
+            return
         losses, new_params, new_opt = self.one_step(self.params, self.opt_state)
-        active = ~self.frozen & live
-        _keep(active, new_params, self.params)
-        _keep(active, new_opt, self.opt_state, live)
-        idx = self.it - self.warmup  # -1 on the warm-up step
-        rec = idx >= 0
-        gstep = self.step0 + idx
-        # frozen slices re-evaluate to their converged loss: not recorded
-        slot = torch.clamp(idx, 0, self.history.shape[0] - 1).reshape(1)
-        recording = active & rec
-        self.history.index_copy_(0, slot, torch.where(
-            recording, losses.to(torch.float32), self.history.index_select(0, slot)[0])[None])
-        recorded_live = live & rec
-        stop = ~torch.isfinite(losses)
-        # the first recorded global step cannot trigger the tol stop
-        stop = stop | ((gstep >= 1) & (torch.abs(losses - self.prev) < cfg.tol))
-        newly = recording & stop
-        if self.best_loss is not None:
-            is_best = recorded_live & (losses < self.best_loss)
-            torch.where(is_best, losses, self.best_loss, out=self.best_loss)
-        if self.since is not None:
-            torch.where(recording, torch.where(is_best, 0, self.since + 1), self.since,
-                        out=self.since)
-            newly = newly | (recording & (self.since >= cfg.patience))
-        torch.where(newly, gstep + 1, self.nsteps_slice, out=self.nsteps_slice)
-        self.frozen.logical_or_(newly)
-        torch.where(recorded_live, losses, self.prev, out=self.prev)
+        flags = adamax_ops.batched_flags(gate, losses)
+        live, active, _, _, is_best = flags
+        adamax_ops.keep_rows(active, new_params, self.params)
+        adamax_ops.keep_rows(active, new_opt, self.opt_state, live)
         if self.best_params is not None:
-            _keep(is_best, self.params, self.best_params)
-        self.it.add_(live.to(torch.int64))
+            adamax_ops.keep_rows(is_best, self.params, self.best_params)
+        adamax_ops.batched_bookkeeping(gate, losses, *flags)
 
     def segment(self, step0, seg_len, warmup=0, poll_every=1):
         """Up to ``seg_len`` recorded steps after ``warmup`` unrecorded

@@ -14,10 +14,13 @@ Here the loop's carry lives on the device too (:class:`_Descent`): one step
 function evaluates the reference's ``cond`` on the device, takes the step,
 keeps it only where ``cond`` held (``where(live, new, old)`` on parameters,
 optimizer state and step count) and writes the history, |delta loss|, the
-best loss and its parameters and the steps since it. On CUDA that step is
-captured once into a CUDA graph and replayed (``solver.graph``); the host
-reads the stop test once per ``POLL_EVERY`` steps and the trajectory does
-not depend on that interval, since a step after the stop changes nothing.
+best loss and its parameters and the steps since it; with Adamax, the
+default, the update and that bookkeeping are two kernels on the card
+(``ops.adamax``: one launch for every leaf, one for the carry). On CUDA
+that step is captured once into a CUDA graph and replayed
+(``solver.graph``); the host reads the stop test once per ``POLL_EVERY``
+steps and the trajectory does not depend on that interval, since a step
+after the stop changes nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import adamax as adamax_ops
 from ..ops.fused import warn_fused_fallbacks
 from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
 from ..utils import echo
@@ -106,12 +110,6 @@ def _assign(dst, src):
     tree_map(lambda d, v: d.copy_(v), dst, src)
 
 
-def _keep(cond, new, old):
-    """``old`` takes ``new``'s values where ``cond`` holds, in place (one
-    ``where`` a leaf, written into ``old``)."""
-    tree_map(lambda n, o: torch.where(cond, n, o, out=o), new, old)
-
-
 class _Descent:
     """One slice's descent carry on the device, advanced in place by one
     step: the reference's ``_fit_segment`` ``while_loop``
@@ -141,37 +139,34 @@ class _Descent:
         self.prev, self.delta, self.best_loss = (scalar(self.big, g.dtype) for _ in range(3))
         self.history = torch.full((max(int(capacity), 1),), float("nan"), dtype=g.dtype,
                                   device=dev)
+        self.carry = adamax_ops.SerialCarry(self.step, self.end, self.delta, self.prev,
+                                            self.best_loss, self.since, self.history, cfg.tol,
+                                            cfg.patience, self.big)
         self.graph = StepGraph(self._step, dev, name, verbose=verbose)
 
     def _live(self):
         # the reference's cond (solver/fit.py:174-179)
-        live = (self.step < self.end) & (self.delta >= self.cfg.tol) & torch.isfinite(self.prev)
-        if self.cfg.patience > 0:
-            live = live & (self.since < self.cfg.patience)
-        return live
+        return adamax_ops.serial_live(self.carry)
 
     def _step(self):
         """The reference's body (solver/fit.py:181-193) where ``cond``
-        holds, and nothing where it does not: no host value is read."""
-        live = self._live()
+        holds, and nothing where it does not: no host value is read. With
+        Adamax the update and the bookkeeping are two kernels on the card
+        (``ops.adamax``); the other optimizers update their trees and gate
+        them leaf by leaf."""
         loss, grads = value_and_grad(self.loss_fn, self.params)
-        new_params, new_opt = self.opt.update(grads, self.opt_state, self.params)
         loss = loss.to(self.dtype)
-        is_best = live & (loss < self.best_loss)
-        _keep(is_best, new_params, self.best_params)
-        _keep(live, new_params, self.params)
-        _keep(live, new_opt, self.opt_state)
-        slot = torch.clamp(self.step, max=self.history.numel() - 1).reshape(1)
-        self.history.index_copy_(0, slot, torch.where(live, loss,
-                                                      self.history.index_select(0, slot)))
-        delta = torch.where(self.prev < self.big, torch.abs(loss - self.prev), self.big)
-        torch.where(live, delta, self.delta, out=self.delta)
-        # torch.minimum propagates NaN, as jnp.minimum does
-        torch.where(live, torch.minimum(loss, self.best_loss), self.best_loss,
-                    out=self.best_loss)
-        torch.where(live, torch.where(is_best, 0, self.since + 1), self.since, out=self.since)
-        torch.where(live, loss, self.prev, out=self.prev)
-        self.step.add_(live.to(torch.int64))
+        if getattr(self.opt, "hyper", None) is not None:
+            adamax_ops.adamax_step(self.opt, self.params, grads, self.opt_state,
+                                   self.best_params, self.carry, loss)
+            adamax_ops.descent_carry(self.carry, loss, self.opt_state.count)
+            return
+        live, is_best = adamax_ops.serial_flags(self.carry, loss)
+        new_params, new_opt = self.opt.update(grads, self.opt_state, self.params)
+        adamax_ops.keep(is_best, new_params, self.best_params)
+        adamax_ops.keep(live, new_params, self.params)
+        adamax_ops.keep(live, new_opt, self.opt_state)
+        adamax_ops.serial_bookkeeping(self.carry, loss, live, is_best)
 
     def segment(self, seg_len, prev, best_loss, since=0):
         """Up to ``seg_len`` steps from the last loss ``prev``, the best

@@ -128,9 +128,24 @@ class AdamaxState(NamedTuple):
     nu: Any
 
 
+class AdamaxHyper(NamedTuple):
+    """What the descents need to run :func:`adamax` as their kernel
+    (``ops.adamax``): its hyperparameters, as the update reads them, and
+    its bias-correction table."""
+
+    learning_rate: float
+    beta_1: float
+    beta_2: float
+    epsilon: float
+    bias1: Any  # _BiasCorrection of beta_1
+
+
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+    # an AdamaxHyper for adamax, whose descent step runs on two kernels on
+    # the card (ops.adamax); None for the others
+    hyper: Any = None
 
 
 def adamax(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7):
@@ -156,7 +171,7 @@ def adamax(learning_rate=1e-3, beta_1=0.9, beta_2=0.999, epsilon=1e-7):
         new_params = tree_map(lambda p, m, n: p + (m / bc(m)) / n * (-lr), params, mu, nu)
         return new_params, AdamaxState(count=count, mu=mu, nu=nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, AdamaxHyper(lr, b1, b2, eps, bias1))
 
 
 class AdamState(NamedTuple):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port (calamity_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 3,3g,3s,4,5,6,7,8,9,10,11,12,13]
+    python3 chip_smoke.py [--phases 3,3g,3s,3a,4,5,6,7,8,9,10,11,12,13]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's four CUDA kernels from the sources in the checkout,
+It builds the port's CUDA kernels from the five sources in the checkout,
 holds each against its plain PyTorch version, drives the port's main path (file read,
 DPSS components, FitSpec packing, Cholesky warm start, Adamax descent,
 uvh5/calfits write-back) at full width, and checks what comes out. Phases:
@@ -57,12 +57,20 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    four blocks an SM past 64 modes) at those chunks, the ragged shapes and
    every width from 65 modes to 600 / 720; a coefficient or a data value
    made NaN on the card gives a NaN loss or NaN gradients at V = 64 and
-   128, both comps types;
+   128, both comps types; and (3a) the descents' Adamax update and carry
+   (``csrc/adamax_step.cu``) at the full array's 38 parameter leaves, N = 1
+   (the serial carry) and N = 8 (the batched carry, two rows frozen),
+   float32 and float64: 50 steps of the kernels against their plain
+   versions, each side advancing its own state, equal to the bit (a NaN
+   and an inf gradient, a NaN loss, patience, the best parameters, the
+   frozen rows untouched byte for byte), each kernel timed against its
+   bound, its plain version and, for the update, ``torch._foreach_*`` ops;
 4. the main path at full size: 64 antennas (2016 baselines), 1536 channels,
    1 time, through ``read_calibrate_and_model_dpss`` with every chunk dense
    (``shared_basis=False``), the CLI's ``post_hoc`` regularization and the
    default ``mixed`` schedule; then its packed slice fitted twice, equal to
-   the bit;
+   the bit, and a third time with the Adamax update's and the carry's
+   plain versions, equal to the bit to the kernels' fit;
 5. 50 recorded descent steps on that data with the chunks on the card and
    with a CPU copy (the plain version), histories compared; and the cost of
    the per-step host check of the stop conditions;
@@ -86,7 +94,9 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
 7. the time-parallel path at full width: one ``read_calibrate_and_model_dpss``
    with ``time_parallel=True`` on 64 antennas, 1536 channels, 4 times and 2
    polarizations (8 slices in one batched descent), every step through the
-   batched kernel; two of its slices against the serial path;
+   batched kernel; two of its slices against the serial path; then its 8
+   slices packed once and fitted by the batched descent on the Adamax
+   kernels and on their plain versions, equal to the bit;
 8. the warm-started time scan at full width on phase 7's file and basis: each
    polarization's 4 times in order, each fit seeded by the one before, every
    step through the kernel with N = 1; each polarization's first time
@@ -1836,6 +1846,357 @@ def phase_shared_full_array():
 
 
 # ---------------------------------------------------------------------- #
+# phase 3a: the Adamax update and the descent's carry
+# ---------------------------------------------------------------------- #
+ADAMAX_SOURCE = "calamity_tpu_torch/csrc/adamax_step.cu"
+# no TPU kernel: the reference leaves its Adamax (optax) and its loop body's
+# bookkeeping to XLA, which fuses them into the while loop's body
+ADAMAX_REPLACES = "calamity_tpu/solver/optimizers.py:152"
+CARRY_REPLACES = "calamity_tpu/solver/fit.py:179"
+ADAMAX_STEPS = 50  # consecutive steps, each side advancing its own state
+ADAMAX_NBATCH = 8
+ADAMAX_FROZEN = (2, 5)  # rows frozen from the start at N = 8
+ADAMAX_NAN_ROW, ADAMAX_NAN_ROW_STEP = 6, 20  # a row whose loss turns NaN (it freezes)
+ADAMAX_NAN_LOSS_STEP = 45  # the serial loss turns NaN: the steps after it are not live
+ADAMAX_NAN_GRAD_STEP = 7  # NaN gradients in a coefficient leaf, an inf one in the gains after
+ADAMAX_PATIENCE = 5
+ADAMAX_KERNELS = ("adamax_step", "descent_carry")  # ops.adamax's KERNEL_NAME, CARRY_KERNEL_NAME
+
+
+def adamax_launches():
+    """The Adamax update's and the carry's launches since the counters were
+    reset, by name."""
+    from calamity_tpu_torch import LAUNCHES
+
+    return {k: LAUNCHES.get(k) for k in ADAMAX_KERNELS}
+
+
+def full_array_leaves():
+    """The full array's parameter leaves as its descent holds them (phase
+    13's packing): g_r and g_i (nants, F), then each chunk's fg_r and fg_i
+    (U x gmax, V)."""
+    built = hera_full_build()
+    chunks = [(int(c.a0.shape[0]), int(c.comps.shape[-1])) for c in built["spec"].chunks]
+    gains = (int(built["facts"]["nants"]), NFREQS)
+    return [gains, gains] + chunks + chunks
+
+
+def _adamax_tree(shapes, lead, make):
+    nc = (len(shapes) - 2) // 2
+    leaves = [make(lead + tuple(x)) for x in shapes]
+    return {"g_r": leaves[0], "g_i": leaves[1], "fg_r": leaves[2:2 + nc],
+            "fg_i": leaves[2 + nc:]}
+
+
+def _adamax_side(shapes, nbatch, dtype, seed, warmup=1):
+    """A descent's state at the leaves ``shapes`` on the card: seeded
+    parameters, moments and best parameters, the step count, and the carry:
+    serial (``nbatch`` None; patience) or batched over ``nbatch`` slices
+    (:data:`ADAMAX_FROZEN` frozen, patience and use_min, ``warmup``
+    unrecorded steps)."""
+    import torch
+
+    from calamity_tpu_torch.ops import adamax as A
+    from calamity_tpu_torch.solver.optimizers import AdamaxState
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if nbatch is None else (nbatch,)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    side = {"params": _adamax_tree(shapes, lead, randn),
+            "best": _adamax_tree(shapes, lead, randn)}
+    side["state"] = AdamaxState(
+        count=torch.tensor(3, dtype=torch.int64, device="cuda"),
+        mu=_adamax_tree(shapes, lead, lambda x: 1e-2 * randn(x)),
+        nu=_adamax_tree(shapes, lead, lambda x: 1e-2 * randn(x).abs_()))
+    big = 9e99 if dtype == torch.float64 else float(np.float32(3e38))
+
+    def full(shape, value, dt):
+        return torch.full(shape, value, dtype=dt, device="cuda")
+
+    i64, cap = torch.int64, ADAMAX_STEPS + 1
+    if nbatch is None:
+        side["carry"] = A.SerialCarry(full((), 0, i64), full((), 10 ** 9, i64),
+                                      full((), big, dtype), full((), big, dtype),
+                                      full((), big, dtype), full((), 0, i64),
+                                      full((cap,), float("nan"), dtype), TOL, ADAMAX_PATIENCE,
+                                      big)
+    else:
+        frozen = full((nbatch,), False, torch.bool)
+        frozen[list(ADAMAX_FROZEN)] = True
+        side["carry"] = A.BatchedCarry(
+            full((), 0, i64), full((), 10 ** 9, i64), full((), warmup, i64), full((), 0, i64),
+            frozen, full((nbatch,), big, dtype), full((nbatch,), big, dtype),
+            full((nbatch,), 0, i64), full((nbatch,), 10 ** 9, i64),
+            full((cap, nbatch), float("nan"), torch.float32), TOL, ADAMAX_PATIENCE)
+    return side
+
+
+def _side_tensors(side):
+    from calamity_tpu_torch.solver.optimizers import tree_leaves
+
+    return (tree_leaves(side["params"]) + tree_leaves(side["state"])
+            + tree_leaves(side["best"]) + [x for x in side["carry"] if hasattr(x, "dtype")])
+
+
+def _same_bits(a, b):
+    """Two tensors of one dtype and shape with the same bytes (NaNs too)."""
+    import torch
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(raw(a), raw(b))
+
+
+def _max_abs_err(a, b):
+    """max |a - b| where both are finite (0 for equal tensors)."""
+    import torch
+
+    if not a.is_floating_point():
+        return 0.0 if torch.equal(a, b) else float("inf")
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b).abs()[both].max()) if bool(both.any()) else 0.0
+
+
+def _adamax_calls(A, opt, side, grads, loss):
+    A.adamax_step(opt, side["params"], grads, side["state"], side["best"], side["carry"], loss)
+    A.descent_carry(side["carry"], loss, side["state"].count)
+
+
+def adamax_against_plain(shapes, nbatch, dtype, seed):
+    """:data:`ADAMAX_STEPS` steps of both kernels and of their plain
+    versions (``ops.adamax.plain_versions``), each side advancing its own
+    state from one seeded start on the same gradients and losses, with a
+    NaN and an inf gradient, a NaN loss (serial: the steps after it are
+    not live; batched: its row freezes), patience and the best parameters;
+    equal to the bit at every tenth step and at the end; batched, the
+    frozen rows' parameters and moments untouched byte for byte. Returns
+    the largest abs error (finite values)."""
+    import torch
+
+    from calamity_tpu_torch.ops import adamax as A
+    from calamity_tpu_torch.solver.optimizers import get_optimizer, tree_leaves, tree_map
+
+    opt = get_optimizer("Adamax", learning_rate=1e-2)
+    kern = _adamax_side(shapes, nbatch, dtype, seed)
+    plain = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, kern)
+    rows = list(ADAMAX_FROZEN)
+    frozen0 = ([x[rows].clone() for x in tree_leaves((kern["params"], kern["state"].mu,
+                                                       kern["state"].nu))]
+               if nbatch is not None else [])
+    rng = np.random.default_rng(seed)
+    decay = 1e3 * 0.98 ** np.arange(ADAMAX_STEPS)
+    if nbatch is None:
+        losses = decay * (1 + 0.05 * rng.random(ADAMAX_STEPS))
+        losses[ADAMAX_NAN_LOSS_STEP] = np.nan
+    else:
+        losses = decay[:, None] * (1 + 0.05 * rng.random((ADAMAX_STEPS, nbatch)))
+        losses[ADAMAX_NAN_ROW_STEP, ADAMAX_NAN_ROW] = np.nan
+    lead = () if nbatch is None else (nbatch,)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    err = 0.0
+    for k in range(ADAMAX_STEPS):
+        grads = _adamax_tree(shapes, lead, lambda x: torch.randn(x, generator=gen, device="cuda",
+                                                                 dtype=dtype))
+        if k == ADAMAX_NAN_GRAD_STEP:
+            grads["fg_r"][0].view(-1)[:3] = float("nan")
+        if k == ADAMAX_NAN_GRAD_STEP + 1:
+            grads["g_i"].view(-1)[5] = -float("inf")
+        loss = torch.tensor(losses[k], dtype=dtype, device="cuda")
+        _adamax_calls(A, opt, kern, grads, loss)
+        with A.plain_versions():
+            _adamax_calls(A, opt, plain, grads, loss)
+        if k % 10 == 9 or k == ADAMAX_NAN_GRAD_STEP:
+            for a, b in zip(_side_tensors(kern), _side_tensors(plain)):
+                check(_same_bits(a, b), f"adamax N={nbatch} {dtype} step {k}: kernel and plain "
+                                        f"differ ({tuple(a.shape)}, max abs "
+                                        f"{_max_abs_err(a, b)})")
+                err = max(err, _max_abs_err(a, b))
+    nan_leaf = kern["params"]["fg_r"][0].view(-1)[:3]
+    check(bool(torch.isnan(nan_leaf).all()), "a NaN gradient did not give NaN parameters")
+    c = kern["carry"]
+    moved = int(c.step if nbatch is None else c.it)
+    if nbatch is None:
+        check(moved == ADAMAX_NAN_LOSS_STEP + 1, f"serial: {moved} live steps")
+    else:
+        check(bool(c.frozen[ADAMAX_NAN_ROW]), "the NaN row did not freeze")
+        after = tree_leaves((kern["params"], kern["state"].mu, kern["state"].nu))
+        check(all(_same_bits(x[rows], y) for x, y in zip(after, frozen0)),
+              "frozen rows moved")
+    return err
+
+
+def _adamax_bound_ms(side, nbatch):
+    """The least time of one ``adamax_step`` at ``side``'s inputs: the bytes
+    its elements need (an updated element reads p, g, mu and nu and writes
+    p, mu and nu; an improved one also writes the best parameter, a frozen
+    row's improved one reads p and writes it), over the card's memory
+    rate."""
+    from calamity_tpu_torch.solver.optimizers import tree_leaves
+
+    leaves = tree_leaves(side["params"])
+    itemsize = leaves[0].element_size()
+    c = side["carry"]
+    if nbatch is None:
+        elems = sum(x.numel() for x in leaves)
+        best = bool(c.best_loss > side["loss"])
+        return elems * itemsize * (7 + best) / HBM_BYTES_PER_S * 1e3
+    per_row = sum(x[0].numel() for x in leaves)
+    rec = int(c.it) - int(c.warmup) >= 0
+    loss, best_loss = side["loss"].cpu().numpy(), c.best_loss.cpu().numpy()
+    frozen = c.frozen.cpu().numpy()
+    nbytes = 0
+    for r in range(nbatch):
+        best = rec and loss[r] < best_loss[r]
+        nbytes += per_row * itemsize * ((7 + best) if not frozen[r] else 2 * best)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _carry_bound_ms(side, nbatch):
+    """The least time of one ``descent_carry``: the carry's bytes it reads
+    and writes on a live step that records (int64 counters, the fit
+    dtype's losses), over the card's memory rate."""
+    f = side["carry"].prev.element_size()
+    if nbatch is None:  # reads 4 counters and 4 losses, writes 3 and 4
+        return (7 * 8 + 8 * f) / HBM_BYTES_PER_S * 1e3
+    # reads 5 counters, a row's mask, loss, last and best loss and count
+    # since; writes a row's history (float32), best loss, last loss and
+    # count since, and 2 counters
+    return (7 * 8 + nbatch * (1 + 3 * f + 8 + 4 + 2 * f + 8)) / HBM_BYTES_PER_S * 1e3
+
+
+def _foreach_adamax(opt, side, grads):
+    """The update written with ``torch._foreach_*`` ops over the leaves
+    (ungated; the bias correction of the next count as a host float): the
+    yardstick of one PyTorch call per operation, used nowhere in the port."""
+    import torch
+
+    from calamity_tpu_torch.solver.optimizers import tree_leaves
+
+    h = opt.hyper
+    p, g = tree_leaves(side["params"]), tree_leaves(grads)
+    mu, nu = tree_leaves(side["state"].mu), tree_leaves(side["state"].nu)
+    bc = 1 - h.beta_1 ** (int(side["state"].count) + 1)
+
+    def call():
+        torch._foreach_mul_(mu, h.beta_1)
+        torch._foreach_add_(mu, g, alpha=1 - h.beta_1)
+        torch._foreach_mul_(nu, h.beta_2)
+        a = torch._foreach_abs(g)
+        torch._foreach_add_(a, h.epsilon)
+        torch._foreach_maximum_(nu, a)
+        torch._foreach_add_(p, torch._foreach_div(mu, nu), alpha=-h.learning_rate / bc)
+
+    return call
+
+
+def time_adamax(shapes, nbatch, seed):
+    """Both kernels at the leaves ``shapes``, float32, N = 1 (the serial
+    carry) or ``nbatch`` (batched, :data:`ADAMAX_FROZEN` frozen): ms
+    through the wrapper and the device alone (replayed from a CUDA graph)
+    beside the bound, the plain version and, for the update, the
+    ``torch._foreach_*`` yardstick. The step stays live and improving (no
+    carry moves between the update's calls; the carry's own calls record
+    without stopping)."""
+    import torch
+
+    from calamity_tpu_torch.ops import adamax as A
+    from calamity_tpu_torch.solver.optimizers import get_optimizer, tree_map
+
+    opt = get_optimizer("Adamax", learning_rate=1e-2)
+    side = _adamax_side(shapes, nbatch, torch.float32, seed, warmup=0)
+    side["carry"] = side["carry"]._replace(tol=0.0, patience=0)
+    if nbatch is not None:
+        side["carry"] = side["carry"]._replace(since=None)
+    lead = () if nbatch is None else (nbatch,)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    grads = _adamax_tree(shapes, lead, lambda x: torch.randn(x, generator=gen, device="cuda"))
+    side["loss"] = torch.full(lead, 1.0, device="cuda")
+    p, s, b, c, loss = (side[k] for k in ("params", "state", "best", "carry", "loss"))
+
+    def kernel():
+        A.adamax_step(opt, p, grads, s, b, c, loss)
+
+    def plain():
+        A.adamax_step_plain(opt, p, grads, s, b, c, loss)
+
+    def carry():
+        A.descent_carry(c, loss, s.count)
+
+    def carry_plain():
+        A.descent_carry_plain(c, loss, s.count)
+
+    library = _foreach_adamax(opt, tree_map(lambda x: x.clone() if hasattr(x, "clone") else x,
+                                            side), grads)
+    step = {"ms": cuda_median_ms(kernel, n=10, per_sample=3),
+            "device_ms": cuda_graph_ms(kernel, n=10, per_sample=3),
+            "plain_ms": cuda_median_ms(plain, n=5, per_sample=1, warmup=1),
+            "plain_device_ms": cuda_graph_ms(plain, n=5, per_sample=1),
+            "library_ms": cuda_median_ms(library, n=10, per_sample=3),
+            "library_device_ms": cuda_graph_ms(library, n=10, per_sample=3),
+            "bound_ms": float(_adamax_bound_ms(side, nbatch)), "bound_by": "bytes"}
+    book = {"ms": cuda_median_ms(carry, n=10, per_sample=5),
+            "device_ms": cuda_graph_ms(carry, n=10, per_sample=5),
+            "plain_ms": cuda_median_ms(carry_plain, n=10, per_sample=5),
+            "plain_device_ms": cuda_graph_ms(carry_plain, n=10, per_sample=5),
+            "library_ms": None, "bound_ms": _carry_bound_ms(side, nbatch), "bound_by": "bytes"}
+    del side, grads, library
+    torch.cuda.empty_cache()
+    return step, book
+
+
+def phase_adamax():
+    """Phase 3a: the descents' Adamax update and carry kernels
+    (``csrc/adamax_step.cu``) at the full HERA array's 38 leaves (phase
+    13's packing), N = 1 (the serial carry) and N = 8 (batched, rows
+    frozen), float32 and float64, against their plain versions to the bit
+    over :data:`ADAMAX_STEPS` steps (:func:`adamax_against_plain`); each
+    timed in float32 beside its bound, its plain version and the update's
+    ``torch._foreach_*`` yardstick (:func:`time_adamax`)."""
+    import torch
+
+    from calamity_tpu_torch.ops import adamax as A
+    from calamity_tpu_torch.ops import _build
+
+    shapes = full_array_leaves()
+    nelem = sum(a * b for a, b in shapes)
+    log(f"== phase 3a: the Adamax update and the descent's carry, the full array's "
+        f"{len(shapes)} leaves ({nelem} elements a slice; {A.LEAVES_PER_LAUNCH} leaves a "
+        f"launch), {ADAMAX_STEPS} steps kernel against plain, equal to the bit")
+    build_log = _build.load_kernels().build_log
+    regs = registers(build_log, "adamax_step") + registers(build_log, "descent_carry")
+    log(f"  registers/spill bytes: {' '.join(regs)}")
+    out = {"leaves": len(shapes), "elements": nelem, "max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        for nbatch in (None, ADAMAX_NBATCH):
+            t0 = time.time()
+            err = adamax_against_plain(shapes, nbatch, dtype, SEED + (nbatch or 1))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            log(f"  N={nbatch or 1} {str(dtype).replace('torch.', '')}: {ADAMAX_STEPS} steps "
+                f"equal to the bit (a NaN and an inf gradient, a NaN loss"
+                + (f", rows {ADAMAX_FROZEN} frozen and untouched, row {ADAMAX_NAN_ROW} frozen "
+                   "by its NaN loss" if nbatch else ", the steps after it not live")
+                + f"); {time.time() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    for nbatch in (None, ADAMAX_NBATCH):
+        step, book = time_adamax(shapes, nbatch, SEED + 11)
+        n = nbatch or 1
+        out[("step", n)], out[("carry", n)] = step, book
+        for name, r in ((A.KERNEL_NAME, step), (A.CARRY_KERNEL_NAME, book)):
+            lib = "" if r["library_ms"] is None else (
+                f", torch._foreach_* ops {r['library_ms']:.4f} ms "
+                f"[{r['library_device_ms']:.4f}]")
+            log(f"  {name} N={n} float32: {r['ms']:.4f} ms [the device alone "
+                f"{r['device_ms']:.4f}] against bound {r['bound_ms']:.6f} ms (share "
+                f"{r['bound_ms'] / r['device_ms']:.3f}); plain {r['plain_ms']:.4f} ms "
+                f"[{r['plain_device_ms']:.4f}]{lib}; {nvidia_smi_line()}")
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # phase 4: the main path at full size
 # ---------------------------------------------------------------------- #
 def random_disc_array(rng):
@@ -1932,6 +2293,7 @@ def phase_main_path(tmp, path, uvd, comps):
     launches = LAUNCHES.get(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
+    adamax = adamax_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -1948,10 +2310,10 @@ def phase_main_path(tmp, path, uvd, comps):
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
         f"{GAIN_KERNEL} launches {gain_launches}, {PROD_KERNEL} launches {prod_launches}, "
-        f"recorded steps {recorded}")
-    check(min(launches, gain_launches, prod_launches) >= recorded,
-          f"{launches}, {gain_launches}, {prod_launches} kernel launches < {recorded} recorded "
-          "steps")
+        f"{adamax}, recorded steps {recorded}")
+    check(min(launches, gain_launches, prod_launches, *adamax.values()) >= recorded,
+          f"{launches}, {gain_launches}, {prod_launches}, {adamax} kernel launches < {recorded} "
+          "recorded steps")
     check(np.isfinite(gains.gain_array).all(), "non-finite gains")
     good = ~uvd.flag_array
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))  # noqa: E731
@@ -1966,7 +2328,7 @@ def phase_main_path(tmp, path, uvd, comps):
     check(np.allclose(back_g.gain_array, gains.gain_array), "gains file does not read back")
     log("  output files read back through calamity_tpu_torch.io and match")
     return {"launches": launches, "gain_launches": gain_launches,
-            "prod_launches": prod_launches, "recorded": recorded,
+            "prod_launches": prod_launches, "adamax_launches": adamax, "recorded": recorded,
             "uvd": uvd, "comps": comps, "path": path}
 
 
@@ -1999,28 +2361,36 @@ def fit_twice(packed):
     """Phase 4's packed slice fitted twice on the card with the main path's
     settings (the mixed schedule, tol, maxsteps, post_hoc): the step counts
     and loss histories must be equal to the bit (every sum of the step is
-    taken in a fixed order: the kernels have no atomics)."""
+    taken in a fixed order: the kernels have no atomics); and a third time
+    with the Adamax update and the carry's plain versions
+    (``ops.adamax.plain_versions``): steps, histories and parameters equal
+    to the bit to the kernels' fit."""
+    import contextlib
+
     import torch
 
     from calamity_tpu_torch import LAUNCHES
+    from calamity_tpu_torch.ops import adamax as A
     from calamity_tpu_torch.ops.gains import KERNEL_NAME as GAIN_KERNEL
     from calamity_tpu_torch.ops.gains import PRODUCTS_KERNEL_NAME as PROD_KERNEL
     from calamity_tpu_torch.solver import fit as fitmod
 
     runs = []
-    for _ in range(2):
+    for plain in (False, False, True):
         args = [packed[k] for k in ("g_r", "g_i")] + [tuple(packed[k]) for k in ("fg_r", "fg_i")]
         args = [tuple(x.clone() for x in a) if isinstance(a, tuple) else a.clone() for a in args]
         LAUNCHES.reset()
         t0 = time.time()
-        out = fitmod.fit_gains_and_foregrounds(
-            *args, packed["data_r"], packed["data_i"], packed["wgts"], packed["chunks"],
-            maxsteps=MAXSTEPS, tol=TOL, learning_rate=1e-2, model_regularization="post_hoc",
-            comps_precision="mixed")
+        with A.plain_versions() if plain else contextlib.nullcontext():
+            out = fitmod.fit_gains_and_foregrounds(
+                *args, packed["data_r"], packed["data_i"], packed["wgts"], packed["chunks"],
+                maxsteps=MAXSTEPS, tol=TOL, learning_rate=1e-2, model_regularization="post_hoc",
+                comps_precision="mixed")
         torch.cuda.synchronize()
-        runs.append((out[4], LAUNCHES.get(GAIN_KERNEL), time.time() - t0,
-                     LAUNCHES.get(PROD_KERNEL)))
-    (h1, n1, s1, p1), (h2, n2, s2, _) = runs
+        runs.append((out, LAUNCHES.counts(), time.time() - t0))
+    (o1, c1, s1), (o2, c2, s2), (o3, c3, s3) = runs
+    h1, h2 = o1[4], o2[4]
+    n1, n2, p1 = c1.get(GAIN_KERNEL, 0), c2.get(GAIN_KERNEL, 0), c1.get(PROD_KERNEL, 0)
     log(f"  the packed slice fitted twice: phase steps {h1['phase_steps']} and "
         f"{h2['phase_steps']}, {GAIN_KERNEL} launches {n1} and {n2}, {s1:.1f} and {s2:.1f} s; "
         f"loss histories equal to the bit: {h1['loss'] == h2['loss']}")
@@ -2028,7 +2398,16 @@ def fit_twice(packed):
           "two fits of one packed slice differ")
     check(min(n1, p1) >= len(h1["loss"]),
           f"{n1} {GAIN_KERNEL}, {p1} {PROD_KERNEL} launches for {len(h1['loss'])} steps")
-    return {"steps": h1["phase_steps"], "launches": n1, "prod_launches": p1}
+    kernels = {k: c1.get(k, 0) for k in (A.KERNEL_NAME, A.CARRY_KERNEL_NAME)}
+    log(f"  and with the Adamax update's and the carry's plain versions: phase steps "
+        f"{o3[4]['phase_steps']}, {s3:.1f} s; steps, histories and parameters equal to the bit to "
+        f"the kernels' fit: {_same_fit(o1, o3)}; launches with the kernels {kernels}, with the "
+        f"plain versions {c3}")
+    check(_same_fit(o1, o3), "phase 4's slice: the kernels' fit and the plain versions' differ")
+    check(min(kernels.values()) >= len(h1["loss"]), f"{kernels} for {len(h1['loss'])} steps")
+    check(not any(c3.get(k) for k in kernels), f"the plain versions' fit launched {c3}")
+    return {"steps": h1["phase_steps"], "launches": n1, "prod_launches": p1,
+            "adamax_launches": kernels}
 
 
 def phase_in_loop(packed):
@@ -2601,6 +2980,7 @@ def phase_time_parallel(tmp, comps=None):
     instances = instance_launches(KERNEL_NAME)
     gain_launches = LAUNCHES.get(GAIN_KERNEL)
     prod_launches = LAUNCHES.get(PROD_KERNEL)
+    adamax = adamax_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
     check(not fallbacks, f"chunks left out by the kernel gate: {fallbacks}")
@@ -2617,13 +2997,12 @@ def phase_time_parallel(tmp, comps=None):
         + f"; read_calibrate_and_model_dpss in all {wall:.1f}")
     log(f"  peak device memory {peak_gb:.3f} GB; {KERNEL_NAME} launches {launches}, "
         f"{GAIN_KERNEL} launches {gain_launches}, {PROD_KERNEL} launches {prod_launches}, "
-        f"recorded batch steps {recorded} + {warmups} "
-        "warm-up steps")
+        f"{adamax}, recorded batch steps {recorded} + {warmups} warm-up steps")
     # every step of both phases launched each kernel once (a block of host
     # polls may run up to POLL_EVERY - 1 steps past the last freeze, which
     # are undone); the step-0 guard launches the loss-only instance
     for name, n in ((KERNEL_NAME, launches), (GAIN_KERNEL, gain_launches),
-                    (PROD_KERNEL, prod_launches)):
+                    (PROD_KERNEL, prod_launches), *adamax.items()):
         check(recorded + warmups <= n <= recorded + warmups * POLL_EVERY,
               f"{n} {name} launches for {recorded} recorded + {warmups} warm-up steps")
     check(len(per_slice) == nslices, f"{len(per_slice)} slices fitted, expected {nslices}")
@@ -2673,9 +3052,62 @@ def phase_time_parallel(tmp, comps=None):
         check(rel <= 1e-2, f"pol {pol}: batched and serial histories differ: rel {rel}")
         check(max(r_b, r_s) <= 2 * min(r_b, r_s), f"pol {pol}: resid/data {r_b} vs {r_s}")
     return {"launches": launches, "gain_launches": gain_launches, "prod_launches": prod_launches,
-            "instances": instances, "path": path, "uvd": uvd,
+            "adamax_launches": adamax, "instances": instances, "path": path, "uvd": uvd,
             "comps": comps, "info": info, "ratios": ratios, "timings": timings}
 
+
+def batched_kernel_and_plain(tp):
+    """Phase 7's 8 slices packed once and fitted by the batched descent
+    (float32 comps, tol, maxsteps, lr 1e-2; slices freeze as they
+    converge) with the Adamax update and the carry on their kernels, then
+    with their plain versions (``ops.adamax.plain_versions``): steps,
+    steps per slice, loss histories, parameters, optimizer state and final
+    losses equal to the bit."""
+    import contextlib
+
+    import torch
+
+    import profile_step_torch as prof
+    from calamity_tpu_torch import LAUNCHES, cal_utils
+    from calamity_tpu_torch.calibration import POLL_EVERY
+    from calamity_tpu_torch.ops import adamax as A
+    from calamity_tpu_torch.parallel import batched
+    from calamity_tpu_torch.solver import fit as fitmod
+    from calamity_tpu_torch.solver.optimizers import tree_leaves
+    from calamity_tpu_torch.solver.tensorize import FitSpec
+
+    uvd = tp["uvd"]
+    gains = cal_utils.blank_uvcal_from_uvdata(uvd)
+    spec = FitSpec(uvd, tp["comps"], {int(a): i for i, a in enumerate(gains.ant_array)},
+                   device="cuda", shared_basis=False)
+    chunks = spec.device_chunks()
+    dr, di, w, g_r, g_i, fr, fi = prof.batched_problem(spec, uvd, gains)
+    cfg = fitmod.FitConfig(tol=TOL, maxsteps=MAXSTEPS, opt_kwargs=(("learning_rate", 1e-2),))
+    runs = {}
+    for kind in ("kernels", "plain"):
+        LAUNCHES.reset()
+        t0 = time.time()
+        with A.plain_versions() if kind == "plain" else contextlib.nullcontext():
+            res = batched.batched_fit_core(cfg, chunks, dr, di, w, g_r.clone(), g_i.clone(),
+                                           [x.clone() for x in fr], [x.clone() for x in fi],
+                                           poll_every=POLL_EVERY)
+        torch.cuda.synchronize()
+        runs[kind] = (res, adamax_launches(), time.time() - t0)
+    (rk, nk, sk), (rp, np_, sp) = runs["kernels"], runs["plain"]
+    same = (rk.nsteps == rp.nsteps and np.array_equal(rk.nsteps_slice, rp.nsteps_slice)
+            and np.array_equal(rk.loss_history, rp.loss_history, equal_nan=True)
+            and all(_same_bits(x, y) for x, y in zip(
+                tree_leaves(rk.opt_state) + [rk.g_r, rk.g_i, *rk.fg_r, *rk.fg_i, rk.final_loss],
+                tree_leaves(rp.opt_state) + [rp.g_r, rp.g_i, *rp.fg_r, *rp.fg_i,
+                                             rp.final_loss])))
+    log(f"  phase 7's {g_r.shape[0]} slices packed once, float32 comps: {int(rk.nsteps)} batch "
+        f"steps (per slice {rk.nsteps_slice.tolist()}), {sk:.1f} s with the kernels ({nk}), "
+        f"{sp:.1f} s with the plain versions ({np_}); steps, histories, parameters and "
+        f"optimizer state equal to the bit: {same}")
+    check(same, "phase 7's slices: the kernels' descent and the plain versions' differ")
+    check(min(nk.values()) >= int(rk.nsteps) and not any(np_.values()),
+          f"launches with the kernels {nk}, with the plain versions {np_}")
+    return {"steps": int(rk.nsteps), "launches": nk}
 
 # ---------------------------------------------------------------------- #
 # phase 8: the warm-started time scan at full width
@@ -3269,7 +3701,7 @@ def phase_hera_core():
         model, resid, gains, info = demo.fit(corrupted, comps, device="cuda", timings=timings)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    kernel_names = (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL, SHARED_KERNEL)
+    kernel_names = (KERNEL_NAME, GAIN_KERNEL, PROD_KERNEL, SHARED_KERNEL, *ADAMAX_KERNELS)
     launches = {name: LAUNCHES.get(name) for name in kernel_names}
     shared_instances = instance_launches(SHARED_KERNEL)
     fallbacks = [str(w.message) for w in caught if "plain torch loss" in str(w.message)]
@@ -3287,9 +3719,8 @@ def phase_hera_core():
         f"{peak_gb:.3f} GB; resid rms / data rms {ratio:.4e} (limit 1e-2); {nvidia_smi_line()}")
     check(ratio <= 1e-2, f"HERA core resid/data {ratio}")
     check(np.isfinite(gains.gain_array).all(), "HERA core: non-finite gains")
-    check(min(launches[GAIN_KERNEL], launches[PROD_KERNEL]) >= len(h["loss"]),
-          f"{launches[GAIN_KERNEL]} {GAIN_KERNEL}, {launches[PROD_KERNEL]} {PROD_KERNEL} "
-          f"launches for {len(h['loss'])} steps")
+    check(min(launches[k] for k in (GAIN_KERNEL, PROD_KERNEL, *ADAMAX_KERNELS))
+          >= len(h["loss"]), f"{launches} launches for {len(h['loss'])} steps")
     check(launches[SHARED_KERNEL] >= nshared * len(h["loss"]),
           f"{launches[SHARED_KERNEL]} {SHARED_KERNEL} launches for {nshared} shared chunks and "
           f"{len(h['loss'])} steps")
@@ -3657,8 +4088,11 @@ def _graph_line(tag, runs, steps):
         f"captures included); {len(caps)} captures, "
         + ", ".join(f"{c['name']} {c['seconds']:.3f} s pool {c['pool_bytes'] / 1e6:.1f} MB "
                     f"{c['replays']} replays" for c in caps)
-        + f"; {GAIN_KERNEL} launches a step {g['launches'].get(GAIN_KERNEL, 0) / steps:.3f} both; "
-        f"peak device memory graphed {g['peak_gb']:.3f} GB, eager {e['peak_gb']:.3f} GB")
+        + f"; {GAIN_KERNEL} launches a step {g['launches'].get(GAIN_KERNEL, 0) / steps:.3f} both, "
+        + ", ".join(f"{k} {g['launches'].get(k, 0) / steps:.3f}" for k in ADAMAX_KERNELS)
+        + f"; peak device memory graphed {g['peak_gb']:.3f} GB, eager {e['peak_gb']:.3f} GB")
+    check(min(g["launches"].get(k, 0) for k in ADAMAX_KERNELS) >= steps,
+          f"({tag}) {g['launches']} for {steps} steps")
 
 
 def _graph_stats(runs, steps):
@@ -3913,7 +4347,7 @@ def phase_hera_full():
     corrupted, comps, facts, spec = (full[k] for k in ("corrupted", "comps", "facts", "spec"))
     check((facts["nants"], facts["nbls"], facts["nuniq"]) == (331, 54615, 630),
           f"full array: {facts}")
-    names = (KERNEL_NAME, SHARED_KERNEL, GAIN_KERNEL, PROD_KERNEL)
+    names = (KERNEL_NAME, SHARED_KERNEL, GAIN_KERNEL, PROD_KERNEL, *ADAMAX_KERNELS)
     out = {"facts": facts, "build_s": full["seconds"]}
 
     # (a) the leading slice, serial
@@ -3958,8 +4392,8 @@ def phase_hera_full():
     check(launches[SHARED_KERNEL] >= FULL_CHUNKS * recorded,
           f"{launches[SHARED_KERNEL]} {SHARED_KERNEL} launches for {FULL_CHUNKS} chunks and "
           f"{recorded} steps")
-    check(min(launches[GAIN_KERNEL], launches[PROD_KERNEL]) >= recorded,
-          f"gain kernels {launches} for {recorded} steps")
+    check(min(launches[k] for k in (GAIN_KERNEL, PROD_KERNEL, *ADAMAX_KERNELS)) >= recorded,
+          f"gain and Adamax kernels {launches} for {recorded} steps")
     check(np.isfinite(gains.gain_array).all(), "full array (a): non-finite gains")
     check(ratio <= 1e-2, f"full array (a): resid/data {ratio}")
     out["a"] = {"steps": h["phase_steps"], "ms_per_step": rates, "peak_gb": peak_gb,
@@ -4013,7 +4447,8 @@ def phase_hera_full():
     check(all(np.isfinite(x).all() and x[-1] < x[0] for x in hists),
           f"full array (b): losses not finite or not falling: {[(x[0], x[-1]) for x in hists]}")
     check(not fallbacks, f"full array (b): chunks named as fallbacks: {fallbacks}")
-    check(launches[KERNEL_NAME] == 0 and launches[SHARED_KERNEL] >= FULL_CHUNKS * batch_steps,
+    check(launches[KERNEL_NAME] == 0 and launches[SHARED_KERNEL] >= FULL_CHUNKS * batch_steps
+          and min(launches[k] for k in ADAMAX_KERNELS) >= batch_steps,
           f"full array (b): launches {launches} for {batch_steps} batch steps")
     out["b"] = {"steps": steps, "ms_per_step": rates, "peak_gb": peak_gb, "launches": launches,
                 "launches_per_step": {k: v / batch_steps for k, v in launches.items()},
@@ -4102,6 +4537,9 @@ def main():
             out["shared"] = phase_shared_kernel()
             out["shared_full"] = phase_shared_full_array()
             mark("phase 3s")
+        if want("3a"):
+            out["adamax"] = phase_adamax()
+            mark("phase 3a")
         if any(want(p) for p in ("3", "4", "5", "12")):
             t0 = time.time()
             path = os.path.join(tmp, "main.uvh5")
@@ -4131,6 +4569,8 @@ def main():
         if any(want(p) for p in ("7", "8", "9", "11", "12")):
             # phase 4's basis: the same baselines and channels
             out["tp"] = phase_time_parallel(tmp, out["main"]["comps"] if "main" in out else None)
+            if want("7"):
+                out["tp_twice"] = batched_kernel_and_plain(out["tp"])
             mark("phase 7")
         if want("8"):
             out["scan"] = phase_scan(tmp, out["tp"])
@@ -4299,7 +4739,50 @@ def kernels_line(out):
                           "bound_ms": packed[n]["products_bound_ms"]} for n in (8, 1)}),
         "card": nvidia_smi_line(),
     }, combine_entry(COMBINE_NAME, fused, sum_tp),
-        shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera, full, out["shared_full"])]
+        shared_kernel_entry(SHARED_KERNEL, shared, hera, cli, sum_hera, full, out["shared_full"]),
+        *adamax_entries(out)]
+
+
+def adamax_entries(out):
+    """The kernels line's entries of the Adamax update and the carry: their
+    launches on the main paths that count them (phases 4, 7, 10 and 13,
+    with phase 4's and phase 7's kernel fits beside their plain twins) and
+    their times at the full array's 38 leaves, N = 1 float32, the serial
+    step of phase 13 (a) (phase 3a; N = 8 under "timed")."""
+    by_path = {"serial": out["main"]["adamax_launches"],
+               "serial_twice": out["twice"]["adamax_launches"],
+               "time_parallel": out["tp"]["adamax_launches"],
+               "time_parallel_twice": out["tp_twice"]["launches"],
+               "hera_core": out["hera"]["launches"],
+               "hera_full": out["full"]["a"]["launches"],
+               "hera_full_time_parallel": out["full"]["b"]["launches"]}
+    a = out["adamax"]
+    entries = []
+    for name, key, replaces in ((ADAMAX_KERNELS[0], "step", ADAMAX_REPLACES),
+                                (ADAMAX_KERNELS[1], "carry", CARRY_REPLACES)):
+        paths = {k: v[name] for k, v in by_path.items()}
+        r = a[(key, 1)]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": ADAMAX_SOURCE,
+            "replaces": replaces,
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": a["max_abs_err"],
+            "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # the update: torch._foreach_* ops, one call an operation
+            # (ungated); the carry: none computes it
+            "library_ms": r["library_ms"],
+            "timed": {f"N={n} float32": a[(key, n)] for n in (1, ADAMAX_NBATCH)},
+            "leaves": a["leaves"],
+            "card": nvidia_smi_line(),
+        })
+    return entries
 
 
 def fused_instances(n8, tp, sum_tp):

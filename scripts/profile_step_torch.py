@@ -33,7 +33,8 @@ schedule it times 48 descent steps (after 16 warm-up steps) under
 ``torch.profiler``: device time per step by kernel, kernels per step, the
 launches and device time per step of the port's hand-written kernels
 (``fused_chunk_loss``, ``fused_sum_combine``, ``shared_chunk_loss``,
-``gain_grad``, ``gain_products``), and the device's idle share against
+``gain_grad``, ``gain_products``, ``adamax_step``, ``descent_carry``), and
+the device's idle share against
 the host clock.
 It then times the same steps without the profiler, on the host clock and
 between CUDA events (for a replayed step, which the host issues faster
@@ -69,7 +70,7 @@ NSTEPS = 48
 NWARMUP = 16
 # substrings of the hand-written kernels' names
 KERNELS = ("fused_chunk_loss", "fused_sum_combine", "shared_chunk_loss", "gain_grad",
-           "gain_products")
+           "gain_products", "adamax_step", "descent_carry")
 
 
 def sum_priors(dr, di, w, dims=None):

@@ -217,7 +217,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         pytest.skip("this machine has nvcc at the default toolkit location")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_kernels()
-    assert [os.path.basename(s) for s in _build.sources()] == ["fused_chunk_loss.cu",
+    assert [os.path.basename(s) for s in _build.sources()] == ["adamax_step.cu",
+                                                                "fused_chunk_loss.cu",
                                                                 "gain_grad.cu",
                                                                 "gain_products.cu",
                                                                 "shared_chunk_loss.cu"]
