@@ -26,16 +26,16 @@ and rank 0 alone writes the files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
-import time as _time
 from functools import partial
 
 import numpy as np
 import torch
 
 from . import cal_utils, models
-from ._device import resolve_device
+from ._device import SPANS, resolve_device
 from .io.caldata import CalData
 from .io.flags import FlagWeights
 from .io.polarizations import polstr2num
@@ -225,12 +225,18 @@ def resolve_comps_precision(dtype, warm_started):
     return "mixed"
 
 
-def _add_seconds(timings, key, t0):
-    """Add the host seconds since ``t0`` to ``timings[key]`` (where a dict
-    is given); returns the current time, the next stage's start."""
+@contextlib.contextmanager
+def _stage(timings, key, device=None):
+    """A stage of a calibration, as the span ``calibration.<key>``. Where a
+    ``timings`` dict is given, the stage ends with ``device`` (if any)
+    drained and its seconds are added to ``timings[key]``: they are the
+    device's too."""
+    with SPANS.span(f"calibration.{key}") as span:
+        yield span
+        if timings is not None and device is not None:
+            SPANS.sync(device)
     if timings is not None:
-        timings[key] = timings.get(key, 0.0) + (_time.time() - t0)
-    return _time.time()
+        timings[key] = timings.get(key, 0.0) + span.seconds
 
 
 # threads of the time-parallel path's host stages: each holds a slice's
@@ -244,11 +250,6 @@ def _mark_rss(timings):
     ``timings`` dict is given."""
     if timings is not None:
         timings["writeback_rss_gib"] = rss_gib()
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _slice_rms(uvdata, polnum, time, skip_threshold):
@@ -332,10 +333,12 @@ def calibrate_and_model_tensor(
     path, ``mesh=False``) runs whole on every rank, and rank 0 alone
     writes and resumes its ``checkpoint_dir``.
 
-    ``timings``: optional dict that receives host wall-clock seconds per
-    stage (``packing_s``, ``pack_data_s``, ``warm_start_s``, ``fit_s``,
-    ``writeback_s``, ``finalize_s``; repeated stages accumulate) and
-    ``writeback_rss_gib``, the host's resident set after the write-back.
+    ``timings``: optional dict that receives the seconds of each stage
+    (``packing_s``, ``pack_data_s``, ``warm_start_s``, ``fit_s``,
+    ``writeback_s``, ``finalize_s``; repeated stages accumulate), each
+    ending with the device drained, and ``writeback_rss_gib``, the host's
+    resident set after the write-back. Every stage is a span
+    ``calibration.<key>`` of ``SPANS`` (``_device``), with or without it.
 
     Returns (model, resid, gains, fit_history).
     """
@@ -366,8 +369,7 @@ def calibrate_and_model_tensor(
         raise ValueError(
             f"wgts_precision must be 'float32' or 'bfloat16', got {wgts_precision!r}"
         )
-
-    _mark = partial(_add_seconds, timings)
+    stage = partial(_stage, timings, device=device)
 
     antpairs_data = uvdata.get_antpairs()
     if not include_autos:
@@ -403,21 +405,20 @@ def calibrate_and_model_tensor(
 
     ants_map = {int(ant): i for i, ant in enumerate(gains.ant_array)}
     echo(f"{datetime.datetime.now()} Packing foreground modeling tensors...\n", verbose=verbose)
-    t_st = _time.time()
-    # under a mesh the spec stays on the host: each rank uploads its block
-    spec = FitSpec(
-        uvdata,
-        fg_model_comps_dict,
-        ants_map,
-        device=device if mesh is None else "cpu",
-        dtype=dtype,
-        use_redundancy=use_redundancy,
-        grp_size_threshold=grp_size_threshold,
-        nvec_bucketing=nvec_bucketing,
-        shared_basis=shared_basis,
-    )
-    chunks = spec.device_chunks()
-    t_st = _mark("packing_s", t_st)
+    with stage("packing_s"):
+        # under a mesh the spec stays on the host: each rank uploads its block
+        spec = FitSpec(
+            uvdata,
+            fg_model_comps_dict,
+            ants_map,
+            device=device if mesh is None else "cpu",
+            dtype=dtype,
+            use_redundancy=use_redundancy,
+            grp_size_threshold=grp_size_threshold,
+            nvec_bucketing=nvec_bucketing,
+            shared_basis=shared_basis,
+        )
+        chunks = spec.device_chunks()
     echo(f"{datetime.datetime.now()} Packed {len(chunks)} chunks\n", verbose=verbose)
     del fg_model_comps_dict
 
@@ -483,124 +484,120 @@ def calibrate_and_model_tensor(
                 flag_poltime(model, time=time, polarization=pol)
                 continue
 
-            t_st = _time.time()
-            rmsdata = np.sqrt(
-                np.mean(
-                    np.abs(
-                        uvdata.data_array[bltsel, 0, :, polnum][
-                            ~uvdata.flag_array[bltsel, 0, :, polnum]
-                        ]
+            with stage("pack_data_s"):
+                rmsdata = np.sqrt(
+                    np.mean(
+                        np.abs(
+                            uvdata.data_array[bltsel, 0, :, polnum][
+                                ~uvdata.flag_array[bltsel, 0, :, polnum]
+                            ]
+                        )
+                        ** 2.0
                     )
-                    ** 2.0
                 )
-            )
-            data_r, data_i, wgts = spec.pack_data(
-                uvdata,
-                pol,
-                time,
-                data_scale_factor=rmsdata,
-                weights=weights,
-                nsamples_in_weights=nsamples_in_weights,
-            )
-            if sky_model is uvdata:
-                # identity-gains alias: the sky tensors ARE the data tensors
-                sky_r, sky_i = data_r, data_i
-            elif sky_model is not None:
-                sky_r, sky_i, _ = spec.pack_data(
-                    sky_model, pol, time, data_scale_factor=rmsdata, weights=weights
+                data_r, data_i, wgts = spec.pack_data(
+                    uvdata,
+                    pol,
+                    time,
+                    data_scale_factor=rmsdata,
+                    weights=weights,
+                    nsamples_in_weights=nsamples_in_weights,
                 )
-            else:
-                sky_r, sky_i = None, None
-            t_st = _mark("pack_data_s", t_st)
+                if sky_model is uvdata:
+                    # identity-gains alias: the sky tensors ARE the data tensors
+                    sky_r, sky_i = data_r, data_i
+                elif sky_model is not None:
+                    sky_r, sky_i, _ = spec.pack_data(
+                        sky_model, pol, time, data_scale_factor=rmsdata, weights=weights
+                    )
+                else:
+                    sky_r, sky_i = None, None
 
             if first_time or not init_guesses_from_previous_time_step:
                 first_time = False
-                g_r, g_i = spec.pack_gains(gains, pol, time)
-                init_r = sky_r if sky_r is not None else data_r
-                init_i = sky_i if sky_i is not None else data_i
-                fg_r = tuple(spec.init_coeffs(init_r, wgts))
-                fg_i = tuple(spec.init_coeffs(init_i, wgts))
-                if use_model_snr_weights:
-                    wmodel = fg_model_all_chunks(fg_r, fg_i, chunks)
-                    wgts = [
-                        (torch.square(vr) + torch.square(vi)) * w
-                        for (vr, vi), w in zip(wmodel, wgts)
-                    ]
-                    wsum = sum(float(torch.sum(w)) for w in wgts)
-                    wgts = [w / wsum for w in wgts]
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                t_st = _mark("warm_start_s", t_st)
-            if wgts_precision == "bfloat16":
-                # half the weights' device memory and read traffic; the loss
-                # widens them at the point of use
-                wgts = [w.to(torch.bfloat16) for w in wgts]
+                with stage("warm_start_s"):
+                    g_r, g_i = spec.pack_gains(gains, pol, time)
+                    init_r = sky_r if sky_r is not None else data_r
+                    init_i = sky_i if sky_i is not None else data_i
+                    fg_r = tuple(spec.init_coeffs(init_r, wgts))
+                    fg_i = tuple(spec.init_coeffs(init_i, wgts))
+                    if use_model_snr_weights:
+                        wmodel = fg_model_all_chunks(fg_r, fg_i, chunks)
+                        wgts = [
+                            (torch.square(vr) + torch.square(vi)) * w
+                            for (vr, vi), w in zip(wmodel, wgts)
+                        ]
+                        wsum = sum(float(torch.sum(w)) for w in wgts)
+                        wgts = [w / wsum for w in wgts]
+            with stage("fit_s"):
+                if wgts_precision == "bfloat16":
+                    # half the weights' device memory and read traffic; the
+                    # loss widens them at the point of use
+                    wgts = [w.to(torch.bfloat16) for w in wgts]
 
-            (g_r, g_i, fg_r, fg_i, fit_history_p[time_index]) = fit_gains_and_foregrounds(
-                g_r=g_r,
-                g_i=g_i,
-                fg_r=fg_r,
-                fg_i=fg_i,
-                data_r=data_r,
-                data_i=data_i,
-                wgts=wgts,
-                chunks=chunks,
-                optimizer=optimizer,
-                use_min=use_min,
-                freeze_model=freeze_model,
-                verbose=verbose,
-                tol=tol,
-                maxsteps=maxsteps,
-                sky_model_r=sky_r,
-                sky_model_i=sky_i,
-                model_regularization=model_regularization,
-                n_profile_steps=n_profile_steps,
-                profile_log_dir=profile_log_dir,
-                checkpoint_dir=(
-                    None
-                    if checkpoint_dir is None
-                    else f"{checkpoint_dir}/pol{polnum}_t{time_index}"
-                ),
-                checkpoint_every=checkpoint_every,
-                resume=resume,
-                remat=remat,
-                comps_precision=comps_precision,
-                patience=patience,
-                **opt_kwargs,
-            )
-            t_st = _mark("fit_s", t_st)
-            # write-back on the host from the host copy of each chunk's basis
-            spec.insert_model(
-                model,
-                fg_model_all_chunks_host(
-                    [to_numpy(x) for x in fg_r],
-                    [to_numpy(x) for x in fg_i],
-                    spec.host_comps,
-                ),
-                pol, time, rmsdata,
-            )
-            spec.insert_gains(gains, g_r, g_i, pol, time)
-            if (
-                not freeze_model
-                and model_regularization == "post_hoc"
-                and np.any(~model.flag_array[bltsel])
-            ):
-                renormalize(
-                    uvdata_reference_model=sky_model,
-                    uvdata_deconv=model,
-                    gains=gains,
-                    polarization=pol,
-                    time=time,
-                    additional_flags=uvdata.flag_array,
+                (g_r, g_i, fg_r, fg_i, fit_history_p[time_index]) = fit_gains_and_foregrounds(
+                    g_r=g_r,
+                    g_i=g_i,
+                    fg_r=fg_r,
+                    fg_i=fg_i,
+                    data_r=data_r,
+                    data_i=data_i,
+                    wgts=wgts,
+                    chunks=chunks,
+                    optimizer=optimizer,
+                    use_min=use_min,
+                    freeze_model=freeze_model,
+                    verbose=verbose,
+                    tol=tol,
+                    maxsteps=maxsteps,
+                    sky_model_r=sky_r,
+                    sky_model_i=sky_i,
+                    model_regularization=model_regularization,
+                    n_profile_steps=n_profile_steps,
+                    profile_log_dir=profile_log_dir,
+                    checkpoint_dir=(
+                        None
+                        if checkpoint_dir is None
+                        else f"{checkpoint_dir}/pol{polnum}_t{time_index}"
+                    ),
+                    checkpoint_every=checkpoint_every,
+                    resume=resume,
+                    remat=remat,
+                    comps_precision=comps_precision,
+                    patience=patience,
+                    **opt_kwargs,
                 )
-            t_st = _mark("writeback_s", t_st)
+            with stage("writeback_s"):
+                # write-back on the host from the host copy of each chunk's basis
+                spec.insert_model(
+                    model,
+                    fg_model_all_chunks_host(
+                        [to_numpy(x) for x in fg_r],
+                        [to_numpy(x) for x in fg_i],
+                        spec.host_comps,
+                    ),
+                    pol, time, rmsdata,
+                )
+                spec.insert_gains(gains, g_r, g_i, pol, time)
+                if (
+                    not freeze_model
+                    and model_regularization == "post_hoc"
+                    and np.any(~model.flag_array[bltsel])
+                ):
+                    renormalize(
+                        uvdata_reference_model=sky_model,
+                        uvdata_deconv=model,
+                        gains=gains,
+                        polarization=pol,
+                        time=time,
+                        additional_flags=uvdata.flag_array,
+                    )
         fit_history[polnum] = fit_history_p
 
-    t_st = _time.time()
-    model, resid = _finalize_model_resid(
-        uvdata, model, resid, gains, correct_model, correct_resid
-    )
-    _mark("finalize_s", t_st)
+    with stage("finalize_s"):
+        model, resid = _finalize_model_resid(
+            uvdata, model, resid, gains, correct_model, correct_resid
+        )
     _mark_rss(timings)
     return model, resid, gains, fit_history
 
@@ -761,8 +758,7 @@ def _calibrate_time_parallel(
     echo(f"{datetime.datetime.now()} Batched fit over {len(slices)} (time, pol) slices...\n",
          verbose=verbose)
 
-    _tmark = partial(_add_seconds, timings)
-    sync = partial(_sync, device)
+    stage = partial(_stage, timings, device=device)
 
     shard = None if mesh is None else MeshShard(mesh, device, nbatch=len(slices))
     nbatch = len(slices) if shard is None else shard.nbatch
@@ -780,32 +776,31 @@ def _calibrate_time_parallel(
         # this rank's (rows, groups) block of a host stack
         return x if shard is None else shard.block(x)
 
-    t_tp = _time.time()
-    data_r_h, data_i_h, wgts_h = alloc_stacks(), alloc_stacks(), alloc_stacks()
-    sky_r_h = alloc_stacks() if have_sky else []
-    sky_i_h = alloc_stacks() if have_sky else []
+    with stage("extract_s"):
+        data_r_h, data_i_h, wgts_h = alloc_stacks(), alloc_stacks(), alloc_stacks()
+        sky_r_h = alloc_stacks() if have_sky else []
+        sky_i_h = alloc_stacks() if have_sky else []
 
-    def extract(b):
-        # slice b's rows of the host stacks are its own
-        _, pol, _, time, rms = slices[b]
-        spec.pack_data_into(uvdata, pol, time, data_r_h, data_i_h, wgts_h, b,
-                            data_scale_factor=rms, weights=weights,
-                            nsamples_in_weights=nsamples_in_weights)
-        if have_sky:
-            spec.pack_data_into(sky_model, pol, time, sky_r_h, sky_i_h, None, b,
-                                data_scale_factor=rms)
-        return spec.pack_gains(gains, pol, time)
+        def extract(b):
+            # slice b's rows of the host stacks are its own
+            _, pol, _, time, rms = slices[b]
+            spec.pack_data_into(uvdata, pol, time, data_r_h, data_i_h, wgts_h, b,
+                                data_scale_factor=rms, weights=weights,
+                                nsamples_in_weights=nsamples_in_weights)
+            if have_sky:
+                spec.pack_data_into(sky_model, pol, time, sky_r_h, sky_i_h, None, b,
+                                    data_scale_factor=rms)
+            return spec.pack_gains(gains, pol, time)
 
-    g_r_l, g_i_l = (list(x) for x in zip(*host_map(extract, range(len(slices)), _HOST_THREADS)))
-    # dummy rows repeat the last slice's gains (their zero weights keep
-    # them inert)
-    g_r_l += g_r_l[-1:] * (nbatch - len(slices))
-    g_i_l += g_i_l[-1:] * (nbatch - len(slices))
-    g_r_b = torch.stack(g_r_l)
-    g_i_b = torch.stack(g_i_l)
-    del g_r_l, g_i_l
-    wgts_h = [_compress_freq_invariant_wgts(w) for w in wgts_h]
-    t_tp = _tmark("extract_s", t_tp)
+        g_r_l, g_i_l = (list(x) for x in zip(*host_map(extract, range(len(slices)), _HOST_THREADS)))
+        # dummy rows repeat the last slice's gains (their zero weights keep
+        # them inert)
+        g_r_l += g_r_l[-1:] * (nbatch - len(slices))
+        g_i_l += g_i_l[-1:] * (nbatch - len(slices))
+        g_r_b = torch.stack(g_r_l)
+        g_i_b = torch.stack(g_i_l)
+        del g_r_l, g_i_l
+        wgts_h = [_compress_freq_invariant_wgts(w) for w in wgts_h]
 
     def upload_wgts(w):
         w = torch.as_tensor(w, device=device)
@@ -815,115 +810,113 @@ def _calibrate_time_parallel(
             w = w.to(torch.bfloat16)
         return w
 
-    if shard is None:
-        run_chunks = chunks
-        data_r_b = [torch.as_tensor(x, device=device) for x in data_r_h]
-        data_i_b = [torch.as_tensor(x, device=device) for x in data_i_h]
-        wgts_b = [upload_wgts(w) for w in wgts_h]
-    else:
-        # each rank uploads its block alone
-        blocks = [shard_chunk(mesh, fit_chunks[c], data_r_h[c], data_i_h[c], wgts_h[c],
-                              device) for c in range(nchunks)]
-        run_chunks = tuple(b[0] for b in blocks)
-        data_r_b = [b[1] for b in blocks]
-        data_i_b = [b[2] for b in blocks]
-        wgts_b = [upload_wgts(b[3]) for b in blocks]
-        g_r_b = shard.local_rows(g_r_b).to(device)
-        g_i_b = shard.local_rows(g_i_b).to(device)
-        del blocks
-    sync()
-    t_tp = _tmark("upload_s", t_tp)
-
-    # a checkpointed resume restores the coefficients: skip the warm starts
-    # when nothing else reads their by-products
-    ck_base = None if checkpoint_dir is None else os.path.join(checkpoint_dir, "batched")
-    skip_init = False
-    if (ck_base is not None and resume and not freeze_model
-            and model_regularization != "sum" and not use_model_snr_weights):
-        if comps_precision == "mixed":
-            skip_init = (latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None
-                         or latest_checkpoint(os.path.join(ck_base, "phase_bf16")) is not None)
+    with stage("upload_s"):
+        if shard is None:
+            run_chunks = chunks
+            data_r_b = [torch.as_tensor(x, device=device) for x in data_r_h]
+            data_i_b = [torch.as_tensor(x, device=device) for x in data_i_h]
+            wgts_b = [upload_wgts(w) for w in wgts_h]
         else:
-            skip_init = latest_checkpoint(ck_base) is not None
-    # a block of loss_block_ngrps groups spans the 'bl' ranks: each rank
-    # evaluates its share of it, inside its own shard
-    loss_block = (None if loss_block_ngrps is None
-                  else max(1, int(loss_block_ngrps) // n_bl))
-    tdt = data_r_b[0].dtype
-    nrows = data_r_b[0].shape[0]
-    fg_r_b, fg_i_b = [], []
-    prior_r_b = torch.zeros((nrows,), dtype=tdt, device=device)
-    prior_i_b = torch.zeros((nrows,), dtype=tdt, device=device)
-    wsum_b = torch.zeros((nrows,), dtype=tdt, device=device)
-    for cnum, (comps, a0, _) in enumerate(run_chunks):
-        ngrps = a0.shape[0]
-        if skip_init:
-            zero = torch.zeros((nrows, ngrps, comps.shape[-1]), dtype=tdt, device=device)
-            fg_r_b.append(zero)
-            fg_i_b.append(zero.clone())
-            continue
-        chol, active = gram_cholesky_chunk(comps)
-        nu = comps.shape[0]
-        gmax = ngrps // nu if 1 < nu < ngrps else 1
-        blk = _loss_block_size(ngrps, gmax, loss_block) or ngrps
-        if not have_sky and not use_model_snr_weights:
-            cr, ci, wsum_c, pr_c, pi_c = blocked_init_from_data(
-                chol, active, comps, data_r_b[cnum], data_i_b[cnum], wgts_b[cnum], blk)
-            wsum_b, prior_r_b, prior_i_b = wsum_b + wsum_c, prior_r_b + pr_c, prior_i_b + pi_c
-            fg_r_b.append(cr)
-            fg_i_b.append(ci)
-            continue
-        new_w, crs, cis = [], [], []
-        sky_r_c = local(sky_r_h[cnum]) if have_sky else None
-        sky_i_c = local(sky_i_h[cnum]) if have_sky else None
-        for g0 in range(0, ngrps, blk):
-            if have_sky:
-                src_r = torch.as_tensor(sky_r_c[:, g0:g0 + blk], device=device)
-                src_i = torch.as_tensor(sky_i_c[:, g0:g0 + blk], device=device)
+            # each rank uploads its block alone
+            blocks = [shard_chunk(mesh, fit_chunks[c], data_r_h[c], data_i_h[c], wgts_h[c],
+                                  device) for c in range(nchunks)]
+            run_chunks = tuple(b[0] for b in blocks)
+            data_r_b = [b[1] for b in blocks]
+            data_i_b = [b[2] for b in blocks]
+            wgts_b = [upload_wgts(b[3]) for b in blocks]
+            g_r_b = shard.local_rows(g_r_b).to(device)
+            g_i_b = shard.local_rows(g_i_b).to(device)
+            del blocks
+
+    with stage("warmstart_s"):
+        # a checkpointed resume restores the coefficients: skip the warm starts
+        # when nothing else reads their by-products
+        ck_base = None if checkpoint_dir is None else os.path.join(checkpoint_dir, "batched")
+        skip_init = False
+        if (ck_base is not None and resume and not freeze_model
+                and model_regularization != "sum" and not use_model_snr_weights):
+            if comps_precision == "mixed":
+                skip_init = (latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None
+                             or latest_checkpoint(os.path.join(ck_base, "phase_bf16")) is not None)
             else:
-                src_r = data_r_b[cnum][:, g0:g0 + blk]
-                src_i = data_i_b[cnum][:, g0:g0 + blk]
-            w_blk = wgts_b[cnum][:, g0:g0 + blk].to(tdt)
-            if nu == 1:
-                comps_blk, chol_blk, active_blk = comps, chol, active
-            elif nu < ngrps:
-                u0, u1 = g0 // gmax, (g0 + blk) // gmax
-                comps_blk, chol_blk, active_blk = comps[u0:u1], chol[u0:u1], active[u0:u1]
-            else:
-                sl = slice(g0, g0 + blk)
-                comps_blk, chol_blk, active_blk = comps[sl], chol[sl], active[sl]
-            cr, ci = init_coeffs_from_cholesky_batched(chol_blk, active_blk, comps_blk,
-                                                       src_r, src_i, w_blk)
+                skip_init = latest_checkpoint(ck_base) is not None
+        # a block of loss_block_ngrps groups spans the 'bl' ranks: each rank
+        # evaluates its share of it, inside its own shard
+        loss_block = (None if loss_block_ngrps is None
+                      else max(1, int(loss_block_ngrps) // n_bl))
+        tdt = data_r_b[0].dtype
+        nrows = data_r_b[0].shape[0]
+        fg_r_b, fg_i_b = [], []
+        prior_r_b = torch.zeros((nrows,), dtype=tdt, device=device)
+        prior_i_b = torch.zeros((nrows,), dtype=tdt, device=device)
+        wsum_b = torch.zeros((nrows,), dtype=tdt, device=device)
+        for cnum, (comps, a0, _) in enumerate(run_chunks):
+            ngrps = a0.shape[0]
+            if skip_init:
+                zero = torch.zeros((nrows, ngrps, comps.shape[-1]), dtype=tdt, device=device)
+                fg_r_b.append(zero)
+                fg_i_b.append(zero.clone())
+                continue
+            chol, active = gram_cholesky_chunk(comps)
+            nu = comps.shape[0]
+            gmax = ngrps // nu if 1 < nu < ngrps else 1
+            blk = _loss_block_size(ngrps, gmax, loss_block) or ngrps
+            if not have_sky and not use_model_snr_weights:
+                cr, ci, wsum_c, pr_c, pi_c = blocked_init_from_data(
+                    chol, active, comps, data_r_b[cnum], data_i_b[cnum], wgts_b[cnum], blk)
+                wsum_b, prior_r_b, prior_i_b = wsum_b + wsum_c, prior_r_b + pr_c, prior_i_b + pi_c
+                fg_r_b.append(cr)
+                fg_i_b.append(ci)
+                continue
+            new_w, crs, cis = [], [], []
+            sky_r_c = local(sky_r_h[cnum]) if have_sky else None
+            sky_i_c = local(sky_i_h[cnum]) if have_sky else None
+            for g0 in range(0, ngrps, blk):
+                if have_sky:
+                    src_r = torch.as_tensor(sky_r_c[:, g0:g0 + blk], device=device)
+                    src_i = torch.as_tensor(sky_i_c[:, g0:g0 + blk], device=device)
+                else:
+                    src_r = data_r_b[cnum][:, g0:g0 + blk]
+                    src_i = data_i_b[cnum][:, g0:g0 + blk]
+                w_blk = wgts_b[cnum][:, g0:g0 + blk].to(tdt)
+                if nu == 1:
+                    comps_blk, chol_blk, active_blk = comps, chol, active
+                elif nu < ngrps:
+                    u0, u1 = g0 // gmax, (g0 + blk) // gmax
+                    comps_blk, chol_blk, active_blk = comps[u0:u1], chol[u0:u1], active[u0:u1]
+                else:
+                    sl = slice(g0, g0 + blk)
+                    comps_blk, chol_blk, active_blk = comps[sl], chol[sl], active[sl]
+                cr, ci = init_coeffs_from_cholesky_batched(chol_blk, active_blk, comps_blk,
+                                                           src_r, src_i, w_blk)
+                if use_model_snr_weights:
+                    vr, vi = fg_model_batched(cr, ci, comps_blk)
+                    w_blk = (torch.square(vr) + torch.square(vi)) * w_blk
+                    new_w.append(w_blk)
+                wsum_b = wsum_b + torch.sum(w_blk, dim=(1, 2, 3))
+                prior_r_b = prior_r_b + torch.sum(src_r * w_blk, dim=(1, 2, 3))
+                prior_i_b = prior_i_b + torch.sum(src_i * w_blk, dim=(1, 2, 3))
+                crs.append(cr)
+                cis.append(ci)
             if use_model_snr_weights:
-                vr, vi = fg_model_batched(cr, ci, comps_blk)
-                w_blk = (torch.square(vr) + torch.square(vi)) * w_blk
-                new_w.append(w_blk)
-            wsum_b = wsum_b + torch.sum(w_blk, dim=(1, 2, 3))
-            prior_r_b = prior_r_b + torch.sum(src_r * w_blk, dim=(1, 2, 3))
-            prior_i_b = prior_i_b + torch.sum(src_i * w_blk, dim=(1, 2, 3))
-            crs.append(cr)
-            cis.append(ci)
+                wgts_b[cnum] = torch.cat(new_w, dim=1)
+            fg_r_b.append(torch.cat(crs, dim=1))
+            fg_i_b.append(torch.cat(cis, dim=1))
+        if shard is not None:
+            # each rank summed its groups: the slices' sums are the 'bl' sums
+            wsum_b, prior_r_b, prior_i_b = shard.sum_bl(torch.stack([wsum_b, prior_r_b,
+                                                                     prior_i_b]))
         if use_model_snr_weights:
-            wgts_b[cnum] = torch.cat(new_w, dim=1)
-        fg_r_b.append(torch.cat(crs, dim=1))
-        fg_i_b.append(torch.cat(cis, dim=1))
-    if shard is not None:
-        # each rank summed its groups: the slices' sums are the 'bl' sums
-        wsum_b, prior_r_b, prior_i_b = shard.sum_bl(torch.stack([wsum_b, prior_r_b,
-                                                                 prior_i_b]))
-    if use_model_snr_weights:
-        # renormalize the reweighted batch to unit total per slice
-        denom = torch.where(wsum_b > 0, wsum_b, torch.ones_like(wsum_b))
-        wgts_b = [w / denom[:, None, None, None] for w in wgts_b]
-        wgts_h = [to_numpy(w) for w in wgts_b]  # the guard's host weights
-        wgts_b = [w.to(torch.bfloat16) if wgts_precision == "bfloat16" else w for w in wgts_b]
-        prior_r_b = prior_r_b / denom
-        prior_i_b = prior_i_b / denom
-    else:
-        wgts_h = [local(w) for w in wgts_h]
-    del sky_r_h, sky_i_h
-    sync()
-    t_tp = _tmark("warmstart_s", t_tp)
+            # renormalize the reweighted batch to unit total per slice
+            denom = torch.where(wsum_b > 0, wsum_b, torch.ones_like(wsum_b))
+            wgts_b = [w / denom[:, None, None, None] for w in wgts_b]
+            wgts_h = [to_numpy(w) for w in wgts_b]  # the guard's host weights
+            wgts_b = [w.to(torch.bfloat16) if wgts_precision == "bfloat16" else w for w in wgts_b]
+            prior_r_b = prior_r_b / denom
+            prior_i_b = prior_i_b / denom
+        else:
+            wgts_h = [local(w) for w in wgts_h]
+        del sky_r_h, sky_i_h
 
     cfg = FitConfig(
         optimizer=optimizer,
@@ -958,139 +951,142 @@ def _calibrate_time_parallel(
     data_r_g, data_i_g = [local(x) for x in data_r_h], [local(x) for x in data_i_h]
     prior_h = (to_numpy(prior_r_b), to_numpy(prior_i_b))
 
-    guard_seconds = []
+    guards = []  # the spans of the step-0 guard's evaluations in a phase
 
     def guard_fn(fr_const, fi_const):
         def expected(params):
-            t0 = _time.time()
-            fr = fr_const if freeze_model else params["fg_r"]
-            fi = fi_const if freeze_model else params["fg_i"]
-            out = host_batched_losses(
-                to_numpy(params["g_r"]), to_numpy(params["g_i"]),
-                [to_numpy(x) for x in fr], [to_numpy(x) for x in fi], host_chunks,
-                data_r_g, data_i_g, wgts_h, *prior_h, regularization=cfg.regularization,
-                reduce=None if shard is None else shard.sum_bl_host)
-            if shard is not None:
-                out = shard.gather_rows_host(out)
-            guard_seconds.append(_time.time() - t0)
-            return out
+            with SPANS.span("loss_guard") as span:
+                guards.append(span)
+                fr = fr_const if freeze_model else params["fg_r"]
+                fi = fi_const if freeze_model else params["fg_i"]
+                out = host_batched_losses(
+                    to_numpy(params["g_r"]), to_numpy(params["g_i"]),
+                    [to_numpy(x) for x in fr], [to_numpy(x) for x in fi], host_chunks,
+                    data_r_g, data_i_g, wgts_h, *prior_h, regularization=cfg.regularization,
+                    reduce=None if shard is None else shard.sum_bl_host)
+                if shard is not None:
+                    out = shard.gather_rows_host(out)
+                return out
         return expected
 
     phase_seconds, phase_steps = [], []
 
     def run_batched(chs, gr, gi, fr, fi, opt_state0=None, ckdir=None):
-        t0 = _time.time()
-        guard_seconds.clear()
-        res = batched_fit_checkpointed(
-            cfg, chs, data_r_b, data_i_b, wgts_b, gr, gi, fr, fi, prior_r_b, prior_i_b,
-            ckdir, int(checkpoint_every) if ckdir is not None else cfg.maxsteps, resume,
-            verbose, opt_state0, steps_per_execution=steps_per_execution,
-            expected_loss_fn=guard_fn(fr, fi), poll_every=POLL_EVERY, shard=shard)
-        sync()
+        guards.clear()
+        with SPANS.span("phase") as phase:
+            res = batched_fit_checkpointed(
+                cfg, chs, data_r_b, data_i_b, wgts_b, gr, gi, fr, fi, prior_r_b, prior_i_b,
+                ckdir, int(checkpoint_every) if ckdir is not None else cfg.maxsteps, resume,
+                verbose, opt_state0, steps_per_execution=steps_per_execution,
+                expected_loss_fn=guard_fn(fr, fi), poll_every=POLL_EVERY, shard=shard)
+            SPANS.sync(device)
+        guard_s = sum(g.seconds for g in guards)
         # the descent's own seconds: the guard's host evaluation apart
-        phase_seconds.append(_time.time() - t0 - sum(guard_seconds))
+        phase_seconds.append(phase.seconds - guard_s)
         if timings is not None:
-            timings["loss_guard_s"] = timings.get("loss_guard_s", 0.0) + sum(guard_seconds)
+            timings["loss_guard_s"] = timings.get("loss_guard_s", 0.0) + guard_s
         phase_steps.append(int(res.nsteps))
         hist = np.asarray(res.loss_history[: res.nsteps], dtype=np.float64)
         return res, hist, np.asarray(res.nsteps_slice)
 
-    t_desc = _time.time()
-    skip1 = (comps_precision == "mixed" and ck_base is not None and resume
-             and latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None)
-    chunks_lo = None
-    if comps_precision == "bfloat16" or (comps_precision == "mixed" and not skip1):
-        chunks_lo = convert_chunks_dtype(run_chunks, torch.bfloat16)
-    hist1 = ns1 = None
-    if comps_precision == "bfloat16":
-        result, hist2, ns2 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
-    elif comps_precision == "mixed":
-        ck1 = ck2 = None
-        if ck_base is not None:
-            ck1 = os.path.join(ck_base, "phase_bf16")
-            ck2 = os.path.join(ck_base, "phase_f32")
-        if skip1:
-            # the resume lands in the float32 polish: restore the bf16
-            # phase's diagnostics
-            meta = load_phase_meta(ck_base)
-            if meta is not None:
-                hist1 = np.asarray(meta["history"], dtype=np.float64)
-                ns1 = np.asarray(meta["nsteps_slice"])
-            else:
-                hist1 = np.zeros((0, nbatch), dtype=np.float64)
-                ns1 = np.zeros((nbatch,), dtype=np.int64)
-            result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
-                                             ckdir=ck2)
-        else:
-            res1, hist1, ns1 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b,
-                                           ckdir=ck1)
+    # one fit: both phases of the mixed schedule
+    with stage("descent_s"), SPANS.fit(device):
+        skip1 = (comps_precision == "mixed" and ck_base is not None and resume
+                 and latest_checkpoint(os.path.join(ck_base, "phase_f32")) is not None)
+        chunks_lo = None
+        if comps_precision == "bfloat16" or (comps_precision == "mixed" and not skip1):
+            chunks_lo = convert_chunks_dtype(run_chunks, torch.bfloat16)
+        hist1 = ns1 = None
+        if comps_precision == "bfloat16":
+            result, hist2, ns2 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b, ckdir=ck_base)
+        elif comps_precision == "mixed":
+            ck1 = ck2 = None
             if ck_base is not None:
-                _save_shared(shard, save_phase_meta, ck_base, history=hist1, nsteps_slice=ns1)
-            echo(f"{datetime.datetime.now()} bf16 phase done ({int(res1.nsteps)} steps); "
-                 "polishing in float32...\n", verbose=verbose)
-            # the optimizer state carries across the precision switch
-            chunks_lo = None
-            result, hist2, ns2 = run_batched(run_chunks, res1.g_r, res1.g_i, res1.fg_r,
-                                             res1.fg_i, opt_state0=res1.opt_state, ckdir=ck2)
-            res1 = None
-    else:
-        result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
-                                         ckdir=ck_base)
-    t_tp = _tmark("descent_s", t_desc)
+                ck1 = os.path.join(ck_base, "phase_bf16")
+                ck2 = os.path.join(ck_base, "phase_f32")
+            if skip1:
+                # the resume lands in the float32 polish: restore the bf16
+                # phase's diagnostics
+                meta = load_phase_meta(ck_base)
+                if meta is not None:
+                    hist1 = np.asarray(meta["history"], dtype=np.float64)
+                    ns1 = np.asarray(meta["nsteps_slice"])
+                else:
+                    hist1 = np.zeros((0, nbatch), dtype=np.float64)
+                    ns1 = np.zeros((nbatch,), dtype=np.int64)
+                result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                                 ckdir=ck2)
+            else:
+                res1, hist1, ns1 = run_batched(chunks_lo, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                               ckdir=ck1)
+                if ck_base is not None:
+                    _save_shared(shard, save_phase_meta, ck_base, history=hist1, nsteps_slice=ns1)
+                echo(f"{datetime.datetime.now()} bf16 phase done ({int(res1.nsteps)} steps); "
+                     "polishing in float32...\n", verbose=verbose)
+                # the optimizer state carries across the precision switch
+                chunks_lo = None
+                result, hist2, ns2 = run_batched(run_chunks, res1.g_r, res1.g_i, res1.fg_r,
+                                                 res1.fg_i, opt_state0=res1.opt_state, ckdir=ck2)
+                res1 = None
+        else:
+            result, hist2, ns2 = run_batched(run_chunks, g_r_b, g_i_b, fg_r_b, fg_i_b,
+                                             ckdir=ck_base)
     if timings is not None:
         timings["phase_seconds"] = phase_seconds
         timings["phase_steps"] = phase_steps
 
-    g_r_out, g_i_out = result.g_r, result.g_i
-    fr_out, fi_out = result.fg_r, result.fg_i
-    if shard is not None:
-        # the whole batch on every rank, the padding trimmed
-        g_r_out, g_i_out = shard.gather_rows(g_r_out), shard.gather_rows(g_i_out)
-        fr_out = [shard.gather_coeffs(x)[:, :a0.shape[0]] for x, (_, a0, _) in zip(fr_out, chunks)]
-        fi_out = [shard.gather_coeffs(x)[:, :a0.shape[0]] for x, (_, a0, _) in zip(fi_out, chunks)]
-        if timings is not None:
-            timings["collective_s"] = shard.collective_s
-            timings["collective_calls"] = shard.collective_calls
-    g_r_out = to_numpy(g_r_out)
-    g_i_out = to_numpy(g_i_out)
-    fr_out = [to_numpy(x) for x in fr_out]
-    fi_out = [to_numpy(x) for x in fi_out]
-    # release the descent's device memory and the host stacks (the guard's)
-    # before the host write-back, which holds one slice's model at a time
-    result = data_r_b = data_i_b = wgts_b = chunks_lo = None  # noqa: F841
-    data_r_h = data_i_h = wgts_h = data_r_g = data_i_g = None  # noqa: F841
-    for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
-        loss = hist2[: int(ns2[b]), b].tolist()
-        entry = {"loss": loss}
-        if hist1 is not None:
-            entry = {"loss": hist1[: int(ns1[b]), b].tolist() + loss,
-                     "phase_steps": [int(ns1[b]), int(ns2[b])]}
-        fit_history[polnum][time_index] = entry
+    with stage("writeback_s"):
+        g_r_out, g_i_out = result.g_r, result.g_i
+        fr_out, fi_out = result.fg_r, result.fg_i
+        if shard is not None:
+            # the whole batch on every rank, the padding trimmed
+            g_r_out, g_i_out = shard.gather_rows(g_r_out), shard.gather_rows(g_i_out)
+            fr_out = [shard.gather_coeffs(x)[:, :a0.shape[0]]
+                      for x, (_, a0, _) in zip(fr_out, chunks)]
+            fi_out = [shard.gather_coeffs(x)[:, :a0.shape[0]]
+                      for x, (_, a0, _) in zip(fi_out, chunks)]
+            if timings is not None:
+                timings["collective_s"] = shard.collective_s
+                timings["collective_calls"] = shard.collective_calls
+        g_r_out = to_numpy(g_r_out)
+        g_i_out = to_numpy(g_i_out)
+        fr_out = [to_numpy(x) for x in fr_out]
+        fi_out = [to_numpy(x) for x in fi_out]
+        # release the descent's device memory and the host stacks (the guard's)
+        # before the host write-back, which holds one slice's model at a time
+        result = data_r_b = data_i_b = wgts_b = chunks_lo = None  # noqa: F841
+        data_r_h = data_i_h = wgts_h = data_r_g = data_i_g = None  # noqa: F841
+        for b, (polnum, pol, time_index, time, rms) in enumerate(slices):
+            loss = hist2[: int(ns2[b]), b].tolist()
+            entry = {"loss": loss}
+            if hist1 is not None:
+                entry = {"loss": hist1[: int(ns1[b]), b].tolist() + loss,
+                         "phase_steps": [int(ns1[b]), int(ns2[b])]}
+            fit_history[polnum][time_index] = entry
 
-    def write_back(bs):
-        # one time's slices, its polarizations in order: the rows of the
-        # model and the gains of one time are that time's own
-        for b in bs:
-            _, pol, _, time, rms = slices[b]
-            spec.insert_model(model, fg_model_all_chunks_host([f[b] for f in fr_out],
-                                                              [f[b] for f in fi_out],
-                                                              spec.host_comps), pol, time, rms)
-            spec.insert_gains(gains, g_r_out[b], g_i_out[b], pol, time)
-            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
-            if (not freeze_model and model_regularization == "post_hoc"
-                    and np.any(~model.flag_array[bltsel])):
-                renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model,
-                            gains=gains, polarization=pol, time=time,
-                            additional_flags=uvdata.flag_array)
+        def write_back(bs):
+            # one time's slices, its polarizations in order: the rows of the
+            # model and the gains of one time are that time's own
+            for b in bs:
+                _, pol, _, time, rms = slices[b]
+                spec.insert_model(model, fg_model_all_chunks_host([f[b] for f in fr_out],
+                                                                  [f[b] for f in fi_out],
+                                                                  spec.host_comps), pol, time, rms)
+                spec.insert_gains(gains, g_r_out[b], g_i_out[b], pol, time)
+                bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+                if (not freeze_model and model_regularization == "post_hoc"
+                        and np.any(~model.flag_array[bltsel])):
+                    renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model,
+                                gains=gains, polarization=pol, time=time,
+                                additional_flags=uvdata.flag_array)
 
-    by_time = {}
-    for b, sl in enumerate(slices):
-        by_time.setdefault(sl[2], []).append(b)
-    host_map(write_back, list(by_time.values()), _HOST_THREADS)
-    model, resid = _finalize_model_resid(
-        uvdata, model, resid, gains, correct_model, correct_resid
-    )
-    _tmark("writeback_s", t_tp)
+        by_time = {}
+        for b, sl in enumerate(slices):
+            by_time.setdefault(sl[2], []).append(b)
+        host_map(write_back, list(by_time.values()), _HOST_THREADS)
+        model, resid = _finalize_model_resid(
+            uvdata, model, resid, gains, correct_model, correct_resid
+        )
     _mark_rss(timings)
     return model, resid, gains, fit_history
 
@@ -1211,8 +1207,7 @@ def _calibrate_time_scan(
                     else max(1, int(loss_block_ngrps) // n_bl)),
     )
 
-    _smark = partial(_add_seconds, timings)
-    sync = partial(_sync, device)
+    stage = partial(_stage, timings, device=device)
 
     def whole(carry):
         # a carry gathered whole over 'bl' (the padded groups)
@@ -1358,105 +1353,100 @@ def _calibrate_time_scan(
                      f"{start_slot + 1}/{nt_u}", verbose=verbose)
 
         def run_time(slot, carry, ck_t):
-            t0 = _time.time()
-            dev_in = [[upload_time_slice(x, slot, device) for x in stack]
-                      for stack in (data_r_s, data_i_s, wgts_s)]
-            pr = upload_time_slice(prior_r_s, slot, device)
-            pi = upload_time_slice(prior_i_s, slot, device)
-            sync()
-            _smark("scan_upload_s", t0)
+            with stage("scan_upload_s"):
+                dev_in = [[upload_time_slice(x, slot, device) for x in stack]
+                          for stack in (data_r_s, data_i_s, wgts_s)]
+                pr = upload_time_slice(prior_r_s, slot, device)
+                pi = upload_time_slice(prior_i_s, slot, device)
 
             def fit(chs, carry, ckdir, opt_state0=None, guard=True):
-                t1 = _time.time()
-                res, row, nst, guard_s = scan_time_fit(
-                    cfg, chs, *dev_in, carry, pr, pi, ckdir, ck_every, resume, verbose,
-                    opt_state0, steps_per_execution,
-                    partial(expected, slot) if guard else None, POLL_EVERY, shard)
-                sync()
-                desc = _time.time() - t1 - guard_s
+                with SPANS.span("phase") as phase:
+                    res, row, nst, guard_s = scan_time_fit(
+                        cfg, chs, *dev_in, carry, pr, pi, ckdir, ck_every, resume, verbose,
+                        opt_state0, steps_per_execution,
+                        partial(expected, slot) if guard else None, POLL_EVERY, shard)
+                    SPANS.sync(device)
+                desc = phase.seconds - guard_s
                 if timings is not None:
                     timings["scan_descent_s"] = timings.get("scan_descent_s", 0.0) + desc
                     timings["scan_guard_s"] = timings.get("scan_guard_s", 0.0) + guard_s
                 return res, row, nst, desc
 
-            if comps_precision != "mixed":
-                res, row, nst, sec = fit(fit_chunks, carry, ck_t)
-                return scan_carry(res), row, nst, [nst], [sec]
-            ck1 = None if ck_t is None else os.path.join(ck_t, "phase_bf16")
-            ck2 = None if ck_t is None else os.path.join(ck_t, "phase_f32")
-            if ck2 is not None and resume and latest_checkpoint(ck2) is not None:
-                # the resume lands in the float32 polish: the bf16
-                # phase's diagnostics come from its metadata, and the
-                # guard is armed on the phase that runs first
-                meta = load_phase_meta(ck_t)
-                hist1 = (np.zeros((0,), np.float32) if meta is None
-                         else np.asarray(meta["history"], dtype=np.float32))
-                ns1, sec1 = (0 if meta is None else int(meta["nsteps"])), 0.0
-                res, row2, ns2, sec2 = fit(fit_chunks, carry, ck2)
-            else:
-                res1, hist1, ns1, sec1 = fit(fit_chunks_lo, carry, ck1)
-                if ck_t is not None:
-                    _save_shared(shard, save_phase_meta, ck_t, history=hist1, nsteps=ns1)
-                # the optimizer state carries across the precision switch
-                res, row2, ns2, sec2 = fit(fit_chunks, scan_carry(res1), ck2,
-                                           opt_state0=res1.opt_state, guard=False)
-            return (scan_carry(res), np.concatenate([hist1, row2]), ns1 + ns2, [ns1, ns2],
-                    [sec1, sec2])
+            with SPANS.fit(device):  # one time: its phases
+                if comps_precision != "mixed":
+                    res, row, nst, sec = fit(fit_chunks, carry, ck_t)
+                    return scan_carry(res), row, nst, [nst], [sec]
+                ck1 = None if ck_t is None else os.path.join(ck_t, "phase_bf16")
+                ck2 = None if ck_t is None else os.path.join(ck_t, "phase_f32")
+                if ck2 is not None and resume and latest_checkpoint(ck2) is not None:
+                    # the resume lands in the float32 polish: the bf16
+                    # phase's diagnostics come from its metadata, and the
+                    # guard is armed on the phase that runs first
+                    meta = load_phase_meta(ck_t)
+                    hist1 = (np.zeros((0,), np.float32) if meta is None
+                             else np.asarray(meta["history"], dtype=np.float32))
+                    ns1, sec1 = (0 if meta is None else int(meta["nsteps"])), 0.0
+                    res, row2, ns2, sec2 = fit(fit_chunks, carry, ck2)
+                else:
+                    res1, hist1, ns1, sec1 = fit(fit_chunks_lo, carry, ck1)
+                    if ck_t is not None:
+                        _save_shared(shard, save_phase_meta, ck_t, history=hist1, nsteps=ns1)
+                    # the optimizer state carries across the precision switch
+                    res, row2, ns2, sec2 = fit(fit_chunks, scan_carry(res1), ck2,
+                                               opt_state0=res1.opt_state, guard=False)
+                return (scan_carry(res), np.concatenate([hist1, row2]), ns1 + ns2, [ns1, ns2],
+                        [sec1, sec2])
 
         for slot in range(start_slot, nt_u):
             ck_t = None if ck is None else os.path.join(ck, f"time_{slot}")
             carry, row, nst, psteps, psecs = run_time(slot, carry, ck_t)
             outputs.append((carry, row, nst, psteps, psecs))
             if ck is not None:
-                t0 = _time.time()
-                out_host = tuple(
-                    x.detach().cpu() if isinstance(x, torch.Tensor)
-                    else [f.detach().cpu() for f in x] for x in whole(carry))
-                t0 = _smark("scan_fetch_s", t0)
+                with stage("scan_fetch_s"):
+                    out_host = tuple(
+                        x.detach().cpu() if isinstance(x, torch.Tensor)
+                        else [f.detach().cpu() for f in x] for x in whole(carry))
 
                 def save_marker():
                     save_state(os.path.join(ck, f"step_{slot + 1}"), {"out": out_host},
                                {"history": row, "nsteps": nst, "phase_steps": psteps})
                     shutil.rmtree(ck_t, ignore_errors=True)
 
-                _save_shared(shard, save_marker)
-                _smark("scan_save_s", t0)
+                with stage("scan_save_s"):
+                    _save_shared(shard, save_marker)
                 echo(f"{datetime.datetime.now()} checkpointed scan time {slot + 1}/{nt_u}",
                      verbose=verbose)
-        t0 = _time.time()
-        outputs = [(tuple(to_numpy(x) if isinstance(x, torch.Tensor)
-                          else [to_numpy(f)[:, :n] for f, n in zip(x, ngrps_real)]
-                          for x in whole(o[0])),) + o[1:]
-                   for o in outputs]
-        _smark("scan_fetch_s", t0)
-        t0 = _time.time()
-        for slot, (time_index, time, rms) in enumerate(usable):
-            (g_r, g_i, fr, fi), row, nst, psteps, psecs = outputs[slot]
-            entry = {"loss": np.asarray(row[:nst], dtype=np.float64).tolist(),
-                     "phase_steps": [int(n) for n in psteps]}
-            if psecs is not None:
-                entry["phase_seconds"] = psecs
-            fit_history[polnum][time_index] = entry
-            spec.insert_model(model, fg_model_all_chunks_host([f[0] for f in fr],
-                                                              [f[0] for f in fi],
-                                                              spec.host_comps),
-                              pol, time, rms)
-            spec.insert_gains(gains, g_r[0], g_i[0], pol, time)
-            bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
-            if (not freeze_model and model_regularization == "post_hoc"
-                    and np.any(~model.flag_array[bltsel])):
-                renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model, gains=gains,
-                            polarization=pol, time=time, additional_flags=uvdata.flag_array)
-        _smark("writeback_s", t0)
+        with stage("scan_fetch_s"):
+            outputs = [(tuple(to_numpy(x) if isinstance(x, torch.Tensor)
+                              else [to_numpy(f)[:, :n] for f, n in zip(x, ngrps_real)]
+                              for x in whole(o[0])),) + o[1:]
+                       for o in outputs]
+        with stage("writeback_s"):
+            for slot, (time_index, time, rms) in enumerate(usable):
+                (g_r, g_i, fr, fi), row, nst, psteps, psecs = outputs[slot]
+                entry = {"loss": np.asarray(row[:nst], dtype=np.float64).tolist(),
+                         "phase_steps": [int(n) for n in psteps]}
+                if psecs is not None:
+                    entry["phase_seconds"] = psecs
+                fit_history[polnum][time_index] = entry
+                spec.insert_model(model, fg_model_all_chunks_host([f[0] for f in fr],
+                                                                  [f[0] for f in fi],
+                                                                  spec.host_comps),
+                                  pol, time, rms)
+                spec.insert_gains(gains, g_r[0], g_i[0], pol, time)
+                bltsel = np.isclose(uvdata.time_array, time, rtol=0.0, atol=1e-7)
+                if (not freeze_model and model_regularization == "post_hoc"
+                        and np.any(~model.flag_array[bltsel])):
+                    renormalize(uvdata_reference_model=sky_model, uvdata_deconv=model, gains=gains,
+                                polarization=pol, time=time, additional_flags=uvdata.flag_array)
 
     if shard is not None and timings is not None:
         timings["collective_s"] = shard.collective_s
         timings["collective_calls"] = shard.collective_calls
-    t0 = _time.time()
-    model, resid = _finalize_model_resid(
-        uvdata, model, resid, gains, correct_model, correct_resid
-    )
-    _smark("writeback_s", t0)
+    with stage("writeback_s"):
+        model, resid = _finalize_model_resid(
+            uvdata, model, resid, gains, correct_model, correct_resid
+        )
     _mark_rss(timings)
     return model, resid, gains, fit_history
 
@@ -1476,20 +1466,19 @@ def calibrate_and_model_dpss(
     """Gain + foreground fit with per-baseline DPSS components
     (reference calibration.py:1503-1584)."""
     if fg_model_comps_dict is None:
-        t0 = _time.time()
-        fg_model_comps_dict = models.yield_pbl_dpss_model_comps(
-            uvdata,
-            horizon=horizon,
-            min_dly=min_dly,
-            offset=offset,
-            include_autos=include_autos,
-            red_tol=red_tol,
-            use_redundancy=fitting_kwargs.get("use_redundancy", False),
-            notebook_progressbar=notebook_progressbar,
-            verbose=verbose,
-        )
-        if fitting_kwargs.get("timings") is not None:
-            fitting_kwargs["timings"]["basis_s"] = _time.time() - t0
+        # the basis is the host's work: no device to drain
+        with _stage(fitting_kwargs.get("timings"), "basis_s"):
+            fg_model_comps_dict = models.yield_pbl_dpss_model_comps(
+                uvdata,
+                horizon=horizon,
+                min_dly=min_dly,
+                offset=offset,
+                include_autos=include_autos,
+                red_tol=red_tol,
+                use_redundancy=fitting_kwargs.get("use_redundancy", False),
+                notebook_progressbar=notebook_progressbar,
+                verbose=verbose,
+            )
     return calibrate_and_model_tensor(
         uvdata=uvdata,
         fg_model_comps_dict=fg_model_comps_dict,

@@ -11,23 +11,27 @@ from __future__ import annotations
 
 import torch
 
+from .._device import SPANS
+
 
 def gram_cholesky_chunk(comps, ridge=1e-6):
     """Cholesky factor of the (static) normal-equation gram per group.
 
     Zero-padded columns get a unit diagonal, so the padded block decouples
     (it solves to rhs = 0) and the condition number stays ~1; the active
-    block gets a small relative ridge. Returns (chol, active)."""
-    ngrps, nbls, nfreqs, nvecs = comps.shape
-    amat = comps.reshape(ngrps, nbls * nfreqs, nvecs)
-    gram = torch.einsum("gnv,gnw->gvw", amat, amat)
-    col_norm = torch.sum(torch.square(amat), dim=1)
-    active = (col_norm > 0).to(amat.dtype)
-    scale = torch.amax(col_norm, dim=1, keepdim=True)
-    diag_add = torch.where(active > 0, ridge * scale, torch.ones_like(scale))
-    eye = torch.eye(nvecs, dtype=amat.dtype, device=amat.device)
-    gram = gram + eye * diag_add[..., None, :]
-    return torch.linalg.cholesky(gram), active
+    block gets a small relative ridge. Returns (chol, active). The span
+    ``pack.warm_start`` (joining one open)."""
+    with SPANS.span("pack.warm_start", join=True):
+        ngrps, nbls, nfreqs, nvecs = comps.shape
+        amat = comps.reshape(ngrps, nbls * nfreqs, nvecs)
+        gram = torch.einsum("gnv,gnw->gvw", amat, amat)
+        col_norm = torch.sum(torch.square(amat), dim=1)
+        active = (col_norm > 0).to(amat.dtype)
+        scale = torch.amax(col_norm, dim=1, keepdim=True)
+        diag_add = torch.where(active > 0, ridge * scale, torch.ones_like(scale))
+        eye = torch.eye(nvecs, dtype=amat.dtype, device=amat.device)
+        gram = gram + eye * diag_add[..., None, :]
+        return torch.linalg.cholesky(gram), active
 
 
 def init_coeffs_from_cholesky(chol, active, comps, data, wgts):
@@ -120,30 +124,32 @@ def blocked_init_from_data(chol, active, comps, data_r, data_i, wgts, blk):
     transients. Shared-batched chunks slice the operator axis on class
     boundaries (``blk`` is a multiple of gmax). bfloat16 weights are upcast
     per block, like the loss. Returns (coeffs_r, coeffs_i, wsum, prior_r,
-    prior_i); the sums are (nbatch,)."""
-    nbatch, ngrps = data_r.shape[0], data_r.shape[1]
-    nu = comps.shape[0]
-    gmax = ngrps // nu if 1 < nu < ngrps else 1
-    zero = torch.zeros((nbatch,), dtype=data_r.dtype, device=data_r.device)
-    wsum, pr, pi = zero, zero, zero
-    crs, cis = [], []
-    for g0 in range(0, ngrps, blk):
-        dr = data_r[:, g0:g0 + blk]
-        di = data_i[:, g0:g0 + blk]
-        w = wgts[:, g0:g0 + blk]
-        if w.dtype != dr.dtype:
-            w = w.to(dr.dtype)
-        if nu == 1:
-            comps_b, chol_b, act_b = comps, chol, active
-        elif nu < ngrps:
-            u0, u1 = g0 // gmax, (g0 + blk) // gmax
-            comps_b, chol_b, act_b = comps[u0:u1], chol[u0:u1], active[u0:u1]
-        else:
-            comps_b, chol_b, act_b = comps[g0:g0 + blk], chol[g0:g0 + blk], active[g0:g0 + blk]
-        cr, ci = init_coeffs_from_cholesky_batched(chol_b, act_b, comps_b, dr, di, w)
-        wsum = wsum + torch.sum(w, dim=(1, 2, 3))
-        pr = pr + torch.sum(dr * w, dim=(1, 2, 3))
-        pi = pi + torch.sum(di * w, dim=(1, 2, 3))
-        crs.append(cr)
-        cis.append(ci)
-    return torch.cat(crs, dim=1), torch.cat(cis, dim=1), wsum, pr, pi
+    prior_i); the sums are (nbatch,). The span ``pack.warm_start``."""
+    with SPANS.span("pack.warm_start"):
+        nbatch, ngrps = data_r.shape[0], data_r.shape[1]
+        nu = comps.shape[0]
+        gmax = ngrps // nu if 1 < nu < ngrps else 1
+        zero = torch.zeros((nbatch,), dtype=data_r.dtype, device=data_r.device)
+        wsum, pr, pi = zero, zero, zero
+        crs, cis = [], []
+        for g0 in range(0, ngrps, blk):
+            dr = data_r[:, g0:g0 + blk]
+            di = data_i[:, g0:g0 + blk]
+            w = wgts[:, g0:g0 + blk]
+            if w.dtype != dr.dtype:
+                w = w.to(dr.dtype)
+            if nu == 1:
+                comps_b, chol_b, act_b = comps, chol, active
+            elif nu < ngrps:
+                u0, u1 = g0 // gmax, (g0 + blk) // gmax
+                comps_b, chol_b, act_b = comps[u0:u1], chol[u0:u1], active[u0:u1]
+            else:
+                sl = slice(g0, g0 + blk)
+                comps_b, chol_b, act_b = comps[sl], chol[sl], active[sl]
+            cr, ci = init_coeffs_from_cholesky_batched(chol_b, act_b, comps_b, dr, di, w)
+            wsum = wsum + torch.sum(w, dim=(1, 2, 3))
+            pr = pr + torch.sum(dr * w, dim=(1, 2, 3))
+            pi = pi + torch.sum(di * w, dim=(1, 2, 3))
+            crs.append(cr)
+            cis.append(ci)
+        return torch.cat(crs, dim=1), torch.cat(cis, dim=1), wsum, pr, pi

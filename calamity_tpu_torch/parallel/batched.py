@@ -61,14 +61,14 @@ from __future__ import annotations
 import datetime
 import os
 import sys
-import time
-from functools import partial
+from functools import partial, wraps
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .._device import SPANS
 from ..ops import adamax as adamax_ops
 from ..ops.fused import (
     explain_fused_loss_inapplicable,
@@ -417,28 +417,31 @@ class _BatchedDescent:
     every rank takes the same steps); a slice's parameters and moments move
     only while it runs, the step count only on a live step. On CUDA the
     step is one CUDA-graph replay (``solver.graph.StepGraph``), eager under
-    a mesh; :meth:`close` releases the graph."""
+    a mesh; :meth:`close` releases the graph. The carry's set-up is the
+    span ``phase.entry``."""
 
     def __init__(self, cfg, one_step, params, opt_state, carry, capacity, shard=None,
                  name="batched descent", verbose=False):
-        dev = carry.prev.device
-        self.cfg, self.one_step, self.shard = cfg, one_step, shard
-        self.params = _buffers(params, dev)
-        self.opt_state = _buffers(opt_state, dev)
-        self.prev, self.frozen, self.nsteps_slice = (
-            x.clone() for x in (carry.prev, carry.frozen, carry.nsteps_slice))
-        self.best_loss = None if carry.best_loss is None else carry.best_loss.clone()
-        self.best_params = None if carry.best_params is None else _buffers(carry.best_params,
-                                                                            dev)
-        self.since = None if carry.since_best is None else carry.since_best.clone()
-        self.it, self.total, self.warmup, self.step0 = (
-            torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
-        self.history = torch.full((max(int(capacity), 1), self.prev.shape[0]), float("nan"),
-                                  dtype=torch.float32, device=dev)
-        self.gate = adamax_ops.BatchedCarry(
-            self.it, self.total, self.warmup, self.step0, self.frozen, self.prev, self.best_loss,
-            self.since, self.nsteps_slice, self.history, cfg.tol, cfg.patience)
-        self.graph = StepGraph(self._step, dev, name, capture=shard is None, verbose=verbose)
+        with SPANS.span("phase.entry"):
+            dev = carry.prev.device
+            self.cfg, self.one_step, self.shard = cfg, one_step, shard
+            self.params = _buffers(params, dev)
+            self.opt_state = _buffers(opt_state, dev)
+            self.prev, self.frozen, self.nsteps_slice = (
+                x.clone() for x in (carry.prev, carry.frozen, carry.nsteps_slice))
+            self.best_loss = None if carry.best_loss is None else carry.best_loss.clone()
+            self.best_params = None if carry.best_params is None else _buffers(carry.best_params,
+                                                                                dev)
+            self.since = None if carry.since_best is None else carry.since_best.clone()
+            self.it, self.total, self.warmup, self.step0 = (
+                torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
+            self.history = torch.full((max(int(capacity), 1), self.prev.shape[0]), float("nan"),
+                                      dtype=torch.float32, device=dev)
+            self.gate = adamax_ops.BatchedCarry(
+                self.it, self.total, self.warmup, self.step0, self.frozen, self.prev,
+                self.best_loss, self.since, self.nsteps_slice, self.history, cfg.tol,
+                cfg.patience)
+            self.graph = StepGraph(self._step, dev, name, capture=shard is None, verbose=verbose)
 
     def carry(self):
         return _Carry(self.prev, self.frozen, self.nsteps_slice, self.best_loss,
@@ -474,11 +477,17 @@ class _BatchedDescent:
         ones, ``step0`` global recorded steps already taken (so a resumed
         segment records global step numbers). The host issues the steps in
         blocks of ``poll_every`` and reads the freeze mask after each; the
-        segment ends when every slice is frozen. Returns (history
-        (recorded, nbatch) float32 numpy of this rank's rows, recorded)."""
+        segment ends when every slice is frozen. A block is the span
+        ``descent.steps``, its read ``descent.poll``. Returns (history
+        (recorded, nbatch) float32 numpy of this rank's rows, recorded), read
+        back as the span ``phase.readback``."""
         nbatch = self.prev.shape[0]
         total = seg_len + warmup
-        if total <= 0 or _all_frozen(self.frozen, self.shard):
+        if total <= 0:
+            return np.zeros((0, nbatch), np.float32), 0
+        with SPANS.span("descent.poll"):
+            done = _all_frozen(self.frozen, self.shard)
+        if done:
             return np.zeros((0, nbatch), np.float32), 0
         if seg_len > self.history.shape[0]:
             raise ValueError(f"a segment of {seg_len} steps in a history of "
@@ -491,13 +500,17 @@ class _BatchedDescent:
         issued = 0
         while issued < total:
             n = min(poll_every, total - issued)
-            for _ in range(n):
-                self.graph()
-            issued += n
-            if _all_frozen(self.frozen, self.shard):  # the host's one read of a block
+            with SPANS.span("descent.steps"):
+                for _ in range(n):
+                    self.graph()
+                issued += n
+                with SPANS.span("descent.poll"):  # the host's one read of a block
+                    done = _all_frozen(self.frozen, self.shard)
+            if done:
                 break
-        recorded = max(int(self.it) - warmup, 0)
-        return self.history[:recorded].cpu().numpy(), recorded
+        with SPANS.span("phase.readback"):
+            recorded = max(int(self.it) - warmup, 0)
+            return self.history[:recorded].cpu().numpy(), recorded
 
     def close(self):
         self.graph.close()
@@ -535,9 +548,10 @@ def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i, shard=
     the per-slice steps and final losses, while the parameters and the
     optimizer state are this rank's blocks."""
     nsteps_slice, final = carry.nsteps_slice, carry.best_loss if cfg.use_min else carry.prev
-    if shard is not None:
-        nsteps_slice, final = shard.gather_rows(nsteps_slice), shard.gather_rows(final)
-    nsteps_slice = np.minimum(nsteps_slice.cpu().numpy(), recorded)
+    with SPANS.span("phase.readback"):
+        if shard is not None:
+            nsteps_slice, final = shard.gather_rows(nsteps_slice), shard.gather_rows(final)
+        nsteps_slice = np.minimum(nsteps_slice.cpu().numpy(), recorded)
     out = carry.best_params if cfg.use_min else params
     if cfg.freeze_model:
         fr, fi = tuple(fg_r), tuple(fg_i)
@@ -550,6 +564,19 @@ def _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i, shard=
                             nsteps_slice, opt_state)
 
 
+def _one_phase(entry):
+    """A batched entry point as one phase of a fit: the spans ``fit`` and
+    ``phase`` around it, each joining one its caller has open (the
+    calibration's phases of one fit)."""
+    @wraps(entry)
+    def run(cfg, chunks, data_r, data_i, wgts, g_r, *args, **kwargs):
+        with SPANS.fit(g_r.device), SPANS.span("phase", join=True):
+            return entry(cfg, chunks, data_r, data_i, wgts, g_r, *args, **kwargs)
+
+    return run
+
+
+@_one_phase
 def batched_fit_core(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
                      prior_r=None, prior_i=None, opt_state0=None, poll_every=1, shard=None):
     """Whole-batch descent: an unrecorded warm-up step, then up to
@@ -557,12 +584,13 @@ def batched_fit_core(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
     parallel/batched.py:1453-1501). ``opt_state0`` carries an optimizer
     state in (the float32 polish of the mixed schedule). Under a mesh
     (``shard``) the inputs are this rank's blocks (``parallel.mesh``)."""
-    opt, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i,
-                                     prior_r, prior_i, shard)
-    params = init_params(cfg, g_r, g_i, fg_r, fg_i)
-    opt_state = opt.init(params) if opt_state0 is None else opt_state0
-    _, params, opt_state = one_step(params, opt_state)  # the warm-up step
-    carry = _fresh_carry(cfg, g_r.shape[0], _np_dtype(g_r), g_r.device, params, shard)
+    with SPANS.span("phase.entry"):
+        opt, one_step = _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i,
+                                         prior_r, prior_i, shard)
+        params = init_params(cfg, g_r, g_i, fg_r, fg_i)
+        opt_state = opt.init(params) if opt_state0 is None else opt_state0
+        _, params, opt_state = one_step(params, opt_state)  # the warm-up step
+        carry = _fresh_carry(cfg, g_r.shape[0], _np_dtype(g_r), g_r.device, params, shard)
     params, opt_state, carry, history, recorded = _batched_segment(
         cfg, one_step, params, opt_state, carry, 0, cfg.maxsteps, poll_every=poll_every,
         shard=shard)
@@ -728,6 +756,7 @@ def _whole_saved(tree, shard, local=False):
     return out
 
 
+@_one_phase
 def batched_fit_checkpointed(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
                              prior_r, prior_i, checkpoint_dir, checkpoint_every, resume,
                              verbose, opt_state0=None, steps_per_execution=None,
@@ -926,24 +955,24 @@ def scan_time_fit(cfg, chunks, data_r, data_i, wgts, carry, prior_r, prior_i,
     carry's coefficients. Under a mesh (``shard``, 'data' unused) the
     coefficients and cubes are this rank's blocks of the groups. Returns
     (result, recorded loss row (float32 numpy), recorded steps, seconds
-    spent in the guard)."""
-    guard_s = []
+    spent in the guard, whose evaluation is the span ``loss_guard``)."""
+    guards = []
     fn = None
     if expected_loss_fn is not None:
         def fn(params, fr_const=carry[2], fi_const=carry[3]):
-            t0 = time.perf_counter()
-            fr = fr_const if cfg.freeze_model else params["fg_r"]
-            fi = fi_const if cfg.freeze_model else params["fg_i"]
-            out = expected_loss_fn(params["g_r"], params["g_i"], fr, fi)
-            guard_s.append(time.perf_counter() - t0)
-            return out
+            with SPANS.span("loss_guard") as span:
+                guards.append(span)
+                fr = fr_const if cfg.freeze_model else params["fg_r"]
+                fi = fi_const if cfg.freeze_model else params["fg_i"]
+                return expected_loss_fn(params["g_r"], params["g_i"], fr, fi)
     res = batched_fit_checkpointed(
         cfg, chunks, data_r, data_i, wgts, *carry, prior_r, prior_i, checkpoint_dir,
         cfg.maxsteps if checkpoint_every is None else checkpoint_every, resume, verbose,
         opt_state0, steps_per_execution=steps_per_execution, expected_loss_fn=fn,
         tail_save=False, poll_every=poll_every, shard=shard)
     nst = min(int(res.nsteps), int(res.nsteps_slice[0]))
-    return res, np.asarray(res.loss_history[:nst, 0], dtype=np.float32), nst, sum(guard_s)
+    return (res, np.asarray(res.loss_history[:nst, 0], dtype=np.float32), nst,
+            sum(g.seconds for g in guards))
 
 
 def scan_carry(res):

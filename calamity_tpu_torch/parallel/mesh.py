@@ -21,12 +21,12 @@ replicated. The per-slice losses and the gain gradients are summed over
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .._device import SPANS
 from ..ops.gains import carry_valid
 
 AXES = ("data", "bl")
@@ -179,7 +179,8 @@ class MeshShard:
     row (the warm-started scan, whose times run in order). ``device``
     carries the collectives' tensors (CUDA under NCCL; gloo takes either).
     ``collective_s`` and ``collective_calls`` count this rank's host
-    seconds in collective calls and their number."""
+    seconds in collective calls (each the span ``mesh.collective``) and
+    their number."""
 
     def __init__(self, mesh, device, nbatch=None):
         shape = mesh_shape(mesh)
@@ -199,9 +200,9 @@ class MeshShard:
         self.collective_calls = 0
 
     def _all_reduce(self, t, group):
-        t0 = time.perf_counter()
-        dist.all_reduce(t, group=group)
-        self.collective_s += time.perf_counter() - t0
+        with SPANS.span("mesh.collective") as span:
+            dist.all_reduce(t, group=group)
+        self.collective_s += span.seconds
         self.collective_calls += 1
 
     # ---------------------------------------------------------------- #

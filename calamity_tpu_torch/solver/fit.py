@@ -33,6 +33,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import SPANS
 from ..ops import adamax as adamax_ops
 from ..ops.fused import warn_fused_fallbacks
 from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
@@ -65,8 +66,10 @@ def _big(np_dtype):
 
 
 def convert_chunks_dtype(chunks, dtype):
-    """Chunk triples with comps cast to ``dtype`` (antenna indices untouched)."""
-    return tuple((comps.to(dtype), a0, a1) for comps, a0, a1 in chunks)
+    """Chunk triples with comps cast to ``dtype`` (antenna indices
+    untouched), as the span ``comps.convert``."""
+    with SPANS.span("comps.convert"):
+        return tuple((comps.to(dtype), a0, a1) for comps, a0, a1 in chunks)
 
 
 def make_loss_fn(cfg, chunks, data_r, data_i, wgts, fg_r_const, fg_i_const,
@@ -118,31 +121,33 @@ class _Descent:
     |delta loss| (``big`` until a second loss), the best loss and its
     parameters, the steps since it and a history buffer of ``capacity``
     losses in the fit dtype. The step is one CUDA-graph replay on CUDA
-    (``solver.graph.StepGraph``); :meth:`close` releases the graph."""
+    (``solver.graph.StepGraph``); :meth:`close` releases the graph. The carry's
+    set-up is the span ``phase.entry``."""
 
     def __init__(self, cfg, loss_fn, opt, params, opt_state, capacity, name="serial descent",
                  verbose=False):
-        g = params["g_r"]
-        dev = g.device
-        self.cfg, self.loss_fn, self.opt = cfg, loss_fn, opt
-        self.dtype = g.dtype
-        self.np_dtype = np.dtype(_np_dtype(g))
-        self.big = float(_big(self.np_dtype))
-        self.params = _buffers(params, dev)
-        self.opt_state = _buffers(opt_state, dev)
-        self.best_params = _buffers(params, dev)
+        with SPANS.span("phase.entry"):
+            g = params["g_r"]
+            dev = g.device
+            self.cfg, self.loss_fn, self.opt = cfg, loss_fn, opt
+            self.dtype = g.dtype
+            self.np_dtype = np.dtype(_np_dtype(g))
+            self.big = float(_big(self.np_dtype))
+            self.params = _buffers(params, dev)
+            self.opt_state = _buffers(opt_state, dev)
+            self.best_params = _buffers(params, dev)
 
-        def scalar(value, dtype):
-            return torch.full((), value, dtype=dtype, device=dev)
+            def scalar(value, dtype):
+                return torch.full((), value, dtype=dtype, device=dev)
 
-        self.step, self.end, self.since = (scalar(0, torch.int64) for _ in range(3))
-        self.prev, self.delta, self.best_loss = (scalar(self.big, g.dtype) for _ in range(3))
-        self.history = torch.full((max(int(capacity), 1),), float("nan"), dtype=g.dtype,
-                                  device=dev)
-        self.carry = adamax_ops.SerialCarry(self.step, self.end, self.delta, self.prev,
-                                            self.best_loss, self.since, self.history, cfg.tol,
-                                            cfg.patience, self.big)
-        self.graph = StepGraph(self._step, dev, name, verbose=verbose)
+            self.step, self.end, self.since = (scalar(0, torch.int64) for _ in range(3))
+            self.prev, self.delta, self.best_loss = (scalar(self.big, g.dtype) for _ in range(3))
+            self.history = torch.full((max(int(capacity), 1),), float("nan"), dtype=g.dtype,
+                                      device=dev)
+            self.carry = adamax_ops.SerialCarry(self.step, self.end, self.delta, self.prev,
+                                                self.best_loss, self.since, self.history, cfg.tol,
+                                                cfg.patience, self.big)
+            self.graph = StepGraph(self._step, dev, name, verbose=verbose)
 
     def _live(self):
         # the reference's cond (solver/fit.py:174-179)
@@ -172,10 +177,11 @@ class _Descent:
         """Up to ``seg_len`` steps from the last loss ``prev``, the best
         loss and the steps since it (the reference's ``_fit_segment`` from
         explicit state; parameters and optimizer state are the carry's).
-        The host issues the steps in blocks of ``POLL_EVERY`` and reads the
-        stop test after each. Returns (history as a list, steps, converged,
+        The host issues the steps in blocks of ``POLL_EVERY`` (each the
+        span ``descent.steps``) and reads the stop test after each
+        (``descent.poll``). Returns (history as a list, steps, converged,
         prev, best_loss, since), the scalars as the fit dtype's numpy
-        scalars."""
+        scalars, read back as the span ``phase.readback``."""
         if seg_len > self.history.numel():
             raise ValueError(f"a segment of {seg_len} steps in a history of "
                              f"{self.history.numel()}")
@@ -186,17 +192,22 @@ class _Descent:
         self.best_loss.fill_(float(best_loss))
         self.since.fill_(int(since))
         issued = 0
-        live = bool(self._live())
+        with SPANS.span("descent.poll"):
+            live = bool(self._live())
         while live and issued < seg_len:
             n = min(POLL_EVERY, seg_len - issued)
-            for _ in range(n):
-                self.graph()
-            issued += n
-            live = bool(self._live())  # the host's one read of a block
-        nsteps = int(self.step)
-        prev, delta, best_loss, since = torch.stack(
-            [x.to(torch.float64) for x in (self.prev, self.delta, self.best_loss, self.since)]
-        ).tolist()
+            with SPANS.span("descent.steps"):
+                for _ in range(n):
+                    self.graph()
+                issued += n
+                with SPANS.span("descent.poll"):
+                    live = bool(self._live())  # the host's one read of a block
+        with SPANS.span("phase.readback"):
+            nsteps = int(self.step)
+            prev, delta, best_loss, since = torch.stack(
+                [x.to(torch.float64) for x in (self.prev, self.delta, self.best_loss, self.since)]
+            ).tolist()
+            history = self.history[:nsteps].tolist()
         dt = self.np_dtype.type
         prev, delta, best_loss, since = dt(prev), dt(delta), dt(best_loss), int(since)
         converged = bool(delta < dt(self.cfg.tol))
@@ -204,7 +215,7 @@ class _Descent:
             # since_best also grows on a NaN/inf step, so a divergence that
             # lands on the patience boundary surfaces as a divergence
             converged = converged or (since >= self.cfg.patience and bool(np.isfinite(prev)))
-        return self.history[:nsteps].tolist(), nsteps, converged, prev, best_loss, since
+        return history, nsteps, converged, prev, best_loss, since
 
     def close(self):
         self.graph.close()
@@ -365,7 +376,9 @@ def fit_gains_and_foregrounds(
     Inputs are tensors on one device as produced by FitSpec; returns
     (g_r, g_i, fg_r, fg_i, fit_history) with fit_history = {"loss": list,
     "phase_seconds": list} (+ "phase_steps" for the mixed schedule).
-    ``phase_seconds`` is the host wall-clock of each recorded descent phase.
+    ``phase_seconds`` holds the seconds of each descent phase's span
+    ``phase`` (ending with the device drained). The fit is the span ``fit``
+    (``_device.SPANS``), its phases the spans ``phase``.
 
     comps_precision: storage precision of the basis tensors during the
     descent ("float32", "bfloat16", or "mixed": bf16 until the tol stop,
@@ -378,122 +391,123 @@ def fit_gains_and_foregrounds(
             f"comps_precision must be 'float32', 'bfloat16' or 'mixed', "
             f"got {comps_precision!r}"
         )
-    if model_regularization == "sum":
-        # the prior is an accumulated scalar: sum in the sky model's dtype
-        wgts_f = [w.to(sky_model_r[0].dtype) for w in wgts]
-        prior_r_sum = sum(torch.sum(smr * w) for smr, w in zip(sky_model_r, wgts_f))
-        prior_i_sum = sum(torch.sum(smi * w) for smi, w in zip(sky_model_i, wgts_f))
-        regularization = "sum"
-    else:
-        prior_r_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
-        prior_i_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
-        regularization = None
-    warn_fused_fallbacks(chunks, fg_r, data_r, wgts)
-
-    cfg = FitConfig(
-        optimizer=optimizer,
-        opt_kwargs=tuple(sorted(opt_kwargs.items())),
-        maxsteps=int(maxsteps),
-        tol=float(tol),
-        use_min=bool(use_min),
-        freeze_model=bool(freeze_model),
-        regularization=regularization,
-        remat=bool(remat),
-        patience=int(patience),
-    )
-    opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
-    phases = [chunks]
-    if comps_precision != "float32":
-        # one bf16 copy of the chunks per fit, made outside the loop
-        chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
-        phases = [chunks_lo] if comps_precision == "bfloat16" else [chunks_lo, chunks]
-    echo(
-        f"{datetime.datetime.now()} Starting fit ({cfg.optimizer}, "
-        f"maxsteps={cfg.maxsteps}, comps_precision={comps_precision})...",
-        verbose=verbose,
-    )
-    params = init_params(cfg, g_r, g_i, fg_r, fg_i)
-    histories, seconds = [], []
-
-    def loss_of(chs):
-        return make_loss_fn(cfg, chs, data_r, data_i, wgts, fg_r, fg_i, prior_r_sum,
-                            prior_i_sum)
-
-    def timed(fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if params["g_r"].is_cuda:
-            torch.cuda.synchronize(params["g_r"].device)
-        seconds.append(time.perf_counter() - t0)
-        return out
-
-    if n_profile_steps > 0:
-        # a short descent traced by the profiler before the fit (reference
-        # solver/fit.py:444-458): every step runs, no stop, nothing returned
-        prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
-        prof_loss = loss_of(phases[0] if comps_precision == "bfloat16" else chunks)
-        prof, _ = profile_trace(
-            profile_log_dir, lambda: _fit_core(prof_cfg, prof_loss, params, opt, opt.init(params)))
-        prof[0].close()
-
-    if checkpoint_dir is not None:
-        from .checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
-
-        def run_checkpointed(chs, p, ckdir):
-            d, prev, best_loss, hist, _ = _fit_checkpointed(
-                cfg, loss_of(chs), p, opt, ckdir, checkpoint_every, resume, verbose)
-            d.close()
-            return (d.best_params, best_loss, hist) if cfg.use_min else (d.params, prev, hist)
-
-        if comps_precision == "mixed":
-            # each phase is its own checkpointed descent (fresh optimizer
-            # state and warm-up step, as the reference's checkpointed mixed
-            # schedule), in phase subdirectories
-            ck1 = os.path.join(checkpoint_dir, "phase_bf16")
-            ck2 = os.path.join(checkpoint_dir, "phase_f32")
-            if resume and latest_checkpoint(ck2) is not None:
-                # phase 2 under way: restore phase 1's recorded diagnostics
-                meta = load_phase_meta(checkpoint_dir)
-                hist1 = [] if meta is None else meta["history"].tolist()
-                p1 = params
-                seconds.append(0.0)
-            else:
-                p1, _, hist1 = timed(run_checkpointed, phases[0], params, ck1)
-                save_phase_meta(checkpoint_dir, nsteps=len(hist1),
-                                history=np.asarray(hist1, dtype=np.float64))
-            out_params, final_loss, hist2 = timed(run_checkpointed, phases[1], p1, ck2)
-            histories = [hist1, hist2]
+    with SPANS.fit(g_r.device):
+        if model_regularization == "sum":
+            # the prior is an accumulated scalar: sum in the sky model's dtype
+            wgts_f = [w.to(sky_model_r[0].dtype) for w in wgts]
+            prior_r_sum = sum(torch.sum(smr * w) for smr, w in zip(sky_model_r, wgts_f))
+            prior_i_sum = sum(torch.sum(smi * w) for smi, w in zip(sky_model_i, wgts_f))
+            regularization = "sum"
         else:
-            out_params, final_loss, hist = timed(run_checkpointed, phases[0], params,
-                                                 checkpoint_dir)
-            histories = [hist]
-    else:
-        for pnum, chs in enumerate(phases):
-            if pnum == 0:
-                d, prev, best_loss, hist, n = timed(_fit_core, cfg, loss_of(chs), params, opt,
-                                                    opt.init(params), verbose)
+            prior_r_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+            prior_i_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
+            regularization = None
+        warn_fused_fallbacks(chunks, fg_r, data_r, wgts)
+
+        cfg = FitConfig(
+            optimizer=optimizer,
+            opt_kwargs=tuple(sorted(opt_kwargs.items())),
+            maxsteps=int(maxsteps),
+            tol=float(tol),
+            use_min=bool(use_min),
+            freeze_model=bool(freeze_model),
+            regularization=regularization,
+            remat=bool(remat),
+            patience=int(patience),
+        )
+        opt = get_optimizer(cfg.optimizer, **dict(cfg.opt_kwargs))
+        phases = [chunks]
+        if comps_precision != "float32":
+            # one bf16 copy of the chunks per fit, made outside the loop
+            chunks_lo = convert_chunks_dtype(chunks, torch.bfloat16)
+            phases = [chunks_lo] if comps_precision == "bfloat16" else [chunks_lo, chunks]
+        echo(
+            f"{datetime.datetime.now()} Starting fit ({cfg.optimizer}, "
+            f"maxsteps={cfg.maxsteps}, comps_precision={comps_precision})...",
+            verbose=verbose,
+        )
+        params = init_params(cfg, g_r, g_i, fg_r, fg_i)
+        histories, seconds = [], []
+
+        def loss_of(chs):
+            return make_loss_fn(cfg, chs, data_r, data_i, wgts, fg_r, fg_i, prior_r_sum,
+                                prior_i_sum)
+
+        def phase(fn, *args):
+            # one descent phase, drained at its end: its seconds are the device's
+            with SPANS.span("phase") as span:
+                out = fn(*args)
+                SPANS.sync(g_r.device)
+            seconds.append(span.seconds)
+            return out
+
+        if n_profile_steps > 0:
+            # a short descent traced by the profiler before the fit (reference
+            # solver/fit.py:444-458): every step runs, no stop, nothing returned
+            prof_cfg = cfg._replace(maxsteps=int(n_profile_steps), tol=0.0, patience=0)
+            prof_loss = loss_of(phases[0] if comps_precision == "bfloat16" else chunks)
+            prof, _ = profile_trace(profile_log_dir, lambda: _fit_core(
+                prof_cfg, prof_loss, params, opt, opt.init(params)))
+            prof[0].close()
+
+        if checkpoint_dir is not None:
+            from .checkpoint import latest_checkpoint, load_phase_meta, save_phase_meta
+
+            def run_checkpointed(chs, p, ckdir):
+                d, prev, best_loss, hist, _ = _fit_checkpointed(
+                    cfg, loss_of(chs), p, opt, ckdir, checkpoint_every, resume, verbose)
+                d.close()
+                return (d.best_params, best_loss, hist) if cfg.use_min else (d.params, prev, hist)
+
+            if comps_precision == "mixed":
+                # each phase is its own checkpointed descent (fresh optimizer
+                # state and warm-up step, as the reference's checkpointed mixed
+                # schedule), in phase subdirectories
+                ck1 = os.path.join(checkpoint_dir, "phase_bf16")
+                ck2 = os.path.join(checkpoint_dir, "phase_f32")
+                if resume and latest_checkpoint(ck2) is not None:
+                    # phase 2 under way: restore phase 1's recorded diagnostics
+                    meta = load_phase_meta(checkpoint_dir)
+                    hist1 = [] if meta is None else meta["history"].tolist()
+                    p1 = params
+                    seconds.append(0.0)
+                else:
+                    p1, _, hist1 = phase(run_checkpointed, phases[0], params, ck1)
+                    save_phase_meta(checkpoint_dir, nsteps=len(hist1),
+                                    history=np.asarray(hist1, dtype=np.float64))
+                out_params, final_loss, hist2 = phase(run_checkpointed, phases[1], p1, ck2)
+                histories = [hist1, hist2]
             else:
-                # float32 polish of the mixed schedule: Adamax state carried
-                # over from the bf16 phase, no second warm-up step
-                d, prev, best_loss, hist, n = timed(_polish, cfg, loss_of(chs), opt, d, verbose)
-            histories.append(hist)
-            if pnum == 0 and len(phases) > 1:
-                echo(
-                    f"{datetime.datetime.now()} bf16 phase converged after {n} "
-                    f"steps; polishing in float32...",
-                    verbose=verbose,
-                )
-        d.close()
-        out_params = d.best_params if cfg.use_min else d.params
-        final_loss = best_loss if cfg.use_min else prev
-    g_r_o, g_i_o, fg_r_o, fg_i_o = _outputs(cfg, out_params, fg_r, fg_i)
-    history = [x for h in histories for x in h]
-    fit_history = {"loss": history, "phase_seconds": seconds}
-    if comps_precision == "mixed":
-        fit_history["phase_steps"] = [len(h) for h in histories]
-    echo(
-        f"{datetime.datetime.now()} Finished gradient descent: "
-        f"{len(history)} steps, final loss {float(final_loss):.2e}",
-        verbose=verbose,
-    )
+                out_params, final_loss, hist = phase(run_checkpointed, phases[0], params,
+                                                     checkpoint_dir)
+                histories = [hist]
+        else:
+            for pnum, chs in enumerate(phases):
+                if pnum == 0:
+                    d, prev, best_loss, hist, n = phase(_fit_core, cfg, loss_of(chs), params, opt,
+                                                        opt.init(params), verbose)
+                else:
+                    # float32 polish of the mixed schedule: Adamax state carried
+                    # over from the bf16 phase, no second warm-up step
+                    d, prev, best_loss, hist, n = phase(_polish, cfg, loss_of(chs), opt, d, verbose)
+                histories.append(hist)
+                if pnum == 0 and len(phases) > 1:
+                    echo(
+                        f"{datetime.datetime.now()} bf16 phase converged after {n} "
+                        f"steps; polishing in float32...",
+                        verbose=verbose,
+                    )
+            d.close()
+            out_params = d.best_params if cfg.use_min else d.params
+            final_loss = best_loss if cfg.use_min else prev
+        g_r_o, g_i_o, fg_r_o, fg_i_o = _outputs(cfg, out_params, fg_r, fg_i)
+        history = [x for h in histories for x in h]
+        fit_history = {"loss": history, "phase_seconds": seconds}
+        if comps_precision == "mixed":
+            fit_history["phase_steps"] = [len(h) for h in histories]
+        echo(
+            f"{datetime.datetime.now()} Finished gradient descent: "
+            f"{len(history)} steps, final loss {float(final_loss):.2e}",
+            verbose=verbose,
+        )
     return g_r_o, g_i_o, fg_r_o, fg_i_o, fit_history

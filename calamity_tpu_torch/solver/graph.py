@@ -29,12 +29,11 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-import time
 import traceback
 
 import torch
 
-from .._device import LAUNCHES
+from .._device import LAUNCHES, SPANS
 from ..utils import echo
 
 # steps between the host's reads of the stop state
@@ -125,32 +124,36 @@ class StepGraph:
         self.calls += 1
 
     def _on_side_stream(self):
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(current)
-        with torch.cuda.stream(self._side):
-            self._step()
-        current.wait_stream(self._side)
+        with SPANS.span("graph.eager"):
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)
+            with torch.cuda.stream(self._side):
+                self._step()
+            current.wait_stream(self._side)
 
     def _capture(self):
-        torch.cuda.synchronize(self.device)
-        # the capture empties the allocator's cache first; so does this, so
-        # that what it reserves after is the graph's pool
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with LAUNCHES.recording() as counts, torch.cuda.graph(graph):
-                self._step()
-        except RuntimeError as exc:
-            raise RuntimeError(f"the CUDA graph capture of {self.name}'s step failed at "
-                               f"{_failing_site(exc)}") from exc
-        torch.cuda.synchronize(self.device)
+        """The span ``graph.capture``: the device drained, the allocator's
+        cache emptied, the step captured and the device drained again; its
+        seconds are the capture record's."""
+        with SPANS.span("graph.capture") as span:
+            SPANS.sync(self.device)
+            # the capture empties the allocator's cache first; so does this,
+            # so that what it reserves after is the graph's pool
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with LAUNCHES.recording() as counts, torch.cuda.graph(graph):
+                    self._step()
+            except RuntimeError as exc:
+                raise RuntimeError(f"the CUDA graph capture of {self.name}'s step failed at "
+                                   f"{_failing_site(exc)}") from exc
+            SPANS.sync(self.device)
+            pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph, self._counts = graph, dict(counts)
-        self.record = {"name": self.name, "seconds": time.perf_counter() - t0,
-                       "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
+        self.record = {"name": self.name, "seconds": span.seconds, "pool_bytes": pool_bytes,
                        "replays": 0}
         CAPTURES.append(self.record)
         echo(f"{datetime.datetime.now()} captured {self.name}'s step in "
@@ -159,9 +162,11 @@ class StepGraph:
 
     def close(self):
         """Release the graph and its memory pool (the mixed schedule's
-        float32 phase captures its own after the bfloat16 one's is gone)."""
-        if self.graph is not None:
-            torch.cuda.synchronize(self.device)  # no replay in flight
-            self.graph.reset()
-            self.graph = None
-            torch.cuda.empty_cache()  # the pool's memory back to the device
+        float32 phase captures its own after the bfloat16 one's is gone),
+        as the span ``graph.release``."""
+        with SPANS.span("graph.release"):
+            if self.graph is not None:
+                SPANS.sync(self.device)  # no replay in flight
+                self.graph.reset()
+                self.graph = None
+                torch.cuda.empty_cache()  # the pool's memory back to the device

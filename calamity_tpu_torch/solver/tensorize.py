@@ -22,7 +22,7 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import SPANS, resolve_device
 from ..ops.gains import antenna_csr, mark_valid
 from ..io.polarizations import conj_pol_ind, polnum2str, polstr2num
 
@@ -157,195 +157,198 @@ class FitSpec:
     """All static structure for fitting one dataset, on one device.
 
     ``device`` is required: the chunk tensors and every packed slice are
-    uploaded there."""
+    uploaded there. Building it is the span ``pack.fitspec``; packing a
+    slice (:meth:`pack_data`, :meth:`pack_data_into`) the span
+    ``pack.slice``; a warm start (:meth:`init_coeffs`) ``pack.warm_start``."""
 
     def __init__(self, visdata, fg_model_comps_dict, ants_map, device, dtype=np.float32,
                  use_redundancy=False, grp_size_threshold=5, nvec_bucketing=False,
                  shared_basis=False):
-        self.device = resolve_device(device)
-        self.dtype = np.dtype(dtype)
-        self.ants_map = dict(ants_map)
-        self.nants = len(ants_map)
-        self.nfreqs = visdata.Nfreqs
-        self.times = np.unique(visdata.time_array)
-        self.ntimes = len(self.times)
-        self.pols = visdata.get_pols()
+        with SPANS.span("pack.fitspec"):
+            self.device = resolve_device(device)
+            self.dtype = np.dtype(dtype)
+            self.ants_map = dict(ants_map)
+            self.nants = len(ants_map)
+            self.nfreqs = visdata.Nfreqs
+            self.times = np.unique(visdata.time_array)
+            self.ntimes = len(self.times)
+            self.pols = visdata.get_pols()
 
-        # red_grps for degenerate-renormalization bookkeeping
-        self.red_grps = [rg for fit_grp in fg_model_comps_dict for rg in fit_grp]
+            # red_grps for degenerate-renormalization bookkeeping
+            self.red_grps = [rg for fit_grp in fg_model_comps_dict for rg in fit_grp]
 
-        blt = BltTable(visdata.ant_1_array, visdata.ant_2_array, visdata.time_array)
+            blt = BltTable(visdata.ant_1_array, visdata.ant_2_array, visdata.time_array)
 
-        # ants_map as a dense lookup array for whole-chunk index mapping
-        max_ant = max(self.ants_map) if self.ants_map else 0
-        ant_index = np.full(max_ant + 1, -1, dtype=np.int64)
-        for ant, idx in self.ants_map.items():
-            ant_index[ant] = idx
+            # ants_map as a dense lookup array for whole-chunk index mapping
+            max_ant = max(self.ants_map) if self.ants_map else 0
+            ant_index = np.full(max_ant + 1, -1, dtype=np.int64)
+            for ant, idx in self.ants_map.items():
+                ant_index[ant] = idx
 
-        def map_ants(arr):
-            out = ant_index[np.clip(arr, 0, max_ant)]
-            invalid = (arr < 0) | (arr > max_ant) | (out < 0)
-            if np.any(invalid):
-                raise KeyError(
-                    f"antenna {int(arr[invalid].ravel()[0])} not in ants_map"
-                )
-            return out.astype(np.int32)
-
-        chunked = chunk_fitting_groups(
-            fg_model_comps_dict,
-            use_redundancy=use_redundancy,
-            grp_size_threshold=grp_size_threshold,
-            nvec_bucketing=nvec_bucketing,
-        )
-
-        self.chunks: List[ChunkArrays] = []
-        self.meta: List[ChunkMeta] = []
-        self.host_comps: List[np.ndarray] = []
-        nfreqs = self.nfreqs
-
-        def upload(comps, a0, a1, valid):
-            self.host_comps.append(comps)
-            chunk = ChunkArrays(*(self._upload(x) for x in (comps, a0, a1)))
-            # the rows that hold a baseline, on the index tensor: the
-            # gain-gradient kernel's lists leave the padding out
-            mark_valid(chunk.a0, valid)
-            if self.device.type == "cuda":
-                # the gain kernels' per-antenna row lists, once
-                antenna_csr(chunk.a0, chunk.a1, self.nants)
-            self.chunks.append(chunk)
-
-        def build_chunk(nbls, nvecs, grp_dict, shared_mat=None):
-            """Pack one chunk. With shared_mat, every group uses the same
-            basis matrix and comps is stored once with group dim 1."""
-            ngrps = len(grp_dict)
-            comps_ngrps = 1 if shared_mat is not None else ngrps
-            comps = np.zeros((comps_ngrps, nbls, nfreqs, nvecs), dtype=self.dtype)
-            fit_grps = list(grp_dict.keys())
-            antpairs = np.fromiter(
-                (a for fg in fit_grps for rg in fg for ap in rg for a in ap),
-                dtype=np.int64,
-                count=ngrps * nbls * 2,
-            ).reshape(ngrps, nbls, 2)
-            a0 = map_ants(antpairs[..., 0])
-            a1 = map_ants(antpairs[..., 1])
-            sel, conj = blt.lookup_pairs(antpairs)
-            rows = blt.rows_matrix(sel, self.ntimes).astype(np.int32)
-            if shared_mat is not None:
-                comps[0, 0, :, : shared_mat.shape[1]] = shared_mat.astype(self.dtype)
-            else:
-                for g, fit_grp in enumerate(fit_grps):
-                    mat = np.asarray(grp_dict[fit_grp], dtype=self.dtype)
-                    nred = len(fit_grp)
-                    rep = np.repeat(
-                        np.arange(nred), [len(rg) for rg in fit_grp]
+            def map_ants(arr):
+                out = ant_index[np.clip(arr, 0, max_ant)]
+                invalid = (arr < 0) | (arr > max_ant) | (out < 0)
+                if np.any(invalid):
+                    raise KeyError(
+                        f"antenna {int(arr[invalid].ravel()[0])} not in ants_map"
                     )
-                    comps[g, :, :, : mat.shape[1]] = mat.reshape(
-                        nred, nfreqs, mat.shape[1]
-                    )[rep]
-            valid = np.ones((ngrps, nbls), bool)
-            upload(comps, a0, a1, valid)
-            self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
+                return out.astype(np.int32)
 
-        def build_shared_batched(classes, nvec_bucket, gmax):
-            """Pack a bucket of operator classes into ONE shared-batched chunk.
+            chunked = chunk_fitting_groups(
+                fg_model_comps_dict,
+                use_redundancy=use_redundancy,
+                grp_size_threshold=grp_size_threshold,
+                nvec_bucketing=nvec_bucketing,
+            )
 
-            classes: list of (shared_mat, [fit_grp, ...]) with class sizes in
-            (gmax//2, gmax]. Groups are laid out class-major and padded to
-            gmax per class with zero-weight dummy entries, so the forward
-            pass is a single batched matmul over the U operators."""
-            nu = len(classes)
-            ngrps = nu * gmax
-            comps = np.zeros((nu, 1, nfreqs, nvec_bucket), dtype=self.dtype)
-            a0 = np.zeros((ngrps, 1), dtype=np.int32)
-            a1 = np.zeros((ngrps, 1), dtype=np.int32)
-            rows = np.zeros((self.ntimes, ngrps, 1), dtype=np.int32)
-            conj = np.zeros((ngrps, 1), dtype=bool)
-            antpairs = np.full((ngrps, 1, 2), -1, dtype=np.int64)
-            valid = np.zeros((ngrps, 1), dtype=bool)
-            fit_grps = [None] * ngrps
-            flat_g, flat_ap = [], []
-            for u, (mat, grps) in enumerate(classes):
-                comps[u, 0, :, : mat.shape[1]] = mat.astype(self.dtype)
-                for k, fit_grp in enumerate(grps):
-                    g = u * gmax + k
-                    fit_grps[g] = fit_grp
-                    flat_g.append(g)
-                    flat_ap.append(fit_grp[0][0])
-            flat_g = np.asarray(flat_g, dtype=np.int64)
-            flat_ap = np.asarray(flat_ap, dtype=np.int64)  # (nvalid, 2)
-            a0[flat_g, 0] = map_ants(flat_ap[:, 0])
-            a1[flat_g, 0] = map_ants(flat_ap[:, 1])
-            sel, cj = blt.lookup_pairs(flat_ap)
-            rows[:, flat_g, 0] = blt.rows_matrix(sel, self.ntimes).astype(np.int32)
-            conj[flat_g, 0] = cj
-            antpairs[flat_g, 0] = flat_ap
-            valid[flat_g, 0] = True
-            upload(comps, a0, a1, valid)
-            self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
+            self.chunks: List[ChunkArrays] = []
+            self.meta: List[ChunkMeta] = []
+            self.host_comps: List[np.ndarray] = []
+            nfreqs = self.nfreqs
 
-        for (nbls, nvecs), grp_dict in chunked.items():
-            if shared_basis and nbls == 1:
-                # identity-first partition: the operator cache hands the SAME
-                # ndarray to every baseline of a given length, so id() catches
-                # virtually all sharing without hashing per group; one digest
-                # per distinct object merges equal-valued arrays from other
-                # sources (e.g. reloaded component dicts)
-                digests = {}
+            def upload(comps, a0, a1, valid):
+                self.host_comps.append(comps)
+                chunk = ChunkArrays(*(self._upload(x) for x in (comps, a0, a1)))
+                # the rows that hold a baseline, on the index tensor: the
+                # gain-gradient kernel's lists leave the padding out
+                mark_valid(chunk.a0, valid)
+                if self.device.type == "cuda":
+                    # the gain kernels' per-antenna row lists, once
+                    antenna_csr(chunk.a0, chunk.a1, self.nants)
+                self.chunks.append(chunk)
 
-                def _digest(mat):
-                    key = id(mat)
-                    if key not in digests:
-                        # hold the array alongside its digest: id() keys are
-                        # only stable while the object is alive
-                        digests[key] = (
-                            mat,
-                            (mat.shape, hashlib.sha1(mat.tobytes()).hexdigest()),
+            def build_chunk(nbls, nvecs, grp_dict, shared_mat=None):
+                """Pack one chunk. With shared_mat, every group uses the same
+                basis matrix and comps is stored once with group dim 1."""
+                ngrps = len(grp_dict)
+                comps_ngrps = 1 if shared_mat is not None else ngrps
+                comps = np.zeros((comps_ngrps, nbls, nfreqs, nvecs), dtype=self.dtype)
+                fit_grps = list(grp_dict.keys())
+                antpairs = np.fromiter(
+                    (a for fg in fit_grps for rg in fg for ap in rg for a in ap),
+                    dtype=np.int64,
+                    count=ngrps * nbls * 2,
+                ).reshape(ngrps, nbls, 2)
+                a0 = map_ants(antpairs[..., 0])
+                a1 = map_ants(antpairs[..., 1])
+                sel, conj = blt.lookup_pairs(antpairs)
+                rows = blt.rows_matrix(sel, self.ntimes).astype(np.int32)
+                if shared_mat is not None:
+                    comps[0, 0, :, : shared_mat.shape[1]] = shared_mat.astype(self.dtype)
+                else:
+                    for g, fit_grp in enumerate(fit_grps):
+                        mat = np.asarray(grp_dict[fit_grp], dtype=self.dtype)
+                        nred = len(fit_grp)
+                        rep = np.repeat(
+                            np.arange(nred), [len(rg) for rg in fit_grp]
                         )
-                    return digests[key][1]
+                        comps[g, :, :, : mat.shape[1]] = mat.reshape(
+                            nred, nfreqs, mat.shape[1]
+                        )[rep]
+                valid = np.ones((ngrps, nbls), bool)
+                upload(comps, a0, a1, valid)
+                self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
 
-                by_digest = {}
-                for fit_grp, mat in grp_dict.items():
-                    mat = np.asarray(mat)
-                    by_digest.setdefault(_digest(mat), []).append(fit_grp)
-                dense = {}
-                shared_classes = []
-                for key, grps in by_digest.items():
-                    if len(grps) >= 2 and all(
-                        len(fg) == 1 and len(fg[0]) == 1 for fg in grps
-                    ):
-                        shared_classes.append((np.asarray(grp_dict[grps[0]]), grps))
-                    else:
-                        for fg in grps:
-                            dense[fg] = grp_dict[fg]
+            def build_shared_batched(classes, nvec_bucket, gmax):
+                """Pack a bucket of operator classes into ONE shared-batched chunk.
 
-                # bucket classes by (nvec pow2, class-size pow2): one batched
-                # chunk per bucket keeps the chunk count small when thousands
-                # of operators exist
-                def pow2(n):
-                    b = 1
-                    while b < n:
-                        b *= 2
-                    return b
+                classes: list of (shared_mat, [fit_grp, ...]) with class sizes in
+                (gmax//2, gmax]. Groups are laid out class-major and padded to
+                gmax per class with zero-weight dummy entries, so the forward
+                pass is a single batched matmul over the U operators."""
+                nu = len(classes)
+                ngrps = nu * gmax
+                comps = np.zeros((nu, 1, nfreqs, nvec_bucket), dtype=self.dtype)
+                a0 = np.zeros((ngrps, 1), dtype=np.int32)
+                a1 = np.zeros((ngrps, 1), dtype=np.int32)
+                rows = np.zeros((self.ntimes, ngrps, 1), dtype=np.int32)
+                conj = np.zeros((ngrps, 1), dtype=bool)
+                antpairs = np.full((ngrps, 1, 2), -1, dtype=np.int64)
+                valid = np.zeros((ngrps, 1), dtype=bool)
+                fit_grps = [None] * ngrps
+                flat_g, flat_ap = [], []
+                for u, (mat, grps) in enumerate(classes):
+                    comps[u, 0, :, : mat.shape[1]] = mat.astype(self.dtype)
+                    for k, fit_grp in enumerate(grps):
+                        g = u * gmax + k
+                        fit_grps[g] = fit_grp
+                        flat_g.append(g)
+                        flat_ap.append(fit_grp[0][0])
+                flat_g = np.asarray(flat_g, dtype=np.int64)
+                flat_ap = np.asarray(flat_ap, dtype=np.int64)  # (nvalid, 2)
+                a0[flat_g, 0] = map_ants(flat_ap[:, 0])
+                a1[flat_g, 0] = map_ants(flat_ap[:, 1])
+                sel, cj = blt.lookup_pairs(flat_ap)
+                rows[:, flat_g, 0] = blt.rows_matrix(sel, self.ntimes).astype(np.int32)
+                conj[flat_g, 0] = cj
+                antpairs[flat_g, 0] = flat_ap
+                valid[flat_g, 0] = True
+                upload(comps, a0, a1, valid)
+                self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
 
-                buckets = {}
-                for mat, grps in shared_classes:
-                    buckets.setdefault(
-                        (pow2(mat.shape[1]), pow2(len(grps))), []
-                    ).append((mat, grps))
-                for (vb, gb), classes in buckets.items():
-                    if len(classes) == 1 and len(classes[0][1]) == gb:
-                        # exactly one full class: plain shared chunk, no padding
-                        mat, grps = classes[0]
-                        build_chunk(
-                            nbls, mat.shape[1],
-                            {g: grp_dict[g] for g in grps}, shared_mat=mat,
-                        )
-                    else:
-                        build_shared_batched(classes, vb, gb)
-                if dense:
-                    build_chunk(nbls, nvecs, dense)
-                continue
-            build_chunk(nbls, nvecs, grp_dict)
+            for (nbls, nvecs), grp_dict in chunked.items():
+                if shared_basis and nbls == 1:
+                    # identity-first partition: the operator cache hands the SAME
+                    # ndarray to every baseline of a given length, so id() catches
+                    # virtually all sharing without hashing per group; one digest
+                    # per distinct object merges equal-valued arrays from other
+                    # sources (e.g. reloaded component dicts)
+                    digests = {}
+
+                    def _digest(mat):
+                        key = id(mat)
+                        if key not in digests:
+                            # hold the array alongside its digest: id() keys are
+                            # only stable while the object is alive
+                            digests[key] = (
+                                mat,
+                                (mat.shape, hashlib.sha1(mat.tobytes()).hexdigest()),
+                            )
+                        return digests[key][1]
+
+                    by_digest = {}
+                    for fit_grp, mat in grp_dict.items():
+                        mat = np.asarray(mat)
+                        by_digest.setdefault(_digest(mat), []).append(fit_grp)
+                    dense = {}
+                    shared_classes = []
+                    for key, grps in by_digest.items():
+                        if len(grps) >= 2 and all(
+                            len(fg) == 1 and len(fg[0]) == 1 for fg in grps
+                        ):
+                            shared_classes.append((np.asarray(grp_dict[grps[0]]), grps))
+                        else:
+                            for fg in grps:
+                                dense[fg] = grp_dict[fg]
+
+                    # bucket classes by (nvec pow2, class-size pow2): one batched
+                    # chunk per bucket keeps the chunk count small when thousands
+                    # of operators exist
+                    def pow2(n):
+                        b = 1
+                        while b < n:
+                            b *= 2
+                        return b
+
+                    buckets = {}
+                    for mat, grps in shared_classes:
+                        buckets.setdefault(
+                            (pow2(mat.shape[1]), pow2(len(grps))), []
+                        ).append((mat, grps))
+                    for (vb, gb), classes in buckets.items():
+                        if len(classes) == 1 and len(classes[0][1]) == gb:
+                            # exactly one full class: plain shared chunk, no padding
+                            mat, grps = classes[0]
+                            build_chunk(
+                                nbls, mat.shape[1],
+                                {g: grp_dict[g] for g in grps}, shared_mat=mat,
+                            )
+                        else:
+                            build_shared_batched(classes, vb, gb)
+                    if dense:
+                        build_chunk(nbls, nvecs, dense)
+                    continue
+                build_chunk(nbls, nvecs, grp_dict)
 
     # ------------------------------------------------------------------ #
     # per-(time, pol) extraction
@@ -436,15 +439,16 @@ class FitSpec:
         UVFlag.weights x ~flags (x nsamples), normalized to unit total; the
         extraction is :meth:`pack_data_into`'s, into a one-slice stack.
         ``as_numpy=True`` returns the host numpy arrays without uploading."""
-        stacks = [[np.zeros((1,) + m.conj.shape + (self.nfreqs,), dtype=self.dtype)
-                   for m in self.meta] for _ in range(3)]
-        self.pack_data_into(visdata, polarization, time, *stacks, 0,
-                            data_scale_factor=data_scale_factor, weights=weights,
-                            nsamples_in_weights=nsamples_in_weights)
-        data_r, data_i, wgts = ([x[0] for x in stack] for stack in stacks)
-        if as_numpy:
-            return data_r, data_i, wgts
-        return tuple([self._upload(x) for x in xs] for xs in (data_r, data_i, wgts))
+        with SPANS.span("pack.slice"):
+            stacks = [[np.zeros((1,) + m.conj.shape + (self.nfreqs,), dtype=self.dtype)
+                       for m in self.meta] for _ in range(3)]
+            self.pack_data_into(visdata, polarization, time, *stacks, 0,
+                                data_scale_factor=data_scale_factor, weights=weights,
+                                nsamples_in_weights=nsamples_in_weights)
+            data_r, data_i, wgts = ([x[0] for x in stack] for stack in stacks)
+            if as_numpy:
+                return data_r, data_i, wgts
+            return tuple([self._upload(x) for x in xs] for xs in (data_r, data_i, wgts))
 
     def pack_data_into(
         self,
@@ -467,96 +471,97 @@ class FitSpec:
         gathers. Rows past a chunk's real group count
         and other slots are left untouched (callers preallocate zeros).
         ``out_w=None`` skips the weights (sky-model packs)."""
-        tind = self.time_index(time)
-        polnum = polstr2num(polarization, x_orientation=visdata.x_orientation)
-        pind = int(np.nonzero(visdata.polarization_array == polnum)[0][0])
-        pind_c = conj_pol_ind(visdata.polarization_array, polnum)
-        # a Python-float scale and a complex division keep the rounding
-        # identical to pack_data
-        scale = float(data_scale_factor)
+        with SPANS.span("pack.slice", join=True):  # pack_data's, where it calls this
+            tind = self.time_index(time)
+            polnum = polstr2num(polarization, x_orientation=visdata.x_orientation)
+            pind = int(np.nonzero(visdata.polarization_array == polnum)[0][0])
+            pind_c = conj_pol_ind(visdata.polarization_array, polnum)
+            # a Python-float scale and a complex division keep the rounding
+            # identical to pack_data
+            scale = float(data_scale_factor)
 
-        wpind = wpind_c = None
-        wrows_chunks = None
-        if weights is not None:
-            wpolnum = polstr2num(polarization, x_orientation=weights.x_orientation)
-            wmatch = np.nonzero(weights.polarization_array == wpolnum)[0]
-            if len(wmatch) == 0:
-                avail = [
-                    polnum2str(int(p), x_orientation=weights.x_orientation)
-                    for p in weights.polarization_array
-                ]
-                raise ValueError(
-                    f"weights object has no polarization {polarization!r} "
-                    f"(available: {avail}); check the weights file passed "
-                    "via weights/--weights_file"
-                )
-            wpind = int(wmatch[0])
-            wpind_c = conj_pol_ind(weights.polarization_array, wpolnum)
-            wrows_chunks = self._weights_rows(weights)
-
-        wgtsum = 0.0
-        w_views = []
-        for cnum, meta in enumerate(self.meta):
-            rows = meta.rows[tind]  # (ngrps, nbls)
-            ngrps = rows.shape[0]
-            cj = meta.conj[..., None]
-            mixed = not (pind_c == pind or not meta.conj.any())
-            if mixed and pind_c < 0:
-                raise KeyError(
-                    f"conjugate polarization of {polarization} not present "
-                    "(needed to read conjugated cross-hand baselines)"
-                )
-
-            def take(arr):
-                # conjugated rows of a cross-hand pol live in the conjugate
-                # pol column (xy stored as yx)
-                if not mixed:
-                    return arr[rows, 0, :, pind]
-                return np.where(cj, arr[rows, 0, :, pind_c], arr[rows, 0, :, pind])
-
-            vals = take(visdata.data_array)
-            flg = take(visdata.flag_array)
-            nsmp = take(visdata.nsample_array) if nsamples_in_weights else None
-            vr = out_r[cnum][slot, :ngrps]
-            vi = out_i[cnum][slot, :ngrps]
-            vals = vals / scale  # complex divide, as pack_data does
-            np.copyto(vr, vals.real, casting="unsafe")
-            np.copyto(vi, vals.imag, casting="unsafe")
-            # conjugated rows negate the imaginary part, in place
-            np.negative(vi, out=vi, where=np.broadcast_to(cj, vi.shape))
-            if out_w is None:
-                continue
-            w = out_w[cnum][slot, :ngrps]
-            if weights is None:
-                np.copyto(w, ~flg, casting="unsafe")
-            else:
-                wrows = wrows_chunks[cnum][tind]
-                if wpind_c == wpind or not meta.conj.any():
-                    np.copyto(w, weights.weights_array[wrows, 0, :, wpind], casting="unsafe")
-                else:
-                    if wpind_c < 0:
-                        raise KeyError(
-                            f"conjugate polarization of {polarization} not "
-                            "present in weights"
-                        )
-                    np.copyto(
-                        w,
-                        np.where(
-                            cj,
-                            weights.weights_array[wrows, 0, :, wpind_c],
-                            weights.weights_array[wrows, 0, :, wpind],
-                        ),
-                        casting="unsafe",
+            wpind = wpind_c = None
+            wrows_chunks = None
+            if weights is not None:
+                wpolnum = polstr2num(polarization, x_orientation=weights.x_orientation)
+                wmatch = np.nonzero(weights.polarization_array == wpolnum)[0]
+                if len(wmatch) == 0:
+                    avail = [
+                        polnum2str(int(p), x_orientation=weights.x_orientation)
+                        for p in weights.polarization_array
+                    ]
+                    raise ValueError(
+                        f"weights object has no polarization {polarization!r} "
+                        f"(available: {avail}); check the weights file passed "
+                        "via weights/--weights_file"
                     )
-                w *= ~flg
-            if nsamples_in_weights:
-                w *= nsmp
-            w *= meta.valid[..., None]  # zero-weight padding entries
-            # float32 pairwise sum, matching pack_data's normalization
-            wgtsum += float(np.sum(w))
-            w_views.append(w)
-        for w in w_views:
-            np.divide(w, wgtsum, out=w)
+                wpind = int(wmatch[0])
+                wpind_c = conj_pol_ind(weights.polarization_array, wpolnum)
+                wrows_chunks = self._weights_rows(weights)
+
+            wgtsum = 0.0
+            w_views = []
+            for cnum, meta in enumerate(self.meta):
+                rows = meta.rows[tind]  # (ngrps, nbls)
+                ngrps = rows.shape[0]
+                cj = meta.conj[..., None]
+                mixed = not (pind_c == pind or not meta.conj.any())
+                if mixed and pind_c < 0:
+                    raise KeyError(
+                        f"conjugate polarization of {polarization} not present "
+                        "(needed to read conjugated cross-hand baselines)"
+                    )
+
+                def take(arr):
+                    # conjugated rows of a cross-hand pol live in the conjugate
+                    # pol column (xy stored as yx)
+                    if not mixed:
+                        return arr[rows, 0, :, pind]
+                    return np.where(cj, arr[rows, 0, :, pind_c], arr[rows, 0, :, pind])
+
+                vals = take(visdata.data_array)
+                flg = take(visdata.flag_array)
+                nsmp = take(visdata.nsample_array) if nsamples_in_weights else None
+                vr = out_r[cnum][slot, :ngrps]
+                vi = out_i[cnum][slot, :ngrps]
+                vals = vals / scale  # complex divide, as pack_data does
+                np.copyto(vr, vals.real, casting="unsafe")
+                np.copyto(vi, vals.imag, casting="unsafe")
+                # conjugated rows negate the imaginary part, in place
+                np.negative(vi, out=vi, where=np.broadcast_to(cj, vi.shape))
+                if out_w is None:
+                    continue
+                w = out_w[cnum][slot, :ngrps]
+                if weights is None:
+                    np.copyto(w, ~flg, casting="unsafe")
+                else:
+                    wrows = wrows_chunks[cnum][tind]
+                    if wpind_c == wpind or not meta.conj.any():
+                        np.copyto(w, weights.weights_array[wrows, 0, :, wpind], casting="unsafe")
+                    else:
+                        if wpind_c < 0:
+                            raise KeyError(
+                                f"conjugate polarization of {polarization} not "
+                                "present in weights"
+                            )
+                        np.copyto(
+                            w,
+                            np.where(
+                                cj,
+                                weights.weights_array[wrows, 0, :, wpind_c],
+                                weights.weights_array[wrows, 0, :, wpind],
+                            ),
+                            casting="unsafe",
+                        )
+                    w *= ~flg
+                if nsamples_in_weights:
+                    w *= nsmp
+                w *= meta.valid[..., None]  # zero-weight padding entries
+                # float32 pairwise sum, matching pack_data's normalization
+                wgtsum += float(np.sum(w))
+                w_views.append(w)
+            for w in w_views:
+                np.divide(w, wgtsum, out=w)
 
     def pack_gains(self, caldata, polarization, time):
         """(Nants, Nfreqs) real/imag gain tensors for one (time, pol)
@@ -643,12 +648,13 @@ class FitSpec:
         only on the (static) basis matrices."""
         from ..ops.lstsq import gram_cholesky_chunk, init_coeffs_from_cholesky
 
-        if getattr(self, "_gram_chol", None) is None:
-            self._gram_chol = [gram_cholesky_chunk(c.comps) for c in self.chunks]
-        return [
-            init_coeffs_from_cholesky(chol, active, c.comps, d, w)
-            for (chol, active), c, d, w in zip(self._gram_chol, self.chunks, data, wgts)
-        ]
+        with SPANS.span("pack.warm_start"):
+            if getattr(self, "_gram_chol", None) is None:
+                self._gram_chol = [gram_cholesky_chunk(c.comps) for c in self.chunks]
+            return [
+                init_coeffs_from_cholesky(chol, active, c.comps, d, w)
+                for (chol, active), c, d, w in zip(self._gram_chol, self.chunks, data, wgts)
+            ]
 
 
 def to_numpy(x):
