@@ -49,6 +49,13 @@
 //   entry whose cotangents are zero (a padded row listed by a caller that
 //   lists every row) leaves the sums as they were: the lists with and
 //   without padding give the same gradient to the bit.
+// - A caller may pass each slice's scale s (a chunk-loss kernel's
+//   gain-product gradients are taken at a unit cotangent, and s is the
+//   slice's cotangent). Each dpr and dpi entry is multiplied by it as it is
+//   read, one round-to-nearest multiply (__fmul_rn / __dmul_rn, never
+//   contracted into the multiply-adds), so the gradient equals this
+//   kernel's at the planes s * dpr and s * dpi to the bit, and no pass
+//   over the planes scales them first.
 
 // C interface (loaded with ctypes): gain_grad(...) returns the CUDA error
 // of the launches (0 on success); it launches on the given stream and does
@@ -63,6 +70,10 @@ namespace {
 constexpr int kThreads = 128;  // channels of a block
 constexpr int kBatch = 4;      // entries whose loads a thread starts together
 
+// A round-to-nearest multiply the compiler may not contract into an FMA.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // One entry's terms, as two explicit fused multiply-adds each.
 template <typename T>
 __device__ __forceinline__ void add_entry(int side, T p_r, T p_i, T gr, T gi, T& acc_r,
@@ -76,7 +87,8 @@ __device__ __forceinline__ void add_entry(int side, T p_r, T p_i, T gr, T gi, T&
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gain_grad_segments(const T* __restrict__ dpr, const T* __restrict__ dpi,
-                   const T* __restrict__ g_r, const T* __restrict__ g_i,
+                   const T* __restrict__ scale, const T* __restrict__ g_r,
+                   const T* __restrict__ g_i,
                    const int* __restrict__ rowside, const int* __restrict__ other,
                    const int* __restrict__ seg_start, const int* __restrict__ seg_ant,
                    const int* __restrict__ seg_slot, T* __restrict__ dg_r,
@@ -92,6 +104,8 @@ gain_grad_segments(const T* __restrict__ dpr, const T* __restrict__ dpi,
   const T* pi_n = dpi + n * rows * nfreqs + f;
   const T* gr_n = g_r + n * nants * nfreqs + f;
   const T* gi_n = g_i + n * nants * nfreqs + f;
+  const bool scaled = scale != nullptr;
+  const T s = scaled ? scale[n] : T(1);
   T acc_r = T(0), acc_i = T(0);
   const int e0 = seg_start[seg];
   const int e1 = seg_start[seg + 1];
@@ -111,8 +125,8 @@ gain_grad_segments(const T* __restrict__ dpr, const T* __restrict__ dpi,
       for (int k = 0; k < kBatch; ++k) {
         const int64_t row = s_rowside[e + k] >> 1;
         const int64_t o = s_other[e + k];
-        p_r[k] = pr_n[row * nfreqs];
-        p_i[k] = pi_n[row * nfreqs];
+        p_r[k] = scaled ? mul_rn(pr_n[row * nfreqs], s) : pr_n[row * nfreqs];
+        p_i[k] = scaled ? mul_rn(pi_n[row * nfreqs], s) : pi_n[row * nfreqs];
         gr[k] = gr_n[o * nfreqs];
         gi[k] = gi_n[o * nfreqs];
       }
@@ -124,8 +138,9 @@ gain_grad_segments(const T* __restrict__ dpr, const T* __restrict__ dpi,
     for (; e < m; ++e) {
       const int64_t row = s_rowside[e] >> 1;
       const int64_t o = s_other[e];
-      add_entry(s_rowside[e] & 1, pr_n[row * nfreqs], pi_n[row * nfreqs], gr_n[o * nfreqs],
-                gi_n[o * nfreqs], acc_r, acc_i);
+      const T p_r = scaled ? mul_rn(pr_n[row * nfreqs], s) : pr_n[row * nfreqs];
+      const T p_i = scaled ? mul_rn(pi_n[row * nfreqs], s) : pi_n[row * nfreqs];
+      add_entry(s_rowside[e] & 1, p_r, p_i, gr_n[o * nfreqs], gi_n[o * nfreqs], acc_r, acc_i);
     }
   }
   if (!active) return;
@@ -159,7 +174,7 @@ gain_grad_partials(const T* __restrict__ part_r, const T* __restrict__ part_i,
 }
 
 template <typename T>
-int launch(const void* dpr, const void* dpi, const void* g_r, const void* g_i,
+int launch(const void* dpr, const void* dpi, const void* scale, const void* g_r, const void* g_i,
            const void* rowside, const void* other, const void* seg_start, const void* seg_ant,
            const void* seg_slot, const void* multi_ants, const void* multi_slot, void* dg_r,
            void* dg_i, void* part_r, void* part_i, long long nbatch, long long rows,
@@ -169,8 +184,8 @@ int launch(const void* dpr, const void* dpi, const void* g_r, const void* g_i,
   gain_grad_segments<T><<<dim3(static_cast<unsigned>(nseg), tiles,
                                static_cast<unsigned>(nbatch)),
                           kThreads, 0, stream>>>(
-      static_cast<const T*>(dpr), static_cast<const T*>(dpi), static_cast<const T*>(g_r),
-      static_cast<const T*>(g_i), static_cast<const int*>(rowside),
+      static_cast<const T*>(dpr), static_cast<const T*>(dpi), static_cast<const T*>(scale),
+      static_cast<const T*>(g_r), static_cast<const T*>(g_i), static_cast<const int*>(rowside),
       static_cast<const int*>(other), static_cast<const int*>(seg_start),
       static_cast<const int*>(seg_ant), static_cast<const int*>(seg_slot),
       static_cast<T*>(dg_r), static_cast<T*>(dg_i), static_cast<T*>(part_r),
@@ -190,9 +205,11 @@ int launch(const void* dpr, const void* dpi, const void* g_r, const void* g_i,
 
 extern "C" {
 
-// dpr, dpi: (nbatch, rows, nfreqs); g_r, g_i, dg_r, dg_i: (nbatch, nants,
-// nfreqs); part_r, part_i: (nbatch, nslots, nfreqs) scratch (unused when
-// nmulti is 0); all contiguous, of one type (dtype 0: float32, 1: float64).
+// dpr, dpi: (nbatch, rows, nfreqs); scale: (nbatch,), each slice's factor
+// on its dpr and dpi entries, or null for 1; g_r, g_i, dg_r, dg_i: (nbatch,
+// nants, nfreqs); part_r, part_i: (nbatch, nslots, nfreqs) scratch (unused
+// when nmulti is 0); all contiguous, of one type (dtype 0: float32, 1:
+// float64).
 // The int32 tables: rowside and other (nentries = seg_start[nseg]
 // entries), each row * 2 + side and the row's other antenna, antenna by
 // antenna in ascending row order; seg_start (nseg + 1), seg_ant and
@@ -202,8 +219,8 @@ extern "C" {
 // multi_ants (nmulti) and multi_slot (nmulti + 1): the antennas with
 // several segments and their slots [multi_slot[j], multi_slot[j + 1]).
 // Every antenna has at least one segment.
-int gain_grad(const void* dpr, const void* dpi, const void* g_r, const void* g_i,
-              const void* rowside, const void* other, const void* seg_start,
+int gain_grad(const void* dpr, const void* dpi, const void* scale, const void* g_r,
+              const void* g_i, const void* rowside, const void* other, const void* seg_start,
               const void* seg_ant, const void* seg_slot, const void* multi_ants,
               const void* multi_slot, void* dg_r, void* dg_i, void* part_r, void* part_i,
               long long nbatch, long long rows, long long nants, long long nfreqs,
@@ -216,7 +233,7 @@ int gain_grad(const void* dpr, const void* dpi, const void* g_r, const void* g_i
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto launch_as = dtype == 0 ? &launch<float> : &launch<double>;
-  return launch_as(dpr, dpi, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
+  return launch_as(dpr, dpi, scale, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
                    multi_ants, multi_slot, dg_r, dg_i, part_r, part_i, nbatch, rows, nants,
                    nfreqs, nseg, nmulti, nslots, static_cast<cudaStream_t>(stream));
 }

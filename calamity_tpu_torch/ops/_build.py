@@ -60,10 +60,10 @@ class KernelLibrary:
         # dpr2, dpi2, pieces, cot, dpr, dpi, dcoeffs; N, G, F, V; stream
         lib.fused_sum_combine.argtypes = [vp] * 7 + [ll] * 4 + [vp]
         lib.fused_sum_combine.restype = ci
-        # dpr, dpi, g_r, g_i, rowside, other, seg_start, seg_ant, seg_slot,
-        # multi_ants, multi_slot, dg_r, dg_i, part_r, part_i; N, rows, nants,
-        # F, nseg, nmulti, nslots, nentries; dtype; stream
-        lib.gain_grad.argtypes = [vp] * 15 + [ll] * 8 + [ci, vp]
+        # dpr, dpi, scale, g_r, g_i, rowside, other, seg_start, seg_ant,
+        # seg_slot, multi_ants, multi_slot, dg_r, dg_i, part_r, part_i; N, rows,
+        # nants, F, nseg, nmulti, nslots, nentries; dtype; stream
+        lib.gain_grad.argtypes = [vp] * 16 + [ll] * 8 + [ci, vp]
         lib.gain_grad.restype = ci
         # g_r, g_i, a0, a1, pr, pi; N, rows, nants, F; dtype; stream
         lib.gain_products.argtypes = [vp] * 6 + [ll] * 4 + [ci, vp]

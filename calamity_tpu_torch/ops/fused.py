@@ -11,8 +11,11 @@ and per (time, pol) slice n:
 and the reference's backward ``_bwd_xla`` at a loss cotangent of 1: the
 chi-square is local per group and its cotangent a scalar per slice, so the
 gradients of the coefficients and of the gain products are computed in
-the same pass as the loss and the autograd Function's backward only
-scales them by each slice's cotangent (exact: they are linear in it).
+the same pass as the loss, and the backward only scales them by each
+slice's cotangent (exact: they are linear in it). On the main path the
+gain products' gradients are not scaled here: ``ops.gains.ChunkTerm``
+hands them to the gain-gradient kernel with the cotangent as its scale
+(:class:`ChiSquareTerm`).
 
 On a CUDA tensor the pass is the hand-written kernel in
 ``csrc/fused_chunk_loss.cu`` (built on first use by ``ops._build``), which
@@ -426,34 +429,86 @@ def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode):
     raise ValueError(f"unsupported device {comps3.device}")
 
 
-class _FusedChunkLossBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
-        # frozen coefficients need only the gain-product gradients
-        mode = LOSS_ALL if ctx.needs_input_grad[0] else LOSS_DP
-        losses, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode)
-        ctx.save_for_backward(dcoeffs, dpr, dpi)
-        return losses
+class ChiSquareTerm:
+    """The chi-square instances of a chunk-loss kernel whose pass is
+    ``run(coeffs2, pr, pi, *operands, mode)`` (``ops.fused`` or
+    ``ops.shared``'s ``_loss_and_grads``), as the autograd Functions run
+    them (:func:`kernel_term`, ``ops.gains.chunk_term``); ``operands``:
+    (dr, di, w, comps3), and a shared chunk's group mask after them.
+
+    ``forward(coeffs2, pr, pi, operands, coeff_grad)`` returns the (N,)
+    losses and what the backward reads, the gradients at a unit cotangent
+    (frozen coefficients: the gain products' alone); ``backward(saved,
+    gbar, coeff_grad)`` returns ``(dcoeffs, dpr, dpi, scale)``: the
+    coefficients' gradient at the cotangent ``gbar`` (None unless
+    ``coeff_grad``), and the gain products' at a unit cotangent with
+    ``scale`` = ``gbar``, the (N,) factor that takes them to ``gbar``
+    (exact: they are linear in it), left to their reader to apply;
+    ``alone(coeffs2, pr, pi, operands)`` the loss-only instance."""
+
+    def __init__(self, run):
+        self.run = run
+
+    def forward(self, coeffs2, pr, pi, operands, coeff_grad):
+        losses, *grads = self.run(coeffs2, pr, pi, *operands, LOSS_ALL if coeff_grad else LOSS_DP)
+        return losses, grads
+
+    def backward(self, saved, gbar, coeff_grad):
+        dcoeffs, dpr, dpi = saved
+        return (dcoeffs * gbar.reshape(1, -1, 1, 1) if coeff_grad else None), dpr, dpi, gbar
+
+    def alone(self, coeffs2, pr, pi, operands):
+        return self.run(coeffs2, pr, pi, *operands, LOSS_ONLY)[0]
+
+
+class _SumTerm:
+    """The "sum" prior's terms of a dense chunk, with :class:`ChiSquareTerm`'s
+    methods: the forward runs the one-pass instance (the terms and the
+    pieces of every gradient, frozen coefficients: of the gain-product
+    gradients), the backward forms the gradients at the (3, N) cotangents
+    from the pieces (:func:`combine`; ``scale`` None)."""
 
     @staticmethod
-    def backward(ctx, gbar):
-        # comps, data and weights are never differentiated parameters
-        return scaled_grads(ctx, gbar) + (None,) * 4
+    def forward(coeffs2, pr, pi, operands, coeff_grad):
+        mode = SUM_FWD_ALL if coeff_grad else SUM_FWD_DP
+        terms, *pieces = _loss_and_grads(coeffs2, pr, pi, *operands, mode)
+        return terms, pieces
+
+    @staticmethod
+    def backward(saved, tbar, coeff_grad):
+        return combine(*saved, tbar.contiguous()) + (None,)
+
+    @staticmethod
+    def alone(coeffs2, pr, pi, operands):
+        return _loss_and_grads(coeffs2, pr, pi, *operands, SUM_FWD)[0]
 
 
-def scaled_grads(ctx, gbar):
-    """(dcoeffs, dpr, dpi) of a chunk-loss Function's backward: the saved
-    gradients at a unit cotangent scaled by each slice's cotangent ``gbar``
-    (exact: they are linear in it), None where no gradient is wanted."""
-    dcoeffs, dpr, dpi = ctx.saved_tensors
-    g = gbar.reshape(-1, 1, 1)
-    if dcoeffs is not None and ctx.needs_input_grad[0]:
-        dcoeffs = dcoeffs * g.unsqueeze(0)
-    else:
-        dcoeffs = None
-    dpr = dpr * g if ctx.needs_input_grad[1] else None
-    dpi = dpi * g if ctx.needs_input_grad[2] else None
-    return dcoeffs, dpr, dpi
+# the dense kernel's terms (the pass looked up at each call)
+LOSS_TERM = ChiSquareTerm(lambda *args: _loss_and_grads(*args))
+SUM_TERM = _SumTerm()
+
+
+class _KernelTerm(torch.autograd.Function):
+    """A chunk-loss kernel's term (``inst``: :class:`ChiSquareTerm` or a
+    "sum" term), differentiable in coeffs2, pr and pi."""
+
+    @staticmethod
+    def forward(ctx, inst, coeffs2, pr, pi, *operands):
+        out, saved = inst.forward(coeffs2, pr, pi, operands, ctx.needs_input_grad[1])
+        ctx.inst, ctx.noperands = inst, len(operands)
+        ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        # comps, data, weights and the mask are never differentiated
+        want = ctx.needs_input_grad
+        dcoeffs, dpr, dpi, scale = ctx.inst.backward(ctx.saved_tensors, cot, want[1])
+        if scale is not None:
+            g = scale.reshape(-1, 1, 1)
+            dpr, dpi = dpr * g, dpi * g
+        return (None, dcoeffs, dpr if want[2] else None, dpi if want[3] else None) \
+            + (None,) * ctx.noperands
 
 
 def _wants_grad(coeffs2, pr, pi):
@@ -461,21 +516,13 @@ def _wants_grad(coeffs2, pr, pi):
                                         or pi.requires_grad)
 
 
-class _FusedChunkTermsBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3):
-        # one read of comps: the terms and the pieces of every gradient
-        # (frozen coefficients: of the gain-product gradients)
-        mode = SUM_FWD_ALL if ctx.needs_input_grad[0] else SUM_FWD_DP
-        terms, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, mode)
-        ctx.save_for_backward(dcoeffs, dpr, dpi)
-        return terms
-
-    @staticmethod
-    def backward(ctx, tbar):
-        grads = combine(*ctx.saved_tensors, tbar.contiguous())
-        want = ctx.needs_input_grad[:3]
-        return tuple(g if w else None for g, w in zip(grads, want)) + (None,) * 4
+def kernel_term(inst, coeffs2, pr, pi, *operands):
+    """The term ``inst`` of one chunk for N slices from its gain products
+    ``pr``, ``pi`` (N, G, F), differentiable in coeffs2, pr and pi; with no
+    gradient wanted ``inst.alone`` runs and nothing is saved."""
+    if _wants_grad(coeffs2, pr, pi):
+        return _KernelTerm.apply(inst, coeffs2, pr, pi, *operands)
+    return inst.alone(coeffs2, pr, pi, operands)
 
 
 def fused_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3):
@@ -488,9 +535,7 @@ def fused_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3):
     sets); the backward forms the gradients at the three cotangents from
     them (:func:`combine`). With no gradient wanted only the "sum" forward
     runs and nothing is saved."""
-    if _wants_grad(coeffs2, pr, pi):
-        return _FusedChunkTermsBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
-    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, SUM_FWD)[0]
+    return kernel_term(SUM_TERM, coeffs2, pr, pi, dr, di, w, comps3)
 
 
 def fused_chunk_terms_batched_plain(coeffs2, pr, pi, dr, di, w, comps3):
@@ -511,9 +556,7 @@ def fused_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3):
     w:       (N, ngrps, nfreqs) float32 or bfloat16, any strides
     comps3:  (ngrps, nfreqs, nvecs) float32 or bfloat16
     """
-    if _wants_grad(coeffs2, pr, pi):
-        return _FusedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3)
-    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, LOSS_ONLY)[0]
+    return kernel_term(LOSS_TERM, coeffs2, pr, pi, dr, di, w, comps3)
 
 
 # ---------------------------------------------------------------------- #
@@ -539,9 +582,3 @@ def fused_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w):
     dr, di, w: (ngrps, nfreqs); w float32 or bfloat16
     """
     return fused_chunk_loss_batched(*_one(coeffs2, pr, pi, dr, di, w), comps3)[0]
-
-
-def fused_chunk_terms(coeffs2, pr, pi, comps3, dr, di, w):
-    """The "sum" prior's terms of one slice of a dense B=1 chunk (the
-    signature of :func:`fused_chunk_loss`): (3,) chi-square, M_r, M_i."""
-    return fused_chunk_terms_batched(*_one(coeffs2, pr, pi, dr, di, w), comps3)[:, 0]

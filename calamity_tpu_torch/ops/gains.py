@@ -20,6 +20,13 @@ versions, :func:`_products` and :func:`gain_grad_plain` (the
 ``index_select`` backward under autograd, deterministic on the CPU). A
 failed launch raises.
 
+A chunk a chunk-loss kernel takes (``ops.fused``, ``ops.shared``) is
+one :class:`ChunkTerm` from the gains on instead: the products and the
+loss kernel in its forward, and in its backward the loss kernel's
+gain-product gradients handed to the gradient kernel as they are, each
+slice's cotangent its ``scale``, applied as the kernel reads each entry.
+``GainProducts`` serves the chunks that take the plain torch loss.
+
 The backward's lists (:class:`GainIndex`) are built from a chunk's ``a0``,
 ``a1`` and the rows that hold a baseline (``ChunkMeta.valid``). The
 packing decides which rows those are and records them on the index tensor
@@ -44,6 +51,7 @@ from .._device import LAUNCHES
 
 KERNEL_NAME = "gain_grad"
 PRODUCTS_KERNEL_NAME = "gain_products"
+ROUTE_NAME = "chunk_term.direct"  # a kernel chunk term's backward through ChunkTerm
 SEGMENT = 64  # entries of a segment of an antenna's list
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -196,10 +204,15 @@ def antenna_csr(a0, a1, nants):
 # ---------------------------------------------------------------------- #
 # plain versions and kernels
 # ---------------------------------------------------------------------- #
-def gain_grad_plain(dpr, dpi, g_r, g_i, a0, a1):
+def gain_grad_plain(dpr, dpi, g_r, g_i, a0, a1, scale=None):
     """Plain torch version of the kernel: ``(dg_r, dg_i)``, each (nbatch,
-    nants, nfreqs), the gradient of ``sum(dpr * pr + dpi * pi)`` in the
-    gains, through the ``index_select`` backward (an ``index_add_``)."""
+    nants, nfreqs), the gradient of ``sum(s * (dpr * pr + dpi * pi))`` in
+    the gains, ``s`` each slice's ``scale`` ((nbatch,), None for 1), through
+    the ``index_select`` backward (an ``index_add_``) at the planes ``s *
+    dpr`` and ``s * dpi``."""
+    if scale is not None:
+        s = scale.reshape((-1,) + (1,) * (dpr.dim() - 1))
+        dpr, dpi = dpr * s, dpi * s
     with torch.enable_grad():
         gr = g_r.detach().requires_grad_(True)
         gi = g_i.detach().requires_grad_(True)
@@ -242,11 +255,13 @@ def _raise_on(lib, err, name):
                            f"({lib.fcl_error_string(err).decode()})")
 
 
-def gain_grad_kernel(dpr, dpi, g_r, g_i, index):
+def gain_grad_kernel(dpr, dpi, g_r, g_i, index, scale=None):
     """:func:`gain_grad_plain` from the CUDA kernel: ``dpr, dpi`` (nbatch,
     rows, nfreqs), gains (nbatch, nants, nfreqs), the chunk's
-    :class:`GainIndex`. Raises on operands the kernel does not take and on
-    a failed launch."""
+    :class:`GainIndex`, ``scale`` (nbatch,) of the gains' dtype or None;
+    the kernel multiplies each dpr and dpi entry by its slice's scale as it
+    reads it, so no scaled plane is made. Raises on operands the kernel
+    does not take and on a failed launch."""
     from ._build import load_kernels
 
     dev, code = _check_gains(g_r, g_i, index)
@@ -258,6 +273,11 @@ def gain_grad_kernel(dpr, dpi, g_r, g_i, index):
             or dpi.device != g_r.device:
         raise TypeError(f"cotangents {dpr.dtype} on {dpr.device} and {dpi.dtype} on "
                         f"{dpi.device}, the gains {g_r.dtype} on {g_r.device}")
+    if scale is not None:
+        if scale.shape != (nbatch,) or scale.dtype != g_r.dtype or scale.device != g_r.device:
+            raise ValueError(f"scale {scale.dtype} {tuple(scale.shape)} on {scale.device}; "
+                             f"expected {g_r.dtype} ({nbatch},) on {g_r.device}")
+        scale = scale.contiguous()
     dpr, dpi, g_r, g_i = dpr.contiguous(), dpi.contiguous(), g_r.contiguous(), g_i.contiguous()
     dg_r = torch.empty_like(g_r)
     dg_i = torch.empty_like(g_i)
@@ -268,10 +288,10 @@ def gain_grad_kernel(dpr, dpi, g_r, g_i, index):
         scratch = torch.empty((2, nbatch, index.nslots, nfreqs), dtype=g_r.dtype, device=dev)
         part = (scratch[0].data_ptr(), scratch[1].data_ptr())
     lib = load_kernels()
-    err = _launch(dev, lib.gain_grad, dpr.data_ptr(), dpi.data_ptr(), g_r.data_ptr(),
-                  g_i.data_ptr(), *index.ptrs, dg_r.data_ptr(), dg_i.data_ptr(), *part, nbatch,
-                  index.rows, nants, nfreqs, index.nseg, index.nmulti, index.nslots,
-                  index.nentries, code)
+    err = _launch(dev, lib.gain_grad, dpr.data_ptr(), dpi.data_ptr(),
+                  None if scale is None else scale.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
+                  *index.ptrs, dg_r.data_ptr(), dg_i.data_ptr(), *part, nbatch, index.rows,
+                  nants, nfreqs, index.nseg, index.nmulti, index.nslots, index.nentries, code)
     _raise_on(lib, err, KERNEL_NAME)
     LAUNCHES.add(KERNEL_NAME)
     return dg_r, dg_i
@@ -297,6 +317,19 @@ def gain_products_kernel(g_r, g_i, index):
     _raise_on(lib, err, PRODUCTS_KERNEL_NAME)
     LAUNCHES.add(PRODUCTS_KERNEL_NAME)
     return pr, pi
+
+
+def gain_grad(dpr, dpi, g_r, g_i, a0, a1, scale=None):
+    """``(dg_r, dg_i)`` of :func:`gain_grad_plain` (``dpr``, ``dpi``:
+    (nbatch, ngrps, [nbls,] nfreqs)): the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if g_r.device.type == "cuda":
+        nbatch, nants, nfreqs = g_r.shape
+        return gain_grad_kernel(dpr.reshape(nbatch, -1, nfreqs), dpi.reshape(nbatch, -1, nfreqs),
+                                g_r, g_i, antenna_csr(a0, a1, nants), scale)
+    if g_r.device.type == "cpu":
+        return gain_grad_plain(dpr, dpi, g_r, g_i, a0, a1, scale)
+    raise ValueError(f"unsupported device {g_r.device}")
 
 
 def products(g_r, g_i, a0, a1):
@@ -326,16 +359,7 @@ class GainProducts(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpr, dpi):
         g_r, g_i = ctx.saved_tensors
-        a0, a1 = ctx.a0, ctx.a1
-        if g_r.device.type == "cuda":
-            nbatch, nants, nfreqs = g_r.shape
-            dg_r, dg_i = gain_grad_kernel(dpr.reshape(nbatch, -1, nfreqs),
-                                          dpi.reshape(nbatch, -1, nfreqs), g_r, g_i,
-                                          antenna_csr(a0, a1, nants))
-        elif g_r.device.type == "cpu":
-            dg_r, dg_i = gain_grad_plain(dpr, dpi, g_r, g_i, a0, a1)
-        else:
-            raise ValueError(f"unsupported device {g_r.device}")
+        dg_r, dg_i = gain_grad(dpr, dpi, g_r, g_i, ctx.a0, ctx.a1)
         return dg_r, dg_i, None, None
 
 
@@ -345,6 +369,54 @@ def gain_products_batched(g_r, g_i, a0, a1):
     if torch.is_grad_enabled() and (g_r.requires_grad or g_i.requires_grad):
         return GainProducts.apply(g_r, g_i, a0, a1)
     return products(g_r, g_i, a0, a1)
+
+
+class ChunkTerm(torch.autograd.Function):
+    """One kernel chunk term from the gains on: its gain products and a
+    chunk-loss kernel's term ``inst`` (``ops.fused.ChiSquareTerm`` or a
+    "sum" term) in the forward, with nothing between them; in the backward
+    the kernel's gain-product gradients (N, G, F) go to the gain-gradient
+    kernel as they are, with the slice's cotangent as its ``scale`` where
+    they were taken at a unit cotangent. So no plane-sized pass lies
+    between the two kernels: no select of the products' baseline axis,
+    whose backward would zero-fill and copy a plane, and no plane scaled by
+    the cotangent. Counted in :data:`LAUNCHES` as :data:`ROUTE_NAME`, once
+    a backward that takes the route."""
+
+    @staticmethod
+    def forward(ctx, inst, g_r, g_i, fr, fi, a0, a1, *operands):
+        pr, pi = products(g_r, g_i, a0, a1)  # (N, G, 1, F)
+        coeff_grad = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
+        out, saved = inst.forward(torch.stack([fr, fi]), pr[:, :, 0], pi[:, :, 0], operands,
+                                  coeff_grad)
+        ctx.inst, ctx.a0, ctx.a1, ctx.noperands = inst, a0, a1, len(operands)
+        ctx.save_for_backward(g_r, g_i, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        g_r, g_i, *saved = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        dcoeffs, dpr, dpi, scale = ctx.inst.backward(saved, cot, want[3] or want[4])
+        dg_r = dg_i = None
+        if want[1] or want[2]:
+            dg_r, dg_i = gain_grad(dpr, dpi, g_r, g_i, ctx.a0, ctx.a1, scale)
+            LAUNCHES.add(ROUTE_NAME)
+        dfr, dfi = (None, None) if dcoeffs is None else dcoeffs
+        return (None, dg_r, dg_i, dfr, dfi, None, None) + (None,) * ctx.noperands
+
+
+def chunk_term(inst, g_r, g_i, fr, fi, a0, a1, *operands):
+    """The term ``inst`` of one B=1 chunk a chunk-loss kernel takes, from
+    the gains (nbatch, nants, nfreqs) and the coefficients ``fr``, ``fi``
+    (nbatch, ngrps, nvecs), differentiable in both (:class:`ChunkTerm`);
+    ``a0``, ``a1`` (ngrps, 1) the chunk's indices, ``operands`` the
+    kernel's after the gain products. With no gradient wanted the products
+    and ``inst.alone`` run and nothing is saved."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (g_r, g_i, fr, fi)):
+        return ChunkTerm.apply(inst, g_r, g_i, fr, fi, a0, a1, *operands)
+    pr, pi = products(g_r, g_i, a0, a1)
+    return inst.alone(torch.stack([fr, fi]), pr[:, :, 0], pi[:, :, 0], operands)
 
 
 def gain_products(g_r, g_i, a0, a1):

@@ -5,9 +5,10 @@ batched matvec of the padded basis tensor against the stacked (real, imag)
 coefficients; complex arithmetic is expanded into real products; antenna
 gains are gathered by index. Chunks that a kernel's gate accepts go through
 that kernel instead (on a CUDA tensor; its plain version on a CPU tensor):
-a dense B=1 chunk through ``ops.fused.fused_chunk_loss``, a shared or
-shared-batched B=1 chunk through ``ops.shared.shared_chunk_loss`` (with
-the "sum" prior, through their ``*_chunk_terms``).
+a dense B=1 chunk through ``ops.fused``'s kernel, a shared or
+shared-batched B=1 chunk through ``ops.shared``'s (with the "sum" prior,
+through their "sum" instances), each as one ``ops.gains.chunk_term`` from
+the gains on.
 """
 
 from __future__ import annotations
@@ -16,14 +17,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .fused import explain_fused_loss_inapplicable, fused_chunk_loss, fused_chunk_terms
-from .gains import gain_products
-from .shared import (
-    explain_shared_loss_inapplicable,
-    group_mask,
-    shared_chunk_loss,
-    shared_chunk_terms,
-)
+from . import fused, shared
+from .fused import explain_fused_loss_inapplicable
+from .gains import chunk_term, gain_products
+from .shared import explain_shared_loss_inapplicable, group_mask
 
 
 def fg_model(coeffs_r, coeffs_i, comps):
@@ -154,8 +151,8 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
     sequences; a chunk's weights may be one (..., 1) plane broadcast over
     frequency. A chunk a kernel's gate accepts (B=1, float32 or bfloat16
     comps, float32 operands) goes through that kernel: a dense one through
-    ``fused_chunk_loss``, a shared or shared-batched one through
-    ``shared_chunk_loss``; every other chunk takes the plain torch ops below.
+    ``ops.fused``'s, a shared or shared-batched one through
+    ``ops.shared``'s; every other chunk takes the plain torch ops below.
 
     ``remat`` wraps each plain chunk term in ``torch.utils.checkpoint``,
     so the backward pass recomputes the foreground model instead of saving
@@ -165,25 +162,28 @@ def chunked_loss(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, remat=False
     for cnum, (comps, a0, a1) in enumerate(chunks):
         args = (g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1, data_r[cnum], data_i[cnum],
                 wgts[cnum])
-        loss = _kernel_term(fused_chunk_loss, shared_chunk_loss, *args)
+        loss = _kernel_term(False, *args)
         total = total + (term(*args) if loss is None else loss)
     return total
 
 
-def _kernel_term(dense_op, shared_op, g_r, g_i, fr, fi, comps, a0, a1, dr, di, w):
-    """A chunk's term through a chunk-loss kernel's op, ``dense_op`` (a
-    dense chunk) or ``shared_op`` (a shared or shared-batched one), where
-    its gate accepts the chunk; None where neither kernel takes it."""
-    dense = explain_fused_loss_inapplicable(comps, fr, dr, w) is None
-    if not dense and explain_shared_loss_inapplicable(comps, fr, dr, w) is not None:
+def _kernel_term(terms, g_r, g_i, fr, fi, comps, a0, a1, dr, di, w):
+    """A chunk's term through a chunk-loss kernel, the dense one or the
+    shared-basis one, where its gate accepts the chunk: the chi-square, or
+    with ``terms`` the "sum" prior's (3,) terms; None where neither kernel
+    takes it."""
+    if explain_fused_loss_inapplicable(comps, fr, dr, w) is None:
+        inst, valid = fused.SUM_TERM if terms else fused.LOSS_TERM, ()
+    elif explain_shared_loss_inapplicable(comps, fr, dr, w) is None:
+        inst, valid = shared.SUM_TERM if terms else shared.LOSS_TERM, (group_mask(a0),)
+    else:
         return None
-    pr, pi = gain_products(g_r, g_i, a0, a1)  # (ngrps, 1, nfreqs)
     dr = dr[:, 0]
     # a frequency-invariant weights plane (trailing axis 1) reaches the
     # kernel as a stride-0 view of the data's shape
-    args = (torch.stack([fr, fi], dim=0), pr[:, 0], pi[:, 0], comps[:, 0], dr, di[:, 0],
-            w[:, 0].expand(dr.shape))
-    return dense_op(*args) if dense else shared_op(*args, group_mask(a0))
+    one = (t.unsqueeze(0) for t in (g_r, g_i, fr, fi))
+    planes = (t.unsqueeze(0) for t in (dr, di[:, 0], w[:, 0].expand(dr.shape)))
+    return chunk_term(inst, *one, a0, a1, *planes, comps[:, 0], *valid)[..., 0]
 
 
 def chunked_loss_sum_regularized(
@@ -194,15 +194,15 @@ def chunked_loss_sum_regularized(
     penalizes deviation of the weighted model flux sums from the sky-model
     prior sums, pinning the overall amplitude/phase degeneracy. A chunk a
     kernel's gate accepts (as in :func:`chunked_loss`) takes that kernel's
-    "sum" instances (``fused_chunk_terms``, ``shared_chunk_terms``: the
-    chi-square and both flux sums in one pass, their gradients in a second
-    at the prior's cotangents); every other chunk the torch ops below."""
+    "sum" instances (the chi-square and both flux sums in one pass, their
+    gradients from its pieces or in a second pass at the prior's
+    cotangents); every other chunk the torch ops below."""
     total = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     mr_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     mi_sum = torch.zeros((), dtype=g_r.dtype, device=g_r.device)
     for cnum, (comps, a0, a1) in enumerate(chunks):
-        terms = _kernel_term(fused_chunk_terms, shared_chunk_terms, g_r, g_i, fg_r[cnum],
-                             fg_i[cnum], comps, a0, a1, data_r[cnum], data_i[cnum], wgts[cnum])
+        terms = _kernel_term(True, g_r, g_i, fg_r[cnum], fg_i[cnum], comps, a0, a1,
+                             data_r[cnum], data_i[cnum], wgts[cnum])
         if terms is not None:
             chi2, mrs, mis = terms
             total = total + chi2

@@ -13,8 +13,8 @@ the shared branches of the reference's ``fg_model`` / ``fg_model_batched``
 (calamity_tpu/ops/loss.py:62-81, :108-121), ``data_model`` and ``mse``,
 which the JAX package leaves to XLA. As for the dense chunk
 (``ops.fused``), the gradients at a loss cotangent of 1 come out of the
-same pass and the autograd Function's backward only scales them by each
-slice's cotangent.
+same pass and the backward only scales them by each slice's cotangent
+(``ops.fused.ChiSquareTerm``).
 
 On a CUDA tensor the pass is the hand-written kernel in
 ``csrc/shared_chunk_loss.cu`` (built on first use by ``ops._build``),
@@ -51,18 +51,16 @@ from .fused import (
     _DP_MODES,
     _WGTS_DTYPES,
     LOSS_ALL,
-    LOSS_DP,
-    LOSS_ONLY,
     SUM_ALL,
     SUM_DP,
     SUM_FWD,
+    ChiSquareTerm,
     _f32,
-    _wants_grad,
     after_matvec,
     check_cot,
     count_launch,
+    kernel_term,
     n_terms,
-    scaled_grads,
     sum_partials,
 )
 from .gains import valid_rows
@@ -306,20 +304,32 @@ def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot=None):
     raise ValueError(f"unsupported device {comps3.device}")
 
 
-class _SharedChunkLossBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3, valid):
-        # frozen coefficients need only the gain-product gradients
-        mode = LOSS_ALL if ctx.needs_input_grad[0] else LOSS_DP
-        losses, dcoeffs, dpr, dpi = _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid,
-                                                    mode)
-        ctx.save_for_backward(dcoeffs, dpr, dpi)
-        return losses
+class _SumTerm:
+    """The "sum" prior's terms of a shared or shared-batched chunk, with
+    ``ops.fused.ChiSquareTerm``'s methods: the forward runs the "sum"
+    forward instance and keeps the operands themselves (no copies: the
+    backward instance reads them again), the backward the "sum" backward
+    instance at the three cotangents, with only the gain-product gradients
+    where the coefficients want none (``scale`` None)."""
 
     @staticmethod
-    def backward(ctx, gbar):
-        # comps, data, weights and the mask are never differentiated
-        return scaled_grads(ctx, gbar) + (None,) * 5
+    def forward(coeffs2, pr, pi, operands, coeff_grad):
+        return _loss_and_grads(coeffs2, pr, pi, *operands, SUM_FWD)[0], (coeffs2, pr, pi) + operands
+
+    @staticmethod
+    def backward(saved, tbar, coeff_grad):
+        mode = SUM_ALL if coeff_grad else SUM_DP
+        _, dcoeffs, dpr, dpi = _loss_and_grads(*saved, mode, tbar.contiguous())
+        return dcoeffs if coeff_grad else None, dpr, dpi, None
+
+    @staticmethod
+    def alone(coeffs2, pr, pi, operands):
+        return _loss_and_grads(coeffs2, pr, pi, *operands, SUM_FWD)[0]
+
+
+# the shared-basis kernel's terms (the pass looked up at each call)
+LOSS_TERM = ChiSquareTerm(lambda *args: _loss_and_grads(*args))
+SUM_TERM = _SumTerm()
 
 
 def shared_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
@@ -334,26 +344,7 @@ def shared_chunk_loss_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
     comps3:  (nu, nfreqs, nvecs) float32 or bfloat16, nu dividing ngrps
     valid:   (ngrps,) bool, the groups that hold a baseline (None: every one)
     """
-    if _wants_grad(coeffs2, pr, pi):
-        return _SharedChunkLossBatched.apply(coeffs2, pr, pi, dr, di, w, comps3, valid)
-    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, LOSS_ONLY)[0]
-
-
-class _SharedChunkTermsBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, coeffs2, pr, pi, dr, di, w, comps3, valid):
-        # the operands themselves, no copies: the backward instance reads them again
-        ctx.save_for_backward(coeffs2, pr, pi, dr, di, w, comps3, valid)
-        return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, SUM_FWD)[0]
-
-    @staticmethod
-    def backward(ctx, tbar):
-        # the "sum" backward instance at the three cotangents; only the
-        # gain-product gradients where the coefficients want none
-        want = ctx.needs_input_grad[:3]
-        mode = SUM_ALL if want[0] else SUM_DP
-        _, dcoeffs, dpr, dpi = _loss_and_grads(*ctx.saved_tensors, mode, tbar.contiguous())
-        return tuple(g if w else None for g, w in zip((dcoeffs, dpr, dpi), want)) + (None,) * 5
+    return kernel_term(LOSS_TERM, coeffs2, pr, pi, dr, di, w, comps3, valid)
 
 
 def shared_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
@@ -365,21 +356,4 @@ def shared_chunk_terms_batched(coeffs2, pr, pi, dr, di, w, comps3, valid=None):
     "sum" forward instance and keeps references to the operands; the
     backward its "sum" backward instance at the three cotangents. With no
     gradient wanted only the forward runs and nothing is saved."""
-    if _wants_grad(coeffs2, pr, pi):
-        return _SharedChunkTermsBatched.apply(coeffs2, pr, pi, dr, di, w, comps3, valid)
-    return _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, SUM_FWD)[0]
-
-
-def shared_chunk_loss(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
-    """:func:`shared_chunk_loss_batched` of one slice (the signature of
-    ``ops.fused.fused_chunk_loss``): coeffs2 (2, ngrps, nvecs); pr, pi, dr,
-    di, w (ngrps, nfreqs)."""
-    planes = tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
-    return shared_chunk_loss_batched(coeffs2.unsqueeze(1), *planes, comps3, valid)[0]
-
-
-def shared_chunk_terms(coeffs2, pr, pi, comps3, dr, di, w, valid=None):
-    """:func:`shared_chunk_terms_batched` of one slice (the signature of
-    :func:`shared_chunk_loss`): (3,) chi-square, M_r, M_i."""
-    planes = tuple(t.unsqueeze(0) for t in (pr, pi, dr, di, w))
-    return shared_chunk_terms_batched(coeffs2.unsqueeze(1), *planes, comps3, valid)[:, 0]
+    return kernel_term(SUM_TERM, coeffs2, pr, pi, dr, di, w, comps3, valid)

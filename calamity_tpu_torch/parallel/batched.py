@@ -16,16 +16,16 @@ slice whose |delta loss| drops below tol, whose loss goes non-finite or
 that runs out of patience is frozen (its parameters and optimizer moments
 stop moving) while the others keep stepping; the optimizer's scalar step
 count advances while any slice runs. A dense one-baseline-per-group chunk
-goes through the fused kernel with a slice axis
-(``ops.fused.fused_chunk_loss_batched``: one comps read for every slice),
-a shared or shared-batched one through the shared-basis kernel
-(``ops.shared.shared_chunk_loss_batched``: an operator's tile read once for
-a tile of (group, slice) pairs); under the "sum" prior through the same
-kernels' "sum" instances (``fused_chunk_terms_batched``,
-``shared_chunk_terms_batched``); every other chunk takes torch ops whose
-contraction also reads comps once for the batch. Every chunk's gain
-gradient is ``ops.gains.GainProducts``' backward (on the card a kernel
-that sums in a fixed order).
+goes through the fused kernel with a slice axis (``ops.fused``: one comps
+read for every slice), a shared or shared-batched one through the
+shared-basis kernel (``ops.shared``: an operator's tile read once for a
+tile of (group, slice) pairs); under the "sum" prior through the same
+kernels' "sum" instances; each such chunk is one ``ops.gains.chunk_term``
+from the gains on, whose backward hands the kernel's gain-product
+gradients straight to the gain-gradient kernel. Every other chunk takes
+torch ops whose contraction also reads comps once for the batch, its gain
+gradient ``ops.gains.GainProducts``' backward. On the card the gain
+gradient is a kernel that sums in a fixed order.
 
 The reference's jit-compiled ``while_loop`` keeps its carry on the device,
 and so does :class:`_BatchedDescent`: one step function updates the
@@ -70,19 +70,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import SPANS
 from ..ops import adamax as adamax_ops
-from ..ops.fused import (
-    explain_fused_loss_inapplicable,
-    fused_chunk_loss_batched,
-    fused_chunk_terms_batched,
-)
-from ..ops.gains import carry_valid, gain_products_batched
+from ..ops import fused, shared
+from ..ops.fused import explain_fused_loss_inapplicable
+from ..ops.gains import carry_valid, chunk_term, gain_products_batched
 from ..ops.loss import fg_model_batched, fg_model_host
-from ..ops.shared import (
-    explain_shared_loss_inapplicable,
-    group_mask,
-    shared_chunk_loss_batched,
-    shared_chunk_terms_batched,
-)
+from ..ops.shared import explain_shared_loss_inapplicable, group_mask
 from ..solver.fit import _big, _buffers, init_params
 from ..solver.graph import StepGraph
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
@@ -130,28 +122,28 @@ def _plain_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
     return (torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),)
 
 
-def _kernel_operands(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
-    """A B=1 chunk's operands of the chunk-loss kernels, with a slice axis."""
-    pr, pi = gain_products_batched(gr, gi, a0, a1)  # (nbatch, ngrps, 1, nfreqs)
-    coeffs2 = torch.stack([fr, fi], dim=0)  # (2, nbatch, ngrps, nvecs)
+def _kernel_term(inst, gr, gi, fr, fi, dr, di, w, comps, a0, a1, *valid):
+    """A B=1 chunk's term ``inst`` through a chunk-loss kernel, with a
+    slice axis, from the gains on (``ops.gains.chunk_term``)."""
     wp = w[:, :, 0].expand(dr.shape[0], dr.shape[1], dr.shape[3])
-    return coeffs2, pr[:, :, 0], pi[:, :, 0], dr[:, :, 0], di[:, :, 0], wp, comps[:, 0]
+    return chunk_term(inst, gr, gi, fr, fi, a0, a1, dr[:, :, 0], di[:, :, 0], wp, comps[:, 0],
+                      *valid)
 
 
 def _fused_losses(*args):
-    return (fused_chunk_loss_batched(*_kernel_operands(*args)),)
+    return (_kernel_term(fused.LOSS_TERM, *args),)
 
 
 def _shared_losses(*args):
-    return (shared_chunk_loss_batched(*_kernel_operands(*args), group_mask(args[-2])),)
+    return (_kernel_term(shared.LOSS_TERM, *args, group_mask(args[-2])),)
 
 
 def _fused_terms(*args):
-    return tuple(fused_chunk_terms_batched(*_kernel_operands(*args)))
+    return tuple(_kernel_term(fused.SUM_TERM, *args))
 
 
 def _shared_terms(*args):
-    return tuple(shared_chunk_terms_batched(*_kernel_operands(*args), group_mask(args[-2])))
+    return tuple(_kernel_term(shared.SUM_TERM, *args, group_mask(args[-2])))
 
 
 def _sum_terms(gr, gi, fr, fi, dr, di, w, comps, a0, a1):

@@ -197,11 +197,12 @@ def test_profile_steps_write_a_trace_and_leave_the_fit_unchanged(golden_problem,
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     # the traced descent: a warm-up and n_profile_steps recorded steps, each
-    # through the fused loss of every chunk its gate accepts
+    # through one kernel chunk term (the gains, their products and the loss
+    # kernel) of every chunk the fused kernel's gate accepts
     fused = sum(explain_fused_loss_inapplicable(c, f, d, w) is None
                 for (c, _, _), f, d, w in zip(args[7], args[2], args[4], args[6]))
     assert fused > 0
-    assert sum(e.get("name") == "_FusedChunkLossBatched" for e in events) == 4 * fused
+    assert sum(e.get("name") == "ChunkTerm" for e in events) == 4 * fused
 
 
 @pytest.mark.parametrize("optimizer, opt_kwargs", [

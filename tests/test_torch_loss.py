@@ -246,15 +246,17 @@ def test_chunked_loss_takes_a_compressed_weights_plane(dtype, monkeypatch):
     chunk reaches the fused loss with weights of the data's shape (a
     stride-0 view, the operand shape the kernel checks), and the loss and
     its gradients equal those of the full weight cube."""
+    from calamity_tpu_torch.ops import fused
+
     t, planes = _compressed_weights_case(dtype, "cpu")
     seen = []
-    real = tloss.fused_chunk_loss
+    real = fused._loss_and_grads
 
-    def spy(coeffs2, pr, pi, comps3, dr, di, w):
+    def spy(coeffs2, pr, pi, dr, di, w, comps3, mode):
         seen.append((tuple(w.shape), tuple(dr.shape), w.stride()[-1]))
-        return real(coeffs2, pr, pi, comps3, dr, di, w)
+        return real(coeffs2, pr, pi, dr, di, w, comps3, mode)
 
-    monkeypatch.setattr(tloss, "fused_chunk_loss", spy)
+    monkeypatch.setattr(fused, "_loss_and_grads", spy)
     full_val, full_grad = _loss_and_grads_with(t, t["w"])
     val, grad = _loss_and_grads_with(t, planes)
     assert len(seen) == 2 and seen[1][0] == seen[1][1] and seen[1][2] == 0
