@@ -157,14 +157,16 @@ class FitSpec:
     """All static structure for fitting one dataset, on one device.
 
     ``device`` is required: the chunk tensors and every packed slice are
-    uploaded there. Building it is the span ``pack.fitspec``; packing a
-    slice (:meth:`pack_data`, :meth:`pack_data_into`) the span
-    ``pack.slice``; a warm start (:meth:`init_coeffs`) ``pack.warm_start``."""
+    uploaded there. Building it is the span ``pack.fitspec``, noted with
+    the bytes of every chunk's basis on the device (``basis_bytes``), and
+    each dense chunk's packing within it ``pack.dense``; packing a slice
+    (:meth:`pack_data`, :meth:`pack_data_into`) the span ``pack.slice``; a
+    warm start (:meth:`init_coeffs`) ``pack.warm_start``."""
 
     def __init__(self, visdata, fg_model_comps_dict, ants_map, device, dtype=np.float32,
                  use_redundancy=False, grp_size_threshold=5, nvec_bucketing=False,
                  shared_basis=False):
-        with SPANS.span("pack.fitspec"):
+        with SPANS.span("pack.fitspec") as fitspec_span:
             self.device = resolve_device(device)
             self.dtype = np.dtype(dtype)
             self.ants_map = dict(ants_map)
@@ -219,7 +221,8 @@ class FitSpec:
 
             def build_chunk(nbls, nvecs, grp_dict, shared_mat=None):
                 """Pack one chunk. With shared_mat, every group uses the same
-                basis matrix and comps is stored once with group dim 1."""
+                basis matrix and comps is stored once with group dim 1.
+                Returns the host comps."""
                 ngrps = len(grp_dict)
                 comps_ngrps = 1 if shared_mat is not None else ngrps
                 comps = np.zeros((comps_ngrps, nbls, nfreqs, nvecs), dtype=self.dtype)
@@ -248,6 +251,15 @@ class FitSpec:
                 valid = np.ones((ngrps, nbls), bool)
                 upload(comps, a0, a1, valid)
                 self.meta.append(ChunkMeta(fit_grps, antpairs, rows, conj, valid))
+                return comps
+
+            def build_dense(nbls, nvecs, grp_dict):
+                """Pack a chunk whose groups each have their own basis, as
+                the span ``pack.dense`` noted with its groups, modes and
+                the basis bytes uploaded."""
+                with SPANS.span("pack.dense") as span:
+                    comps = build_chunk(nbls, nvecs, grp_dict)
+                    span.notes.update(groups=len(grp_dict), nvecs=nvecs, bytes=comps.nbytes)
 
             def build_shared_batched(classes, nvec_bucket, gmax):
                 """Pack a bucket of operator classes into ONE shared-batched chunk.
@@ -346,9 +358,11 @@ class FitSpec:
                         else:
                             build_shared_batched(classes, vb, gb)
                     if dense:
-                        build_chunk(nbls, nvecs, dense)
+                        build_dense(nbls, nvecs, dense)
                     continue
-                build_chunk(nbls, nvecs, grp_dict)
+                build_dense(nbls, nvecs, grp_dict)
+            fitspec_span.notes["basis_bytes"] = sum(
+                c.comps.numel() * c.comps.element_size() for c in self.chunks)
 
     # ------------------------------------------------------------------ #
     # per-(time, pol) extraction
