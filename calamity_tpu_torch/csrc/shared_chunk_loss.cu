@@ -31,17 +31,19 @@
 // write no loss. A pair's cotangents are staged once in shared memory, in
 // the unread columns past its coefficient row.
 //
-// Precision: split TF32. Both products run on `mma.sync.m16n8k8` with TF32
-// operands, each float32 operand x split into hi = tf32(x) and lo = tf32(x -
-// hi) (`cvt.rna.tf32.f32`, or past 64 modes the same rounding on the bits;
-// the subtraction is exact), and each fragment
-// product accumulated as a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms
-// first) into a float32 accumulator: three `mma`s. hi + lo holds x to about
+// Precision: split TF32. Both products run on the tensor cores with TF32
+// operands (`mma.sync.m16n8k8`; past 64 modes the model on
+// `wgmma.mma_async.m64n32k8`), each float32 operand x split into hi =
+// tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`, or past 64 modes the
+// same rounding on the bits; the subtraction is exact), and each product
+// accumulated as a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms first, a
+// k-step of 8 at a time) into a float32 accumulator: three products. hi +
+// lo holds x to about
 // 2^-22 and the dropped a_lo b_lo is about 2^-22 of the product, so a
 // product is good to about 2^-21 relative (float32: 2^-24), inside the
 // tolerances the kernel is held to (loss rel 1e-5, gradients rel 1e-4). A
 // bfloat16 comps value is exact in TF32, so only the other operand is split:
-// two `mma`s. A single TF32 product (about 1e-3) would poison the fit's
+// two products. A single TF32 product (about 1e-3) would poison the fit's
 // floor, as the reference's `Precision.HIGHEST` (loss.py:40-43) guards
 // against; these split products are the port's only TF32, and
 // `allow_tf32` stays off everywhere else. Everything outside the products
@@ -62,13 +64,13 @@
 // trades ALU work for shared-memory reads, which pays for bfloat16 comps'
 // coefficients only (PERF.md).
 //
-// Why `mma.sync` and not `wgmma`: `wgmma` takes TF32 operands from shared
-// memory only K-major, and only 16-bit types may be transposed. The
-// coefficient gradient's operand is comps with K running over channels,
-// which is M-major in the staged (channel, mode) tile. With the products
-// off the CUDA cores the kernel is bound by bytes, and `mma.sync`'s rate is
-// more than enough; it also lets both products run on fragments held in
-// registers (below), which `wgmma`'s warpgroup tiles would not.
+// Why `mma.sync` here: with the products off the CUDA cores this kernel is
+// bound by bytes and issue, and `mma.sync` lets both products run on
+// fragments held in registers (below), which `wgmma`'s warpgroup tiles
+// would not. The coefficient gradient stays on `mma.sync` in both kernels:
+// `wgmma` takes TF32 operands from shared memory only K-major (only 16-bit
+// types may be transposed), and its comps operand, with K running over
+// channels, is M-major in the staged (channel, mode) tile.
 //
 // Design: every (group, slice) pair of an operator is independent but for
 // the operator it reads, so a block takes one operator and a tile of 32
@@ -134,24 +136,36 @@
 //
 // Past 64 modes (`shared_chunk_loss_sliced`, below) the modes are sliced
 // over the blocks of a cluster: ceil(V / 64) blocks take a tile of pairs,
-// block r the modes [64 r, 64 r + 64), so a block's shared memory (a ring of
-// two 32-channel tiles of its slice, its slice of the coefficients, two
-// exchange buffers: 50 KB float32, 42 KB bfloat16) and its registers (128)
-// do not grow with V, and four blocks (sixteen warps) share an SM. Per
-// channel tile, phase A forms the slice's part of the model of its 32 pairs
-// and leaves it in shared memory; after a cluster barrier each block runs
-// the epilogue (m, the loss, dm, dpr/dpi, dv) of its share of the pairs,
-// the model summed over the slices in rank order through DSMEM, each plane
-// entry read once and dpr/dpi written once as above, and leaves the dv of
-// its pairs in shared memory; after a second barrier phase B reads the dv
-// of its warps' pairs from the blocks that own them and adds its slice of
-// comps into its 64-mode register tile of dcoeffs, written once at the end:
+// block r the modes [64 r, 64 r + 64), so a block's shared memory and its
+// registers do not grow with V. Each float32 operand is split into its TF32
+// halves once, where it is staged in shared memory: the block's slice of
+// the coefficients once a launch, each 32-channel comps tile once, by one
+// pass of the block over the tile it fetched into registers a tile ahead
+// (bfloat16 comps are only widened). Both are staged K-major (the modes
+// contiguous) in `wgmma`'s layout without swizzle, so per channel tile
+// phase A, the slice's part of the model of the 32 pairs, (64 coefficient
+// rows x 64 modes) x (64 modes x 32 channels), is 24 `wgmma`s (16 with
+// bfloat16 comps) of the warpgroup reading the halves through shared-memory
+// descriptors, and leaves the model in shared memory; after a cluster
+// barrier each block runs the epilogue (m, the loss, dm, dpr/dpi, dv) of
+// its share of the pairs, the model summed over the slices in rank order
+// through DSMEM, each plane entry read once and dpr/dpi written once, and
+// leaves the dv of its pairs in shared memory; after a second barrier phase
+// B reads the dv of its warps' pairs from the blocks that own them, splits
+// it (dv changes every tile), and adds the staged comps halves into its
+// 64-mode register tile of dcoeffs on `mma.sync`, written once at the end:
 // nothing is summed in global memory. A chunk of few tiles of pairs also
 // splits its channels over the cluster (up to 16 blocks, non-portable past
-// 8), the splits summed in split order at the end as above. What holds it
-// from its bound is the same issue and latency, now with sixteen warps an
-// SM; twelve, with one barrier a tile in a ring of three tiles, measured
-// slower (PERF.md).
+// 8), the splits summed in split order at the end as above. Shared memory
+// (comps halves 16.5 KB float32 or 8.3 KB bfloat16, coefficient halves 32
+// KB, exchange buffers 15 KB: 64.3 / 56 KB) and registers (162 / 128) leave
+// three blocks an SM with float32 comps and four with bfloat16.
+// What holds it from its bound is latency, not issue: a block's channel
+// tile is one chain (stage, `wgmma`, cluster barrier, epilogue, cluster
+// barrier, phase B) that twelve to sixteen warps an SM do not hide. Clock
+// stamps of a timing-only build (PERF.md) put a float32 round at about
+// 10,600 cycles: phase B on `mma.sync` 27%, the epilogue with its DSMEM
+// reads 20%, the two cluster barriers 32%, `wgmma` 13%, staging 6%.
 // Any N, G, F and V up to 1024 (a cluster of 16 slices) are taken; the gate
 // in ops/shared.py leaves wider bases to the torch ops.
 
@@ -294,13 +308,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // d += a b at float32 accuracy: a given split; b (comps) split for float32
 // comps, three products small terms first; a bfloat16 b is exact in TF32,
 // two products
-template <typename TC, bool kInt = false>
+template <typename TC>
 __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ahi)[4],
                                           const uint32_t (&alo)[4], float b0, float b1) {
   if constexpr (std::is_same<TC, float>::value) {
     uint32_t b0h, b0l, b1h, b1l;
-    split_tf32<kInt>(b0, b0h, b0l);
-    split_tf32<kInt>(b1, b1h, b1l);
+    split_tf32(b0, b0h, b0l);
+    split_tf32(b1, b1h, b1l);
     mma_tf32(d, alo, b0h, b1h);
     mma_tf32(d, ahi, b0l, b1l);
     mma_tf32(d, ahi, b0h, b1h);
@@ -789,21 +803,34 @@ shared_chunk_loss_kernel(const TC* __restrict__ comps, const float* __restrict__
 // ---------------------------------------------------------------------- //
 constexpr int kSlice = 64;               // modes a block holds: phase B's register tile
 constexpr int kMaxCluster = 16;          // the H100's largest cluster (V up to 1024)
-constexpr int kSlicedMinBlocks = 4;      // blocks an SM: 128 registers, 42-50 KB of shared memory
-constexpr int kSlicedStages = 2;         // the comps ring (three measured slower: PERF.md)
-constexpr int kSliceCS = kSlice + 4;     // the coefficients' row stride in floats
+// blocks an SM: float32 comps up to 168 registers and 64.3 KB of shared memory, bfloat16 128 and 56 KB
+// (a fourth block took a tenth off the bfloat16 step; PERF.md)
+template <typename TC>
+constexpr int kSlicedMinBlocks = std::is_same<TC, float>::value ? 3 : 4;
 constexpr int kOwned = 16;               // pairs a block's epilogue runs, at most
 // the exchange buffers' row stride in floats: the float2 fragment accesses
 // (row g, column 2 t) of a half warp fall in distinct banks
 constexpr int kXS = kRows + 8;
 constexpr int kSlicedTargetBlocks = 4;   // channel splits doubled below this many blocks an SM
+// The staged TF32 operands, K-major (the modes contiguous) in `wgmma`'s
+// layout without swizzle: a row's four modes 4c..4c+3 are one 16-byte unit,
+// the units of mode group c at c * pitch, row r at 16 r inside it, so
+// every 8 rows of a group form one core matrix (128 contiguous bytes).
+constexpr int kGroups = kSlice / 4;               // mode groups of a slice
+constexpr int kCompsPitch = kRows * 16 + 16;      // 528: 16 past a multiple of 128 (below)
+constexpr int kCompsHalf = kGroups * kCompsPitch;  // bytes of one staged comps tile
+constexpr int kCoefPitch = kCols * 16;
+constexpr int kCoefHalf = kGroups * kCoefPitch;   // bytes of one half of the coefficients
 
-// the ring; the coefficients; the partial models (64 rows); the dv of the
-// pairs the block owns (2 x 16 rows); the table; the cotangents
+// staged comps tiles: hi and lo of float32 comps; bfloat16 comps widened
+__host__ __device__ constexpr int comps_halves(int csize) { return csize == 4 ? 2 : 1; }
+
+// the comps halves; the coefficients' hi and lo; the partial models (64
+// rows); the dv of the pairs the block owns (2 x 16 rows); the table; the
+// cotangents
 __host__ __device__ constexpr size_t sliced_smem_bytes(int csize) {
-  return static_cast<size_t>(kSlicedStages) * kRows * row_stride(kSlice, csize) * csize +
-         static_cast<size_t>(kCols) * kSliceCS * 4 + static_cast<size_t>(kCols) * kXS * 4 +
-         2 * kOwned * kXS * 4 + kTableBytes + 3 * kPairs * 4;
+  return static_cast<size_t>(comps_halves(csize)) * kCompsHalf + 2 * kCoefHalf +
+         static_cast<size_t>(kCols) * kXS * 4 + 2 * kOwned * kXS * 4 + kTableBytes + 3 * kPairs * 4;
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -813,18 +840,68 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// a shared-memory matrix descriptor of `wgmma`, no swizzle: the start, the
+// byte offset between core matrices along K (lbo) and along M or N (sbo)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a >> 4) & 0x3fffu) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32;
+}
+
+// d += a b, a (64 x 8) and b (8 x 32) TF32 from shared memory, both K-major,
+// over the warpgroup: warp w holds rows 16 w + g (d[4 j], d[4 j + 1]) and
+// 16 w + g + 8 (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t and 8 j + 2 t + 1
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the accumulators stay in place across the asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// this thread's shared-memory writes made visible to `wgmma`'s reads
+__device__ __forceinline__ void async_proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// four TF32 values as one 16-byte unit
+__device__ __forceinline__ void store_unit(unsigned char* p, const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
 // A cluster of `slices` x `splits` blocks takes one tile of 32 pairs: block
 // (split s, slice r) the modes [64 r, 64 r + 64) and the channel tiles of
-// split s. Per channel tile: phase A forms the slice's part of the model in
-// registers and leaves it in the block's exchange buffer; after a cluster
-// barrier the block runs the epilogue of the pairs it owns (pairs
+// split s. The block splits its slice of the coefficients into TF32 halves
+// once, and each channel tile's comps once, where they are staged. Per
+// channel tile: phase A forms the slice's part of the model on `wgmma`
+// from those halves and leaves it in the block's exchange buffer; after a
+// cluster barrier the block runs the epilogue of the pairs it owns (pairs
 // [32 r / S, 32 (r + 1) / S)), the model summed over the slices' buffers in
 // rank order (DSMEM), and leaves their dv in its dv buffer; after a second
 // barrier (which also frees the exchange buffer for the next tile) phase B
-// reads the dv of its warps' pairs from their owners and adds comps' slice
-// into its register tile of dcoeffs, which it writes once at the end.
+// reads the dv of its warps' pairs from their owners and adds the comps
+// halves into its register tile of dcoeffs on `mma.sync`, which it writes
+// once at the end.
 template <typename TC, int MODE>
-__global__ void __launch_bounds__(kThreads, kSlicedMinBlocks)
+__global__ void __launch_bounds__(kThreads, kSlicedMinBlocks<TC>)
 shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__ coeffs2,
                          const float* __restrict__ pr, const float* __restrict__ pi,
                          const float* __restrict__ dr, const float* __restrict__ di,
@@ -834,18 +911,19 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
                          float* __restrict__ dcoeffs, float* __restrict__ dpr,
                          float* __restrict__ dpi, const float* __restrict__ cot, int64_t N,
                          int64_t G, int64_t F, int64_t V, int64_t gmax, int blocks_per_op,
-                         int /* stages: kSlicedStages */, int vec16, int slices, int splits) {
+                         int /* stages */, int /* vec16 */, int slices, int splits) {
+  constexpr bool kF32 = std::is_same<TC, float>::value;
   constexpr bool kDp = has_dp(MODE);
   constexpr bool kAll = has_all(MODE);
   constexpr bool kCot = has_cot(MODE);
   constexpr int kTerms = n_terms(MODE);
-  constexpr int RS = static_cast<int>(row_stride(kSlice, sizeof(TC)));
-  constexpr int kTile = kRows * RS;  // elements of a ring stage
   extern __shared__ __align__(128) unsigned char smem[];
-  TC* ring = reinterpret_cast<TC*>(smem);
-  float* coef = reinterpret_cast<float*>(ring + kSlicedStages * kTile);
-  float* const xa = coef + kCols * kSliceCS;  // (64, kXS): the slice's partial models
-  float* const xd = xa + kCols * kXS;          // (2 x 16, kXS): the owned pairs' dv
+  unsigned char* const chi = smem;  // the comps tile's hi (bfloat16: widened); float32: lo after
+  unsigned char* const clo = smem + kCompsHalf;
+  unsigned char* const ahi = smem + comps_halves(sizeof(TC)) * kCompsHalf;
+  unsigned char* const alo = ahi + kCoefHalf;
+  float* const xa = reinterpret_cast<float*>(alo + kCoefHalf);  // (64, kXS): partial models
+  float* const xd = xa + kCols * kXS;  // (2 x 16, kXS): the owned pairs' dv
   int* tab = reinterpret_cast<int*>(xd + 2 * kOwned * kXS);
   float* cotv = reinterpret_cast<float*>(tab + 3 * kPairs);
 
@@ -863,8 +941,6 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
   const TC* op = comps + u * F * V;
   const int k0 = slice * kSlice;  // the slice's first mode
   const int W = static_cast<int>(V - k0 < kSlice ? V - k0 : kSlice);
-  const int W8 = (W + 7) / 8 * 8;
-  const int nks = W8 / 8;
   const int ntiles = static_cast<int>((F + kRows - 1) / kRows);
   const int jt0 = split * ntiles / splits, jt1 = (split + 1) * ntiles / splits;
   // every block of the cluster passes the same barriers: as many rounds as
@@ -918,57 +994,88 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
       cotv[2 * kPairs + t] = cot[2 * N + n];
     }
   }
-  // the slice of the block's coefficients (64 rows: re then im of each
-  // pair), split once into TF32 (hi, lo); zero past the slice's modes and
-  // for pairs the operator does not have
-  for (int row = warp; row < kCols; row += kThreads / 32) {
-    const int p = row % kPairs;
-    const float* src =
-        in_op(p) ? coeffs2 + ((row / kPairs * N + tab[p]) * G + tab[kPairs + p]) * V + k0
-                 : nullptr;
-    for (int k = lane; k < W8; k += 32) {
-      coef[row * kSliceCS + k] = src != nullptr && k < W ? src[k] : 0.f;
-    }
-  }
-  // the ring's modes past the slice's (read by phase A's last k-step) stay zero
-  if (W8 > W) {
-    for (int idx = t; idx < kSlicedStages * kRows * (W8 - W); idx += kThreads) {
-      ring[(idx / (W8 - W)) * RS + W + idx % (W8 - W)] = zero_of<TC>();
+  // the slice of the block's coefficients split once into TF32 (hi, lo),
+  // `wgmma`'s A operand: row 16 (p / 8) + p % 8 the real part of pair p and
+  // 8 rows on its imaginary part, so that warp w's accumulator rows are the
+  // real and imaginary parts of its pairs 8 w to 8 w + 7. Zero past the
+  // slice's modes and for pairs the operator does not have.
+  {
+    const bool cvec = (V & 3) == 0 && (reinterpret_cast<uintptr_t>(coeffs2) & 15) == 0;
+    for (int q = t; q < kCols * kGroups; q += kThreads) {
+      const int row = q / kGroups, c = q % kGroups;  // row: part * 32 + p
+      const int p = row % kPairs, part = row / kPairs;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (in_op(p) && 4 * c < W) {
+        const float* src =
+            coeffs2 + ((part * N + tab[p]) * G + tab[kPairs + p]) * V + k0 + 4 * c;
+        if (cvec && 4 * c + 4 <= W) {
+          const float4 v = *reinterpret_cast<const float4*>(src);
+          x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] = 4 * c + e < W ? src[e] : 0.f;
+        }
+      }
+      uint32_t h[4], l[4];
+      split4<true>(x[0], x[1], x[2], x[3], h, l);
+      const int off = c * kCoefPitch + 16 * (16 * (p / 8) + 8 * part + p % 8);
+      store_unit(ahi + off, h);
+      store_unit(alo + off, l);
     }
   }
 
-  // the comps tile jt's slice into its stage, channel r at row r; rows
-  // past F zeroed
-  auto issue = [&](int jt) {
-    if (jt < jt1) {
-      const int64_t f0 = static_cast<int64_t>(jt) * kRows;
-      const int rows = static_cast<int>(F - f0 < kRows ? F - f0 : kRows);
-      TC* dst = ring + ((jt - jt0) % kSlicedStages) * kTile;
-      const TC* src = op + f0 * V + k0;
-      constexpr int kPer16 = 16 / static_cast<int>(sizeof(TC));
-      if (vec16 && W == kSlice) {  // a whole slice: 16-byte copies a row known
-        constexpr int kPerRow = kSlice / kPer16;
-        for (int q = t; q < rows * kPerRow; q += kThreads) {
-          const int r = q / kPerRow, c = q - r * kPerRow;
-          cp_async16(dst + r * RS + c * kPer16, src + r * V + c * kPer16);
-        }
-      } else if (vec16) {
-        const int per_row = W / kPer16;
-        for (int q = t; q < rows * per_row; q += kThreads) {
-          const int r = q / per_row, c = q - r * per_row;
-          cp_async16(dst + r * RS + c * kPer16, src + r * V + c * kPer16);
-        }
+  // this thread's share of a comps tile: row r = (t + 128 i) / 16 (channel
+  // f0 + r) and mode group c = t % 16 of the slice, i = 0..3, fetched into
+  // registers a tile ahead; zeros past F and past the slice's modes
+  using Unit = typename std::conditional<kF32, float4, uint2>::type;
+  const bool vec = (V & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(comps) & (4 * sizeof(TC) - 1)) == 0;
+  const int uc = t % kGroups;
+  Unit raw[4];
+  auto fetch = [&](int jt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t f = static_cast<int64_t>(jt) * kRows + (t + kThreads * i) / kGroups;
+      if constexpr (kF32) {
+        raw[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
-        for (int q = t; q < rows * W; q += kThreads) {
-          const int r = q / W, k = q - r * W;
-          dst[r * RS + k] = src[r * V + k];
-        }
+        raw[i] = make_uint2(0u, 0u);
       }
-      for (int q = t; q < (kRows - rows) * W8; q += kThreads) {
-        dst[(rows + q / W8) * RS + q % W8] = zero_of<TC>();
+      if (jt < jt1 && f < F && 4 * uc < W) {
+        const TC* src = op + f * V + k0 + 4 * uc;
+        if (vec && 4 * uc + 4 <= W) {
+          raw[i] = *reinterpret_cast<const Unit*>(src);
+        } else if constexpr (kF32) {
+          const int n = W - 4 * uc;
+          raw[i] = make_float4(src[0], n > 1 ? src[1] : 0.f, n > 2 ? src[2] : 0.f,
+                               n > 3 ? src[3] : 0.f);
+        } else {
+          const int n = W - 4 * uc;
+          const uint32_t e0 = __bfloat16_as_ushort(src[0]);
+          const uint32_t e1 = n > 1 ? __bfloat16_as_ushort(src[1]) : 0u;
+          const uint32_t e2 = n > 2 ? __bfloat16_as_ushort(src[2]) : 0u;
+          const uint32_t e3 = n > 3 ? __bfloat16_as_ushort(src[3]) : 0u;
+          raw[i] = make_uint2(e0 | e1 << 16, e2 | e3 << 16);
+        }
       }
     }
-    cp_async_commit();  // one group a tile, empty past the last
+  };
+  // the fetched tile into shared memory: float32 split into TF32 (hi, lo),
+  // bfloat16 widened (exact in TF32)
+  auto stage = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = uc * kCompsPitch + 16 * ((t + kThreads * i) / kGroups);
+      uint32_t h[4], l[4];
+      if constexpr (kF32) {
+        split4<true>(raw[i].x, raw[i].y, raw[i].z, raw[i].w, h, l);
+        store_unit(clo + off, l);
+      } else {
+        h[0] = raw[i].x << 16, h[1] = raw[i].x & 0xffff0000u;
+        h[2] = raw[i].y << 16, h[3] = raw[i].y & 0xffff0000u;
+      }
+      store_unit(chi + off, h);
+    }
   };
 
   // this thread's epilogue entries: pair p0 + 4 j + warp at channel f0 +
@@ -1001,57 +1108,62 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
 #pragma unroll
     for (int j = 0; j < 4; ++j) bacc[i][j] = 0.f;
   }
-  // phase A's and B's rows: the warp's pair pe, re (row g) and im (row g + 8)
+  // phase B's rows: the warp's pair pe, re (row g) and im (row g + 8); its
+  // dv: row pe - 32 r' / S (re) and 16 rows on (im) in the buffer of the
+  // block r' that owns it
   const int pe = warp * kWarpPairs + gid;
-  const float* ca = coef + pe * kSliceCS + tig;
-  // phase B's dv of pair pe: row pe - 32 r' / S (re) and 16 rows on (im) in
-  // the buffer of the block r' that owns it
   const int owner = (S * (pe + 1) - 1) / kPairs;
   const int orow = pe - owner * kPairs / S;
   const float* const dv_src =
       kAll ? static_cast<const float*>(cluster.map_shared_rank(xd, split * S + owner)) + orow * kXS
            : nullptr;
+  // phase A's operands: k-step s of the coefficients' halves at 2 s mode
+  // groups on, of the comps tile's likewise; 8-row core matrices 128 bytes
+  // apart along M and N
+  const uint64_t da_hi = smem_desc(ahi, kCoefPitch, 128), da_lo = smem_desc(alo, kCoefPitch, 128);
+  const uint64_t db_hi = smem_desc(chi, kCompsPitch, 128), db_lo = smem_desc(clo, kCompsPitch, 128);
+  // phase B's comps fragments: channels 8 ks + 2 t and + 1 (k indices t and
+  // t + 4), modes 16 q + 2 g (n-tile 2 q) and 16 q + 2 g + 1 (n-tile 2 q +
+  // 1), one 8-byte read each: with the pitch 16 bytes past a multiple of
+  // 128 a half warp's reads fall in distinct banks
+  const unsigned char* const bfrag = chi + (gid >> 1) * kCompsPitch + 8 * (gid & 1) + 32 * tig;
 
+  fetch(jt0);
   load_planes(jt0);
-  issue(jt0);
   for (int it = 0; it < rounds; ++it) {
     const int jt = jt0 + it;
-    const bool live = jt < jt1;  // else a round of barriers only
+    const bool live = jt < jt1;  // else a round of barriers (and a product nobody reads)
     const int64_t f0 = static_cast<int64_t>(jt) * kRows;
-    cp_async_wait_all();
-    __syncthreads();  // tile jt (and, first, the coefficients) in; tile jt - 1 done with
-    issue(jt + 1);
-    const TC* tile = ring + (it % kSlicedStages) * kTile;
-    if (live) {
-      // phase A: the slice's part of the model of the warp's 8 pairs at the
-      // tile's 32 channels, over its modes in k-steps of 8
-      float acc[4][4];
+    __syncthreads();  // every warp done with tile jt - 1's halves
+    stage();
+    async_proxy_fence();
+    __syncthreads();  // tile jt's halves (and, first, the coefficients') in
+    fetch(jt + 1);    // in flight through phase A, the epilogue and phase B
+    // phase A: the slice's part of the model of the block's 32 pairs at the
+    // tile's 32 channels, (64 x 64) x (64 x 32), in k-steps of 8 modes, each
+    // product lo hi, hi lo, hi hi (bfloat16: lo b, hi b); on every round
+    // alike, so that no `wgmma` sits on a path the compiler takes as divergent
+    float acc[16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      }
+    for (int s = 0; s < kSlice / 8; ++s) {
+      const uint64_t a = 2 * s * kCoefPitch >> 4, b = 2 * s * kCompsPitch >> 4;
+      wgmma_tf32(acc, da_lo + a, db_hi + b);
+      if constexpr (kF32) wgmma_tf32(acc, da_hi + a, db_lo + b);
+      wgmma_tf32(acc, da_hi + a, db_hi + b);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    // row pe (re) and 32 + pe (im) of the buffer, channel 8 j + 2 tig + c
 #pragma unroll
-      for (int s = 0; s < kSlice / 8; ++s) {
-        if (s < nks) {
-          const float* a = ca + 8 * s;
-          uint32_t ahi[4], alo[4];
-          split4<true>(a[0], a[kPairs * kSliceCS], a[4], a[kPairs * kSliceCS + 4], ahi, alo);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int b = (8 * nt + gid) * RS + 8 * s + tig;
-            mma_split<TC, true>(acc[nt], ahi, alo, to_f32(tile[b]), to_f32(tile[b + 4]));
-          }
-        }
-      }
-      // row pe (re) and 32 + pe (im) of the buffer, channel 8 nt + 2 tig + c
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        *reinterpret_cast<float2*>(xa + pe * kXS + 8 * nt + 2 * tig) =
-            make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(xa + (kPairs + pe) * kXS + 8 * nt + 2 * tig) =
-            make_float2(acc[nt][2], acc[nt][3]);
-      }
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<float2*>(xa + pe * kXS + 8 * j + 2 * tig) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(xa + (kPairs + pe) * kXS + 8 * j + 2 * tig) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
     cluster_arrive();
     cluster_wait();  // every slice's part of the tile's model in
@@ -1107,7 +1219,8 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
     cluster_wait();  // the tile's dv of every pair in; every epilogue done with xa
     if (kAll && live) {
       // phase B: dcoeffs^T += dv^T comps over the tile's channels, the k
-      // index t read as channel 8 ks + 2 t and t + 4 as 8 ks + 2 t + 1
+      // index t read as channel 8 ks + 2 t and t + 4 as 8 ks + 2 t + 1; n-tile
+      // 2 q + h holds the modes 16 q + 2 n + h
       float2 re[4], im[4];
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
@@ -1116,15 +1229,23 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
       }
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        uint32_t ahi[4], alo[4];
-        split4<true>(re[ks].x, im[ks].x, re[ks].y, im[ks].y, ahi, alo);
-        const int b = (8 * ks + 2 * tig) * RS + gid;
+        uint32_t dhi[4], dlo[4];
+        split4<true>(re[ks].x, im[ks].x, re[ks].y, im[ks].y, dhi, dlo);
 #pragma unroll
-        for (int mt = 0; mt < kModeTiles; ++mt) {
-          if (mt < nks) {
-            mma_split<TC, true>(bacc[mt], ahi, alo, to_f32(tile[b + 8 * mt]),
-                                to_f32(tile[b + RS + 8 * mt]));
+        for (int q = 0; q < kModeTiles / 2; ++q) {
+          const unsigned char* b = bfrag + 4 * q * kCompsPitch + 128 * ks;
+          const uint2 h0 = *reinterpret_cast<const uint2*>(b);
+          const uint2 h1 = *reinterpret_cast<const uint2*>(b + 16);
+          mma_tf32(bacc[2 * q], dlo, h0.x, h1.x);
+          mma_tf32(bacc[2 * q + 1], dlo, h0.y, h1.y);
+          if constexpr (kF32) {
+            const uint2 l0 = *reinterpret_cast<const uint2*>(b + kCompsHalf);
+            const uint2 l1 = *reinterpret_cast<const uint2*>(b + kCompsHalf + 16);
+            mma_tf32(bacc[2 * q], dhi, l0.x, l1.x);
+            mma_tf32(bacc[2 * q + 1], dhi, l0.y, l1.y);
           }
+          mma_tf32(bacc[2 * q], dhi, h0.x, h1.x);
+          mma_tf32(bacc[2 * q + 1], dhi, h0.y, h1.y);
         }
       }
     }
@@ -1144,8 +1265,8 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
     }
   }
   __syncthreads();  // every warp is done with the coefficients
-  float* red = coef;                   // (64, W): the block's part of dcoeffs
-  float* lsum = red + kCols * kSlice;  // (kTerms, 32): its pairs' sums
+  float* red = reinterpret_cast<float*>(ahi);  // (64, W): the block's part of dcoeffs
+  float* lsum = red + kCols * kSlice;          // (kTerms, 32): its pairs' sums
   if (lane == 0 && kTerms > 0) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -1160,14 +1281,17 @@ shared_chunk_loss_sliced(const TC* __restrict__ comps, const float* __restrict__
     }
   }
   if constexpr (kAll) {
+    // n-tiles 2 q and 2 q + 1 hold the modes 16 q + 4 tig + [0, 4)
 #pragma unroll
-    for (int mt = 0; mt < kModeTiles; ++mt) {
+    for (int q = 0; q < kModeTiles / 2; ++q) {
+      const float r4[4] = {bacc[2 * q][0], bacc[2 * q + 1][0], bacc[2 * q][1], bacc[2 * q + 1][1]};
+      const float i4[4] = {bacc[2 * q][2], bacc[2 * q + 1][2], bacc[2 * q][3], bacc[2 * q + 1][3]};
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k = 8 * mt + 2 * tig + c;
+      for (int e = 0; e < 4; ++e) {
+        const int k = 16 * q + 4 * tig + e;
         if (k < W) {
-          red[pe * W + k] = bacc[mt][c];
-          red[(kPairs + pe) * W + k] = bacc[mt][2 + c];
+          red[pe * W + k] = r4[e];
+          red[(kPairs + pe) * W + k] = i4[e];
         }
       }
     }
@@ -1218,7 +1342,8 @@ int sm_count() {
 // comps' coefficients split once in shared memory. V > 64: a cluster of
 // ceil(V / 64) mode slices a tile of pairs, its channels split as well,
 // doubled (up to 16 blocks) while the launch has fewer than
-// kSlicedTargetBlocks blocks an SM.
+// kSlicedTargetBlocks blocks an SM; one staged tile in shared memory (the
+// next in registers).
 struct Plan {
   int stages, slices, splits, pre;
   long long grid;  // blocks, the clusters' included
@@ -1245,7 +1370,7 @@ bool make_plan(long long N, long long G, long long F, long long V, long long U, 
       splits *= 2;
     }
     plan->pre = 0;
-    plan->stages = kSlicedStages;
+    plan->stages = 1;
     plan->slices = slices;
     plan->smem = sliced_smem_bytes(csize);
   }
@@ -1349,7 +1474,7 @@ int occupancy_mode(int mode, size_t smem, int* blocks) {
 extern "C" {
 
 // The launch plan of shared_chunk_loss for these shapes, into out[8]:
-// {stages of the comps ring, channel splits a tile of pairs, blocks of the
+// {comps tiles staged in shared memory (a ring of 2; 1 past 64 modes), channel splits a tile of pairs, blocks of the
 // grid (the clusters' included), dynamic shared memory a block in bytes, 1
 // where the coefficients are split once into shared memory, the blocks an
 // SM the CUDA runtime's occupancy calculator gives the instance at that

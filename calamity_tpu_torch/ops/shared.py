@@ -21,10 +21,12 @@ On a CUDA tensor the pass is the hand-written kernel in
 which stages each channel tile of an operator in shared memory once for a
 tile of 32 (group, slice) pairs and runs both products on the tensor
 cores with split TF32 operands (float32 accuracy); past 64 modes a
-cluster of blocks takes the tile, each block 64 of the modes, the
-slices' parts of the model summed over the cluster's shared memory in a
-fixed order (``KernelLibrary.shared_plan`` in ``ops._build`` reads its
-launch plan); on a CPU tensor it is
+cluster of blocks takes the tile, each block 64 of the modes, its
+operands split once where they are staged and the model formed on
+``wgmma``, the slices' parts of the model summed over the cluster's
+shared memory in a fixed order (``KernelLibrary.shared_plan`` in
+``ops._build`` reads its launch plan; those launches are also counted
+as :data:`SLICED_NAME`); on a CPU tensor it is
 :func:`loss_and_grads_plain`'s torch ops. There is no other route: a CUDA
 launch that fails raises. Groups that hold no baseline (the packing's
 record, ``ops.gains.valid_rows``) give zero loss and zero gradients; the
@@ -63,9 +65,11 @@ from .fused import (
     n_terms,
     sum_partials,
 )
+from .._device import LAUNCHES
 from .gains import valid_rows
 
 KERNEL_NAME = "shared_chunk_loss"
+SLICED_NAME = f"{KERNEL_NAME}.sliced"  # its launches past REG_MODES modes, counted again
 REG_MODES = 64  # modes phase B holds in registers: at most this many, one block a tile of pairs
 MAX_CLUSTER = 16  # the H100's largest thread-block cluster (non-portable past 8)
 MAX_NVECS = REG_MODES * MAX_CLUSTER  # wider bases: a cluster of 64-mode slices would not fit
@@ -292,8 +296,18 @@ def loss_and_grads_kernel(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=L
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err} "
                            f"({lib.fcl_error_string(err).decode()})")
-    count_launch(KERNEL_NAME, mode)
+    count_shared_launch(mode, nvecs)
     return sum_partials(partials, mode), dcoeffs, dpr, dpi
+
+
+def count_shared_launch(mode, nvecs):
+    """One launch of the kernel at ``nvecs`` modes: counted under
+    :data:`KERNEL_NAME` and its instance's name, and past
+    :data:`REG_MODES` modes, where the cluster's mode slices
+    (``shared_chunk_loss_sliced``) run it, under :data:`SLICED_NAME` too."""
+    count_launch(KERNEL_NAME, mode)
+    if nvecs > REG_MODES:
+        LAUNCHES.add(SLICED_NAME)
 
 
 def _loss_and_grads(coeffs2, pr, pi, dr, di, w, comps3, valid, mode, cot=None):

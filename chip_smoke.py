@@ -54,7 +54,8 @@ uvh5/calfits write-back) at full width, and checks what comes out. Phases:
    occupancy calculator) and its instance's registers and spills, and one
    step's 18 launches timed together; the launch plan (within a block's
    227 KB and a cluster of 16, ceil(V / 64) mode slices a tile of pairs,
-   four blocks an SM past 64 modes) at those chunks, the ragged shapes and
+   past 64 modes the sliced design's shared memory and blocks an SM,
+   ``SLICED_SMEM`` and ``SLICED_BLOCKS``) at those chunks, the ragged shapes and
    every width from 65 modes to 600 / 720; a coefficient or a data value
    made NaN on the card gives a NaN loss or NaN gradients at V = 64 and
    128, both comps types; and (3a) the descents' Adamax update and carry
@@ -1623,7 +1624,8 @@ def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed, regs=()):
     """The shared-basis kernel at one of the full array's chunks: the three
     chi-square instances against the plain version (loss rel 1e-5,
     gradients rel 1e-4, padding's gradients zero), two launches equal to the
-    bit; the instance the descent runs (every gradient) timed through the
+    bit, and the three "sum" instances as :func:`check_sum_instances` holds
+    them; the instance the descent runs (every gradient) timed through the
     wrapper and, replayed from a CUDA graph, the device alone, beside its
     bound, the plain version, cuBLAS' matvec and the launch plan (blocks an
     SM from the runtime's occupancy calculator)."""
@@ -1661,12 +1663,13 @@ def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed, regs=()):
             check(not bool(got[1][:, :, ~mask].any() or got[2][:, ~mask].any()),
                   f"{tag}: padding groups' gradients are not zero")
         del got, again, want
+    sum_worst = check_sum_instances(tag, shared, args, (mask,), seed=nbatch + nvecs)[0]
     coeffs2, comps = args[0], args[6]
     rhs = (coeffs2.reshape(2, nbatch, nu, ngrps // nu, nvecs).permute(2, 4, 0, 1, 3)
            .reshape(nu, nvecs, -1).contiguous())
     comps_f = comps.float()
     kern = lambda: shared.loss_and_grads_kernel(*args, mask)  # noqa: E731
-    out = {"max_abs_err": max(errs), "max_rel": worst,
+    out = {"max_abs_err": max(errs), "max_rel": worst, "sum_max_rel": sum_worst,
            "ms": cuda_median_ms(kern, n=5, per_sample=2),
            "device_ms": cuda_graph_ms(kern, n=5, per_sample=2),
            "plain_ms": cuda_median_ms(lambda: shared.loss_and_grads_plain(*args, mask), n=3,
@@ -1679,13 +1682,14 @@ def compare_shared_full(nbatch, nu, nvecs, valid, comps_dtype, seed, regs=()):
     out["roofline_share"] = out["bound_ms"] / out["device_ms"]
     plan = out["plan"]
     log(f"  {tag}: max rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + "; \"sum\" instances " + ", ".join(f"{k} {v:.2e}" for k, v in sum_worst.items())
         + f"; two launches equal to the bit; every gradient {out['ms']:.4f} ms (the device alone "
         f"{out['device_ms']:.4f}) against bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
         f"{moved / 1e9:.3f} GB; share {out['roofline_share']:.3f}), plain {out['plain_ms']:.4f} "
         f"ms, cuBLAS bmm of the matvec {out['library_ms']:.4f} ms; plan: {plan['grid']} blocks "
         f"in clusters of {plan['cluster']} ({plan['slices']} mode slices x {plan['splits']} "
-        f"channel splits), {plan['stages']}-tile ring, {plan['smem_bytes']} bytes of shared "
-        f"memory, {plan['blocks_per_sm']} blocks an SM; registers/spill bytes "
+        f"channel splits), {plan['stages']} comps tiles staged, {plan['smem_bytes']} bytes of "
+        f"shared memory, {plan['blocks_per_sm']} blocks an SM; registers/spill bytes "
         f"{instance_registers(regs, comps_dtype, nvecs)}")
     return out
 
@@ -1741,14 +1745,26 @@ def full_array_step(nbatch, comps_dtype):
     return out
 
 
+# past 64 modes (``shared_chunk_loss_sliced``) a block's shared memory, by
+# comps type: the staged comps tile's TF32 halves (float32: hi and lo, 2 x
+# 8448 bytes; bfloat16: widened, 8448), the coefficients' halves (2 x
+# 16384), the exchange buffers (15360) and the pair table and cotangents
+# (768); and the blocks an SM that leaves, the design's occupancy
+SLICED_SMEM = {"float32": 65792, "bfloat16": 57344}
+SLICED_BLOCKS = {"float32": 3, "bfloat16": 4}
+
+
 def check_shared_plans():
     """The kernel's launch plan (``shared_plan`` in its source) on this card
     at the full array's six chunks (N = 1 and 8), every ragged shape (N = 1
     and 3) and every width from 65 modes to 600 (float32) or 720 (bfloat16)
     at U = 1, gmax = 7, F = 1536, N = 1, both comps types each: within a
     block's 227 KB of shared memory and a cluster of 16, ceil(V / 64) mode
-    slices times the channel splits on each tile of 32 pairs, and past 64
-    modes at least four blocks an SM. Returns the number of shapes."""
+    slices times the channel splits on each tile of 32 pairs; up to 64 modes
+    a ring of two comps tiles; past 64 modes one staged tile, the shared
+    memory of :data:`SLICED_SMEM` whatever the width, and the blocks an SM
+    of :data:`SLICED_BLOCKS` (the runtime's occupancy calculator). Returns
+    the number of shapes."""
     import torch
 
     from calamity_tpu_torch.ops import _build, fused
@@ -1767,15 +1783,18 @@ def check_shared_plans():
         c = lib.shared_plan(n, g, f, v, u, int(cdt != f32), fused.LOSS_ALL)
         pair_tiles = -(-(g // u * n) // 32) * u
         slices = -(-v // 64)
-        check(c["smem_bytes"] <= 227 * 1024 and c["cluster"] <= 16 and c["stages"] == 2
+        dt = str(cdt)[6:]
+        check(c["smem_bytes"] <= 227 * 1024 and c["cluster"] <= 16
               and c["slices"] == slices and c["cluster"] == slices * c["splits"]
               and c["grid"] == pair_tiles * c["cluster"]
-              and (v <= 64 or c["blocks_per_sm"] >= 4),
+              and (c["stages"] == 2 if v <= 64 else
+                   c["stages"] == 1 and c["smem_bytes"] == SLICED_SMEM[dt]
+                   and c["blocks_per_sm"] == SLICED_BLOCKS[dt]),
               f"the launch plan of N={n} G={g} F={f} V={v} U={u} {cdt}: {c}")
         blocks.add((v > 64, str(cdt)[6:], c["blocks_per_sm"]))
     log(f"  the launch plan at {len(cases)} shapes ({sms} SMs): each within 227 KB of shared "
-        "memory and a cluster of 16, ceil(V / 64) slices a tile of pairs; blocks an SM "
-        f"(sliced, comps, blocks): {sorted(blocks)}")
+        "memory and a cluster of 16, ceil(V / 64) slices a tile of pairs, past 64 modes "
+        f"{SLICED_SMEM} bytes; blocks an SM (sliced, comps, blocks): {sorted(blocks)}")
     return len(cases)
 
 

@@ -42,20 +42,28 @@ With ``--kernel shared`` each variant is held against the plain version
 bit, padding's gradients zero) at phase 3s's ragged shapes (N = 3; a shape
 wider than a variant takes is named and passed over) and at the HERA
 core's chunk 1 at N = 8, then timed: the HERA core's step (its four packed
-chunks with their padding, ``chip_smoke.hera_packed_chunks``), the full
-HERA array's six chunks of ``chip_smoke.FULL_SHAPES`` with their padding
-and its whole step of 18 launches (``chip_smoke.hera_full_build``, built
-on the host first, about a minute); the loss with every gradient, N = 1
-and 8, float32 and bfloat16 comps, replayed from a CUDA graph (the device
-alone) and through the wrapper, against the bound, in turns over the
-variants, twice. To time an earlier version of the source beside the
-current one, save it with ``git show REV:calamity_tpu_torch/csrc/
-shared_chunk_loss.cu`` under ``calamity_tpu_torch/_build/``, which git
-ignores.
+chunks with their padding, ``chip_smoke.hera_packed_chunks``), each of the
+full HERA array's 18 chunks with its padding and its whole step of 18
+launches (``chip_smoke.hera_full_build``, built on the host first, about a
+minute); the loss with every gradient, N = 1 and 8, float32 and bfloat16
+comps, replayed from a CUDA graph (the device alone) and through the
+wrapper, against the bound, in turns over the variants, twice. A table of
+the full array's chunks follows (each chunk's shape, bound and launch plan,
+and each variant's device-alone time, the better of its two rounds), and
+for each variant the SASS of its sliced instances (``cuobjdump -sass`` of
+its library): the instructions of the channel-tile loop (the loop that
+holds the cluster barriers; inner loops counted once), in all and by kind.
+With ``--json PATH`` the timings and counts are also written there. To time
+an earlier version of the source beside the current one, save it with
+``git show REV:calamity_tpu_torch/csrc/shared_chunk_loss.cu`` under a
+directory git ignores (``calamity_tpu_torch/_build/``, or an unpacked
+checkout).
 """
 
 import argparse
+import collections
 import ctypes
+import json
 import os
 import re
 import subprocess
@@ -247,26 +255,81 @@ def check_shared(libs):
 
 def _time_in_turns(libs, agree, tag, fn, bound_ms, by, card, per_sample=5):
     """Device-alone (replayed from a CUDA graph) and wrapper ms of ``fn``,
-    in turns over the variants, twice."""
+    in turns over the variants, twice; returns each variant's device-alone
+    ms of the two rounds."""
+    dev = collections.defaultdict(list)
     for rnd in range(2):
         for name in agree:
             _build._LOADED[:] = [libs[name]]
             dev_ms = cs.cuda_graph_ms(fn, n=5 if per_sample == 1 else 20, per_sample=per_sample)
             ms = cs.cuda_median_ms(fn, n=5 if per_sample == 1 else 20, per_sample=per_sample)
+            dev[name].append(dev_ms)
             print(f"{tag}, round {rnd}, {name}: the device alone {dev_ms:.4f} ms (share of the "
                   f"{bound_ms:.4f} ms bound, {by}, {bound_ms / dev_ms:.3f}), through the wrapper "
                   f"{ms:.4f} ms; {card}", flush=True)
+    return dict(dev)
+
+
+def tile_loop_counts(sass):
+    """Counts of one kernel function's SASS (``cuobjdump -sass`` text): the
+    instructions of the channel-tile loop, the body of the longest backward
+    branch whose body holds a cluster barrier (inner loops counted once),
+    in all and by kind (the opcode's first word, NOPs left out), and of the
+    whole function."""
+    code = []  # (address, opcode, text)
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            text = m.group(2).strip()
+            words = [w for w in text.split() if not w.startswith("@")]
+            if words:
+                code.append((int(m.group(1), 16), words[0], text))
+    loop = None
+    for addr, op, text in code:
+        if op.startswith("BRA"):
+            target = re.search(r"0x([0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < addr:
+                body = [c for c in code if int(target.group(1), 16) <= c[0] <= addr]
+                if any("CGABAR" in c[1] for c in body) and (loop is None or len(body) > len(loop)):
+                    loop = body
+    kinds = collections.Counter(c[1].split(".")[0] for c in (loop or ()) if c[1] != "NOP")
+    return {"loop": sum(kinds.values()), "function": sum(c[1] != "NOP" for c in code),
+            "kinds": dict(kinds.most_common())}
+
+
+def sass_counts(libs):
+    """Per variant, the SASS counts (:func:`tile_loop_counts`) of its
+    sliced instances with every gradient, float32 and bfloat16 comps."""
+    out = {}
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    for name, lib in libs.items():
+        text = subprocess.run([cuobjdump, "-sass", lib.path], capture_output=True,
+                              text=True).stdout
+        funcs = re.split(r"\n\s*Function : ", text)
+        for func in funcs[1:]:
+            fname = func.split("\n", 1)[0].strip()
+            m = re.search(r"shared_chunk_loss_slicedI(f|13__nv_bfloat16)Li2EE", fname)
+            if m:
+                dt = "float32" if m.group(1) == "f" else "bfloat16"
+                c = tile_loop_counts(func)
+                out[f"{name} {dt}"] = c
+                top = ", ".join(f"{k} {v}" for k, v in list(c["kinds"].items())[:14])
+                print(f"SASS {name}, sliced, {dt} comps, every gradient: channel-tile loop "
+                      f"{c['loop']} instructions ({top}); function {c['function']}", flush=True)
+    return out
 
 
 def time_shared(libs, agree, card):
     """In turns over the variants, device-alone and wrapper ms against the
-    bound: the HERA core's step of four packed chunks; the full HERA array's
-    six chunks of ``chip_smoke.FULL_SHAPES`` and its step of 18 launches;
-    N = 1 and 8, float32 and bfloat16 comps, the loss with every gradient."""
+    bound: the HERA core's step of four packed chunks; each of the full
+    HERA array's 18 chunks and its step of 18 launches; N = 1 and 8,
+    float32 and bfloat16 comps, the loss with every gradient. Returns the
+    full array's table."""
     from calamity_tpu_torch.ops import shared
 
     chunks, _ = cs.hera_packed_chunks()
     shapes = cs._HERA["comps_shapes"]
+    table = []
 
     def run(ops):
         return lambda: [shared.loss_and_grads_kernel(*a, m) for a, m in ops]
@@ -288,22 +351,57 @@ def time_shared(libs, agree, card):
     for nbatch in (1, 8):
         for cdt in (torch.float32, torch.bfloat16):
             tag = f"N={nbatch} {str(cdt)[6:]} comps"
-            for shape in cs.FULL_SHAPES:
-                c, valid = cs.full_array_chunk(shape)
-                ops = [cs.shared_inputs(nbatch, shape[0], cs.NFREQS, shape[2], valid, cdt,
-                                        cs.SEED + c, on_card=True)]
-                _time_in_turns(libs, agree, f"full array chunk (U, gmax, V) = {shape}, {tag}",
-                               run(ops), *bound(ops), card, per_sample=2)
+            for c, ch in enumerate(spec.chunks):
+                nu, nv = ch.comps.shape[0], ch.comps.shape[-1]
+                valid = spec.meta[c].valid.reshape(-1)
+                shape = (nu, len(valid) // nu, nv)
+                ops = [cs.shared_inputs(nbatch, nu, cs.NFREQS, nv, valid, cdt, cs.SEED + c,
+                                        on_card=True)]
+                b_ms, by = bound(ops)
+                dev = _time_in_turns(libs, agree, f"full array chunk {c} (U, gmax, V) = {shape}, "
+                                     f"{tag}", run(ops), b_ms, by, card, per_sample=2)
+                plans = {name: libs[name].shared_plan(nbatch, len(valid), cs.NFREQS, nv, nu,
+                                                      int(cdt != torch.float32), fused.LOSS_ALL)
+                         for name in agree}
+                table.append({"chunk": c, "shape": shape, "valid": int(valid.sum()),
+                              "nbatch": nbatch, "comps": str(cdt)[6:], "bound_ms": b_ms,
+                              "by": by, "device_ms": {k: min(v) for k, v in dev.items()},
+                              "plans": plans})
                 del ops
                 torch.cuda.empty_cache()
             ops = [cs.shared_inputs(nbatch, ch.comps.shape[0], cs.NFREQS, ch.comps.shape[-1],
                                     spec.meta[c].valid.reshape(-1), cdt, cs.SEED + c,
                                     on_card=True)
                    for c, ch in enumerate(spec.chunks)]
-            _time_in_turns(libs, agree, f"full array step, {len(ops)} launches, {tag}", run(ops),
-                           *bound(ops), card, per_sample=1)
+            b_ms, by = bound(ops)
+            dev = _time_in_turns(libs, agree, f"full array step, {len(ops)} launches, {tag}",
+                                 run(ops), b_ms, by, card, per_sample=1)
+            table.append({"chunk": "step", "shape": None, "nbatch": nbatch,
+                          "comps": str(cdt)[6:], "bound_ms": b_ms, "by": by,
+                          "device_ms": {k: min(v) for k, v in dev.items()}})
             del ops
             torch.cuda.empty_cache()
+    print_table(table, agree, card)
+    return table
+
+
+def print_table(table, agree, card):
+    """The full array's chunks, one line each: chunk, (U, gmax, V), valid
+    groups, N, comps, bound, each variant's device-alone ms (the better of
+    two rounds) and launch plan (blocks an SM, shared memory, cluster)."""
+    print(f"TABLE full array, the device alone, ms (better of two rounds); {card}", flush=True)
+    print("TABLE chunk | (U, gmax, V) | valid | N | comps | bound | "
+          + " | ".join(f"{n} ms (blocks/SM, smem B, cluster)" for n in agree), flush=True)
+    for row in table:
+        cells = []
+        for name in agree:
+            plan = row.get("plans", {}).get(name)
+            extra = (f" ({plan['blocks_per_sm']}, {plan['smem_bytes']}, {plan['cluster']})"
+                     if plan else "")
+            cells.append(f"{row['device_ms'][name]:.4f}{extra}")
+        print(f"TABLE {row['chunk']} | {row['shape']} | {row.get('valid', '')} | "
+              f"{row['nbatch']} | {row['comps']} | {row['bound_ms']:.4f} | " + " | ".join(cells),
+              flush=True)
 
 
 def main():
@@ -311,6 +409,7 @@ def main():
     ap.add_argument("--kernel", choices=("fused", "shared"), default="fused")
     ap.add_argument("--sum-pair", metavar="SOURCE",
                     help='an earlier fused source whose "sum" gradients took a second launch')
+    ap.add_argument("--json", metavar="PATH", help="also write the shared timings and counts here")
     ap.add_argument("variants", nargs="+", metavar="NAME=SOURCE[:NVCC_FLAGS]")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -327,7 +426,11 @@ def main():
     libs = build(variants, kernel)
     if args.kernel == "shared":
         sys.path.insert(0, os.path.join(REPO, "scripts"))  # hera_core_demo_torch
-        time_shared(libs, check_shared(libs), card)
+        sass = sass_counts(libs)
+        table = time_shared(libs, check_shared(libs), card)
+        if args.json:
+            with open(args.json, "w") as fh:
+                json.dump({"card": card, "sass": sass, "table": table}, fh, indent=1)
         return
     f32, bf16 = torch.float32, torch.bfloat16
     agree = []

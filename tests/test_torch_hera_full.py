@@ -309,7 +309,8 @@ def test_cuda_kernel_matches_plain_at_the_full_arrays_chunks(shape, comps_dtype)
     terms rel 1e-5, M_r and M_i against sum w|m|, gradients rel 1e-4), two
     launches equal to the bit, the padding's gradients zero. Its launch
     plan at N = 1 and 8: within a block's 227 KB of shared memory and a
-    cluster of 16, at least four blocks an SM, ceil(V / 64) mode slices
+    cluster of 16, the sliced design's shared memory and blocks an SM
+    (``chip_smoke.SLICED_SMEM``, ``SLICED_BLOCKS``), ceil(V / 64) mode slices
     times the channel splits on each tile of 32 pairs; at N = 1 a V = 512
     chunk at least 8 blocks a tile."""
     from calamity_tpu_torch.ops import _build, fused, shared
@@ -326,7 +327,8 @@ def test_cuda_kernel_matches_plain_at_the_full_arrays_chunks(shape, comps_dtype)
         plan = _build.load_kernels().shared_plan(nbatch, ngrps, nf, nv, nu,
                                                  int(comps_dtype == "bfloat16"), fused.LOSS_ALL)
         pair_tiles = -(-(gmax * nbatch) // 32) * nu
-        assert plan["smem_bytes"] <= 227 * 1024 and plan["blocks_per_sm"] >= 4
+        assert plan["smem_bytes"] == chip_smoke.SLICED_SMEM[comps_dtype] <= 227 * 1024
+        assert plan["blocks_per_sm"] == chip_smoke.SLICED_BLOCKS[comps_dtype]
         assert plan["slices"] == -(-nv // 64)
         assert plan["cluster"] == plan["slices"] * plan["splits"] <= 16
         assert plan["grid"] == pair_tiles * plan["cluster"]

@@ -411,6 +411,21 @@ def test_cpu_forward_launches_no_kernel():
     assert LAUNCHES.get(shared.KERNEL_NAME) == 0
 
 
+@pytest.mark.parametrize("nvecs, sliced", [(3, 0), (64, 0), (65, 1), (256, 1), (1024, 1)])
+def test_launches_past_the_register_tile_are_counted_as_sliced(nvecs, sliced):
+    """A launch counts under the kernel's name and its instance's; past 64
+    modes, where the cluster's mode slices run it, also under
+    ``shared_chunk_loss.sliced``, so a run's launch counts show that the
+    sliced path ran, and how often (none on the HERA core)."""
+    LAUNCHES.reset()
+    for mode in (fused.LOSS_ONLY, fused.LOSS_ALL):
+        shared.count_shared_launch(mode, nvecs)
+    assert LAUNCHES.get(shared.KERNEL_NAME) == 2
+    assert LAUNCHES.get(f"{shared.KERNEL_NAME}:{fused.MODE_NAMES[fused.LOSS_ALL]}") == 1
+    assert LAUNCHES.get(shared.SLICED_NAME) == 2 * sliced
+    assert shared.SLICED_NAME == "shared_chunk_loss.sliced"
+
+
 @pytest.mark.parametrize("case, want_mode", [
     ("no_grad_wanted", fused.LOSS_ONLY),
     ("frozen_coefficients", fused.LOSS_DP),
