@@ -725,10 +725,8 @@ def _calibrate_time_parallel(
         gram_cholesky_chunk,
         init_coeffs_from_cholesky_batched,
     )
-    from .ops.fused import warn_fused_fallbacks
-    from .ops.loss import fg_model_batched
+    from .ops.loss import _loss_block_size, fg_model_batched, warn_fused_fallbacks
     from .parallel.batched import (
-        _loss_block_size,
         batched_fit_checkpointed,
         batched_fit_core,
         host_batched_losses,
@@ -1148,7 +1146,7 @@ def _calibrate_time_scan(
     a time fitted in this run, ``phase_seconds`` (descent only)."""
     import shutil
 
-    from .ops.fused import warn_fused_fallbacks
+    from .ops.loss import warn_fused_fallbacks
     from .ops.lstsq import gram_cholesky_chunk, init_coeffs_from_cholesky
     from .parallel.batched import (
         host_batched_losses,

@@ -46,8 +46,6 @@ The reference's TPU gate (F and V multiples of 128, a group tile in
 
 from __future__ import annotations
 
-import warnings
-
 import torch
 
 from .._device import LAUNCHES
@@ -85,29 +83,6 @@ def explain_fused_loss_inapplicable(comps, coeffs, data, wgts):
         if t.device != comps.device:
             return f"{name} on {t.device}, comps on {comps.device}"
     return None
-
-
-def warn_fused_fallbacks(chunks, fg_r, data_r, wgts):
-    """Warn (once per fit) naming every chunk that neither this kernel nor
-    the shared-basis kernel (``ops.shared``) takes, and why; those chunks
-    take the plain torch loss. Returns the list of reasons."""
-    from .shared import explain_shared_loss_inapplicable
-
-    reasons = []
-    for cnum, (comps, _, _) in enumerate(chunks):
-        args = (comps, fg_r[cnum], data_r[cnum], wgts[cnum])
-        dense = explain_fused_loss_inapplicable(*args)
-        shared = explain_shared_loss_inapplicable(*args)
-        if dense is not None and shared is not None:
-            # the reason of the kernel whose layout the chunk has
-            layout_dense = comps.shape[0] >= fg_r[cnum].shape[-2]
-            reasons.append(f"chunk {cnum}: {dense if layout_dense else shared}")
-    if reasons:
-        warnings.warn(
-            "these chunks take the plain torch loss, not a kernel: " + "; ".join(reasons),
-            stacklevel=3,
-        )
-    return reasons
 
 
 # the kernels' instances: the chi-square alone (the loss; with the
@@ -215,6 +190,23 @@ def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, mode=LOSS_ALL, cot=
                         lambda dv: torch.einsum("gfv,kngf->kngv", comps, dv))
 
 
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest value with 10 stored mantissa bits, ties away from zero (the
+    low 13 bits cleared); infinities and NaNs unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    rounded = (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x):
+    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (the
+    subtraction is exact in float32); ``hi + lo`` holds x to about 2^-22."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
 def tf32_trunc(x):
     """float32 ``x`` as the tensor cores read a TF32 operand: its low 13
     bits cleared."""
@@ -224,14 +216,12 @@ def tf32_trunc(x):
 def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, mode=SUM_FWD_ALL):
     """:func:`loss_and_grads_plain` with the coefficient contraction
     formed as the one-pass instance forms it on the tensor cores: dv split
-    into TF32 hi and lo (``ops.shared.tf32_split``), float32 comps into hi
+    into TF32 hi and lo (:func:`tf32_split`), float32 comps into hi
     = :func:`tf32_trunc` and lo = the TF32 part of the rest, and the
     products ``c_lo x_hi + c_hi x_lo + c_hi x_hi`` summed in float32, small
     terms first (a bfloat16 comps value is exact in TF32: ``c x_lo + c
     x_hi``); the matvec and the rest float32, as in the kernel. For the
     tests and the smoke test's comparisons only; no path calls it."""
-    from .shared import tf32_split
-
     comps = _f32(comps3)
     eq = "gfv,kngf->kngv"
 
@@ -511,16 +501,11 @@ class _KernelTerm(torch.autograd.Function):
             + (None,) * ctx.noperands
 
 
-def _wants_grad(coeffs2, pr, pi):
-    return torch.is_grad_enabled() and (coeffs2.requires_grad or pr.requires_grad
-                                        or pi.requires_grad)
-
-
 def kernel_term(inst, coeffs2, pr, pi, *operands):
     """The term ``inst`` of one chunk for N slices from its gain products
     ``pr``, ``pi`` (N, G, F), differentiable in coeffs2, pr and pi; with no
     gradient wanted ``inst.alone`` runs and nothing is saved."""
-    if _wants_grad(coeffs2, pr, pi):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (coeffs2, pr, pi)):
         return _KernelTerm.apply(inst, coeffs2, pr, pi, *operands)
     return inst.alone(coeffs2, pr, pi, operands)
 

@@ -64,6 +64,8 @@ from .fused import (
     kernel_term,
     n_terms,
     sum_partials,
+    tf32_round,
+    tf32_split,
 )
 from .._device import LAUNCHES
 from .gains import valid_rows
@@ -134,23 +136,6 @@ def loss_and_grads_plain(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LO
     The reference the kernel is held against, and the CPU path."""
     return _loss_and_grads_with(torch.einsum, coeffs2, pr, pi, dr, di, w, comps3, valid, mode,
                                 cot)
-
-
-def tf32_round(x):
-    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
-    nearest value with 10 stored mantissa bits, ties away from zero (the
-    low 13 bits cleared); infinities and NaNs unchanged."""
-    bits = x.contiguous().view(torch.int32)
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    rounded = (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
-    return torch.where(torch.isfinite(x), rounded, x)
-
-
-def tf32_split(x):
-    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (the
-    subtraction is exact in float32); ``hi + lo`` holds x to about 2^-22."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
 
 
 def loss_and_grads_tf32(coeffs2, pr, pi, dr, di, w, comps3, valid=None, mode=LOSS_ALL,

@@ -15,17 +15,10 @@ so the summed gradient updates every slice as its own descent would
 slice whose |delta loss| drops below tol, whose loss goes non-finite or
 that runs out of patience is frozen (its parameters and optimizer moments
 stop moving) while the others keep stepping; the optimizer's scalar step
-count advances while any slice runs. A dense one-baseline-per-group chunk
-goes through the fused kernel with a slice axis (``ops.fused``: one comps
-read for every slice), a shared or shared-batched one through the
-shared-basis kernel (``ops.shared``: an operator's tile read once for a
-tile of (group, slice) pairs); under the "sum" prior through the same
-kernels' "sum" instances; each such chunk is one ``ops.gains.chunk_term``
-from the gains on, whose backward hands the kernel's gain-product
-gradients straight to the gain-gradient kernel. Every other chunk takes
-torch ops whose contraction also reads comps once for the batch, its gain
-gradient ``ops.gains.GainProducts``' backward. On the card the gain
-gradient is a kernel that sums in a fixed order.
+count advances while any slice runs. The loss is ``ops.loss``'s
+(:func:`batched_chunk_losses`, under the "sum" prior
+:func:`batched_chunk_losses_sum_regularized`), each chunk on the route
+``ops.loss.chunk_route`` chose for it.
 
 The reference's jit-compiled ``while_loop`` keeps its carry on the device,
 and so does :class:`_BatchedDescent`: one step function updates the
@@ -66,202 +59,19 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .._device import SPANS
 from ..ops import adamax as adamax_ops
-from ..ops import fused, shared
-from ..ops.fused import explain_fused_loss_inapplicable
-from ..ops.gains import carry_valid, chunk_term, gain_products_batched
-from ..ops.loss import fg_model_batched, fg_model_host
-from ..ops.shared import explain_shared_loss_inapplicable, group_mask
-from ..solver.fit import _big, _buffers, init_params
+from ..ops.loss import (
+    _chunk_terms,
+    batched_chunk_losses,
+    batched_chunk_losses_sum_regularized,
+    fg_model_host,
+)
+from ..solver.fit import _big, _buffers, _np_dtype, init_params
 from ..solver.graph import StepGraph
 from ..solver.optimizers import get_optimizer, tree_leaves, tree_map
 from ..utils import echo, host_map
-
-
-def _loss_block_size(ngrps, gmax, requested, multiple_of=1):
-    """Largest group block <= ``requested`` that divides ngrps and is a
-    multiple of gmax (shared-batched chunks split on operator-class
-    boundaries) and of ``multiple_of``. None when blocking is off or would
-    not split the chunk (reference parallel/batched.py:43-63)."""
-    if requested is None or requested >= ngrps:
-        return None
-    if int(requested) < 1:
-        raise ValueError(
-            f"loss_block_ngrps must be >= 1, got {requested} (use None to "
-            "disable group blocking)"
-        )
-    unit = int(np.lcm(int(gmax), int(multiple_of)))
-    b = max(unit, (int(requested) // unit) * unit)
-    while b >= unit and ngrps % b:
-        b -= unit
-    if b < unit:
-        return None
-    return b if b < ngrps else None
-
-
-# ---------------------------------------------------------------------- #
-# per-chunk terms: each returns a tuple of (nbatch,) tensors
-# ---------------------------------------------------------------------- #
-def _chunk_model(gr, gi, fr, fi, comps, a0, a1):
-    pr, pi = gain_products_batched(gr, gi, a0, a1)
-    vr, vi = fg_model_batched(fr, fi, comps)
-    return pr * vr + pi * vi, -pi * vr + pr * vi
-
-
-def _weights_as(w, dr):
-    # bfloat16 weights are stored at half width and upcast at the use
-    return w if w.dtype == dr.dtype else w.to(dr.dtype)
-
-
-def _plain_losses(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
-    mr, mi = _chunk_model(gr, gi, fr, fi, comps, a0, a1)
-    w = _weights_as(w, dr)
-    return (torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),)
-
-
-def _kernel_term(inst, gr, gi, fr, fi, dr, di, w, comps, a0, a1, *valid):
-    """A B=1 chunk's term ``inst`` through a chunk-loss kernel, with a
-    slice axis, from the gains on (``ops.gains.chunk_term``)."""
-    wp = w[:, :, 0].expand(dr.shape[0], dr.shape[1], dr.shape[3])
-    return chunk_term(inst, gr, gi, fr, fi, a0, a1, dr[:, :, 0], di[:, :, 0], wp, comps[:, 0],
-                      *valid)
-
-
-def _fused_losses(*args):
-    return (_kernel_term(fused.LOSS_TERM, *args),)
-
-
-def _shared_losses(*args):
-    return (_kernel_term(shared.LOSS_TERM, *args, group_mask(args[-2])),)
-
-
-def _fused_terms(*args):
-    return tuple(_kernel_term(fused.SUM_TERM, *args))
-
-
-def _shared_terms(*args):
-    return tuple(_kernel_term(shared.SUM_TERM, *args, group_mask(args[-2])))
-
-
-def _sum_terms(gr, gi, fr, fi, dr, di, w, comps, a0, a1):
-    mr, mi = _chunk_model(gr, gi, fr, fi, comps, a0, a1)
-    w = _weights_as(w, dr)
-    return (
-        torch.sum(w * (torch.square(dr - mr) + torch.square(di - mi)), dim=(1, 2, 3)),
-        torch.sum(mr * w, dim=(1, 2, 3)),
-        torch.sum(mi * w, dim=(1, 2, 3)),
-    )
-
-
-def _chunk_blocks(term, gr, gi, fr, fi, dr, di, w, comps, a0, a1, blk):
-    """A chunk's terms summed over group blocks of ``blk``, each block
-    recomputed on the backward pass (``torch.utils.checkpoint``), so the
-    live activations are one block's. Blocks are views of the resident
-    cubes (reference ``_blocked_chunk_scan``, a lax.scan there)."""
-    ngrps = a0.shape[0]
-    nu = comps.shape[0]
-    total = None
-    # the blocks' index views, made once and kept on the chunk's indices,
-    # so each keeps the gain-gradient kernel's row lists across steps
-    views = a0.__dict__.setdefault("_block_views", {})
-    for g0 in range(0, ngrps, blk):
-        g1 = g0 + blk
-        if nu == 1:
-            comps_b = comps  # one shared operator serves every block
-        elif nu < ngrps:
-            gmax = ngrps // nu  # blk covers whole operator classes
-            comps_b = comps[g0 // gmax:g1 // gmax]
-        else:
-            comps_b = comps[g0:g1]
-        if (g0, g1) not in views or views[(g0, g1)][0] is not a1:
-            views[(g0, g1)] = (a1, a0[g0:g1], a1[g0:g1])
-            carry_valid(a0, views[(g0, g1)][1], slice(g0, g1))
-        _, a0_b, a1_b = views[(g0, g1)]
-        # the loss draws no random numbers: no RNG state to save, which a
-        # CUDA-graph capture could not read
-        out = checkpoint(term, gr, gi, fr[:, g0:g1], fi[:, g0:g1], dr[:, g0:g1],
-                         di[:, g0:g1], w[:, g0:g1], comps_b, a0_b, a1_b,
-                         use_reentrant=False, preserve_rng_state=False)
-        total = out if total is None else tuple(t + o for t, o in zip(total, out))
-    return total
-
-
-def _chunk_term_fn(comps, fr, dr, w, remat, terms=False):
-    """The term of one chunk: the fused or the shared-basis kernel where
-    its gate accepts the chunk, torch ops otherwise (checkpointed under
-    ``remat``). With ``terms``, the "sum" prior's three terms (chi-square,
-    M_r, M_i) instead of the chi-square alone."""
-    if explain_fused_loss_inapplicable(comps, fr, dr, w) is None:
-        return _fused_terms if terms else _fused_losses
-    if explain_shared_loss_inapplicable(comps, fr, dr, w) is None:
-        return _shared_terms if terms else _shared_losses
-    if terms:
-        return _sum_terms
-    if remat:
-        return lambda *a: checkpoint(_plain_losses, *a, use_reentrant=False,
-                                     preserve_rng_state=False)
-    return _plain_losses
-
-
-def _gmax(comps, ngrps):
-    nu = comps.shape[0]
-    return ngrps // nu if 1 < nu < ngrps else 1
-
-
-def batched_chunk_losses(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
-                         use_pallas=False, remat=False, loss_block=None):
-    """Per-slice chi-square, shape (nbatch,) (reference
-    parallel/batched.py:139-213).
-
-    A B=1 chunk goes through the fused (dense) or the shared-basis kernel
-    wherever its gate accepts it; ``use_pallas`` is accepted for parity and
-    ignored.
-    ``remat`` recomputes each plain chunk's model on the backward pass;
-    ``loss_block`` evaluates each chunk over group blocks of that size."""
-    del use_pallas
-    total = 0.0
-    for cnum, (comps, a0, a1) in enumerate(chunks):
-        args = (g_r, g_i, fg_r[cnum], fg_i[cnum], data_r[cnum], data_i[cnum], wgts[cnum],
-                comps, a0, a1)
-        ngrps = a0.shape[0]
-        blk = _loss_block_size(ngrps, _gmax(comps, ngrps), loss_block)
-        term = _chunk_term_fn(comps, fg_r[cnum], data_r[cnum], wgts[cnum],
-                              remat and blk is None)
-        (loss,) = term(*args) if blk is None else _chunk_blocks(term, *args, blk)
-        total = total + loss
-    return total
-
-
-def _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts,
-                           loss_block=None):
-    """Per-slice (chi-square, model flux sum re, im) over the chunks."""
-    total = mr_sum = mi_sum = 0.0
-    for cnum, (comps, a0, a1) in enumerate(chunks):
-        args = (g_r, g_i, fg_r[cnum], fg_i[cnum], data_r[cnum], data_i[cnum], wgts[cnum],
-                comps, a0, a1)
-        ngrps = a0.shape[0]
-        blk = _loss_block_size(ngrps, _gmax(comps, ngrps), loss_block)
-        term = _chunk_term_fn(comps, fg_r[cnum], data_r[cnum], wgts[cnum], False, terms=True)
-        loss, mrs, mis = term(*args) if blk is None else _chunk_blocks(term, *args, blk)
-        total = total + loss
-        mr_sum = mr_sum + mrs
-        mi_sum = mi_sum + mis
-    return total, mr_sum, mi_sum
-
-
-def batched_chunk_losses_sum_regularized(
-    g_r, g_i, fg_r, fg_i, chunks, data_r, data_i, wgts, prior_r, prior_i, loss_block=None,
-):
-    """Per-slice chi-square plus the "sum" flux prior, one prior pair per
-    slice, shape (nbatch,) (reference parallel/batched.py:216-272). A B=1
-    chunk goes through a chunk-loss kernel's "sum" instances wherever its
-    gate accepts it, as in :func:`batched_chunk_losses`."""
-    total, mr_sum, mi_sum = _sum_regularized_terms(g_r, g_i, fg_r, fg_i, chunks, data_r,
-                                                   data_i, wgts, loss_block)
-    return total + torch.square(mr_sum - prior_r) + torch.square(mi_sum - prior_i)
 
 
 # ---------------------------------------------------------------------- #
@@ -312,8 +122,8 @@ def _batched_step_fn(cfg, chunks, data_r, data_i, wgts, fg_r, fg_i, prior_r, pri
                                     wgts, remat=cfg.remat, loss_block=cfg.loss_block)
 
     def _sum_terms_sharded(p, fr, fi):
-        total, mr_sum, mi_sum = _sum_regularized_terms(p["g_r"], p["g_i"], fr, fi, chunks,
-                                                       data_r, data_i, wgts, cfg.loss_block)
+        total, mr_sum, mi_sum = _chunk_terms(True, p["g_r"], p["g_i"], fr, fi, chunks, data_r,
+                                             data_i, wgts, loss_block=cfg.loss_block)
         whole = shard.sum_bl(torch.stack([total, mr_sum, mi_sum]))
         dr, di = whole[1] - prior_r, whole[2] - prior_i
         losses = whole[0] + torch.square(dr) + torch.square(di)
@@ -589,10 +399,6 @@ def batched_fit_core(cfg, chunks, data_r, data_i, wgts, g_r, g_i, fg_r, fg_i,
     if shard is not None:
         history = shard.gather_rows_host(history, axis=1)
     return _result(cfg, params, carry, history, recorded, opt_state, fg_r, fg_i, shard)
-
-
-def _np_dtype(t):
-    return {torch.float32: np.float32, torch.float64: np.float64}[t.dtype]
 
 
 # ---------------------------------------------------------------------- #

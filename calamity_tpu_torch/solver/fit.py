@@ -35,8 +35,7 @@ import torch
 
 from .._device import SPANS
 from ..ops import adamax as adamax_ops
-from ..ops.fused import warn_fused_fallbacks
-from ..ops.loss import chunked_loss, chunked_loss_sum_regularized
+from ..ops.loss import chunked_loss, chunked_loss_sum_regularized, warn_fused_fallbacks
 from ..utils import echo
 from .graph import POLL_EVERY, StepGraph
 from .optimizers import get_optimizer, tree_leaves, tree_map

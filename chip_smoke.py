@@ -1348,7 +1348,7 @@ def _torch_ops_losses(coeffs2, pr, pi, dr, di, w, comps3):
 
 
 def _torch_ops_terms(coeffs2, pr, pi, dr, di, w, comps3, valid):
-    """The torch ops the "sum" instances replace (``parallel.batched._sum_terms``'
+    """The torch ops the "sum" instances replace (``ops.loss._sum_terms``'
     model and sums on a shared chunk's operands), differentiable by
     autograd: (3, N) chi-square, M_r, M_i; padding groups' weights zeroed."""
     import torch
@@ -3802,17 +3802,14 @@ HERA_SUM_MAXSTEPS = 500
 
 class PlainTerms:
     """Counts, while it is entered, the calls of the plain torch terms a
-    "sum" fit falls back to for a chunk no kernel takes:
-    ``parallel.batched._sum_terms`` and the plain model of
-    ``ops.loss.chunked_loss_sum_regularized`` (``ops.loss.data_model``)."""
+    "sum" fit falls back to for a chunk no kernel takes, serial or batched:
+    ``ops.loss._sum_terms``."""
 
     def __enter__(self):
         from calamity_tpu_torch.ops import loss
-        from calamity_tpu_torch.parallel import batched
 
         self.calls = 0
-        self._saved = [(mod, name, getattr(mod, name))
-                       for mod, name in ((batched, "_sum_terms"), (loss, "data_model"))]
+        self._saved = [(loss, "_sum_terms", loss._sum_terms)]
         for mod, name, fn in self._saved:
             setattr(mod, name, self._counted(fn))
         return self

@@ -157,7 +157,7 @@ def test_blocked_losses_match_unblocked(problem):
     (60, 4, 25, 2), (7, 1, 3, 1), (96, 8, 50, 3),
 ])
 def test_loss_block_size_matches_jax(ngrps, gmax, requested, unit):
-    assert (tb._loss_block_size(ngrps, gmax, requested, unit)
+    assert (tloss._loss_block_size(ngrps, gmax, requested, unit)
             == jb._loss_block_size(ngrps, gmax, requested, unit))
 
 
@@ -274,7 +274,7 @@ def test_fg_model_batched_and_warm_starts_match_jax(layout, golomb_visdata, redu
         for got, want in zip(tc, jc):
             assert rel_err(got, want) <= 1e-9
         gmax = ngrps // nu if 1 < nu < ngrps else 1
-        blk = tb._loss_block_size(ngrps, gmax, max(1, ngrps // 2)) or ngrps
+        blk = tloss._loss_block_size(ngrps, gmax, max(1, ngrps // 2)) or ngrps
         jout = jlstsq.blocked_init_from_data(chol, active, c, dr, di, w, blk=blk)
         tout = tlstsq.blocked_init_from_data(tchol, tact, to_tensor(c, "cpu"),
                                              *(torch.as_tensor(x) for x in (dr, di, w)), blk)

@@ -87,16 +87,21 @@ def _leaves(p, freeze, serial):
 
 
 def _route(p, kind, terms, leaves, serial):
-    """The chunk's term through the call sites of the port."""
+    """The chunk's term through the port's one route
+    (``ops.loss.chunk_route``); for the serial path, of one slice's views
+    as the serial loss makes them."""
     g_r, g_i, fr, fi = leaves
+    chunk = (p["comps"], p["a0"], p["a1"])
+    dr, di, w = p["dr"], p["di"], p["w"]
     if serial:
-        chunk = (p["comps"], p["a0"], p["a1"])
-        return tloss._kernel_term(terms, g_r, g_i, fr, fi, *chunk, p["dr"][0], p["di"][0],
-                                  p["w"][0])
-    term = {("dense", False): tb._fused_losses, ("dense", True): tb._fused_terms}.get(
-        (kind, terms), tb._shared_terms if terms else tb._shared_losses)
-    out = term(g_r, g_i, fr, fi, p["dr"], p["di"], p["w"], p["comps"], p["a0"], p["a1"])
-    return torch.stack(out) if terms else out[0]
+        g_r, g_i, (fr,), (fi,), _, (dr,), (di,), (w,) = tloss._one_slice(
+            g_r, g_i, [fr], [fi], (chunk,), [dr[0]], [di[0]], [w[0]])
+    route = tloss.chunk_route(p["comps"], fr, dr, w)
+    assert route.loss is (fused if kind == "dense" else shared).LOSS_TERM
+    out = tloss._kernel_terms(route.sums if terms else route.loss, route.masked, g_r, g_i, fr,
+                              fi, dr, di, w, *chunk)
+    out = torch.stack(out) if terms else out[0]
+    return out[..., 0] if serial else out
 
 
 def _composition(p, kind, terms, leaves, serial, cot):

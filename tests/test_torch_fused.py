@@ -141,7 +141,7 @@ def test_fallback_warning_names_each_chunk():
     fr = [torch.zeros((3, 2)), torch.zeros((4, 2)), torch.zeros((3, 2))]
     data = [torch.zeros((3, 1, 8)), torch.zeros((4, 1, 8)), torch.zeros((3, 2, 8))]
     with pytest.warns(UserWarning, match="chunk 2: nbls=2"):
-        reasons = fused.warn_fused_fallbacks((dense, shared, dense_b2), fr, data, data)
+        reasons = tloss.warn_fused_fallbacks((dense, shared, dense_b2), fr, data, data)
     assert len(reasons) == 1
 
 
@@ -344,7 +344,7 @@ def test_group_block_checkpoint_path_matches_jax():
         *(jnp.asarray(x) for x in (g_r, g_i, fr, fi)))
     leaves = [torch.as_tensor(x).requires_grad_(True) for x in (g_r, g_i, fr, fi)]
     chunk = tuple(torch.as_tensor(x) for x in (comps, a0, a1))
-    assert tb._loss_block_size(ng, 1, 4) == 4  # three blocks of four groups
+    assert tloss._loss_block_size(ng, 1, 4) == 4  # three blocks of four groups
     tl = tb.batched_chunk_losses(leaves[0], leaves[1], [leaves[2]], [leaves[3]], (chunk,),
                                  [torch.as_tensor(dr)], [torch.as_tensor(di)],
                                  [torch.as_tensor(w)], loss_block=4)

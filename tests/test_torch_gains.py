@@ -37,7 +37,8 @@ from torch_parity import rel_err
 from calamity_tpu.ops import loss as jloss
 from calamity_tpu_torch import cal_utils, calibration
 from calamity_tpu_torch.ops import gains
-from calamity_tpu_torch.parallel import batched, mesh
+from calamity_tpu_torch.ops import loss as tloss
+from calamity_tpu_torch.parallel import mesh
 from calamity_tpu_torch.solver.tensorize import FitSpec
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
@@ -293,11 +294,11 @@ def test_antenna_csr_lists_no_padded_row(packed_core, where):
             nbatch, nf, nv = 2, spec.nfreqs, chunk.comps.shape[-1]
             z = torch.zeros
             term = lambda *a: (a[4].sum(dim=(1, 2, 3)),)  # noqa: E731
-            batched._chunk_blocks(term, z(nbatch, spec.nants, nf), z(nbatch, spec.nants, nf),
-                                  z(nbatch, ngrps, nv), z(nbatch, ngrps, nv),
-                                  z(nbatch, ngrps, 1, nf), z(nbatch, ngrps, 1, nf),
-                                  z(nbatch, ngrps, 1, nf), chunk.comps, chunk.a0, chunk.a1,
-                                  gmax)
+            tloss._chunk_blocks(term, z(nbatch, spec.nants, nf), z(nbatch, spec.nants, nf),
+                                z(nbatch, ngrps, nv), z(nbatch, ngrps, nv),
+                                z(nbatch, ngrps, 1, nf), z(nbatch, ngrps, 1, nf),
+                                z(nbatch, ngrps, 1, nf), chunk.comps, chunk.a0, chunk.a1,
+                                gmax)
             views = chunk.a0._block_views
             assert len(views) == ngrps // gmax
             for (g0, g1), (_, a0_b, a1_b) in views.items():

@@ -369,7 +369,7 @@ def test_warning_names_only_chunks_no_kernel_takes():
     fr = [torch.zeros((3, 2)), torch.zeros((4, 2)), torch.zeros((4, 2)), torch.zeros((4, 2))]
     data = [torch.zeros((3, 1, 8))] + [torch.zeros((4, 1, 8))] * 3
     with pytest.warns(UserWarning, match="chunk 3: comps dtype torch.float64"):
-        reasons = fused.warn_fused_fallbacks(chunks, fr, data, data)
+        reasons = tloss.warn_fused_fallbacks(chunks, fr, data, data)
     assert len(reasons) == 1
 
 
@@ -474,8 +474,7 @@ def test_hera_packing_routes_every_shared_chunk_and_keeps_its_history(cut_core, 
     assert not [w for w in caught if "plain torch loss" in str(w.message)]
     assert sorted(set(c[:2] for c in calls)) == want
     refuse = lambda *a: "refused"  # noqa: E731
-    for module in (tloss, tb, shared):
-        monkeypatch.setattr(module, "explain_shared_loss_inapplicable", refuse)
+    monkeypatch.setattr(tloss, "explain_shared_loss_inapplicable", refuse)
     n = len(calls)
     with pytest.warns(UserWarning, match="plain torch loss"):
         _, _, _, plain = demo.fit(corrupted, comps, **kw)

@@ -549,8 +549,9 @@ def test_batched_sum_losses_match_jax(comps_dtype, loss_block, monkeypatch):
     cot = np.arange(1, 4, dtype=np.float32)
     modes = {m: _spy(monkeypatch, m) for m in (fused, shared)}
     sums = []
-    real_sum_terms = tb._sum_terms
-    monkeypatch.setattr(tb, "_sum_terms", lambda *a: sums.append(a[7].shape) or real_sum_terms(*a))
+    real_sum_terms = tloss._sum_terms
+    monkeypatch.setattr(tloss, "_sum_terms",
+                        lambda *a: sums.append(a[7].shape) or real_sum_terms(*a))
     jl, jg = _jax_batched(ps, prior_r, prior_i, cot, loss_block, jcd)
     leaves, args = _batched_inputs(ps, tcd)
     tl = tb.batched_chunk_losses_sum_regularized(*args, torch.as_tensor(prior_r),
@@ -658,8 +659,9 @@ def test_default_fit_takes_no_plain_terms(cut_core, monkeypatch, shared_basis, t
     """``calibrate_and_model_dpss`` with its defaults (the "sum" prior) on
     the HERA core at cut size (25 antennas, 64 channels; shared chunks, or
     with ``shared_basis=False`` dense ones), serial and time-parallel: no
-    B=1 float32 chunk reaches the torch terms (``_sum_terms``, the plain
-    model of ``chunked_loss_sum_regularized``), every step runs the shared
+    B=1 float32 chunk reaches the torch terms (``ops.loss._sum_terms`` or
+    its plain model ``_chunk_model``, which the serial and the batched
+    losses share), every step runs the shared
     kernel's "sum" forward and backward instances or the dense kernel's
     one-pass instance and a combine, and no chunk is named as a
     fallback."""
@@ -668,8 +670,8 @@ def test_default_fit_takes_no_plain_terms(cut_core, monkeypatch, shared_basis, t
     def refuse(*args, **kw):
         raise AssertionError("a B=1 float32 chunk took the plain torch terms")
 
-    monkeypatch.setattr(tb, "_sum_terms", refuse)
-    monkeypatch.setattr(tloss, "data_model", refuse)
+    monkeypatch.setattr(tloss, "_sum_terms", refuse)
+    monkeypatch.setattr(tloss, "_chunk_model", refuse)
     modes = {m: _spy(monkeypatch, m) for m in (fused, shared)}
     combines = _spy_combine(monkeypatch)
     with warnings.catch_warnings(record=True) as caught:
